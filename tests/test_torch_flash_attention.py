@@ -1,12 +1,15 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
-On the CPU the port's wrapper takes its plain version, so these tests
-hold that plain version to the Pallas kernel (run in interpret mode)
-and to the kernel's XLA twin, on the same numpy inputs. Rows that see
-no key are left out of every comparison: the two JAX paths themselves
-disagree there, and serving never produces such rows.
+On the CPU the port's wrappers take their plain versions, so these tests
+hold those plain versions, and the autograd wiring around them, to the
+Pallas kernels (run in interpret mode) and to the forward kernel's XLA
+twin, on the same numpy inputs. Rows that see no key are left out of
+every comparison of outputs and of dq: the two JAX paths themselves
+disagree there, and neither serving nor training produces such rows.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,13 +145,16 @@ def _refused(**kw):
     return q
 
 
-@pytest.mark.parametrize("case,match", [
+REFUSALS = [
     ({"shape": (1, 64, 2, 32)}, "head_dim"),
     ({"dtype": torch.float16}, "float32 or bfloat16"),
     ({"strided": True}, "unit-stride"),
     ({"grad": True}, "inference_mode"),
     ({}, "CUDA device"),
-])
+]
+
+
+@pytest.mark.parametrize("case,match", REFUSALS)
 def test_kernel_refuses_what_it_cannot_take(case, match):
     """The CUDA entry raises, before building anything, on inputs it
     cannot take; a CPU tensor is one of them."""
@@ -168,3 +174,168 @@ def test_best_attn_fn_by_device():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FA.best_attn_fn()
+
+
+# --------------------------------------------------------------------------
+# Backward
+# --------------------------------------------------------------------------
+
+#: fp32 gradients on both sides, same formulas, different summation order.
+GRAD_TOL = 1e-5  # max |diff| / max |ref|
+
+
+def _to_bh(x):
+    b, l, h, d = x.shape
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, l, d))
+
+
+def _from_bh(x, b, h):
+    bh, l, d = x.shape
+    return np.asarray(x).reshape(b, h, l, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
+def test_bwd_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
+    """flash_bwd_plain against the Pallas dq and dk/dv kernels, from the
+    same saved (out, lse) and a nonzero lse cotangent."""
+    b, h, d = 1, 2, 64
+    q, k, v = _qkv(5, b, lq, lk, h, d)
+    rng = np.random.default_rng(6)
+    do = rng.standard_normal((b, lq, h, d)).astype(np.float32)
+    dlse = rng.standard_normal((b, lq, h)).astype(np.float32)
+    out_bh, lse8 = JFA._flash_call(_to_bh(q), _to_bh(k), _to_bh(v),
+                                   q_offset=q_off, kv_offset=kv_off,
+                                   interpret=True)
+    lse_bh = lse8[:, 0, :]
+    dlse_bh = jnp.asarray(dlse.transpose(0, 2, 1).reshape(b * h, lq))
+    ref = JFA._flash_bwd_call(_to_bh(q), _to_bh(k), _to_bh(v), out_bh, lse_bh,
+                              _to_bh(do), dlse=dlse_bh, q_offset=q_off,
+                              kv_offset=kv_off, interpret=True)
+    out = torch.from_numpy(_from_bh(out_bh, b, h).copy())
+    lse = torch.from_numpy(
+        np.asarray(lse_bh).reshape(b, h, lq).transpose(0, 2, 1).copy())
+    got = FA.flash_bwd_plain(*map(torch.from_numpy, (q, k, v)), out, lse,
+                             torch.from_numpy(do), torch.from_numpy(dlse),
+                             q_off, kv_off)
+    vis = _visible(lq, q_off, kv_off)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        r = _from_bh(r, b, h)
+        if name == "dq":
+            g, r = g[:, vis], r[:, vis]
+        assert _norm_err(g.numpy(), r) <= GRAD_TOL, name
+
+
+# (Lq, Lk, q_offset, kv_offset): self-attention, a later Q block, and a KV
+# block that starts past the first query rows (rows 0-127 see no key).
+GRAD_CASES = PALLAS_CASES + [(256, 256, 0, 128)]
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", GRAD_CASES)
+def test_block_grads_match_jax_custom_vjp(lq, lk, q_off, kv_off):
+    """The autograd Function behind flash_block_with_lse against JAX's
+    custom_vjp (the Pallas backward in interpret mode), for a loss on both
+    outputs; dq is compared on rows that see a key."""
+    b, h, d = 1, 2, 64
+    q, k, v = _qkv(7, b, lq, lk, h, d)
+    rng = np.random.default_rng(8)
+    w_out = rng.standard_normal((b, lq, h, d)).astype(np.float32)
+    w_lse = rng.standard_normal((b, lq, h)).astype(np.float32)
+    vis = _visible(lq, q_off, kv_off)
+    w_lse[:, ~vis] = 0.0          # lse there is the NEG_INF sentinel
+
+    def jloss(q, k, v):
+        out, lse = JFA.flash_block_with_lse(q, k, v, q_off, kv_off, True)
+        return (jnp.sum(out * w_out)
+                + jnp.sum(jnp.where(w_lse != 0, lse, 0.0) * w_lse))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = FA.flash_block_with_lse(tq, tk, tv, q_off, kv_off)
+    tw_lse = torch.from_numpy(w_lse)
+    loss = ((out * torch.from_numpy(w_out)).sum()
+            + (torch.where(tw_lse != 0, lse, 0.0) * tw_lse).sum())
+    loss.backward()
+    for name, g, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                          ref):
+        g, r = g.numpy(), np.asarray(r)
+        if name == "dq":
+            g, r = g[:, vis], r[:, vis]
+        assert _norm_err(g, r) <= GRAD_TOL, name
+
+
+def test_flash_attention_grads_match_jax():
+    """flash_attention (lse unused: its cotangent arrives as None) against
+    JAX's flash_attention custom_vjp through the Pallas backward."""
+    q, k, v = _qkv(9, 2, 128, 128, 2, 64)
+    w = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    ref = jax.grad(lambda q, k, v: jnp.sum(
+        JFA.flash_attention(q, k, v, True) * w), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (FA.flash_attention(tq, tk, tv) * torch.from_numpy(w)).sum().backward()
+    for g, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        assert _norm_err(g.numpy(), np.asarray(r)) <= GRAD_TOL
+
+
+def test_block_autograd_wiring():
+    """With grad, the Function records a node and saves its residuals;
+    under inference mode, or with no input requiring grad, nothing is
+    recorded and the outputs equal the plain forward's."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(11, 1, 64, 64, 2, 64))
+    with torch.inference_mode():
+        out, lse = FA.flash_block_with_lse(q, k, v)
+    assert out.grad_fn is None and lse.grad_fn is None
+    plain = FA.flash_block_with_lse_plain(q, k, v)
+    assert torch.equal(out, plain[0]) and torch.equal(lse, plain[1])
+    assert FA.flash_block_with_lse(q, k, v)[0].grad_fn is None
+    out, lse = FA.flash_block_with_lse(q.requires_grad_(), k, v)
+    assert type(out.grad_fn).__name__ == "_FlashBlockBackward"
+    assert torch.equal(out, plain[0]) and torch.equal(lse, plain[1])
+    # Only lse used: do arrives as None and is taken as zeros.
+    (dq,) = torch.autograd.grad(lse.sum(), (q,))
+    ref = FA.flash_bwd_plain(q.detach(), k, v, out.detach(), lse.detach(),
+                             torch.zeros_like(out), torch.ones_like(lse))[0]
+    assert torch.equal(dq, ref)
+
+
+def test_bwd_on_cpu_takes_the_plain_version():
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(12, 1, 64, 64, 2, 64))
+    before = (FA.FLASH_FWD_LAUNCHES, FA.FLASH_BWD_DQ_LAUNCHES,
+              FA.FLASH_BWD_DKV_LAUNCHES)
+    FA.flash_attention(q, k, v).square().sum().backward()
+    assert (FA.FLASH_FWD_LAUNCHES, FA.FLASH_BWD_DQ_LAUNCHES,
+            FA.FLASH_BWD_DKV_LAUNCHES) == before
+    assert all(t.grad is not None for t in (q, k, v))
+
+
+def _bwd_inputs(q, **kw):
+    b, l, h, _ = q.shape
+    k = torch.zeros(q.shape, dtype=q.dtype)
+    do = kw.get("do", torch.zeros(q.shape, dtype=q.dtype))
+    lse = kw.get("lse", torch.zeros((b, l, h)))
+    return q, k, k, do, lse, torch.zeros((b, l, h))
+
+
+BWD_REFUSALS = REFUSALS + [
+    ({"do": torch.zeros((1, 32, 2, 64))}, "do must be like q"),
+    ({"lse": torch.zeros((1, 64, 2), dtype=torch.float64)}, "lse must be"),
+    ({"lse": torch.zeros((1, 2, 64)).transpose(1, 2)}, "lse must be"),
+]
+
+
+@pytest.mark.parametrize("entry", ["flash_bwd_dq_kernel",
+                                   "flash_bwd_dkv_kernel"])
+@pytest.mark.parametrize("case,match", BWD_REFUSALS)
+def test_bwd_kernels_refuse_what_they_cannot_take(entry, case, match):
+    """The backward entries raise, before building anything, on inputs
+    they cannot take: odd shapes, dtypes, strides, tensors that require
+    grad, and CPU tensors."""
+    case = dict(case)
+    extra = {key: case.pop(key) for key in ("do", "lse") if key in case}
+    args = _bwd_inputs(_refused(**case), **extra)
+    counters = ("FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES")
+    before = [getattr(FA, c) for c in counters]
+    with pytest.raises(ValueError, match=match):
+        getattr(FA, entry)(*args)
+    assert [getattr(FA, c) for c in counters] == before

@@ -137,6 +137,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = list(_port_files())
     assert len(files) > 10
+    assert os.path.join(REPO, "tpushare_torch", "workload", "train.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -43,14 +43,32 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     return params
 
 
+def _tree(params: Transformer, leaf) -> dict:
+    """The JAX-layout tree of ``leaf(name, parameter)`` for every parameter."""
+    return {
+        "embed": leaf("embed", params.embed),
+        "final_norm": leaf("final_norm", params.final_norm),
+        "blocks": [{key: leaf(f"blocks.{i}.{key}", getattr(blk, key))
+                    for key in _BLOCK_KEYS}
+                   for i, blk in enumerate(params.blocks)],
+    }
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
 def params_to_numpy(params: Transformer) -> dict:
     """The JAX-layout tree of fp32 numpy arrays holding ``params``."""
-    def arr(p: torch.Tensor) -> np.ndarray:
-        return p.detach().float().cpu().numpy()
+    return _tree(params, lambda name, p: _numpy(p))
 
-    return {
-        "embed": arr(params.embed),
-        "final_norm": arr(params.final_norm),
-        "blocks": [{key: arr(getattr(blk, key)) for key in _BLOCK_KEYS}
-                   for blk in params.blocks],
-    }
+
+def grads_to_numpy(params: Transformer) -> dict:
+    """The JAX-layout tree of fp32 numpy arrays holding each parameter's
+    ``.grad``, leaf for leaf against ``jax.grad`` of the same loss."""
+    def grad(name: str, p: torch.nn.Parameter) -> np.ndarray:
+        if p.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        return _numpy(p.grad)
+
+    return _tree(params, grad)

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch.utils.device import resolve_device
 
@@ -30,8 +31,8 @@ class ModelConfig:
     d_ff: int = 1536
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    #: Recompute each block in the backward pass. Serving runs under
-    #: inference mode, where it has no effect; the training path honours it.
+    #: Recompute each block in the backward pass (``torch.utils.checkpoint``)
+    #: when grad is enabled; under inference mode it has no effect.
     remat: bool = True
 
     @property
@@ -192,6 +193,11 @@ def ffn_block(block: Block, x: torch.Tensor) -> torch.Tensor:
     return x + ffn_delta(block, x)
 
 
+def _run_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
+               attn_fn) -> torch.Tensor:
+    return ffn_block(block, attention_block(block, x, positions, attn_fn))
+
+
 def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the tied unembedding; fp32 logits from a product in
     the activation dtype."""
@@ -205,14 +211,21 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     """Token ids [B, L] -> logits [B, L, vocab] (fp32).
 
     ``attn_fn`` defaults to :func:`causal_attention`; pass
-    ``flash_attention.best_attn_fn(device)`` for the kernel."""
+    ``flash_attention.best_attn_fn(device)`` for the kernel. With
+    ``cfg.remat`` and grad enabled, each block is recomputed in the
+    backward pass instead of keeping its activations, as the JAX package
+    wraps it in ``jax.checkpoint``."""
     if positions is None:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
     if attn_fn is None:
         attn_fn = causal_attention
+    remat = cfg.remat and torch.is_grad_enabled()
     x = params.embed[tokens]
     for block in params.blocks:
-        x = attention_block(block, x, positions, attn_fn)
-        x = ffn_block(block, x)
+        if remat:
+            x = checkpoint(_run_block, block, x, positions, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = _run_block(block, x, positions, attn_fn)
     return logits_from_hidden(params, x)
