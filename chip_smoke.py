@@ -19,6 +19,7 @@ import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -137,6 +138,11 @@ def main(usage_dir: str) -> int:
     phase("2 build", **{f"{name}_seconds": sec
                         for name, sec in FA.build_seconds().items()})
 
+    # 2b. What was built: the Hopper kernels' machine code must hold
+    # warpgroup products (HGMMA) and TMA loads (UTMALDG).
+    designs = sass_phase()
+    phase("2b design", **designs)
+
     # 3. Kernel against its plain version, on the card.
     errs = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -162,7 +168,19 @@ def main(usage_dir: str) -> int:
             check(lse_err <= LSE_TOL[dn], f"{name}/{dn}: lse error {lse_err}")
             errs[name, dn] = {"max_abs_err": diff, "norm_err": norm,
                               "lse_err": lse_err}
-    phase("3 kernel vs plain", **{f"{n}/{d}": e for (n, d), e in errs.items()})
+    no_key = no_key_rows(gen)
+    # TMA reads the bf16 tiles: a base off the 16-byte grid is refused.
+    q = inputs["a_flagship_prefill", "bfloat16"][0]
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
+    try:
+        FA.flash_fwd_kernel(*(odd.view(q.shape),) * 3)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    del odd
+    check("16-byte aligned" in refused, f"misaligned bf16 input: {refused!r}")
+    phase("3 kernel vs plain", tma_refusal=refused, no_key_rows=no_key,
+          **{f"{n}/{d}": e for (n, d), e in errs.items()})
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs.
@@ -382,6 +400,7 @@ def main(usage_dir: str) -> int:
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
+        "design": "tma+wgmma",
         "source": "tpushare_torch/csrc/flash_fwd.cu",
         "replaces": "tpushare/workload/flash_attention.py:61 (_flash_kernel)",
         "launches": fwd_launches,
@@ -398,15 +417,20 @@ def main(usage_dir: str) -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
+        "vs_library": main_t["kernel_ms"] / main_t["library_ms"],
+        "train_shape_ms": timings[TRAIN_SHAPE, "bfloat16"]["kernel_ms"],
+        "train_shape_library_ms":
+            timings[TRAIN_SHAPE, "bfloat16"]["library_ms"],
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
-    for kname, line, grads in (
-            ("flash_bwd_dq", 217, ("dq",)),
-            ("flash_bwd_dkv", 271, ("dk", "dv"))):
+    for kname, line, grads, design in (
+            ("flash_bwd_dq", 217, ("dq",), "mma.sync"),
+            ("flash_bwd_dkv", 271, ("dk", "dv"), "tma+wgmma")):
         t = train_t[kname]
         kernels.append({
             "name": kname,
             "route": "cuda",
+            "design": design,
             "source": "tpushare_torch/csrc/flash_bwd.cu",
             "replaces": f"tpushare/workload/flash_attention.py:{line} "
                         f"(_{kname[6:]}_kernel)",
@@ -425,6 +449,7 @@ def main(usage_dir: str) -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": train_t["library_ms"],
+            "vs_library": t["kernel_ms"] / train_t["library_ms"],
             "pair_ms": train_t["pair_ms"],
             "plain_and_library_compute": "dq, dk and dv in one call",
         })
@@ -434,6 +459,84 @@ def main(usage_dir: str) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def no_key_rows(gen: torch.Generator) -> dict:
+    """A KV block that starts past the first 128 query rows (the shape of
+    a ring step): those rows see no key and must give out 0 and lse
+    NEG_INF in both dtypes, forward; the rows and keys that do see
+    something hold the phase-3/3b tolerances, forward and backward."""
+    b, lq, lk, h, d, qo, ko = 1, 256, 256, 8, 64, 0, 128
+    fields = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        q, k, v, do = (torch.randn((b, n, h, d), generator=gen,
+                                   device="cuda").to(dt)
+                       for n in (lq, lk, lk, lq))
+        with torch.inference_mode():
+            out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
+            delta = FA.flash_bwd_delta(do, out, None)
+            got = (out, FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta, qo,
+                                               ko),
+                   *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, qo, ko))
+            torch.cuda.synchronize()
+            p_out, _ = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
+            ref = (p_out, *FA.flash_bwd_plain(q, k, v, out, lse, do, None,
+                                              qo, ko))
+        seen = qo + torch.arange(lq, device="cuda") >= ko
+        check(bool((out[:, ~seen] == 0).all())
+              and bool((lse[:, ~seen] == FA.NEG_INF).all()),
+              f"no-key rows/{dn}: out is not 0 or lse is not NEG_INF")
+        keys = ko + torch.arange(lk, device="cuda") <= qo + lq - 1
+        tol = {"out": OUT_TOL[dn], "dq": GRAD_TOL[dn], "dk": GRAD_TOL[dn],
+               "dv": GRAD_TOL[dn]}
+        for name, g, r, sel in zip(tol, got, ref, (seen, seen, keys, keys)):
+            g, r = g.float()[:, sel], r.float()[:, sel]
+            err = ((g - r).abs().max() / r.abs().max()).item()
+            check(err <= tol[name], f"no-key rows/{dn}: {name} error {err}")
+            fields[f"{dn}_{name}_norm_err"] = err
+    return fields
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_bf16_sm90<64,2>`` from a mangled kernel name."""
+    m = re.search(r"\d(flash_[a-z0-9_]+?)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def sass_phase() -> dict:
+    """Disassemble each built kernel library (``cuobjdump``): per kernel,
+    registers, static shared memory and whether its machine code holds
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions. Fails unless every
+    ``*_sm90`` kernel holds both and each library has one."""
+    tool = os.path.join(os.path.dirname(FA._nvcc()), "cuobjdump")
+    fields = {}
+    for name in FA._ENTRIES:
+        lib = str(FA._lib_path(name))
+        sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        usage = subprocess.run([tool, "--dump-resource-usage", lib],
+                               capture_output=True, text=True, check=True,
+                               timeout=300).stdout
+        kernels = {}
+        for chunk in sass.split("Function : ")[1:]:
+            fn = chunk.split(None, 1)[0]
+            kernels[_kernel_name(fn)] = {
+                "hgmma": "HGMMA" in chunk, "utmaldg": "UTMALDG" in chunk}
+        for fn, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
+            entry = kernels.setdefault(_kernel_name(fn), {})
+            for key, val in re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)",
+                                       res):
+                entry[key.lower()] = int(val)
+        hopper = {k: v for k, v in kernels.items() if "_sm90<" in k}
+        check(bool(hopper), f"{name}: no sm90 kernel in {lib}")
+        for kname, info in hopper.items():
+            check(info.get("hgmma") and info.get("utmaldg"),
+                  f"{kname}: HGMMA/UTMALDG missing from its SASS: {info}")
+        fields[name] = kernels
+    return fields
 
 
 def _counts() -> dict:

@@ -339,3 +339,82 @@ def test_bwd_kernels_refuse_what_they_cannot_take(entry, case, match):
     with pytest.raises(ValueError, match=match):
         getattr(FA, entry)(*args)
     assert [getattr(FA, c) for c in counters] == before
+
+
+# --------------------------------------------------------------------------
+# Build and TMA preconditions (pure host logic: runs without a card)
+# --------------------------------------------------------------------------
+
+def test_lib_path_follows_every_header(tmp_path, monkeypatch):
+    """A library is named by its source and every csrc/*.cuh, so editing a
+    shared header builds anew instead of loading a stale library."""
+    (tmp_path / "flash_fwd.cu").write_text('#include "sm90.cuh"\n')
+    (tmp_path / "sm90.cuh").write_text("// v1\n")
+    monkeypatch.setattr(FA, "_CSRC", tmp_path)
+    first = FA._lib_path("flash_fwd")
+    assert FA._lib_path("flash_fwd") == first
+    (tmp_path / "sm90.cuh").write_text("// v2\n")
+    second = FA._lib_path("flash_fwd")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    third = FA._lib_path("flash_fwd")
+    assert third not in (first, second)
+    (tmp_path / "flash_fwd.cu").write_text('#include "sm90.cuh"\n// edit\n')
+    assert FA._lib_path("flash_fwd") not in (first, second, third)
+
+
+def _fused_qkv(b=2, l=64, h=4, d=64):
+    """q, k, v as the model makes them: views of one fused projection,
+    [B, L, 3, H, D], so each has a length stride of 3 H D."""
+    qkv = torch.zeros((b, l, 3 * h * d), dtype=torch.bfloat16)
+    qkv = qkv.unflatten(-1, (3, h, d))
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _tma(t):
+    return FA.tma_problem(t.shape, t.stride(), t.data_ptr(), t.element_size())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_accepts_the_models_tensors(d):
+    for t in _fused_qkv(d=d):
+        assert t.stride(1) == 3 * 4 * d
+        assert _tma(t) is None
+    assert _tma(torch.zeros((2, 64, 4, d), dtype=torch.bfloat16)) is None
+    # An axis of size 1 is never stepped: its stride does not matter.
+    lone = torch.zeros((1, 1, 1, d + 8), dtype=torch.bfloat16)[..., :d]
+    assert _tma(lone) is None
+
+
+def _misaligned():
+    flat = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)
+    return flat[1:].view(2, 64, 4, 64)
+
+
+def _odd_length_stride():
+    rows = torch.zeros((2, 64, 4 * 64 + 4), dtype=torch.bfloat16)
+    return rows[..., :4 * 64].unflatten(-1, (4, 64))     # 520-byte rows
+
+
+def _odd_head_stride():
+    heads = torch.zeros((2, 64, 4, 64 + 4), dtype=torch.bfloat16)
+    return heads[..., :64]                                  # 136-byte heads
+
+
+def _expanded_batch():
+    return torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16).expand(
+        2, 64, 4, 64)
+
+
+TMA_REFUSALS = [
+    (_misaligned, "16-byte aligned"),
+    (_odd_length_stride, "length stride of 520 bytes"),
+    (_odd_head_stride, "head stride of 136 bytes"),
+    (_expanded_batch, "batch stride of 0 bytes"),
+]
+
+
+@pytest.mark.parametrize("make,match", TMA_REFUSALS)
+def test_tma_problem_names_what_tma_cannot_read(make, match):
+    problem = _tma(make())
+    assert problem is not None and match in problem

@@ -28,10 +28,11 @@
 //    walks 64-row KV tiles up to the causal diagonal (a tile starting past
 //    the block's last global query position is never loaded) and keeps
 //    dq's accumulator in registers for the whole walk.
-//  * dk/dv: one block per (batch * head, 64-row KV tile). K and V are
-//    staged once; the block walks the Q tiles from the first that sees the
-//    tile to the end, staging Q, dO, lse and delta for each, with the dk
-//    and dv accumulators in registers for the whole walk.
+//  * dk/dv: one block per (batch * head, 64 or 128 keys). K and V are
+//    loaded once; the block walks the Q tiles from the first that sees its
+//    keys to the end, with the dk and dv accumulators in registers for the
+//    whole walk. Blocks launch heaviest first (the first keys see every Q
+//    tile).
 //  * On the TPU the accumulators rode a sequential grid axis in VMEM
 //    scratch; here the walk is a loop inside the block, blocks run in no
 //    order and each gradient row is written once by one block. There are
@@ -40,22 +41,30 @@
 //    their strides (the last axis unit-stride), so the v view of the fused
 //    qkv product goes in uncopied; ragged Lq and Lk are masked.
 //
-// bf16 (the training dtype) runs all its products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), four warps of 16 rows (Q
-// rows for dq, keys for dk/dv). The score and dP accumulators become P and
-// dS in registers, and their fragments, rounded to bf16, are the A operand
-// of the second products as they stand (the accumulator layout of two
-// n-tiles is the operand layout of one k-step), so neither goes through
-// shared memory. The operands those products need along the other axis
-// are staged transposed (K for dq; Q and dO for dk/dv), rows padded so
-// fragment reads are free of bank conflicts, with 16-byte loads when the
-// strides allow. dk/dv takes each Q tile in two halves of 32 queries to
-// keep its score tile small beside the two accumulators. fp32 keeps full
-// fp32 products on the SIMT units (tensor-core TF32 would lose the
-// reference's precision): 256 threads as 16 row groups x 16 column lanes,
-// a 4 x 4 slice of each score tile and 4 rows x D/16 columns of each
-// accumulator to a thread, tiles staged in dynamic shared memory with rows
-// padded by one float.
+// bf16 (the training dtype) runs all its products on the tensor cores.
+// The score and dP accumulators become P and dS in registers, and their
+// fragments, rounded to bf16, are the A operand of the second products as
+// they stand (the accumulator layout of two 8-column chunks is the operand
+// layout of one depth step), so neither goes through shared memory.
+//  * dq keeps its first design, mma.sync m16n8k16: four warps of 16 Q
+//    rows; K is staged a second time transposed for the dS K product, rows
+//    padded so fragment reads are free of bank conflicts, with 16-byte
+//    loads when the strides allow.
+//  * dk/dv is built for Hopper (sm90.cuh): one producer warp loads K and V
+//    by TMA once and streams (Q, dO) tiles through a ring of two stages,
+//    copying each tile's lse and delta beside them; one consumer
+//    warpgroup per 64 keys runs S^T = K Q^T and dP^T = V dO^T with wgmma
+//    from shared memory, then dV += P^T dO and dK += dS^T Q with P^T and
+//    dS^T from registers and dO and Q read straight from their TMA tiles
+//    through the descriptor's transpose bit: no transposed copies, and a
+//    whole 64-query tile per step. Two warpgroups share each (Q, dO) tile
+//    at D = 64 when there are blocks enough to fill the card twice; one
+//    otherwise, and always at D = 128, for its registers.
+// fp32 keeps full fp32 products on the SIMT units (tensor-core TF32 would
+// lose the reference's precision): 256 threads as 16 row groups x 16
+// column lanes, a 4 x 4 slice of each score tile and 4 rows x D/16 columns
+// of each accumulator to a thread, tiles staged in dynamic shared memory
+// with rows padded by one float.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,11 +72,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // key rows per tile
 constexpr float EXP_CLAMP = 30.f;
+constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "the staging helpers copy BQ rows for every tile");
 
 struct Strides {  // (batch, length, head) strides of q, k, v and do
@@ -366,12 +378,6 @@ constexpr size_t dq_bf16_smem_bytes() {  // Qs, Os, Ks, Vs + Kt
   return sizeof(__nv_bfloat16) * (4 * BQ * (D + KP) + D * TP);
 }
 
-template <int D>
-constexpr size_t dkv_bf16_smem_bytes() {  // Ks, Vs, Qs, Os + Qt, Ot; Ls, Dl
-  return sizeof(__nv_bfloat16) * (4 * BQ * (D + KP) + 2 * D * TP)
-         + sizeof(float) * 2 * BQ;
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -546,132 +552,238 @@ flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
-                   Strides st, int q_offset, int kv_offset, float scale,
-                   bool vec) {
-  constexpr int QP = D + KP;
-  constexpr int KS = D / 16;
-  constexpr int NO = D / 8;   // n-tiles of dk and dv
-  constexpr int HALF = BQ / 2;  // queries per pass over a Q tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK * QP;
-  __nv_bfloat16* Qs = Vs + BK * QP;
-  __nv_bfloat16* Os = Qs + BQ * QP;  // dO
-  __nv_bfloat16* Qt = Os + BQ * QP;  // [D][TP], Q transposed
-  __nv_bfloat16* Ot = Qt + D * TP;   // [D][TP], dO transposed
-  float* Ls = reinterpret_cast<float*>(Ot + D * TP);  // [BQ]
-  float* Dl = Ls + BQ;                                // [BQ]
+// ------------------------------------------------------------------------
+// bf16 dk/dv: TMA-fed tiles, wgmma products
+// ------------------------------------------------------------------------
+
+constexpr int STAGES = 2;  // (Q, dO) tiles in flight
+
+// Shared memory of one dk/dv block: the K and V rows of its NWG
+// warpgroups, loaded once; a ring of (Q, dO) tiles with the lse (times
+// log2 e) and delta of their rows; the mbarriers. Tiles are stacks of
+// 64-column boxes of 128-byte swizzled rows, all at multiples of 1024.
+template <int D, int NWG>
+struct DkvLayout {
+  static constexpr int NC = D / sm90::BOX_COLS;  // boxes per row
+  static constexpr int BOX = 64 * sm90::ROW_BYTES;
+  static constexpr int TILE = NC * BOX;  // 64 rows of K, V, Q or dO
+  static constexpr int V_OFF = NWG * TILE;
+  static constexpr int Q_OFF = 2 * NWG * TILE;
+  static constexpr int O_OFF = Q_OFF + STAGES * TILE;
+  static constexpr int STAT_OFF = O_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
+  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int THREADS = NWG * sm90::WG_THREADS + 32;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(DkvLayout<D, NWG>::THREADS, 1)
+flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
+                        __grid_constant__ const CUtensorMap tm_k,
+                        __grid_constant__ const CUtensorMap tm_v,
+                        __grid_constant__ const CUtensorMap tm_o,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
+                        int q_offset, int kv_offset, float scale,
+                        float scale_log2) {
+  using Lay = DkvLayout<D, NWG>;
+  constexpr int NC = Lay::NC;
+  constexpr float CLAMP2 = EXP_CLAMP * LOG2E;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + Lay::STAT_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Lay::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * BK;
+  // Keys k0 .. k0 + 64 NWG - 1. blockIdx.y = 0 (k0 = 0) sees every Q tile,
+  // so the heaviest blocks launch first.
+  const int k0 = blockIdx.y * 64 * NWG;
+  // The first query row that sees key k0 is q_offset + r >= kv_offset + k0;
+  // Q tiles before the one holding it see nothing of this block's keys.
+  const int r_first = max(0, kv_offset + k0 - q_offset);
+  const int q_begin = (r_first / BQ) * BQ;
+  const int n_q = q_begin < Lq ? (Lq - q_begin + BQ - 1) / BQ : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + s, 32);        // the producer warp's lanes
+      sm90::mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // The producer warp: lane 0 issues the TMA loads; all lanes copy the
+    // tile rows' lse and delta (strided by H in [B, Lq, H], which TMA's
+    // 16-byte rule does not take) and arrive with them.
+    if (n_q > 0) {
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * NWG * Lay::TILE);
+        for (int w = 0; w < NWG; ++w)
+          for (int c = 0; c < NC; ++c) {
+            const int off = w * Lay::TILE + c * Lay::BOX;
+            sm90::tma_load_4d(smem + off, &tm_k, kv_full, c * sm90::BOX_COLS,
+                              h, k0 + 64 * w, b);
+            sm90::tma_load_4d(smem + Lay::V_OFF + off, &tm_v, kv_full,
+                              c * sm90::BOX_COLS, h, k0 + 64 * w, b);
+          }
+      }
+      for (int it = 0; it < n_q; ++it) {
+        const int s = it % STAGES, q0 = q_begin + it * BQ;
+        if (it >= STAGES)
+          sm90::mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+        float* st = stats + s * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const int row = q0 + i;
+          const int64_t idx = ((int64_t)b * Lq + row) * H + h;
+          st[i] = row < Lq ? lse[idx] * LOG2E : 0.f;
+          st[BQ + i] = row < Lq ? delta[idx] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(full + s, 2 * Lay::TILE);
+          for (int c = 0; c < NC; ++c) {
+            const int off = s * Lay::TILE + c * Lay::BOX;
+            sm90::tma_load_4d(smem + Lay::Q_OFF + off, &tm_q, full + s,
+                              c * sm90::BOX_COLS, h, q0, b);
+            sm90::tma_load_4d(smem + Lay::O_OFF + off, &tm_o, full + s,
+                              c * sm90::BOX_COLS, h, q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup w owns keys k0 + 64w .. +63; this thread's keys
+  // are key0 and key0 + 8 (the wgmma accumulator rows), its query columns
+  // 8j + 2t + {0, 1} of each Q tile.
+  const int w = warp / 4;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16 + g;  // this thread's keys k0 + r0, k0 + r0 + 8
-  const __nv_bfloat16* qb = q + b * st.q_b + h * st.q_h;
-  const __nv_bfloat16* ob = dout + b * st.o_b + h * st.o_h;
-
-  stage<D, false>(Ks, QP, k + b * st.k_b + h * st.k_h, st.k_l, k0, Lk, vec);
-  stage<D, false>(Vs, QP, v + b * st.v_b + h * st.v_h, st.v_l, k0, Lk, vec);
-
+  const int key0 = k0 + 64 * w + 16 * (warp % 4) + g;
   int kpos[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + r0 + 8 * hr;
+    const int key = key0 + 8 * hr;
     kpos[hr] = key < Lk ? kv_offset + key : INT_MAX;  // past Lk: seen by none
   }
+  const bool has_keys = k0 + 64 * w < Lk;
+  const int wg_key_first = kv_offset + k0 + 64 * w;
+  const bool wg_ragged = k0 + 64 * w + 64 > Lk;
+  const uint32_t k_addr = sm90::smem_u32(smem + w * Lay::TILE);
+  const uint32_t v_addr = sm90::smem_u32(smem + Lay::V_OFF + w * Lay::TILE);
 
-  float dk_acc[NO][4] = {}, dv_acc[NO][4] = {};
-  const int r_first = max(0, kv_offset + k0 - q_offset);
-  for (int q0 = (r_first / BQ) * BQ; q0 < Lq; q0 += BQ) {
-    __syncthreads();  // previous tile's Qs/Os/Qt/Ot/Ls/Dl fully consumed
-    stage<D, false>(Qs, QP, qb, st.q_l, q0, Lq, vec);
-    stage<D, false>(Os, QP, ob, st.o_l, q0, Lq, vec);
-    stage<D, true>(Qt, TP, qb, st.q_l, q0, Lq, vec);
-    stage<D, true>(Ot, TP, ob, st.o_l, q0, Lq, vec);
-    for (int i = threadIdx.x; i < BQ; i += MMA_THREADS) {
-      const int row = q0 + i;
-      const int64_t idx = ((int64_t)b * Lq + row) * H + h;
-      Ls[i] = row < Lq ? lse[idx] : 0.f;
-      Dl[i] = row < Lq ? delta[idx] : 0.f;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (n_q > 0) sm90::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_q; ++it) {
+    const int s = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const int q0 = q_begin + it * BQ;
+    sm90::mbar_wait(full + s, ph);
+    __syncwarp();
+    if (!has_keys || q_offset + min(q0 + BQ, Lq) - 1 < wg_key_first) {
+      // No query of this tile sees a key of this warpgroup.
+      if (lane == 0) sm90::mbar_arrive(empty + s);
+      continue;
     }
-    __syncthreads();
+    const uint32_t q_addr = sm90::smem_u32(smem + Lay::Q_OFF + s * Lay::TILE);
+    const uint32_t o_addr = sm90::smem_u32(smem + Lay::O_OFF + s * Lay::TILE);
 
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, D / 16 depth
+    // steps, both operands K-major from shared memory.
+    float sc[BQ / 2], dp[BQ / 2];
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * HALF;  // first query column of this pass
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries.
-      float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ka[4], va[4];
-        load_a(ka, Ks, QP, r0, ks, t);
-        load_a(va, Vs, QP, r0, ks, t);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c = (c0 + nt * 8 + g) * QP + ks * 16 + t * 2;
-          mma_bf16(s[nt], ka, ld32(Qs + c), ld32(Qs + c + 8));
-          mma_bf16(dp[nt], va, ld32(Os + c), ld32(Os + c + 8));
-        }
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * Lay::BOX + (kk % 4) * 32;
+      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(k_addr + off, 16, 1024),
+                        sm90::desc_sw128(q_addr + off, 16, 1024), kk > 0);
+      sm90::wgmma_ss<0>(dp, sm90::desc_sw128(v_addr + off, 16, 1024),
+                        sm90::desc_sw128(o_addr + off, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
 
-      // P^T kept in s, dS^T in dp.
+    // P^T = exp(min(s scale - lse, 30)) (in the log2 domain) kept in sc,
+    // dS^T = P^T (dP^T - delta) in dp. Only a tile reaching past the
+    // diagonal or a ragged end needs the mask.
+    const bool edge = wg_key_first + 63 > q_offset + q0 || q0 + BQ > Lq ||
+                      wg_ragged;
+    const float* st = stats + s * 2 * BQ;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 lse2 = *reinterpret_cast<const float2*>(st + c);
+      const float2 dlt = *reinterpret_cast<const float2*>(st + BQ + c);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + nt * 8 + t * 2 + e % 2, row = q0 + c;
-          const bool ok = row < Lq && kpos[e / 2] <= q_offset + row;
-          const float p =
-              ok ? expf(fminf(s[nt][e] * scale - Ls[c], EXP_CLAMP)) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - Dl[c]);
+      for (int e = 0; e < 4; ++e) {
+        float p = sm90::exp2_approx(fminf(
+            sc[4 * j + e] * scale_log2 - ((e & 1) ? lse2.y : lse2.x), CLAMP2));
+        if (edge) {
+          const int row = q0 + c + (e & 1);
+          if (!(row < Lq && kpos[e >> 1] <= q_offset + row)) p = 0.f;
         }
-
-      // dV += P^T dO and dK += dS^T Q over this pass's two k-steps of 16
-      // queries; the transposed dO and Q rows give the B fragments.
-#pragma unroll
-      for (int kk = 0; kk < HALF / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t da[4] = {
-            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int nt = 0; nt < NO; ++nt) {
-          const int c = (nt * 8 + g) * TP + c0 + kk * 16 + t * 2;
-          mma_bf16(dv_acc[nt], pa, ld32(Ot + c), ld32(Ot + c + 8));
-          mma_bf16(dk_acc[nt], da, ld32(Qt + c), ld32(Qt + c + 8));
-        }
+        sc[4 * j + e] = p;
+        dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dlt.y : dlt.x));
       }
     }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T are the register A
+    // operands (their columns 16kk..16kk+15 make depth step kk); dO and Q
+    // (queries x D) are read MN-major from their tiles.
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = sm90::pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        da[kk][r] = sm90::pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t off = kk * 16 * sm90::ROW_BYTES;
+      sm90::wgmma_rs<1>(dva, pa[kk],
+                        sm90::desc_sw128(o_addr + off, Lay::BOX, 1024), 1);
+      sm90::wgmma_rs<1>(dka, da[kk],
+                        sm90::desc_sw128(q_addr + off, Lay::BOX, 1024), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dka);
+    sm90::fence_regs(dva);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + s);
   }
 
+  // dk and dv are freshly allocated, contiguous [B, Lk, H, D]; keys no
+  // query sees get zeros.
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + r0 + 8 * hr;
+    const int key = key0 + 8 * hr;
     if (key >= Lk) continue;
-    const int64_t o = (((int64_t)b * Lk + key) * H + h) * D + t * 2;
+    const int64_t o = (((int64_t)b * Lk + key) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + nt * 8) =
-          __floats2bfloat162_rn(dk_acc[nt][2 * hr] * scale,
-                                dk_acc[nt][2 * hr + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + nt * 8) =
-          __floats2bfloat162_rn(dv_acc[nt][2 * hr], dv_acc[nt][2 * hr + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * hr] * scale,
+                                dka[4 * j + 2 * hr + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
     }
   }
 }
@@ -701,17 +813,18 @@ bool vec_ok(const Args& a) {
            s.v_h | s.o_b | s.o_l | s.o_h) % 8 == 0);
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
+// cudaFuncSetAttribute once per kernel instance and device, not per launch.
+#define SET_MAX_SMEM(kernel, bytes)                                         \
+  do {                                                                      \
+    static std::atomic<uint32_t> attr_set{0};                               \
+    const cudaError_t e = sm90::set_max_smem_once(attr_set, kernel, bytes); \
+    if (e != cudaSuccess) return e;                                         \
+  } while (0)
 
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
   constexpr size_t smem = dq_f32_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dq_f32<D>, smem);
-  if (err != cudaSuccess) return err;
+  SET_MAX_SMEM(flash_bwd_dq_f32<D>, smem);
   dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
   flash_bwd_dq_f32<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -724,8 +837,7 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
   constexpr size_t smem = dkv_f32_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dkv_f32<D>, smem);
-  if (err != cudaSuccess) return err;
+  SET_MAX_SMEM(flash_bwd_dkv_f32<D>, smem);
   dim3 grid(a.B * a.H, (a.Lk + BK - 1) / BK);
   flash_bwd_dkv_f32<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -738,8 +850,7 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
 template <int D>
 cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   constexpr size_t smem = dq_bf16_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dq_bf16<D>, smem);
-  if (err != cudaSuccess) return err;
+  SET_MAX_SMEM(flash_bwd_dq_bf16<D>, smem);
   dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
   flash_bwd_dq_bf16<D><<<grid, MMA_THREADS, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
@@ -751,21 +862,43 @@ cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
+template <int D, int NWG>
+cudaError_t launch_dkv_bf16_nwg(const Args& a, void* dk, void* dv) {
+  using Lay = DkvLayout<D, NWG>;
+  SET_MAX_SMEM((flash_bwd_dkv_bf16_sm90<D, NWG>), Lay::SMEM);
+  const Strides& s = a.st;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err;
+  if ((err = sm90::make_bhld_map(&tq, a.q, a.B, a.Lq, a.H, D, s.q_b, s.q_l,
+                                 s.q_h, BQ)) != cudaSuccess ||
+      (err = sm90::make_bhld_map(&tk, a.k, a.B, a.Lk, a.H, D, s.k_b, s.k_l,
+                                 s.k_h, 64)) != cudaSuccess ||
+      (err = sm90::make_bhld_map(&tv, a.v, a.B, a.Lk, a.H, D, s.v_b, s.v_l,
+                                 s.v_h, 64)) != cudaSuccess ||
+      (err = sm90::make_bhld_map(&to, a.dout, a.B, a.Lq, a.H, D, s.o_b, s.o_l,
+                                 s.o_h, BQ)) != cudaSuccess)
+    return err;
+  dim3 grid(a.B * a.H, (a.Lk + 64 * NWG - 1) / (64 * NWG));
+  flash_bwd_dkv_bf16_sm90<D, NWG><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
+      tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.H, a.Lq, a.Lk, a.q_offset,
+      a.kv_offset, softmax_scale(D), softmax_scale(D) * LOG2E);
+  return cudaGetLastError();
+}
+
+// Warpgroups (64 keys each) per dk/dv block. At D = 64 two share each
+// (Q, dO) tile when there are at least two such blocks per SM to go round
+// (the train step's shape: 0.200 ms against 0.263 with one, H100), one
+// otherwise (twice the blocks for short or few sequences). At D = 128 one:
+// its two D-wide accumulators beside the score tiles take 246 registers.
 template <int D>
 cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
-  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
-  cudaError_t err = set_smem(flash_bwd_dkv_bf16<D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Lk + BK - 1) / BK);
-  flash_bwd_dkv_bf16<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H,
-      a.Lq, a.Lk, a.st, a.q_offset, a.kv_offset, softmax_scale(D),
-      vec_ok(a));
-  return cudaGetLastError();
+  if constexpr (D == 64) {
+    const long long blocks_128 = (long long)a.B * a.H * ((a.Lk + 127) / 128);
+    if (blocks_128 >= 2LL * sm90::sm_count())
+      return launch_dkv_bf16_nwg<D, 2>(a, dk, dv);
+  }
+  return launch_dkv_bf16_nwg<D, 1>(a, dk, dv);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,

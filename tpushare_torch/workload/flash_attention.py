@@ -9,8 +9,12 @@ switch that swaps the plain versions in.
 
 Each kernel source is built with ``nvcc`` for ``sm_90a`` into a shared
 library with plain C entries, at first use, under ``build/tpushare_torch/``
-in the checkout, named by the hash of its source (a changed source builds
-anew), and loaded with ``ctypes``. Launches go to the current stream.
+in the checkout, named by the hash of its source and of every header in
+``csrc/`` (a changed source or header builds anew), and loaded with
+``ctypes``. Launches go to the current stream. The bf16 forward and dk/dv
+kernels read their tiles with TMA, which needs a 16-byte aligned base and
+strides that are multiples of 16 bytes (:func:`tma_problem`); their
+wrappers raise on anything else.
 
 Gradients: :func:`flash_block_with_lse` (and :func:`flash_attention`, its
 output alone) are one ``torch.autograd.Function`` when an input requires
@@ -80,8 +84,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library built from ``{name}.cu``, named by the hash of that
+    source and of every ``csrc/*.cuh`` it may include."""
+    digest = hashlib.sha256()
+    for src in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> dict[str, float]:
@@ -219,6 +227,42 @@ def _check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_inputs(q, k, v)
 
 
+def tma_problem(shape, strides, data_ptr: int, itemsize: int) -> str | None:
+    """Why TMA cannot read a [B, L, H, D] tensor of this shape, these
+    element strides, base address and element size, or None if it can:
+    TMA needs a 16-byte aligned base and (batch, length, head) strides that
+    are positive multiples of 16 bytes below 2**40 (an axis of size 1 is
+    never stepped, so its stride does not matter)."""
+    if data_ptr % 16:
+        return f"its base address {data_ptr:#x} is not 16-byte aligned"
+    for axis, n, s in zip(("batch", "length", "head"), shape[:3],
+                          strides[:3]):
+        nbytes = s * itemsize
+        if n > 1 and (nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40):
+            return (f"its {axis} stride of {nbytes} bytes is not a positive "
+                    f"multiple of 16 below 2**40")
+    return None
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """Raise unless TMA can read every bf16 tensor given (the fp32 kernels
+    load with plain loads and take any stride)."""
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        # The common case in one test (the wrapper's host time is on the
+        # serving path): aligned base, positive strides in multiples of 8
+        # elements (16 bytes) below 2**39 elements (2**40 bytes).
+        ptr, (sb, sl, sh, _) = t.data_ptr(), t.stride()
+        if (ptr % 16 == 0 and (sb | sl | sh) % 8 == 0
+                and 0 < min(sb, sl, sh) and max(sb, sl, sh) < 1 << 39):
+            continue
+        problem = tma_problem(t.shape, t.stride(), ptr, t.element_size())
+        if problem:
+            raise ValueError(f"{name} cannot feed the TMA-fed bf16 kernel: "
+                             f"{problem}")
+
+
 def _strides(*ts: torch.Tensor) -> tuple[int, ...]:
     """(batch, length, head) strides of each [B, L, H, D] tensor."""
     return tuple(s for t in ts for s in t.stride()[:3])
@@ -231,6 +275,7 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Lq, H] fp32 lse)."""
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v)
+    _check_tma(q=q, k=k, v=v)
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)
@@ -270,6 +315,7 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same inputs as :func:`flash_bwd_dq_kernel`."""
     global FLASH_BWD_DKV_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_tma(q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -440,6 +486,7 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Can the kernels take these inputs?"""
     try:
         _check_kernel_inputs(q, k, v)
+        _check_tma(q=q, k=k, v=v)
     except ValueError:
         return False
     return True
