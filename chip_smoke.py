@@ -16,6 +16,7 @@ failure raises and exits nonzero; so does a host without a CUDA device.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import math
 import os
@@ -75,6 +76,16 @@ SHAPES = {
     "d_chunk_offsets": (1, 512, 1024, 8, 64, 512, 0),
     "e_ragged": (1, 200, 200, 8, 64, 0, 0),
     "f_flagship_train": (8, 2048, 2048, 8, 64, 0, 0),
+}
+#: More shapes for bf16 dq with one and with two warpgroups forced: a
+#: block whose second warpgroup has no rows (Lq = 130, both head dims), a
+#: short Q block at an offset past a longer KV (a chunked prefill's tail),
+#: and rows that see no key at D = 128.
+DQ_EDGE_SHAPES = {
+    "lq130_d64": (2, 130, 130, 4, 64, 0, 0),
+    "lq130_d128": (2, 130, 130, 4, 128, 0, 0),
+    "tail_offset": (1, 77, 300, 4, 64, 223, 0),
+    "no_key_d128": (1, 320, 256, 4, 128, 0, 100),
 }
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
@@ -169,17 +180,8 @@ def main(usage_dir: str) -> int:
             errs[name, dn] = {"max_abs_err": diff, "norm_err": norm,
                               "lse_err": lse_err}
     no_key = no_key_rows(gen)
-    # TMA reads the bf16 tiles: a base off the 16-byte grid is refused.
-    q = inputs["a_flagship_prefill", "bfloat16"][0]
-    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
-    try:
-        FA.flash_fwd_kernel(*(odd.view(q.shape),) * 3)
-        refused = ""
-    except ValueError as exc:
-        refused = str(exc)
-    del odd
-    check("16-byte aligned" in refused, f"misaligned bf16 input: {refused!r}")
-    phase("3 kernel vs plain", tma_refusal=refused, no_key_rows=no_key,
+    refusals = tma_refusals(inputs["a_flagship_prefill", "bfloat16"][0])
+    phase("3 kernel vs plain", tma_refusal=refusals, no_key_rows=no_key,
           **{f"{n}/{d}": e for (n, d), e in errs.items()})
 
     # 3b. Backward kernels against their plain version, from the forward
@@ -234,8 +236,9 @@ def main(usage_dir: str) -> int:
     fn_err = max(((t.grad - r).abs().max() / r.abs().max()).item()
                  for t, r in zip(qkv, ref))
     check(fn_err <= GRAD_TOL["float32"], f"autograd Function error {fn_err}")
+    dq_paths = dq_warpgroup_paths(gen, {**SHAPES, **DQ_EDGE_SHAPES})
     phase("3b backward kernels vs plain", bitwise_repeat=bitwise,
-          function_grad_err=fn_err,
+          function_grad_err=fn_err, dq_forced_warpgroups=dq_paths,
           **{f"{n}/{d}": e for (n, d), e in bwd_errs.items()})
     del runs, out, lse, delta, do, qkv, ref
 
@@ -423,14 +426,13 @@ def main(usage_dir: str) -> int:
             timings[TRAIN_SHAPE, "bfloat16"]["library_ms"],
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
-    for kname, line, grads, design in (
-            ("flash_bwd_dq", 217, ("dq",), "mma.sync"),
-            ("flash_bwd_dkv", 271, ("dk", "dv"), "tma+wgmma")):
+    for kname, line, grads in (("flash_bwd_dq", 217, ("dq",)),
+                               ("flash_bwd_dkv", 271, ("dk", "dv"))):
         t = train_t[kname]
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "design": design,
+            "design": "tma+wgmma",
             "source": "tpushare_torch/csrc/flash_bwd.cu",
             "replaces": f"tpushare/workload/flash_attention.py:{line} "
                         f"(_{kname[6:]}_kernel)",
@@ -452,6 +454,8 @@ def main(usage_dir: str) -> int:
             "vs_library": t["kernel_ms"] / train_t["library_ms"],
             "pair_ms": train_t["pair_ms"],
             "plain_and_library_compute": "dq, dk and dv in one call",
+            **{key: t[key] for key in ("warpgroups",
+                                       "kernel_ms_by_warpgroups") if key in t},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -459,6 +463,69 @@ def main(usage_dir: str) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def tma_refusals(q: torch.Tensor) -> dict:
+    """TMA reads the bf16 tiles: a base off the 16-byte grid (a view one
+    element into an allocation shaped like ``q``) is refused by each bf16
+    wrapper with ``ValueError``, before any launch. Returns each message."""
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype,
+                      device="cuda")[1:].view(q.shape)
+    stats = torch.zeros(q.shape[:3], device="cuda")     # lse and delta
+    calls = {
+        "flash_fwd": lambda: FA.flash_fwd_kernel(odd, odd, odd),
+        "flash_bwd_dq": lambda: FA.flash_bwd_dq_kernel(odd, odd, odd, odd,
+                                                       stats, stats),
+        "flash_bwd_dkv": lambda: FA.flash_bwd_dkv_kernel(odd, odd, odd, odd,
+                                                         stats, stats),
+    }
+    refused = {}
+    for name, call in calls.items():
+        before = _counts()
+        try:
+            call()
+            refused[name] = ""
+        except ValueError as exc:
+            refused[name] = str(exc)
+        check("16-byte aligned" in refused[name] and _counts() == before,
+              f"misaligned bf16 input to {name}: {refused[name]!r}")
+    return refused
+
+
+def dq_warpgroup_paths(gen: torch.Generator, shapes: dict) -> dict:
+    """bf16 dq with one and with two warpgroups forced, at each shape
+    (B, Lq, Lk, H, D, q_offset, kv_offset): within ``GRAD_TOL`` of the
+    plain version on rows that see a key, exactly 0 on rows that see none,
+    and bitwise equal across two launches. Returns each normalized
+    error."""
+    _, force = dq_warpgroup_hooks()
+    errs = {}
+    try:
+        for name, (b, lq, lk, h, d, qo, ko) in shapes.items():
+            q, k, v, do = (torch.randn((b, n, h, d), generator=gen,
+                                       device="cuda").to(torch.bfloat16)
+                           for n in (lq, lk, lk, lq))
+            rows = qo + torch.arange(lq, device="cuda") >= ko
+            with torch.inference_mode():
+                out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
+                delta = FA.flash_bwd_delta(do, out, None)
+                ref = FA.flash_bwd_plain(q, k, v, out, lse, do, None, qo,
+                                         ko)[0].float()
+                for n in (1, 2):
+                    force(n)
+                    runs = [FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                   qo, ko) for _ in range(2)]
+                    got = runs[0].float()
+                    err = ((got[:, rows] - ref[:, rows]).abs().max()
+                           / ref[:, rows].abs().max()).item()
+                    check(err <= GRAD_TOL["bfloat16"]
+                          and bool((got[:, ~rows] == 0).all())
+                          and torch.equal(*runs),
+                          f"dq {name} with {n} warpgroups: error {err}")
+                    errs[f"{name}/{n}"] = err
+    finally:
+        force(0)
+    return errs
 
 
 def no_key_rows(gen: torch.Generator) -> dict:
@@ -508,9 +575,10 @@ def _kernel_name(mangled: str) -> str:
 
 def sass_phase() -> dict:
     """Disassemble each built kernel library (``cuobjdump``): per kernel,
-    registers, static shared memory and whether its machine code holds
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions. Fails unless every
-    ``*_sm90`` kernel holds both and each library has one."""
+    registers, static shared memory, local memory (spills) and whether its
+    machine code holds HGMMA (wgmma) and UTMALDG (TMA load) instructions.
+    Fails unless every ``*_sm90`` kernel holds both and spills nothing, and
+    each library has one."""
     tool = os.path.join(os.path.dirname(FA._nvcc()), "cuobjdump")
     fields = {}
     for name in FA._ENTRIES:
@@ -535,6 +603,7 @@ def sass_phase() -> dict:
         for kname, info in hopper.items():
             check(info.get("hgmma") and info.get("utmaldg"),
                   f"{kname}: HGMMA/UTMALDG missing from its SASS: {info}")
+            check(info.get("local") == 0, f"{kname}: local memory {info}")
         fields[name] = kernels
     return fields
 
@@ -624,6 +693,7 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
         "profiled_device_ops": len(on_card),
         "profiled_device_us_top": dict(by_name.most_common(10)),
         "device_busy_share": busy_us / (prof_s * 1e6),
+        "profiled_device_ms": busy_us / 1e3,
         "peak_bytes": peak, "grant_bytes": GRANT_GIB << 30,
         "vs_plain_loss_rel_err": loss_err,
         "vs_plain_max_grad_err": grad_errs[worst],
@@ -782,11 +852,25 @@ def library_bwd(q, k, v, do, q_offset: int, kv_offset: int, dn: str):
                 [True, True, True, False], causal))
 
 
+def dq_warpgroup_hooks():
+    """From the built backward library: the warpgroups (1 or 2) a bf16 dq
+    launch takes at head_dim D, and the hook that makes every later launch
+    take n (0 gives the choice back to the launcher)."""
+    lib = ctypes.CDLL(str(FA._lib_path("flash_bwd")))
+    choice = lib.tpushare_flash_bwd_dq_warpgroups
+    choice.argtypes = [ctypes.c_int]
+    force = lib.tpushare_flash_bwd_dq_force_warpgroups
+    force.argtypes = [ctypes.c_int]
+    force.restype = None
+    return choice, force
+
+
 def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
     """Device times of each backward kernel, of the plain version and of
     the library yardstick (each of which computes dq, dk and dv), each
     kernel's eager per-call time, and each kernel's least time on the card
-    for its work (published peaks)."""
+    for its work (published peaks). In bf16, also the warpgroups a dq block
+    takes at this shape and dq's device time with one and with two."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
@@ -824,6 +908,18 @@ def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "ops": ops, "bytes": nbytes,
             }
+        if dn == "bfloat16":
+            choice, force = dq_warpgroup_hooks()
+            dq_t = result["flash_bwd_dq"]
+            dq_t["warpgroups"] = choice(d)
+            dq_t["kernel_ms_by_warpgroups"] = {}
+            try:
+                for n in (1, 2):
+                    force(n)
+                    dq_t["kernel_ms_by_warpgroups"][str(n)] = device_ms(
+                        fns["flash_bwd_dq"])
+            finally:
+                force(0)
         result["plain_ms"] = device_ms(lambda: FA.flash_bwd_plain(
             q, k, v, out, lse, do, None, q_offset, kv_offset), reps=5)
         result["library_ms"] = device_ms(library)

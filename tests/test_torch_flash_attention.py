@@ -386,24 +386,23 @@ def test_tma_accepts_the_models_tensors(d):
     assert _tma(lone) is None
 
 
-def _misaligned():
-    flat = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)
+def _misaligned(dtype=torch.bfloat16):
+    flat = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=dtype)
     return flat[1:].view(2, 64, 4, 64)
 
 
-def _odd_length_stride():
-    rows = torch.zeros((2, 64, 4 * 64 + 4), dtype=torch.bfloat16)
+def _odd_length_stride(dtype=torch.bfloat16):
+    rows = torch.zeros((2, 64, 4 * 64 + 4), dtype=dtype)
     return rows[..., :4 * 64].unflatten(-1, (4, 64))     # 520-byte rows
 
 
-def _odd_head_stride():
-    heads = torch.zeros((2, 64, 4, 64 + 4), dtype=torch.bfloat16)
+def _odd_head_stride(dtype=torch.bfloat16):
+    heads = torch.zeros((2, 64, 4, 64 + 4), dtype=dtype)
     return heads[..., :64]                                  # 136-byte heads
 
 
-def _expanded_batch():
-    return torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16).expand(
-        2, 64, 4, 64)
+def _expanded_batch(dtype=torch.bfloat16):
+    return torch.zeros((1, 64, 4, 64), dtype=dtype).expand(2, 64, 4, 64)
 
 
 TMA_REFUSALS = [
@@ -418,3 +417,69 @@ TMA_REFUSALS = [
 def test_tma_problem_names_what_tma_cannot_read(make, match):
     problem = _tma(make())
     assert problem is not None and match in problem
+
+
+def _counters():
+    return (FA.FLASH_FWD_LAUNCHES, FA.FLASH_BWD_DQ_LAUNCHES,
+            FA.FLASH_BWD_DKV_LAUNCHES)
+
+
+class _Launched(Exception):
+    """Raised by the stand-in for ``_launch``: the wrapper got that far."""
+
+
+def _wrapper_call(entry, t):
+    """Call the wrapper ``entry`` with ``t`` as every [B, L, H, D] input
+    (and contiguous fp32 lse and delta for the backward)."""
+    if entry == "flash_fwd_kernel":
+        return FA.flash_fwd_kernel(t, t, t)
+    stats = torch.zeros(t.shape[:3])
+    return getattr(FA, entry)(t, t, t, t, stats, stats)
+
+
+@pytest.fixture
+def wrappers_on_any_device(monkeypatch):
+    """The wrappers with only the device check lifted (a CPU tensor gets
+    past it) and a ``_launch`` that raises ``_Launched`` instead of
+    launching; yields the launch counters' values before the call."""
+    real = FA._check_kernel_inputs
+
+    def on_any_device(q, k, v):
+        try:
+            real(q, k, v)
+        except ValueError as exc:
+            if "CUDA device" not in str(exc):
+                raise
+
+    def launch(*_):
+        raise _Launched
+
+    monkeypatch.setattr(FA, "_check_kernel_inputs", on_any_device)
+    monkeypatch.setattr(FA, "_launch", launch)
+    return _counters()
+
+
+WRAPPERS = ["flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+
+
+@pytest.mark.parametrize("entry", WRAPPERS)
+@pytest.mark.parametrize("make,match", TMA_REFUSALS)
+def test_bf16_wrappers_refuse_what_tma_cannot_read(wrappers_on_any_device,
+                                                   entry, make, match):
+    """Every bf16 kernel is fed by TMA: its wrapper raises before any
+    launch on a tensor TMA cannot read, and no counter moves."""
+    with pytest.raises(ValueError,
+                       match="cannot feed the TMA-fed bf16 kernel") as exc:
+        _wrapper_call(entry, make())
+    assert match in str(exc.value)
+    assert _counters() == wrappers_on_any_device
+
+
+@pytest.mark.parametrize("entry", WRAPPERS)
+def test_fp32_wrappers_take_what_tma_cannot_read(wrappers_on_any_device,
+                                                 entry):
+    """The fp32 kernels load with plain loads: the same misaligned view in
+    fp32 passes the TMA check and reaches the launch."""
+    with pytest.raises(_Launched):
+        _wrapper_call(entry, _misaligned(torch.float32))
+    assert _counters() == wrappers_on_any_device

@@ -23,11 +23,12 @@
 // 67 TFLOP/s of the SIMT units.
 //
 // What the design does about it:
-//  * dq: one block per (batch * head, 64-row Q tile). Q and dO are staged
-//    once; lse and delta for the block's rows stay in registers. The block
-//    walks 64-row KV tiles up to the causal diagonal (a tile starting past
-//    the block's last global query position is never loaded) and keeps
-//    dq's accumulator in registers for the whole walk.
+//  * dq: one block per (batch * head, 64 or 128 query rows). Q and dO are
+//    loaded once; lse and delta for the block's rows stay in registers. The
+//    block walks 64-key tiles up to the causal diagonal (a tile starting
+//    past the block's last global query position is never loaded) and keeps
+//    dq's accumulator in registers for the whole walk. Blocks launch
+//    heaviest first (the last queries see the most keys).
 //  * dk/dv: one block per (batch * head, 64 or 128 keys). K and V are
 //    loaded once; the block walks the Q tiles from the first that sees its
 //    keys to the end, with the dk and dv accumulators in registers for the
@@ -41,25 +42,30 @@
 //    their strides (the last axis unit-stride), so the v view of the fused
 //    qkv product goes in uncopied; ragged Lq and Lk are masked.
 //
-// bf16 (the training dtype) runs all its products on the tensor cores.
-// The score and dP accumulators become P and dS in registers, and their
-// fragments, rounded to bf16, are the A operand of the second products as
-// they stand (the accumulator layout of two 8-column chunks is the operand
-// layout of one depth step), so neither goes through shared memory.
-//  * dq keeps its first design, mma.sync m16n8k16: four warps of 16 Q
-//    rows; K is staged a second time transposed for the dS K product, rows
-//    padded so fragment reads are free of bank conflicts, with 16-byte
-//    loads when the strides allow.
-//  * dk/dv is built for Hopper (sm90.cuh): one producer warp loads K and V
-//    by TMA once and streams (Q, dO) tiles through a ring of two stages,
-//    copying each tile's lse and delta beside them; one consumer
-//    warpgroup per 64 keys runs S^T = K Q^T and dP^T = V dO^T with wgmma
-//    from shared memory, then dV += P^T dO and dK += dS^T Q with P^T and
-//    dS^T from registers and dO and Q read straight from their TMA tiles
-//    through the descriptor's transpose bit: no transposed copies, and a
-//    whole 64-query tile per step. Two warpgroups share each (Q, dO) tile
-//    at D = 64 when there are blocks enough to fill the card twice; one
-//    otherwise, and always at D = 128, for its registers.
+// bf16 (the training dtype) is built for Hopper (sm90.cuh) and runs all its
+// products on the tensor cores with wgmma: one producer warp issues TMA
+// loads into a ring of two stages under mbarriers, and consumer warpgroups
+// of 64 rows each run the products. The score and dP accumulators become P
+// and dS in registers, and their fragments, rounded to bf16, are the
+// register A operand of the second products as they stand (accumulator
+// columns 16k..16k+15 are depth step k), so neither goes through shared
+// memory. The B operand of each second product is read MN-major, through
+// the descriptor's transpose bit, from a TMA tile that the first products
+// read K-major: nothing is staged transposed and no thread copies a tile.
+//  * dq: the producer loads the block's Q and dO once and streams K and V
+//    tiles. Each warpgroup (64 query rows) runs S = Q K^T and dP = dO V^T
+//    from shared memory, then dQ += dS K with K read MN-major.
+//  * dk/dv: the producer loads K and V once and streams (Q, dO) tiles,
+//    copying each tile's lse and delta beside them. Each warpgroup (64
+//    keys) runs S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//    dK += dS^T Q with dO and Q read MN-major: a whole 64-query tile a step.
+//  * Two warpgroups may share each streamed tile, halving its loads, but
+//    registers decide how many warpgroups an SM holds. dq takes one at
+//    D = 64 (three blocks of one warpgroup fit an SM, one block of two)
+//    and two at D = 128 (two warpgroups an SM either way). dk/dv takes two
+//    at D = 64 where there are blocks enough to fill the card twice, one
+//    otherwise, and one at D = 128, where its two D-wide accumulators fill
+//    the registers.
 // fp32 keeps full fp32 products on the SIMT units (tensor-core TF32 would
 // lose the reference's precision): 256 threads as 16 row groups x 16
 // column lanes, a 4 x 4 slice of each score tile and 4 rows x D/16 columns
@@ -366,197 +372,217 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------------
-// bf16: tensor-core products (mma.sync m16n8k16)
+// bf16: TMA-fed tiles, wgmma products
 // ------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
-constexpr int KP = 8;             // row padding (bf16) of every staged tile
-constexpr int TP = BQ + KP;       // row stride of the transposed tiles
+constexpr int STAGES = 2;  // streamed tiles in flight
+constexpr float CLAMP2 = EXP_CLAMP * LOG2E;  // the clamp, log2 domain
 
-template <int D>
-constexpr size_t dq_bf16_smem_bytes() {  // Qs, Os, Ks, Vs + Kt
-  return sizeof(__nv_bfloat16) * (4 * BQ * (D + KP) + D * TP);
-}
+// Shared memory of one dq block: the Q and dO rows of its NWG warpgroups,
+// loaded once; a ring of (K, V) tiles; the mbarriers. Tiles are stacks of
+// 64-column boxes of 128-byte swizzled rows, all at multiples of 1024.
+template <int D, int NWG>
+struct DqLayout {
+  static constexpr int NC = D / sm90::BOX_COLS;  // boxes per row
+  static constexpr int BOX = 64 * sm90::ROW_BYTES;
+  static constexpr int TILE = NC * BOX;  // 64 rows of Q, dO, K or V
+  static constexpr int O_OFF = NWG * TILE;
+  static constexpr int K_OFF = 2 * NWG * TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  // q_full, full[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int THREADS = NWG * sm90::WG_THREADS + 32;
+};
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows r0, r0 + 8 and k-step ks of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int r0, int ks, int t) {
-  const int c = ks * 16 + t * 2;
-  a[0] = ld32(tile + r0 * ld + c);
-  a[1] = ld32(tile + (r0 + 8) * ld + c);
-  a[2] = ld32(tile + r0 * ld + c + 8);
-  a[3] = ld32(tile + (r0 + 8) * ld + c + 8);
-}
-
-// Copy BQ rows of D values from global (row stride `sl`) into shared
-// memory, zero past `limit`; `transpose` writes dst[d * ld + r] instead of
-// dst[r * ld + d]. 16-byte loads when `vec` (aligned base and strides).
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
-                                      const __nv_bfloat16* src, int64_t sl,
-                                      int r0, int limit, bool vec) {
-  constexpr int CH = D / 8;  // 8-value chunks per row
-  for (int i = threadIdx.x; i < BQ * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8, row = r0 + r;
-    __align__(16) __nv_bfloat16 val[8];
-    if (row >= limit) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) val[e] = __float2bfloat16_rn(0.f);
-    } else if (vec) {
-      *reinterpret_cast<uint4*>(val) =
-          *reinterpret_cast<const uint4*>(src + row * sl + c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) val[e] = src[row * sl + c + e];
-    }
-    if (TRANSPOSE) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[(c + e) * ld + r] = val[e];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) =
-          *reinterpret_cast<const uint4*>(val);
-    }
-  }
-}
-
-// Fragment element (nt, e) of a 16 x 64 accumulator tile is row
-// r0 + 8 * (e / 2), column nt * 8 + t * 2 + e % 2.
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
-                  Strides st, int q_offset, int kv_offset, float scale,
-                  bool vec) {
-  constexpr int QP = D + KP;  // row stride of the row-major tiles
-  constexpr int KS = D / 16;  // k-steps of the S and dP products
-  constexpr int NO = D / 8;   // n-tiles of dq
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + BQ * QP;  // dO
-  __nv_bfloat16* Ks = Os + BQ * QP;
-  __nv_bfloat16* Vs = Ks + BK * QP;
-  __nv_bfloat16* Kt = Vs + BK * QP;  // [D][TP], K transposed
+template <int D, int NWG>
+__global__ void __launch_bounds__(DqLayout<D, NWG>::THREADS, 1)
+flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
+                       __grid_constant__ const CUtensorMap tm_k,
+                       __grid_constant__ const CUtensorMap tm_v,
+                       __grid_constant__ const CUtensorMap tm_o,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+                       int q_offset, int kv_offset, float scale,
+                       float scale_log2) {
+  using Lay = DqLayout<D, NWG>;
+  constexpr int NC = Lay::NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Lay::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * BQ;
+  // Query rows q0 .. q0 + 64 NWG - 1. Heaviest first: blockIdx.y = 0 takes
+  // the last rows, which see the most keys.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64 * NWG;
+  // KV tiles starting past the block's last global query position are
+  // wholly above the diagonal and are never loaded.
+  const int key_last = q_offset + min(q0 + 64 * NWG, Lq) - 1 - kv_offset;
+  const int n_kv = (Lk == 0 || key_last < 0)
+                       ? 0
+                       : min((Lk + BK - 1) / BK, key_last / BK + 1);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row / column pair
-  const int r0 = warp * 16 + g;          // this thread's rows r0, r0 + 8
-  const __nv_bfloat16* kb = k + b * st.k_b + h * st.k_h;
-  const __nv_bfloat16* vb = v + b * st.v_b + h * st.v_h;
 
-  stage<D, false>(Qs, QP, q + b * st.q_b + h * st.q_h, st.q_l, q0, Lq, vec);
-  stage<D, false>(Os, QP, dout + b * st.o_b + h * st.o_h, st.o_l, q0, Lq,
-                  vec);
-
-  float row_lse[2], row_delta[2];
-  int qpos[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + 8 * hr;
-    const int64_t idx = ((int64_t)b * Lq + row) * H + h;
-    row_lse[hr] = row < Lq ? lse[idx] : 0.f;
-    row_delta[hr] = row < Lq ? delta[idx] : 0.f;
-    qpos[hr] = row < Lq ? q_offset + row : INT_MIN;  // past Lq: sees nothing
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[NO][4] = {};
-  const int q_last = q_offset + min(q0 + BQ, Lq) - 1;
-  for (int k0 = 0; k0 < Lk && kv_offset + k0 <= q_last; k0 += BK) {
-    __syncthreads();  // previous tile's Ks/Vs/Kt fully consumed
-    stage<D, false>(Ks, QP, kb, st.k_l, k0, Lk, vec);
-    stage<D, false>(Vs, QP, vb, st.v_l, k0, Lk, vec);
-    stage<D, true>(Kt, TP, kb, st.k_l, k0, Lk, vec);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys.
-    float s[8][4] = {}, dp[8][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, Qs, QP, r0, ks, t);
-      load_a(oa, Os, QP, r0, ks, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = (nt * 8 + g) * QP + ks * 16 + t * 2;
-        mma_bf16(s[nt], qa, ld32(Ks + c), ld32(Ks + c + 8));
-        mma_bf16(dp[nt], oa, ld32(Vs + c), ld32(Vs + c + 8));
+  if (warp == 4 * NWG) {  // the producer warp: one lane issues every load
+    if (lane == 0 && n_kv > 0) {
+      // Q and dO of the warpgroups that hold rows below Lq.
+      const int n_wg = min(NWG, (Lq - q0 + 63) / 64);
+      sm90::mbar_arrive_expect_tx(q_full, 2 * n_wg * Lay::TILE);
+      for (int w = 0; w < n_wg; ++w)
+        for (int c = 0; c < NC; ++c) {
+          const int off = w * Lay::TILE + c * Lay::BOX;
+          sm90::tma_load_4d(smem + off, &tm_q, q_full, c * sm90::BOX_COLS, h,
+                            q0 + 64 * w, b);
+          sm90::tma_load_4d(smem + Lay::O_OFF + off, &tm_o, q_full,
+                            c * sm90::BOX_COLS, h, q0 + 64 * w, b);
+        }
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % STAGES;
+        // The stage's previous tile must be released by every consumer.
+        if (it >= STAGES)
+          sm90::mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(full + s, 2 * Lay::TILE);
+        for (int c = 0; c < NC; ++c) {
+          const int off = s * Lay::TILE + c * Lay::BOX;
+          sm90::tma_load_4d(smem + Lay::K_OFF + off, &tm_k, full + s,
+                            c * sm90::BOX_COLS, h, it * BK, b);
+          sm90::tma_load_4d(smem + Lay::V_OFF + off, &tm_v, full + s,
+                            c * sm90::BOX_COLS, h, it * BK, b);
+        }
       }
     }
+    return;
+  }
 
-    // dS = P * (dP - delta), P rebuilt from lse; kept in s.
+  // Consumers: warpgroup w owns query rows wq0 .. wq0 + 63; this thread's
+  // rows are row0 and row0 + 8 (the wgmma accumulator rows), its keys
+  // 8j + 2t + {0, 1} of each KV tile.
+  const int w = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + 64 * w;
+  const int row0 = wq0 + 16 * (warp % 4) + g;
+  // lse (times log2 e) and delta of this thread's rows, fixed for the whole
+  // walk; strided by H in [B, Lq, H], which TMA's 16-byte rule does not take.
+  float lse2[2], dlt[2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    const int64_t idx = ((int64_t)b * Lq + row) * H + h;
+    lse2[hr] = row < Lq ? lse[idx] * LOG2E : 0.f;
+    dlt[hr] = row < Lq ? delta[idx] : 0.f;
+  }
+  // The warpgroup's first and last global query positions: a tile whose
+  // first key is past the last adds nothing to its rows.
+  const bool has_rows = wq0 < Lq;
+  const int wg_first = q_offset + wq0;
+  const int wg_last = q_offset + min(wq0 + 64, Lq) - 1;
+  const uint32_t q_addr = sm90::smem_u32(smem + w * Lay::TILE);
+  const uint32_t o_addr = sm90::smem_u32(smem + Lay::O_OFF + w * Lay::TILE);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (n_kv > 0) sm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const int k0 = it * BK;
+    sm90::mbar_wait(full + s, ph);
+    __syncwarp();
+    if (!has_rows || kv_offset + k0 > wg_last) {
+      // No row of this warpgroup sees a key of this tile.
+      if (lane == 0) sm90::mbar_arrive(empty + s);
+      continue;
+    }
+    const uint32_t k_addr = sm90::smem_u32(smem + Lay::K_OFF + s * Lay::TILE);
+    const uint32_t v_addr = sm90::smem_u32(smem + Lay::V_OFF + s * Lay::TILE);
+
+    // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, D / 16 depth steps,
+    // both operands K-major from shared memory.
+    float sc[BK / 2], dp[BK / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * Lay::BOX + (kk % 4) * 32;
+      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(q_addr + off, 16, 1024),
+                        sm90::desc_sw128(k_addr + off, 16, 1024), kk > 0);
+      sm90::wgmma_ss<0>(dp, sm90::desc_sw128(o_addr + off, 16, 1024),
+                        sm90::desc_sw128(v_addr + off, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // P = exp(min(s scale - lse, 30)) (in the log2 domain), then
+    // dS = P (dP - delta), kept in dp. Only a tile reaching past the
+    // diagonal or the ragged end needs the mask; a row that sees no key
+    // has lse NEG_INF, so every key of it is masked there, not clamped.
+    const bool edge = kv_offset + k0 + BK - 1 > wg_first || k0 + BK > Lk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int hr = e / 2;
-        const int key = k0 + nt * 8 + t * 2 + e % 2;
-        const bool ok = key < Lk && kv_offset + key <= qpos[hr];
-        const float p = ok ? expf(fminf(s[nt][e] * scale - row_lse[hr],
-                                        EXP_CLAMP))
-                           : 0.f;
-        s[nt][e] = p * (dp[nt][e] - row_delta[hr]);
+        const int hr = e >> 1;
+        float p = sm90::exp2_approx(
+            fminf(sc[4 * j + e] * scale_log2 - lse2[hr], CLAMP2));
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (!(key < Lk && kv_offset + key <= q_offset + row0 + 8 * hr))
+            p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - dlt[hr]);
       }
 
-    // dQ += dS K: the dS fragments of n-tiles 2kk, 2kk+1 are the A
-    // fragment of k-step kk; K^T rows give the B fragments.
+    // dQ += dS K: dS is the register A operand (its columns 16kk..16kk+15
+    // make depth step kk); K (keys x D) is read MN-major from its tile.
+    uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int nt = 0; nt < NO; ++nt) {
-        const __nv_bfloat16* krow = Kt + (nt * 8 + g) * TP + kk * 16 + t * 2;
-        mma_bf16(acc[nt], a, ld32(krow), ld32(krow + 8));
-      }
-    }
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = sm90::pack_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::wgmma_rs<1>(
+          acc, da[kk],
+          sm90::desc_sw128(k_addr + kk * 16 * sm90::ROW_BYTES, Lay::BOX, 1024),
+          1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + s);
   }
 
+  // dq is freshly allocated, contiguous [B, Lq, H, D]; rows that see no key
+  // get zeros.
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + 8 * hr;
+    const int row = row0 + 8 * hr;
     if (row >= Lq) continue;
-    __nv_bfloat16* out = dq + (((int64_t)b * Lq + row) * H + h) * D + t * 2;
+    __nv_bfloat16* out = dq + (((int64_t)b * Lq + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(out + nt * 8) = __floats2bfloat162_rn(
-          acc[nt][2 * hr] * scale, acc[nt][2 * hr + 1] * scale);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * hr] * scale, acc[4 * j + 2 * hr + 1] * scale);
   }
 }
-
-// ------------------------------------------------------------------------
-// bf16 dk/dv: TMA-fed tiles, wgmma products
-// ------------------------------------------------------------------------
-
-constexpr int STAGES = 2;  // (Q, dO) tiles in flight
 
 // Shared memory of one dk/dv block: the K and V rows of its NWG
 // warpgroups, loaded once; a ring of (Q, dO) tiles with the lse (times
@@ -591,7 +617,6 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                         float scale_log2) {
   using Lay = DkvLayout<D, NWG>;
   constexpr int NC = Lay::NC;
-  constexpr float CLAMP2 = EXP_CLAMP * LOG2E;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
   float* stats = reinterpret_cast<float*>(smem + Lay::STAT_OFF);
@@ -803,16 +828,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// 16-byte loads need 16-byte aligned bases and strides in multiples of 8.
-bool vec_ok(const Args& a) {
-  const Strides& s = a.st;
-  return ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k)
-           | reinterpret_cast<uintptr_t>(a.v)
-           | reinterpret_cast<uintptr_t>(a.dout)) % 16 == 0) &&
-         ((s.q_b | s.q_l | s.q_h | s.k_b | s.k_l | s.k_h | s.v_b | s.v_l |
-           s.v_h | s.o_b | s.o_l | s.o_h) % 8 == 0);
-}
-
 // cudaFuncSetAttribute once per kernel instance and device, not per launch.
 #define SET_MAX_SMEM(kernel, bytes)                                         \
   do {                                                                      \
@@ -847,37 +862,69 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// TMA maps over q, k, v and do: boxes of 64 rows of one (batch, head).
+template <int D>
+cudaError_t make_maps(const Args& a, CUtensorMap* tq, CUtensorMap* tk,
+                      CUtensorMap* tv, CUtensorMap* to) {
+  const Strides& s = a.st;
+  cudaError_t err;
+  if ((err = sm90::make_bhld_map(tq, a.q, a.B, a.Lq, a.H, D, s.q_b, s.q_l,
+                                 s.q_h, 64)) != cudaSuccess ||
+      (err = sm90::make_bhld_map(tk, a.k, a.B, a.Lk, a.H, D, s.k_b, s.k_l,
+                                 s.k_h, 64)) != cudaSuccess ||
+      (err = sm90::make_bhld_map(tv, a.v, a.B, a.Lk, a.H, D, s.v_b, s.v_l,
+                                 s.v_h, 64)) != cudaSuccess)
+    return err;
+  return sm90::make_bhld_map(to, a.dout, a.B, a.Lq, a.H, D, s.o_b, s.o_l,
+                             s.o_h, 64);
+}
+
+template <int D, int NWG>
+cudaError_t launch_dq_bf16_nwg(const Args& a, void* dq) {
+  using Lay = DqLayout<D, NWG>;
+  SET_MAX_SMEM((flash_bwd_dq_bf16_sm90<D, NWG>), Lay::SMEM);
+  CUtensorMap tq, tk, tv, to;
+  const cudaError_t err = make_maps<D>(a, &tq, &tk, &tv, &to);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Lq + 64 * NWG - 1) / (64 * NWG));
+  flash_bwd_dq_bf16_sm90<D, NWG><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
+      tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.H,
+      a.Lq, a.Lk, a.q_offset, a.kv_offset, softmax_scale(D),
+      softmax_scale(D) * LOG2E);
+  return cudaGetLastError();
+}
+
+// 1 or 2 makes every bf16 dq launch take that many warpgroups; 0 leaves
+// the choice to dq_warpgroups. Set by tpushare_flash_bwd_dq_force_warpgroups,
+// so that the two choices can be timed against each other.
+std::atomic<int> dq_forced_warpgroups{0};
+
+// Warpgroups (64 query rows each) per bf16 dq block. At D = 64 one: a
+// block of one takes 134 registers a thread, so three fit an SM, where a
+// block of two fits once (H100: 0.148 ms against 0.161 at the train step's
+// shape, and one was faster at every shape measured). At D = 128 two, which
+// share each K/V tile: an SM holds two warpgroups either way (165 and 163
+// registers), and sharing was about 1% faster.
+int dq_warpgroups(int D) {
+  const int forced = dq_forced_warpgroups.load(std::memory_order_relaxed);
+  if (forced) return forced;
+  return D == 128 ? 2 : 1;
+}
+
 template <int D>
 cudaError_t launch_dq_bf16(const Args& a, void* dq) {
-  constexpr size_t smem = dq_bf16_smem_bytes<D>();
-  SET_MAX_SMEM(flash_bwd_dq_bf16<D>, smem);
-  dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
-  flash_bwd_dq_bf16<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
-      static_cast<__nv_bfloat16*>(dq), a.H, a.Lq, a.Lk, a.st, a.q_offset,
-      a.kv_offset, softmax_scale(D), vec_ok(a));
-  return cudaGetLastError();
+  if (dq_warpgroups(D) == 2)
+    return launch_dq_bf16_nwg<D, 2>(a, dq);
+  return launch_dq_bf16_nwg<D, 1>(a, dq);
 }
 
 template <int D, int NWG>
 cudaError_t launch_dkv_bf16_nwg(const Args& a, void* dk, void* dv) {
   using Lay = DkvLayout<D, NWG>;
   SET_MAX_SMEM((flash_bwd_dkv_bf16_sm90<D, NWG>), Lay::SMEM);
-  const Strides& s = a.st;
   CUtensorMap tq, tk, tv, to;
-  cudaError_t err;
-  if ((err = sm90::make_bhld_map(&tq, a.q, a.B, a.Lq, a.H, D, s.q_b, s.q_l,
-                                 s.q_h, BQ)) != cudaSuccess ||
-      (err = sm90::make_bhld_map(&tk, a.k, a.B, a.Lk, a.H, D, s.k_b, s.k_l,
-                                 s.k_h, 64)) != cudaSuccess ||
-      (err = sm90::make_bhld_map(&tv, a.v, a.B, a.Lk, a.H, D, s.v_b, s.v_l,
-                                 s.v_h, 64)) != cudaSuccess ||
-      (err = sm90::make_bhld_map(&to, a.dout, a.B, a.Lq, a.H, D, s.o_b, s.o_l,
-                                 s.o_h, BQ)) != cudaSuccess)
-    return err;
+  const cudaError_t err = make_maps<D>(a, &tq, &tk, &tv, &to);
+  if (err != cudaSuccess) return err;
   dim3 grid(a.B * a.H, (a.Lk + 64 * NWG - 1) / (64 * NWG));
   flash_bwd_dkv_bf16_sm90<D, NWG><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
       tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
@@ -917,8 +964,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // (batch, length, head) for q, then k, then v, then do; the head_dim axis
-// is unit-stride. lse and delta are contiguous fp32 [B, Lq, H]. Each entry
-// returns a cudaError_t (0 on success).
+// is unit-stride (and for bf16, which TMA reads, the bases 16-byte aligned
+// and every stride a multiple of 8 elements). lse and delta are contiguous
+// fp32 [B, Lq, H]. Each entry returns a cudaError_t (0 on success).
 extern "C" int tpushare_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int H,
@@ -956,4 +1004,15 @@ extern "C" int tpushare_flash_bwd_dkv(
   if (dtype == 1 && D == 64) return launch_dkv_bf16<64>(a, dk, dv);
   if (dtype == 1 && D == 128) return launch_dkv_bf16<128>(a, dk, dv);
   return cudaErrorInvalidValue;
+}
+
+// The warpgroups a bf16 dq launch at head_dim D takes (1 or 2).
+extern "C" int tpushare_flash_bwd_dq_warpgroups(int D) {
+  return dq_warpgroups(D);
+}
+
+// Make every later bf16 dq launch take n warpgroups (1 or 2), or give the
+// choice back to the launcher (any other n). For timing the two choices.
+extern "C" void tpushare_flash_bwd_dq_force_warpgroups(int n) {
+  dq_forced_warpgroups.store(n == 1 || n == 2 ? n : 0);
 }

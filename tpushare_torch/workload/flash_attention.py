@@ -11,10 +11,10 @@ Each kernel source is built with ``nvcc`` for ``sm_90a`` into a shared
 library with plain C entries, at first use, under ``build/tpushare_torch/``
 in the checkout, named by the hash of its source and of every header in
 ``csrc/`` (a changed source or header builds anew), and loaded with
-``ctypes``. Launches go to the current stream. The bf16 forward and dk/dv
-kernels read their tiles with TMA, which needs a 16-byte aligned base and
-strides that are multiples of 16 bytes (:func:`tma_problem`); their
-wrappers raise on anything else.
+``ctypes``. Launches go to the current stream. All three bf16 kernels
+(forward, dq and dk/dv) read their tiles with TMA, which needs a 16-byte
+aligned base and strides that are multiples of 16 bytes
+(:func:`tma_problem`); their wrappers raise on anything else.
 
 Gradients: :func:`flash_block_with_lse` (and :func:`flash_attention`, its
 output alone) are one ``torch.autograd.Function`` when an input requires
@@ -295,6 +295,7 @@ def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's, ``delta`` = rowsum(do * out) - dlse, both fp32 [B, Lq, H]."""
     global FLASH_BWD_DQ_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_tma(q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     _launch("tpushare_flash_bwd_dq",
