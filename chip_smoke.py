@@ -16,7 +16,6 @@ failure raises and exits nonzero; so does a host without a CUDA device.
 from __future__ import annotations
 
 import collections
-import ctypes
 import json
 import math
 import os
@@ -77,11 +76,10 @@ SHAPES = {
     "e_ragged": (1, 200, 200, 8, 64, 0, 0),
     "f_flagship_train": (8, 2048, 2048, 8, 64, 0, 0),
 }
-#: More shapes for bf16 dq with one and with two warpgroups forced: a
-#: block whose second warpgroup has no rows (Lq = 130, both head dims), a
-#: short Q block at an offset past a longer KV (a chunked prefill's tail),
-#: and rows that see no key at D = 128.
-DQ_EDGE_SHAPES = {
+#: More shapes for phase 3b's backward check: a last Q block of two rows
+#: (Lq = 130, both head dims), a short Q block at an offset past a longer
+#: KV (a chunked prefill's tail), and rows that see no key at D = 128.
+BWD_EDGE_SHAPES = {
     "lq130_d64": (2, 130, 130, 4, 64, 0, 0),
     "lq130_d128": (2, 130, 130, 4, 128, 0, 0),
     "tail_offset": (1, 77, 300, 4, 64, 223, 0),
@@ -157,37 +155,35 @@ def main(usage_dir: str) -> int:
     # 3. Kernel against its plain version, on the card.
     errs = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    inputs = {}
-    for name, (b, lq, lk, h, d, qo, ko) in SHAPES.items():
-        for dt in (torch.bfloat16, torch.float32):
-            dn = str(dt).split(".")[1]
-            q, k, v = (torch.randn((b, n, h, d), generator=gen,
-                                   device="cuda").to(dt)
-                       for n in (lq, lk, lk))
-            inputs[name, dn] = (q, k, v, qo, ko)
-            with torch.inference_mode():
-                out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
-                torch.cuda.synchronize()
-                p_out, p_lse = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
-            vis = qo + torch.arange(lq, device="cuda") >= ko
-            diff = (out.float() - p_out.float())[:, vis].abs().max().item()
-            norm = diff / p_out.float()[:, vis].abs().max().item()
-            lse_err = (lse - p_lse)[:, vis].abs().max().item()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"{name}/{dn}: non-finite output")
-            check(norm <= OUT_TOL[dn], f"{name}/{dn}: out error {norm}")
-            check(lse_err <= LSE_TOL[dn], f"{name}/{dn}: lse error {lse_err}")
-            errs[name, dn] = {"max_abs_err": diff, "norm_err": norm,
-                              "lse_err": lse_err}
+    inputs = random_inputs(gen, SHAPES)
+    for (name, dn), (q, k, v, qo, ko) in inputs.items():
+        lq = q.shape[1]
+        with torch.inference_mode():
+            out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
+            torch.cuda.synchronize()
+            p_out, p_lse = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
+        vis = qo + torch.arange(lq, device="cuda") >= ko
+        diff = (out.float() - p_out.float())[:, vis].abs().max().item()
+        norm = diff / p_out.float()[:, vis].abs().max().item()
+        lse_err = (lse - p_lse)[:, vis].abs().max().item()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{name}/{dn}: non-finite output")
+        check(norm <= OUT_TOL[dn], f"{name}/{dn}: out error {norm}")
+        check(lse_err <= LSE_TOL[dn], f"{name}/{dn}: lse error {lse_err}")
+        errs[name, dn] = {"max_abs_err": diff, "norm_err": norm,
+                          "lse_err": lse_err}
     no_key = no_key_rows(gen)
     refusals = tma_refusals(inputs["a_flagship_prefill", "bfloat16"][0])
     phase("3 kernel vs plain", tma_refusal=refusals, no_key_rows=no_key,
           **{f"{n}/{d}": e for (n, d), e in errs.items()})
 
     # 3b. Backward kernels against their plain version, from the forward
-    # kernel's out and lse, at the same shapes and inputs.
+    # kernel's out and lse, at the same shapes and inputs and at the edge
+    # shapes: within the tolerance on rows and keys that see something, dq
+    # exactly 0 on rows that see nothing, the same dq from a second launch.
     bwd_errs = {}
-    for (name, dn), (q, k, v, qo, ko) in inputs.items():
+    edge_inputs = random_inputs(gen, BWD_EDGE_SHAPES)
+    for (name, dn), (q, k, v, qo, ko) in {**inputs, **edge_inputs}.items():
         b, lq, h, _ = q.shape
         lk = k.shape[1]
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
@@ -198,10 +194,15 @@ def main(usage_dir: str) -> int:
             delta = FA.flash_bwd_delta(do, out, dlse)
             got = (FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta, qo, ko),
                    *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, qo, ko))
+            dq_again = FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta, qo, ko)
             torch.cuda.synchronize()
             ref = FA.flash_bwd_plain(q, k, v, out, lse, do, dlse, qo, ko)
         rows = qo + torch.arange(lq, device="cuda") >= ko
         keys = ko + torch.arange(lk, device="cuda") <= qo + lq - 1
+        check(bool((got[0][:, ~rows] == 0).all()),
+              f"{name}/{dn}: dq is not 0 on rows that see no key")
+        check(torch.equal(got[0], dq_again), f"{name}/{dn}: two dq launches "
+              f"differ")
         e = {"dlse": dlse is not None}
         for gname, g, r, sel in zip(("dq", "dk", "dv"), got, ref,
                                     (rows, keys, keys)):
@@ -236,11 +237,10 @@ def main(usage_dir: str) -> int:
     fn_err = max(((t.grad - r).abs().max() / r.abs().max()).item()
                  for t, r in zip(qkv, ref))
     check(fn_err <= GRAD_TOL["float32"], f"autograd Function error {fn_err}")
-    dq_paths = dq_warpgroup_paths(gen, {**SHAPES, **DQ_EDGE_SHAPES})
     phase("3b backward kernels vs plain", bitwise_repeat=bitwise,
-          function_grad_err=fn_err, dq_forced_warpgroups=dq_paths,
+          function_grad_err=fn_err,
           **{f"{n}/{d}": e for (n, d), e in bwd_errs.items()})
-    del runs, out, lse, delta, do, qkv, ref
+    del runs, out, lse, delta, do, qkv, ref, edge_inputs, got, dq_again, g, r
 
     # 4. Forward through the entry point; from here the launches count.
     FA.FLASH_FWD_LAUNCHES = 0
@@ -397,6 +397,7 @@ def main(usage_dir: str) -> int:
     phase("7 timings", card=card,
           **{f"{n}/{d}": t for (n, d), t in timings.items()})
     phase("7b backward timings", card=card,
+          dq_warpgroups=train["dq_launch"]["warpgroups"],
           **{f"{n}/{d}": t for (n, d), t in bwd_timings.items()})
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     fwd_launches = launches + train["launches"]["flash_fwd"]
@@ -454,8 +455,8 @@ def main(usage_dir: str) -> int:
             "vs_library": t["kernel_ms"] / train_t["library_ms"],
             "pair_ms": train_t["pair_ms"],
             "plain_and_library_compute": "dq, dk and dv in one call",
-            **{key: t[key] for key in ("warpgroups",
-                                       "kernel_ms_by_warpgroups") if key in t},
+            **({"launch": train["dq_launch"]} if kname == "flash_bwd_dq"
+               else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -492,40 +493,17 @@ def tma_refusals(q: torch.Tensor) -> dict:
     return refused
 
 
-def dq_warpgroup_paths(gen: torch.Generator, shapes: dict) -> dict:
-    """bf16 dq with one and with two warpgroups forced, at each shape
-    (B, Lq, Lk, H, D, q_offset, kv_offset): within ``GRAD_TOL`` of the
-    plain version on rows that see a key, exactly 0 on rows that see none,
-    and bitwise equal across two launches. Returns each normalized
-    error."""
-    _, force = dq_warpgroup_hooks()
-    errs = {}
-    try:
-        for name, (b, lq, lk, h, d, qo, ko) in shapes.items():
-            q, k, v, do = (torch.randn((b, n, h, d), generator=gen,
-                                       device="cuda").to(torch.bfloat16)
-                           for n in (lq, lk, lk, lq))
-            rows = qo + torch.arange(lq, device="cuda") >= ko
-            with torch.inference_mode():
-                out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
-                delta = FA.flash_bwd_delta(do, out, None)
-                ref = FA.flash_bwd_plain(q, k, v, out, lse, do, None, qo,
-                                         ko)[0].float()
-                for n in (1, 2):
-                    force(n)
-                    runs = [FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
-                                                   qo, ko) for _ in range(2)]
-                    got = runs[0].float()
-                    err = ((got[:, rows] - ref[:, rows]).abs().max()
-                           / ref[:, rows].abs().max()).item()
-                    check(err <= GRAD_TOL["bfloat16"]
-                          and bool((got[:, ~rows] == 0).all())
-                          and torch.equal(*runs),
-                          f"dq {name} with {n} warpgroups: error {err}")
-                    errs[f"{name}/{n}"] = err
-    finally:
-        force(0)
-    return errs
+def random_inputs(gen: torch.Generator, shapes: dict) -> dict:
+    """q, k, v and the offsets at each shape (B, Lq, Lk, H, D, q_offset,
+    kv_offset), in bf16 and in fp32, keyed by (shape name, dtype name)."""
+    inputs = {}
+    for name, (b, lq, lk, h, d, qo, ko) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, n, h, d), generator=gen,
+                                   device="cuda").to(dt)
+                       for n in (lq, lk, lk))
+            inputs[name, str(dt).split(".")[1]] = (q, k, v, qo, ko)
+    return inputs
 
 
 def no_key_rows(gen: torch.Generator) -> dict:
@@ -614,6 +592,27 @@ def _counts() -> dict:
             "flash_bwd_dkv": FA.FLASH_BWD_DKV_LAUNCHES}
 
 
+def dq_launch(prof) -> dict:
+    """The bf16 dq kernel's launch in a finished profiler run, as its trace
+    records it: the block shape, registers a thread, and the consumer
+    warpgroups the block holds (128 threads each beside the producer
+    warp's 32)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-trace-") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+    for e in events:
+        if (e.get("cat") == "kernel"
+                and "flash_bwd_dq_bf16_sm90" in e.get("name", "")):
+            block = e["args"]["block"]
+            return {"block": block,
+                    "registers": e["args"].get("registers per thread"),
+                    "warpgroups": (math.prod(block) - 32) // 128}
+    raise RuntimeError("no bf16 dq launch in the profiler's trace: "
+                       f"{collections.Counter(e.get('cat') for e in events)}")
+
+
 def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     """Drive the flagship train step as a user builds it
     (``train.make_train_step(cfg)``: flash attention on the card, remat
@@ -661,6 +660,7 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     by_name = collections.Counter()
     for e in on_card:
         by_name[e.name[:80]] += e.time_range.elapsed_us()
+    dq = dq_launch(prof)
 
     # The same weights through plain attention and PyTorch's autograd, on
     # 2 of the batch's rows (the plain attention holds [B, H, L, L]).
@@ -694,6 +694,7 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
         "profiled_device_us_top": dict(by_name.most_common(10)),
         "device_busy_share": busy_us / (prof_s * 1e6),
         "profiled_device_ms": busy_us / 1e3,
+        "dq_launch": dq,
         "peak_bytes": peak, "grant_bytes": GRANT_GIB << 30,
         "vs_plain_loss_rel_err": loss_err,
         "vs_plain_max_grad_err": grad_errs[worst],
@@ -852,25 +853,11 @@ def library_bwd(q, k, v, do, q_offset: int, kv_offset: int, dn: str):
                 [True, True, True, False], causal))
 
 
-def dq_warpgroup_hooks():
-    """From the built backward library: the warpgroups (1 or 2) a bf16 dq
-    launch takes at head_dim D, and the hook that makes every later launch
-    take n (0 gives the choice back to the launcher)."""
-    lib = ctypes.CDLL(str(FA._lib_path("flash_bwd")))
-    choice = lib.tpushare_flash_bwd_dq_warpgroups
-    choice.argtypes = [ctypes.c_int]
-    force = lib.tpushare_flash_bwd_dq_force_warpgroups
-    force.argtypes = [ctypes.c_int]
-    force.restype = None
-    return choice, force
-
-
 def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
     """Device times of each backward kernel, of the plain version and of
     the library yardstick (each of which computes dq, dk and dv), each
     kernel's eager per-call time, and each kernel's least time on the card
-    for its work (published peaks). In bf16, also the warpgroups a dq block
-    takes at this shape and dq's device time with one and with two."""
+    for its work (published peaks)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
@@ -908,18 +895,6 @@ def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "ops": ops, "bytes": nbytes,
             }
-        if dn == "bfloat16":
-            choice, force = dq_warpgroup_hooks()
-            dq_t = result["flash_bwd_dq"]
-            dq_t["warpgroups"] = choice(d)
-            dq_t["kernel_ms_by_warpgroups"] = {}
-            try:
-                for n in (1, 2):
-                    force(n)
-                    dq_t["kernel_ms_by_warpgroups"][str(n)] = device_ms(
-                        fns["flash_bwd_dq"])
-            finally:
-                force(0)
         result["plain_ms"] = device_ms(lambda: FA.flash_bwd_plain(
             q, k, v, out, lse, do, None, q_offset, kv_offset), reps=5)
         result["library_ms"] = device_ms(library)

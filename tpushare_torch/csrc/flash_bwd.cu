@@ -53,19 +53,19 @@
 // the descriptor's transpose bit, from a TMA tile that the first products
 // read K-major: nothing is staged transposed and no thread copies a tile.
 //  * dq: the producer loads the block's Q and dO once and streams K and V
-//    tiles. Each warpgroup (64 query rows) runs S = Q K^T and dP = dO V^T
-//    from shared memory, then dQ += dS K with K read MN-major.
+//    tiles. One warpgroup (the block's 64 query rows) runs S = Q K^T and
+//    dP = dO V^T from shared memory, then dQ += dS K with K read MN-major.
 //  * dk/dv: the producer loads K and V once and streams (Q, dO) tiles,
 //    copying each tile's lse and delta beside them. Each warpgroup (64
 //    keys) runs S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
 //    dK += dS^T Q with dO and Q read MN-major: a whole 64-query tile a step.
 //  * Two warpgroups may share each streamed tile, halving its loads, but
-//    registers decide how many warpgroups an SM holds. dq takes one at
-//    D = 64 (three blocks of one warpgroup fit an SM, one block of two)
-//    and two at D = 128 (two warpgroups an SM either way). dk/dv takes two
-//    at D = 64 where there are blocks enough to fill the card twice, one
-//    otherwise, and one at D = 128, where its two D-wide accumulators fill
-//    the registers.
+//    registers decide how many warpgroups an SM holds. dq takes one at both
+//    head dims: at D = 64 three blocks of one fit an SM where one block of
+//    two does, and at D = 128 two were no faster. dk/dv takes two at D = 64
+//    where there are blocks enough to fill the card twice, one otherwise,
+//    and one at D = 128, where its two D-wide accumulators fill the
+//    registers.
 // fp32 keeps full fp32 products on the SIMT units (tensor-core TF32 would
 // lose the reference's precision): 256 threads as 16 row groups x 16
 // column lanes, a 4 x 4 slice of each score tile and 4 rows x D/16 columns
@@ -378,25 +378,25 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int STAGES = 2;  // streamed tiles in flight
 constexpr float CLAMP2 = EXP_CLAMP * LOG2E;  // the clamp, log2 domain
 
-// Shared memory of one dq block: the Q and dO rows of its NWG warpgroups,
-// loaded once; a ring of (K, V) tiles; the mbarriers. Tiles are stacks of
-// 64-column boxes of 128-byte swizzled rows, all at multiples of 1024.
-template <int D, int NWG>
+// Shared memory of one dq block: its 64 rows of Q and dO, loaded once; a
+// ring of (K, V) tiles; the mbarriers. Tiles are stacks of 64-column boxes
+// of 128-byte swizzled rows, all at multiples of 1024.
+template <int D>
 struct DqLayout {
   static constexpr int NC = D / sm90::BOX_COLS;  // boxes per row
   static constexpr int BOX = 64 * sm90::ROW_BYTES;
   static constexpr int TILE = NC * BOX;  // 64 rows of Q, dO, K or V
-  static constexpr int O_OFF = NWG * TILE;
-  static constexpr int K_OFF = 2 * NWG * TILE;
+  static constexpr int O_OFF = TILE;
+  static constexpr int K_OFF = 2 * TILE;
   static constexpr int V_OFF = K_OFF + STAGES * TILE;
   static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
   // q_full, full[STAGES], empty[STAGES]
   static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
-  static constexpr int THREADS = NWG * sm90::WG_THREADS + 32;
+  static constexpr int THREADS = sm90::WG_THREADS + 32;
 };
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(DqLayout<D, NWG>::THREADS, 1)
+template <int D>
+__global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
 flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                        __grid_constant__ const CUtensorMap tm_k,
                        __grid_constant__ const CUtensorMap tm_v,
@@ -406,7 +406,7 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
                        int q_offset, int kv_offset, float scale,
                        float scale_log2) {
-  using Lay = DqLayout<D, NWG>;
+  using Lay = DqLayout<D>;
   constexpr int NC = Lay::NC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
@@ -415,12 +415,14 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
   uint64_t* empty = full + STAGES;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  // Query rows q0 .. q0 + 64 NWG - 1. Heaviest first: blockIdx.y = 0 takes
-  // the last rows, which see the most keys.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64 * NWG;
-  // KV tiles starting past the block's last global query position are
-  // wholly above the diagonal and are never loaded.
-  const int key_last = q_offset + min(q0 + 64 * NWG, Lq) - 1 - kv_offset;
+  // Query rows q0 .. q0 + 63. Heaviest first: blockIdx.y = 0 takes the last
+  // rows, which see the most keys.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  // The block's first and last global query positions. KV tiles starting
+  // past the last are wholly above the diagonal and are never loaded.
+  const int q_first = q_offset + q0;
+  const int q_last = q_offset + min(q0 + BQ, Lq) - 1;
+  const int key_last = q_last - kv_offset;
   const int n_kv = (Lk == 0 || key_last < 0)
                        ? 0
                        : min((Lk + BK - 1) / BK, key_last / BK + 1);
@@ -430,25 +432,21 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       sm90::mbar_init(full + s, 1);
-      sm90::mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+      sm90::mbar_init(empty + s, 4);  // one arrival per consumer warp
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == 4 * NWG) {  // the producer warp: one lane issues every load
+  if (warp == 4) {  // the producer warp: one lane issues every load
     if (lane == 0 && n_kv > 0) {
-      // Q and dO of the warpgroups that hold rows below Lq.
-      const int n_wg = min(NWG, (Lq - q0 + 63) / 64);
-      sm90::mbar_arrive_expect_tx(q_full, 2 * n_wg * Lay::TILE);
-      for (int w = 0; w < n_wg; ++w)
-        for (int c = 0; c < NC; ++c) {
-          const int off = w * Lay::TILE + c * Lay::BOX;
-          sm90::tma_load_4d(smem + off, &tm_q, q_full, c * sm90::BOX_COLS, h,
-                            q0 + 64 * w, b);
-          sm90::tma_load_4d(smem + Lay::O_OFF + off, &tm_o, q_full,
-                            c * sm90::BOX_COLS, h, q0 + 64 * w, b);
-        }
+      sm90::mbar_arrive_expect_tx(q_full, 2 * Lay::TILE);
+      for (int c = 0; c < NC; ++c) {
+        sm90::tma_load_4d(smem + c * Lay::BOX, &tm_q, q_full,
+                          c * sm90::BOX_COLS, h, q0, b);
+        sm90::tma_load_4d(smem + Lay::O_OFF + c * Lay::BOX, &tm_o, q_full,
+                          c * sm90::BOX_COLS, h, q0, b);
+      }
       for (int it = 0; it < n_kv; ++it) {
         const int s = it % STAGES;
         // The stage's previous tile must be released by every consumer.
@@ -467,13 +465,10 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     return;
   }
 
-  // Consumers: warpgroup w owns query rows wq0 .. wq0 + 63; this thread's
-  // rows are row0 and row0 + 8 (the wgmma accumulator rows), its keys
-  // 8j + 2t + {0, 1} of each KV tile.
-  const int w = warp / 4;
+  // The consumer warpgroup: this thread's rows are row0 and row0 + 8 (the
+  // wgmma accumulator rows), its keys 8j + 2t + {0, 1} of each KV tile.
   const int g = lane / 4, t = lane % 4;
-  const int wq0 = q0 + 64 * w;
-  const int row0 = wq0 + 16 * (warp % 4) + g;
+  const int row0 = q0 + 16 * warp + g;
   // lse (times log2 e) and delta of this thread's rows, fixed for the whole
   // walk; strided by H in [B, Lq, H], which TMA's 16-byte rule does not take.
   float lse2[2], dlt[2];
@@ -484,13 +479,8 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     lse2[hr] = row < Lq ? lse[idx] * LOG2E : 0.f;
     dlt[hr] = row < Lq ? delta[idx] : 0.f;
   }
-  // The warpgroup's first and last global query positions: a tile whose
-  // first key is past the last adds nothing to its rows.
-  const bool has_rows = wq0 < Lq;
-  const int wg_first = q_offset + wq0;
-  const int wg_last = q_offset + min(wq0 + 64, Lq) - 1;
-  const uint32_t q_addr = sm90::smem_u32(smem + w * Lay::TILE);
-  const uint32_t o_addr = sm90::smem_u32(smem + Lay::O_OFF + w * Lay::TILE);
+  const uint32_t q_addr = sm90::smem_u32(smem);
+  const uint32_t o_addr = sm90::smem_u32(smem + Lay::O_OFF);
 
   float acc[D / 2];
 #pragma unroll
@@ -503,11 +493,6 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     const int k0 = it * BK;
     sm90::mbar_wait(full + s, ph);
     __syncwarp();
-    if (!has_rows || kv_offset + k0 > wg_last) {
-      // No row of this warpgroup sees a key of this tile.
-      if (lane == 0) sm90::mbar_arrive(empty + s);
-      continue;
-    }
     const uint32_t k_addr = sm90::smem_u32(smem + Lay::K_OFF + s * Lay::TILE);
     const uint32_t v_addr = sm90::smem_u32(smem + Lay::V_OFF + s * Lay::TILE);
 
@@ -532,7 +517,7 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     // dS = P (dP - delta), kept in dp. Only a tile reaching past the
     // diagonal or the ragged end needs the mask; a row that sees no key
     // has lse NEG_INF, so every key of it is masked there, not clamped.
-    const bool edge = kv_offset + k0 + BK - 1 > wg_first || k0 + BK > Lk;
+    const bool edge = kv_offset + k0 + BK - 1 > q_first || k0 + BK > Lk;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -879,43 +864,19 @@ cudaError_t make_maps(const Args& a, CUtensorMap* tq, CUtensorMap* tk,
                              s.o_h, 64);
 }
 
-template <int D, int NWG>
-cudaError_t launch_dq_bf16_nwg(const Args& a, void* dq) {
-  using Lay = DqLayout<D, NWG>;
-  SET_MAX_SMEM((flash_bwd_dq_bf16_sm90<D, NWG>), Lay::SMEM);
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a, void* dq) {
+  using Lay = DqLayout<D>;
+  SET_MAX_SMEM(flash_bwd_dq_bf16_sm90<D>, Lay::SMEM);
   CUtensorMap tq, tk, tv, to;
   const cudaError_t err = make_maps<D>(a, &tq, &tk, &tv, &to);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.H, (a.Lq + 64 * NWG - 1) / (64 * NWG));
-  flash_bwd_dq_bf16_sm90<D, NWG><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
+  dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
+  flash_bwd_dq_bf16_sm90<D><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
       tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.H,
       a.Lq, a.Lk, a.q_offset, a.kv_offset, softmax_scale(D),
       softmax_scale(D) * LOG2E);
   return cudaGetLastError();
-}
-
-// 1 or 2 makes every bf16 dq launch take that many warpgroups; 0 leaves
-// the choice to dq_warpgroups. Set by tpushare_flash_bwd_dq_force_warpgroups,
-// so that the two choices can be timed against each other.
-std::atomic<int> dq_forced_warpgroups{0};
-
-// Warpgroups (64 query rows each) per bf16 dq block. At D = 64 one: a
-// block of one takes 134 registers a thread, so three fit an SM, where a
-// block of two fits once (H100: 0.148 ms against 0.161 at the train step's
-// shape, and one was faster at every shape measured). At D = 128 two, which
-// share each K/V tile: an SM holds two warpgroups either way (165 and 163
-// registers), and sharing was about 1% faster.
-int dq_warpgroups(int D) {
-  const int forced = dq_forced_warpgroups.load(std::memory_order_relaxed);
-  if (forced) return forced;
-  return D == 128 ? 2 : 1;
-}
-
-template <int D>
-cudaError_t launch_dq_bf16(const Args& a, void* dq) {
-  if (dq_warpgroups(D) == 2)
-    return launch_dq_bf16_nwg<D, 2>(a, dq);
-  return launch_dq_bf16_nwg<D, 1>(a, dq);
 }
 
 template <int D, int NWG>
@@ -1004,15 +965,4 @@ extern "C" int tpushare_flash_bwd_dkv(
   if (dtype == 1 && D == 64) return launch_dkv_bf16<64>(a, dk, dv);
   if (dtype == 1 && D == 128) return launch_dkv_bf16<128>(a, dk, dv);
   return cudaErrorInvalidValue;
-}
-
-// The warpgroups a bf16 dq launch at head_dim D takes (1 or 2).
-extern "C" int tpushare_flash_bwd_dq_warpgroups(int D) {
-  return dq_warpgroups(D);
-}
-
-// Make every later bf16 dq launch take n warpgroups (1 or 2), or give the
-// choice back to the launcher (any other n). For timing the two choices.
-extern "C" void tpushare_flash_bwd_dq_force_warpgroups(int n) {
-  dq_forced_warpgroups.store(n == 1 || n == 2 ? n : 0);
 }
