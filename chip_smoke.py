@@ -6,11 +6,13 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and the CUDA
 toolkit. It builds the flash-attention kernels (forward, and the dq and
 dk/dv backward) from the sources in this checkout, holds each against its
 plain PyTorch version, then drives the flagship LM's forward, serving
-and training paths through the entry points a user calls, at full
-flagship width, under an injected HBM grant. One line per phase; then a
-``kernels`` JSON line, the card's name and power limit as nvidia-smi
-gives them, and as the last line ``{"ok": true, "device": {...}}``. Any
-failure raises and exits nonzero; so does a host without a CUDA device.
+(whole, chunked, interleaved and paged admission, the slot and paged
+servers) and training paths through the entry points a user calls, at
+full flagship width, under an injected HBM grant. One line per phase;
+then a ``kernels`` JSON line, the card's name and power limit as
+nvidia-smi gives them, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure raises and exits nonzero; so does a host without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from tpushare_torch import entry as E
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
+from tpushare_torch.workload import paging as P
 from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
 
@@ -75,6 +78,8 @@ SHAPES = {
     "d_chunk_offsets": (1, 512, 1024, 8, 64, 512, 0),
     "e_ragged": (1, 200, 200, 8, 64, 0, 0),
     "f_flagship_train": (8, 2048, 2048, 8, 64, 0, 0),
+    # Phase 5c's last chunked-prefill piece of a 1024-token prompt.
+    "g_chunk_piece": (1, 64, 1024, 8, 64, 960, 0),
 }
 #: More shapes for phase 3b's backward check: a last Q block of two rows
 #: (Lq = 130, both head dims), a short Q block at an offset past a longer
@@ -87,11 +92,28 @@ BWD_EDGE_SHAPES = {
 }
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
+PIECE_SHAPE = "g_chunk_piece"       # the chunked and paged pieces' launch
 #: Shapes whose backward check adds a nonzero lse cotangent.
 DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets")
 TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
+#: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
+#: bench_decode_paged): the cache length, the chunk and page size, the
+#: prompt mix and the decode steps between interleaved pieces.
+SERVE_MAX_LEN = 2048
+PIECE = 64
+PROMPT_MIX = (32, 64, 128, 128, 256, 512, 768, 1024)
+INTERLEAVE_STEPS = 8
+#: The paged pool is pages_for_grant(cfg, GRANT_GIB, headroom=0.5): the
+#: grant's allocator cap is 0.9 of the slice (14.4 GiB) and the phase
+#: holds about 1.2 GiB beside the pool (the gathered views and the decode
+#: step's fp32 copies of them), so the default 0.8 (a 12.7 GiB pool)
+#: would leave the cap almost no room.
+PAGED_HEADROOM = 0.5
+#: The density arithmetic of bench_decode_paged: its grant and decode
+#: budget a stream.
+DENSITY_GRANT_GIB, DENSITY_NEW_TOKENS = 8.0, 256
 
 
 def phase(name: str, **fields) -> None:
@@ -359,7 +381,14 @@ def main(usage_dir: str) -> int:
           slot_tokens=int((emitted >= 0).sum().item()),
           admissions=S.admission_stats(), prefills=prefills,
           launches=launches)
-    del params, state, cache
+    del state, cache
+
+    # 5c. Chunked, interleaved and paged admission and the paged server,
+    # with bench_workload.py's traffic; each path's pieces are the forward
+    # kernel at their offsets, counted from 0 per path.
+    served = chunked_paged_phase(cfg, params, tokens)
+    phase("5c chunked and paged serving", **served)
+    del params
 
     # 5b. Training at flagship width under the grant: the train step a
     # user builds, with its defaults (kernel-backed flash attention, remat).
@@ -400,16 +429,18 @@ def main(usage_dir: str) -> int:
           dq_warpgroups=train["dq_launch"]["warpgroups"],
           **{f"{n}/{d}": t for (n, d), t in bwd_timings.items()})
     main_t = timings[TIMED_SHAPE, "bfloat16"]
-    fwd_launches = launches + train["launches"]["flash_fwd"]
+    piece_t = timings[PIECE_SHAPE, "bfloat16"]
+    by_path = {"serving": launches,
+               "training": train["launches"]["flash_fwd"],
+               **served["launches"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "design": "tma+wgmma",
         "source": "tpushare_torch/csrc/flash_fwd.cu",
         "replaces": "tpushare/workload/flash_attention.py:61 (_flash_kernel)",
-        "launches": fwd_launches,
-        "launches_by_path": {"serving": launches,
-                             "training": train["launches"]["flash_fwd"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "max_norm_err": max(e["norm_err"] for e in errs.values()),
         "max_lse_err": max(e["lse_err"] for e in errs.values()),
@@ -425,6 +456,10 @@ def main(usage_dir: str) -> int:
         "train_shape_ms": timings[TRAIN_SHAPE, "bfloat16"]["kernel_ms"],
         "train_shape_library_ms":
             timings[TRAIN_SHAPE, "bfloat16"]["library_ms"],
+        "piece_shape": f"{PIECE_SHAPE} bfloat16",
+        **{f"piece_{key}": piece_t[key]
+           for key in ("kernel_ms", "kernel_call_ms", "plain_ms",
+                       "library_ms", "bound_ms", "bound_by")},
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
     for kname, line, grads in (("flash_bwd_dq", 217, ("dq",)),
@@ -611,6 +646,216 @@ def dq_launch(prof) -> dict:
                     "warpgroups": (math.prod(block) - 32) // 128}
     raise RuntimeError("no bf16 dq launch in the profiler's trace: "
                        f"{collections.Counter(e.get('cat') for e in events)}")
+
+
+def _synced_s(fn) -> float:
+    """Host seconds of ``fn()``, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _clone_state(state: dict) -> dict:
+    return {"cache": [{kv: t.clone() for kv, t in layer.items()}
+                      for layer in state["cache"]],
+            **{key: state[key].clone() for key in ("pos", "active", "token")}}
+
+
+def _norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
+    """Phase 5c at flagship width in bf16, bench_workload.py's traffic.
+
+    (a) The 1024-token prompt admitted whole (``admit_bucketed`` through
+    the kernel) and chunked (``admit_chunked``, 16 pieces of 64): the last
+    layer's K/V agree within the bf16 tolerance, and the chunked admission
+    launched the kernel ``n_layers`` times a piece. (b) With 7 slots of the
+    mix decoding, ``admit_interleaved`` puts the 1024-token prompt into
+    slot 7, 8 decode steps after each piece: the co-tenants emit what the
+    same chunks emit with no admission, bit for bit. (c) The paged server
+    at 16 slots (the mix twice, one tenant, so the second 8 share prefix
+    pages) on a pool sized by ``pages_for_grant``: two 64-step chunks emit
+    bit for bit what a contiguous 16-slot server admitted by
+    ``admit_chunked`` emits, slot i + 8 what slot i does, and releasing
+    every slot frees every page. Returns the phase's fields; its
+    ``launches`` are the kernel's launches on each path."""
+    n = cfg.n_layers
+    long_prompt = tokens(PROMPT_MIX[-1])
+    pieces = len(long_prompt) // PIECE
+    torch.cuda.reset_peak_memory_stats()
+    counted = {}
+
+    def count(path: str, fn, want: int):
+        torch.cuda.synchronize()
+        FA.FLASH_FWD_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counted[path] = FA.FLASH_FWD_LAUNCHES
+        check(counted[path] == want,
+              f"{path}: {counted[path]} kernel launches, want {want}")
+        return out
+
+    # (a) Whole against chunked admission.
+    st_w = S.init_server_state(cfg, 1, SERVE_MAX_LEN)
+    st_c = S.init_server_state(cfg, 1, SERVE_MAX_LEN)
+    S.admit_bucketed(params, st_w, long_prompt, 0,
+                     attn_fn=FA.flash_attention)
+    count("chunked_admit", lambda: S.admit_chunked(
+        params, st_c, long_prompt, 0, chunk=PIECE), n * pieces)
+    kv_err = max(_norm_err(st_c["cache"][-1][kv][0, :len(long_prompt)],
+                           st_w["cache"][-1][kv][0, :len(long_prompt)])
+                 for kv in ("k", "v"))
+    check(kv_err <= OUT_TOL["bfloat16"],
+          f"chunked vs whole admission: last layer K/V error {kv_err}")
+    first_agrees = int(st_w["token"][0]) == int(st_c["token"][0])
+
+    # (b) Interleaved admission beside 7 decoding slots. The reference runs
+    # the same chunks on a clone with no admission; one 128-step chunk sums
+    # the same scores split otherwise between cache and ring, so it agrees
+    # only up to rounding (reported, not gated).
+    slots = len(PROMPT_MIX)
+    st = S.init_server_state(cfg, slots, SERVE_MAX_LEN)
+    for slot, length in enumerate(PROMPT_MIX[:-1]):
+        S.admit_chunked(params, st, tokens(length), slot, chunk=PIECE)
+    ref, one = _clone_state(st), _clone_state(st)
+    em_ref = torch.cat([S.serve_chunk(params, ref, INTERLEAVE_STEPS)[1]
+                        for _ in range(pieces)])
+    _, em_one = S.serve_chunk(params, one, pieces * INTERLEAVE_STEPS)
+    del ref, one
+    _, em = count("interleaved_admit", lambda: S.admit_interleaved(
+        params, st, long_prompt, slots - 1, chunk=PIECE,
+        decode_steps=INTERLEAVE_STEPS), n * pieces)
+    co = slice(0, slots - 1)
+    check(tuple(em.shape) == (pieces * INTERLEAVE_STEPS, slots),
+          f"interleaved emitted {tuple(em.shape)}")
+    check(torch.equal(em[:, co], em_ref[:, co]),
+          "interleaved admission changed a co-tenant's stream")
+    check(bool((em[:, -1] == -1).all()), "the admitted slot emitted early")
+    check(bool((em[:, co] >= 0).all()), "a co-tenant was silent")
+    same_prefill = (int(st["token"][-1]) == int(st_c["token"][0])
+                    and all(torch.equal(a[kv][-1, :len(long_prompt)],
+                                        b[kv][0, :len(long_prompt)])
+                            for a, b in zip(st["cache"], st_c["cache"])
+                            for kv in ("k", "v")))
+    check(same_prefill, "interleaved and chunked admission of one prompt "
+                        "differ")
+
+    # Host times of the two admissions (bench_workload.py's chunked_prefill:
+    # the pause a co-tenant sees per piece is the chunked time / pieces),
+    # and of a 64-step chunk of the 8-slot contiguous server.
+    whole_s = [_synced_s(lambda: S.admit_bucketed(
+        params, st_w, long_prompt, 0, attn_fn=FA.flash_attention))
+        for _ in range(3)]
+    chunked_s = [_synced_s(lambda: S.admit_chunked(
+        params, st_c, long_prompt, 0, chunk=PIECE)) for _ in range(3)]
+    rows8_s = [_synced_s(lambda: S.serve_chunk(params, st, PIECE))
+               for _ in range(3)]
+    del st, st_w, st_c
+
+    # (c) The paged server against a contiguous one, 16 slots each.
+    prompts = [tokens(length) for length in PROMPT_MIX]
+    pslots = 2 * len(prompts)
+    total = S.pages_for_grant(cfg, GRANT_GIB, PIECE, headroom=PAGED_HEADROOM)
+    pool = P.PagePool(total, page_tokens=PIECE)
+    st_p = S.init_paged_state(cfg, pslots, SERVE_MAX_LEN, total, PIECE)
+    st_r = S.init_server_state(cfg, pslots, SERVE_MAX_LEN)
+    for slot in range(pslots):
+        S.admit_chunked(params, st_r, prompts[slot % len(prompts)], slot,
+                        chunk=PIECE)
+    shareable = sum(P.shareable_pages(len(p), PIECE) for p in prompts)
+    paged_pieces = (2 * sum(P.pages_for(len(p), PIECE) for p in prompts)
+                    - shareable)
+
+    def paged_path():
+        for slot in range(pslots):
+            S.admit_paged(params, st_p, pool, prompts[slot % len(prompts)],
+                          slot, tenant="tenant-a")
+        first = st_p["token"].clone()
+        return first, [S.serve_chunk_paged(params, st_p, pool, PIECE)[1]
+                       for _ in range(2)]
+
+    first, em_p = count("paged_serving", paged_path, n * paged_pieces)
+    check(torch.equal(first, st_r["token"]),
+          "paged first tokens differ from the contiguous server's")
+    em_r = [S.serve_chunk(params, st_r, PIECE)[1] for _ in range(2)]
+    em_p, em_r = torch.cat(em_p), torch.cat(em_r)
+    check(torch.equal(em_p, em_r),
+          "paged streams differ from the contiguous server's")
+    half = len(prompts)
+    check(torch.equal(em_p[:, half:], em_p[:, :half]),
+          "prefix-shared slots emit other streams than their leaders")
+    check(bool((em_p >= 0).all()), "a paged slot was silent")
+    stats = pool.stats()
+    check(stats["prefixHits"] == shareable,
+          f"prefixHits {stats['prefixHits']}, want {shareable}")
+
+    paged16_s = [_synced_s(lambda: S.serve_chunk_paged(params, st_p, pool,
+                                                       PIECE))
+                 for _ in range(3)]
+    rows16_s = [_synced_s(lambda: S.serve_chunk(params, st_r, PIECE))
+                for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_s = _synced_s(lambda: S.serve_chunk_paged(params, st_p, pool,
+                                                       PIECE))
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(busy_us > 0, "the profiler saw no kernel on the card")
+    peak = torch.cuda.max_memory_allocated()
+    held = pool.stats()
+    for slot in range(pslots):
+        S.release_paged(st_p, pool, slot)
+    check(pool.pages_free() == total,
+          f"{total - pool.pages_free()} pages leaked after release")
+    del st_p, st_r
+
+    # bench_decode_paged's density arithmetic at its grant.
+    rows_cap = S.max_batch_for_grant(cfg, DENSITY_GRANT_GIB, SERVE_MAX_LEN)
+    pages_cap = S.pages_for_grant(cfg, DENSITY_GRANT_GIB, PIECE)
+    admitted = used = 0
+    while rows_cap:
+        need = P.pages_for(min(PROMPT_MIX[admitted % len(PROMPT_MIX)]
+                               + DENSITY_NEW_TOKENS, SERVE_MAX_LEN), PIECE)
+        if used + need > pages_cap:
+            break
+        used, admitted = used + need, admitted + 1
+    return {
+        "launches": {"chunked_serving": counted["chunked_admit"]
+                     + counted["interleaved_admit"],
+                     "paged_serving": counted["paged_serving"]},
+        "launches_by_run": counted,
+        "prompt_len": len(long_prompt), "piece": PIECE, "pieces": pieces,
+        "chunked_vs_whole_kv_norm_err": kv_err,
+        "first_token_agrees": first_agrees,
+        "whole_admit_ms": [1e3 * s for s in whole_s],
+        "chunked_admit_ms": [1e3 * s for s in chunked_s],
+        "max_pause_ms": 1e3 * min(chunked_s) / pieces,
+        "interleaved_decode_steps": INTERLEAVE_STEPS,
+        "interleaved_cotenant_tokens": int(em[:, co].numel()),
+        "one_chunk_equal_tokens": int((em[:, co] == em_one[:, co]).sum()),
+        "paged_pool_pages": total,
+        "paged_pool_bytes": total * S.cache_hbm_bytes(cfg, 1, PIECE),
+        "prefix": held,
+        "paged_pieces": paged_pieces,
+        "streams_rows": half, "streams_paged": pslots,
+        "rows_chunk_ms": [1e3 * s for s in rows8_s],
+        "paged_chunk_ms": [1e3 * s for s in paged16_s],
+        "rows16_chunk_ms": [1e3 * s for s in rows16_s],
+        "per_stream_ratio": min(rows8_s) / min(paged16_s),
+        "paged_chunk_busy_share": busy_us / (prof_s * 1e6),
+        "peak_bytes": peak,
+        "density": {"grant_hbm_gib": DENSITY_GRANT_GIB,
+                    "decode_budget": DENSITY_NEW_TOKENS,
+                    "whole_row_streams": rows_cap, "pages_total": pages_cap,
+                    "paged_streams": admitted,
+                    "streams_per_row_stream": (admitted / rows_cap
+                                               if rows_cap else None)},
+    }
 
 
 def train_phase(cfg: M.ModelConfig, tokens) -> dict:
