@@ -5,7 +5,9 @@
 Needs one NVIDIA Hopper card (compute capability 9.0) and the CUDA
 toolkit. It builds the flash-attention kernels (forward, and the dq and
 dk/dv backward) from the sources in this checkout, holds each against its
-plain PyTorch version, then drives the flagship LM's forward, serving
+plain PyTorch version, runs ``cogpucheck.py``'s co-tenancy suite (train
+and decode tenants as processes under grants carved from the card that
+NVIDIA discovery sizes), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers) and training paths through the entry points a user calls, at
 full flagship width, under an injected HBM grant. One line per phase;
@@ -18,6 +20,7 @@ CUDA device.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -31,7 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+import cogpucheck
 from tpushare_torch import entry as E
+from tpushare_torch.deviceplugin import discovery
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
@@ -161,9 +166,26 @@ def main(usage_dir: str) -> int:
     check(cap == (9, 0), f"needs compute capability (9, 0), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # What the device plugin would advertise for this host: as many cards
+    # as torch sees, none sized past what nvidia-smi says it holds.
+    inv = discovery.discover_host()
+    check(inv is not None, "discovery found no NVIDIA card")
+    rungs = {name: scan() for name, scan in (
+        ("devfs", discovery.devfs_scan), ("sysfs", discovery.sysfs_scan),
+        ("procfs", discovery.procfs_scan), ("env", discovery.env_discover))}
     phase("1 device", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, capability=list(cap),
-          count=torch.cuda.device_count())
+          count=torch.cuda.device_count(), memory_total_mib=total_mib,
+          inventory=dataclasses.asdict(inv),
+          rungs={name: r and [r.chip_count, r.tpu_type]
+                 for name, r in rungs.items()})
+    check(inv.chip_count == torch.cuda.device_count(),
+          f"discovery counts {inv.chip_count} cards, torch "
+          f"{torch.cuda.device_count()}")
+    check(all(0 < c.hbm_gib and c.hbm_gib << 10 <= total_mib
+              for c in inv.chips),
+          f"discovery sizes {[c.hbm_gib for c in inv.chips]} GiB against "
+          f"memory.total {total_mib} MiB")
 
     # 2. Build the kernels from this checkout's sources, all together.
     phase("2 build", **{f"{name}_seconds": sec
@@ -173,6 +195,10 @@ def main(usage_dir: str) -> int:
     # warpgroup products (HGMMA) and TMA loads (UTMALDG).
     designs = sass_phase()
     phase("2b design", **designs)
+
+    # 2c. Co-tenancy: cogpucheck's suite, once the kernels are built and
+    # before phase 3 allocates, so this process holds only its context.
+    cotenancy = cotenancy_phase()
 
     # 3. Kernel against its plain version, on the card.
     errs = {}
@@ -432,7 +458,9 @@ def main(usage_dir: str) -> int:
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
                "training": train["launches"]["flash_fwd"],
-               **served["launches"]}
+               **served["launches"],
+               **{path: counts["flash_fwd"]
+                  for path, counts in cotenancy.items()}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -472,8 +500,11 @@ def main(usage_dir: str) -> int:
             "source": "tpushare_torch/csrc/flash_bwd.cu",
             "replaces": f"tpushare/workload/flash_attention.py:{line} "
                         f"(_{kname[6:]}_kernel)",
-            "launches": train["launches"][kname],
-            "launches_by_path": {"training": train["launches"][kname]},
+            "launches": train["launches"][kname] + sum(
+                counts[kname] for counts in cotenancy.values()),
+            "launches_by_path": {"training": train["launches"][kname],
+                                 **{path: counts[kname] for path, counts
+                                    in cotenancy.items()}},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
@@ -544,8 +575,9 @@ def random_inputs(gen: torch.Generator, shapes: dict) -> dict:
 def no_key_rows(gen: torch.Generator) -> dict:
     """A KV block that starts past the first 128 query rows (the shape of
     a ring step): those rows see no key and must give out 0 and lse
-    NEG_INF in both dtypes, forward; the rows and keys that do see
-    something hold the phase-3/3b tolerances, forward and backward."""
+    NEG_INF in both dtypes, forward, as the plain version does; out, lse,
+    dq, dk and dv hold the phase-3/3b tolerances against the plain
+    version on every row and every key."""
     b, lq, lk, h, d, qo, ko = 1, 256, 256, 8, 64, 0, 128
     fields = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -560,22 +592,65 @@ def no_key_rows(gen: torch.Generator) -> dict:
                                                ko),
                    *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, qo, ko))
             torch.cuda.synchronize()
-            p_out, _ = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
+            p_out, p_lse = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
             ref = (p_out, *FA.flash_bwd_plain(q, k, v, out, lse, do, None,
                                               qo, ko))
         seen = qo + torch.arange(lq, device="cuda") >= ko
         check(bool((out[:, ~seen] == 0).all())
               and bool((lse[:, ~seen] == FA.NEG_INF).all()),
               f"no-key rows/{dn}: out is not 0 or lse is not NEG_INF")
-        keys = ko + torch.arange(lk, device="cuda") <= qo + lq - 1
+        lse_err = (lse - p_lse).abs().max().item()
+        check(lse_err <= LSE_TOL[dn], f"no-key rows/{dn}: lse error "
+                                      f"{lse_err}")
+        fields[f"{dn}_lse_err"] = lse_err
         tol = {"out": OUT_TOL[dn], "dq": GRAD_TOL[dn], "dk": GRAD_TOL[dn],
                "dv": GRAD_TOL[dn]}
-        for name, g, r, sel in zip(tol, got, ref, (seen, seen, keys, keys)):
-            g, r = g.float()[:, sel], r.float()[:, sel]
+        for name, g, r in zip(tol, got, ref):
+            g, r = g.float(), r.float()
             err = ((g - r).abs().max() / r.abs().max()).item()
             check(err <= tol[name], f"no-key rows/{dn}: {name} error {err}")
             fields[f"{dn}_{name}_norm_err"] = err
     return fields
+
+
+def cotenancy_phase() -> dict:
+    """``cogpucheck.run_suite(smoke=True)`` on this card: prints the card's
+    used memory first, then every tenant's line and the phase's seconds;
+    fails unless the suite's gates hold and the train and decode tenants
+    launched the kernels as their work says (train: every bf16 kernel,
+    ``(1 + remat) * n_layers`` forwards and ``n_layers`` of each backward a
+    step; decode: ``n_layers`` forwards a ``generate``). Returns each
+    tenant's launches, keyed by path."""
+    used = nvidia_smi("memory.used")
+    t0 = time.perf_counter()
+    report = cogpucheck.run_suite(smoke=True)
+    seconds = time.perf_counter() - t0
+    for section, body in report.items():
+        if not isinstance(body, dict):
+            continue
+        for key, val in body.items():
+            if isinstance(val, dict) and "exit_code" in val:
+                phase(f"2c co-tenancy {section}/{key}", **val)
+    tr, de = report["concurrent"]["train"], report["concurrent"]["decode"]
+    phase("2c co-tenancy", seconds=seconds, memory_used_before=used,
+          card=report["card"], card_gib=report["card_gib"],
+          share_gib=report["share_gib"], gates=report["gates"],
+          fraction_cap_enforced=report["fraction_cap"]["runtime_enforced"],
+          heartbeat_gaps=report["heartbeats"]["smi_minus_heartbeat_bytes"],
+          phase_seconds={k: v["wall_s"] for k, v in report.items()
+                         if isinstance(v, dict) and "wall_s" in v})
+    check(report["ok"], f"co-tenancy gates: {report['gates']}")
+    steps, n = tr["steps"], tr["n_layers"]
+    want = {"flash_fwd": steps * (1 + tr["remat"]) * n,
+            "flash_bwd_dq": steps * n, "flash_bwd_dkv": steps * n}
+    check(tr["launches"] == want, f"train tenant launches {tr['launches']}"
+                                  f", want {want}")
+    check(de["launches"]["flash_fwd"] == de["n_layers"] * de["generates"]
+          and de["launches"]["flash_bwd_dq"] == 0,
+          f"decode tenant launches {de['launches']} for {de['generates']} "
+          f"generates")
+    return {"cotenancy_train": tr["launches"],
+            "cotenancy_decode": de["launches"]}
 
 
 def _kernel_name(mangled: str) -> str:

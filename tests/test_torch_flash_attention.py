@@ -123,6 +123,61 @@ def test_merging_two_kv_halves_equals_whole():
     torch.testing.assert_close(lse, whole_lse, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", [(256, 256, 0, 128),
+                                                (64, 96, 0, 32),
+                                                (128, 64, 0, 100)])
+def test_rows_that_see_no_key_give_what_the_kernel_gives(lq, lk, q_off,
+                                                         kv_off):
+    """The port's contract on rows that see no key, as the CUDA kernels
+    write them: out 0 and lse NEG_INF forward; dq 0 backward, and such
+    rows add nothing to dk or dv (the same gradients as without them),
+    whatever their cotangents."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(13, 1, lq, lk, 2, 64))
+    rng = np.random.default_rng(14)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    dlse = torch.from_numpy(
+        rng.standard_normal(q.shape[:3]).astype(np.float32))
+    seen = torch.from_numpy(_visible(lq, q_off, kv_off))
+    out, lse = FA.flash_block_with_lse_plain(q, k, v, q_off, kv_off)
+    assert (out[:, ~seen] == 0).all()
+    assert (lse[:, ~seen] == FA.NEG_INF).all()
+    dq, dk, dv = FA.flash_bwd_plain(q, k, v, out, lse, do, dlse, q_off,
+                                    kv_off)
+    assert (dq[:, ~seen] == 0).all()
+    if seen.any():
+        first = int(seen.nonzero()[0])
+        _, dk_seen, dv_seen = FA.flash_bwd_plain(
+            q[:, first:], k, v, out[:, first:], lse[:, first:],
+            do[:, first:], dlse[:, first:], q_off + first, kv_off)
+        torch.testing.assert_close(dk, dk_seen, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(dv, dv_seen, rtol=1e-6, atol=1e-6)
+    else:
+        assert (dk == 0).all() and (dv == 0).all()
+    # The autograd Function gives the same.
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    t_out, t_lse = FA.flash_block_with_lse(tq, tk, tv, q_off, kv_off)
+    assert torch.equal(t_out, out) and torch.equal(t_lse, lse)
+    ((t_out * do).sum() + (t_lse * dlse).sum()).backward()
+    assert (tq.grad[:, ~seen] == 0).all()
+    torch.testing.assert_close(tk.grad, dk, rtol=1e-6, atol=1e-6)
+
+
+def test_merging_a_partial_that_saw_nothing_changes_nothing():
+    """A ring step over a KV block past every query row gives out 0 and
+    lse NEG_INF; merged with a partial that saw keys it leaves that
+    partial as it was."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(15, 1, 64, 128, 2, 64))
+    seen_out, seen_lse = FA.flash_block_with_lse(q, k[:, :64], v[:, :64],
+                                                 64, 0)
+    none_out, none_lse = FA.flash_block_with_lse(q, k[:, 64:], v[:, 64:],
+                                                 0, 64)
+    assert (none_out == 0).all() and (none_lse == FA.NEG_INF).all()
+    for args in ((seen_out, seen_lse, none_out, none_lse),
+                 (none_out, none_lse, seen_out, seen_lse)):
+        out, lse = FA.merge_partials(*args)
+        assert torch.equal(out, seen_out) and torch.equal(lse, seen_lse)
+
+
 def test_flash_attention_on_cpu_takes_the_plain_version():
     q, k, v = (torch.from_numpy(x) for x in _qkv(4, 2, 64, 64, 2, 64))
     before = FA.FLASH_FWD_LAUNCHES

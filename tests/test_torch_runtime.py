@@ -122,6 +122,8 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "cogpucheck.py")
+    yield os.path.join(REPO, "tools", "estimator_peak.py")
 
 
 def _imports(path):
@@ -137,7 +139,10 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = list(_port_files())
     assert len(files) > 10
-    assert os.path.join(REPO, "tpushare_torch", "workload", "train.py") in files
+    for name in (("tpushare_torch", "workload", "train.py"),
+                 ("tpushare_torch", "deviceplugin", "discovery.py"),
+                 ("cogpucheck.py",)):
+        assert os.path.join(REPO, *name) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

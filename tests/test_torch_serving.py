@@ -78,6 +78,39 @@ def test_greedy_generate_matches_jax(setup, attn):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_decode_attention_in_row_slices(setup, monkeypatch, rows):
+    """Past DECODE_ATTN_SLICE_BYTES decode attends the cache in slices of
+    rows: the logits are the whole batch's, bit for bit, and generate's
+    greedy stream is still JAX's token for token."""
+    jcfg, tcfg, jparams, params = setup
+    tokens = np.stack([_prompt(20 + i, 7, jcfg.vocab_size)
+                       for i in range(5)])
+    n_new, max_len = 6, 16
+    cache = S.init_cache(tcfg, 5, max_len, device="cpu")
+    logits, cache = S.prefill(params, _t(tokens), cache)
+    nxt = logits.argmax(-1)
+    whole, _ = S.decode_step(params, cache, nxt, 7)
+    row_bytes = max_len * tcfg.n_heads * tcfg.head_dim * 4
+    monkeypatch.setattr(S, "DECODE_ATTN_SLICE_BYTES", rows * row_bytes)
+    calls = []
+    real = M.causal_attention
+
+    def counted(q, *args, **kw):
+        calls.append(q.shape[0])
+        return real(q, *args, **kw)
+
+    monkeypatch.setattr(M, "causal_attention", counted)
+    sliced, _ = S.decode_step(params, cache, nxt, 7)
+    assert torch.equal(sliced, whole)
+    assert calls == [min(rows, 5 - i) for i in range(0, 5, rows)] * \
+        tcfg.n_layers
+    want = np.asarray(JS.generate(jparams, jnp.asarray(tokens), jcfg,
+                                  n_new=n_new, max_len=max_len))
+    got = S.generate(params, _t(tokens), tcfg, n_new=n_new, max_len=max_len)
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_slot_server_streams_match_jax(setup):
     """admit, serve_chunk, release, recycling and bucketed admission
     emit the same greedy streams as the JAX slot server."""

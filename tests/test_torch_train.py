@@ -184,8 +184,53 @@ def test_make_train_step_refusals():
             T.make_train_step(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
         T.make_train_step(cfg, device="cpu", mesh=object())
+    # The reference's positional form reaches the mesh check.
     with pytest.raises(NotImplementedError, match="not ported"):
-        T.make_train_step(cfg, device="cpu", attention="ring")
+        T.make_train_step(cfg, object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        T.make_train_step(cfg, object(), device="cpu", attention="ring")
+    # Without a mesh, as in the reference, a strategy picks nothing.
+    for attention in ("ring", "ulysses"):
+        T.make_train_step(cfg, device="cpu", attention=attention)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"attention": "striped"}, "unknown attention strategy"),
+    ({"attention": "ring", "use_ring_attention": False},
+     "use_ring_attention=False"),
+])
+def test_make_train_step_validates_attention_as_jax(kw, match):
+    cfg = M.ModelConfig().tiny()
+    with pytest.raises(ValueError, match=match):
+        JT.make_train_step(JM.ModelConfig().tiny(), **kw)
+    with pytest.raises(ValueError, match=match):
+        T.make_train_step(cfg, device="cpu", **kw)
+
+
+def test_make_train_step_has_the_reference_signature():
+    import inspect
+    ref = list(inspect.signature(JT.make_train_step).parameters)
+    ours = inspect.signature(T.make_train_step).parameters
+    assert list(ours)[:5] == ref[:5] == [
+        "cfg", "mesh", "optimizer", "use_ring_attention", "attention"]
+    for name in ref:
+        assert ours[name].default == inspect.signature(
+            JT.make_train_step).parameters[name].default
+    assert ours["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_make_train_step_positional_none_mesh_trains():
+    """``make_train_step(cfg, None)``, as the JAX package's tenants call
+    it, with ``use_ring_attention=True`` (its default) spelled out."""
+    cfg = M.ModelConfig().tiny()
+    init_fn, step, place = T.make_train_step(cfg, None, None, True,
+                                             device="cpu")
+    tokens, targets = place(*(torch.from_numpy(x).long()
+                              for x in _batch(cfg, 2, 32)))
+    params, opt = init_fn(torch.Generator().manual_seed(0), tokens)
+    losses = [step(params, opt, tokens, targets)[2].item()
+              for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 def test_grads_to_numpy_needs_a_backward():

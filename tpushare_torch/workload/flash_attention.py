@@ -343,13 +343,17 @@ def flash_block_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's plain version, twin of the JAX package's
     ``_xla_block_with_lse``: same (out [B, Lq, H, D], lse [B, Lq, H]
-    fp32) semantics, with all softmax arithmetic in fp32."""
+    fp32) semantics, with all softmax arithmetic in fp32. A row that
+    sees no key gets what the kernel gives it, out 0 and lse
+    ``NEG_INF``, where the XLA twin averages ``v``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = _mask(q.shape[1], k.shape[1], q_offset, kv_offset, q.device)
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    # On a row that sees a key exp(NEG_INF - m) is already 0; on one that
+    # sees none, m is NEG_INF too and only the mask zeroes p.
+    p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bkhd->bqhd", p / l.clamp_min(1e-30), v.float())
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]        # [B, H, Lq]
@@ -455,9 +459,12 @@ def flash_block_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Local Q against one KV block at global offsets: (out [B, Lq, H, D],
     lse [B, Lq, H] fp32), the statistic :func:`merge_partials` combines.
-    Rows that see no key are unspecified in ``out`` and carry
-    ``lse = NEG_INF``. Differentiable in q, k and v (both outputs) when
-    grad is enabled; otherwise nothing is saved."""
+    A row that sees no key gets out 0 and ``lse = NEG_INF``, on the CPU
+    and on the card alike, and its gradient is 0: dq is 0 there and it
+    adds nothing to dk or dv. (The JAX package's Pallas kernel and XLA
+    twin disagree on such rows; ``merge_partials`` weighs them 0 either
+    way.) Differentiable in q, k and v (both outputs) when grad is
+    enabled; otherwise nothing is saved."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashBlock.apply(q, k, v, q_offset, kv_offset)

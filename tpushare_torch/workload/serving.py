@@ -110,10 +110,33 @@ def decode_step(params: M.Transformer, cache: list[dict],
         q, k, v = M.qkv_proj(block, x, positions)
         slots["k"][:, pos] = k[:, 0]
         slots["v"][:, pos] = v[:, 0]
-        out = M.causal_attention(q, slots["k"], slots["v"], q_offset=pos)
+        out = _decode_attention(q, slots["k"], slots["v"], pos)
         x = x + M.out_proj(block, out)
         x = M.ffn_block(block, x)
     return M.logits_from_hidden(params, x[:, 0]), cache
+
+
+#: Bytes of the fp32 copy of K one decode attention call may make. The
+#: plain attention converts the whole cache layer to fp32 (and ``einsum``
+#: lays it out again), 8 GiB a layer at a whole-card batch of 4096-token
+#: rows, on top of a cache that ``max_batch_for_grant`` sized to fill the
+#: grant; rows past this bound are attended in slices.
+DECODE_ATTN_SLICE_BYTES = 1 << 30
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos: int) -> torch.Tensor:
+    """``causal_attention`` of one position against the cache, over
+    slices of rows whose fp32 K stays within
+    :data:`DECODE_ATTN_SLICE_BYTES`; every row's arithmetic is that of the
+    whole batch at once."""
+    b, max_len, h, d = k.shape
+    rows = max(1, DECODE_ATTN_SLICE_BYTES // (max_len * h * d * 4))
+    if rows >= b:
+        return M.causal_attention(q, k, v, q_offset=pos)
+    return torch.cat([M.causal_attention(q[i:i + rows], k[i:i + rows],
+                                         v[i:i + rows], q_offset=pos)
+                      for i in range(0, b, rows)])
 
 
 @torch.inference_mode()

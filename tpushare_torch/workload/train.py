@@ -39,17 +39,28 @@ def make_optimizer(lr: float = 3e-4):
                              eps=1e-8, weight_decay=0.01)
 
 
-def make_train_step(cfg: M.ModelConfig, optimizer=None, attn_fn=None,
-                    device: str | torch.device = "cuda", *, mesh=None,
-                    attention: str | None = None):
-    """Build ``(init_fn, step, place_batch)`` for one device.
+def make_train_step(cfg: M.ModelConfig, mesh=None, optimizer=None,
+                    use_ring_attention: bool = True,
+                    attention: str | None = None, *, attn_fn=None,
+                    device: str | torch.device = "cuda"):
+    """Build ``(init_fn, step, place_batch)`` for one device, with the
+    reference's parameters in the reference's order.
 
     ``optimizer`` is a factory as :func:`make_optimizer` returns (its
-    default). ``attn_fn`` defaults to ``best_attn_fn(device)``: the
-    kernel-backed flash attention on the card. ``mesh`` and ``attention``
-    (ring or Ulysses sequence parallelism) are refused until the parallel
-    slice is ported."""
-    if mesh is not None or attention is not None:
+    default). ``attention`` and ``use_ring_attention`` are validated as
+    the reference validates them; without a mesh, as there, they pick
+    nothing. A mesh (sequence-parallel ring or Ulysses attention) is
+    refused until the parallel slice is ported. ``attn_fn`` defaults to
+    ``best_attn_fn(device)``: the kernel-backed flash attention on the
+    card."""
+    if attention is not None and attention not in ("ring", "ulysses"):
+        raise ValueError(f"unknown attention strategy {attention!r}; "
+                         "expected 'ring' or 'ulysses'")
+    if attention is not None and not use_ring_attention:
+        raise ValueError(
+            "attention= requests sequence parallelism but "
+            "use_ring_attention=False disables it; drop one of the two")
+    if mesh is not None:
         raise NotImplementedError(
             "sharded training (a mesh, ring or Ulysses attention) is not "
             "ported yet; make_train_step runs on one device")
