@@ -9,8 +9,11 @@ plain PyTorch version, runs ``cogpucheck.py``'s co-tenancy suite (train
 and decode tenants as processes under grants carved from the card that
 NVIDIA discovery sizes), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
-servers) and training paths through the entry points a user calls, at
-full flagship width, under an injected HBM grant. One line per phase;
+servers), training and sharded training paths through the entry points a
+user calls, at full flagship width, under an injected HBM grant. Sharded
+training (phase 5d) runs gangs of rank processes on the one card, each
+under a grant of its share of the card, their collectives over gloo
+through the host. One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises and exits nonzero; so does a host without a
@@ -37,7 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch.deviceplugin import discovery
-from tpushare_torch.runtime import torchenv
+from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import paging as P
@@ -98,8 +101,29 @@ BWD_EDGE_SHAPES = {
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
 PIECE_SHAPE = "g_chunk_piece"       # the chunked and paged pieces' launch
-#: Shapes whose backward check adds a nonzero lse cotangent.
-DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets")
+#: Phases 3 and 3b also hold the kernels to their plain version at the
+#: blocks phase 5d's sharded paths hand them (flagship, 8 x 2048 global):
+#: a (2, 2, 2) ring rank's [4, 1024] tokens at H = 4 against its own
+#: block, (h) a past block, every key visible to every row, and (i) a
+#: future block, where every row sees no key; a (1, 1, 4) ring rank's
+#: [8, 512] tokens at H = 8 against a past block; a (2, 2, 2) Ulysses
+#: rank's whole sequence at its H / sp = 2 heads.
+SHARDED_SHAPES = {
+    "ring_own": (4, 1024, 1024, 4, 64, 1024, 1024),
+    "h_ring_past": (4, 1024, 1024, 4, 64, 1024, 0),
+    "i_ring_future": (4, 1024, 1024, 4, 64, 0, 1024),
+    "ring_114_past": (8, 512, 512, 8, 64, 512, 0),
+    "ulysses_heads": (4, 2048, 2048, 2, 64, 0, 0),
+}
+#: Phase 7c times (h) and (i), bf16, forward and backward (with a nonzero
+#: lse cotangent, as the ring's merge hands back).
+RING_SHAPES = {name: SHARDED_SHAPES[name]
+               for name in ("h_ring_past", "i_ring_future")}
+#: Shapes whose backward check adds a nonzero lse cotangent: a long
+#: prompt, a chunk at an offset, and every ring block, whose backward
+#: gets the cotangent ``merge_partials`` returns.
+DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets", "ring_own",
+               "h_ring_past", "i_ring_future", "ring_114_past")
 TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
@@ -119,6 +143,14 @@ PAGED_HEADROOM = 0.5
 #: The density arithmetic of bench_decode_paged: its grant and decode
 #: budget a stream.
 DENSITY_GRANT_GIB, DENSITY_NEW_TOKENS = 8.0, 256
+#: Phase 5d: gangs of rank processes on the card, as (ranks, mesh
+#: dp,tp,sp, attention strategies); each rank trains its shard of the
+#: flagship at phase 5b's global batch, SHARDED_STEPS steps a strategy,
+#: under a grant of floor(card GiB / ranks). A gang that is not done by
+#: its deadline is killed and fails the phase.
+GANGS = ((4, "1,1,4", ("ring",)), (8, "2,2,2", ("ring", "ulysses")))
+SHARDED_STEPS = 3
+GANG_DEADLINE_S = 480
 
 
 def phase(name: str, **fields) -> None:
@@ -200,26 +232,44 @@ def main(usage_dir: str) -> int:
     # before phase 3 allocates, so this process holds only its context.
     cotenancy = cotenancy_phase()
 
-    # 3. Kernel against its plain version, on the card.
+    # 3. Kernel against its plain version, on the card: within the
+    # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
+    # as the plain version gives them.
     errs = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = random_inputs(gen, SHAPES)
-    for (name, dn), (q, k, v, qo, ko) in inputs.items():
+    sharded_inputs = random_inputs(gen, SHARDED_SHAPES)
+    for (name, dn), (q, k, v, qo, ko) in {**inputs,
+                                          **sharded_inputs}.items():
         lq = q.shape[1]
         with torch.inference_mode():
             out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
             torch.cuda.synchronize()
             p_out, p_lse = FA.flash_block_with_lse_plain(q, k, v, qo, ko)
         vis = qo + torch.arange(lq, device="cuda") >= ko
-        diff = (out.float() - p_out.float())[:, vis].abs().max().item()
-        norm = diff / p_out.float()[:, vis].abs().max().item()
-        lse_err = (lse - p_lse)[:, vis].abs().max().item()
         check(bool(torch.isfinite(out.float()).all()),
               f"{name}/{dn}: non-finite output")
-        check(norm <= OUT_TOL[dn], f"{name}/{dn}: out error {norm}")
-        check(lse_err <= LSE_TOL[dn], f"{name}/{dn}: lse error {lse_err}")
-        errs[name, dn] = {"max_abs_err": diff, "norm_err": norm,
-                          "lse_err": lse_err}
+        check(bool((out[:, ~vis] == 0).all())
+              and bool((lse[:, ~vis] == FA.NEG_INF).all())
+              and bool((p_lse[:, ~vis] == FA.NEG_INF).all()),
+              f"{name}/{dn}: rows that see no key: out is not 0 or lse is "
+              f"not NEG_INF")
+        # On a block no row of which sees a key, every row is held to
+        # the plain version's zeros.
+        sel = vis if bool(vis.any()) else ~vis
+        diff = (out.float() - p_out.float())[:, sel].abs().max().item()
+        e = {"max_abs_err": diff, "no_key_rows": int((~vis).sum())}
+        if bool(vis.any()):
+            e["norm_err"] = diff / p_out.float()[:, vis].abs().max().item()
+            e["lse_err"] = (lse - p_lse)[:, vis].abs().max().item()
+            check(e["norm_err"] <= OUT_TOL[dn],
+                  f"{name}/{dn}: out error {e['norm_err']}")
+            check(e["lse_err"] <= LSE_TOL[dn],
+                  f"{name}/{dn}: lse error {e['lse_err']}")
+        else:
+            check(diff == 0, f"{name}/{dn}: out {diff} off the plain "
+                             f"version's zeros")
+        errs[name, dn] = e
     no_key = no_key_rows(gen)
     refusals = tma_refusals(inputs["a_flagship_prefill", "bfloat16"][0])
     phase("3 kernel vs plain", tma_refusal=refusals, no_key_rows=no_key,
@@ -228,10 +278,12 @@ def main(usage_dir: str) -> int:
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
     # shapes: within the tolerance on rows and keys that see something, dq
-    # exactly 0 on rows that see nothing, the same dq from a second launch.
+    # exactly 0 on rows that see nothing and dk, dv exactly 0 on keys no
+    # row sees, the same dq from a second launch.
     bwd_errs = {}
     edge_inputs = random_inputs(gen, BWD_EDGE_SHAPES)
-    for (name, dn), (q, k, v, qo, ko) in {**inputs, **edge_inputs}.items():
+    for (name, dn), (q, k, v, qo, ko) in {**inputs, **sharded_inputs,
+                                          **edge_inputs}.items():
         b, lq, h, _ = q.shape
         lk = k.shape[1]
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
@@ -249,14 +301,24 @@ def main(usage_dir: str) -> int:
         keys = ko + torch.arange(lk, device="cuda") <= qo + lq - 1
         check(bool((got[0][:, ~rows] == 0).all()),
               f"{name}/{dn}: dq is not 0 on rows that see no key")
+        check(bool((got[1][:, ~keys] == 0).all())
+              and bool((got[2][:, ~keys] == 0).all()),
+              f"{name}/{dn}: dk or dv is not 0 on keys no row sees")
         check(torch.equal(got[0], dq_again), f"{name}/{dn}: two dq launches "
               f"differ")
         e = {"dlse": dlse is not None}
         for gname, g, r, sel in zip(("dq", "dk", "dv"), got, ref,
                                     (rows, keys, keys)):
-            g, r = g.float()[:, sel], r.float()[:, sel]
             check(bool(torch.isfinite(g).all()), f"{name}/{dn}: {gname} "
                   f"not finite")
+            if not bool(sel.any()):
+                # Nothing sees anything: the plain version's zeros.
+                diff = (g.float() - r.float()).abs().max().item()
+                check(diff == 0, f"{name}/{dn}: {gname} {diff} off the "
+                                 f"plain version's zeros")
+                e[f"{gname}_abs_err"] = diff
+                continue
+            g, r = g.float()[:, sel], r.float()[:, sel]
             diff = (g - r).abs().max().item()
             e[f"{gname}_abs_err"] = diff
             e[f"{gname}_norm_err"] = diff / r.abs().max().item()
@@ -288,7 +350,8 @@ def main(usage_dir: str) -> int:
     phase("3b backward kernels vs plain", bitwise_repeat=bitwise,
           function_grad_err=fn_err,
           **{f"{n}/{d}": e for (n, d), e in bwd_errs.items()})
-    del runs, out, lse, delta, do, qkv, ref, edge_inputs, got, dq_again, g, r
+    del runs, out, lse, delta, do, qkv, ref, edge_inputs, sharded_inputs
+    del got, dq_again, g, r
 
     # 4. Forward through the entry point; from here the launches count.
     FA.FLASH_FWD_LAUNCHES = 0
@@ -421,6 +484,11 @@ def main(usage_dir: str) -> int:
     train = train_phase(cfg, tokens)
     phase("5b training", **train)
 
+    # 5d. Sharded training: gangs of ranks on this card through the entry
+    # point's rank body, held to the single-process kernel step.
+    sharded = sharded_phase(cfg, inv.chips[0].hbm_gib)
+    phase("5d sharded training", card=card, **sharded)
+
     # 6. Heartbeat, and whether the grant's allocator cap holds.
     snap = torchenv.write_usage()
     with open(usage_file, encoding="utf-8") as f:
@@ -454,13 +522,17 @@ def main(usage_dir: str) -> int:
     phase("7b backward timings", card=card,
           dq_warpgroups=train["dq_launch"]["warpgroups"],
           **{f"{n}/{d}": t for (n, d), t in bwd_timings.items()})
+    ring_t = ring_step_timings(gen)
+    phase("7c ring-step timings", card=card, **ring_t)
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
-                  for path, counts in cotenancy.items()}}
+                  for path, counts in cotenancy.items()},
+               **{path: counts["flash_fwd"]
+                  for path, counts in sharded["launches"].items()}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -470,8 +542,10 @@ def main(usage_dir: str) -> int:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-        "max_norm_err": max(e["norm_err"] for e in errs.values()),
-        "max_lse_err": max(e["lse_err"] for e in errs.values()),
+        "max_norm_err": max(e["norm_err"] for e in errs.values()
+                            if "norm_err" in e),
+        "max_lse_err": max(e["lse_err"] for e in errs.values()
+                           if "lse_err" in e),
         "shape": f"{TIMED_SHAPE} bfloat16",
         "ms": main_t["kernel_ms"],
         "kernel_ms": main_t["kernel_ms"],
@@ -488,6 +562,8 @@ def main(usage_dir: str) -> int:
         **{f"piece_{key}": piece_t[key]
            for key in ("kernel_ms", "kernel_call_ms", "plain_ms",
                        "library_ms", "bound_ms", "bound_by")},
+        "ring_shapes": {name: _pick(ring_t[name]["forward"])
+                        for name in RING_SHAPES},
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
     for kname, line, grads in (("flash_bwd_dq", 217, ("dq",)),
@@ -501,14 +577,17 @@ def main(usage_dir: str) -> int:
             "replaces": f"tpushare/workload/flash_attention.py:{line} "
                         f"(_{kname[6:]}_kernel)",
             "launches": train["launches"][kname] + sum(
-                counts[kname] for counts in cotenancy.values()),
+                counts[kname] for counts in cotenancy.values()) + sum(
+                counts[kname] for counts in sharded["launches"].values()),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
-                                    in cotenancy.items()}},
+                                    in cotenancy.items()},
+                                 **{path: counts[kname] for path, counts
+                                    in sharded["launches"].items()}},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
-                                for g in grads),
+                                for g in grads if f"{g}_norm_err" in e),
             "shape": f"{TRAIN_SHAPE} bfloat16",
             "ms": t["kernel_ms"],
             "kernel_ms": t["kernel_ms"],
@@ -523,6 +602,11 @@ def main(usage_dir: str) -> int:
             "plain_and_library_compute": "dq, dk and dv in one call",
             **({"launch": train["dq_launch"]} if kname == "flash_bwd_dq"
                else {}),
+            "ring_shapes": {
+                name: {**_pick(ring_t[name]["backward"][kname]),
+                       "plain_ms": ring_t[name]["backward"]["plain_ms"],
+                       "library_ms": ring_t[name]["backward"]["library_ms"]}
+                for name in RING_SHAPES},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -1022,6 +1106,131 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     }
 
 
+def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
+                  backend: str = "gloo") -> dict:
+    """Phase 5d: sharded training of the flagship on this card.
+
+    First the single-process kernel step (phase 5b's
+    ``make_train_step(cfg)``) on the dry run's weights and 8 x 2048 batch
+    (``entry.DRYRUN_SEED``): its loss and gradients. Then each of
+    ``gangs`` through ``runtime.launch``: ranks of ``python -m
+    tpushare_torch.entry`` (the rank body ``entry.dryrun_multichip``)
+    with the gang env a pod gets, drawing the same weights and batch.
+    With ``backend`` gloo every rank runs on card 0 under a grant of
+    floor(``card_gib`` / ranks); with nccl (``tools/nccl_gang.py``) rank
+    i owns card i whole, with no grant.
+    Fails unless, for every mesh and strategy, the first step's loss is
+    within ``TRAIN_LOSS_TOL`` relative and every gathered gradient within
+    ``TRAIN_GRAD_TOL`` normalized of the single-process step's, ring and
+    Ulysses agree within the same bounds on a mesh that runs both, every
+    rank's ``SHARDED_STEPS`` losses are finite and the same, and every
+    rank launched each kernel as the design says a step: ring
+    2·n_layers·sp forwards (remat) and n_layers·sp of each backward,
+    Ulysses 2·n_layers and n_layers. Returns the phase's fields;
+    ``launches`` sums the counts every rank measured in each of its
+    steps, by path. Step times are host
+    clocks over collectives that go through the host (gloo), not a
+    collective speed."""
+    torch.cuda.empty_cache()
+
+    def dev_gen(seed: int) -> torch.Generator:
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
+                           generator=dev_gen(E.DRYRUN_SEED + 1),
+                           device="cuda")
+    init_fn, step, _ = T.make_train_step(cfg)
+    params, opt = init_fn(dev_gen(E.DRYRUN_SEED), tokens)
+    _, _, ref_loss = step(params, opt, tokens, torch.roll(tokens, -1, 1))
+    ref_loss = ref_loss.item()
+    ref = {n: p.grad.float() for n, p in params.named_parameters()}
+    del params, opt, tokens
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    fields = {"single_process_loss": ref_loss, "gangs": {}}
+    launches = {"sharded_ring": collections.Counter(),
+                "sharded_ulysses": collections.Counter()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-gang-") as tmp:
+        for world, mesh, attentions in gangs:
+            sp = int(mesh.split(",")[2])
+            save = os.path.join(tmp, f"grads-{mesh}.pt")
+            grant = card_gib // world if backend == "gloo" else None
+            t0 = time.perf_counter()
+            records = launch.launch(
+                ["-m", "tpushare_torch.entry", "--mesh", mesh,
+                 "--attention", *attentions, "--width", "flagship",
+                 "--steps", str(SHARDED_STEPS), "--device", "cuda",
+                 "--backend", backend, "--save-grads", save], world,
+                deadline_s=GANG_DEADLINE_S, grant_gib=grant,
+                card_gib=card_gib if grant is not None else None)
+            gang_s = time.perf_counter() - t0
+            saved = torch.load(save)
+            gang = {"ranks": world, "grant_gib": grant, "seconds": gang_s,
+                    "backend": records[0]["backend"],
+                    "memory_fraction": records[0]["memory_fraction"]}
+            for attention in attentions:
+                per_rank = [r["paths"][attention] for r in records]
+                want = ({"flash_fwd": 2 * n * sp, "flash_bwd_dq": n * sp,
+                         "flash_bwd_dkv": n * sp} if attention == "ring" else
+                        {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                         "flash_bwd_dkv": n})
+                for rank, path in enumerate(per_rank):
+                    steps = path["launches_per_step"]
+                    check(len(steps) == SHARDED_STEPS,
+                          f"{mesh}/{attention} rank {rank} counted "
+                          f"{len(steps)} steps, ran {SHARDED_STEPS}")
+                    for counts in steps:
+                        check(counts == want and min(counts.values()) > 0,
+                              f"{mesh}/{attention} rank {rank} launches "
+                              f"{counts}, want {want}")
+                        launches[f"sharded_{attention}"].update(counts)
+                losses = per_rank[0]["losses"]
+                check(all(math.isfinite(x) for x in losses),
+                      f"{mesh}/{attention} losses {losses}")
+                check(all(p["losses"] == losses for p in per_rank),
+                      f"{mesh}/{attention}: ranks disagree on the loss")
+                got = saved[attention]
+                loss_err = abs(got["loss"] - ref_loss) / abs(ref_loss)
+                grad_errs = {name: _norm_err(g.cuda(), ref[name])
+                             for name, g in got["grads"].items()}
+                worst = max(grad_errs, key=grad_errs.get)
+                check(loss_err <= TRAIN_LOSS_TOL,
+                      f"{mesh}/{attention} loss {got['loss']} vs single "
+                      f"process {ref_loss}")
+                check(grad_errs[worst] <= TRAIN_GRAD_TOL,
+                      f"{mesh}/{attention} grad of {worst}: "
+                      f"{grad_errs[worst]}")
+                gang[attention] = {
+                    "losses": losses, "vs_single_loss_rel_err": loss_err,
+                    "vs_single_max_grad_err": grad_errs[worst],
+                    "vs_single_worst_leaf": worst,
+                    "launches_per_step": want,
+                    "step_ms_by_rank": [p["step_ms"] for p in per_rank],
+                    "peak_bytes_by_rank": [p["peak_bytes"]
+                                           for p in per_rank],
+                    "card_used_bytes": max(p["card_used_bytes"]
+                                           for p in per_rank),
+                }
+            if {"ring", "ulysses"} <= set(attentions):
+                ring, uly = saved["ring"], saved["ulysses"]
+                pair_loss = abs(ring["loss"] - uly["loss"]) / abs(
+                    ring["loss"])
+                pair_grad = max(_norm_err(uly["grads"][k], g)
+                                for k, g in ring["grads"].items())
+                check(pair_loss <= TRAIN_LOSS_TOL
+                      and pair_grad <= TRAIN_GRAD_TOL,
+                      f"ring vs ulysses at {mesh}: loss {pair_loss}, "
+                      f"grads {pair_grad}")
+                gang.update(ring_vs_ulysses_loss_rel_err=pair_loss,
+                            ring_vs_ulysses_max_grad_err=pair_grad)
+            fields["gangs"][mesh] = gang
+            del saved
+    fields.update(launches={k: dict(v) for k, v in launches.items()},
+                  step_time_clock=f"host, collectives over {backend}"
+                  + (" via host" if backend == "gloo" else ""))
+    return fields
+
+
 def timed_steps(step, params, opt, batch, targets, n: int = TRAIN_STEPS):
     """``n`` train steps on one batch, each timed to its end on the card:
     (params, opt, losses, seconds, launches of each step, allocator
@@ -1104,8 +1313,9 @@ def time_shape(q, k, v, q_offset: int, kv_offset: int,
     seen = (q_offset + torch.arange(lq) - kv_offset + 1).clamp(0, lk)
     pairs = int(seen.sum())
     ops = 4 * b * h * d * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 4 * b * lq * h
+    # Inputs are read once where a row sees a key; out and lse are written.
+    reads = (q.numel() + k.numel() + v.numel()) if pairs else 0
+    nbytes = (reads + q.numel()) * q.element_size() + 4 * b * lq * h
     t_ops, t_bytes = ops / PEAK_OPS[dn], nbytes / PEAK_BYTES
     mask = (q_offset + torch.arange(lq, device="cuda")[:, None]
             >= kv_offset + torch.arange(lk, device="cuda")[None, :])
@@ -1173,29 +1383,36 @@ def library_bwd(q, k, v, do, q_offset: int, kv_offset: int, dn: str):
                 [True, True, True, False], causal))
 
 
-def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
+def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str,
+                   dlse: torch.Tensor | None = None) -> dict:
     """Device times of each backward kernel, of the plain version and of
     the library yardstick (each of which computes dq, dk and dv), each
     kernel's eager per-call time, and each kernel's least time on the card
-    for its work (published peaks)."""
+    for its work (published peaks). ``dlse`` is the lse cotangent folded
+    into delta."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda")
                      .manual_seed(3), device="cuda").to(q.dtype)
     with torch.inference_mode():
         out, lse = FA.flash_fwd_kernel(q, k, v, q_offset, kv_offset)
-        delta = FA.flash_bwd_delta(do, out, None)
+        delta = FA.flash_bwd_delta(do, out, dlse)
     # Visible (query, key) pairs of these offsets: what the work needs.
     seen = (q_offset + torch.arange(lq) - kv_offset + 1).clamp(0, lk)
     pairs = int(seen.sum())
     el, stats = q.element_size(), 2 * 4 * b * lq * h   # lse and delta
-    work = {  # ops; bytes: inputs read once, gradients written once
+    # ops; bytes: inputs read once (where a row sees a key), gradients
+    # written once.
+    some = 1 if pairs else 0
+    work = {
         "flash_bwd_dq": (6 * b * h * d * pairs,
-                         (3 * q.numel() + k.numel() + v.numel()) * el
-                         + stats),
+                         (q.numel() + some * (2 * q.numel() + k.numel()
+                                              + v.numel())) * el
+                         + some * stats),
         "flash_bwd_dkv": (8 * b * h * d * pairs,
-                          (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
-                          * el + stats),
+                          (k.numel() + v.numel() + some * (
+                              2 * q.numel() + k.numel() + v.numel())) * el
+                          + some * stats),
     }
     fns = {
         "flash_bwd_dq": lambda: FA.flash_bwd_dq_kernel(
@@ -1216,10 +1433,41 @@ def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str) -> dict:
                 "ops": ops, "bytes": nbytes,
             }
         result["plain_ms"] = device_ms(lambda: FA.flash_bwd_plain(
-            q, k, v, out, lse, do, None, q_offset, kv_offset), reps=5)
+            q, k, v, out, lse, do, dlse, q_offset, kv_offset), reps=5)
         result["library_ms"] = device_ms(library)
     result["pair_ms"] = (result["flash_bwd_dq"]["kernel_ms"]
                          + result["flash_bwd_dkv"]["kernel_ms"])
+    return result
+
+
+def _pick(t: dict) -> dict:
+    """A timing's kernel, plain, library and bound fields."""
+    return {key: t[key] for key in ("kernel_ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by") if key in t}
+
+
+def ring_step_timings(gen: torch.Generator) -> dict:
+    """Phase 7c: ``RING_SHAPES`` in bf16, forward (:func:`time_shape`)
+    and backward with a nonzero lse cotangent (:func:`time_bwd_shape`),
+    and the future block's kernel times over the past block's."""
+    result = {}
+    for name, (b, lq, lk, h, d, qo, ko) in RING_SHAPES.items():
+        q, k, v = (torch.randn((b, n, h, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for n in (lq, lk, lk))
+        dlse = torch.randn((b, lq, h), generator=gen, device="cuda")
+        result[name] = {
+            "shape": [b, lq, lk, h, d, qo, ko],
+            "forward": time_shape(q, k, v, qo, ko, "bfloat16"),
+            "backward": time_bwd_shape(q, k, v, qo, ko, "bfloat16", dlse),
+        }
+    past, future = result["h_ring_past"], result["i_ring_future"]
+    result["future_over_past"] = {
+        "flash_fwd": future["forward"]["kernel_ms"]
+        / past["forward"]["kernel_ms"],
+        **{kname: future["backward"][kname]["kernel_ms"]
+           / past["backward"][kname]["kernel_ms"]
+           for kname in ("flash_bwd_dq", "flash_bwd_dkv")}}
     return result
 
 

@@ -148,3 +148,15 @@ def test_entry_points_raise_without_a_card():
                  lambda: convert.params_from_jax({"blocks": []}, cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+@pytest.mark.parametrize("which", ["tiny", "flagship", "large"])
+def test_param_count_matches_jax(which):
+    """``param_count`` counts what the JAX package counts for the same
+    config (the flagship and large trees are counted on the meta device)."""
+    jcfg, tcfg = JM.ModelConfig(), M.ModelConfig()
+    if which != "flagship":
+        jcfg, tcfg = getattr(jcfg, which)(), getattr(tcfg, which)()
+    want = JM.param_count(jax.eval_shape(
+        lambda: JM.init_params(jax.random.PRNGKey(0), jcfg)))
+    assert M.param_count(M.Transformer(tcfg, "meta")) == want

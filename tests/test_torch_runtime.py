@@ -35,7 +35,8 @@ GRANT_ENVS = [
 
 def test_env_names_are_the_contract():
     for name in ("ENV_CHIP_IDX", "ENV_HBM_POD", "ENV_HBM_CHIP",
-                 "ENV_USAGE_FILE"):
+                 "ENV_USAGE_FILE", "ENV_POD_GROUP", "ENV_POD_GROUP_SIZE",
+                 "ENV_COORDINATOR"):
         assert getattr(const, name) == getattr(jconst, name)
 
 
@@ -124,6 +125,9 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "cogpucheck.py")
     yield os.path.join(REPO, "tools", "estimator_peak.py")
+    yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
+    yield os.path.join(REPO, "tools", "nccl_gang.py")
+    yield os.path.join(REPO, "tests", "torch_parallel_rank.py")
 
 
 def _imports(path):
@@ -147,3 +151,96 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "tpushare"), (path, mod)
+
+
+GANG = {const.ENV_POD_GROUP: "train", const.ENV_POD_GROUP_SIZE: "4"}
+SPEC_ENVS = [
+    {},
+    {"JOB_COMPLETION_INDEX": "0"},
+    {**GANG, "JOB_COMPLETION_INDEX": "2"},
+    {**GANG, "TPU_WORKER_ID": "3"},
+    {**GANG, "JOB_COMPLETION_INDEX": "1", "TPU_WORKER_ID": "3"},
+    {**GANG, "JOB_COMPLETION_INDEX": "2",
+     const.ENV_COORDINATOR: "coord:9999"},
+    {**GANG},
+    {**GANG, "JOB_COMPLETION_INDEX": "x"},
+    {**GANG, const.ENV_POD_GROUP_SIZE: "1", "JOB_COMPLETION_INDEX": "0"},
+    {**GANG, const.ENV_POD_GROUP_SIZE: "y", "JOB_COMPLETION_INDEX": "0"},
+    {const.ENV_POD_GROUP_SIZE: "4", "JOB_COMPLETION_INDEX": "0"},
+]
+
+
+@pytest.mark.parametrize("env", SPEC_ENVS)
+def test_distributed_spec_matches_jaxenv(env):
+    want = jaxenv.distributed_spec(dict(env))
+    got = torchenv.distributed_spec(dict(env))
+    if want is None:
+        assert got is None
+        return
+    assert (got.coordinator, got.num_processes, got.process_id) == (
+        want.coordinator, want.num_processes, want.process_id)
+
+
+def test_distributed_spec_cases_of_the_device_plugin_tests():
+    """tests/test_deviceplugin.py's gang cases through the port's copy."""
+    env = {**GANG, "JOB_COMPLETION_INDEX": "2"}
+    spec = torchenv.distributed_spec(env)
+    assert spec.num_processes == 4 and spec.process_id == 2
+    assert spec.coordinator == "train-0.train:8476"
+    env[const.ENV_COORDINATOR] = "coord:9999"
+    assert torchenv.distributed_spec(env).coordinator == "coord:9999"
+    assert torchenv.distributed_spec({"JOB_COMPLETION_INDEX": "0"}) is None
+    bad = {const.ENV_POD_GROUP: "g", const.ENV_POD_GROUP_SIZE: "4",
+           "JOB_COMPLETION_INDEX": "5"}
+    with pytest.raises(ValueError, match="out of range"):
+        torchenv.distributed_spec(bad)
+    with pytest.raises(ValueError, match="out of range"):
+        jaxenv.distributed_spec(bad)
+
+
+def test_init_distributed_outside_a_gang_does_nothing():
+    assert torchenv.init_distributed({}, device="cpu") is None
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.fixture
+def one_card(monkeypatch):
+    """A host that shows one card; joining a process group is refused
+    here, so a test that got that far fails."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: None)
+
+    def refuse(*args, **kw):
+        raise AssertionError(f"init_process_group{args}{kw}")
+    monkeypatch.setattr(torch.distributed, "init_process_group", refuse)
+
+
+@pytest.mark.parametrize("backend", [None, "nccl"])
+def test_init_distributed_refuses_nccl_ranks_on_one_card(one_card, backend):
+    env = {**GANG, "JOB_COMPLETION_INDEX": "1", "LOCAL_RANK": "1",
+           "LOCAL_WORLD_SIZE": "4"}
+    with pytest.raises(ValueError, match="NCCL"):
+        torchenv.init_distributed(env, backend=backend)
+
+
+def test_init_distributed_wants_gloo_under_an_hbm_slice(one_card):
+    """One rank a host, but an HBM-slice grant: the card may hold other
+    ranks of the gang, so no backend is picked for the caller."""
+    env = {**GANG, "JOB_COMPLETION_INDEX": "1", "TPUSHARE_CHIP_IDX": "0",
+           "TPUSHARE_HBM_POD_GIB": "19", "TPUSHARE_HBM_CHIP_GIB": "79"}
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        torchenv.init_distributed(env)
+
+
+def test_init_distributed_takes_nccl_for_a_card_of_its_own(one_card):
+    env = {**GANG, "JOB_COMPLETION_INDEX": "1", "TPUSHARE_CHIP_IDX": "0",
+           "TPUSHARE_HBM_POD_GIB": "79", "TPUSHARE_HBM_CHIP_GIB": "79"}
+    with pytest.raises(AssertionError, match="'nccl'.*tcp://train-0"):
+        torchenv.init_distributed(env)
+
+
+def test_init_distributed_runs_only_gloo_on_the_cpu():
+    env = {**GANG, "JOB_COMPLETION_INDEX": "1"}
+    with pytest.raises(ValueError, match="only gloo"):
+        torchenv.init_distributed(env, backend="nccl", device="cpu")

@@ -182,12 +182,13 @@ def test_make_train_step_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             T.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # A mesh is a parallel.Mesh (tests/test_torch_parallel.py trains one).
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         T.make_train_step(cfg, device="cpu", mesh=object())
     # The reference's positional form reaches the mesh check.
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         T.make_train_step(cfg, object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         T.make_train_step(cfg, object(), device="cpu", attention="ring")
     # Without a mesh, as in the reference, a strategy picks nothing.
     for attention in ("ring", "ulysses"):

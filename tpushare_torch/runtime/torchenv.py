@@ -14,6 +14,10 @@ software stack that is measured (``chip_smoke.py``), not assumed here.
 The heartbeat writes the same JSON keys as the JAX tenant (``bytes_in_use``,
 ``peak_bytes``, ``bytes_limit``, ``source``, ``ts``, ``pid``), so the
 unchanged watchdog reads a torch tenant.
+
+A gang member joins its gang's process group through
+:func:`init_distributed`, from the same env as the JAX tenant's
+``jax.distributed`` bootstrap (:func:`distributed_spec`).
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from tpushare_torch.utils import const
+from tpushare_torch.utils.device import resolve_device
 
 #: Safety headroom applied to the granted fraction.
 DEFAULT_HEADROOM = 0.9
@@ -78,6 +84,103 @@ def configure(environ=None) -> ShareGrant | None:
         env.setdefault(ENV_CUDA_VISIBLE_DEVICES,
                        ",".join(str(c) for c in grant.chip_ids))
     return grant
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedSpec:
+    """What a gang member needs to join its gang's process group."""
+
+    coordinator: str
+    num_processes: int
+    process_id: int
+
+
+def distributed_spec(environ=None) -> DistributedSpec | None:
+    """Derive the gang bootstrap from injected + standard k8s env.
+
+    The device plugin injects the gang's name/size
+    (``TPUSHARE_POD_GROUP``, ``TPUSHARE_POD_GROUP_SIZE``); the worker
+    index comes from ``JOB_COMPLETION_INDEX`` (k8s indexed Job) or
+    ``TPU_WORKER_ID``; the coordinator address from
+    ``TPUSHARE_COORDINATOR`` or the indexed-Job convention
+    ``<group>-0.<group>:8476``. Returns None when not in a gang
+    (single-process job). A copy of the JAX tenant's rules."""
+    env = os.environ if environ is None else environ
+    group = env.get(const.ENV_POD_GROUP, "")
+    try:
+        num = int(env.get(const.ENV_POD_GROUP_SIZE, "0"))
+    except ValueError:
+        return None
+    if not group or num <= 1:
+        return None
+    raw_id = env.get("JOB_COMPLETION_INDEX", env.get("TPU_WORKER_ID"))
+    if raw_id is None:
+        return None
+    try:
+        pid = int(raw_id)
+    except ValueError:
+        return None
+    if not 0 <= pid < num:
+        # An out-of-range rank would hang the whole gang at the init
+        # barrier; fail loudly instead.
+        raise ValueError(
+            f"worker index {pid} out of range for pod group {group!r} of "
+            f"size {num}; the gang's pod-group-min must equal the Job's "
+            f"completion count")
+    coordinator = env.get(const.ENV_COORDINATOR,
+                          f"{group}-0.{group}:8476")
+    return DistributedSpec(coordinator, num, pid)
+
+
+def init_distributed(environ=None, *, backend: str | None = None,
+                     device: str | torch.device = "cuda",
+                     init_method: str | None = None
+                     ) -> DistributedSpec | None:
+    """Join the gang's process group (``torch.distributed``) at
+    ``tcp://<coordinator>`` with the gang's size and this worker's rank,
+    and make the rank's card current; None (nothing done) outside a gang.
+    ``init_method`` replaces the TCP rendezvous (e.g. ``file://...``).
+
+    The backend is never chosen by a failure. On the CPU it is gloo. On
+    the card, with no ``backend``, it is NCCL when each rank has a card of
+    its own: this host runs no more ranks than it sees cards
+    (``LOCAL_WORLD_SIZE``, 1 when unset) and the grant, if any, is whole
+    cards. NCCL takes one rank a card, so where ranks would share one
+    this raises unless the caller asks for ``backend="gloo"``, and it
+    refuses ``backend="nccl"`` for more local ranks than cards. Local
+    rank ``LOCAL_RANK`` takes card ``LOCAL_RANK % cards``."""
+    env = os.environ if environ is None else environ
+    spec = distributed_spec(env)
+    if spec is None:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend!r} does not run on the CPU; "
+                             f"only gloo does")
+        backend = "gloo"
+    else:
+        local_rank = int(env.get("LOCAL_RANK", "0"))
+        local_world = int(env.get("LOCAL_WORLD_SIZE", "1"))
+        cards = torch.cuda.device_count()
+        grant = read_grant(env)
+        shares = local_world > cards
+        if backend is None:
+            if shares or (grant is not None and not grant.whole_chips):
+                raise ValueError(
+                    f"{local_world} local rank(s) on {cards} card(s) under "
+                    f"grant {grant}: ranks may share a card, which NCCL "
+                    f"refuses; pass backend='gloo' to run the gang's "
+                    f"collectives through the host")
+            backend = "nccl"
+        elif backend == "nccl" and shares:
+            raise ValueError(f"NCCL takes one rank a card: {local_world} "
+                             f"local ranks on {cards} card(s)")
+        torch.cuda.set_device(local_rank % cards)
+    dist.init_process_group(
+        backend, init_method=init_method or f"tcp://{spec.coordinator}",
+        world_size=spec.num_processes, rank=spec.process_id)
+    return spec
 
 
 def memory_fraction(grant: ShareGrant | None,

@@ -7,6 +7,13 @@ JAX tree's (``embed [V, d]``, ``blocks.i.wqkv [d, 3, H, hd]``,
 (:mod:`tpushare_torch.workload.convert`). The layer math stays plain
 functions on tensors, rounding to the activation dtype at the same
 points as the JAX code, so bf16 results track the reference.
+
+Tensor parallelism: a block whose weights hold this rank's share of the
+heads and of the ffn's hidden axis (``parallel.shard_params``) takes the
+tp process group as ``tp``; the normed input of each sharded product then
+goes through :func:`collectives.copy_to` and its partial output through
+:func:`collectives.reduce_from`, the two all-reduces GSPMD inserts in the
+JAX package. With ``tp=None`` (one device) nothing is added.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch.utils.device import resolve_device
+from tpushare_torch.workload import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +118,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def param_count(params: Transformer) -> int:
+    """Number of parameters (elements), as the JAX package counts its
+    tree's leaves."""
+    return sum(p.numel() for p in params.parameters())
+
+
 # --------------------------------------------------------------------------
 # Layers
 # --------------------------------------------------------------------------
@@ -152,11 +166,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def qkv_proj(block: Block, x: torch.Tensor, positions: torch.Tensor):
+def qkv_proj(block: Block, x: torch.Tensor, positions: torch.Tensor,
+             tp=None):
     """Normed fused-qkv projection + rotary on q/k, shared by the forward
-    and the serving path's KV capture. Returns [B, L, H, hd] each; ``v``
-    is a strided view of the fused product."""
+    and the serving path's KV capture. Returns [B, L, H, hd] each (the
+    block's heads); ``v`` is a strided view of the fused product."""
     h = rms_norm(x, block.attn_norm)
+    if tp is not None:
+        h = C.copy_to(h, tp)
     d, _, nh, hd = block.wqkv.shape
     qkv = (h @ block.wqkv.reshape(d, 3 * nh * hd)).unflatten(-1,
                                                             (3, nh, hd))
@@ -164,38 +181,43 @@ def qkv_proj(block: Block, x: torch.Tensor, positions: torch.Tensor):
     return rotary(q, positions), rotary(k, positions), v
 
 
-def out_proj(block: Block, out: torch.Tensor) -> torch.Tensor:
+def out_proj(block: Block, out: torch.Tensor, tp=None) -> torch.Tensor:
     """Attention-output projection: [B, L, H, hd] -> [B, L, d]."""
     nh, hd, d = block.wo.shape
-    return out.reshape(*out.shape[:2], nh * hd) @ block.wo.reshape(nh * hd, d)
+    y = out.reshape(*out.shape[:2], nh * hd) @ block.wo.reshape(nh * hd, d)
+    return y if tp is None else C.reduce_from(y, tp)
 
 
 def attention_delta(block: Block, x: torch.Tensor, positions: torch.Tensor,
-                    attn_fn) -> torch.Tensor:
+                    attn_fn, tp=None) -> torch.Tensor:
     """The attention sublayer's pre-residual contribution."""
-    q, k, v = qkv_proj(block, x, positions)
-    return out_proj(block, attn_fn(q, k, v))
+    q, k, v = qkv_proj(block, x, positions, tp)
+    return out_proj(block, attn_fn(q, k, v), tp)
 
 
 def attention_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
-                    attn_fn) -> torch.Tensor:
-    return x + attention_delta(block, x, positions, attn_fn)
+                    attn_fn, tp=None) -> torch.Tensor:
+    return x + attention_delta(block, x, positions, attn_fn, tp)
 
 
-def ffn_delta(block: Block, x: torch.Tensor) -> torch.Tensor:
+def ffn_delta(block: Block, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The SwiGLU ffn's pre-residual contribution."""
     h = rms_norm(x, block.ffn_norm)
+    if tp is not None:
+        h = C.copy_to(h, tp)
     gate = F.silu(h @ block.w_gate)
-    return (gate * (h @ block.w_up)) @ block.w_down
+    y = (gate * (h @ block.w_up)) @ block.w_down
+    return y if tp is None else C.reduce_from(y, tp)
 
 
-def ffn_block(block: Block, x: torch.Tensor) -> torch.Tensor:
-    return x + ffn_delta(block, x)
+def ffn_block(block: Block, x: torch.Tensor, tp=None) -> torch.Tensor:
+    return x + ffn_delta(block, x, tp)
 
 
 def _run_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
-               attn_fn) -> torch.Tensor:
-    return ffn_block(block, attention_block(block, x, positions, attn_fn))
+               attn_fn, tp=None) -> torch.Tensor:
+    return ffn_block(block, attention_block(block, x, positions, attn_fn, tp),
+                     tp)
 
 
 def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -207,14 +229,16 @@ def logits_from_hidden(params: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor | None = None,
-            attn_fn=None) -> torch.Tensor:
+            attn_fn=None, tp=None) -> torch.Tensor:
     """Token ids [B, L] -> logits [B, L, vocab] (fp32).
 
     ``attn_fn`` defaults to :func:`causal_attention`; pass
     ``flash_attention.best_attn_fn(device)`` for the kernel. With
     ``cfg.remat`` and grad enabled, each block is recomputed in the
     backward pass instead of keeping its activations, as the JAX package
-    wraps it in ``jax.checkpoint``."""
+    wraps it in ``jax.checkpoint``. ``tp`` is the tensor-parallel group
+    of tp-sharded ``params``; a sequence shard passes its global
+    ``positions``."""
     if positions is None:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
@@ -224,8 +248,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     x = params.embed[tokens]
     for block in params.blocks:
         if remat:
-            x = checkpoint(_run_block, block, x, positions, attn_fn,
+            x = checkpoint(_run_block, block, x, positions, attn_fn, tp,
                            use_reentrant=False)
         else:
-            x = _run_block(block, x, positions, attn_fn)
+            x = _run_block(block, x, positions, attn_fn, tp)
     return logits_from_hidden(params, x)
