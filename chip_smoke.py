@@ -11,9 +11,10 @@ NVIDIA discovery sizes), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
-training (phase 5d) runs gangs of rank processes on the one card, each
-under a grant of its share of the card, their collectives over gloo
-through the host. One line per phase;
+training (phase 5d) and the pipelines and ring-MoE (phase 5e) run gangs
+of rank processes on the one card, each under a grant of its share of
+the card, their collectives over gloo through the host. One line per
+phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises and exits nonzero; so does a host without a
@@ -43,7 +44,9 @@ from tpushare_torch.deviceplugin import discovery
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
+from tpushare_torch.workload import moe
 from tpushare_torch.workload import paging as P
+from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
 
@@ -114,6 +117,12 @@ SHARDED_SHAPES = {
     "i_ring_future": (4, 1024, 1024, 4, 64, 0, 1024),
     "ring_114_past": (8, 512, 512, 8, 64, 512, 0),
     "ulysses_heads": (4, 2048, 2048, 2, 64, 0, 0),
+    # Phase 5e's 4D pipe: a (1, 2, 2, 2) rank's microbatch of [1, 1024]
+    # tokens at H / tp = 4 heads, against its own, a past and a future
+    # block of the sp ring inside its stage.
+    "pipe_ring_own": (1, 1024, 1024, 4, 64, 1024, 1024),
+    "pipe_ring_past": (1, 1024, 1024, 4, 64, 1024, 0),
+    "pipe_ring_future": (1, 1024, 1024, 4, 64, 0, 1024),
 }
 #: Phase 7c times (h) and (i), bf16, forward and backward (with a nonzero
 #: lse cotangent, as the ring's merge hands back).
@@ -123,7 +132,8 @@ RING_SHAPES = {name: SHARDED_SHAPES[name]
 #: prompt, a chunk at an offset, and every ring block, whose backward
 #: gets the cotangent ``merge_partials`` returns.
 DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets", "ring_own",
-               "h_ring_past", "i_ring_future", "ring_114_past")
+               "h_ring_past", "i_ring_future", "ring_114_past",
+               "pipe_ring_own", "pipe_ring_past", "pipe_ring_future")
 TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
@@ -151,6 +161,23 @@ DENSITY_GRANT_GIB, DENSITY_NEW_TOKENS = 8.0, 256
 GANGS = ((4, "1,1,4", ("ring",)), (8, "2,2,2", ("ring", "ulysses")))
 SHARDED_STEPS = 3
 GANG_DEADLINE_S = 480
+#: Phase 5e: pipeline and expert parallelism, gangs of (name, ranks,
+#: training mesh dp,tp,sp, dry-run parts) at flagship width on phase 5b's
+#: batch. P1: the 1F1B pipe on a (2, 1, 1, 2) mesh (the pipe over the
+#: training mesh's sp = 2, dp taking the rest), M = 4, attention the
+#: kernels, 2 layers a stage, then the GPipe forward over the same stages.
+#: P2: the 4D pipe on (1, 2, 2, 2), ring-flash over sp inside the stages,
+#: M = 8; then the ring-MoE over the (2, 2, 2) mesh's sp group (E = 4,
+#: fp32). PIPE_CALLS calls of each, at the same weights.
+PIPE_GANGS = (("P1", 4, "2,1,2", ("dp_pp",)),
+              ("P2", 8, "2,2,2", ("4d", "moe")))
+PIPE_CALLS = 2
+#: The GPipe forward's last-stage hidden states against one process's
+#: blocks (bf16, normalized), and the ring-MoE's fp32 output and
+#: gradients against ``moe_ffn_reference`` on one process (normalized;
+#: the same arithmetic in another order).
+GPIPE_TOL = 2e-2
+MOE_TOL = 1e-4
 
 
 def phase(name: str, **fields) -> None:
@@ -486,8 +513,16 @@ def main(usage_dir: str) -> int:
 
     # 5d. Sharded training: gangs of ranks on this card through the entry
     # point's rank body, held to the single-process kernel step.
-    sharded = sharded_phase(cfg, inv.chips[0].hbm_gib)
+    ref = single_process_step(cfg)
+    sharded = sharded_phase(cfg, inv.chips[0].hbm_gib, ref=ref)
     phase("5d sharded training", card=card, **sharded)
+
+    # 5e. Pipeline and expert parallelism: the 1F1B pipe (and GPipe) with
+    # the kernels in every stage, the 4D pipe with ring-flash in the
+    # stages, and the ring-MoE, held to the same single-process step.
+    piped = pipe_phase(cfg, inv.chips[0].hbm_gib, ref)
+    phase("5e pipeline and expert parallelism", card=card, **piped)
+    del ref
 
     # 6. Heartbeat, and whether the grant's allocator cap holds.
     snap = torchenv.write_usage()
@@ -532,7 +567,9 @@ def main(usage_dir: str) -> int:
                **{path: counts["flash_fwd"]
                   for path, counts in cotenancy.items()},
                **{path: counts["flash_fwd"]
-                  for path, counts in sharded["launches"].items()}}
+                  for path, counts in sharded["launches"].items()},
+               **{path: counts["flash_fwd"]
+                  for path, counts in piped["launches"].items()}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -577,13 +614,16 @@ def main(usage_dir: str) -> int:
             "replaces": f"tpushare/workload/flash_attention.py:{line} "
                         f"(_{kname[6:]}_kernel)",
             "launches": train["launches"][kname] + sum(
-                counts[kname] for counts in cotenancy.values()) + sum(
-                counts[kname] for counts in sharded["launches"].values()),
+                counts[kname] for counts in [
+                    *cotenancy.values(), *sharded["launches"].values(),
+                    *piped["launches"].values()]),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
                                  **{path: counts[kname] for path, counts
-                                    in sharded["launches"].items()}},
+                                    in sharded["launches"].items()},
+                                 **{path: counts[kname] for path, counts
+                                    in piped["launches"].items()}},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
@@ -1106,16 +1146,45 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     }
 
 
+def _dev_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def single_process_step(cfg: M.ModelConfig) -> dict:
+    """Phase 5b's single-process kernel step (``make_train_step(cfg)``) on
+    the dry run's weights and 8 x 2048 batch (``entry.DRYRUN_SEED``): its
+    loss and gradients, and, from the same weights before the step, the
+    hidden states its blocks give the batch (the flash kernel, inference
+    mode), which the sharded phases are held to."""
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
+                           generator=_dev_gen(E.DRYRUN_SEED + 1),
+                           device="cuda")
+    init_fn, step, _ = T.make_train_step(cfg)
+    params, opt = init_fn(_dev_gen(E.DRYRUN_SEED), tokens)
+    with torch.inference_mode():
+        x = params.embed[tokens]
+        positions = torch.arange(tokens.shape[1], device="cuda").expand(
+            tokens.shape)
+        for blk in params.blocks:
+            x = M._run_block(blk, x, positions, FA.flash_attention)
+    _, _, loss = step(params, opt, tokens, torch.roll(tokens, -1, 1))
+    out = {"loss": loss.item(), "hidden": x,
+           "grads": {n: p.grad.float() for n, p in params.named_parameters()}}
+    del params, opt, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
 def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
-                  backend: str = "gloo") -> dict:
+                  backend: str = "gloo", ref: dict | None = None) -> dict:
     """Phase 5d: sharded training of the flagship on this card.
 
-    First the single-process kernel step (phase 5b's
-    ``make_train_step(cfg)``) on the dry run's weights and 8 x 2048 batch
-    (``entry.DRYRUN_SEED``): its loss and gradients. Then each of
-    ``gangs`` through ``runtime.launch``: ranks of ``python -m
-    tpushare_torch.entry`` (the rank body ``entry.dryrun_multichip``)
-    with the gang env a pod gets, drawing the same weights and batch.
+    First the single-process kernel step (:func:`single_process_step`,
+    unless ``ref`` holds it). Then each of ``gangs`` through
+    ``runtime.launch``: ranks of ``python -m tpushare_torch.entry --parts
+    train`` (the rank body ``entry.dryrun_multichip``) with the gang env a
+    pod gets, drawing the same weights and batch.
     With ``backend`` gloo every rank runs on card 0 under a grant of
     floor(``card_gib`` / ranks); with nccl (``tools/nccl_gang.py``) rank
     i owns card i whole, with no grant.
@@ -1131,21 +1200,9 @@ def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
     steps, by path. Step times are host
     clocks over collectives that go through the host (gloo), not a
     collective speed."""
-    torch.cuda.empty_cache()
-
-    def dev_gen(seed: int) -> torch.Generator:
-        return torch.Generator(device="cuda").manual_seed(seed)
-
-    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
-                           generator=dev_gen(E.DRYRUN_SEED + 1),
-                           device="cuda")
-    init_fn, step, _ = T.make_train_step(cfg)
-    params, opt = init_fn(dev_gen(E.DRYRUN_SEED), tokens)
-    _, _, ref_loss = step(params, opt, tokens, torch.roll(tokens, -1, 1))
-    ref_loss = ref_loss.item()
-    ref = {n: p.grad.float() for n, p in params.named_parameters()}
-    del params, opt, tokens
-    torch.cuda.empty_cache()
+    ref = ref or single_process_step(cfg)
+    ref_loss = ref["loss"]
+    ref = ref["grads"]
     n = cfg.n_layers
     fields = {"single_process_loss": ref_loss, "gangs": {}}
     launches = {"sharded_ring": collections.Counter(),
@@ -1158,7 +1215,8 @@ def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
             t0 = time.perf_counter()
             records = launch.launch(
                 ["-m", "tpushare_torch.entry", "--mesh", mesh,
-                 "--attention", *attentions, "--width", "flagship",
+                 "--parts", "train", "--attention", *attentions,
+                 "--width", "flagship",
                  "--steps", str(SHARDED_STEPS), "--device", "cuda",
                  "--backend", backend, "--save-grads", save], world,
                 deadline_s=GANG_DEADLINE_S, grant_gib=grant,
@@ -1229,6 +1287,162 @@ def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
                   step_time_clock=f"host, collectives over {backend}"
                   + (" via host" if backend == "gloo" else ""))
     return fields
+
+
+def moe_reference(mesh_shape: str) -> dict:
+    """The ring-MoE part's function on one process: ``moe_ffn_reference``
+    on the part's full params and global tokens (``entry.moe_inputs`` at
+    flagship width, E = 2·sp of the gang's training mesh), its output and
+    the gradients of mean(y²), fp32."""
+    dp, tp, sp = (int(x) for x in mesh_shape.split(","))
+    params, x = E.moe_inputs("flagship", par.Mesh(dp, tp, sp, 0, {}),
+                             torch.device("cuda"))
+    for v in params.values():
+        v.requires_grad_()
+    y = moe.moe_ffn_reference(params, x)
+    y.square().mean().backward()
+    return {"y": y.detach(), "grads": {k: v.grad for k, v in params.items()}}
+
+
+def pipe_phase(cfg: M.ModelConfig, card_gib: int, ref: dict,
+               gangs=PIPE_GANGS) -> dict:
+    """Phase 5e: pipeline and expert parallelism of the flagship on this
+    card. Each of ``gangs`` through ``runtime.launch``: ranks of ``python
+    -m tpushare_torch.entry --parts ...`` at flagship width, over gloo,
+    under grants of floor(``card_gib`` / ranks), drawing the dry run's
+    weights and batch, ``PIPE_CALLS`` calls of each part.
+
+    Fails unless, for each pipe, the first call's loss is within
+    ``TRAIN_LOSS_TOL`` relative and every gathered gradient (stages and
+    edge) within ``TRAIN_GRAD_TOL`` normalized of the single-process step
+    ``ref``; the GPipe forward's last-stage hidden states within
+    ``GPIPE_TOL`` of ``ref``'s; the ring-MoE's output and gradients within
+    ``MOE_TOL`` of :func:`moe_reference`; every rank's losses finite and
+    the same on every call and rank; and every rank launched each kernel
+    as designed a call: with k = n_layers / pp layers a stage, M
+    microbatches and s = sp under the ring (else 1), the 1F1B step
+    2·k·M·s forwards (the F tick and the B tick's recompute) and k·M·s of
+    each backward, the GPipe forward k·M·s forwards and nothing else, the
+    MoE none. Returns the phase's fields; ``launches`` sums the counts
+    every rank measured in each call, by path. Call times are host
+    clocks over collectives through the host (gloo)."""
+    torch.cuda.empty_cache()
+    fields = {"single_process_loss": ref["loss"], "gangs": {}}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pipe-") as tmp:
+        for name, world, mesh, parts in gangs:
+            save = os.path.join(tmp, f"{name}.pt")
+            grant = card_gib // world
+            t0 = time.perf_counter()
+            records = launch.launch(
+                ["-m", "tpushare_torch.entry", "--mesh", mesh, "--parts",
+                 *parts, "--width", "flagship", "--steps", str(PIPE_CALLS),
+                 "--device", "cuda", "--backend", "gloo", "--save-grads",
+                 save], world, deadline_s=GANG_DEADLINE_S, grant_gib=grant,
+                card_gib=card_gib)
+            gang = {"ranks": world, "training_mesh": mesh, "grant_gib": grant,
+                    "seconds": time.perf_counter() - t0,
+                    "memory_fraction": records[0]["memory_fraction"]}
+            saved = torch.load(save)
+            for part in parts:
+                per_rank = [r["parts"][part] for r in records]
+                losses = per_rank[0]["losses"]
+                check(len(losses) == PIPE_CALLS
+                      and all(math.isfinite(x) for x in losses)
+                      and len(set(losses)) == 1
+                      and all(p["losses"] == losses for p in per_rank),
+                      f"{name}/{part}: losses by rank "
+                      f"{[p['losses'] for p in per_rank]}")
+                if part == "moe":
+                    gang[part] = moe_part_fields(per_rank, saved["moe"],
+                                                 moe_reference(mesh))
+                    for p in per_rank:
+                        for counts in p["launches_per_call"]:
+                            check(not any(counts.values()),
+                                  f"{name}/moe launched {counts}")
+                    continue
+                got = saved[f"pipe_{part}"]
+                shape = per_rank[0]["mesh_shape"]
+                k = cfg.n_layers // shape["pp"]
+                m = per_rank[0]["microbatches"]
+                s = shape["sp"] if part == "4d" else 1
+                want = {"flash_fwd": 2 * k * m * s, "flash_bwd_dq": k * m * s,
+                        "flash_bwd_dkv": k * m * s}
+                path = launches.setdefault(f"pipe_1f1b_{part}",
+                                           collections.Counter())
+                for rank, p in enumerate(per_rank):
+                    for counts in p["launches_per_call"]:
+                        check(counts == want,
+                              f"{name}/{part} rank {rank} launches "
+                              f"{counts}, want {want}")
+                        path.update(counts)
+                loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+                grad_errs = {n: _norm_err(g.cuda(), ref["grads"][n])
+                             for n, g in got["grads"].items()}
+                check(set(grad_errs) == set(ref["grads"]),
+                      f"{name}/{part}: gradients of {sorted(grad_errs)}")
+                worst = max(grad_errs, key=grad_errs.get)
+                check(loss_err <= TRAIN_LOSS_TOL,
+                      f"{name}/{part} loss {got['loss']} vs single process "
+                      f"{ref['loss']}")
+                check(grad_errs[worst] <= TRAIN_GRAD_TOL,
+                      f"{name}/{part} grad of {worst}: {grad_errs[worst]}")
+                fields_part = {
+                    "mesh_shape": shape, "microbatches": m,
+                    "layers_per_stage": k, "losses": losses,
+                    "vs_single_loss_rel_err": loss_err,
+                    "vs_single_max_grad_err": grad_errs[worst],
+                    "vs_single_worst_leaf": worst,
+                    "launches_per_call": want,
+                    "stash_peak_by_rank": [p["stash_peak"] for p in per_rank],
+                    "call_ms_by_rank": [p["call_ms"] for p in per_rank],
+                    "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank],
+                    "card_used_bytes": max(p["card_used_bytes"]
+                                           for p in per_rank)}
+                if part == "dp_pp":
+                    want_g = {"flash_fwd": k * m, "flash_bwd_dq": 0,
+                              "flash_bwd_dkv": 0}
+                    gpath = launches.setdefault(f"pipe_gpipe_{part}",
+                                                collections.Counter())
+                    for rank, p in enumerate(per_rank):
+                        check(p["gpipe"]["launches"] == want_g,
+                              f"{name}/gpipe rank {rank} launches "
+                              f"{p['gpipe']['launches']}, want {want_g}")
+                        gpath.update(p["gpipe"]["launches"])
+                    hidden_err = _norm_err(got["gpipe"].cuda().float(),
+                                           ref["hidden"].float())
+                    check(hidden_err <= GPIPE_TOL,
+                          f"{name}/gpipe hidden states off one process's by "
+                          f"{hidden_err}")
+                    fields_part["gpipe"] = {
+                        "launches_per_call": want_g,
+                        "vs_single_hidden_err": hidden_err,
+                        "call_ms_by_rank": [p["gpipe"]["call_ms"]
+                                            for p in per_rank]}
+                gang[part] = fields_part
+            fields["gangs"][name] = gang
+            del saved
+    fields.update(launches={k: dict(v) for k, v in launches.items()},
+                  call_time_clock="host, collectives over gloo via host")
+    return fields
+
+
+def moe_part_fields(per_rank: list, got: dict, want: dict) -> dict:
+    """Phase 5e's ring-MoE checks: the gathered output and gradients
+    against one process's within ``MOE_TOL``."""
+    errs = {"y": _norm_err(got["y"].cuda(), want["y"]),
+            **{k: _norm_err(g.cuda(), want["grads"][k])
+               for k, g in got["grads"].items()}}
+    worst = max(errs, key=errs.get)
+    check(set(errs) == {"y", "router", "w1", "w2"} and errs[worst] <= MOE_TOL,
+          f"ring-MoE {worst} off one process's by {errs[worst]}")
+    return {"experts": per_rank[0]["experts"],
+            "experts_per_rank": per_rank[0]["experts_per_rank"],
+            "tokens_per_rank": per_rank[0]["tokens_per_rank"],
+            "losses": per_rank[0]["losses"], "vs_single_errs": errs,
+            "call_ms_by_rank": [p["call_ms"] for p in per_rank],
+            "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank],
+            "card_used_bytes": max(p["card_used_bytes"] for p in per_rank)}
 
 
 def timed_steps(step, params, opt, batch, targets, n: int = TRAIN_STEPS):

@@ -6,6 +6,8 @@ the JAX package's single-device functions on the same numpy inputs and
 weights."""
 
 import dataclasses
+import itertools
+import math
 import os
 import pickle
 import subprocess
@@ -449,6 +451,76 @@ def test_mesh_coords_are_row_major():
                     for s in range(2)]
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 2, 2), (2, 1, 1, 4),
+                                   (2, 2, 1, 2), (1, 1, 2, 2)])
+def test_mesh_coords_with_pp_are_row_major(shape):
+    """Ranks fill (dp, tp, sp, pp) row-major, as the reference reshapes its
+    devices for ("dp", "tp", "sp", "pp"); ``index`` reads one axis."""
+    dp, tp, sp, pp = shape
+    want = [(d, t, s, p) for d in range(dp) for t in range(tp)
+            for s in range(sp) for p in range(pp)]
+    for rank, coords in enumerate(want):
+        mesh = par.Mesh(dp, tp, sp, rank, groups={}, pp=pp)
+        assert mesh.coords == coords
+        assert mesh.shape == dict(zip(par.AXES, shape))
+        assert [mesh.index(a) for a in par.AXES] == list(coords)
+        assert mesh.pp_rank == coords[3]
+
+
+def test_mesh_without_pp_keeps_its_three_axes():
+    mesh = _mesh(2, 2, 2, 5)
+    assert mesh.shape == {"dp": 2, "tp": 2, "sp": 2}
+    assert mesh.coords == (1, 0, 1) and mesh.pp_rank == 0
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        mesh.size("ep")
+
+
+def _fake_groups(monkeypatch, shape, rank):
+    """``make_mesh`` on ``rank`` of a gang whose groups are their member
+    lists; returns the mesh and the lists in the order they were made."""
+    made = []
+    monkeypatch.setattr(par.dist, "get_world_size", lambda: math.prod(shape))
+    monkeypatch.setattr(par.dist, "get_rank", lambda: rank)
+    monkeypatch.setattr(par.dist, "new_group",
+                        lambda ranks: made.append(ranks) or tuple(ranks))
+    return par.make_mesh(*shape), made
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2, 1), (1, 2, 2, 2),
+                                   (2, 1, 1, 4), (2, 2, 1, 2)])
+def test_mesh_groups_differ_only_along_their_axes(monkeypatch, shape):
+    """``group(*axes)`` holds the ranks whose coordinates equal this
+    rank's off ``axes`` (axes of size 1 add nothing), in rank order; every
+    rank makes the same groups in the same order."""
+    world = math.prod(shape)
+    orders = []
+    for rank in range(world):
+        mesh, made = _fake_groups(monkeypatch, shape, rank)
+        orders.append(made)
+        coords = [par.Mesh(*shape[:3], r, {}, shape[3])._coords()
+                  for r in range(world)]
+        for n in range(len(par.AXES) + 1):
+            for axes in itertools.combinations(par.AXES, n):
+                off = [i for i, a in enumerate(par.AXES) if a not in axes]
+                want = tuple(r for r in range(world)
+                             if all(coords[r][i] == coords[rank][i]
+                                    for i in off))
+                assert mesh.group(*axes) == want, (rank, axes)
+    assert all(o == orders[0] for o in orders)
+
+
+def test_mesh_without_pp_keeps_its_groups(monkeypatch):
+    """With pp = 1 the tp, sp and dp x sp groups are the lines the
+    (dp, tp, sp) mesh has always had."""
+    grid = np.arange(8).reshape(2, 2, 2)
+    for rank in range(8):
+        mesh, _ = _fake_groups(monkeypatch, (2, 2, 2, 1), rank)
+        d, t, s = mesh.coords
+        assert mesh.tp_group == tuple(grid[d, :, s])
+        assert mesh.sp_group == tuple(grid[d, t, :])
+        assert mesh.grad_group == tuple(grid[:, t, :].flatten())
+
+
 @pytest.mark.parametrize("make", [par.make_ring_attn_fn,
                                   par.make_ulysses_attn_fn])
 def test_forced_flash_refuses_what_the_kernel_cannot_take(make):
@@ -463,18 +535,56 @@ def test_forced_flash_refuses_what_the_kernel_cannot_take(make):
 def test_dryrun_multichip_trains_on_a_cpu_gang(gang):
     """The entry point's rank body, tiny width, as the JAX package's
     multi-chip dry run: auto_mesh_shape(8) = (2, 2, 2), both attention
-    strategies, finite losses that fall, the same loss on every rank."""
+    strategies, finite losses that fall, the same loss on every rank;
+    and every other part of the dry run ran (checked part by part in
+    test_dryrun_multichip_runs_moe_and_pipes_on_a_cpu_gang)."""
     records = [r["dryrun"] for r in gang[0]]
     assert [r["rank"] for r in records] == list(range(8))
     for rec in records:
         assert rec["mesh_shape"] == {"dp": 2, "tp": 2, "sp": 2}
         assert rec["backend"] == "gloo"
+        assert set(rec["parts"]) == {"moe", *DRYRUN_PIPES}
         for path in rec["paths"].values():
             assert all(np.isfinite(path["losses"]))
             assert path["losses"][-1] < path["losses"][0]
     for attention in ("ring", "ulysses"):
         assert len({tuple(r["paths"][attention]["losses"])
                     for r in records}) == 1
+
+
+#: The dry run's pipe parts at tiny width on 8 ranks: (mesh shape, layers
+#: a stage, microbatches), as the reference's dry run builds them.
+DRYRUN_PIPES = {
+    "pipe": ({"dp": 2, "tp": 2, "sp": 2}, 1, 4),
+    "dp_pp": ({"dp": 4, "tp": 1, "sp": 1, "pp": 2}, 1, 4),
+    "dp_tp_pp": ({"dp": 2, "tp": 2, "sp": 1, "pp": 2}, 1, 4),
+    "4d": ({"dp": 1, "tp": 2, "sp": 2, "pp": 2}, 1, 2),
+}
+
+
+@pytest.mark.parametrize("part", ["moe", *DRYRUN_PIPES])
+def test_dryrun_multichip_runs_moe_and_pipes_on_a_cpu_gang(gang, part):
+    """The dry run's other parts (the default ``--parts``): the ring-MoE
+    over sp (E = 2 sp), the flagship pipe over the sp axis, dp x pp,
+    dp x tp x pp and dp x tp x sp x pp, each with finite losses, the same
+    on every call (the weights do not move) and on every rank, and a
+    stash of at most n stage inputs."""
+    parts = [r["dryrun"]["parts"][part] for r in gang[0]]
+    losses = parts[0]["losses"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[0] == losses[1]
+    assert all(p["losses"] == losses for p in parts)
+    if part == "moe":
+        assert parts[0]["experts"] == 4
+        assert parts[0]["experts_per_rank"] == 2
+        return
+    shape, per_stage, m = DRYRUN_PIPES[part]
+    for p in parts:
+        assert p["mesh_shape"] == shape
+        assert (p["layers_per_stage"], p["microbatches"]) == (per_stage, m)
+        assert 1 <= p["stash_peak"] <= 2
+    if part == "dp_pp":
+        assert all("gpipe" in p for p in parts)
 
 
 def test_launch_kills_a_gang_past_its_deadline():

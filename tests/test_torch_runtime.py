@@ -128,6 +128,7 @@ def _port_files():
     yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
     yield os.path.join(REPO, "tools", "nccl_gang.py")
     yield os.path.join(REPO, "tests", "torch_parallel_rank.py")
+    yield os.path.join(REPO, "tests", "torch_pipeline_rank.py")
 
 
 def _imports(path):
@@ -144,6 +145,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = list(_port_files())
     assert len(files) > 10
     for name in (("tpushare_torch", "workload", "train.py"),
+                 ("tpushare_torch", "workload", "pipeline.py"),
+                 ("tpushare_torch", "workload", "moe.py"),
                  ("tpushare_torch", "deviceplugin", "discovery.py"),
                  ("cogpucheck.py",)):
         assert os.path.join(REPO, *name) in files

@@ -19,7 +19,8 @@ an ``.npz``), joins the gang over gloo on the CPU, and runs:
   the test's weights: the global loss, the gathered gradients and the
   weights after one step; and ``shard_params`` then ``gather_params``;
 * the entry point's dry run (``python -m tpushare_torch.entry --attention
-  ring ulysses --steps 2 --device cpu``) over its own rendezvous.
+  ring ulysses --steps 2 --device cpu``, every part: training, the
+  ring-MoE and the four pipes) over its own rendezvous.
 
 Rank 0 saves every gathered array into ``OUT`` (``.npz``); each rank
 prints one JSON line, which holds the dry run's record.

@@ -6,8 +6,9 @@ flagship LM at vocab 8192 over tokens ``[2, 256]``, built by
 ``train.make_forward_fn`` (attention from ``best_attn_fn``: the CUDA
 flash kernel on the card).
 
-:func:`dryrun_multichip` is the rank body of the dp × tp × sp part of the
-JAX package's multi-chip dry run: each rank of a gang started by
+:func:`dryrun_multichip` is the rank body of the JAX package's multi-chip
+dry run up to its tp-sharded decode: dp × tp × sp training, the ring-MoE
+and the flagship pipes (:data:`PARTS`). Each rank of a gang started by
 ``runtime.launch`` runs it (``python -m tpushare_torch.entry ...``) and
 prints one JSON line.
 """
@@ -15,6 +16,7 @@ prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -23,9 +25,13 @@ import torch.distributed as dist
 
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.utils.device import resolve_device
+from tpushare_torch.workload import collectives as C
+from tpushare_torch.workload import convert
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
+from tpushare_torch.workload import moe
 from tpushare_torch.workload import parallel as par
+from tpushare_torch.workload import pipeline
 from tpushare_torch.workload import train as T
 
 ENTRY_CONFIG = M.ModelConfig(vocab_size=8192, d_model=512, n_heads=8,
@@ -59,10 +65,21 @@ def dryrun_config(width: str, mesh: par.Mesh) -> tuple[M.ModelConfig,
     return cfg, (2 * mesh.dp, cfg.max_seq_len)
 
 
+#: The dry run's parts, in the reference's order (``__graft_entry__.py``):
+#: dp × tp × sp training, the ring-MoE over sp, the flagship 1F1B pipe
+#: over the sp axis, dp × pp, dp × tp × pp and dp × tp × sp × pp.
+PARTS = ("train", "moe", "pipe", "dp_pp", "dp_tp_pp", "4d")
+
+
 def _launches() -> dict[str, int]:
     return {"flash_fwd": FA.FLASH_FWD_LAUNCHES,
             "flash_bwd_dq": FA.FLASH_BWD_DQ_LAUNCHES,
             "flash_bwd_dkv": FA.FLASH_BWD_DKV_LAUNCHES}
+
+
+def _reset_launches() -> None:
+    FA.FLASH_FWD_LAUNCHES = FA.FLASH_BWD_DQ_LAUNCHES = 0
+    FA.FLASH_BWD_DKV_LAUNCHES = 0
 
 
 def _sync(dev: torch.device) -> None:
@@ -70,25 +87,251 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _gen(dev: torch.device, offset: int) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(DRYRUN_SEED + offset)
+
+
+def _memory(dev: torch.device) -> dict:
+    """Peak bytes this rank allocated, and the card's bytes in use while
+    every rank holds its memory (a collective)."""
+    if dev.type != "cuda":
+        return {}
+    out = {"peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    dist.barrier()
+    free, total = torch.cuda.mem_get_info(dev)
+    out["card_used_bytes"] = total - free
+    dist.barrier()
+    return out
+
+
+def _timed(dev: torch.device, fn):
+    """(fn's result, host ms, kernel launches) of one call, the launch
+    counters set to 0 just before."""
+    _reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, 1e3 * (time.perf_counter() - t0), _launches()
+
+
+def pipe_setup(part: str, width: str, mesh: par.Mesh, world: int):
+    """(mesh shape, pipe axis, config, microbatches, global batch, factory
+    kwargs) of a pipeline part, or None where the gang is too small for
+    it; the shape is None for the part that pipes over the training
+    ``mesh`` itself. Tiny width is the reference's dry run: fp32, no
+    remat, the pipe over the training mesh's sp axis with one layer a
+    stage and M = 2·sp; dp × pp on a (ranks / sp, sp) mesh; dp × tp × pp
+    and the 4D pipe at (2, 2, 2) and (1, 2, 2, 2), dp taking the ranks
+    past 8. Flagship width is the default config at the 8 × 2048 batch,
+    bf16."""
+    n = mesh.sp
+    base, (_, seq) = dryrun_config("tiny", mesh)
+    axis = "pp"
+    if part == "pipe":
+        shape, axis, kw = None, "sp", {}
+        cfg = dataclasses.replace(base, n_layers=n)
+        m, rows = 2 * n, 2 * n
+    elif part == "dp_pp":
+        if n < 2 or world // n < 2:
+            return None
+        shape, kw = (world // n, 1, 1, n), {"dp_axis": "dp"}
+        cfg = dataclasses.replace(base, n_layers=n)
+        m, rows = 2 * n, 2 * n * (world // n)
+    else:
+        if world % 8:
+            return None
+        tiny = dataclasses.replace(base, n_heads=max(base.n_heads
+                                                     - base.n_heads % 2, 2),
+                                   n_layers=2)
+        if part == "dp_tp_pp":
+            shape, kw = (world // 4, 2, 1, 2), {"dp_axis": "dp",
+                                                 "tp_axis": "tp"}
+            cfg, m, rows = tiny, 4, 4 * (world // 4)
+        else:
+            shape = (world // 8, 2, 2, 2)
+            kw = {"dp_axis": "dp", "tp_axis": "tp", "sp_axis": "sp"}
+            cfg = dataclasses.replace(tiny, max_seq_len=32)
+            m, rows, seq = 2, 2 * (world // 8), 32
+    if width == "flagship":
+        cfg, (rows, seq) = M.ModelConfig(), (8, 2048)
+        m = {"pipe": 2 * n, "dp_pp": 4, "dp_tp_pp": 4, "4d": 8}[part]
+    else:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
+    return shape, axis, cfg, m, (rows, seq), kw
+
+
+def moe_inputs(width: str, mesh: par.Mesh, dev: torch.device):
+    """(full params, global x [B, S, D]) of the ring-MoE part: E = 2·sp
+    experts, fp32; the tiny width's d_model, d_ff and [batch, seq] are
+    the training config's, the flagship's 512, 1536 and 8 × 2048."""
+    cfg, (batch, seq) = dryrun_config(width, mesh)
+    params = moe.init_moe_params(_gen(dev, 2), cfg.d_model, cfg.d_ff,
+                                 2 * mesh.sp, dev)
+    x = torch.randn((batch, seq, cfg.d_model), generator=_gen(dev, 3),
+                    device=dev)
+    return params, x
+
+
+def _train_part(cfg, mesh, tokens, targets, attentions, steps, dev, save,
+                record, saved) -> None:
+    """dp × tp × sp training, one path an attention strategy."""
+    for attention in attentions:
+        init_fn, step, place = T.make_train_step(
+            cfg, mesh, attention=attention, device=dev)
+        params, opt = init_fn(_gen(dev, 0), tokens)
+        shard = place(tokens, targets)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms, launches = [], [], []
+        for i in range(steps):
+            (params, opt, loss), ms, counts = _timed(
+                dev, lambda: step(params, opt, *shard))
+            step_ms.append(ms)
+            launches.append(counts)
+            losses.append(loss.item())
+            if i == 0 and save:
+                grads = par.gather_shards(
+                    {n: p.grad for n, p in params.named_parameters()}, mesh)
+                saved[attention] = {
+                    "loss": losses[0],
+                    "grads": {n: g.cpu() for n, g in grads.items()}}
+        record["paths"][attention] = {"losses": losses, "step_ms": step_ms,
+                                      "launches_per_step": launches,
+                                      **_memory(dev)}
+        del params, opt
+
+
+def _moe_part(width, mesh, steps, dev, save, saved) -> dict:
+    """The ring-MoE over the mesh's sp group: forward and backward of
+    mean(y²) over the global tokens."""
+    params, x = moe_inputs(width, mesh, dev)
+    placed = {k: v.requires_grad_() for k, v in
+              moe.place_moe_params(params, mesh, "sp").items()}
+    xs = x.chunk(mesh.sp, dim=1)[mesh.sp_rank]
+    fn = moe.make_ring_moe_fn(mesh, "sp")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, call_ms, launches = [], [], []
+
+    def call():
+        for v in placed.values():
+            v.grad = None
+        y = fn(placed, xs)
+        local = y.square().sum() / x.numel()
+        local.backward()
+        return y, C.all_reduce(local.detach(), mesh.sp_group)
+
+    for _ in range(steps):
+        (y, loss), ms, counts = _timed(dev, call)
+        losses.append(loss.item())
+        call_ms.append(ms)
+        launches.append(counts)
+    if save:
+        group = mesh.sp_group
+        out = {"loss": losses[0],
+               "y": C.all_gather(y.detach(), group, 1).cpu(),
+               "grads": {"router": placed["router"].grad.cpu(),
+                         **{k: C.all_gather(placed[k].grad, group, 0).cpu()
+                            for k in ("w1", "w2")}}}
+        if mesh.rank == 0:
+            saved["moe"] = out
+    return {"experts": params["w1"].shape[0],
+            "experts_per_rank": placed["w1"].shape[0],
+            "tokens_per_rank": list(xs.shape), "losses": losses,
+            "call_ms": call_ms, "launches_per_call": launches,
+            **_memory(dev)}
+
+
+def _pipe_part(part, width, train_mesh, world, steps, dev, save,
+               saved) -> dict:
+    """A flagship pipe part (:func:`pipe_setup`) through the 1F1B train_fn,
+    ``steps`` calls at the same weights; dp × pp also runs the GPipe
+    forward over the same stages."""
+    setup = pipe_setup(part, width, train_mesh, world)
+    if setup is None:
+        return {"skipped": f"a gang of {world} ranks has no room for it"}
+    shape, axis, cfg, m, (rows, seq), kw = setup
+    mesh = par.make_mesh(*shape) if shape else train_mesh
+    init_fn, train_fn = pipeline.make_flagship_pipeline(
+        cfg, mesh, axis, n_microbatches=m, device=dev, **kw)
+    stage, edge = init_fn(_gen(dev, 0))
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq),
+                           generator=_gen(dev, 1), device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, call_ms, launches = [], [], []
+    for _ in range(steps):
+        loss, ms, counts = _timed(
+            dev, lambda: train_fn(stage, edge, tokens, targets))
+        losses.append(loss.item())
+        call_ms.append(ms)
+        launches.append(counts)
+    rec = {"mesh_shape": mesh.shape, "pipe_axis": axis, "microbatches": m,
+           "layers_per_stage": len(stage), "batch": [rows, seq],
+           "dtype": str(cfg.dtype), "losses": losses, "call_ms": call_ms,
+           "launches_per_call": launches,
+           "stash_peak": train_fn.pipe.stash_peak, **_memory(dev)}
+    out = {}
+    if save:
+        g_stacked, g_edge = convert.pipeline_grads_to_numpy(
+            stage, edge, mesh, axis, kw.get("tp_axis"))
+        out = {"loss": losses[0], "grads": {
+            **{k: torch.from_numpy(g) for k, g in g_edge.items()},
+            **{f"blocks.{i}.{k}": torch.from_numpy(layer)
+               for k, g in g_stacked.items()
+               for i, layer in enumerate(g.reshape((-1,) + g.shape[2:]))}}}
+    if part == "dp_pp":
+        fwd = pipeline.make_pipeline_fn(train_fn.stage_fn, mesh, axis,
+                                        n_microbatches=m)
+        with torch.no_grad():
+            x = edge["embed"][tokens.chunk(mesh.dp)[mesh.dp_rank]]
+        outs, ms, counts = _timed(dev, lambda: fwd(stage, x))
+        rec["gpipe"] = {"call_ms": ms, "launches": counts}
+        if save:
+            every = C.all_gather(outs[None], mesh.group("dp", "pp"), 0)
+            out["gpipe"] = torch.cat([pipeline.last_stage_output(o)
+                                      for o in every[mesh.pp - 1::mesh.pp]]
+                                     ).cpu()
+    if out and mesh.rank == 0:
+        saved[f"pipe_{part}"] = out
+    return rec
+
+
 def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                      attentions: tuple[str, ...] = ("ring",),
                      width: str = "tiny", steps: int = 1,
+                     parts: tuple[str, ...] = PARTS,
                      device: str | torch.device = "cuda",
                      backend: str | None = None,
                      init_method: str | None = None,
                      save_grads: str | None = None) -> dict:
     """One rank of the sharded dry run. Joins the gang from its env
     (``torchenv.init_distributed``; a grant in the env caps the card's
-    allocator), builds the mesh (``auto_mesh_shape`` of the gang's size
-    unless ``mesh_shape``), and for each attention strategy trains
-    ``steps`` steps of ``make_train_step(cfg, mesh, attention=...)`` from
-    the weights of generator seed ``DRYRUN_SEED`` on the global batch of
-    seed ``DRYRUN_SEED + 1``, every rank making both alike. With
-    ``save_grads``, rank 0 saves each strategy's first-step loss and
-    gathered gradients there (``torch.save``). Returns this rank's
-    record: per strategy the losses, host ms and kernel launches of each
-    step, peak allocated bytes, and the card's memory in use with every
-    rank's held."""
+    allocator), builds the training mesh (``auto_mesh_shape`` of the
+    gang's size unless ``mesh_shape``) and runs ``parts`` (:data:`PARTS`),
+    ``steps`` steps or calls each, every rank drawing the weights from
+    generator seed ``DRYRUN_SEED`` and the global batch from seed
+    ``DRYRUN_SEED + 1`` alike:
+
+    * ``"train"``: ``make_train_step(cfg, mesh, attention=...)`` for each
+      attention strategy;
+    * ``"moe"``: the ring-MoE over sp (:func:`moe_inputs`);
+    * ``"pipe"``, ``"dp_pp"``, ``"dp_tp_pp"``, ``"4d"``: the flagship
+      1F1B pipe (:func:`pipe_setup`); ``"dp_pp"`` also runs the GPipe
+      forward over the same stages.
+
+    With ``save_grads``, rank 0 saves each path's first loss and gathered
+    gradients there (``torch.save``; the MoE's output too, the GPipe's
+    last-stage hidden states). Returns this rank's record: per path the
+    losses, host ms and kernel launches of each step or call, peak
+    allocated bytes, and the card's memory in use with every rank's
+    held."""
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        raise ValueError(f"unknown dry-run parts {sorted(unknown)}; the "
+                         f"parts are {PARTS}")
     grant = torchenv.configure()
     dev = resolve_device(device)
     spec = torchenv.init_distributed(backend=backend, device=dev,
@@ -104,55 +347,29 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
         fraction = None
         torch.set_num_threads(1)
     try:
-        mesh = par.make_mesh(*(mesh_shape
-                               or par.auto_mesh_shape(spec.num_processes)))
+        world = spec.num_processes
+        mesh = par.make_mesh(*(mesh_shape or par.auto_mesh_shape(world)))
         cfg, (batch, seq) = dryrun_config(width, mesh)
-        gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED + 1)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
-                               generator=gen, device=dev)
+                               generator=_gen(dev, 1), device=dev)
         targets = torch.roll(tokens, -1, dims=1)
         record = {"rank": spec.process_id, "mesh": list(mesh.coords),
                   "mesh_shape": mesh.shape, "device": str(dev),
                   "backend": dist.get_backend(), "memory_fraction": fraction,
-                  "batch": [batch, seq], "paths": {}}
+                  "batch": [batch, seq], "paths": {}, "parts": {}}
         saved = {}
-        for attention in attentions:
-            init_fn, step, place = T.make_train_step(
-                cfg, mesh, attention=attention, device=dev)
-            params, opt = init_fn(torch.Generator(device=dev)
-                                  .manual_seed(DRYRUN_SEED), tokens)
-            shard = place(tokens, targets)
-            if dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(dev)
-            losses, step_ms, launches = [], [], []
-            for i in range(steps):
-                FA.FLASH_FWD_LAUNCHES = FA.FLASH_BWD_DQ_LAUNCHES = 0
-                FA.FLASH_BWD_DKV_LAUNCHES = 0
-                _sync(dev)
-                t0 = time.perf_counter()
-                params, opt, loss = step(params, opt, *shard)
-                _sync(dev)
-                step_ms.append(1e3 * (time.perf_counter() - t0))
-                launches.append(_launches())
-                losses.append(loss.item())
-                if i == 0 and save_grads:
-                    grads = par.gather_shards(
-                        {n: p.grad for n, p in params.named_parameters()},
-                        mesh)
-                    saved[attention] = {
-                        "loss": losses[0],
-                        "grads": {n: g.cpu() for n, g in grads.items()}}
-            path = {"losses": losses, "step_ms": step_ms,
-                    "launches_per_step": launches}
-            if dev.type == "cuda":
-                path["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-                dist.barrier()      # every rank holds its step's memory
-                free, total = torch.cuda.mem_get_info(dev)
-                path["card_used_bytes"] = total - free
-                dist.barrier()
-            record["paths"][attention] = path
-            del params, opt
-        if save_grads and spec.process_id == 0:
+        save = save_grads is not None
+        for part in (p for p in PARTS if p in parts):
+            if part == "train":
+                _train_part(cfg, mesh, tokens, targets, attentions, steps,
+                            dev, save, record, saved)
+            elif part == "moe":
+                record["parts"][part] = _moe_part(width, mesh, steps, dev,
+                                                  save, saved)
+            else:
+                record["parts"][part] = _pipe_part(part, width, mesh, world,
+                                                   steps, dev, save, saved)
+        if save and spec.process_id == 0:
             torch.save(saved, save_grads)
         return record
     finally:
@@ -167,7 +384,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--attention", nargs="+", default=["ring"],
                     choices=["ring", "ulysses"])
     ap.add_argument("--width", default="tiny", choices=["tiny", "flagship"])
-    ap.add_argument("--steps", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=1,
+                    help="steps (or calls) of each path")
+    ap.add_argument("--parts", nargs="+", default=list(PARTS),
+                    choices=PARTS)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend")
     ap.add_argument("--init-method")
@@ -176,7 +396,8 @@ def main(argv: list[str] | None = None) -> int:
     record = dryrun_multichip(
         tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None,
         attentions=tuple(args.attention), width=args.width,
-        steps=args.steps, device=args.device, backend=args.backend,
+        steps=args.steps, parts=tuple(args.parts), device=args.device,
+        backend=args.backend,
         init_method=args.init_method, save_grads=args.save_grads)
     print(json.dumps(record), flush=True)
     return 0

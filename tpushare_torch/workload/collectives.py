@@ -9,6 +9,8 @@ process group, and each one that carries a gradient is a
 
 * :func:`shift`: send to the next rank of the group and receive from the
   previous one (``ppermute`` by +1); the backward shifts the other way.
+  :func:`shift_back` is ``ppermute`` by -1 (the pipeline's gradient
+  messages and its microbatch stream).
 * :func:`all_to_all`: dim 0 split evenly over the group, chunk ``j`` to
   rank ``j``; an even all-to-all is its own transpose.
 * :func:`copy_to` and :func:`reduce_from`: the pair around a
@@ -50,7 +52,10 @@ def _wire_buffer(x: torch.Tensor, group) -> torch.Tensor:
 
 def _exchange(x: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
     """Send ``x`` to group rank ``to`` and receive a tensor like it from
-    group rank ``frm``, both posted together."""
+    group rank ``frm``, both posted together. On a group of one, ``x``
+    itself comes back (a copy)."""
+    if to == frm == dist.get_rank(group):
+        return x.clone()
     send = _wire_buffer(x, group)
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, to),
@@ -87,19 +92,21 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class _Shift(torch.autograd.Function):
-    """``ppermute`` by +1 around the group, and its transpose."""
+    """``ppermute`` by ``step`` (+1 or -1) around the group, and its
+    transpose, the shift by ``-step``."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
         n, r = dist.get_world_size(group), dist.get_rank(group)
-        return _exchange(x, group, (r + 1) % n, (r - 1) % n)
+        return _exchange(x, group, (r + step) % n, (r - step) % n)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        return _exchange(g, ctx.group, (r - 1) % n, (r + 1) % n), None
+        return (_exchange(g, ctx.group, (r - ctx.step) % n,
+                          (r + ctx.step) % n), None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -145,7 +152,13 @@ class _ReduceFrom(torch.autograd.Function):
 def shift(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` of the previous rank of ``group`` (this rank's goes to the
     next); differentiable."""
-    return _Shift.apply(x, group)
+    return _Shift.apply(x, group, 1)
+
+
+def shift_back(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of the next rank of ``group`` (this rank's goes to the
+    previous); differentiable."""
+    return _Shift.apply(x, group, -1)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

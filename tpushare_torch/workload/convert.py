@@ -1,9 +1,10 @@
-"""Carry the JAX package's parameter tree into the port, and back.
+"""Carry the JAX package's parameter trees into the port, and back.
 
-The tree travels as numpy arrays (``{"embed", "final_norm", "blocks":
-[{...}, ...]}``, the layout of ``tpushare.workload.model.init_params``),
-so this module needs no JAX. bf16 goes through fp32, which is exact in
-both directions.
+The trees travel as numpy arrays (``{"embed", "final_norm", "blocks":
+[{...}, ...]}``, the layout of ``tpushare.workload.model.init_params``;
+the pipeline's stacked stage tree and edge; the MoE's router and expert
+stacks), so this module needs no JAX. bf16 goes through fp32, which is
+exact in both directions.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import numpy as np
 import torch
 
 from tpushare_torch.utils.device import resolve_device
+from tpushare_torch.workload import collectives as C
+from tpushare_torch.workload import parallel as par
+from tpushare_torch.workload import pipeline as P
 from tpushare_torch.workload.model import ModelConfig, Transformer
 
 _BLOCK_KEYS = ("attn_norm", "wqkv", "wo", "ffn_norm", "w_gate", "w_up",
@@ -72,3 +76,56 @@ def grads_to_numpy(params: Transformer) -> dict:
         return _numpy(p.grad)
 
     return _tree(params, grad)
+
+
+# --------------------------------------------------------------------------
+# Pipeline and MoE trees
+# --------------------------------------------------------------------------
+
+def moe_params_from_jax(tree: dict,
+                        device: str | torch.device = "cuda") -> dict:
+    """The port's MoE params (fp32 tensors) from a JAX ``init_moe_params``
+    tree of numpy arrays."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(tree[k], dtype=np.float32),
+                            device=dev) for k in ("router", "w1", "w2")}
+
+
+def pipeline_params_from_jax(stacked: dict, edge: dict, mesh, axis_name: str,
+                             tp_axis: str | None = None,
+                             device: str | torch.device = "cuda"):
+    """(stage, edge) of this rank, fp32, from the reference's flagship pipe
+    tree (``make_flagship_pipeline``'s ``init_fn``: ``stacked`` leaves
+    [n_stages, per_stage, ...] by block weight name, ``edge`` the embedding
+    and final norm), numpy leaves: its stage on the pipe axis, the tp
+    shard of it under ``tp_axis``, and the edge whole."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    n_stages, per_stage = np.shape(stacked["wqkv"])[:2]
+    P._check_stage_count(n_stages, mesh, axis_name)
+    idx = mesh.index(axis_name)
+    blocks = [{k: tensor(stacked[k][idx][j]) for k in _BLOCK_KEYS}
+              for j in range(per_stage)]
+    return (P.flagship_stage(blocks, mesh, tp_axis),
+            P.flagship_edge(tensor(edge["embed"]), tensor(edge["final_norm"])))
+
+
+def pipeline_grads_to_numpy(stage, edge, mesh, axis_name: str,
+                            tp_axis: str | None = None):
+    """The reference's (``g_stacked``, ``g_edge``) trees of fp32 numpy
+    arrays from every rank's ``.grad``: each block weight's gradient
+    gathered over tp (its shards) and over the pipe axis (the stages),
+    leaves [n_stages, per_stage, ...]. A collective over those groups;
+    every rank gets the trees."""
+    stacked = {}
+    for key in _BLOCK_KEYS:
+        g = torch.stack([getattr(blk, key).grad for blk in stage])
+        axis = par.TP_AXIS.get(key)
+        if tp_axis is not None and axis is not None:
+            g = C.all_gather(g, mesh.group(tp_axis), axis + 1)
+        stacked[key] = _numpy(C.all_gather(g[None], mesh.group(axis_name),
+                                           0))
+    return stacked, {k: _numpy(p.grad) for k, p in edge.items()}

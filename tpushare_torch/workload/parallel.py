@@ -1,5 +1,5 @@
-"""Parallelism layer: a (dp, tp, sp) mesh of ranks, the tp sharding of the
-weights, and ring and Ulysses attention over sp.
+"""Parallelism layer: a (dp, tp, sp, pp) mesh of ranks, the tp sharding of
+the weights, and ring and Ulysses attention over sp.
 
 Port of ``tpushare/workload/parallel.py``. Each rank is one process of a
 gang (``torchenv.init_distributed``) and holds its own shard:
@@ -10,7 +10,9 @@ gang (``torchenv.init_distributed``) and holds its own shard:
   hidden axis of the ffn's; :func:`shard_params`);
 * ``sp``: sequence parallel (the sequence axis of the activations;
   attention runs as a ring over ``sp``, :func:`ring_flash_attention`, or
-  re-shards heads with two all-to-alls, :func:`ulysses_attention`).
+  re-shards heads with two all-to-alls, :func:`ulysses_attention`);
+* ``pp``: pipeline parallel (contiguous layers a stage;
+  :mod:`pipeline`).
 
 Where the JAX package writes one program for the mesh and lets
 ``shard_map`` and GSPMD place the collectives, each rank here runs its
@@ -25,6 +27,7 @@ prices ICI placements for the control plane and is not ported.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -40,17 +43,28 @@ from tpushare_torch.workload import model as M
 # Mesh construction
 # --------------------------------------------------------------------------
 
+#: The mesh's axes, in the order ranks fill it (row-major, as the
+#: reference reshapes its devices for ``("dp", "tp", "sp", "pp")``).
+AXES = ("dp", "tp", "sp", "pp")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a (dp, tp, sp) mesh and the process groups it
-    belongs to: ``"tp"`` and ``"sp"`` (the ranks that differ from it along
-    that axis alone) and ``"dpsp"``, the dp × sp ranks of its tp
-    coordinate, over which the train step reduces gradients.
+    """This rank's place in a (dp, tp, sp, pp) mesh and the process groups
+    it belongs to.
+
+    ``group(*axes)`` is the group of the ranks that differ from this one
+    only along ``axes``: ``group("tp")``, ``group("sp")``, the dp × sp
+    group over which the train step reduces gradients, the pipe axis of a
+    pipeline (``pipeline.py``), which may be any axis, as the reference
+    pipelines over ``sp`` on a (1, 1, n) mesh. A mesh without a pipe axis
+    (``pp == 1``) has the axes ("dp", "tp", "sp") alone, in ``shape``
+    and ``coords``.
 
     A small class rather than ``torch.distributed.device_mesh.DeviceMesh``:
-    the gradient reduction needs the dp × sp group, which a DeviceMesh
-    offers only by flattening two of its dimensions (a private method in
-    the torch versions the port runs on), and nothing else of the port
+    the gradient reductions need groups over two or three axes, which a
+    DeviceMesh offers only by flattening its dimensions (a private method
+    in the torch versions the port runs on), and nothing else of the port
     needs more than the groups and the coordinates."""
 
     dp: int
@@ -58,49 +72,82 @@ class Mesh:
     sp: int
     rank: int
     groups: dict
+    pp: int = 1
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return AXES if self.pp > 1 else AXES[:3]
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"dp": self.dp, "tp": self.tp, "sp": self.sp}
+        return {axis: self.size(axis) for axis in self.axes}
+
+    def size(self, axis: str) -> int:
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
+                             f"{AXES}")
+        return getattr(self, axis)
+
+    def _coords(self) -> tuple[int, int, int, int]:
+        rest, out = self.rank, []
+        for axis in reversed(AXES):
+            rest, i = divmod(rest, self.size(axis))
+            out.append(i)
+        return tuple(reversed(out))
 
     @property
-    def coords(self) -> tuple[int, int, int]:
-        """(dp, tp, sp) coordinates; ranks fill the mesh in row-major
+    def coords(self) -> tuple[int, ...]:
+        """Coordinates along ``axes``; ranks fill the mesh in row-major
         order, as the reference reshapes its device list."""
-        d, rest = divmod(self.rank, self.tp * self.sp)
-        return (d, *divmod(rest, self.sp))
+        return self._coords()[:len(self.axes)]
 
-    dp_rank = property(lambda self: self.coords[0])
-    tp_rank = property(lambda self: self.coords[1])
-    sp_rank = property(lambda self: self.coords[2])
-    tp_group = property(lambda self: self.groups["tp"])
-    sp_group = property(lambda self: self.groups["sp"])
-    grad_group = property(lambda self: self.groups["dpsp"])
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``, its rank in
+        ``group(axis)``."""
+        return self._coords()[AXES.index(axis)]
+
+    def group(self, *axes: str):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (axes of size 1 add nothing; with none left, this
+        rank alone)."""
+        return self.groups[frozenset(a for a in axes if self.size(a) > 1)]
+
+    dp_rank = property(lambda self: self.index("dp"))
+    tp_rank = property(lambda self: self.index("tp"))
+    sp_rank = property(lambda self: self.index("sp"))
+    pp_rank = property(lambda self: self.index("pp"))
+    tp_group = property(lambda self: self.group("tp"))
+    sp_group = property(lambda self: self.group("sp"))
+    grad_group = property(lambda self: self.group("dp", "sp"))
 
 
-def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1) -> Mesh:
-    """Build a (dp, tp, sp) mesh over the gang (``torch.distributed``
-    initialized, with exactly ``dp * tp * sp`` ranks). Every rank creates
-    every group, in the same order, as ``new_group`` requires."""
-    need = dp * tp * sp
+def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
+    """Build a (dp, tp, sp, pp) mesh over the gang (``torch.distributed``
+    initialized, with exactly ``dp * tp * sp * pp`` ranks), with a group
+    for every set of its axes of size > 1 (:meth:`Mesh.group`). Every
+    rank creates every group, in the same order, as ``new_group``
+    requires."""
+    sizes = (dp, tp, sp, pp)
+    need = math.prod(sizes)
     world = dist.get_world_size()
     if world != need:
-        raise ValueError(f"mesh {dp}x{tp}x{sp} needs {need} ranks, the "
-                         f"gang has {world}")
+        raise ValueError(f"mesh {'x'.join(map(str, sizes))} needs {need} "
+                         f"ranks, the gang has {world}")
     rank = dist.get_rank()
-    grid = torch.arange(need).reshape(dp, tp, sp)
-    lines = {
-        "tp": grid.permute(0, 2, 1).reshape(-1, tp),
-        "sp": grid.reshape(-1, sp),
-        "dpsp": grid.permute(1, 0, 2).reshape(tp, dp * sp),
-    }
+    grid = torch.arange(need).reshape(sizes)
+    live = [i for i, n in enumerate(sizes) if n > 1]
     groups = {}
-    for axis, members in lines.items():
-        for line in members.tolist():
-            group = dist.new_group(line)
-            if rank in line:
-                groups[axis] = group
-    return Mesh(dp, tp, sp, rank, groups)
+    for r in range(len(live) + 1):
+        for subset in itertools.combinations(live, r):
+            others = [i for i in range(len(sizes)) if i not in subset]
+            width = math.prod(sizes[i] for i in subset)
+            key = frozenset(AXES[i] for i in subset)
+            for line in grid.permute(*others, *subset).reshape(
+                    -1, width).tolist():
+                group = dist.new_group(line)
+                if rank in line:
+                    groups[key] = group
+    return Mesh(dp, tp, sp, rank, groups, pp)
 
 
 def auto_mesh_shape(n: int) -> tuple[int, int, int]:
