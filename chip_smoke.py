@@ -11,10 +11,12 @@ NVIDIA discovery sizes), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
-training (phase 5d) and the pipelines and ring-MoE (phase 5e) run gangs
-of rank processes on the one card, each under a grant of its share of
-the card, their collectives over gloo through the host. One line per
-phase;
+training (phase 5d), the pipelines and ring-MoE (phase 5e), and the
+checkpoint lifecycle (phase 5f: an async save, resume on the same and on
+another mesh, an unsharded restore that serves, tensor-parallel
+serving) run gangs of rank processes on the one card, each under a grant
+of its share of the card, their collectives over gloo through the host.
+One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises and exits nonzero; so does a host without a
@@ -42,6 +44,7 @@ import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch.deviceplugin import discovery
 from tpushare_torch.runtime import launch, torchenv
+from tpushare_torch.workload import checkpoint as CK
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import moe
@@ -123,6 +126,11 @@ SHARDED_SHAPES = {
     "pipe_ring_own": (1, 1024, 1024, 4, 64, 1024, 1024),
     "pipe_ring_past": (1, 1024, 1024, 4, 64, 1024, 0),
     "pipe_ring_future": (1, 1024, 1024, 4, 64, 0, 1024),
+    # Phase 5f: a (2, 2, 1) rank's [4, 2048] tokens at H / tp = 4 heads
+    # (training, sp = 1), and the tp decode's prefill of its [4, 128]
+    # prompts at 4 heads.
+    "tp_train_rank": (4, 2048, 2048, 4, 64, 0, 0),
+    "tp_prefill": (4, 128, 128, 4, 64, 0, 0),
 }
 #: Phase 7c times (h) and (i), bf16, forward and backward (with a nonzero
 #: lse cotangent, as the ring's merge hands back).
@@ -172,6 +180,15 @@ GANG_DEADLINE_S = 480
 PIPE_GANGS = (("P1", 4, "2,1,2", ("dp_pp",)),
               ("P2", 8, "2,2,2", ("4d", "moe")))
 PIPE_CALLS = 2
+#: Phase 5f: checkpoint, resume and tensor-parallel serving of the
+#: flagship at phase 5b's global batch, gangs of CKPT_RANKS ranks over
+#: gloo: (a) a (2, 2, 1) gang takes CKPT_STEPS steps with an async save
+#: after step CKPT_AT; (b) a fresh (2, 2, 1) gang and (c) a (1, 1, 4) ring
+#: gang restore step CKPT_AT and take the steps after it; (d) this process
+#: restores the weights unsharded and serves; (e) a (2, 2, 1) gang serves
+#: them tensor-parallel, both as the entry's serve part does at flagship
+#: width (``entry.serve_setup``: 8 prompts of 128 tokens, 64 new).
+CKPT_RANKS, CKPT_STEPS, CKPT_AT = 4, 3, 2
 #: The GPipe forward's last-stage hidden states against one process's
 #: blocks (bf16, normalized), and the ring-MoE's fp32 output and
 #: gradients against ``moe_ffn_reference`` on one process (normalized;
@@ -524,6 +541,12 @@ def main(usage_dir: str) -> int:
     phase("5e pipeline and expert parallelism", card=card, **piped)
     del ref
 
+    # 5f. Checkpoint, resume and tp serving: a gang saves asynchronously,
+    # fresh gangs on the same and on another mesh resume from it, one
+    # process restores it unsharded and serves, a tp gang serves it.
+    lifecycle = checkpoint_phase(cfg, inv.chips[0].hbm_gib)
+    phase("5f checkpoint, resume and tp serving", card=card, **lifecycle)
+
     # 6. Heartbeat, and whether the grant's allocator cap holds.
     snap = torchenv.write_usage()
     with open(usage_file, encoding="utf-8") as f:
@@ -569,7 +592,9 @@ def main(usage_dir: str) -> int:
                **{path: counts["flash_fwd"]
                   for path, counts in sharded["launches"].items()},
                **{path: counts["flash_fwd"]
-                  for path, counts in piped["launches"].items()}}
+                  for path, counts in piped["launches"].items()},
+               **{path: counts["flash_fwd"]
+                  for path, counts in lifecycle["launches"].items()}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -616,14 +641,17 @@ def main(usage_dir: str) -> int:
             "launches": train["launches"][kname] + sum(
                 counts[kname] for counts in [
                     *cotenancy.values(), *sharded["launches"].values(),
-                    *piped["launches"].values()]),
+                    *piped["launches"].values(),
+                    *lifecycle["launches"].values()]),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
                                  **{path: counts[kname] for path, counts
                                     in sharded["launches"].items()},
                                  **{path: counts[kname] for path, counts
-                                    in piped["launches"].items()}},
+                                    in piped["launches"].items()},
+                                 **{path: counts[kname] for path, counts
+                                    in lifecycle["launches"].items()}},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
@@ -1424,6 +1452,218 @@ def pipe_phase(cfg: M.ModelConfig, card_gib: int, ref: dict,
             del saved
     fields.update(launches={k: dict(v) for k, v in launches.items()},
                   call_time_clock="host, collectives over gloo via host")
+    return fields
+
+
+def _same_weights(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(torch.equal(got[n], want[n])
+                                         for n in want)
+
+
+def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
+    """Phase 5f: the train → checkpoint → restore → serve lifecycle of the
+    flagship (bf16, phase 5b's 8 x 2048 global batch, the dry run's
+    weights), gangs of ``CKPT_RANKS`` ranks of ``python -m
+    tpushare_torch.entry`` over gloo under grants of floor(``card_gib`` /
+    ranks), the checkpoint in a temporary directory:
+
+    (a) a (2, 2, 1) gang takes ``CKPT_STEPS`` steps with an async save
+        after step ``CKPT_AT`` (``--ckpt-every``), so the next step runs
+        while the write drains;
+    (b) a fresh (2, 2, 1) gang restores step ``CKPT_AT`` (``--resume``)
+        and takes the steps after it: its losses and final weights equal
+        (a)'s bit for bit, its restored weights the saved ones;
+    (c) a (1, 1, 4) ring gang does the same: restored weights bit for
+        bit, the next loss within ``TRAIN_LOSS_TOL`` of (a)'s;
+    (d) this process restores the weights unsharded (bit for bit),
+        ``generate`` s the serve part's prompts (``entry.serve_setup``,
+        8 x (128 + 64)) with the flash prefill, and its prefill logits
+        are within
+        ``LOGIT_TOL`` of ``forward`` on the restored weights;
+    (e) a (2, 2, 1) gang restores the weights tp-sharded and runs the same
+        ``generate`` (the entry's ``serve`` part): its prefill logits
+        within ``LOGIT_TOL`` of (d)'s, every token in vocab.
+
+    Each leg's launch counters are reset just before it (each step or
+    call in a rank), and every rank must launch, a step, 2·L·sp / L·sp /
+    L·sp (L = ``n_layers``; sp = 1 in (a) and (b), 4 in (c)), and L
+    forwards a prefill in (d) and (e). Returns the phase's fields;
+    ``launches`` sums the counts by leg. Host clocks throughout."""
+    n = cfg.n_layers
+    grant = card_gib // CKPT_RANKS
+    fields, launches = {"grant_gib": grant}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as tmp:
+        ckdir = os.path.join(tmp, "ckpt")
+
+        def gang(leg, mesh, part, *extra):
+            save = os.path.join(tmp, f"{leg}.pt")
+            t0 = time.perf_counter()
+            records = launch.launch(
+                ["-m", "tpushare_torch.entry", "--mesh", mesh, "--parts",
+                 part, "--width", "flagship", "--steps", str(CKPT_STEPS),
+                 "--device", "cuda", "--backend", "gloo", "--save-grads",
+                 save, "--ckpt-dir", ckdir, *extra], CKPT_RANKS,
+                deadline_s=GANG_DEADLINE_S, grant_gib=grant,
+                card_gib=card_gib)
+            return records, torch.load(save), time.perf_counter() - t0
+
+        def train_leg(leg, mesh, *extra):
+            records, saved, secs = gang(leg, mesh, "train", *extra)
+            sp = int(mesh.split(",")[2])
+            want = {"flash_fwd": 2 * n * sp, "flash_bwd_dq": n * sp,
+                    "flash_bwd_dkv": n * sp}
+            path = launches.setdefault(f"checkpoint_{leg}",
+                                       collections.Counter())
+            per_rank = [r["paths"]["ring"] for r in records]
+            losses = per_rank[0]["losses"]
+            for rank, p in enumerate(per_rank):
+                check(p["losses"] == losses, f"5f({leg}) rank {rank} "
+                      f"losses {p['losses']}, rank 0 {losses}")
+                for counts in p["launches_per_step"]:
+                    check(counts == want, f"5f({leg}) rank {rank} launches "
+                          f"{counts}, want {want}")
+                    path.update(counts)
+            check(all(math.isfinite(x) for x in losses),
+                  f"5f({leg}) losses {losses}")
+            rec = {"mesh": mesh, "seconds": secs, "steps": per_rank[0][
+                "steps"], "losses": losses, "launches_per_step": want,
+                "step_ms_by_rank": [p["step_ms"] for p in per_rank],
+                "checkpoint_by_rank": [p["checkpoint"] for p in per_rank],
+                "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank]}
+            return rec, saved["checkpoint"]
+
+        # (a) Train and save asynchronously after step CKPT_AT.
+        a, got_a = train_leg("a", "2,2,1", "--ckpt-every", str(CKPT_AT))
+        check(a["steps"] == list(range(1, CKPT_STEPS + 1))
+              and all(c["saved_steps"] == [CKPT_AT]
+                      for c in a["checkpoint_by_rank"]),
+              f"5f(a) saved {a['checkpoint_by_rank']}")
+        on_disk = sorted(os.listdir(ckdir))
+        check(on_disk == [str(CKPT_AT)], f"5f(a) left {on_disk}")
+        saved_w = got_a["weights"][CKPT_AT]
+        ck = a["checkpoint_by_rank"]
+        a.update(save_blocked_ms=[c["save_blocked_ms"][0] for c in ck],
+                 durable_ms=[c["durable_ms"] for c in ck],
+                 checkpoint_bytes=ck[0]["bytes"])
+        fields["a"] = a
+
+        # (b) Resume on the same mesh: bit for bit.
+        b, got_b = train_leg("b", "2,2,1", "--resume")
+        check(b["steps"] == list(range(CKPT_AT + 1, CKPT_STEPS + 1)),
+              f"5f(b) ran steps {b['steps']}")
+        check(_same_weights(got_b["weights"]["restored"], saved_w),
+              "5f(b) restored weights differ from the saved ones")
+        check(b["losses"] == a["losses"][CKPT_AT:],
+              f"5f(b) losses {b['losses']}, uninterrupted "
+              f"{a['losses'][CKPT_AT:]}")
+        check(_same_weights(got_b["weights"]["final"],
+                            got_a["weights"]["final"]),
+              "5f(b) final weights differ from the uninterrupted run's")
+        b["restore_ms"] = [x["restore_ms"] for x in b["checkpoint_by_rank"]]
+        fields["b"] = b
+
+        # (c) Resume on another mesh: a (1, 1, 4) ring.
+        c, got_c = train_leg("c", "1,1,4", "--resume")
+        check(_same_weights(got_c["weights"]["restored"], saved_w),
+              "5f(c) restored weights differ from the saved ones")
+        loss_err = abs(c["losses"][0] - a["losses"][CKPT_AT]) / abs(
+            a["losses"][CKPT_AT])
+        check(loss_err <= TRAIN_LOSS_TOL,
+              f"5f(c) loss {c['losses'][0]} vs (a)'s "
+              f"{a['losses'][CKPT_AT]}")
+        c.update(vs_a_loss_rel_err=loss_err,
+                 restore_ms=[x["restore_ms"] for x in c["checkpoint_by_rank"]])
+        fields["c"] = c
+
+        # (d) Restore unsharded in this process and serve.
+        torch.cuda.empty_cache()
+        dev = torch.device("cuda")
+        ckptr = CK.Checkpointer(CK.CheckpointConfig(ckdir))
+        params = M.init_params(_dev_gen(9), cfg)
+        opt = T.make_optimizer()(params.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, step = ckptr.restore(params, opt)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        ckptr.close()
+        check(step == CKPT_AT, f"5f(d) restored step {step}")
+        check(_same_weights({k: p.detach().cpu() for k, p in
+                             params.named_parameters()}, saved_w),
+              "5f(d) restored weights differ from the saved ones")
+        del opt
+        _, shape, n_new, max_len = E.serve_setup("flagship", None)
+        prompts = E.serve_prompts(cfg, shape, dev)
+        d_launches = launches.setdefault("checkpoint_d_serve",
+                                         collections.Counter())
+        FA.FLASH_FWD_LAUNCHES = FA.FLASH_BWD_DQ_LAUNCHES = 0
+        FA.FLASH_BWD_DKV_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = S.generate(params, prompts, cfg, n_new, max_len,
+                         attn_fn=FA.flash_attention)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = _counts()
+        check(counts == {"flash_fwd": n, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0},
+              f"5f(d) generate launched {counts}")
+        d_launches.update(counts)
+        check(tuple(out.shape) == (shape[0], max_len)
+              and torch.equal(out[:, :shape[1]], prompts)
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"5f(d) stream {tuple(out.shape)} lost its prompt or left "
+              f"the vocab")
+        FA.FLASH_FWD_LAUNCHES = 0
+        logits, _ = S.prefill(params, prompts, S.init_cache(
+            cfg, shape[0], max_len), attn_fn=FA.flash_attention)
+        check(FA.FLASH_FWD_LAUNCHES == n,
+              f"5f(d) prefill launched {FA.FLASH_FWD_LAUNCHES}")
+        d_launches.update(_counts())
+        with torch.inference_mode():
+            ref = M.forward(params, prompts, cfg)[:, -1]
+        d_err = _norm_err(logits, ref)
+        check(d_err <= LOGIT_TOL, f"5f(d) prefill logits off forward by "
+                                  f"{d_err}")
+        fields["d"] = {"restored_step": step, "restore_ms": restore_ms,
+                       "restore_stats": ckptr.last_restore_stats,
+                       "generate_s": gen_s,
+                       "new_tok_per_s": shape[0] * n_new / gen_s,
+                       "prefill_vs_forward_err": d_err,
+                       "launches_per_prefill": n}
+        del params
+
+        # (e) The tp decode, from the same checkpoint.
+        records, got_e, secs = gang("e", "2,2,1", "serve", "--resume")
+        e_launches = launches.setdefault("checkpoint_e_serve",
+                                         collections.Counter())
+        want = {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        per_rank = [r["parts"]["serve"] for r in records]
+        for rank, p in enumerate(per_rank):
+            check(p["launches"] == want, f"5f(e) rank {rank} launched "
+                  f"{p['launches']}, want {want}")
+            check(p["restored_step"] == CKPT_AT and p["heads_per_rank"] == 4
+                  and p["prompt_kept"] and p["in_vocab"]
+                  and p["tokens_shape"] == [shape[0], max_len],
+                  f"5f(e) rank {rank}: {p}")
+            e_launches.update(p["launches"])
+        e_err = _norm_err(got_e["serve"]["prefill_logits"].cuda(), logits)
+        check(e_err <= LOGIT_TOL, f"5f(e) prefill logits off one "
+                                  f"process's by {e_err}")
+        agree = (got_e["serve"]["tokens"].cuda() == out).float().mean()
+        fields["e"] = {
+            "seconds": secs, "vs_single_prefill_err": e_err,
+            "stream_agreement_with_d": agree.item(),
+            "heads_per_rank": per_rank[0]["heads_per_rank"],
+            "launches_per_prefill": want,
+            "restore_ms_by_rank": [p["restore_ms"] for p in per_rank],
+            "restore_stats_by_rank": [p["restore_stats"]
+                                      for p in per_rank],
+            "generate_ms_by_rank": [p["generate_ms"] for p in per_rank],
+            "new_tok_per_s_by_rank": [p["new_tok_per_s"] for p in per_rank],
+            "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank]}
+    fields.update(launches={k: dict(v) for k, v in launches.items()},
+                  clock="host, collectives over gloo via host")
     return fields
 
 

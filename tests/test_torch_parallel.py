@@ -543,7 +543,7 @@ def test_dryrun_multichip_trains_on_a_cpu_gang(gang):
     for rec in records:
         assert rec["mesh_shape"] == {"dp": 2, "tp": 2, "sp": 2}
         assert rec["backend"] == "gloo"
-        assert set(rec["parts"]) == {"moe", *DRYRUN_PIPES}
+        assert set(rec["parts"]) == {"moe", *DRYRUN_PIPES, "serve"}
         for path in rec["paths"].values():
             assert all(np.isfinite(path["losses"]))
             assert path["losses"][-1] < path["losses"][0]
@@ -585,6 +585,19 @@ def test_dryrun_multichip_runs_moe_and_pipes_on_a_cpu_gang(gang, part):
         assert 1 <= p["stash_peak"] <= 2
     if part == "dp_pp":
         assert all("gpipe" in p for p in parts)
+
+
+def test_dryrun_multichip_serves_tensor_parallel_on_a_cpu_gang(gang):
+    """The dry run's serve part, as the reference's: ``generate`` on the
+    training mesh's dp x tp (sp ranks are replicas), the tiny config at 2
+    layers in fp32, prompts [2·dp, 8] and 4 new tokens; every rank holds
+    the same global stream, its prompt kept, in vocab, each rank's cache
+    at H / tp heads."""
+    parts = [r["dryrun"]["parts"]["serve"] for r in gang[0]]
+    for p in parts:
+        assert p["tokens_shape"] == [4, 12] and p["batch"] == [4, 8]
+        assert p["prompt_kept"] and p["in_vocab"]
+        assert p["heads_per_rank"] == 2 and p["dtype"] == "torch.float32"
 
 
 def test_launch_kills_a_gang_past_its_deadline():

@@ -129,6 +129,8 @@ def _port_files():
     yield os.path.join(REPO, "tools", "nccl_gang.py")
     yield os.path.join(REPO, "tests", "torch_parallel_rank.py")
     yield os.path.join(REPO, "tests", "torch_pipeline_rank.py")
+    yield os.path.join(REPO, "tests", "torch_checkpoint_rank.py")
+    yield os.path.join(REPO, "tests", "torch_serving_tp_rank.py")
 
 
 def _imports(path):
@@ -147,13 +149,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in (("tpushare_torch", "workload", "train.py"),
                  ("tpushare_torch", "workload", "pipeline.py"),
                  ("tpushare_torch", "workload", "moe.py"),
+                 ("tpushare_torch", "workload", "checkpoint.py"),
                  ("tpushare_torch", "deviceplugin", "discovery.py"),
                  ("cogpucheck.py",)):
         assert os.path.join(REPO, *name) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "tpushare"), (path, mod)
+            assert top not in ("jax", "jaxlib", "orbax", "tpushare"), (
+                path, mod)
 
 
 GANG = {const.ENV_POD_GROUP: "train", const.ENV_POD_GROUP_SIZE: "4"}

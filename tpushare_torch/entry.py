@@ -7,10 +7,10 @@ flagship LM at vocab 8192 over tokens ``[2, 256]``, built by
 flash kernel on the card).
 
 :func:`dryrun_multichip` is the rank body of the JAX package's multi-chip
-dry run up to its tp-sharded decode: dp × tp × sp training, the ring-MoE
-and the flagship pipes (:data:`PARTS`). Each rank of a gang started by
-``runtime.launch`` runs it (``python -m tpushare_torch.entry ...``) and
-prints one JSON line.
+dry run: dp × tp × sp training (checkpointed and resumed on request),
+the ring-MoE, the flagship pipes and the tp-sharded decode
+(:data:`PARTS`). Each rank of a gang started by ``runtime.launch`` runs
+it (``python -m tpushare_torch.entry ...``) and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.utils.device import resolve_device
+from tpushare_torch.workload import checkpoint as CK
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import convert
 from tpushare_torch.workload import flash_attention as FA
@@ -32,6 +33,7 @@ from tpushare_torch.workload import model as M
 from tpushare_torch.workload import moe
 from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import pipeline
+from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
 
 ENTRY_CONFIG = M.ModelConfig(vocab_size=8192, d_model=512, n_heads=8,
@@ -67,8 +69,9 @@ def dryrun_config(width: str, mesh: par.Mesh) -> tuple[M.ModelConfig,
 
 #: The dry run's parts, in the reference's order (``__graft_entry__.py``):
 #: dp × tp × sp training, the ring-MoE over sp, the flagship 1F1B pipe
-#: over the sp axis, dp × pp, dp × tp × pp and dp × tp × sp × pp.
-PARTS = ("train", "moe", "pipe", "dp_pp", "dp_tp_pp", "4d")
+#: over the sp axis, dp × pp, dp × tp × pp and dp × tp × sp × pp, and the
+#: tensor-parallel decode on the training mesh's dp × tp.
+PARTS = ("train", "moe", "pipe", "dp_pp", "dp_tp_pp", "4d", "serve")
 
 
 def _launches() -> dict[str, int]:
@@ -173,9 +176,20 @@ def moe_inputs(width: str, mesh: par.Mesh, dev: torch.device):
     return params, x
 
 
+def _weights(params, mesh) -> dict:
+    """The full weights on the host, gathered over tp (a collective)."""
+    return {n: p.detach().cpu()
+            for n, p in par.gather_params(params, mesh).named_parameters()}
+
+
 def _train_part(cfg, mesh, tokens, targets, attentions, steps, dev, save,
-                record, saved) -> None:
-    """dp × tp × sp training, one path an attention strategy."""
+                record, saved, ckpt: dict) -> None:
+    """dp × tp × sp training, one path an attention strategy; with
+    ``ckpt["directory"]``, checkpoints (``workload.checkpoint``): resume
+    from the latest step there (``ckpt["resume"]``), then an async save
+    after every ``ckpt["every"]``-th step."""
+    if ckpt["directory"] and len(attentions) > 1:
+        raise ValueError("a checkpointed run trains one attention strategy")
     for attention in attentions:
         init_fn, step, place = T.make_train_step(
             cfg, mesh, attention=attention, device=dev)
@@ -183,21 +197,55 @@ def _train_part(cfg, mesh, tokens, targets, attentions, steps, dev, save,
         shard = place(tokens, targets)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        losses, step_ms, launches = [], [], []
-        for i in range(steps):
+        losses, step_ms, launches, done = [], [], [], 0
+        ckpt_rec, weights = {}, {}
+        ckptr = (CK.Checkpointer(CK.CheckpointConfig(ckpt["directory"]), mesh)
+                 if ckpt["directory"] else None)
+        if ckptr is not None and ckpt["resume"]:
+            restored, ms, _ = _timed(dev, lambda: ckptr.restore(params, opt))
+            if restored is None:
+                raise RuntimeError(f"nothing to resume from in "
+                                   f"{ckpt['directory']}")
+            done = restored[2]
+            ckpt_rec.update(restored_step=done, restore_ms=ms,
+                            restore_stats=ckptr.last_restore_stats)
+            if save:
+                weights["restored"] = _weights(params, mesh)
+        for i in range(done, steps):
             (params, opt, loss), ms, counts = _timed(
                 dev, lambda: step(params, opt, *shard))
             step_ms.append(ms)
             launches.append(counts)
             losses.append(loss.item())
-            if i == 0 and save:
+            if i == done and save:
                 grads = par.gather_shards(
                     {n: p.grad for n, p in params.named_parameters()}, mesh)
                 saved[attention] = {
                     "loss": losses[0],
                     "grads": {n: g.cpu() for n, g in grads.items()}}
+            every = ckpt["every"]
+            if ckptr is not None and every and (i + 1) % every == 0:
+                ckptr.save(i + 1, params, opt)
+                ckpt_rec.setdefault("saved_steps", []).append(i + 1)
+                ckpt_rec.setdefault("save_blocked_ms", []).append(
+                    1e3 * ckptr.last_save_stats["blocked_s"])
+                if save:
+                    weights[i + 1] = _weights(params, mesh)
+        if ckptr is not None:
+            ckptr.close()
+            stats = ckptr.last_save_stats
+            if "durable_s" in stats:
+                ckpt_rec.update(durable_ms=1e3 * stats["durable_s"],
+                                bytes=stats.get("bytes"))
+        if save and ckptr is not None:
+            weights["final"] = _weights(params, mesh)
+            saved["checkpoint"] = {"losses": losses, "weights": weights}
         record["paths"][attention] = {"losses": losses, "step_ms": step_ms,
+                                      "steps": list(range(done + 1,
+                                                          steps + 1)),
                                       "launches_per_step": launches,
+                                      **({"checkpoint": ckpt_rec}
+                                         if ckptr is not None else {}),
                                       **_memory(dev)}
         del params, opt
 
@@ -299,6 +347,73 @@ def _pipe_part(part, width, train_mesh, world, steps, dev, save,
     return rec
 
 
+def serve_setup(width: str, mesh: par.Mesh):
+    """(config, [batch, prompt length], new tokens, cache length) of the
+    serve part: at ``"tiny"`` width the reference's dry-run decode (the
+    training config at 2 layers, fp32, prompts [2·dp, 8], 4 new tokens,
+    a 16-token cache); at ``"flagship"`` the default config, bf16, 8 ×
+    (128 + 64) as phase 5 of ``chip_smoke.py`` serves it."""
+    if width == "flagship":
+        return M.ModelConfig(), (8, 128), 64, 192
+    base, _ = dryrun_config("tiny", mesh)
+    cfg = dataclasses.replace(base, n_layers=2, dtype=torch.float32,
+                              remat=False)
+    return cfg, (2 * mesh.dp, 8), 4, 16
+
+
+def serve_prompts(cfg: M.ModelConfig, shape, dev: torch.device):
+    """The serve part's global prompts, which every rank draws alike."""
+    return torch.randint(0, cfg.vocab_size, shape, generator=_gen(dev, 5),
+                         device=dev)
+
+
+def _serve_part(width, mesh, dev, save, saved, ckpt: dict) -> dict:
+    """The tensor-parallel decode: ``generate`` on the training mesh's dp
+    × tp (sp ranks are replicas) from weights of seed ``DRYRUN_SEED +
+    4``, or restored from the latest checkpoint (``ckpt["resume"]``),
+    with the prefill attention ``best_attn_fn`` picks."""
+    cfg, shape, n_new, max_len = serve_setup(width, mesh)
+    params = par.shard_params(M.init_params(_gen(dev, 4), cfg, dev), mesh)
+    rec = {"heads_per_rank": cfg.n_heads // mesh.tp,
+           "dtype": str(cfg.dtype)}
+    if ckpt["resume"]:
+        ckptr = CK.Checkpointer(CK.CheckpointConfig(ckpt["directory"]), mesh)
+        # The restore's optimizer target, built before the clock starts as
+        # the train part's is (the first optimizer a process builds imports
+        # torch._dynamo, seconds on a shared host).
+        opt = T.make_optimizer()(params.parameters())
+        restored, rec["restore_ms"], _ = _timed(
+            dev, lambda: ckptr.restore(params, opt))
+        ckptr.close()
+        del opt
+        if restored is None:
+            raise RuntimeError(f"nothing to resume from in "
+                               f"{ckpt['directory']}")
+        rec.update(restored_step=restored[2],
+                   restore_stats=ckptr.last_restore_stats)
+    prompts = serve_prompts(cfg, shape, dev)
+    attn_fn = FA.best_attn_fn(dev)
+    out, ms, counts = _timed(dev, lambda: S.generate(
+        params, prompts, cfg, n_new, max_len, attn_fn=attn_fn, mesh=mesh))
+    rows = shape[0] // mesh.dp
+    rec.update(batch=list(shape), n_new=n_new, tokens_shape=list(out.shape),
+               prompt_kept=bool(torch.equal(out[:, :shape[1]], prompts)),
+               in_vocab=bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+               generate_ms=ms, new_tok_per_s=rows * n_new / (ms / 1e3),
+               launches=counts, **_memory(dev))
+    if save:
+        tp = mesh.tp_group if mesh.tp > 1 else None
+        local = par.place_batch(mesh, prompts, sequence=False)
+        logits, _ = S.prefill(params, local, S.init_cache(
+            cfg, rows, max_len, dev, tp=tp), attn_fn=attn_fn, tp=tp)
+        if mesh.dp > 1:
+            logits = C.all_gather(logits, mesh.dp_group, 0)
+        if mesh.rank == 0:
+            saved["serve"] = {"tokens": out.cpu(),
+                              "prefill_logits": logits.cpu()}
+    return rec
+
+
 def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                      attentions: tuple[str, ...] = ("ring",),
                      width: str = "tiny", steps: int = 1,
@@ -306,7 +421,10 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                      device: str | torch.device = "cuda",
                      backend: str | None = None,
                      init_method: str | None = None,
-                     save_grads: str | None = None) -> dict:
+                     save_grads: str | None = None,
+                     ckpt_dir: str | None = None,
+                     ckpt_every: int | None = None,
+                     resume: bool = False) -> dict:
     """One rank of the sharded dry run. Joins the gang from its env
     (``torchenv.init_distributed``; a grant in the env caps the card's
     allocator), builds the training mesh (``auto_mesh_shape`` of the
@@ -320,14 +438,23 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
     * ``"moe"``: the ring-MoE over sp (:func:`moe_inputs`);
     * ``"pipe"``, ``"dp_pp"``, ``"dp_tp_pp"``, ``"4d"``: the flagship
       1F1B pipe (:func:`pipe_setup`); ``"dp_pp"`` also runs the GPipe
-      forward over the same stages.
+      forward over the same stages;
+    * ``"serve"``: ``generate`` tensor-parallel on the mesh's dp × tp
+      (:func:`serve_setup`).
+
+    With ``ckpt_dir``, training checkpoints there: ``resume`` restores
+    the latest step first (training then runs the steps after it, up to
+    ``steps``), and an async save follows every ``ckpt_every``-th step;
+    the serve part, with ``resume``, serves the latest step's weights.
 
     With ``save_grads``, rank 0 saves each path's first loss and gathered
     gradients there (``torch.save``; the MoE's output too, the GPipe's
-    last-stage hidden states). Returns this rank's record: per path the
-    losses, host ms and kernel launches of each step or call, peak
-    allocated bytes, and the card's memory in use with every rank's
-    held."""
+    last-stage hidden states, the gathered weights at each save, after a
+    restore and after the last step, the served stream and its prefill
+    logits). Returns this rank's record: per path the losses, host ms and
+    kernel launches of each step or call, peak allocated bytes, and the
+    card's memory in use with every rank's held; the checkpoint's save
+    and restore ms and bytes on disk."""
     unknown = set(parts) - set(PARTS)
     if unknown:
         raise ValueError(f"unknown dry-run parts {sorted(unknown)}; the "
@@ -359,10 +486,15 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                   "batch": [batch, seq], "paths": {}, "parts": {}}
         saved = {}
         save = save_grads is not None
+        ckpt = {"directory": ckpt_dir, "every": ckpt_every,
+                "resume": resume}
         for part in (p for p in PARTS if p in parts):
             if part == "train":
                 _train_part(cfg, mesh, tokens, targets, attentions, steps,
-                            dev, save, record, saved)
+                            dev, save, record, saved, ckpt)
+            elif part == "serve":
+                record["parts"][part] = _serve_part(width, mesh, dev, save,
+                                                    saved, ckpt)
             elif part == "moe":
                 record["parts"][part] = _moe_part(width, mesh, steps, dev,
                                                   save, saved)
@@ -392,13 +524,23 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--backend")
     ap.add_argument("--init-method")
     ap.add_argument("--save-grads")
+    ap.add_argument("--ckpt-dir", help="checkpoint directory of the train "
+                    "and serve parts")
+    ap.add_argument("--ckpt-every", type=int,
+                    help="save after every N-th training step")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint first")
     args = ap.parse_args(argv)
+    if (args.ckpt_every or args.resume) and not args.ckpt_dir:
+        ap.error("--ckpt-every and --resume need --ckpt-dir")
     record = dryrun_multichip(
         tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None,
         attentions=tuple(args.attention), width=args.width,
         steps=args.steps, parts=tuple(args.parts), device=args.device,
         backend=args.backend,
-        init_method=args.init_method, save_grads=args.save_grads)
+        init_method=args.init_method, save_grads=args.save_grads,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        resume=args.resume)
     print(json.dumps(record), flush=True)
     return 0
 

@@ -3,14 +3,16 @@
 The trees travel as numpy arrays (``{"embed", "final_norm", "blocks":
 [{...}, ...]}``, the layout of ``tpushare.workload.model.init_params``;
 the pipeline's stacked stage tree and edge; the MoE's router and expert
-stacks), so this module needs no JAX. bf16 goes through fp32, which is
-exact in both directions.
+stacks; optax's AdamW state), so this module needs no JAX. bf16 goes
+through fp32, which is exact in both directions.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.checkpoint.state_dict import (
+    get_optimizer_state_dict, set_optimizer_state_dict)
 
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
@@ -76,6 +78,69 @@ def grads_to_numpy(params: Transformer) -> dict:
         return _numpy(p.grad)
 
     return _tree(params, grad)
+
+
+# --------------------------------------------------------------------------
+# Optimizer state
+# --------------------------------------------------------------------------
+
+def _named(tree: dict) -> dict:
+    """``{parameter name: leaf}`` of a JAX-layout tree."""
+    return {"embed": tree["embed"], "final_norm": tree["final_norm"],
+            **{f"blocks.{i}.{key}": blk[key]
+               for i, blk in enumerate(tree["blocks"]) for key in _BLOCK_KEYS}}
+
+
+def opt_state_from_jax(opt_state, params: Transformer,
+                       optimizer: torch.optim.Optimizer
+                       ) -> torch.optim.Optimizer:
+    """Fill ``optimizer`` (the port's AdamW over ``params``) with the JAX
+    package's optax ``adamw`` state, numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, opt_state)``): its
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``
+    gives every parameter's ``step`` (count), ``exp_avg`` (mu) and
+    ``exp_avg_sq`` (nu), the moments in the parameter's dtype. The
+    optimizer's hyperparameters stay its own. Returns ``optimizer``."""
+    count, mu, nu = opt_state[0]          # ScaleByAdamState, a namedtuple
+    mu, nu = _named(mu), _named(nu)
+    state = {}
+    for name, p in params.named_parameters():
+        if tuple(np.shape(mu[name])) != tuple(p.shape):
+            raise ValueError(f"{name}: moment shape {np.shape(mu[name])} "
+                             f"does not match the parameter's "
+                             f"{tuple(p.shape)}")
+        state[name] = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(mu[name], np.float32)),
+            "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32))}
+    groups = get_optimizer_state_dict(params, optimizer)["param_groups"]
+    set_optimizer_state_dict(params, optimizer, {"state": state,
+                                                 "param_groups": groups})
+    return optimizer
+
+
+def opt_state_to_numpy(optimizer: torch.optim.Optimizer,
+                       params: Transformer) -> dict:
+    """The optimizer's AdamW state as the fields of optax's
+    ``ScaleByAdamState``: ``{"count": int32, "mu": tree, "nu": tree}``,
+    JAX-layout trees of fp32 numpy arrays. An optimizer that has taken
+    no step has count 0 and zero moments, as optax's init."""
+    def leaf(key):
+        def get(name, p):
+            st = optimizer.state.get(p, {})
+            return _numpy(st[key]) if key in st else np.zeros(
+                tuple(p.shape), np.float32)
+        return get
+
+    steps = {float(st["step"]) for st in optimizer.state.values()
+             if "step" in st}
+    if len(steps) > 1:
+        raise ValueError(f"parameters have taken different step counts "
+                         f"{sorted(steps)}; optax keeps one")
+    return {"count": np.int32(steps.pop() if steps else 0),
+            "mu": _tree(params, leaf("exp_avg")),
+            "nu": _tree(params, leaf("exp_avg_sq"))}
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Parallelism layer: a (dp, tp, sp, pp) mesh of ranks, the tp sharding of
-the weights, and ring and Ulysses attention over sp.
+the weights (and the global view of a rank's shards that a checkpoint
+writes), and ring and Ulysses attention over sp.
 
 Port of ``tpushare/workload/parallel.py``. Each rank is one process of a
 gang (``torchenv.init_distributed``) and holds its own shard:
@@ -33,6 +34,8 @@ import math
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
@@ -116,6 +119,7 @@ class Mesh:
     tp_rank = property(lambda self: self.index("tp"))
     sp_rank = property(lambda self: self.index("sp"))
     pp_rank = property(lambda self: self.index("pp"))
+    dp_group = property(lambda self: self.group("dp"))
     tp_group = property(lambda self: self.group("tp"))
     sp_group = property(lambda self: self.group("sp"))
     grad_group = property(lambda self: self.group("dp", "sp"))
@@ -212,6 +216,33 @@ def shard_params(params: M.Transformer, mesh: Mesh) -> M.Transformer:
             t = t.chunk(mesh.tp, dim=axis)[mesh.tp_rank]
         tensors[name] = t.clone()
     return _module_of(params, tensors)
+
+
+def host_device_mesh(mesh: Mesh) -> DeviceMesh:
+    """A CPU ``DeviceMesh`` over the gang, laid out as ``mesh`` (dp, tp,
+    sp; row-major, as :func:`make_mesh` fills it): what a
+    :func:`global_view` of a rank's host copies needs. Creating it is a
+    collective over the gang (it makes a group for each of its axes);
+    pipeline meshes are refused."""
+    if mesh.pp > 1:
+        raise ValueError("a pipeline mesh has no global view of its stages' "
+                         "weights here; the mesh must have pp = 1")
+    return init_device_mesh("cpu", (mesh.dp, mesh.tp, mesh.sp),
+                            mesh_dim_names=AXES[:3])
+
+
+def global_view(name: str, local: torch.Tensor,
+                device_mesh: DeviceMesh) -> DTensor:
+    """``local``, a rank's copy of parameter ``name`` (or of a tensor laid
+    out as it, such as an AdamW moment) on the host, as the global tensor
+    it is a part of: sharded over tp along :data:`TP_AXIS` and replicated
+    over dp and sp. Nothing is communicated; the global shape is the
+    shard's times tp, as :func:`shard_params` splits evenly."""
+    axis = _tp_axis(name)
+    placements = [Replicate(), Shard(axis) if axis is not None
+                  else Replicate(), Replicate()]
+    return DTensor.from_local(local, device_mesh, placements,
+                              run_check=False)
 
 
 def gather_shards(tensors: dict, mesh: Mesh) -> dict:

@@ -13,6 +13,10 @@ device; it cannot reproduce JAX's threefry bits, only the contract
 (temperature 0 is greedy, the same generator state gives the same
 stream).
 
+``prefill``, ``decode_step`` and ``generate`` also run tensor-parallel:
+the rank's tp shard of the weights and its H / tp heads of the cache,
+with the tp pair of all-reduces ``model.forward`` takes as ``tp``.
+
 Chunked and paged admission prefill a prompt in pieces; each piece's
 attention is the flash forward at the piece's offset against the keys
 before it (the kernel on the card, its plain version on the CPU).
@@ -21,20 +25,31 @@ before it (the kernel on the card, its plain version on the CPU).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tpushare_torch.utils.device import resolve_device
+from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import model as M
+from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import paging
 from tpushare_torch.workload.paging import (PAGE_TOKENS, PROMPT_BUCKETS,
                                             pages_for)
 
 
+def _tp_size(tp) -> int:
+    return 1 if tp is None else dist.get_world_size(tp)
+
+
 def init_cache(cfg: M.ModelConfig, batch: int, max_len: int,
-               device: str | torch.device = "cuda") -> list[dict]:
-    """Preallocated per-layer KV slots, [B, max_len, H, D] each."""
+               device: str | torch.device = "cuda", tp=None) -> list[dict]:
+    """Preallocated per-layer KV slots, [B, max_len, H, D] each; with the
+    tensor-parallel group ``tp``, the rank's H / tp heads."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_heads, cfg.head_dim)
+    if cfg.n_heads % _tp_size(tp):
+        raise ValueError(f"{cfg.n_heads} heads do not split over "
+                         f"tp={_tp_size(tp)}")
+    shape = (batch, max_len, cfg.n_heads // _tp_size(tp), cfg.head_dim)
     with torch.inference_mode():
         return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                  "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
@@ -70,9 +85,15 @@ def _pick(logits: torch.Tensor, temperature: float,
 
 @torch.inference_mode()
 def prefill(params: M.Transformer, tokens: torch.Tensor, cache: list[dict],
-            attn_fn=None) -> tuple[torch.Tensor, list[dict]]:
+            attn_fn=None, tp=None) -> tuple[torch.Tensor, list[dict]]:
     """Run the prompt [B, L] through the model, filling ``cache[:, :L]``
-    in place. Returns ``(logits [B, vocab] for the last position, cache)``."""
+    in place. Returns ``(logits [B, vocab] for the last position, cache)``.
+
+    With the tensor-parallel group ``tp``, ``params`` are the rank's tp
+    shard (``parallel.shard_params``) and ``cache`` its heads
+    (``init_cache(..., tp=tp)``): attention runs over the rank's heads,
+    and the tp pair of all-reduces around the projections and the ffn
+    gives every rank of the group the same logits."""
     if attn_fn is None:
         attn_fn = M.causal_attention
     B, L = tokens.shape
@@ -83,21 +104,22 @@ def prefill(params: M.Transformer, tokens: torch.Tensor, cache: list[dict],
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     x = params.embed[tokens]
     for block, slots in zip(params.blocks, cache):
-        q, k, v = M.qkv_proj(block, x, positions)
+        q, k, v = M.qkv_proj(block, x, positions, tp)
         slots["k"][:, :L] = k
         slots["v"][:, :L] = v
-        x = x + M.out_proj(block, attn_fn(q, k, v))
-        x = M.ffn_block(block, x)
+        x = x + M.out_proj(block, attn_fn(q, k, v), tp)
+        x = M.ffn_block(block, x, tp)
     return M.logits_from_hidden(params, x[:, -1]), cache
 
 
 @torch.inference_mode()
 def decode_step(params: M.Transformer, cache: list[dict],
-                token: torch.Tensor, pos: int
+                token: torch.Tensor, pos: int, tp=None
                 ) -> tuple[torch.Tensor, list[dict]]:
     """One generated token: write ``token``'s K/V at slot ``pos`` and
     attend it against the cached prefix (the offset form of the causal
-    mask, ``pos >= slot``). Returns (next-token logits, cache)."""
+    mask, ``pos >= slot``). Returns (next-token logits, cache). ``tp`` as
+    :func:`prefill` takes it."""
     pos = int(pos)
     max_len = cache[0]["k"].shape[1]
     if not 0 <= pos < max_len:
@@ -107,12 +129,12 @@ def decode_step(params: M.Transformer, cache: list[dict],
     positions = torch.full((B, 1), pos, device=token.device)
     x = params.embed[token][:, None, :]
     for block, slots in zip(params.blocks, cache):
-        q, k, v = M.qkv_proj(block, x, positions)
+        q, k, v = M.qkv_proj(block, x, positions, tp)
         slots["k"][:, pos] = k[:, 0]
         slots["v"][:, pos] = v[:, 0]
         out = _decode_attention(q, slots["k"], slots["v"], pos)
-        x = x + M.out_proj(block, out)
-        x = M.ffn_block(block, x)
+        x = x + M.out_proj(block, out, tp)
+        x = M.ffn_block(block, x, tp)
     return M.logits_from_hidden(params, x[:, 0]), cache
 
 
@@ -143,27 +165,45 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def generate(params: M.Transformer, tokens: torch.Tensor,
              cfg: M.ModelConfig, n_new: int, max_len: int, attn_fn=None,
              temperature: float = 0.0,
-             generator: torch.Generator | None = None) -> torch.Tensor:
+             generator: torch.Generator | None = None,
+             mesh: par.Mesh | None = None) -> torch.Tensor:
     """Prompt [B, L] -> [B, L + n_new] token ids.
 
     ``temperature == 0`` is greedy argmax; ``> 0`` samples each token
     from ``softmax(logits / temperature)`` with ``generator``, which is
     required then. ``attn_fn`` is the prefill attention (decode attends
     one query against the cache); pass ``flash_attention`` for the
-    kernel."""
+    kernel.
+
+    Tensor-parallel decode over a :class:`parallel.Mesh`, as the JAX
+    package's ``generate`` runs on dp × tp shardings: ``params`` are the
+    rank's tp shard, ``tokens`` the global prompt, which every rank holds
+    alike; each rank generates its dp shard of the rows over its H / tp
+    heads (:func:`prefill`'s ``tp``), and the global [B, L + n_new]
+    stream comes back on every rank. Ranks along sp (and pp) are
+    replicas. Every rank of a tp group holds the same logits, so at
+    ``temperature > 0`` each must pass a generator seeded alike to pick
+    the same token."""
     _check_temperature(temperature, generator)
     B, L = tokens.shape
     if L + n_new > max_len:
         raise ValueError(
             f"L + n_new = {L + n_new} exceeds cache max_len {max_len}")
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
-    logits, cache = prefill(params, tokens, cache, attn_fn=attn_fn)
+    tp = mesh.tp_group if mesh is not None and mesh.tp > 1 else None
+    if mesh is not None:
+        tokens = par.place_batch(mesh, tokens, sequence=False)
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
+                       tp=tp)
+    logits, cache = prefill(params, tokens, cache, attn_fn=attn_fn, tp=tp)
     out = []
     for pos in range(L, L + n_new):
         token = _pick(logits, temperature, generator).to(tokens.dtype)
         out.append(token)
-        logits, cache = decode_step(params, cache, token, pos)
-    return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
+        logits, cache = decode_step(params, cache, token, pos, tp=tp)
+    stream = torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
+    if mesh is not None and mesh.dp > 1:
+        stream = C.all_gather(stream, mesh.dp_group, 0)
+    return stream
 
 
 # --------------------------------------------------------------------------
