@@ -16,6 +16,11 @@ checkpoint lifecycle (phase 5f: an async save, resume on the same and on
 another mesh, an unsharded restore that serves, tensor-parallel
 serving) run gangs of rank processes on the one card, each under a grant
 of its share of the card, their collectives over gloo through the host.
+Phase 5g trains the flagship in fp32 (the fp32 kernels: the forward on
+the SIMT units, the backward pair in split-three TF32 on the tensor
+cores) against plain attention; phase 5h runs the reference dry run,
+``python -m tpushare_torch.entry`` at its tiny width (fp32, head_dim 16)
+with every part, as a gang on the card held to the same gang on the host.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -80,8 +85,12 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_TOL = 4e-2
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor
-#: cores, fp32 outside them, and HBM3 bandwidth.
+#: cores, fp32 outside them (the SIMT units), TF32 tensor cores, and HBM3
+#: bandwidth. The fp32 backward runs each product as three TF32 passes
+#: (split-three TF32), so its least time counts 3 x ops at the TF32 rate,
+#: with the SIMT units' time for the same ops beside it.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 #: Phase-3 shapes: name -> (B, Lq, Lk, H, D, q_offset, kv_offset).
@@ -103,6 +112,17 @@ BWD_EDGE_SHAPES = {
     "lq130_d128": (2, 130, 130, 4, 128, 0, 0),
     "tail_offset": (1, 77, 300, 4, 64, 223, 0),
     "no_key_d128": (1, 320, 256, 4, 128, 0, 100),
+}
+#: fp32 alone (bf16 takes head dims 64 and 128): the tiny dry run's block,
+#: [2, 16] tokens at 4 heads of 16, and a ragged block of 77 queries at
+#: offset 223 against 300 keys, at D = 16; and 8192 tokens at D = 64 and
+#: 128, where the backward sums 128 tiles into each gradient row (four
+#: times (f)'s), so that the growth of its error with L shows.
+F32_SHAPES = {
+    "tiny_block": (2, 16, 16, 4, 16, 0, 0),
+    "tiny_tail_offset": (2, 77, 300, 4, 16, 223, 0),
+    "long_8192_d64": (1, 8192, 8192, 4, 64, 0, 0),
+    "long_8192_d128": (1, 8192, 8192, 4, 128, 0, 0),
 }
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
@@ -141,7 +161,8 @@ RING_SHAPES = {name: SHARDED_SHAPES[name]
 #: gets the cotangent ``merge_partials`` returns.
 DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets", "ring_own",
                "h_ring_past", "i_ring_future", "ring_114_past",
-               "pipe_ring_own", "pipe_ring_past", "pipe_ring_future")
+               "pipe_ring_own", "pipe_ring_past", "pipe_ring_future",
+               "tiny_tail_offset")
 TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
@@ -195,6 +216,21 @@ CKPT_RANKS, CKPT_STEPS, CKPT_AT = 4, 3, 2
 #: the same arithmetic in another order).
 GPIPE_TOL = 2e-2
 MOE_TOL = 1e-4
+#: Phase 5g: the flagship train step in fp32 through the kernels against
+#: the same step through plain attention, at the same weights and batch:
+#: relative loss and normalized gradients. fp32 on both sides; they differ
+#: by summation order and the split-three TF32 products (about 1e-6 a
+#: product relative; tests/test_torch_tf32x3.py). FP32_STEPS timed steps.
+FP32_LOSS_TOL, FP32_GRAD_TOL = 1e-5, 1e-4
+FP32_STEPS = 3
+#: Phase 5h: the reference dry run, ``python -m tpushare_torch.entry`` at
+#: its default tiny width with every part (both attention strategies), a
+#: gang of DRYRUN_RANKS gloo ranks on the card, held to the same gang with
+#: ``--device cpu``. Every part is fp32, so the bounds are phase 5g's
+#: (losses relative; gradients, the MoE's output, the GPipe's hidden
+#: states and the served prefill logits normalized).
+DRYRUN_RANKS = 8
+DRYRUN_ATTENTION = ("ring", "ulysses")
 
 
 def phase(name: str, **fields) -> None:
@@ -283,8 +319,9 @@ def main(usage_dir: str) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = random_inputs(gen, SHAPES)
     sharded_inputs = random_inputs(gen, SHARDED_SHAPES)
-    for (name, dn), (q, k, v, qo, ko) in {**inputs,
-                                          **sharded_inputs}.items():
+    f32_inputs = random_inputs(gen, F32_SHAPES, (torch.float32,))
+    for (name, dn), (q, k, v, qo, ko) in {**inputs, **sharded_inputs,
+                                          **f32_inputs}.items():
         lq = q.shape[1]
         with torch.inference_mode():
             out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
@@ -315,19 +352,22 @@ def main(usage_dir: str) -> int:
                              f"version's zeros")
         errs[name, dn] = e
     no_key = no_key_rows(gen)
-    refusals = tma_refusals(inputs["a_flagship_prefill", "bfloat16"][0])
+    refusals = tma_refusals(inputs["a_flagship_prefill", "bfloat16"][0],
+                            inputs["a_flagship_prefill", "float32"][0])
     phase("3 kernel vs plain", tma_refusal=refusals, no_key_rows=no_key,
           **{f"{n}/{d}": e for (n, d), e in errs.items()})
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
-    # shapes: within the tolerance on rows and keys that see something, dq
-    # exactly 0 on rows that see nothing and dk, dv exactly 0 on keys no
-    # row sees, the same dq from a second launch.
+    # shapes (fp32 also at head_dim 16): within the tolerance on rows and
+    # keys that see something, dq exactly 0 on rows that see nothing and
+    # dk, dv exactly 0 on keys no row sees, the same dq from a second
+    # launch.
     bwd_errs = {}
     edge_inputs = random_inputs(gen, BWD_EDGE_SHAPES)
     for (name, dn), (q, k, v, qo, ko) in {**inputs, **sharded_inputs,
-                                          **edge_inputs}.items():
+                                          **edge_inputs,
+                                          **f32_inputs}.items():
         b, lq, h, _ = q.shape
         lk = k.shape[1]
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
@@ -369,17 +409,21 @@ def main(usage_dir: str) -> int:
             check(e[f"{gname}_norm_err"] <= GRAD_TOL[dn],
                   f"{name}/{dn}: {gname} error {e[f'{gname}_norm_err']}")
         bwd_errs[name, dn] = e
-    # No atomics: a second launch on the same inputs gives the same bits.
-    q, k, v, qo, ko = inputs[TRAIN_SHAPE, "bfloat16"]
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    with torch.inference_mode():
-        out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
-        delta = FA.flash_bwd_delta(do, out, None)
-        runs = [(FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta),
-                 *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta))
-                for _ in range(2)]
-    bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
-    check(bitwise, "two backward launches gave different gradients")
+    # No atomics: a second launch on the same inputs gives the same bits,
+    # in both dtypes.
+    bitwise = {}
+    for dn in ("bfloat16", "float32"):
+        q, k, v, qo, ko = inputs[TRAIN_SHAPE, dn]
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        with torch.inference_mode():
+            out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
+            delta = FA.flash_bwd_delta(do, out, None)
+            runs = [(FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta),
+                     *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta))
+                    for _ in range(2)]
+        bitwise[dn] = all(torch.equal(a, b) for a, b in zip(*runs))
+        check(bitwise[dn], f"two {dn} backward launches gave different "
+                           f"gradients")
     # The autograd Function on the card, through both outputs, with the
     # stride-0 cotangents that sum() hands back.
     q, k, v, qo, ko = inputs["a_flagship_prefill", "float32"]
@@ -395,7 +439,7 @@ def main(usage_dir: str) -> int:
           function_grad_err=fn_err,
           **{f"{n}/{d}": e for (n, d), e in bwd_errs.items()})
     del runs, out, lse, delta, do, qkv, ref, edge_inputs, sharded_inputs
-    del got, dq_again, g, r
+    del f32_inputs, got, dq_again, g, r
 
     # 4. Forward through the entry point; from here the launches count.
     FA.FLASH_FWD_LAUNCHES = 0
@@ -571,6 +615,18 @@ def main(usage_dir: str) -> int:
     # The grant's cap has been measured; lift it for the timing harness.
     torch.cuda.set_per_process_memory_fraction(1.0)
     phase("7a training without the cap", **train_steps_uncapped(cfg, tokens))
+
+    # 5g. The flagship train step in fp32, without the cap as 7a (its
+    # plain-attention twin holds [B, H, L, L] fp32 scores): the fp32
+    # kernels' full-width path, held to plain attention.
+    train32 = fp32_train_phase(tokens)
+    phase("5g fp32 flagship training", card=card, **train32)
+
+    # 5h. The reference dry run as a user starts it, tiny width (fp32,
+    # head_dim 16), every part, a gang on the card held to the same gang on
+    # the host.
+    dry = dryrun_phase(inv.chips[0].hbm_gib)
+    phase("5h tiny dry run", card=card, **dry)
     timings, bwd_timings = {}, {}
     for (name, dn), (q, k, v, qo, ko) in inputs.items():
         timings[name, dn] = time_shape(q, k, v, qo, ko, dn)
@@ -594,7 +650,8 @@ def main(usage_dir: str) -> int:
                **{path: counts["flash_fwd"]
                   for path, counts in piped["launches"].items()},
                **{path: counts["flash_fwd"]
-                  for path, counts in lifecycle["launches"].items()}}
+                  for path, counts in lifecycle["launches"].items()},
+               **fp32_paths(train32, dry, "flash_fwd")}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -626,8 +683,12 @@ def main(usage_dir: str) -> int:
                        "library_ms", "bound_ms", "bound_by")},
         "ring_shapes": {name: _pick(ring_t[name]["forward"])
                         for name in RING_SHAPES},
+        "fp32": fp32_record(timings[TRAIN_SHAPE, "float32"], "simt",
+                            fp32_paths(train32, dry, "flash_fwd"),
+                            call_key="kernel_call_ms"),
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
+    train_t32 = bwd_timings[TRAIN_SHAPE, "float32"]
     for kname, line, grads in (("flash_bwd_dq", 217, ("dq",)),
                                ("flash_bwd_dkv", 271, ("dk", "dv"))):
         t = train_t[kname]
@@ -642,7 +703,8 @@ def main(usage_dir: str) -> int:
                 counts[kname] for counts in [
                     *cotenancy.values(), *sharded["launches"].values(),
                     *piped["launches"].values(),
-                    *lifecycle["launches"].values()]),
+                    *lifecycle["launches"].values()]) + sum(
+                fp32_paths(train32, dry, kname).values()),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
@@ -651,7 +713,8 @@ def main(usage_dir: str) -> int:
                                  **{path: counts[kname] for path, counts
                                     in piped["launches"].items()},
                                  **{path: counts[kname] for path, counts
-                                    in lifecycle["launches"].items()}},
+                                    in lifecycle["launches"].items()},
+                                 **fp32_paths(train32, dry, kname)},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
@@ -675,6 +738,17 @@ def main(usage_dir: str) -> int:
                        "plain_ms": ring_t[name]["backward"]["plain_ms"],
                        "library_ms": ring_t[name]["backward"]["library_ms"]}
                 for name in RING_SHAPES},
+            "fp32": {
+                **fp32_record({**train_t32[kname],
+                               "plain_ms": train_t32["plain_ms"],
+                               "library_ms": train_t32["library_ms"]},
+                              "3xtf32+mma.sync+cp.async",
+                              fp32_paths(train32, dry, kname)),
+                "pair_ms": train_t32["pair_ms"],
+                "max_norm_err": max(
+                    e[f"{g}_norm_err"] for (_, dn), e in bwd_errs.items()
+                    if dn == "float32" for g in grads
+                    if f"{g}_norm_err" in e)},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -684,12 +758,36 @@ def main(usage_dir: str) -> int:
     return 0
 
 
-def tma_refusals(q: torch.Tensor) -> dict:
-    """TMA reads the bf16 tiles: a base off the 16-byte grid (a view one
-    element into an allocation shaped like ``q``) is refused by each bf16
-    wrapper with ``ValueError``, before any launch. Returns each message."""
-    odd = torch.empty(q.numel() + 1, dtype=q.dtype,
-                      device="cuda")[1:].view(q.shape)
+def fp32_paths(train32: dict, dry: dict, kname: str) -> dict:
+    """A kernel's fp32 launches on the main path, by path: phase 5g's
+    train steps and every part of phase 5h's dry run on the card."""
+    return {"training_fp32": train32["launches"][kname],
+            **{f"dryrun_{path}": counts[kname]
+               for path, counts in dry["launches"].items()}}
+
+
+def fp32_record(t: dict, design: str, by_path: dict,
+                call_key: str = "call_ms") -> dict:
+    """The kernels line's fp32 record of one kernel at the train shape
+    (f): its design, times, both bounds and its launches by path."""
+    return {"design": design, "shape": f"{TRAIN_SHAPE} float32",
+            "kernel_ms": t["kernel_ms"], "call_ms": t[call_key],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "simt_bound_ms": t["simt_bound_ms"],
+            "vs_library": t["kernel_ms"] / t["library_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def tma_refusals(q: torch.Tensor, q32: torch.Tensor) -> dict:
+    """TMA reads the bf16 tiles and 16-byte cp.async the fp32 backward's: a
+    base off the 16-byte grid (a view one element into an allocation
+    shaped like ``q``, or ``q32`` in fp32) is refused by each bf16 wrapper
+    and each fp32 backward wrapper with ``ValueError``, before any launch.
+    Returns each message."""
+    odd, odd32 = (torch.empty(t.numel() + 1, dtype=t.dtype,
+                              device="cuda")[1:].view(t.shape)
+                  for t in (q, q32))
     stats = torch.zeros(q.shape[:3], device="cuda")     # lse and delta
     calls = {
         "flash_fwd": lambda: FA.flash_fwd_kernel(odd, odd, odd),
@@ -697,6 +795,10 @@ def tma_refusals(q: torch.Tensor) -> dict:
                                                        stats, stats),
         "flash_bwd_dkv": lambda: FA.flash_bwd_dkv_kernel(odd, odd, odd, odd,
                                                          stats, stats),
+        "fp32_flash_bwd_dq": lambda: FA.flash_bwd_dq_kernel(
+            odd32, odd32, odd32, odd32, stats, stats),
+        "fp32_flash_bwd_dkv": lambda: FA.flash_bwd_dkv_kernel(
+            odd32, odd32, odd32, odd32, stats, stats),
     }
     refused = {}
     for name, call in calls.items():
@@ -707,16 +809,18 @@ def tma_refusals(q: torch.Tensor) -> dict:
         except ValueError as exc:
             refused[name] = str(exc)
         check("16-byte aligned" in refused[name] and _counts() == before,
-              f"misaligned bf16 input to {name}: {refused[name]!r}")
+              f"misaligned input to {name}: {refused[name]!r}")
     return refused
 
 
-def random_inputs(gen: torch.Generator, shapes: dict) -> dict:
+def random_inputs(gen: torch.Generator, shapes: dict,
+                  dtypes=(torch.bfloat16, torch.float32)) -> dict:
     """q, k, v and the offsets at each shape (B, Lq, Lk, H, D, q_offset,
-    kv_offset), in bf16 and in fp32, keyed by (shape name, dtype name)."""
+    kv_offset), in each of ``dtypes``, keyed by (shape name, dtype
+    name)."""
     inputs = {}
     for name, (b, lq, lk, h, d, qo, ko) in shapes.items():
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             q, k, v = (torch.randn((b, n, h, d), generator=gen,
                                    device="cuda").to(dt)
                        for n in (lq, lk, lk))
@@ -816,9 +920,11 @@ def _kernel_name(mangled: str) -> str:
 def sass_phase() -> dict:
     """Disassemble each built kernel library (``cuobjdump``): per kernel,
     registers, static shared memory, local memory (spills) and whether its
-    machine code holds HGMMA (wgmma) and UTMALDG (TMA load) instructions.
-    Fails unless every ``*_sm90`` kernel holds both and spills nothing, and
-    each library has one."""
+    machine code holds HGMMA (wgmma) and UTMALDG (TMA load), or HMMA
+    (mma.sync) and LDGSTS (cp.async) instructions. Fails unless every
+    ``*_sm90`` kernel holds the first two, every fp32 ``*_tf32x3`` kernel
+    the last two, each spills nothing, and each library has an sm90
+    kernel."""
     tool = os.path.join(os.path.dirname(FA._nvcc()), "cuobjdump")
     fields = {}
     for name in FA._ENTRIES:
@@ -832,7 +938,8 @@ def sass_phase() -> dict:
         for chunk in sass.split("Function : ")[1:]:
             fn = chunk.split(None, 1)[0]
             kernels[_kernel_name(fn)] = {
-                "hgmma": "HGMMA" in chunk, "utmaldg": "UTMALDG" in chunk}
+                "hgmma": "HGMMA" in chunk, "utmaldg": "UTMALDG" in chunk,
+                "hmma": "HMMA" in chunk, "ldgsts": "LDGSTS" in chunk}
         for fn, res in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", usage):
             entry = kernels.setdefault(_kernel_name(fn), {})
             for key, val in re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)",
@@ -844,6 +951,12 @@ def sass_phase() -> dict:
             check(info.get("hgmma") and info.get("utmaldg"),
                   f"{kname}: HGMMA/UTMALDG missing from its SASS: {info}")
             check(info.get("local") == 0, f"{kname}: local memory {info}")
+        for kname, info in kernels.items():
+            if "_tf32x3<" in kname:
+                check(info.get("hmma") and info.get("ldgsts")
+                      and info.get("local") == 0,
+                      f"{kname}: HMMA/LDGSTS missing or local memory: "
+                      f"{info}")
         fields[name] = kernels
     return fields
 
@@ -1180,16 +1293,15 @@ def _dev_gen(seed: int) -> torch.Generator:
 
 def single_process_step(cfg: M.ModelConfig) -> dict:
     """Phase 5b's single-process kernel step (``make_train_step(cfg)``) on
-    the dry run's weights and 8 x 2048 batch (``entry.DRYRUN_SEED``): its
-    loss and gradients, and, from the same weights before the step, the
+    the dry run's weights and 8 x 2048 batch (``entry.dryrun_generator``):
+    its loss and gradients, and, from the same weights before the step, the
     hidden states its blocks give the batch (the flash kernel, inference
     mode), which the sharded phases are held to."""
     torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
-                           generator=_dev_gen(E.DRYRUN_SEED + 1),
-                           device="cuda")
+                           generator=E.dryrun_generator(1)).cuda()
     init_fn, step, _ = T.make_train_step(cfg)
-    params, opt = init_fn(_dev_gen(E.DRYRUN_SEED), tokens)
+    params, opt = init_fn(E.dryrun_generator(0), tokens)
     with torch.inference_mode():
         x = params.embed[tokens]
         positions = torch.arange(tokens.shape[1], device="cuda").expand(
@@ -1685,6 +1797,231 @@ def moe_part_fields(per_rank: list, got: dict, want: dict) -> dict:
             "card_used_bytes": max(p["card_used_bytes"] for p in per_rank)}
 
 
+def fp32_train_phase(tokens) -> dict:
+    """Phase 5g: the flagship train step in fp32 (``ModelConfig(dtype=
+    torch.float32)``, remat, phase 5b's 8 x 2048 batch) as a user builds
+    it, ``make_train_step(cfg)``: a warm-up step, then ``FP32_STEPS``
+    steps on one batch with the launch counters set to 0 just before, one
+    step under the profiler, and the loss and gradients at the same
+    weights against plain attention on the same whole batch. Fails unless
+    every step launched the fp32 kernels ``2·n_layers`` / ``n_layers`` /
+    ``n_layers`` times, the losses are finite, and the kernels' loss is
+    within ``FP32_LOSS_TOL`` relative and every gradient within
+    ``FP32_GRAD_TOL`` normalized of plain attention's. Runs without the
+    grant's cap (plain attention holds [B, H, L, L] fp32 scores). Returns
+    the phase's fields: the step's device ms, the backward pair's and the
+    forward's share of it, and peak bytes."""
+    cfg = M.ModelConfig(dtype=torch.float32)
+    init_fn, step, place_batch = T.make_train_step(cfg)
+    batch = tokens(*TRAIN_BATCH)
+    targets = torch.roll(batch, -1, dims=1)
+    params, opt = init_fn(_dev_gen(2), batch)
+    batch, targets = place_batch(batch, targets)
+    params, opt, warm = step(params, opt, batch, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.n_layers
+    want = {"flash_fwd": (1 + cfg.remat) * n, "flash_bwd_dq": n,
+            "flash_bwd_dkv": n}
+    FA.FLASH_FWD_LAUNCHES = 0
+    FA.FLASH_BWD_DQ_LAUNCHES = 0
+    FA.FLASH_BWD_DKV_LAUNCHES = 0
+    params, opt, losses, secs, per_step, retries = timed_steps(
+        step, params, opt, batch, targets, n=FP32_STEPS)
+    launches = _counts()
+    for counts in per_step:
+        check(counts == want, f"launches per fp32 train step {counts}, "
+                              f"want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"fp32 losses {losses}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_s = _synced_s(lambda: step(params, opt, batch, targets))
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
+    check(busy_us > 0, "the profiler saw no kernel on the card")
+    pair_us = sum(e.time_range.elapsed_us() for e in on_card
+                  if "flash_bwd_" in e.name and "_tf32x3" in e.name)
+    fwd_us = sum(e.time_range.elapsed_us() for e in on_card
+                 if "flash_fwd_f32" in e.name)
+    check(pair_us > 0 and fwd_us > 0,
+          "the profiled fp32 step ran no fp32 flash kernel")
+
+    def loss_and_grads(attn_fn):
+        opt.zero_grad(set_to_none=True)
+        loss = T.loss_fn(params, batch, targets, cfg, attn_fn=attn_fn)
+        loss.backward()
+        return loss.item(), {name: p.grad.clone()
+                             for name, p in params.named_parameters()}
+
+    k_loss, k_grads = loss_and_grads(FA.flash_attention)
+    p_loss, p_grads = loss_and_grads(M.causal_attention)
+    opt.zero_grad(set_to_none=True)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    grad_errs = {name: _norm_err(k_grads[name], g)
+                 for name, g in p_grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(loss_err <= FP32_LOSS_TOL, f"fp32 kernel vs plain loss {loss_err}")
+    check(grad_errs[worst] <= FP32_GRAD_TOL,
+          f"fp32 kernel vs plain grad of {worst}: {grad_errs[worst]}")
+    mean_s = sum(secs) / len(secs)
+    return {
+        "batch": list(TRAIN_BATCH), "remat": cfg.remat,
+        "dtype": str(cfg.dtype), "cap": "none (lifted, as 7a)",
+        "warmup_loss": warm.item(), "losses": losses, "step_s": secs,
+        "step_s_mean": mean_s,
+        "tokens_per_s": TRAIN_BATCH[0] * TRAIN_BATCH[1] / mean_s,
+        "launches": launches, "launches_per_step": want,
+        "alloc_retries": retries, "profiled_step_s": prof_s,
+        "profiled_device_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / (prof_s * 1e6),
+        "bwd_pair_device_ms": pair_us / 1e3,
+        "bwd_pair_share": pair_us / busy_us,
+        "fwd_device_ms": fwd_us / 1e3, "fwd_share": fwd_us / busy_us,
+        "peak_bytes": peak,
+        "vs_plain_loss_rel_err": loss_err,
+        "vs_plain_max_grad_err": grad_errs[worst],
+        "vs_plain_worst_leaf": worst,
+    }
+
+
+def _dryrun_checks(part: str, got: dict, want: dict) -> dict:
+    """One saved part of the card's dry run against the host's: losses
+    relative, every other tensor normalized (``FP32_LOSS_TOL``,
+    ``FP32_GRAD_TOL``). Returns the errors."""
+    errs = {}
+    if "loss" in want:
+        errs["loss_rel_err"] = abs(got["loss"] - want["loss"]) / abs(
+            want["loss"])
+        check(errs["loss_rel_err"] <= FP32_LOSS_TOL,
+              f"dry run {part}: loss {got['loss']} on the card, "
+              f"{want['loss']} on the host")
+    tensors = {**{f"grad/{k}": g for k, g in want.get("grads", {}).items()},
+               **{k: want[k] for k in ("y", "gpipe", "prefill_logits")
+                  if k in want}}
+    got_t = {**{f"grad/{k}": g for k, g in got.get("grads", {}).items()},
+             **{k: got[k] for k in ("y", "gpipe", "prefill_logits")
+                if k in got}}
+    check(set(got_t) == set(tensors) and bool(tensors),
+          f"dry run {part}: saved {sorted(got_t)}, want {sorted(tensors)}")
+    tensor_errs = {k: _norm_err(got_t[k], w) for k, w in tensors.items()}
+    worst = max(tensor_errs, key=tensor_errs.get)
+    check(tensor_errs[worst] <= FP32_GRAD_TOL,
+          f"dry run {part}: {worst} off the host's by {tensor_errs[worst]}")
+    errs.update(max_norm_err=tensor_errs[worst], worst=worst)
+    if "tokens" in want:
+        errs["tokens_equal"] = bool(torch.equal(got["tokens"],
+                                                want["tokens"]))
+    return errs
+
+
+def dryrun_phase(card_gib: int) -> dict:
+    """Phase 5h: ``python -m tpushare_torch.entry`` as a user runs it, its
+    default tiny width (fp32, 4 heads of 16) and every part (dp x tp x sp
+    training with ``DRYRUN_ATTENTION``, the ring-MoE, the four pipes, the
+    tp decode), one gang of ``DRYRUN_RANKS`` gloo ranks on the card under
+    grants of floor(``card_gib`` / ranks), then the same gang with
+    ``--device cpu``. Fails if a part raises, unless every rank launched
+    the kernels as designed in every part (training: ring 2·L·sp /
+    L·sp / L·sp with remat, Ulysses 2·L / L / L; a pipe 2·k·M·s / k·M·s /
+    k·M·s; the decode L forwards a prefill; the MoE none; every attention
+    part some), and unless every saved loss, gradient and output of the
+    card's run agrees with the host's (:func:`_dryrun_checks`). Returns
+    the phase's fields; ``launches`` sums every rank's counts by path."""
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as tmp:
+        for device in ("cuda", "cpu"):
+            save = os.path.join(tmp, f"{device}.pt")
+            grant = card_gib // DRYRUN_RANKS if device == "cuda" else None
+            t0 = time.perf_counter()
+            records = launch.launch(
+                ["-m", "tpushare_torch.entry", "--attention",
+                 *DRYRUN_ATTENTION, "--device", device, "--backend", "gloo",
+                 "--save-grads", save], DRYRUN_RANKS,
+                deadline_s=GANG_DEADLINE_S, grant_gib=grant,
+                card_gib=card_gib if grant is not None else None)
+            runs[device] = {"records": records, "saved": torch.load(save),
+                            "seconds": time.perf_counter() - t0}
+    card, host = runs["cuda"], runs["cpu"]
+    records = card["records"]
+    rec0 = records[0]
+    check(all(r["device"].startswith("cuda") for r in records),
+          f"card ranks ran on {[r['device'] for r in records]}")
+    check(set(card["saved"]) == set(host["saved"]),
+          f"card saved {sorted(card['saved'])}, host "
+          f"{sorted(host['saved'])}")
+    sp = rec0["mesh_shape"]["sp"]
+    launches, fields = {}, {}
+
+    def count(path: str, per_rank: list, want: dict) -> None:
+        total = launches.setdefault(path, collections.Counter())
+        for rank, calls in enumerate(per_rank):
+            for counts in calls:
+                check(counts == want,
+                      f"dry run {path} rank {rank} launches {counts}, "
+                      f"want {want}")
+                total.update(counts)
+
+    for attention in DRYRUN_ATTENTION:
+        n = 2                                   # the tiny config's layers
+        s = sp if attention == "ring" else 1
+        want = {"flash_fwd": 2 * n * s, "flash_bwd_dq": n * s,
+                "flash_bwd_dkv": n * s}
+        count(f"train_{attention}",
+              [r["paths"][attention]["launches_per_step"] for r in records],
+              want)
+        fields[f"train_{attention}"] = {
+            "launches_per_step": want,
+            "losses": rec0["paths"][attention]["losses"],
+            "step_ms_by_rank": [r["paths"][attention]["step_ms"]
+                                for r in records],
+            **_dryrun_checks(attention, card["saved"][attention],
+                             host["saved"][attention])}
+    for part in E.PARTS[1:-1]:
+        per_rank = [r["parts"][part] for r in records]
+        p0 = per_rank[0]
+        if part == "moe":
+            want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        else:
+            k, m = p0["layers_per_stage"], p0["microbatches"]
+            s = p0["mesh_shape"]["sp"] if part == "4d" else 1
+            want = {"flash_fwd": 2 * k * m * s, "flash_bwd_dq": k * m * s,
+                    "flash_bwd_dkv": k * m * s}
+        count(part, [p["launches_per_call"] for p in per_rank], want)
+        key = "moe" if part == "moe" else f"pipe_{part}"
+        fields[part] = {"launches_per_call": want,
+                        "dtype": p0.get("dtype"), "losses": p0["losses"],
+                        "call_ms_by_rank": [p["call_ms"] for p in per_rank],
+                        **_dryrun_checks(part, card["saved"][key],
+                                         host["saved"][key])}
+        if part == "dp_pp":
+            count("gpipe", [[p["gpipe"]["launches"]] for p in per_rank],
+                  {"flash_fwd": k * m, "flash_bwd_dq": 0,
+                   "flash_bwd_dkv": 0})
+    serve = [r["parts"]["serve"] for r in records]
+    n_serve = 2                                 # the decode's layers
+    count("serve", [[p["launches"]] for p in serve],
+          {"flash_fwd": n_serve, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    fields["serve"] = {"dtype": serve[0]["dtype"],
+                       "heads_per_rank": serve[0]["heads_per_rank"],
+                       "new_tok_per_s_by_rank": [p["new_tok_per_s"]
+                                                 for p in serve],
+                       **_dryrun_checks("serve", card["saved"]["serve"],
+                                        host["saved"]["serve"])}
+    check(all(sum(launches[p].values()) > 0 for p in launches
+              if p != "moe"), f"an attention part launched no kernel: "
+                              f"{launches}")
+    return {"ranks": DRYRUN_RANKS, "mesh_shape": rec0["mesh_shape"],
+            "batch": rec0["batch"], "grant_gib": card_gib // DRYRUN_RANKS,
+            "card_seconds": card["seconds"], "cpu_seconds": host["seconds"],
+            "parts": fields,
+            "launches": {p: dict(c) for p, c in launches.items()},
+            "step_time_clock": "host, collectives over gloo via host"}
+
+
 def timed_steps(step, params, opt, batch, targets, n: int = TRAIN_STEPS):
     """``n`` train steps on one batch, each timed to its end on the card:
     (params, opt, losses, seconds, launches of each step, allocator
@@ -1756,6 +2093,25 @@ def device_ms(fn, reps: int = 20) -> float:
     return ms
 
 
+def bounds(ops: int, nbytes: int, dn: str) -> dict:
+    """The card's least time for ``ops`` operations and ``nbytes`` bytes
+    (published peaks): bf16 at the tensor cores' rate; fp32 at the rate the
+    fp32 backward runs, three TF32 passes an operation on the tensor cores
+    (``bound_by`` "3xTF32 ops" where they bound it), with the SIMT units'
+    time for the same work beside it (``simt_bound_ms``)."""
+    t_bytes = nbytes / PEAK_BYTES
+    if dn == "bfloat16":
+        t_ops, by = ops / PEAK_OPS[dn], "operations"
+    else:
+        t_ops, by = 3 * ops / PEAK_TF32, "3xTF32 ops"
+    out = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": by if t_ops >= t_bytes else "bytes",
+           "ops": ops, "bytes": nbytes}
+    if dn == "float32":
+        out["simt_bound_ms"] = 1e3 * max(ops / PEAK_OPS[dn], t_bytes)
+    return out
+
+
 def time_shape(q, k, v, q_offset: int, kv_offset: int,
                dn: str) -> dict:
     """Device times of the kernel, its plain version and the library
@@ -1770,7 +2126,6 @@ def time_shape(q, k, v, q_offset: int, kv_offset: int,
     # Inputs are read once where a row sees a key; out and lse are written.
     reads = (q.numel() + k.numel() + v.numel()) if pairs else 0
     nbytes = (reads + q.numel()) * q.element_size() + 4 * b * lq * h
-    t_ops, t_bytes = ops / PEAK_OPS[dn], nbytes / PEAK_BYTES
     mask = (q_offset + torch.arange(lq, device="cuda")[:, None]
             >= kv_offset + torch.arange(lk, device="cuda")[None, :])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1794,9 +2149,7 @@ def time_shape(q, k, v, q_offset: int, kv_offset: int,
             "kernel_call_ms": time_ms(kernel),
             "plain_ms": device_ms(plain),
             "library_ms": device_ms(library),
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops": ops, "bytes": nbytes,
+            **bounds(ops, nbytes, dn),
         }
 
 
@@ -1878,17 +2231,19 @@ def time_bwd_shape(q, k, v, q_offset: int, kv_offset: int, dn: str,
     result = {"library": lib_name}
     with torch.inference_mode():
         for name, fn in fns.items():
-            ops, nbytes = work[name]
-            t_ops, t_bytes = ops / PEAK_OPS[dn], nbytes / PEAK_BYTES
-            result[name] = {
-                "kernel_ms": device_ms(fn), "call_ms": time_ms(fn),
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "ops": ops, "bytes": nbytes,
-            }
+            result[name] = {"kernel_ms": device_ms(fn), "call_ms": time_ms(fn),
+                            **bounds(*work[name], dn)}
         result["plain_ms"] = device_ms(lambda: FA.flash_bwd_plain(
             q, k, v, out, lse, do, dlse, q_offset, kv_offset), reps=5)
         result["library_ms"] = device_ms(library)
+        if dlse is None:
+            # The yardstick's own distance from the plain version, beside
+            # the kernels' in phase 3b (its outputs are [B, H, L, D]).
+            plain = FA.flash_bwd_plain(q, k, v, out, lse, do, None,
+                                       q_offset, kv_offset)
+            result["library_norm_err"] = {
+                g: _norm_err(x.transpose(1, 2), r) for g, x, r in
+                zip(("dq", "dk", "dv"), library()[:3], plain)}
     result["pair_ms"] = (result["flash_bwd_dq"]["kernel_ms"]
                          + result["flash_bwd_dkv"]["kernel_ms"])
     return result

@@ -54,9 +54,8 @@ def _port(q, k, v, q_offset, kv_offset):
 PALLAS_CASES = [(256, 256, 0, 0), (128, 256, 128, 0)]
 
 
-@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
-def test_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
-    b, h, d = 1, 2, 64                      # BH = 2
+def _plain_vs_pallas_fwd(lq, lk, q_off, kv_off, h, d):
+    b = 1
     q, k, v = _qkv(0, b, lq, lk, h, d)
 
     def to_bh(x):
@@ -71,6 +70,18 @@ def test_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
     vis = _visible(lq, q_off, kv_off)
     assert _norm_err(out[:, vis], ref_out[:, vis]) <= OUT_TOL
     assert np.max(np.abs(lse[:, vis] - ref_lse[:, vis])) <= LSE_TOL
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
+def test_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
+    _plain_vs_pallas_fwd(lq, lk, q_off, kv_off, h=2, d=64)
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
+def test_plain_matches_pallas_interpret_head_dim_16(lq, lk, q_off, kv_off):
+    """The dry run's tiny width: 4 heads of 16, which the fp32 kernels
+    take (and the bf16 ones do not)."""
+    _plain_vs_pallas_fwd(lq, lk, q_off, kv_off, h=4, d=16)
 
 
 # XLA-twin cases add a ragged length and rows that see no key.
@@ -206,6 +217,8 @@ REFUSALS = [
     ({"strided": True}, "unit-stride"),
     ({"grad": True}, "inference_mode"),
     ({}, "CUDA device"),
+    # Head dims are per dtype: 16 is fp32's alone.
+    ({"shape": (1, 64, 2, 16), "dtype": torch.bfloat16}, "head_dim"),
 ]
 
 
@@ -249,11 +262,8 @@ def _from_bh(x, b, h):
     return np.asarray(x).reshape(b, h, l, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
-def test_bwd_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
-    """flash_bwd_plain against the Pallas dq and dk/dv kernels, from the
-    same saved (out, lse) and a nonzero lse cotangent."""
-    b, h, d = 1, 2, 64
+def _bwd_plain_vs_pallas(lq, lk, q_off, kv_off, h, d):
+    b = 1
     q, k, v = _qkv(5, b, lq, lk, h, d)
     rng = np.random.default_rng(6)
     do = rng.standard_normal((b, lq, h, d)).astype(np.float32)
@@ -278,6 +288,20 @@ def test_bwd_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
         if name == "dq":
             g, r = g[:, vis], r[:, vis]
         assert _norm_err(g.numpy(), r) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
+def test_bwd_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
+    """flash_bwd_plain against the Pallas dq and dk/dv kernels, from the
+    same saved (out, lse) and a nonzero lse cotangent."""
+    _bwd_plain_vs_pallas(lq, lk, q_off, kv_off, h=2, d=64)
+
+
+@pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
+def test_bwd_plain_matches_pallas_interpret_head_dim_16(lq, lk, q_off,
+                                                        kv_off):
+    """The same at the dry run's tiny width, 4 heads of 16."""
+    _bwd_plain_vs_pallas(lq, lk, q_off, kv_off, h=4, d=16)
 
 
 # (Lq, Lk, q_offset, kv_offset): self-attention, a later Q block, and a KV
@@ -372,11 +396,13 @@ def _bwd_inputs(q, **kw):
     return q, k, k, do, lse, torch.zeros((b, l, h))
 
 
-BWD_REFUSALS = REFUSALS + [
+#: The forward's refusals and the backward's own; the bf16 head-dim case
+#: goes last so that every other case keeps its place (and test id).
+BWD_REFUSALS = REFUSALS[:5] + [
     ({"do": torch.zeros((1, 32, 2, 64))}, "do must be like q"),
     ({"lse": torch.zeros((1, 64, 2), dtype=torch.float64)}, "lse must be"),
     ({"lse": torch.zeros((1, 2, 64)).transpose(1, 2)}, "lse must be"),
-]
+] + REFUSALS[5:]
 
 
 @pytest.mark.parametrize("entry", ["flash_bwd_dq_kernel",
@@ -418,10 +444,10 @@ def test_lib_path_follows_every_header(tmp_path, monkeypatch):
     assert FA._lib_path("flash_fwd") not in (first, second, third)
 
 
-def _fused_qkv(b=2, l=64, h=4, d=64):
+def _fused_qkv(b=2, l=64, h=4, d=64, dtype=torch.bfloat16):
     """q, k, v as the model makes them: views of one fused projection,
     [B, L, 3, H, D], so each has a length stride of 3 H D."""
-    qkv = torch.zeros((b, l, 3 * h * d), dtype=torch.bfloat16)
+    qkv = torch.zeros((b, l, 3 * h * d), dtype=dtype)
     qkv = qkv.unflatten(-1, (3, h, d))
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
@@ -533,8 +559,99 @@ def test_bf16_wrappers_refuse_what_tma_cannot_read(wrappers_on_any_device,
 @pytest.mark.parametrize("entry", WRAPPERS)
 def test_fp32_wrappers_take_what_tma_cannot_read(wrappers_on_any_device,
                                                  entry):
-    """The fp32 kernels load with plain loads: the same misaligned view in
-    fp32 passes the TMA check and reaches the launch."""
-    with pytest.raises(_Launched):
-        _wrapper_call(entry, _misaligned(torch.float32))
+    """The fp32 forward loads with plain loads: the same misaligned view in
+    fp32 passes its check and reaches the launch. The fp32 backward
+    kernels copy their tiles with 16-byte cp.async, which has TMA's rule:
+    their wrappers refuse the view before any launch."""
+    if entry == "flash_fwd_kernel":
+        with pytest.raises(_Launched):
+            _wrapper_call(entry, _misaligned(torch.float32))
+    else:
+        with pytest.raises(ValueError,
+                           match="cannot feed the cp.async-fed fp32 kernel"):
+            _wrapper_call(entry, _misaligned(torch.float32))
+    assert _counters() == wrappers_on_any_device
+
+
+def _odd_fp32_length_stride():
+    rows = torch.zeros((2, 64, 4 * 64 + 1))
+    return rows[..., :4 * 64].unflatten(-1, (4, 64))     # 1028-byte rows
+
+
+#: fp32 views that 16-byte cp.async cannot read (the bf16 makers' padded
+#: rows and heads are 16-byte multiples in fp32).
+CP_ASYNC_REFUSALS = [
+    (lambda: _misaligned(torch.float32), "16-byte aligned"),
+    (_odd_fp32_length_stride, "length stride of 1028 bytes"),
+    (lambda: _expanded_batch(torch.float32), "batch stride of 0 bytes"),
+]
+
+
+@pytest.mark.parametrize("entry", WRAPPERS[1:])
+@pytest.mark.parametrize("make,match", CP_ASYNC_REFUSALS)
+def test_fp32_bwd_wrappers_refuse_what_cp_async_cannot_read(
+        wrappers_on_any_device, entry, make, match):
+    """The fp32 dq and dk/dv wrappers refuse, before any launch, each fp32
+    view 16-byte cp.async cannot read, naming the problem."""
+    with pytest.raises(ValueError,
+                       match="cannot feed the cp.async-fed fp32 kernel") as exc:
+        _wrapper_call(entry, make())
+    assert match in str(exc.value)
+    assert _counters() == wrappers_on_any_device
+
+
+@pytest.mark.parametrize("make,match", CP_ASYNC_REFUSALS)
+def test_kernel_cotangent_copies_what_cp_async_cannot_read(make, match):
+    """The cotangent's layout is the caller's, so the backward does not
+    refuse it: each fp32 ``do`` 16-byte cp.async cannot read becomes a
+    contiguous copy of it, which the fp32 backward wrappers'
+    check takes; a readable ``do`` goes in uncopied."""
+    do = make()
+    with pytest.raises(ValueError, match=match):
+        FA._check_tma(fp32=True, do=do)
+    got = FA._kernel_cotangent(do)
+    FA._check_tma(fp32=True, do=got)
+    assert got.is_contiguous() and torch.equal(got, do)
+    readable = torch.zeros((2, 64, 4, 64))
+    assert FA._kernel_cotangent(readable) is readable
+
+
+def test_block_backward_hands_the_kernels_a_readable_cotangent(monkeypatch):
+    """The autograd backward's kernel branch (taken off the CPU; here on
+    the meta device, with the dq and dk/dv wrappers replaced by stand-ins
+    that run their cp.async check) given the stride-0 cotangent a sum()
+    hands back: both wrappers get a ``do`` they can read."""
+    seen = []
+
+    def dq(q, k, v, do, *_):
+        FA._check_tma(fp32=True, do=do)
+        seen.append(do)
+        return torch.empty_like(q)
+
+    def dkv(q, k, v, do, *_):
+        FA._check_tma(fp32=True, do=do)
+        seen.append(do)
+        return torch.empty_like(k), torch.empty_like(v)
+
+    monkeypatch.setattr(FA, "flash_bwd_dq_kernel", dq)
+    monkeypatch.setattr(FA, "flash_bwd_dkv_kernel", dkv)
+    q, k, v, out = (torch.empty((2, 16, 4, 16), device="meta")
+                    for _ in range(4))
+    lse = torch.empty((2, 16, 4), device="meta")
+    do = torch.empty((1, 16, 4, 16), device="meta").expand(2, 16, 4, 16)
+    with pytest.raises(ValueError, match="batch stride of 0 bytes"):
+        FA._check_tma(fp32=True, do=do)
+    FA._block_backward(q, k, v, out, lse, do, None, 0, 0)
+    assert len(seen) == 2 and all(t.is_contiguous() for t in seen)
+
+
+@pytest.mark.parametrize("entry", WRAPPERS)
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_fp32_wrappers_take_each_head_dim(wrappers_on_any_device, entry, d):
+    """fp32 at head dims 16, 64 and 128, contiguous or as the model's
+    fused-qkv views, passes every check and reaches the launch."""
+    for t in (torch.zeros((2, 64, 4, d)),
+              _fused_qkv(d=d, dtype=torch.float32)[1]):
+        with pytest.raises(_Launched):
+            _wrapper_call(entry, t)
     assert _counters() == wrappers_on_any_device

@@ -22,8 +22,9 @@ an ``.npz``), joins the gang over gloo on the CPU, and runs:
   ring ulysses --steps 2 --device cpu``, every part: training, the
   ring-MoE and the four pipes) over its own rendezvous.
 
-Rank 0 saves every gathered array into ``OUT`` (``.npz``); each rank
-prints one JSON line, which holds the dry run's record.
+Rank 0 saves every gathered array into ``OUT`` (``.npz``) and the dry
+run's first losses and gathered grads beside it (:func:`dryrun_path`);
+each rank prints one JSON line, which holds the dry run's record.
 """
 
 import contextlib
@@ -128,6 +129,12 @@ def train_cases(inputs, out):
     return exact
 
 
+def dryrun_path(out_path):
+    """Where rank 0's dry run saves its first losses and gathered grads
+    (the entry's ``--save-grads``), beside ``OUT``."""
+    return os.path.splitext(out_path)[0] + "_dryrun.pt"
+
+
 def main(inputs_path, out_path, init_method):
     # Eight ranks share the host with the rest of the suite: run only on
     # CPU its timing-sensitive tests leave idle.
@@ -146,7 +153,8 @@ def main(inputs_path, out_path, init_method):
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         E.main(["--attention", "ring", "ulysses", "--steps", "2",
-                "--device", "cpu", "--init-method", f"{init_method}-dryrun"])
+                "--device", "cpu", "--init-method", f"{init_method}-dryrun",
+                "--save-grads", dryrun_path(out_path)])
     print(json.dumps({"rank": spec.process_id, "refused": refused,
                       "round_trip_exact": exact,
                       "dryrun": json.loads(printed.getvalue().splitlines()[-1])

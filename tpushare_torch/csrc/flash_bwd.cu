@@ -18,17 +18,19 @@
 // ds^T q), against about 10 * D bytes per row in bf16 (q, k, v, do read,
 // one gradient written). Causal attention at length L has about L / 2
 // visible pairs per row, so both kernels do about L / 3 operations per
-// byte or more: bound by operations from L ~ 900 in bf16 against the
-// 989 TFLOP/s of the tensor cores, and from L ~ 60 in fp32 against the
-// 67 TFLOP/s of the SIMT units.
+// byte or more: bound by operations from L ~ 900 in bf16 against the 989
+// TFLOP/s of the tensor cores. fp32 runs every product as three TF32
+// passes (below) on the tensor cores' 495 TFLOP/s, an fp32-accurate roof
+// of 165 TFLOP/s, bound by operations from L ~ 300; on the SIMT units the
+// same work has a roof of 67 TFLOP/s.
 //
-// What the design does about it:
-//  * dq: one block per (batch * head, 64 or 128 query rows). Q and dO are
-//    loaded once; lse and delta for the block's rows stay in registers. The
-//    block walks 64-key tiles up to the causal diagonal (a tile starting
-//    past the block's last global query position is never loaded) and keeps
-//    dq's accumulator in registers for the whole walk. Blocks launch
-//    heaviest first (the last queries see the most keys).
+// What the design does about it (both dtypes):
+//  * dq: one block per (batch * head, 64 query rows). Q and dO are loaded
+//    once; lse and delta for the block's rows stay in registers. The block
+//    walks 64-key tiles up to the causal diagonal (a tile starting past the
+//    block's last global query position is never loaded) and keeps dq's
+//    accumulator in registers for the whole walk. Blocks launch heaviest
+//    first (the last queries see the most keys).
 //  * dk/dv: one block per (batch * head, 64 or 128 keys). K and V are
 //    loaded once; the block walks the Q tiles from the first that sees its
 //    keys to the end, with the dk and dv accumulators in registers for the
@@ -66,11 +68,52 @@
 //    where there are blocks enough to fill the card twice, one otherwise,
 //    and one at D = 128, where its two D-wide accumulators fill the
 //    registers.
-// fp32 keeps full fp32 products on the SIMT units (tensor-core TF32 would
-// lose the reference's precision): 256 threads as 16 row groups x 16
-// column lanes, a 4 x 4 slice of each score tile and 4 rows x D/16 columns
-// of each accumulator to a thread, tiles staged in dynamic shared memory
-// with rows padded by one float.
+//
+// fp32 (head dims 16, 64 and 128) runs every product on the tensor cores
+// in split-three TF32 (sm90.cuh): each operand splits as x = hi + lo, both
+// TF32, and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b summed in fp32,
+// as the memory-efficient attention backward PyTorch ships computes fp32
+// (CUTLASS's 3xTF32). One TF32 pass is not enough: it keeps 10 mantissa
+// bits, and a numpy model of this backward (round to nearest, fp32 sums;
+// tests/test_torch_tf32x3.py) puts dq, dk and dv about 1e-3 (normalized)
+// from fp32 with one pass, ten times the 1e-4 the kernels are held to,
+// and below 1e-6 with three.
+//  * The instruction is mma.sync m16n8k8 throughout, the library's own.
+//    wgmma has no transpose bit for TF32: both of its shared-memory
+//    operands must be K-major, so the second products' B tiles (K in dq;
+//    dO and Q in dk/dv) would need a transposed hi / lo copy staged by the
+//    consumers every step. mma.sync loads its fragments by thread from
+//    padded tiles in either direction and splits them in registers. At
+//    8 x 2048, 8 heads of 64, the pair takes 2.06 ms (dq 0.87, dk/dv 1.19)
+//    against 4.89 for the SIMT pair it replaces and 2.87 for PyTorch's
+//    memory-efficient backward, which is 3xTF32 too; the bound is 0.73
+//    (NVIDIA H100 80GB HBM3, 700 W; tools/fp32_bwd_ab.py, chip_smoke.py
+//    phase 7b). wgmma for the first products, K-major as loaded, is the
+//    next step.
+//  * The tensor cores' fp32 accumulator drops low bits as it adds, so a
+//    sum run in it across every tile drifts from fp32's as L grows: summed
+//    so, dk and dv ran 3.6e-5 (normalized) from the plain fp32 version at
+//    L = 2048 and 8.5e-5 at L = 8192, near the 1e-4 they are held to, at
+//    D = 128 (tools/fp32_bwd_ab.py). So the running sums take each tile's
+//    second products summed from zero and add them in fp32: dq at every
+//    head dim (half of D's columns at a time at D = 128) and dk/dv at
+//    D <= 64. At D = 128 dk/dv's two D-wide running sums fill the
+//    registers: they run in the accumulator and move out to the fp32
+//    outputs every 4 Q tiles (each thread adds into its own elements).
+//    Every gradient is then within 1.1e-5 at L = 8192 (chip_smoke.py 3b
+//    holds them at L = 2048 and 8192); the moves cost dk/dv at D = 128
+//    about 6% and a 40-byte stack frame.
+//  * Four warps a block, 16 rows each (a block's 64 queries in dq, 64 keys
+//    in dk/dv); the accumulator of a first product is the A operand of the
+//    second as it stands, its columns 2t and 2t + 1 being A columns t and
+//    t + 4, with the B rows read in that order: P and dS are split in
+//    registers and never go to shared memory.
+//  * Tiles arrive by 16-byte cp.async into rows padded by 8 floats, in a
+//    ring of two stages: the copy of tile i + 2 is issued once every warp
+//    is done with tile i, and lands while tile i + 1's products run. Bases
+//    and strides must be 16-byte multiples (the wrapper checks).
+//  * dk/dv at D = 128 covers a 64-query tile in two halves of 32, so its
+//    score tiles and its two D-wide accumulators fit the registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,6 +129,7 @@ constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // key rows per tile
 constexpr float EXP_CLAMP = 30.f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float CLAMP2 = EXP_CLAMP * LOG2E;  // the clamp, log2 domain
 static_assert(BQ == BK, "the staging helpers copy BQ rows for every tile");
 
 struct Strides {  // (batch, length, head) strides of q, k, v and do
@@ -93,280 +137,499 @@ struct Strides {  // (batch, length, head) strides of q, k, v and do
 };
 
 // ------------------------------------------------------------------------
-// fp32: SIMT products
+// fp32: split-three TF32 products on the tensor cores (mma.sync), tiles
+// copied by cp.async
 // ------------------------------------------------------------------------
 
-constexpr int SIMT_THREADS = 256;  // 16 row groups x 16 column lanes
+constexpr int TC_THREADS = 128;  // four warps of 16 rows each
+constexpr int TC_STAGES = 2;     // streamed tiles in flight
 
-// Copy BQ rows of D values from global (row stride `sl`) into shared
-// memory [BQ][D + 1], zero for rows past `limit`.
+// A tile of 64 rows of D floats in shared memory, each row padded by 8
+// floats: at a row stride of 8 banks (mod 32) the first products' 64-bit
+// fragment loads (8 rows x 4 column pairs a half-warp) meet every bank once.
 template <int D>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int64_t sl, int r0, int limit) {
-  for (int i = threadIdx.x; i < BQ * D; i += SIMT_THREADS) {
-    const int r = i / D, d = i % D, row = r0 + r;
-    dst[r * (D + 1) + d] = row < limit ? src[row * sl + d] : 0.f;
+struct F32Tile {
+  static constexpr int STRIDE = D + 8;
+  static constexpr int FLOATS = 64 * STRIDE;
+};
+
+// dq: the block's Q and dO tiles, then TC_STAGES K tiles and TC_STAGES V
+// tiles. dk/dv: the block's K and V tiles, TC_STAGES Q and dO tiles, and
+// the lse and delta of each staged Q tile's rows.
+template <int D>
+constexpr size_t dq_f32_smem_bytes() {
+  return sizeof(float) * (2 + 2 * TC_STAGES) * F32Tile<D>::FLOATS;
+}
+template <int D>
+constexpr size_t dkv_f32_smem_bytes() {
+  return sizeof(float) *
+         ((2 + 2 * TC_STAGES) * F32Tile<D>::FLOATS + TC_STAGES * 2 * BQ);
+}
+
+// Rows r0 .. r0 + 63 of one (batch, head), D floats each at row stride `sl`
+// (elements), into a padded tile with 16-byte cp.async; rows past `limit`
+// land as zeros. The caller commits the group.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int64_t sl, int r0, int limit) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < 64 * CH; i += TC_THREADS) {
+    const int r = i / CH, c = i % CH, row = r0 + r;
+    const bool in = row < limit;
+    sm90::cp_async_16(dst + r * F32Tile<D>::STRIDE + 4 * c,
+                      in ? src + row * sl + 4 * c : src, in);
   }
 }
 
+// First products (S = Q K^T, dP = dO V^T and their transposes) reduce over
+// D, which runs along the tile rows of both operands. Within a depth step
+// kk of 8 the depth order is permuted, A column t and B row t taking depth
+// 2t and column / row t + 4 depth 2t + 1, so each thread's pair of values
+// is one 64-bit load. A: rows r and r + 8 of `tile`.
 template <int D>
-constexpr size_t dq_f32_smem_bytes() {
-  return sizeof(float) * (4 * BQ * (D + 1) + BQ * (BK + 1));
+__device__ __forceinline__ sm90::FragA first_a(const float* tile, int r,
+                                               int kk, int t) {
+  constexpr int S = F32Tile<D>::STRIDE;
+  const float2 x =
+      *reinterpret_cast<const float2*>(tile + r * S + 8 * kk + 2 * t);
+  const float2 y =
+      *reinterpret_cast<const float2*>(tile + (r + 8) * S + 8 * kk + 2 * t);
+  return sm90::split_a(x.x, y.x, x.y, y.y);
 }
 
+// B of a first product: its column g is row n of `tile`.
 template <int D>
-constexpr size_t dkv_f32_smem_bytes() {
-  return sizeof(float) * (4 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+__device__ __forceinline__ void first_b(const float* tile, int n, int kk,
+                                        int t, sm90::Tf32x2& b0,
+                                        sm90::Tf32x2& b1) {
+  const float2 x = *reinterpret_cast<const float2*>(
+      tile + n * F32Tile<D>::STRIDE + 8 * kk + 2 * t);
+  b0 = sm90::split_tf32(x.x);
+  b1 = sm90::split_tf32(x.y);
 }
 
+// The A operand of a second product from the accumulator of a first: its
+// columns 8j .. 8j + 7 (keys or queries) are depth step j, thread t holding
+// columns 2t and 2t + 1, which become A columns t and t + 4. The B rows are
+// read in that same order, so P and dS never leave the registers.
+__device__ __forceinline__ sm90::FragA second_a(const float (&c)[4]) {
+  return sm90::split_a(c[0], c[2], c[1], c[3]);
+}
+
+// part += a x (tile rows 8j .. 8j + 7, columns c0 .. c0 + NC - 1): the
+// second products (dQ += dS K, dV += P^T dO, dK += dS^T Q) reduce down the
+// tile. B rows t and t + 4 are tile rows 8j + 2t and 8j + 2t + 1; n-tiles
+// 2c and 2c + 1 take columns c0 + 16c + 2g and c0 + 16c + 2g + 1, one
+// 64-bit load for both, so a thread's columns are c0 + 16c + 4t ..
+// c0 + 16c + 4t + 3 (store_row).
+template <int D, int NC>
+__device__ __forceinline__ void second_mma(float (&part)[NC / 8][4],
+                                           const sm90::FragA& a,
+                                           const float* tile, int j, int c0,
+                                           int g, int t) {
+  constexpr int S = F32Tile<D>::STRIDE;
+  const float* r0 = tile + (8 * j + 2 * t) * S + c0 + 2 * g;
+#pragma unroll
+  for (int c = 0; c < NC / 16; ++c) {
+    const float2 x = *reinterpret_cast<const float2*>(r0 + 16 * c);
+    const float2 y = *reinterpret_cast<const float2*>(r0 + S + 16 * c);
+    sm90::mma_3xtf32(part[2 * c], a, sm90::split_tf32(x.x),
+                     sm90::split_tf32(y.x));
+    sm90::mma_3xtf32(part[2 * c + 1], a, sm90::split_tf32(x.y),
+                     sm90::split_tf32(y.y));
+  }
+}
+
+// acc += (ac's J depth steps) x (tile rows 0 .. 8J - 1): one tile's second
+// product. The tensor cores' fp32 accumulator drops low bits as it adds, so
+// a sum run in it across every tile drifts from fp32's as the tiles pile
+// up. Each tile's product is therefore summed from zero, NC columns at a
+// time (NC < D where the registers hold no third D-wide accumulator), and
+// added to the running sum in fp32.
+template <int D, int NC, int J>
+__device__ __forceinline__ void second_sum(float (&acc)[D / 8][4],
+                                           const float (&ac)[J][4],
+                                           const float* tile, int g, int t) {
+  static_assert(D % NC == 0 && NC % 16 == 0, "whole 16-column groups");
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += NC) {
+    float part[NC / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      second_mma<D, NC>(part, second_a(ac[j]), tile, j, c0, g, t);
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 / 8 + n][e] += part[n][e];
+  }
+}
+
+// Row g (hr = 0) or g + 8 (hr = 1) of a second product's accumulator,
+// times `scale`, into `out` (D contiguous floats): 16 bytes a column group.
 template <int D>
-__global__ void __launch_bounds__(SIMT_THREADS)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int H, int Lq, int Lk, Strides st, int q_offset,
-                 int kv_offset, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + BQ * DP;   // dO
-  float* Ks = Os + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* Ds = Vs + BK * DP;   // [BQ][BK + 1] dS
+__device__ __forceinline__ void store_row(float* out,
+                                          const float (&acc)[D / 8][4],
+                                          int hr, int t, float scale) {
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c)
+    *reinterpret_cast<float4*>(out + 16 * c + 4 * t) = make_float4(
+        acc[2 * c][2 * hr] * scale, acc[2 * c + 1][2 * hr] * scale,
+        acc[2 * c][2 * hr + 1] * scale, acc[2 * c + 1][2 * hr + 1] * scale);
+}
+
+// The same, plus what `out` holds: out = (out + acc) * scale.
+template <int D>
+__device__ __forceinline__ void add_row(float* out,
+                                        const float (&acc)[D / 8][4], int hr,
+                                        int t, float scale) {
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    float4* o = reinterpret_cast<float4*>(out + 16 * c + 4 * t);
+    const float4 was = *o;
+    *o = make_float4((was.x + acc[2 * c][2 * hr]) * scale,
+                     (was.y + acc[2 * c + 1][2 * hr]) * scale,
+                     (was.z + acc[2 * c][2 * hr + 1]) * scale,
+                     (was.w + acc[2 * c + 1][2 * hr + 1]) * scale);
+  }
+}
+
+// Columns dq's second product sums from zero at once: every column at
+// D <= 64, half of them at D = 128, so that the tile's partial sums fit
+// beside the running ones and the 64-key score tiles.
+template <int D>
+constexpr int DQ_NC = D <= 64 ? D : D / 2;
+// dk/dv at D = 128: its two D-wide running sums fill the registers, so
+// they run in the accumulator and move out to the fp32 outputs every
+// DKV_FLUSH Q tiles instead.
+constexpr int DKV_FLUSH = 4;
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
+flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int Lq, int Lk, Strides st, int q_offset,
+                    int kv_offset, float scale, float scale_log2) {
+  using T = F32Tile<D>;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);
+  float* Os = Qs + T::FLOATS;                // dO
+  float* Ks = Os + T::FLOATS;                // [TC_STAGES]
+  float* Vs = Ks + TC_STAGES * T::FLOATS;    // [TC_STAGES]
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;    // rows rg*4 .. rg*4+3
-  const int cg = tid % 16;    // columns cg + 16*j
+  // Query rows q0 .. q0 + 63, heaviest first: blockIdx.y = 0 takes the last
+  // rows, which see the most keys.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q_first = q_offset + q0;
+  // KV tiles starting past the block's last global query position are
+  // wholly above the diagonal and are never loaded.
+  const int key_last = q_offset + min(q0 + BQ, Lq) - 1 - kv_offset;
+  const int n_kv = (Lk == 0 || key_last < 0)
+                       ? 0
+                       : min((Lk + BK - 1) / BK, key_last / BK + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = 16 * warp + g;  // this thread's tile rows: r and r + 8
   const float* kb = k + b * st.k_b + h * st.k_h;
   const float* vb = v + b * st.v_b + h * st.v_h;
 
-  stage_f32<D>(Qs, q + b * st.q_b + h * st.q_h, st.q_l, q0, Lq);
-  stage_f32<D>(Os, dout + b * st.o_b + h * st.o_h, st.o_l, q0, Lq);
-
-  // lse and delta are contiguous [B, Lq, H].
-  float row_lse[4], row_delta[4];
-  int qpos[4];
+  // lse (times log2 e) and delta of this thread's rows for the whole walk.
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r + 8 * hr;
     const int64_t idx = ((int64_t)b * Lq + row) * H + h;
-    row_lse[i] = row < Lq ? lse[idx] : 0.f;
-    row_delta[i] = row < Lq ? delta[idx] : 0.f;
-    qpos[i] = row < Lq ? q_offset + row : INT_MIN;  // past Lq: sees nothing
+    lse2[hr] = row < Lq ? lse[idx] * LOG2E : 0.f;
+    dlt[hr] = row < Lq ? delta[idx] : 0.f;
   }
 
-  float acc[4][NJ];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  // Global position of this tile's last real query row: KV tiles starting
-  // past it are wholly above the diagonal and are never loaded.
-  const int q_last = q_offset + min(q0 + BQ, Lq) - 1;
-  for (int k0 = 0; k0 < Lk && kv_offset + k0 <= q_last; k0 += BK) {
-    __syncthreads();  // previous tile's Ks/Vs/Ds fully consumed
-    stage_f32<D>(Ks, kb, st.k_l, k0, Lk);
-    stage_f32<D>(Vs, vb, st.v_l, k0, Lk);
+  // Group 0: Q, dO and the first K, V tile; group 1: the second K, V tile.
+  if (n_kv > 0) {
+    stage_rows<D>(Qs, q + b * st.q_b + h * st.q_h, st.q_l, q0, Lq);
+    stage_rows<D>(Os, dout + b * st.o_b + h * st.o_h, st.o_l, q0, Lq);
+    stage_rows<D>(Ks, kb, st.k_l, 0, Lk);
+    stage_rows<D>(Vs, vb, st.v_l, 0, Lk);
+  }
+  sm90::cp_async_commit();
+  if (n_kv > 1) {
+    stage_rows<D>(Ks + T::FLOATS, kb, st.k_l, BK, Lk);
+    stage_rows<D>(Vs + T::FLOATS, vb, st.v_l, BK, Lk);
+  }
+  sm90::cp_async_commit();
+
+  for (int it = 0; it < n_kv; ++it) {
+    // Every group but the newest has landed: tile `it` is in.
+    sm90::cp_async_wait<1>();
     __syncthreads();
+    const int s = it % TC_STAGES, k0 = it * BK;
+    const float* Kt = Ks + s * T::FLOATS;
+    const float* Vt = Vs + s * T::FLOATS;
 
-    // S = Q K^T and dP = dO V^T for this thread's 4 x 4 slice.
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys.
+    float sc[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(rg * 4 + i) * DP + d];
-        ov[i] = Os[(rg * 4 + i) * DP + d];
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const sm90::FragA qa = first_a<D>(Qs, r, kk, t);
+      const sm90::FragA oa = first_a<D>(Os, r, kk, t);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sm90::Tf32x2 b0, b1;
+        first_b<D>(Kt, 8 * j + g, kk, t, b0, b1);
+        sm90::mma_3xtf32(sc[j], qa, b0, b1);
+        first_b<D>(Vt, 8 * j + g, kk, t, b0, b1);
+        sm90::mma_3xtf32(dp[j], oa, b0, b1);
       }
+    }
+
+    // P = exp(min(s scale - lse, 30)) (in the log2 domain), then
+    // dS = P (dP - delta), kept in dp. Only a tile reaching past the
+    // diagonal or the ragged end needs the mask; a row that sees no key has
+    // lse NEG_INF, so every key of it is masked there, not clamped.
+    const bool edge = kv_offset + k0 + BK - 1 > q_first || k0 + BK > Lk;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(cg + 16 * j) * DP + d];
-        vv[j] = Vs[(cg + 16 * j) * DP + d];
-      }
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float p = sm90::exp2_approx(
+            fminf(sc[j][e] * scale_log2 - lse2[hr], CLAMP2));
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (!(key < Lk && kv_offset + key <= q_first + r + 8 * hr))
+            p = 0.f;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + cg + 16 * j;
-        const bool ok = c < Lk && kv_offset + c <= qpos[i];
-        const float p =
-            ok ? expf(fminf(s[i][j] * scale - row_lse[i], EXP_CLAMP)) : 0.f;
-        Ds[(rg * 4 + i) * (BK + 1) + cg + 16 * j] =
-            p * (dp[i][j] - row_delta[i]);
+        dp[j][e] = p * (dp[j][e] - dlt[hr]);
       }
+
+    // dQ += dS K, the tile's sum taken from zero (second_sum).
+    second_sum<D, DQ_NC<D>, BK / 8>(acc, dp, Kt, g, t);
+
+    // Every warp is done with this stage; refill it with tile it + 2.
     __syncthreads();
-
-    // dQ += dS K.
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ds[(rg * 4 + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float kv = Ks[kk * DP + cg + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
-      }
+    if (it + TC_STAGES < n_kv) {
+      stage_rows<D>(Ks + s * T::FLOATS, kb, st.k_l, k0 + TC_STAGES * BK, Lk);
+      stage_rows<D>(Vs + s * T::FLOATS, vb, st.v_l, k0 + TC_STAGES * BK, Lk);
     }
+    sm90::cp_async_commit();
   }
 
-  // dq is freshly allocated, contiguous [B, Lq, H, D].
+  // dq is freshly allocated, contiguous [B, Lq, H, D]; rows that see no key
+  // get zeros.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    if (row >= Lq) continue;
-    float* out = dq + (((int64_t)b * Lq + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) out[cg + 16 * j] = acc[i][j] * scale;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r + 8 * hr;
+    if (row < Lq)
+      store_row<D>(dq + (((int64_t)b * Lq + row) * H + h) * D, acc, hr, t,
+                   scale);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(SIMT_THREADS)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int H, int Lq, int Lk, Strides st,
-                  int q_offset, int kv_offset, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * DP;
-  float* Qs = Vs + BK * DP;
-  float* Os = Qs + BQ * DP;        // dO
-  float* Ps = Os + BQ * DP;        // [BK][BQ + 1] P^T
-  float* Ds = Ps + BK * (BQ + 1);  // [BK][BQ + 1] dS^T
-  float* Ls = Ds + BK * (BQ + 1);  // [BQ] lse of the Q tile's rows
-  float* Dl = Ls + BQ;             // [BQ] delta of the Q tile's rows
+// QC: the queries a warp's score tiles cover at once. The accumulators of
+// dK and dV take D / 2 registers each; at D = 128 the score tiles cover 32
+// queries of a 64-row Q tile at a time to stay within the registers.
+template <int D, int QC>
+__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
+flash_bwd_dkv_tf32x3(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Lq, int Lk, Strides st,
+                     int q_offset, int kv_offset, float scale,
+                     float scale_log2) {
+  using T = F32Tile<D>;
+  static_assert(BQ % QC == 0, "a Q tile is whole chunks");
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);
+  float* Vs = Ks + T::FLOATS;
+  float* Qs = Vs + T::FLOATS;                 // [TC_STAGES]
+  float* Os = Qs + TC_STAGES * T::FLOATS;     // [TC_STAGES] dO
+  float* stats = Os + TC_STAGES * T::FLOATS;  // [TC_STAGES][lse BQ, delta BQ]
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
+  // Keys k0 .. k0 + 63. blockIdx.y = 0 (k0 = 0) sees every Q tile, so the
+  // heaviest blocks launch first.
   const int k0 = blockIdx.y * BK;
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;    // keys rg*4 .. rg*4+3
-  const int cg = tid % 16;    // query columns / accumulator columns cg + 16*j
+  // The first query row that sees key k0 is q_offset + r >= kv_offset + k0;
+  // Q tiles before the one holding it see nothing of this block's keys.
+  const int r_first = max(0, kv_offset + k0 - q_offset);
+  const int q_begin = (r_first / BQ) * BQ;
+  const int n_q = q_begin < Lq ? (Lq - q_begin + BQ - 1) / BQ : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r = 16 * warp + g;  // this thread's keys: k0 + r and k0 + r + 8
+  int kpos[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + r + 8 * hr;
+    kpos[hr] = key < Lk ? kv_offset + key : INT_MAX;  // past Lk: seen by none
+  }
+  const bool has_keys = k0 + 16 * warp < Lk;
+  const int warp_key_first = kv_offset + k0 + 16 * warp;
+  const bool warp_ragged = k0 + 16 * warp + 16 > Lk;
   const float* qb = q + b * st.q_b + h * st.q_h;
   const float* ob = dout + b * st.o_b + h * st.o_h;
 
-  stage_f32<D>(Ks, k + b * st.k_b + h * st.k_h, st.k_l, k0, Lk);
-  stage_f32<D>(Vs, v + b * st.v_b + h * st.v_h, st.v_l, k0, Lk);
-
-  int kpos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + rg * 4 + i;
-    kpos[i] = key < Lk ? kv_offset + key : INT_MAX;  // past Lk: seen by none
+  // Q and dO rows q0 .. q0 + 63 into stage s, with their lse and delta
+  // (strided by H in [B, Lq, H]: 4-byte copies).
+  auto stage_q = [&](int s, int q0) {
+    stage_rows<D>(Qs + s * T::FLOATS, qb, st.q_l, q0, Lq);
+    stage_rows<D>(Os + s * T::FLOATS, ob, st.o_l, q0, Lq);
+    float* sts = stats + s * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += TC_THREADS) {
+      const int row = q0 + i % BQ;
+      const bool in = row < Lq;
+      const float* src = i < BQ ? lse : delta;
+      sm90::cp_async_4(sts + i,
+                       in ? src + ((int64_t)b * Lq + row) * H + h : src, in);
+    }
+  };
+  if (n_q > 0) {
+    stage_rows<D>(Ks, k + b * st.k_b + h * st.k_h, st.k_l, k0, Lk);
+    stage_rows<D>(Vs, v + b * st.v_b + h * st.v_h, st.v_l, k0, Lk);
+    stage_q(0, q_begin);
   }
+  sm90::cp_async_commit();
+  if (n_q > 1) stage_q(1, q_begin + BQ);
+  sm90::cp_async_commit();
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  // The first query row that sees key k0 is q_offset + r >= kv_offset + k0;
-  // Q tiles before the one holding it see nothing of this KV tile.
-  const int r_first = max(0, kv_offset + k0 - q_offset);
-  for (int q0 = (r_first / BQ) * BQ; q0 < Lq; q0 += BQ) {
-    __syncthreads();  // previous tile's Qs/Os/Ps/Ds fully consumed
-    stage_f32<D>(Qs, qb, st.q_l, q0, Lq);
-    stage_f32<D>(Os, ob, st.o_l, q0, Lq);
-    for (int i = tid; i < BQ; i += SIMT_THREADS) {
-      const int row = q0 + i;
-      const int64_t idx = ((int64_t)b * Lq + row) * H + h;
-      Ls[i] = row < Lq ? lse[idx] : 0.f;
-      Dl[i] = row < Lq ? delta[idx] : 0.f;
-    }
+  for (int it = 0; it < n_q; ++it) {
+    sm90::cp_async_wait<1>();
     __syncthreads();
+    const int s = it % TC_STAGES, q0 = q_begin + it * BQ;
+    const float* Qt = Qs + s * T::FLOATS;
+    const float* Ot = Os + s * T::FLOATS;
+    const float* sts = stats + s * 2 * BQ;
 
-    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries.
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(rg * 4 + i) * DP + d];
-        vv[i] = Vs[(rg * 4 + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(cg + 16 * j) * DP + d];
-        ov[j] = Os[(cg + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
+#pragma unroll 1
+    for (int qc = 0; qc < BQ && has_keys && q0 + qc < Lq; qc += QC) {
+      // No query of this chunk sees a key of this warp.
+      if (q_offset + min(q0 + qc + QC, Lq) - 1 < warp_key_first) continue;
 
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x QC queries.
+      float sc[QC / 8][4], dp[QC / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < QC / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg + 16 * j, row = q0 + c;
-        const bool ok = row < Lq && kpos[i] <= q_offset + row;
-        const float p =
-            ok ? expf(fminf(s[i][j] * scale - Ls[c], EXP_CLAMP)) : 0.f;
-        Ps[(rg * 4 + i) * (BQ + 1) + c] = p;
-        Ds[(rg * 4 + i) * (BQ + 1) + c] = p * (dp[i][j] - Dl[c]);
-      }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q.
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[4], dsv[4];
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[(rg * 4 + i) * (BQ + 1) + qq];
-        dsv[i] = Ds[(rg * 4 + i) * (BQ + 1) + qq];
-      }
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const sm90::FragA ka = first_a<D>(Ks, r, kk, t);
+        const sm90::FragA va = first_a<D>(Vs, r, kk, t);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float ov = Os[qq * DP + cg + 16 * j];
-        const float qv = Qs[qq * DP + cg + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(pv[i], ov, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv[i], qv, dk_acc[i][j]);
+        for (int j = 0; j < QC / 8; ++j) {
+          sm90::Tf32x2 b0, b1;
+          first_b<D>(Qt, qc + 8 * j + g, kk, t, b0, b1);
+          sm90::mma_3xtf32(sc[j], ka, b0, b1);
+          first_b<D>(Ot, qc + 8 * j + g, kk, t, b0, b1);
+          sm90::mma_3xtf32(dp[j], va, b0, b1);
         }
       }
+
+      // P^T = exp(min(s scale - lse, 30)) (in the log2 domain) kept in sc,
+      // dS^T = P^T (dP^T - delta) in dp. Only a chunk reaching past the
+      // diagonal or a ragged end needs the mask.
+      const bool edge = warp_key_first + 15 > q_offset + q0 + qc ||
+                        q0 + qc + QC > Lq || warp_ragged;
+#pragma unroll
+      for (int j = 0; j < QC / 8; ++j) {
+        const int c = qc + 8 * j + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(sts + c);
+        const float2 dl = *reinterpret_cast<const float2*>(sts + BQ + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_e = (e & 1) ? l.y : l.x;
+          float p = sm90::exp2_approx(
+              fminf(sc[j][e] * scale_log2 - lse_e * LOG2E, CLAMP2));
+          if (edge) {
+            const int row = q0 + c + (e & 1);
+            if (!(row < Lq && kpos[e >> 1] <= q_offset + row)) p = 0.f;
+          }
+          sc[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: at D <= 64 each chunk's sums taken
+      // from zero (second_sum); at D = 128 in the running sums.
+      if constexpr (D <= 64) {
+        second_sum<D, D, QC / 8>(dva, sc, Ot + qc * T::STRIDE, g, t);
+        second_sum<D, D, QC / 8>(dka, dp, Qt + qc * T::STRIDE, g, t);
+      } else {
+#pragma unroll
+        for (int j = 0; j < QC / 8; ++j) {
+          second_mma<D, D>(dva, second_a(sc[j]), Ot + qc * T::STRIDE, j, 0,
+                           g, t);
+          second_mma<D, D>(dka, second_a(dp[j]), Qt + qc * T::STRIDE, j, 0,
+                           g, t);
+        }
+      }
     }
+
+    // D = 128: every DKV_FLUSH tiles but the last, the running sums move
+    // out to this thread's own elements of dk and dv (unscaled), where
+    // fp32 adds them, and restart from zero.
+    if constexpr (D > 64) {
+      if ((it + 1) % DKV_FLUSH == 0 && it + 1 < n_q) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = k0 + r + 8 * hr;
+          if (key >= Lk) continue;
+          const int64_t o = (((int64_t)b * Lk + key) * H + h) * D;
+          if (it < DKV_FLUSH) {  // the first move
+            store_row<D>(dk + o, dka, hr, t, 1.f);
+            store_row<D>(dv + o, dva, hr, t, 1.f);
+          } else {
+            add_row<D>(dk + o, dka, hr, t, 1.f);
+            add_row<D>(dv + o, dva, hr, t, 1.f);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+      }
+    }
+
+    // Every warp is done with this stage; refill it with tile it + 2.
+    __syncthreads();
+    if (it + TC_STAGES < n_q) stage_q(s, q0 + TC_STAGES * BQ);
+    sm90::cp_async_commit();
   }
 
   // dk and dv are freshly allocated, contiguous [B, Lk, H, D]; keys no
   // query sees get zeros.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + rg * 4 + i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + r + 8 * hr;
     if (key >= Lk) continue;
     const int64_t o = (((int64_t)b * Lk + key) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[o + cg + 16 * j] = dk_acc[i][j] * scale;
-      dv[o + cg + 16 * j] = dv_acc[i][j];
+    if (D > 64 && n_q > DKV_FLUSH) {  // sums were moved out
+      add_row<D>(dk + o, dka, hr, t, scale);
+      add_row<D>(dv + o, dva, hr, t, 1.f);
+    } else {
+      store_row<D>(dk + o, dka, hr, t, scale);
+      store_row<D>(dv + o, dva, hr, t, 1.f);
     }
   }
 }
@@ -376,7 +639,6 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------------------
 
 constexpr int STAGES = 2;  // streamed tiles in flight
-constexpr float CLAMP2 = EXP_CLAMP * LOG2E;  // the clamp, log2 domain
 
 // Shared memory of one dq block: its 64 rows of Q and dO, loaded once; a
 // ring of (K, V) tiles; the mbarriers. Tiles are stacks of 64-column boxes
@@ -824,26 +1086,28 @@ struct Args {
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
   constexpr size_t smem = dq_f32_smem_bytes<D>();
-  SET_MAX_SMEM(flash_bwd_dq_f32<D>, smem);
+  SET_MAX_SMEM(flash_bwd_dq_tf32x3<D>, smem);
   dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
-  flash_bwd_dq_f32<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+  flash_bwd_dq_tf32x3<D><<<grid, TC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(dq), a.H, a.Lq, a.Lk, a.st,
-      a.q_offset, a.kv_offset, softmax_scale(D));
+      a.q_offset, a.kv_offset, softmax_scale(D), softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
+  constexpr int QC = D == 128 ? 32 : 64;
   constexpr size_t smem = dkv_f32_smem_bytes<D>();
-  SET_MAX_SMEM(flash_bwd_dkv_f32<D>, smem);
+  SET_MAX_SMEM((flash_bwd_dkv_tf32x3<D, QC>), smem);
   dim3 grid(a.B * a.H, (a.Lk + BK - 1) / BK);
-  flash_bwd_dkv_f32<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+  flash_bwd_dkv_tf32x3<D, QC><<<grid, TC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.H,
-      a.Lq, a.Lk, a.st, a.q_offset, a.kv_offset, softmax_scale(D));
+      a.Lq, a.Lk, a.st, a.q_offset, a.kv_offset, softmax_scale(D),
+      softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
@@ -925,9 +1189,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // (batch, length, head) for q, then k, then v, then do; the head_dim axis
-// is unit-stride (and for bf16, which TMA reads, the bases 16-byte aligned
-// and every stride a multiple of 8 elements). lse and delta are contiguous
-// fp32 [B, Lq, H]. Each entry returns a cudaError_t (0 on success).
+// is unit-stride, the bases 16-byte aligned and every stride a multiple of
+// 16 bytes (TMA reads bf16, 16-byte cp.async fp32). lse and delta are
+// contiguous fp32 [B, Lq, H]. Each entry returns a cudaError_t (0 on success).
 extern "C" int tpushare_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int H,
@@ -940,6 +1204,7 @@ extern "C" int tpushare_flash_bwd_dq(
                            v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Lq, Lk, s,
                            q_offset, kv_offset, stream);
+  if (dtype == 0 && D == 16) return launch_dq_f32<16>(a, dq);
   if (dtype == 0 && D == 64) return launch_dq_f32<64>(a, dq);
   if (dtype == 0 && D == 128) return launch_dq_f32<128>(a, dq);
   if (dtype == 1 && D == 64) return launch_dq_bf16<64>(a, dq);
@@ -960,6 +1225,7 @@ extern "C" int tpushare_flash_bwd_dkv(
                            v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Lq, Lk, s,
                            q_offset, kv_offset, stream);
+  if (dtype == 0 && D == 16) return launch_dkv_f32<16>(a, dk, dv);
   if (dtype == 0 && D == 64) return launch_dkv_f32<64>(a, dk, dv);
   if (dtype == 0 && D == 128) return launch_dkv_f32<128>(a, dk, dv);
   if (dtype == 1 && D == 64) return launch_dkv_bf16<64>(a, dk, dv);

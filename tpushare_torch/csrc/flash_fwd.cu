@@ -42,10 +42,12 @@
 //    the longest blocks do not run as a tail. A block is one warpgroup and
 //    the producer warp (160 threads), so several share an SM; two
 //    warpgroups sharing each K/V tile ran slower at every measured shape.
-// fp32 keeps full fp32 products on the SIMT units (tensor-core TF32 would
-// lose the reference's precision): each of 256 threads owns a 4-row slice
-// of scores and output, with Q, K, V and P staged as fp32 in dynamic
-// shared memory above the 48 KB default.
+// fp32 (head dims 16, 64 and 128) still runs its products on the SIMT
+// units: each of 256 threads owns a 4-row slice of scores and output, with
+// Q, K, V and P staged as fp32 in dynamic shared memory above the 48 KB
+// default. One TF32 pass on the tensor cores would lose fp32's precision,
+// but the split-three TF32 products of the fp32 backward (flash_bwd.cu)
+// keep it; moving this kernel to them is the next redesign.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -468,7 +470,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // (batch, length, head) for q, then k, then v; the head_dim axis is
 // unit-stride (and for bf16, which TMA reads, the base 16-byte aligned and
-// every stride a multiple of 8 elements). Returns a cudaError_t (0 on
+// every stride a multiple of 8 elements). Head dims: 16, 64 and 128 in
+// fp32, 64 and 128 in bf16. Returns a cudaError_t (0 on
 // success).
 extern "C" int tpushare_flash_fwd(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int dtype, int B,
@@ -483,6 +486,9 @@ extern "C" int tpushare_flash_fwd(const void* q, const void* k, const void* v,
   const Strides st = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 16)
+    return launch_f32<16>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
+                          kv_offset, s);
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
                           kv_offset, s);

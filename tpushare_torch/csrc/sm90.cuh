@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
 // mbarriers, TMA tile loads, warpgroup matrix products (wgmma) and the
-// shared-memory descriptors they read, and the host-side tensor-map builder.
+// shared-memory descriptors they read, the host-side tensor-map builder,
+// and for fp32 the split-three TF32 warp product (mma.sync) and cp.async.
 //
-// The tiles these kernels use are all one shape in shared memory: rows of
-// 64 bf16 values (128 bytes), laid out by TMA with the 128-byte swizzle
-// (the 16-byte chunk c of row r lands at chunk c ^ (r % 8)), so that eight
-// rows make one 1024-byte swizzle atom. A row wider than 64 values (head
+// The bf16 tiles these kernels use are all one shape in shared memory:
+// rows of 64 bf16 values (128 bytes), laid out by TMA with the 128-byte
+// swizzle (the 16-byte chunk c of row r lands at chunk c ^ (r % 8)), so
+// that eight rows make one 1024-byte swizzle atom. A row wider than 64 values (head
 // dim 128) goes in as two such boxes, one after the other. Every tile
 // starts on a 1024-byte boundary, which is what lets a wgmma descriptor
 // name a tile by its start address alone (base offset 0).
@@ -218,6 +219,99 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// --------------------------------------------------------------------------
+// fp32 products on the tensor cores: split-three TF32 with mma.sync, and
+// tiles copied by cp.async
+// --------------------------------------------------------------------------
+//
+// TF32 keeps 10 of fp32's 23 mantissa bits. An fp32 value splits into two
+// TF32 values, x = hi + lo, which hold its leading 22 bits or so; a product
+// then runs as lo_a hi_b + hi_a lo_b + hi_a hi_b, each term exact in the
+// fp32 accumulator, and misses lo_a lo_b (about 2^-22 relative). One TF32
+// pass alone is off by about 2^-11 relative per product.
+//
+// The split is CUTLASS's (its 3xTF32, which PyTorch's fp32 attention
+// kernels run): hi = x rounded to TF32, to nearest with ties away (the
+// result of cvt.rna.tf32.f32, made by an integer add and mask), and lo =
+// x - hi as it stands, which the tensor core reads as TF32 by dropping its
+// low 13 bits. cvt.rna is a slow instruction here: with it for both parts
+// the fp32 backward pair took 3.09 ms at 8 x 2048, 8 heads of 64, against
+// 2.06 with this split, at the same error (NVIDIA H100 80GB HBM3, 700 W;
+// tools/fp32_bwd_ab.py --rna-split, PERF.md).
+struct Tf32x2 {  // x = hi + lo
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32x2 split_tf32(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+// The A operand of mma.m16n8k8 (TF32), split: a0 (row g, column t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4), with g = lane / 4 and
+// t = lane % 4.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32x2 s = split_tf32(a[i]);
+    f.hi[i] = s.hi;
+    f.lo[i] = s.lo;
+  }
+  return f;
+}
+
+// d += a b on one warp: m16n8k8, TF32 operands, fp32 accumulator. B is
+// b0 (row t, column g), b1 (t + 4, g); d0, d1 are row g, columns 2t and
+// 2t + 1, d2, d3 the same columns of row g + 8.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in split-three TF32: the two cross terms, then hi hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
+                                           Tf32x2 b0, Tf32x2 b1) {
+  mma_tf32(d, a.lo, b0.hi, b1.hi);
+  mma_tf32(d, a.hi, b0.lo, b1.lo);
+  mma_tf32(d, a.hi, b0.hi, b1.hi);
+}
+
+// Asynchronous copies global -> shared of 16 (bypassing L1) or 4 bytes;
+// where !in the destination gets zeros and `src` is not read.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+// Close this thread's copies issued since the last commit into a group;
+// wait until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --------------------------------------------------------------------------

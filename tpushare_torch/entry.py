@@ -38,8 +38,8 @@ from tpushare_torch.workload import train as T
 
 ENTRY_CONFIG = M.ModelConfig(vocab_size=8192, d_model=512, n_heads=8,
                              n_layers=4, d_ff=1536, max_seq_len=512)
-#: The dry run's weights come from a generator of this seed on the rank's
-#: device, its global batch from one of seed + 1.
+#: The dry run's weights come from a host generator of this seed, its
+#: global batch from one of seed + 1 (:func:`dryrun_generator`).
 DRYRUN_SEED = 0
 
 
@@ -58,12 +58,16 @@ def dryrun_config(width: str, mesh: par.Mesh) -> tuple[M.ModelConfig,
                                                         tuple[int, int]]:
     """(config, global batch) of the dry run: ``"tiny"`` is the JAX
     package's (vocab 256, d_model 64, max(4, tp) heads, 2 layers, d_ff
-    128, 16·sp tokens a sequence, batch 2·dp); ``"flagship"`` the default
-    config at the 8 × 2048 batch one card trains."""
+    128, 16·sp tokens a sequence, batch 2·dp) in fp32, where the JAX
+    package trains it in bf16: its head_dim of 16 is one the fp32 kernels
+    take and the bf16 ones (64 and 128) do not, and fp32 is what the
+    reference's other tiny parts run; ``"flagship"`` the default config
+    (bf16) at the 8 × 2048 batch one card trains."""
     if width == "flagship":
         return M.ModelConfig(), (8, 2048)
     cfg = M.ModelConfig(vocab_size=256, d_model=64, n_heads=max(4, mesh.tp),
-                        n_layers=2, d_ff=128, max_seq_len=16 * mesh.sp)
+                        n_layers=2, d_ff=128, max_seq_len=16 * mesh.sp,
+                        dtype=torch.float32)
     return cfg, (2 * mesh.dp, cfg.max_seq_len)
 
 
@@ -90,8 +94,12 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _gen(dev: torch.device, offset: int) -> torch.Generator:
-    return torch.Generator(device=dev).manual_seed(DRYRUN_SEED + offset)
+def dryrun_generator(offset: int) -> torch.Generator:
+    """The generator of seed ``DRYRUN_SEED + offset`` the dry run draws
+    from. It is the host's on every device (draws are moved to the rank's
+    device after), so a gang on the card and the same gang on the host
+    start from the same weights and batch."""
+    return torch.Generator().manual_seed(DRYRUN_SEED + offset)
 
 
 def _memory(dev: torch.device) -> dict:
@@ -169,10 +177,10 @@ def moe_inputs(width: str, mesh: par.Mesh, dev: torch.device):
     experts, fp32; the tiny width's d_model, d_ff and [batch, seq] are
     the training config's, the flagship's 512, 1536 and 8 × 2048."""
     cfg, (batch, seq) = dryrun_config(width, mesh)
-    params = moe.init_moe_params(_gen(dev, 2), cfg.d_model, cfg.d_ff,
+    params = moe.init_moe_params(dryrun_generator(2), cfg.d_model, cfg.d_ff,
                                  2 * mesh.sp, dev)
-    x = torch.randn((batch, seq, cfg.d_model), generator=_gen(dev, 3),
-                    device=dev)
+    x = torch.randn((batch, seq, cfg.d_model),
+                    generator=dryrun_generator(3)).to(dev)
     return params, x
 
 
@@ -193,7 +201,7 @@ def _train_part(cfg, mesh, tokens, targets, attentions, steps, dev, save,
     for attention in attentions:
         init_fn, step, place = T.make_train_step(
             cfg, mesh, attention=attention, device=dev)
-        params, opt = init_fn(_gen(dev, 0), tokens)
+        params, opt = init_fn(dryrun_generator(0), tokens)
         shard = place(tokens, targets)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -303,9 +311,9 @@ def _pipe_part(part, width, train_mesh, world, steps, dev, save,
     mesh = par.make_mesh(*shape) if shape else train_mesh
     init_fn, train_fn = pipeline.make_flagship_pipeline(
         cfg, mesh, axis, n_microbatches=m, device=dev, **kw)
-    stage, edge = init_fn(_gen(dev, 0))
+    stage, edge = init_fn(dryrun_generator(0))
     tokens = torch.randint(0, cfg.vocab_size, (rows, seq),
-                           generator=_gen(dev, 1), device=dev)
+                           generator=dryrun_generator(1)).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -363,8 +371,8 @@ def serve_setup(width: str, mesh: par.Mesh):
 
 def serve_prompts(cfg: M.ModelConfig, shape, dev: torch.device):
     """The serve part's global prompts, which every rank draws alike."""
-    return torch.randint(0, cfg.vocab_size, shape, generator=_gen(dev, 5),
-                         device=dev)
+    return torch.randint(0, cfg.vocab_size, shape,
+                         generator=dryrun_generator(5)).to(dev)
 
 
 def _serve_part(width, mesh, dev, save, saved, ckpt: dict) -> dict:
@@ -373,7 +381,8 @@ def _serve_part(width, mesh, dev, save, saved, ckpt: dict) -> dict:
     4``, or restored from the latest checkpoint (``ckpt["resume"]``),
     with the prefill attention ``best_attn_fn`` picks."""
     cfg, shape, n_new, max_len = serve_setup(width, mesh)
-    params = par.shard_params(M.init_params(_gen(dev, 4), cfg, dev), mesh)
+    params = par.shard_params(M.init_params(dryrun_generator(4), cfg, dev),
+                              mesh)
     rec = {"heads_per_rank": cfg.n_heads // mesh.tp,
            "dtype": str(cfg.dtype)}
     if ckpt["resume"]:
@@ -478,7 +487,7 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
         mesh = par.make_mesh(*(mesh_shape or par.auto_mesh_shape(world)))
         cfg, (batch, seq) = dryrun_config(width, mesh)
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
-                               generator=_gen(dev, 1), device=dev)
+                               generator=dryrun_generator(1)).to(dev)
         targets = torch.roll(tokens, -1, dims=1)
         record = {"rank": spec.process_id, "mesh": list(mesh.coords),
                   "mesh_shape": mesh.shape, "device": str(dev),

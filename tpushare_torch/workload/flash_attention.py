@@ -12,9 +12,13 @@ library with plain C entries, at first use, under ``build/tpushare_torch/``
 in the checkout, named by the hash of its source and of every header in
 ``csrc/`` (a changed source or header builds anew), and loaded with
 ``ctypes``. Launches go to the current stream. All three bf16 kernels
-(forward, dq and dk/dv) read their tiles with TMA, which needs a 16-byte
-aligned base and strides that are multiples of 16 bytes
-(:func:`tma_problem`); their wrappers raise on anything else.
+(forward, dq and dk/dv) read their tiles with TMA, and the fp32 dq and
+dk/dv kernels with 16-byte ``cp.async``; both need a 16-byte aligned base
+and strides that are multiples of 16 bytes (:func:`tma_problem`), and
+those wrappers raise on anything else. The fp32 backward runs its
+products on the tensor cores in split-three TF32, which keeps fp32's
+precision (one TF32 pass would not); the fp32 forward still runs on the
+SIMT units. Head dims are 16, 64 and 128 in fp32, 64 and 128 in bf16.
 
 Gradients: :func:`flash_block_with_lse` (and :func:`flash_attention`, its
 output alone) are one ``torch.autograd.Function`` when an input requires
@@ -53,7 +57,8 @@ FLASH_BWD_DKV_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpushare_torch"
-_HEAD_DIMS = (64, 128)
+#: Head dims each dtype's kernels are built for.
+_HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (64, 128)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: Library -> {C entry: (pointer arguments, stride arguments)}. Every entry
 #: then takes dtype, B, H, Lq, Lk, D, the strides, q_offset, kv_offset and
@@ -92,6 +97,29 @@ def _lib_path(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def nvcc_command(source: str | Path, out: str | Path) -> list[str]:
+    """The ``nvcc`` command that builds the kernel source ``source`` into
+    the shared library ``out``."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-o", str(out), str(source)]
+
+
+def bind_library(path: str | Path, name: str) -> dict[str, ctypes._CFuncPtr]:
+    """Load the library ``path`` built from ``{name}.cu`` and type its C
+    entries."""
+    lib = ctypes.CDLL(str(path))
+    fns = {}
+    for sym, (n_ptr, n_strides) in _ENTRIES[name].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * n_strides
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[sym] = fn
+    return fns
+
+
 def build(*names: str) -> dict[str, float]:
     """Compile each named kernel library (all by default) that has no
     build of its exact source, one ``nvcc`` each, all started together.
@@ -108,9 +136,7 @@ def build(*names: str) -> dict[str, float]:
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-o", tmp, str(_CSRC / f"{name}.cu")]
+            cmd = nvcc_command(_CSRC / f"{name}.cu", tmp)
             jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE, text=True),
                           tmp, lib)
@@ -141,14 +167,7 @@ def _bind(entry: str) -> ctypes._CFuncPtr:
         if entry not in _fns:
             name = next(n for n, e in _ENTRIES.items() if entry in e)
             build(name)
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for sym, (n_ptr, n_strides) in _ENTRIES[name].items():
-                fn = getattr(lib, sym)
-                fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                               + [ctypes.c_longlong] * n_strides
-                               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-                fn.restype = ctypes.c_int
-                _fns[sym] = fn
+            _fns.update(bind_library(_lib_path(name), name))
         return _fns[entry]
 
 
@@ -191,12 +210,12 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     if q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
                          f"share B, H and D")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not supported by the "
-                         f"kernel (one of {_HEAD_DIMS})")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
                          f"takes float32 or bfloat16, all alike")
+    if q.shape[-1] not in _HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head_dim {q.shape[-1]} not supported by the "
+                         f"{q.dtype} kernel (one of {_HEAD_DIMS[q.dtype]})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head_dim axis of q, k, v must be unit-stride")
     if any(t.requires_grad for t in (q, k, v)):
@@ -228,11 +247,12 @@ def _check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def tma_problem(shape, strides, data_ptr: int, itemsize: int) -> str | None:
-    """Why TMA cannot read a [B, L, H, D] tensor of this shape, these
-    element strides, base address and element size, or None if it can:
-    TMA needs a 16-byte aligned base and (batch, length, head) strides that
-    are positive multiples of 16 bytes below 2**40 (an axis of size 1 is
-    never stepped, so its stride does not matter)."""
+    """Why TMA (or 16-byte ``cp.async``, which has the same rule) cannot
+    read a [B, L, H, D] tensor of this shape, these element strides, base
+    address and element size, or None if it can: a 16-byte aligned base
+    and (batch, length, head) strides that are positive multiples of 16
+    bytes below 2**40 (an axis of size 1 is never stepped, so its stride
+    does not matter)."""
     if data_ptr % 16:
         return f"its base address {data_ptr:#x} is not 16-byte aligned"
     for axis, n, s in zip(("batch", "length", "head"), shape[:3],
@@ -244,23 +264,43 @@ def tma_problem(shape, strides, data_ptr: int, itemsize: int) -> str | None:
     return None
 
 
-def _check_tma(**tensors: torch.Tensor) -> None:
-    """Raise unless TMA can read every bf16 tensor given (the fp32 kernels
-    load with plain loads and take any stride)."""
+def _read_problem(t: torch.Tensor) -> str | None:
+    """:func:`tma_problem` of a tensor, with the common case in one test
+    (the wrapper's host time is on the serving path): aligned base,
+    positive strides in multiples of 16 bytes below 2**40 bytes."""
+    ptr, (sb, sl, sh, _) = t.data_ptr(), t.stride()
+    size = t.element_size()
+    if (ptr % 16 == 0 and (sb | sl | sh) % (16 // size) == 0
+            and 0 < min(sb, sl, sh) and max(sb, sl, sh) * size < 1 << 40):
+        return None
+    return tma_problem(t.shape, t.stride(), ptr, size)
+
+
+def _check_tma(fp32: bool = False, **tensors: torch.Tensor) -> None:
+    """Raise unless every bf16 tensor given can be read by TMA and, with
+    ``fp32``, every fp32 one by 16-byte ``cp.async`` (the fp32 backward
+    kernels; the same rule). The fp32 forward loads with plain loads and
+    takes any stride."""
     for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
+        if t.dtype == torch.float32 and not fp32:
             continue
-        # The common case in one test (the wrapper's host time is on the
-        # serving path): aligned base, positive strides in multiples of 8
-        # elements (16 bytes) below 2**39 elements (2**40 bytes).
-        ptr, (sb, sl, sh, _) = t.data_ptr(), t.stride()
-        if (ptr % 16 == 0 and (sb | sl | sh) % 8 == 0
-                and 0 < min(sb, sl, sh) and max(sb, sl, sh) < 1 << 39):
-            continue
-        problem = tma_problem(t.shape, t.stride(), ptr, t.element_size())
+        problem = _read_problem(t)
         if problem:
-            raise ValueError(f"{name} cannot feed the TMA-fed bf16 kernel: "
+            feed = ("TMA-fed bf16" if t.dtype == torch.bfloat16
+                    else "cp.async-fed fp32")
+            raise ValueError(f"{name} cannot feed the {feed} kernel: "
                              f"{problem}")
+
+
+def _kernel_cotangent(do: torch.Tensor) -> torch.Tensor:
+    """``do`` as the backward kernels read it: a fresh contiguous copy
+    when its layout is one they cannot (e.g. the stride-0 cotangent of a
+    ``sum()``, or a view at an odd offset), else ``do`` itself. The
+    caller does not choose the cotangent's layout, so it is copied, not
+    refused."""
+    if do.stride(-1) != 1 or _read_problem(do):
+        return do.clone(memory_format=torch.contiguous_format)
+    return do
 
 
 def _strides(*ts: torch.Tensor) -> tuple[int, ...]:
@@ -295,7 +335,7 @@ def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's, ``delta`` = rowsum(do * out) - dlse, both fp32 [B, Lq, H]."""
     global FLASH_BWD_DQ_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    _check_tma(q=q, k=k, v=v, do=do)
+    _check_tma(fp32=True, q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     _launch("tpushare_flash_bwd_dq",
@@ -316,7 +356,7 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same inputs as :func:`flash_bwd_dq_kernel`."""
     global FLASH_BWD_DKV_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    _check_tma(q=q, k=k, v=v, do=do)
+    _check_tma(fp32=True, q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -417,8 +457,7 @@ def _block_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, dlse, q_offset,
                                kv_offset)
-    if do.stride(-1) != 1:   # e.g. the expanded cotangent of a sum()
-        do = do.contiguous()
+    do = _kernel_cotangent(do)
     delta = flash_bwd_delta(do, out, dlse)
     dq = flash_bwd_dq_kernel(q, k, v, do, lse, delta, q_offset, kv_offset)
     dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse, delta, q_offset,
@@ -491,10 +530,10 @@ def merge_partials(o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor,
 
 
 def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Can the kernels take these inputs?"""
+    """Can the kernels, forward and backward, take these inputs?"""
     try:
         _check_kernel_inputs(q, k, v)
-        _check_tma(q=q, k=k, v=v)
+        _check_tma(fp32=True, q=q, k=k, v=v)
     except ValueError:
         return False
     return True

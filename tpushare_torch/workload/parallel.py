@@ -405,8 +405,9 @@ def _use_flash(use_flash: bool | None, q: torch.Tensor, k: torch.Tensor,
             q.detach(), k.detach(), v.detach()):
         raise ValueError(
             f"{what} with use_flash=True needs inputs the flash kernels "
-            f"take (on one card, head_dim 64 or 128, float32 or bfloat16, "
-            f"TMA-readable bf16 strides); got q {tuple(q.shape)} {q.dtype} "
+            f"take (on one card, float32 at head_dim 16, 64 or 128 or "
+            f"bfloat16 at 64 or 128, 16-byte aligned strides); got q "
+            f"{tuple(q.shape)} {q.dtype} "
             f"on {q.device} (pass use_flash=False)")
     return use_flash
 
