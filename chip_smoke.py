@@ -16,11 +16,12 @@ checkpoint lifecycle (phase 5f: an async save, resume on the same and on
 another mesh, an unsharded restore that serves, tensor-parallel
 serving) run gangs of rank processes on the one card, each under a grant
 of its share of the card, their collectives over gloo through the host.
-Phase 5g trains the flagship in fp32 (the fp32 kernels: the forward on
-the SIMT units, the backward pair in split-three TF32 on the tensor
-cores) against plain attention; phase 5h runs the reference dry run,
-``python -m tpushare_torch.entry`` at its tiny width (fp32, head_dim 16)
-with every part, as a gang on the card held to the same gang on the host.
+Phase 5g trains the flagship in fp32 (the fp32 kernels, forward and
+backward, in split-three TF32 on the tensor cores) against plain
+attention; phase 5h runs the reference dry run, ``python -m
+tpushare_torch.entry`` at its tiny width (head_dim 16: training in the
+reference's bf16, the other parts in fp32) with every part, as a gang on
+the card held to the same gang on the host.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -86,13 +87,23 @@ TRAIN_GRAD_TOL = 4e-2
 
 #: Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor
 #: cores, fp32 outside them (the SIMT units), TF32 tensor cores, and HBM3
-#: bandwidth. The fp32 backward runs each product as three TF32 passes
-#: (split-three TF32), so its least time counts 3 x ops at the TF32 rate,
+#: bandwidth. The fp32 kernels run each product as three TF32 passes
+#: (split-three TF32), so their least time counts 3 x ops at the TF32 rate,
 #: with the SIMT units' time for the same ops beside it.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
+#: Phase 2b: kernels each library must hold (the head dims 16, 64 and 128
+#: of each dtype; dk/dv's other instances are checked as found).
+SASS_KERNELS = {
+    "flash_fwd": [f"flash_fwd_{kind}<{d}>" for kind in ("bf16_sm90", "tf32x3")
+                  for d in (16, 64, 128)],
+    "flash_bwd": ["flash_bwd_dq_bf16_sm90<16>", "flash_bwd_dkv_bf16_sm90<16,1>",
+                  *(f"flash_bwd_dq_{kind}<{d}>" for kind in ("bf16_sm90",
+                                                             "tf32x3")
+                    for d in (16, 64, 128))],
+}
 #: Phase-3 shapes: name -> (B, Lq, Lk, H, D, q_offset, kv_offset).
 SHAPES = {
     "a_flagship_prefill": (8, 128, 128, 8, 64, 0, 0),
@@ -113,19 +124,28 @@ BWD_EDGE_SHAPES = {
     "tail_offset": (1, 77, 300, 4, 64, 223, 0),
     "no_key_d128": (1, 320, 256, 4, 128, 0, 100),
 }
-#: fp32 alone (bf16 takes head dims 64 and 128): the tiny dry run's block,
-#: [2, 16] tokens at 4 heads of 16, and a ragged block of 77 queries at
-#: offset 223 against 300 keys, at D = 16; and 8192 tokens at D = 64 and
-#: 128, where the backward sums 128 tiles into each gradient row (four
-#: times (f)'s), so that the growth of its error with L shows.
-F32_SHAPES = {
+#: Head dim 16 in both dtypes (the dry run's tiny width, whose train part
+#: runs bf16 and the rest fp32): the tiny dry run's block, [2, 16] tokens
+#: at 4 heads of 16; a ragged block of 77 queries at offset 223 against
+#: 300 keys; and a block of 32 Q and KV tiles, 1 x 2048 at 4 heads of 16.
+D16_SHAPES = {
     "tiny_block": (2, 16, 16, 4, 16, 0, 0),
     "tiny_tail_offset": (2, 77, 300, 4, 16, 223, 0),
+    "d16_2048": (1, 2048, 2048, 4, 16, 0, 0),
+}
+#: Phase 7 times bf16 at head dim 16 at these.
+D16_TIMED = ("tiny_block", "d16_2048")
+#: fp32 alone: 8192 tokens at D = 64 and 128, where the forward and the
+#: backward sum 128 tiles into each output row (four times (f)'s), so
+#: that the growth of their error with L shows.
+F32_SHAPES = {
     "long_8192_d64": (1, 8192, 8192, 4, 64, 0, 0),
     "long_8192_d128": (1, 8192, 8192, 4, 128, 0, 0),
 }
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
+#: The fp32 forward's record: the train step's shape and the wide one.
+FP32_FWD_SHAPES = ("f_flagship_train", "c_large_width", "b_long_prompt")
 PIECE_SHAPE = "g_chunk_piece"       # the chunked and paged pieces' launch
 #: Phases 3 and 3b also hold the kernels to their plain version at the
 #: blocks phase 5d's sharded paths hand them (flagship, 8 x 2048 global):
@@ -226,9 +246,11 @@ FP32_STEPS = 3
 #: Phase 5h: the reference dry run, ``python -m tpushare_torch.entry`` at
 #: its default tiny width with every part (both attention strategies), a
 #: gang of DRYRUN_RANKS gloo ranks on the card, held to the same gang with
-#: ``--device cpu``. Every part is fp32, so the bounds are phase 5g's
-#: (losses relative; gradients, the MoE's output, the GPipe's hidden
-#: states and the served prefill logits normalized).
+#: ``--device cpu``. The train part is bf16, as the reference's, and held
+#: at phase 5b's bounds (the card's kernels round P and dS to bf16 where
+#: the host's plain attention rounds elsewhere); the other parts are fp32
+#: and held at phase 5g's (losses relative; gradients, the MoE's output,
+#: the GPipe's hidden states and the served prefill logits normalized).
 DRYRUN_RANKS = 8
 DRYRUN_ATTENTION = ("ring", "ulysses")
 
@@ -319,8 +341,10 @@ def main(usage_dir: str) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = random_inputs(gen, SHAPES)
     sharded_inputs = random_inputs(gen, SHARDED_SHAPES)
+    d16_inputs = random_inputs(gen, D16_SHAPES)
     f32_inputs = random_inputs(gen, F32_SHAPES, (torch.float32,))
     for (name, dn), (q, k, v, qo, ko) in {**inputs, **sharded_inputs,
+                                          **d16_inputs,
                                           **f32_inputs}.items():
         lq = q.shape[1]
         with torch.inference_mode():
@@ -359,14 +383,14 @@ def main(usage_dir: str) -> int:
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
-    # shapes (fp32 also at head_dim 16): within the tolerance on rows and
+    # shapes (and at head dim 16): within the tolerance on rows and
     # keys that see something, dq exactly 0 on rows that see nothing and
     # dk, dv exactly 0 on keys no row sees, the same dq from a second
     # launch.
     bwd_errs = {}
     edge_inputs = random_inputs(gen, BWD_EDGE_SHAPES)
     for (name, dn), (q, k, v, qo, ko) in {**inputs, **sharded_inputs,
-                                          **edge_inputs,
+                                          **edge_inputs, **d16_inputs,
                                           **f32_inputs}.items():
         b, lq, h, _ = q.shape
         lk = k.shape[1]
@@ -622,15 +646,18 @@ def main(usage_dir: str) -> int:
     train32 = fp32_train_phase(tokens)
     phase("5g fp32 flagship training", card=card, **train32)
 
-    # 5h. The reference dry run as a user starts it, tiny width (fp32,
-    # head_dim 16), every part, a gang on the card held to the same gang on
-    # the host.
+    # 5h. The reference dry run as a user starts it, tiny width (head_dim
+    # 16; training bf16, the other parts fp32), every part, a gang on the
+    # card held to the same gang on the host.
     dry = dryrun_phase(inv.chips[0].hbm_gib)
     phase("5h tiny dry run", card=card, **dry)
     timings, bwd_timings = {}, {}
-    for (name, dn), (q, k, v, qo, ko) in inputs.items():
+    d16_timed = {(name, dn): x for (name, dn), x in d16_inputs.items()
+                 if name in D16_TIMED and dn == "bfloat16"}
+    for (name, dn), (q, k, v, qo, ko) in {**inputs, **d16_timed}.items():
         timings[name, dn] = time_shape(q, k, v, qo, ko, dn)
         bwd_timings[name, dn] = time_bwd_shape(q, k, v, qo, ko, dn)
+    del d16_inputs
     phase("7 timings", card=card,
           **{f"{n}/{d}": t for (n, d), t in timings.items()})
     phase("7b backward timings", card=card,
@@ -651,6 +678,7 @@ def main(usage_dir: str) -> int:
                   for path, counts in piped["launches"].items()},
                **{path: counts["flash_fwd"]
                   for path, counts in lifecycle["launches"].items()},
+               **dryrun_paths(dry, "flash_fwd", train=True),
                **fp32_paths(train32, dry, "flash_fwd")}
     kernels = [{
         "name": "flash_fwd",
@@ -683,9 +711,24 @@ def main(usage_dir: str) -> int:
                        "library_ms", "bound_ms", "bound_by")},
         "ring_shapes": {name: _pick(ring_t[name]["forward"])
                         for name in RING_SHAPES},
-        "fp32": fp32_record(timings[TRAIN_SHAPE, "float32"], "simt",
-                            fp32_paths(train32, dry, "flash_fwd"),
-                            call_key="kernel_call_ms"),
+        "d16": {f"{name} bfloat16": _times(timings[name, "bfloat16"],
+                                           "kernel_call_ms")
+                for name in D16_TIMED},
+        "d16_launches_by_path": dryrun_paths(dry, "flash_fwd", train=True),
+        "fp32": {
+            **fp32_record(timings[TRAIN_SHAPE, "float32"],
+                          "3xtf32+mma.sync+cp.async",
+                          fp32_paths(train32, dry, "flash_fwd"),
+                          call_key="kernel_call_ms"),
+            "shapes": {name: {**_times(timings[name, "float32"],
+                                       "kernel_call_ms"),
+                              "simt_bound_ms":
+                                  timings[name, "float32"]["simt_bound_ms"]}
+                       for name in FP32_FWD_SHAPES},
+            "max_norm_err": max(e["norm_err"] for (_, dn), e in errs.items()
+                                if dn == "float32" and "norm_err" in e),
+            "max_lse_err": max(e["lse_err"] for (_, dn), e in errs.items()
+                               if dn == "float32" and "lse_err" in e)},
     }]
     train_t = bwd_timings[TRAIN_SHAPE, "bfloat16"]
     train_t32 = bwd_timings[TRAIN_SHAPE, "float32"]
@@ -704,6 +747,7 @@ def main(usage_dir: str) -> int:
                     *cotenancy.values(), *sharded["launches"].values(),
                     *piped["launches"].values(),
                     *lifecycle["launches"].values()]) + sum(
+                dryrun_paths(dry, kname, train=True).values()) + sum(
                 fp32_paths(train32, dry, kname).values()),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
@@ -714,6 +758,7 @@ def main(usage_dir: str) -> int:
                                     in piped["launches"].items()},
                                  **{path: counts[kname] for path, counts
                                     in lifecycle["launches"].items()},
+                                 **dryrun_paths(dry, kname, train=True),
                                  **fp32_paths(train32, dry, kname)},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
@@ -738,6 +783,12 @@ def main(usage_dir: str) -> int:
                        "plain_ms": ring_t[name]["backward"]["plain_ms"],
                        "library_ms": ring_t[name]["backward"]["library_ms"]}
                 for name in RING_SHAPES},
+            "d16": {f"{name} bfloat16": _times({
+                **bwd_timings[name, "bfloat16"][kname],
+                "plain_ms": bwd_timings[name, "bfloat16"]["plain_ms"],
+                "library_ms": bwd_timings[name, "bfloat16"]["library_ms"]})
+                for name in D16_TIMED},
+            "d16_launches_by_path": dryrun_paths(dry, kname, train=True),
             "fp32": {
                 **fp32_record({**train_t32[kname],
                                "plain_ms": train_t32["plain_ms"],
@@ -758,12 +809,19 @@ def main(usage_dir: str) -> int:
     return 0
 
 
+def dryrun_paths(dry: dict, kname: str, train: bool) -> dict:
+    """A kernel's launches in phase 5h's dry run on the card, by path: its
+    train parts (bf16) or its other parts (fp32)."""
+    return {f"dryrun_{path}": counts[kname]
+            for path, counts in dry["launches"].items()
+            if path.startswith("train_") == train}
+
+
 def fp32_paths(train32: dict, dry: dict, kname: str) -> dict:
     """A kernel's fp32 launches on the main path, by path: phase 5g's
-    train steps and every part of phase 5h's dry run on the card."""
+    train steps and the fp32 parts of phase 5h's dry run."""
     return {"training_fp32": train32["launches"][kname],
-            **{f"dryrun_{path}": counts[kname]
-               for path, counts in dry["launches"].items()}}
+            **dryrun_paths(dry, kname, train=False)}
 
 
 def fp32_record(t: dict, design: str, by_path: dict,
@@ -771,20 +829,23 @@ def fp32_record(t: dict, design: str, by_path: dict,
     """The kernels line's fp32 record of one kernel at the train shape
     (f): its design, times, both bounds and its launches by path."""
     return {"design": design, "shape": f"{TRAIN_SHAPE} float32",
-            "kernel_ms": t["kernel_ms"], "call_ms": t[call_key],
-            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "simt_bound_ms": t["simt_bound_ms"],
+            **_times(t, call_key), "simt_bound_ms": t["simt_bound_ms"],
             "vs_library": t["kernel_ms"] / t["library_ms"],
             "launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+def _times(t: dict, call_key: str = "call_ms") -> dict:
+    """A timing's kernel, call, plain and library ms and its bound."""
+    return {"kernel_ms": t["kernel_ms"], "call_ms": t[call_key],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
+
+
 def tma_refusals(q: torch.Tensor, q32: torch.Tensor) -> dict:
-    """TMA reads the bf16 tiles and 16-byte cp.async the fp32 backward's: a
-    base off the 16-byte grid (a view one element into an allocation
-    shaped like ``q``, or ``q32`` in fp32) is refused by each bf16 wrapper
-    and each fp32 backward wrapper with ``ValueError``, before any launch.
-    Returns each message."""
+    """TMA reads the bf16 tiles and 16-byte cp.async the fp32 ones: a base
+    off the 16-byte grid (a view one element into an allocation shaped
+    like ``q``, or ``q32`` in fp32) is refused by each of the six wrappers
+    with ``ValueError``, before any launch. Returns each message."""
     odd, odd32 = (torch.empty(t.numel() + 1, dtype=t.dtype,
                               device="cuda")[1:].view(t.shape)
                   for t in (q, q32))
@@ -795,6 +856,7 @@ def tma_refusals(q: torch.Tensor, q32: torch.Tensor) -> dict:
                                                        stats, stats),
         "flash_bwd_dkv": lambda: FA.flash_bwd_dkv_kernel(odd, odd, odd, odd,
                                                          stats, stats),
+        "fp32_flash_fwd": lambda: FA.flash_fwd_kernel(odd32, odd32, odd32),
         "fp32_flash_bwd_dq": lambda: FA.flash_bwd_dq_kernel(
             odd32, odd32, odd32, odd32, stats, stats),
         "fp32_flash_bwd_dkv": lambda: FA.flash_bwd_dkv_kernel(
@@ -923,8 +985,8 @@ def sass_phase() -> dict:
     machine code holds HGMMA (wgmma) and UTMALDG (TMA load), or HMMA
     (mma.sync) and LDGSTS (cp.async) instructions. Fails unless every
     ``*_sm90`` kernel holds the first two, every fp32 ``*_tf32x3`` kernel
-    the last two, each spills nothing, and each library has an sm90
-    kernel."""
+    the last two, each spills nothing, and each library holds the kernels
+    of ``SASS_KERNELS``."""
     tool = os.path.join(os.path.dirname(FA._nvcc()), "cuobjdump")
     fields = {}
     for name in FA._ENTRIES:
@@ -945,8 +1007,9 @@ def sass_phase() -> dict:
             for key, val in re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)",
                                        res):
                 entry[key.lower()] = int(val)
+        missing = set(SASS_KERNELS[name]) - set(kernels)
+        check(not missing, f"{name}: {sorted(missing)} not in {lib}")
         hopper = {k: v for k, v in kernels.items() if "_sm90<" in k}
-        check(bool(hopper), f"{name}: no sm90 kernel in {lib}")
         for kname, info in hopper.items():
             check(info.get("hgmma") and info.get("utmaldg"),
                   f"{kname}: HGMMA/UTMALDG missing from its SASS: {info}")
@@ -1845,7 +1908,7 @@ def fp32_train_phase(tokens) -> dict:
     pair_us = sum(e.time_range.elapsed_us() for e in on_card
                   if "flash_bwd_" in e.name and "_tf32x3" in e.name)
     fwd_us = sum(e.time_range.elapsed_us() for e in on_card
-                 if "flash_fwd_f32" in e.name)
+                 if "flash_fwd_tf32x3" in e.name)
     check(pair_us > 0 and fwd_us > 0,
           "the profiled fp32 step ran no fp32 flash kernel")
 
@@ -1887,15 +1950,17 @@ def fp32_train_phase(tokens) -> dict:
     }
 
 
-def _dryrun_checks(part: str, got: dict, want: dict) -> dict:
+def _dryrun_checks(part: str, got: dict, want: dict,
+                   loss_tol: float = FP32_LOSS_TOL,
+                   tol: float = FP32_GRAD_TOL) -> dict:
     """One saved part of the card's dry run against the host's: losses
-    relative, every other tensor normalized (``FP32_LOSS_TOL``,
-    ``FP32_GRAD_TOL``). Returns the errors."""
+    relative (``loss_tol``), every other tensor normalized (``tol``).
+    Returns the errors."""
     errs = {}
     if "loss" in want:
         errs["loss_rel_err"] = abs(got["loss"] - want["loss"]) / abs(
             want["loss"])
-        check(errs["loss_rel_err"] <= FP32_LOSS_TOL,
+        check(errs["loss_rel_err"] <= loss_tol,
               f"dry run {part}: loss {got['loss']} on the card, "
               f"{want['loss']} on the host")
     tensors = {**{f"grad/{k}": g for k, g in want.get("grads", {}).items()},
@@ -1908,7 +1973,7 @@ def _dryrun_checks(part: str, got: dict, want: dict) -> dict:
           f"dry run {part}: saved {sorted(got_t)}, want {sorted(tensors)}")
     tensor_errs = {k: _norm_err(got_t[k], w) for k, w in tensors.items()}
     worst = max(tensor_errs, key=tensor_errs.get)
-    check(tensor_errs[worst] <= FP32_GRAD_TOL,
+    check(tensor_errs[worst] <= tol,
           f"dry run {part}: {worst} off the host's by {tensor_errs[worst]}")
     errs.update(max_norm_err=tensor_errs[worst], worst=worst)
     if "tokens" in want:
@@ -1919,17 +1984,19 @@ def _dryrun_checks(part: str, got: dict, want: dict) -> dict:
 
 def dryrun_phase(card_gib: int) -> dict:
     """Phase 5h: ``python -m tpushare_torch.entry`` as a user runs it, its
-    default tiny width (fp32, 4 heads of 16) and every part (dp x tp x sp
-    training with ``DRYRUN_ATTENTION``, the ring-MoE, the four pipes, the
-    tp decode), one gang of ``DRYRUN_RANKS`` gloo ranks on the card under
-    grants of floor(``card_gib`` / ranks), then the same gang with
-    ``--device cpu``. Fails if a part raises, unless every rank launched
-    the kernels as designed in every part (training: ring 2·L·sp /
-    L·sp / L·sp with remat, Ulysses 2·L / L / L; a pipe 2·k·M·s / k·M·s /
-    k·M·s; the decode L forwards a prefill; the MoE none; every attention
-    part some), and unless every saved loss, gradient and output of the
-    card's run agrees with the host's (:func:`_dryrun_checks`). Returns
-    the phase's fields; ``launches`` sums every rank's counts by path."""
+    default tiny width (4 heads of 16) and every part (dp x tp x sp
+    training with ``DRYRUN_ATTENTION`` in bf16, the ring-MoE, the four
+    pipes and the tp decode in fp32), one gang of ``DRYRUN_RANKS`` gloo
+    ranks on the card under grants of floor(``card_gib`` / ranks), then
+    the same gang with ``--device cpu``. Fails if a part raises, unless
+    every part ran in its dtype and every rank launched the kernels as
+    designed in every part (training: ring 2·L·sp / L·sp / L·sp with
+    remat, Ulysses 2·L / L / L; a pipe 2·k·M·s / k·M·s / k·M·s; the decode
+    L forwards a prefill; the MoE none; every attention part some), and
+    unless every saved loss, gradient and output of the card's run agrees
+    with the host's (:func:`_dryrun_checks`: training at phase 5b's bf16
+    bounds, the rest at 5g's). Returns the phase's fields; ``launches``
+    sums every rank's counts by path."""
     torch.cuda.empty_cache()
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as tmp:
@@ -1973,13 +2040,17 @@ def dryrun_phase(card_gib: int) -> dict:
         count(f"train_{attention}",
               [r["paths"][attention]["launches_per_step"] for r in records],
               want)
+        dtype = rec0["paths"][attention]["dtype"]
+        check(dtype == "torch.bfloat16", f"dry run train_{attention} ran "
+                                         f"{dtype}")
         fields[f"train_{attention}"] = {
-            "launches_per_step": want,
+            "launches_per_step": want, "dtype": dtype,
             "losses": rec0["paths"][attention]["losses"],
             "step_ms_by_rank": [r["paths"][attention]["step_ms"]
                                 for r in records],
             **_dryrun_checks(attention, card["saved"][attention],
-                             host["saved"][attention])}
+                             host["saved"][attention], TRAIN_LOSS_TOL,
+                             TRAIN_GRAD_TOL)}
     for part in E.PARTS[1:-1]:
         per_rank = [r["parts"][part] for r in records]
         p0 = per_rank[0]
@@ -1991,6 +2062,8 @@ def dryrun_phase(card_gib: int) -> dict:
             want = {"flash_fwd": 2 * k * m * s, "flash_bwd_dq": k * m * s,
                     "flash_bwd_dkv": k * m * s}
         count(part, [p["launches_per_call"] for p in per_rank], want)
+        check(part == "moe" or p0["dtype"] == "torch.float32",
+              f"dry run {part} ran {p0.get('dtype')}")
         key = "moe" if part == "moe" else f"pipe_{part}"
         fields[part] = {"launches_per_call": want,
                         "dtype": p0.get("dtype"), "losses": p0["losses"],
@@ -2002,6 +2075,8 @@ def dryrun_phase(card_gib: int) -> dict:
                   {"flash_fwd": k * m, "flash_bwd_dq": 0,
                    "flash_bwd_dkv": 0})
     serve = [r["parts"]["serve"] for r in records]
+    check(serve[0]["dtype"] == "torch.float32",
+          f"dry run serve ran {serve[0]['dtype']}")
     n_serve = 2                                 # the decode's layers
     count("serve", [[p["launches"]] for p in serve],
           {"flash_fwd": n_serve, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
@@ -2096,7 +2171,7 @@ def device_ms(fn, reps: int = 20) -> float:
 def bounds(ops: int, nbytes: int, dn: str) -> dict:
     """The card's least time for ``ops`` operations and ``nbytes`` bytes
     (published peaks): bf16 at the tensor cores' rate; fp32 at the rate the
-    fp32 backward runs, three TF32 passes an operation on the tensor cores
+    fp32 kernels run, three TF32 passes an operation on the tensor cores
     (``bound_by`` "3xTF32 ops" where they bound it), with the SIMT units'
     time for the same work beside it (``simt_bound_ms``)."""
     t_bytes = nbytes / PEAK_BYTES

@@ -79,8 +79,8 @@ def test_plain_matches_pallas_interpret(lq, lk, q_off, kv_off):
 
 @pytest.mark.parametrize("lq,lk,q_off,kv_off", PALLAS_CASES)
 def test_plain_matches_pallas_interpret_head_dim_16(lq, lk, q_off, kv_off):
-    """The dry run's tiny width: 4 heads of 16, which the fp32 kernels
-    take (and the bf16 ones do not)."""
+    """The dry run's tiny width: 4 heads of 16, which the kernels take in
+    both dtypes."""
     _plain_vs_pallas_fwd(lq, lk, q_off, kv_off, h=4, d=16)
 
 
@@ -217,8 +217,8 @@ REFUSALS = [
     ({"strided": True}, "unit-stride"),
     ({"grad": True}, "inference_mode"),
     ({}, "CUDA device"),
-    # Head dims are per dtype: 16 is fp32's alone.
-    ({"shape": (1, 64, 2, 16), "dtype": torch.bfloat16}, "head_dim"),
+    # bf16 takes fp32's head dims (16, 64, 128) and no other.
+    ({"shape": (1, 64, 2, 32), "dtype": torch.bfloat16}, "head_dim"),
 ]
 
 
@@ -456,7 +456,7 @@ def _tma(t):
     return FA.tma_problem(t.shape, t.stride(), t.data_ptr(), t.element_size())
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128])
 def test_tma_accepts_the_models_tensors(d):
     for t in _fused_qkv(d=d):
         assert t.stride(1) == 3 * 4 * d
@@ -559,17 +559,12 @@ def test_bf16_wrappers_refuse_what_tma_cannot_read(wrappers_on_any_device,
 @pytest.mark.parametrize("entry", WRAPPERS)
 def test_fp32_wrappers_take_what_tma_cannot_read(wrappers_on_any_device,
                                                  entry):
-    """The fp32 forward loads with plain loads: the same misaligned view in
-    fp32 passes its check and reaches the launch. The fp32 backward
-    kernels copy their tiles with 16-byte cp.async, which has TMA's rule:
-    their wrappers refuse the view before any launch."""
-    if entry == "flash_fwd_kernel":
-        with pytest.raises(_Launched):
-            _wrapper_call(entry, _misaligned(torch.float32))
-    else:
-        with pytest.raises(ValueError,
-                           match="cannot feed the cp.async-fed fp32 kernel"):
-            _wrapper_call(entry, _misaligned(torch.float32))
+    """The fp32 kernels, forward and backward, copy their tiles with
+    16-byte cp.async, which has TMA's rule: each wrapper refuses the same
+    misaligned view in fp32 before any launch."""
+    with pytest.raises(ValueError,
+                       match="cannot feed the cp.async-fed fp32 kernel"):
+        _wrapper_call(entry, _misaligned(torch.float32))
     assert _counters() == wrappers_on_any_device
 
 
@@ -587,12 +582,12 @@ CP_ASYNC_REFUSALS = [
 ]
 
 
-@pytest.mark.parametrize("entry", WRAPPERS[1:])
+@pytest.mark.parametrize("entry", WRAPPERS)
 @pytest.mark.parametrize("make,match", CP_ASYNC_REFUSALS)
 def test_fp32_bwd_wrappers_refuse_what_cp_async_cannot_read(
         wrappers_on_any_device, entry, make, match):
-    """The fp32 dq and dk/dv wrappers refuse, before any launch, each fp32
-    view 16-byte cp.async cannot read, naming the problem."""
+    """The fp32 forward, dq and dk/dv wrappers refuse, before any launch,
+    each fp32 view 16-byte cp.async cannot read, naming the problem."""
     with pytest.raises(ValueError,
                        match="cannot feed the cp.async-fed fp32 kernel") as exc:
         _wrapper_call(entry, make())
@@ -608,9 +603,9 @@ def test_kernel_cotangent_copies_what_cp_async_cannot_read(make, match):
     check takes; a readable ``do`` goes in uncopied."""
     do = make()
     with pytest.raises(ValueError, match=match):
-        FA._check_tma(fp32=True, do=do)
+        FA._check_tma(do=do)
     got = FA._kernel_cotangent(do)
-    FA._check_tma(fp32=True, do=got)
+    FA._check_tma(do=got)
     assert got.is_contiguous() and torch.equal(got, do)
     readable = torch.zeros((2, 64, 4, 64))
     assert FA._kernel_cotangent(readable) is readable
@@ -624,12 +619,12 @@ def test_block_backward_hands_the_kernels_a_readable_cotangent(monkeypatch):
     seen = []
 
     def dq(q, k, v, do, *_):
-        FA._check_tma(fp32=True, do=do)
+        FA._check_tma(do=do)
         seen.append(do)
         return torch.empty_like(q)
 
     def dkv(q, k, v, do, *_):
-        FA._check_tma(fp32=True, do=do)
+        FA._check_tma(do=do)
         seen.append(do)
         return torch.empty_like(k), torch.empty_like(v)
 
@@ -640,9 +635,22 @@ def test_block_backward_hands_the_kernels_a_readable_cotangent(monkeypatch):
     lse = torch.empty((2, 16, 4), device="meta")
     do = torch.empty((1, 16, 4, 16), device="meta").expand(2, 16, 4, 16)
     with pytest.raises(ValueError, match="batch stride of 0 bytes"):
-        FA._check_tma(fp32=True, do=do)
+        FA._check_tma(do=do)
     FA._block_backward(q, k, v, out, lse, do, None, 0, 0)
     assert len(seen) == 2 and all(t.is_contiguous() for t in seen)
+
+
+@pytest.mark.parametrize("entry", WRAPPERS)
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_bf16_wrappers_take_each_head_dim(wrappers_on_any_device, entry, d):
+    """bf16 at head dims 16 (the dry run's tiny width: 32-byte rows, which
+    TMA reads under the 32-byte swizzle), 64 and 128, contiguous or as the
+    model's fused-qkv views, passes every check and reaches the launch."""
+    for t in (torch.zeros((2, 64, 4, d), dtype=torch.bfloat16),
+              _fused_qkv(d=d)[1]):
+        with pytest.raises(_Launched):
+            _wrapper_call(entry, t)
+    assert _counters() == wrappers_on_any_device
 
 
 @pytest.mark.parametrize("entry", WRAPPERS)

@@ -186,27 +186,39 @@ def _jax_sharded_steps():
 
 #: The reference dry run's training at its tiny width on 8 devices
 #: (``__graft_entry__.dryrun_multichip``: auto_mesh_shape(8) = (2, 2, 2),
-#: max(4, tp) heads, 16 sp tokens a sequence, batch 2 dp), in fp32, the
-#: dtype the port's dry run trains that width in.
+#: max(4, tp) heads, 16 sp tokens a sequence, batch 2 dp, the default
+#: dtype bf16), and the same config in fp32.
 DRYRUN_MESH = (2, 2, 2)
+#: The dry run's train part against the JAX package's training at its
+#: dtype: relative losses and normalized first-step gradients. fp32 is
+#: the same arithmetic in another order; bf16 takes the bounds a bf16
+#: train step through the kernels is held to against one through plain
+#: attention (chip_smoke.py's TRAIN_LOSS_TOL and TRAIN_GRAD_TOL).
+DRYRUN_TOL = {"float32": (LOSS_TOL["float32"], GRAD_TOL["float32"]),
+              "bfloat16": (2e-2, 4e-2)}
 
 
-def _jax_dryrun_config():
+def _jax_dryrun_config(dtype="bfloat16"):
     dp, tp, sp = DRYRUN_MESH
     return JM.ModelConfig(vocab_size=256, d_model=64, n_heads=max(4, tp),
                           n_layers=2, d_ff=128, max_seq_len=16 * sp,
-                          dtype=jnp.float32), (2 * dp, 16 * sp)
+                          dtype=JDTYPES[dtype]), (2 * dp, 16 * sp)
 
 
-def _jax_dryrun_train():
+def _jax_dryrun_train(dtype):
     """The JAX package's single-device training at the reference dry
-    run's tiny config in fp32, from the port's dry-run weights and batch
-    (``entry.dryrun_generator`` seeds 0 and 1): the losses of two
-    ``make_train_step`` steps, and the first step's gradients (flat)."""
-    cfg, shape = _jax_dryrun_config()
-    port_cfg = E.dryrun_config("tiny", _mesh(*DRYRUN_MESH, 0))[0]
-    params = jax.tree_util.tree_map(jnp.asarray, convert.params_to_numpy(
-        M.init_params(E.dryrun_generator(0), port_cfg, "cpu")))
+    run's tiny config in ``dtype``, from the port's dry-run weights and
+    batch (``entry.dryrun_generator`` seeds 0 and 1; the weights are drawn
+    in fp32 and rounded to the dtype, as the port draws them): the losses
+    of two ``make_train_step`` steps, and the first step's gradients
+    (flat)."""
+    cfg, shape = _jax_dryrun_config(dtype)
+    port_cfg = dataclasses.replace(
+        E.dryrun_config("tiny", _mesh(*DRYRUN_MESH, 0))[0],
+        dtype=getattr(torch, dtype))
+    params = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(x, cfg.dtype), convert.params_to_numpy(
+            M.init_params(E.dryrun_generator(0), port_cfg, "cpu")))
     tokens = jnp.asarray(torch.randint(0, cfg.vocab_size, shape,
                                        generator=E.dryrun_generator(1))
                          .numpy().astype(np.int32))
@@ -226,7 +238,8 @@ def save_references(path):
     :func:`runs` in a subprocess at the lowest priority."""
     refs = {"attention": _jax_attention(), "steps": _jax_steps(),
             "sharded_steps": _jax_sharded_steps(),
-            "dryrun_train": _jax_dryrun_train()}
+            "dryrun_train": {dtype: _jax_dryrun_train(dtype)
+                             for dtype in JDTYPES}}
     with open(path, "wb") as f:
         pickle.dump(refs, f)
 
@@ -272,7 +285,8 @@ def runs(tmp_path_factory):
     with open(tmp / "refs.pkl", "rb") as f:
         references = pickle.load(f)
     return {"gang": (records, dict(np.load(tmp / "out.npz"))),
-            "dryrun_saved": torch.load(tmp / "out_dryrun.pt"),
+            "dryrun_saved": {dtype: torch.load(tmp / f"out_dryrun_{dtype}.pt")
+                             for dtype in JDTYPES},
             **references}
 
 
@@ -595,31 +609,34 @@ def test_dryrun_multichip_trains_on_a_cpu_gang(gang):
 
 
 @pytest.mark.parametrize("attention", ["ring", "ulysses"])
-def test_dryrun_train_part_matches_jax_at_its_dtype(runs, attention):
-    """The dry run's train part, as the entry runs it (8 ranks, (2, 2, 2),
-    tiny width), against the JAX package's training at the reference
-    dry run's config in the same dtype (fp32) from the same weights and
-    batch: its config is the reference's but for the dtype, each of its
-    two losses within 1e-5 relative, and the first step's gathered
-    gradients within 1e-4 normalized."""
+@pytest.mark.parametrize("dtype", list(JDTYPES))
+def test_dryrun_train_part_matches_jax_at_its_dtype(runs, dtype, attention):
+    """The dry run's train part (8 ranks, (2, 2, 2), tiny width) against
+    the JAX package's training at the reference dry run's config in the
+    same dtype, from the same weights and batch, each of its two losses
+    and the first step's gathered gradients within ``DRYRUN_TOL``. bf16 is
+    the entry's own dry run, whose config is the reference's field for
+    field; fp32 the same rank body at that config in fp32."""
     cfg, _ = _jax_dryrun_config()
     port_cfg = E.dryrun_config("tiny", _mesh(*DRYRUN_MESH, 0))[0]
-    assert port_cfg.dtype == torch.float32
+    assert port_cfg.dtype == torch.bfloat16
     for field in ("vocab_size", "d_model", "n_heads", "n_layers", "d_ff",
                   "max_seq_len", "remat"):
         assert getattr(port_cfg, field) == getattr(cfg, field), field
-    want = runs["dryrun_train"]
-    records = [r["dryrun"] for r in runs["gang"][0]]
+    want = runs["dryrun_train"][dtype]
+    key = "dryrun" if dtype == "bfloat16" else f"dryrun_{dtype}"
+    records = [r[key] for r in runs["gang"][0]]
     assert records[0]["batch"] == [2 * DRYRUN_MESH[0], cfg.max_seq_len]
+    loss_tol, grad_tol = DRYRUN_TOL[dtype]
     losses = records[0]["paths"][attention]["losses"]
     for got, ref in zip(losses, want["losses"], strict=True):
-        assert abs(got - ref) <= LOSS_TOL["float32"] * abs(ref), (got, ref)
-    saved = runs["dryrun_saved"][attention]
+        assert abs(got - ref) <= loss_tol * abs(ref), (got, ref)
+    saved = runs["dryrun_saved"][dtype][attention]
     assert saved["loss"] == losses[0]
     assert set(saved["grads"]) == set(want["grads"])
     for name, ref in want["grads"].items():
-        err = _norm_err(saved["grads"][name].numpy(), ref)
-        assert err <= GRAD_TOL["float32"], (name, err)
+        err = _norm_err(saved["grads"][name].float().numpy(), ref)
+        assert err <= grad_tol, (name, err)
 
 
 #: The dry run's pipe parts at tiny width on 8 ranks: (mesh shape, layers
@@ -660,24 +677,27 @@ def test_dryrun_multichip_runs_moe_and_pipes_on_a_cpu_gang(gang, part):
 def test_tiny_dry_run_takes_the_kernels_on_a_card(monkeypatch):
     """The rank body at its default tiny width, as a card would run it
     (checked with no card and no launch): every attention part's config
-    is fp32 at head_dim 16, the model's q, k, v views at a rank's heads
-    pass every kernel check but the device's (dtype, head_dim, strides,
-    16-byte alignment for the fp32 backward's cp.async), and a CUDA device
-    dispatches to the kernels: ``best_attn_fn`` for the decode's prefill
-    and the pipes' stages, the flash ring and Ulysses for training."""
+    is at head_dim 16, the train part's in the reference's bf16 and the
+    others' in fp32, as the reference's; the model's q, k, v views at a
+    rank's heads pass every kernel check but the device's (dtype,
+    head_dim, strides, 16-byte alignment for TMA and cp.async), and a CUDA
+    device dispatches to the kernels: ``best_attn_fn`` for the decode's
+    prefill and the pipes' stages, the flash ring and Ulysses for
+    training."""
     mesh = _mesh(2, 2, 2, 0)
     cfgs = {"train": E.dryrun_config("tiny", mesh)[0],
             "serve": E.serve_setup("tiny", mesh)[0],
             **{part: E.pipe_setup(part, "tiny", mesh, 8)[2]
                for part in DRYRUN_PIPES}}
     for part, cfg in cfgs.items():
-        assert (cfg.dtype, cfg.head_dim) == (torch.float32, 16), part
+        dtype = torch.bfloat16 if part == "train" else torch.float32
+        assert (cfg.dtype, cfg.head_dim) == (dtype, 16), part
         heads = cfg.n_heads // mesh.tp
         qkv = torch.zeros((2, 16, 3, heads, cfg.head_dim), dtype=cfg.dtype)
         q, k, v = qkv.unbind(2)
         with pytest.raises(ValueError, match="CUDA device"):
             FA._check_kernel_inputs(q, k, v)
-        FA._check_tma(fp32=True, q=q, k=k, v=v)
+        FA._check_tma(q=q, k=k, v=v)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert FA.best_attn_fn("cuda") is FA.flash_attention
     on_card = type("OnCard", (), {"device": torch.device("cuda", 0)})()

@@ -19,12 +19,13 @@ an ``.npz``), joins the gang over gloo on the CPU, and runs:
   the test's weights: the global loss, the gathered gradients and the
   weights after one step; and ``shard_params`` then ``gather_params``;
 * the entry point's dry run (``python -m tpushare_torch.entry --attention
-  ring ulysses --steps 2 --device cpu``, every part: training, the
-  ring-MoE and the four pipes) over its own rendezvous.
+  ring ulysses --steps 2 --device cpu``, every part: training in the
+  reference's bf16, the ring-MoE and the four pipes) over its own
+  rendezvous, then its train part again at the same config in fp32.
 
-Rank 0 saves every gathered array into ``OUT`` (``.npz``) and the dry
+Rank 0 saves every gathered array into ``OUT`` (``.npz``) and each dry
 run's first losses and gathered grads beside it (:func:`dryrun_path`);
-each rank prints one JSON line, which holds the dry run's record.
+each rank prints one JSON line, which holds both dry runs' records.
 """
 
 import contextlib
@@ -129,10 +130,28 @@ def train_cases(inputs, out):
     return exact
 
 
-def dryrun_path(out_path):
-    """Where rank 0's dry run saves its first losses and gathered grads
-    (the entry's ``--save-grads``), beside ``OUT``."""
-    return os.path.splitext(out_path)[0] + "_dryrun.pt"
+def dryrun_path(out_path, dtype="bfloat16"):
+    """Where rank 0's dry run in ``dtype`` saves its first losses and
+    gathered grads (the entry's ``--save-grads``), beside ``OUT``."""
+    return os.path.splitext(out_path)[0] + f"_dryrun_{dtype}.pt"
+
+
+def dryrun(argv, dtype=None):
+    """The entry's rank body on ``argv``; with ``dtype``, its tiny config
+    in that dtype. Returns the record it prints."""
+    entry_config = E.dryrun_config
+    if dtype is not None:
+        def config_in(width, mesh):
+            cfg, batch = entry_config(width, mesh)
+            return dataclasses.replace(cfg, dtype=dtype), batch
+        E.dryrun_config = config_in
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            E.main(argv)
+    finally:
+        E.dryrun_config = entry_config
+    return json.loads(printed.getvalue().splitlines()[-1])
 
 
 def main(inputs_path, out_path, init_method):
@@ -150,15 +169,16 @@ def main(inputs_path, out_path, init_method):
         torch.distributed.destroy_process_group()
     if spec.process_id == 0:
         np.savez(out_path, **out)
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        E.main(["--attention", "ring", "ulysses", "--steps", "2",
-                "--device", "cpu", "--init-method", f"{init_method}-dryrun",
-                "--save-grads", dryrun_path(out_path)])
+    common = ["--attention", "ring", "ulysses", "--steps", "2", "--device",
+              "cpu"]
+    record = dryrun([*common, "--init-method", f"{init_method}-dryrun",
+                     "--save-grads", dryrun_path(out_path)])
+    record32 = dryrun([*common, "--parts", "train", "--init-method",
+                       f"{init_method}-dryrun32", "--save-grads",
+                       dryrun_path(out_path, "float32")], torch.float32)
     print(json.dumps({"rank": spec.process_id, "refused": refused,
-                      "round_trip_exact": exact,
-                      "dryrun": json.loads(printed.getvalue().splitlines()[-1])
-                      }), flush=True)
+                      "round_trip_exact": exact, "dryrun": record,
+                      "dryrun_float32": record32}), flush=True)
 
 
 if __name__ == "__main__":

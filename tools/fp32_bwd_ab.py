@@ -46,20 +46,22 @@ from tpushare_torch.workload import train as T  # noqa: E402
 SHAPES = {"f_flagship_train": CS.SHAPES["f_flagship_train"],
           "b_long_prompt": CS.SHAPES["b_long_prompt"],
           "c_large_width": CS.SHAPES["c_large_width"],
-          **CS.F32_SHAPES}
-ENTRIES = FA._ENTRIES["flash_bwd"]
-def build(csrc: str, out_dir: str) -> dict:
-    """Build ``csrc``/flash_bwd.cu into ``out_dir`` with the command
+          **CS.D16_SHAPES, **CS.F32_SHAPES}
+
+
+def build(csrc: str, out_dir: str, name: str = "flash_bwd") -> dict:
+    """Build ``csrc``/``name``.cu into ``out_dir`` with the command
     ``flash_attention.build`` uses, and bind its entries."""
-    lib = os.path.join(out_dir, "libflash_bwd.so")
-    subprocess.run(FA.nvcc_command(os.path.join(csrc, "flash_bwd.cu"), lib),
+    lib = os.path.join(out_dir, f"lib{name}.so")
+    subprocess.run(FA.nvcc_command(os.path.join(csrc, f"{name}.cu"), lib),
                    check=True, capture_output=True, text=True)
-    return FA.bind_library(lib, "flash_bwd")
+    return FA.bind_library(lib, name)
 
 
-def swapped(fns: dict | None):
-    """Point the wrappers at ``fns`` (None: this checkout's library)."""
-    for sym in ENTRIES:
+def swapped(fns: dict | None, name: str = "flash_bwd"):
+    """Point the wrappers of library ``name`` at ``fns`` (None: this
+    checkout's library)."""
+    for sym in FA._ENTRIES[name]:
         FA._fns.pop(sym, None)
         if fns is not None:
             FA._fns[sym] = fns[sym]

@@ -54,6 +54,9 @@
 // memory. The B operand of each second product is read MN-major, through
 // the descriptor's transpose bit, from a TMA tile that the first products
 // read K-major: nothing is staged transposed and no thread copies a tile.
+// Head dims 16, 64 and 128: at 16 a tile row is 32 bytes under the 32-byte
+// swizzle (sm90.cuh, BfTile), the first products are one depth step and
+// the second products m64n16k16.
 //  * dq: the producer loads the block's Q and dO once and streams K and V
 //    tiles. One warpgroup (the block's 64 query rows) runs S = Q K^T and
 //    dP = dO V^T from shared memory, then dQ += dS K with K read MN-major.
@@ -70,7 +73,8 @@
 //    registers.
 //
 // fp32 (head dims 16, 64 and 128) runs every product on the tensor cores
-// in split-three TF32 (sm90.cuh): each operand splits as x = hi + lo, both
+// in split-three TF32 (sm90.cuh; the tile helpers, shared with the fp32
+// forward, in tf32x3.cuh): each operand splits as x = hi + lo, both
 // TF32, and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b summed in fp32,
 // as the memory-efficient attention backward PyTorch ships computes fp32
 // (CUTLASS's 3xTF32). One TF32 pass is not enough: it keeps 10 mantissa
@@ -122,15 +126,18 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using namespace tf32x3;  // F32Tile, stage_rows, first_a, ..., TC_THREADS
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // key rows per tile
 constexpr float EXP_CLAMP = 30.f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float CLAMP2 = EXP_CLAMP * LOG2E;  // the clamp, log2 domain
-static_assert(BQ == BK, "the staging helpers copy BQ rows for every tile");
+static_assert(BQ == BR && BK == BR, "the staging helpers copy BR rows a tile");
 
 struct Strides {  // (batch, length, head) strides of q, k, v and do
   int64_t q_b, q_l, q_h, k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h;
@@ -140,18 +147,6 @@ struct Strides {  // (batch, length, head) strides of q, k, v and do
 // fp32: split-three TF32 products on the tensor cores (mma.sync), tiles
 // copied by cp.async
 // ------------------------------------------------------------------------
-
-constexpr int TC_THREADS = 128;  // four warps of 16 rows each
-constexpr int TC_STAGES = 2;     // streamed tiles in flight
-
-// A tile of 64 rows of D floats in shared memory, each row padded by 8
-// floats: at a row stride of 8 banks (mod 32) the first products' 64-bit
-// fragment loads (8 rows x 4 column pairs a half-warp) meet every bank once.
-template <int D>
-struct F32Tile {
-  static constexpr int STRIDE = D + 8;
-  static constexpr int FLOATS = 64 * STRIDE;
-};
 
 // dq: the block's Q and dO tiles, then TC_STAGES K tiles and TC_STAGES V
 // tiles. dk/dv: the block's K and V tiles, TC_STAGES Q and dO tiles, and
@@ -166,118 +161,7 @@ constexpr size_t dkv_f32_smem_bytes() {
          ((2 + 2 * TC_STAGES) * F32Tile<D>::FLOATS + TC_STAGES * 2 * BQ);
 }
 
-// Rows r0 .. r0 + 63 of one (batch, head), D floats each at row stride `sl`
-// (elements), into a padded tile with 16-byte cp.async; rows past `limit`
-// land as zeros. The caller commits the group.
-template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int64_t sl, int r0, int limit) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < 64 * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i % CH, row = r0 + r;
-    const bool in = row < limit;
-    sm90::cp_async_16(dst + r * F32Tile<D>::STRIDE + 4 * c,
-                      in ? src + row * sl + 4 * c : src, in);
-  }
-}
-
-// First products (S = Q K^T, dP = dO V^T and their transposes) reduce over
-// D, which runs along the tile rows of both operands. Within a depth step
-// kk of 8 the depth order is permuted, A column t and B row t taking depth
-// 2t and column / row t + 4 depth 2t + 1, so each thread's pair of values
-// is one 64-bit load. A: rows r and r + 8 of `tile`.
-template <int D>
-__device__ __forceinline__ sm90::FragA first_a(const float* tile, int r,
-                                               int kk, int t) {
-  constexpr int S = F32Tile<D>::STRIDE;
-  const float2 x =
-      *reinterpret_cast<const float2*>(tile + r * S + 8 * kk + 2 * t);
-  const float2 y =
-      *reinterpret_cast<const float2*>(tile + (r + 8) * S + 8 * kk + 2 * t);
-  return sm90::split_a(x.x, y.x, x.y, y.y);
-}
-
-// B of a first product: its column g is row n of `tile`.
-template <int D>
-__device__ __forceinline__ void first_b(const float* tile, int n, int kk,
-                                        int t, sm90::Tf32x2& b0,
-                                        sm90::Tf32x2& b1) {
-  const float2 x = *reinterpret_cast<const float2*>(
-      tile + n * F32Tile<D>::STRIDE + 8 * kk + 2 * t);
-  b0 = sm90::split_tf32(x.x);
-  b1 = sm90::split_tf32(x.y);
-}
-
-// The A operand of a second product from the accumulator of a first: its
-// columns 8j .. 8j + 7 (keys or queries) are depth step j, thread t holding
-// columns 2t and 2t + 1, which become A columns t and t + 4. The B rows are
-// read in that same order, so P and dS never leave the registers.
-__device__ __forceinline__ sm90::FragA second_a(const float (&c)[4]) {
-  return sm90::split_a(c[0], c[2], c[1], c[3]);
-}
-
-// part += a x (tile rows 8j .. 8j + 7, columns c0 .. c0 + NC - 1): the
-// second products (dQ += dS K, dV += P^T dO, dK += dS^T Q) reduce down the
-// tile. B rows t and t + 4 are tile rows 8j + 2t and 8j + 2t + 1; n-tiles
-// 2c and 2c + 1 take columns c0 + 16c + 2g and c0 + 16c + 2g + 1, one
-// 64-bit load for both, so a thread's columns are c0 + 16c + 4t ..
-// c0 + 16c + 4t + 3 (store_row).
-template <int D, int NC>
-__device__ __forceinline__ void second_mma(float (&part)[NC / 8][4],
-                                           const sm90::FragA& a,
-                                           const float* tile, int j, int c0,
-                                           int g, int t) {
-  constexpr int S = F32Tile<D>::STRIDE;
-  const float* r0 = tile + (8 * j + 2 * t) * S + c0 + 2 * g;
-#pragma unroll
-  for (int c = 0; c < NC / 16; ++c) {
-    const float2 x = *reinterpret_cast<const float2*>(r0 + 16 * c);
-    const float2 y = *reinterpret_cast<const float2*>(r0 + S + 16 * c);
-    sm90::mma_3xtf32(part[2 * c], a, sm90::split_tf32(x.x),
-                     sm90::split_tf32(y.x));
-    sm90::mma_3xtf32(part[2 * c + 1], a, sm90::split_tf32(x.y),
-                     sm90::split_tf32(y.y));
-  }
-}
-
-// acc += (ac's J depth steps) x (tile rows 0 .. 8J - 1): one tile's second
-// product. The tensor cores' fp32 accumulator drops low bits as it adds, so
-// a sum run in it across every tile drifts from fp32's as the tiles pile
-// up. Each tile's product is therefore summed from zero, NC columns at a
-// time (NC < D where the registers hold no third D-wide accumulator), and
-// added to the running sum in fp32.
-template <int D, int NC, int J>
-__device__ __forceinline__ void second_sum(float (&acc)[D / 8][4],
-                                           const float (&ac)[J][4],
-                                           const float* tile, int g, int t) {
-  static_assert(D % NC == 0 && NC % 16 == 0, "whole 16-column groups");
-#pragma unroll
-  for (int c0 = 0; c0 < D; c0 += NC) {
-    float part[NC / 8][4] = {};
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-      second_mma<D, NC>(part, second_a(ac[j]), tile, j, c0, g, t);
-#pragma unroll
-    for (int n = 0; n < NC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c0 / 8 + n][e] += part[n][e];
-  }
-}
-
-// Row g (hr = 0) or g + 8 (hr = 1) of a second product's accumulator,
-// times `scale`, into `out` (D contiguous floats): 16 bytes a column group.
-template <int D>
-__device__ __forceinline__ void store_row(float* out,
-                                          const float (&acc)[D / 8][4],
-                                          int hr, int t, float scale) {
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c)
-    *reinterpret_cast<float4*>(out + 16 * c + 4 * t) = make_float4(
-        acc[2 * c][2 * hr] * scale, acc[2 * c + 1][2 * hr] * scale,
-        acc[2 * c][2 * hr + 1] * scale, acc[2 * c + 1][2 * hr + 1] * scale);
-}
-
-// The same, plus what `out` holds: out = (out + acc) * scale.
+// store_row (tf32x3.cuh) plus what `out` holds: out = (out + acc) * scale.
 template <int D>
 __device__ __forceinline__ void add_row(float* out,
                                         const float (&acc)[D / 8][4], int hr,
@@ -293,11 +177,6 @@ __device__ __forceinline__ void add_row(float* out,
   }
 }
 
-// Columns dq's second product sums from zero at once: every column at
-// D <= 64, half of them at D = 128, so that the tile's partial sums fit
-// beside the running ones and the 64-key score tiles.
-template <int D>
-constexpr int DQ_NC = D <= 64 ? D : D / 2;
 // dk/dv at D = 128: its two D-wide running sums fill the registers, so
 // they run in the accumulator and move out to the fp32 outputs every
 // DKV_FLUSH Q tiles instead.
@@ -415,7 +294,7 @@ flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       }
 
     // dQ += dS K, the tile's sum taken from zero (second_sum).
-    second_sum<D, DQ_NC<D>, BK / 8>(acc, dp, Kt, g, t);
+    second_sum<D, PART_NC<D>, BK / 8>(acc, dp, Kt, g, t);
 
     // Every warp is done with this stage; refill it with tile it + 2.
     __syncthreads();
@@ -641,13 +520,13 @@ flash_bwd_dkv_tf32x3(const float* __restrict__ q,
 constexpr int STAGES = 2;  // streamed tiles in flight
 
 // Shared memory of one dq block: its 64 rows of Q and dO, loaded once; a
-// ring of (K, V) tiles; the mbarriers. Tiles are stacks of 64-column boxes
-// of 128-byte swizzled rows, all at multiples of 1024.
+// ring of (K, V) tiles; the mbarriers. Tiles are stacks of BfTile<D> boxes
+// (sm90.cuh), all at multiples of 1024.
 template <int D>
 struct DqLayout {
-  static constexpr int NC = D / sm90::BOX_COLS;  // boxes per row
-  static constexpr int BOX = 64 * sm90::ROW_BYTES;
-  static constexpr int TILE = NC * BOX;  // 64 rows of Q, dO, K or V
+  using G = sm90::BfTile<D>;
+  static_assert(G::ROWS == BQ && G::ROWS == BK, "64-row tiles");
+  static constexpr int TILE = G::TILE;  // 64 rows of Q, dO, K or V
   static constexpr int O_OFF = TILE;
   static constexpr int K_OFF = 2 * TILE;
   static constexpr int V_OFF = K_OFF + STAGES * TILE;
@@ -669,7 +548,7 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                        int q_offset, int kv_offset, float scale,
                        float scale_log2) {
   using Lay = DqLayout<D>;
-  constexpr int NC = Lay::NC;
+  using G = typename Lay::G;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Lay::BAR_OFF);
@@ -703,11 +582,11 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
   if (warp == 4) {  // the producer warp: one lane issues every load
     if (lane == 0 && n_kv > 0) {
       sm90::mbar_arrive_expect_tx(q_full, 2 * Lay::TILE);
-      for (int c = 0; c < NC; ++c) {
-        sm90::tma_load_4d(smem + c * Lay::BOX, &tm_q, q_full,
-                          c * sm90::BOX_COLS, h, q0, b);
-        sm90::tma_load_4d(smem + Lay::O_OFF + c * Lay::BOX, &tm_o, q_full,
-                          c * sm90::BOX_COLS, h, q0, b);
+      for (int c = 0; c < G::NC; ++c) {
+        sm90::tma_load_4d(smem + c * G::BOX, &tm_q, q_full, c * G::BOX_COLS,
+                          h, q0, b);
+        sm90::tma_load_4d(smem + Lay::O_OFF + c * G::BOX, &tm_o, q_full,
+                          c * G::BOX_COLS, h, q0, b);
       }
       for (int it = 0; it < n_kv; ++it) {
         const int s = it % STAGES;
@@ -715,12 +594,12 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
         if (it >= STAGES)
           sm90::mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(full + s, 2 * Lay::TILE);
-        for (int c = 0; c < NC; ++c) {
-          const int off = s * Lay::TILE + c * Lay::BOX;
+        for (int c = 0; c < G::NC; ++c) {
+          const int off = s * Lay::TILE + c * G::BOX;
           sm90::tma_load_4d(smem + Lay::K_OFF + off, &tm_k, full + s,
-                            c * sm90::BOX_COLS, h, it * BK, b);
+                            c * G::BOX_COLS, h, it * BK, b);
           sm90::tma_load_4d(smem + Lay::V_OFF + off, &tm_v, full + s,
-                            c * sm90::BOX_COLS, h, it * BK, b);
+                            c * G::BOX_COLS, h, it * BK, b);
         }
       }
     }
@@ -764,11 +643,10 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * Lay::BOX + (kk % 4) * 32;
-      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(q_addr + off, 16, 1024),
-                        sm90::desc_sw128(k_addr + off, 16, 1024), kk > 0);
-      sm90::wgmma_ss<0>(dp, sm90::desc_sw128(o_addr + off, 16, 1024),
-                        sm90::desc_sw128(v_addr + off, 16, 1024), kk > 0);
+      sm90::wgmma_ss<0>(sc, sm90::desc_k_major<D>(q_addr, kk),
+                        sm90::desc_k_major<D>(k_addr, kk), kk > 0);
+      sm90::wgmma_ss<0>(dp, sm90::desc_k_major<D>(o_addr, kk),
+                        sm90::desc_k_major<D>(v_addr, kk), kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -806,10 +684,7 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      sm90::wgmma_rs<1>(
-          acc, da[kk],
-          sm90::desc_sw128(k_addr + kk * 16 * sm90::ROW_BYTES, Lay::BOX, 1024),
-          1);
+      sm90::wgmma_rs<1>(acc, da[kk], sm90::desc_mn_major<D>(k_addr, kk), 1);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -834,12 +709,12 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
 // Shared memory of one dk/dv block: the K and V rows of its NWG
 // warpgroups, loaded once; a ring of (Q, dO) tiles with the lse (times
 // log2 e) and delta of their rows; the mbarriers. Tiles are stacks of
-// 64-column boxes of 128-byte swizzled rows, all at multiples of 1024.
+// BfTile<D> boxes (sm90.cuh), all at multiples of 1024.
 template <int D, int NWG>
 struct DkvLayout {
-  static constexpr int NC = D / sm90::BOX_COLS;  // boxes per row
-  static constexpr int BOX = 64 * sm90::ROW_BYTES;
-  static constexpr int TILE = NC * BOX;  // 64 rows of K, V, Q or dO
+  using G = sm90::BfTile<D>;
+  static_assert(G::ROWS == BQ && G::ROWS == BK, "64-row tiles");
+  static constexpr int TILE = G::TILE;  // 64 rows of K, V, Q or dO
   static constexpr int V_OFF = NWG * TILE;
   static constexpr int Q_OFF = 2 * NWG * TILE;
   static constexpr int O_OFF = Q_OFF + STAGES * TILE;
@@ -863,7 +738,7 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                         int q_offset, int kv_offset, float scale,
                         float scale_log2) {
   using Lay = DkvLayout<D, NWG>;
-  constexpr int NC = Lay::NC;
+  using G = typename Lay::G;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
   float* stats = reinterpret_cast<float*>(smem + Lay::STAT_OFF);
@@ -900,12 +775,12 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
       if (lane == 0) {
         sm90::mbar_arrive_expect_tx(kv_full, 2 * NWG * Lay::TILE);
         for (int w = 0; w < NWG; ++w)
-          for (int c = 0; c < NC; ++c) {
-            const int off = w * Lay::TILE + c * Lay::BOX;
-            sm90::tma_load_4d(smem + off, &tm_k, kv_full, c * sm90::BOX_COLS,
-                              h, k0 + 64 * w, b);
+          for (int c = 0; c < G::NC; ++c) {
+            const int off = w * Lay::TILE + c * G::BOX;
+            sm90::tma_load_4d(smem + off, &tm_k, kv_full, c * G::BOX_COLS, h,
+                              k0 + 64 * w, b);
             sm90::tma_load_4d(smem + Lay::V_OFF + off, &tm_v, kv_full,
-                              c * sm90::BOX_COLS, h, k0 + 64 * w, b);
+                              c * G::BOX_COLS, h, k0 + 64 * w, b);
           }
       }
       for (int it = 0; it < n_q; ++it) {
@@ -921,12 +796,12 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
         }
         if (lane == 0) {
           sm90::mbar_arrive_expect_tx(full + s, 2 * Lay::TILE);
-          for (int c = 0; c < NC; ++c) {
-            const int off = s * Lay::TILE + c * Lay::BOX;
+          for (int c = 0; c < G::NC; ++c) {
+            const int off = s * Lay::TILE + c * G::BOX;
             sm90::tma_load_4d(smem + Lay::Q_OFF + off, &tm_q, full + s,
-                              c * sm90::BOX_COLS, h, q0, b);
+                              c * G::BOX_COLS, h, q0, b);
             sm90::tma_load_4d(smem + Lay::O_OFF + off, &tm_o, full + s,
-                              c * sm90::BOX_COLS, h, q0, b);
+                              c * G::BOX_COLS, h, q0, b);
           }
         } else {
           sm90::mbar_arrive(full + s);
@@ -979,11 +854,10 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * Lay::BOX + (kk % 4) * 32;
-      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(k_addr + off, 16, 1024),
-                        sm90::desc_sw128(q_addr + off, 16, 1024), kk > 0);
-      sm90::wgmma_ss<0>(dp, sm90::desc_sw128(v_addr + off, 16, 1024),
-                        sm90::desc_sw128(o_addr + off, 16, 1024), kk > 0);
+      sm90::wgmma_ss<0>(sc, sm90::desc_k_major<D>(k_addr, kk),
+                        sm90::desc_k_major<D>(q_addr, kk), kk > 0);
+      sm90::wgmma_ss<0>(dp, sm90::desc_k_major<D>(v_addr, kk),
+                        sm90::desc_k_major<D>(o_addr, kk), kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -1028,11 +902,8 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t off = kk * 16 * sm90::ROW_BYTES;
-      sm90::wgmma_rs<1>(dva, pa[kk],
-                        sm90::desc_sw128(o_addr + off, Lay::BOX, 1024), 1);
-      sm90::wgmma_rs<1>(dka, da[kk],
-                        sm90::desc_sw128(q_addr + off, Lay::BOX, 1024), 1);
+      sm90::wgmma_rs<1>(dva, pa[kk], sm90::desc_mn_major<D>(o_addr, kk), 1);
+      sm90::wgmma_rs<1>(dka, da[kk], sm90::desc_mn_major<D>(q_addr, kk), 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -1117,15 +988,15 @@ cudaError_t make_maps(const Args& a, CUtensorMap* tq, CUtensorMap* tk,
                       CUtensorMap* tv, CUtensorMap* to) {
   const Strides& s = a.st;
   cudaError_t err;
-  if ((err = sm90::make_bhld_map(tq, a.q, a.B, a.Lq, a.H, D, s.q_b, s.q_l,
-                                 s.q_h, 64)) != cudaSuccess ||
-      (err = sm90::make_bhld_map(tk, a.k, a.B, a.Lk, a.H, D, s.k_b, s.k_l,
-                                 s.k_h, 64)) != cudaSuccess ||
-      (err = sm90::make_bhld_map(tv, a.v, a.B, a.Lk, a.H, D, s.v_b, s.v_l,
-                                 s.v_h, 64)) != cudaSuccess)
+  if ((err = sm90::make_bhld_map<D>(tq, a.q, a.B, a.Lq, a.H, s.q_b, s.q_l,
+                                    s.q_h)) != cudaSuccess ||
+      (err = sm90::make_bhld_map<D>(tk, a.k, a.B, a.Lk, a.H, s.k_b, s.k_l,
+                                    s.k_h)) != cudaSuccess ||
+      (err = sm90::make_bhld_map<D>(tv, a.v, a.B, a.Lk, a.H, s.v_b, s.v_l,
+                                    s.v_h)) != cudaSuccess)
     return err;
-  return sm90::make_bhld_map(to, a.dout, a.B, a.Lq, a.H, D, s.o_b, s.o_l,
-                             s.o_h, 64);
+  return sm90::make_bhld_map<D>(to, a.dout, a.B, a.Lq, a.H, s.o_b, s.o_l,
+                                s.o_h);
 }
 
 template <int D>
@@ -1163,6 +1034,7 @@ cudaError_t launch_dkv_bf16_nwg(const Args& a, void* dk, void* dv) {
 // (the train step's shape: 0.200 ms against 0.263 with one, H100), one
 // otherwise (twice the blocks for short or few sequences). At D = 128 one:
 // its two D-wide accumulators beside the score tiles take 246 registers.
+// At D = 16 one (the dry run's blocks are 16 keys long).
 template <int D>
 cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   if constexpr (D == 64) {
@@ -1191,7 +1063,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // (batch, length, head) for q, then k, then v, then do; the head_dim axis
 // is unit-stride, the bases 16-byte aligned and every stride a multiple of
 // 16 bytes (TMA reads bf16, 16-byte cp.async fp32). lse and delta are
-// contiguous fp32 [B, Lq, H]. Each entry returns a cudaError_t (0 on success).
+// contiguous fp32 [B, Lq, H]. Head dims: 16, 64 and 128 in both dtypes.
+// Each entry returns a cudaError_t (0 on success).
 extern "C" int tpushare_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int H,
@@ -1207,6 +1080,7 @@ extern "C" int tpushare_flash_bwd_dq(
   if (dtype == 0 && D == 16) return launch_dq_f32<16>(a, dq);
   if (dtype == 0 && D == 64) return launch_dq_f32<64>(a, dq);
   if (dtype == 0 && D == 128) return launch_dq_f32<128>(a, dq);
+  if (dtype == 1 && D == 16) return launch_dq_bf16<16>(a, dq);
   if (dtype == 1 && D == 64) return launch_dq_bf16<64>(a, dq);
   if (dtype == 1 && D == 128) return launch_dq_bf16<128>(a, dq);
   return cudaErrorInvalidValue;
@@ -1228,6 +1102,7 @@ extern "C" int tpushare_flash_bwd_dkv(
   if (dtype == 0 && D == 16) return launch_dkv_f32<16>(a, dk, dv);
   if (dtype == 0 && D == 64) return launch_dkv_f32<64>(a, dk, dv);
   if (dtype == 0 && D == 128) return launch_dkv_f32<128>(a, dk, dv);
+  if (dtype == 1 && D == 16) return launch_dkv_bf16<16>(a, dk, dv);
   if (dtype == 1 && D == 64) return launch_dkv_bf16<64>(a, dk, dv);
   if (dtype == 1 && D == 128) return launch_dkv_bf16<128>(a, dk, dv);
   return cudaErrorInvalidValue;

@@ -3,11 +3,14 @@
 // shared-memory descriptors they read, the host-side tensor-map builder,
 // and for fp32 the split-three TF32 warp product (mma.sync) and cp.async.
 //
-// The bf16 tiles these kernels use are all one shape in shared memory:
-// rows of 64 bf16 values (128 bytes), laid out by TMA with the 128-byte
-// swizzle (the 16-byte chunk c of row r lands at chunk c ^ (r % 8)), so
-// that eight rows make one 1024-byte swizzle atom. A row wider than 64 values (head
-// dim 128) goes in as two such boxes, one after the other. Every tile
+// The bf16 tiles these kernels use are stacks of boxes of rows of one
+// (batch, head), laid out by TMA with a swizzle as wide as the box row
+// (BfTile): at head dims 64 and 128 a row is 64 bf16 values (128 bytes)
+// under the 128-byte swizzle (the 16-byte chunk c of row r lands at chunk
+// c ^ (r % 8)), and a head dim of 128 goes in as two such boxes, one after
+// the other; at head dim 16 a row is 16 values (32 bytes) under the
+// 32-byte swizzle (chunk c of row r at c ^ ((r / 4) % 2)). Either way
+// eight rows make one swizzle atom (1024 or 256 bytes), and every tile
 // starts on a 1024-byte boundary, which is what lets a wgmma descriptor
 // name a tile by its start address alone (base offset 0).
 
@@ -23,8 +26,25 @@
 namespace sm90 {
 
 constexpr int WG_THREADS = 128;  // a warpgroup: four warps that issue one wgmma
-constexpr int BOX_COLS = 64;     // bf16 values in a 128-byte swizzled row
-constexpr int ROW_BYTES = 128;
+
+// The shared-memory geometry of a bf16 tile of 64 rows of head dim D:
+// boxes of BOX_COLS values a row (the widest swizzle that fits, 128 or 32
+// bytes a row), NC boxes a row of BOX bytes each, eight rows a swizzle atom
+// of ATOM bytes; SWIZZLE is the wgmma descriptor's layout type (1: 128-byte,
+// 3: 32-byte).
+template <int D>
+struct BfTile {
+  static_assert(D == 16 || D % 64 == 0, "head dims 16, 64, 128");
+  static constexpr int ROWS = 64;
+  static constexpr int BOX_COLS = D < 64 ? D : 64;
+  static constexpr int ROW_BYTES = 2 * BOX_COLS;
+  static constexpr int NC = D / BOX_COLS;
+  static constexpr int BOX = ROWS * ROW_BYTES;
+  static constexpr int TILE = NC * BOX;
+  static constexpr int ATOM = 8 * ROW_BYTES;
+  static constexpr uint64_t SWIZZLE = ROW_BYTES == 128 ? 1 : 3;
+  static_assert(TILE % 1024 == 0, "tiles on 1024-byte boundaries");
+};
 
 // --------------------------------------------------------------------------
 // Device side
@@ -124,20 +144,36 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile.
-//  * K-major operand (the product's depth runs along the 128-byte rows):
-//    rows are M or N; 8-row groups are `sbo` = 1024 bytes apart; `lbo` is
-//    unused. A k-step of 16 values is the start address plus 32 bytes.
-//  * MN-major operand (M or N runs along the rows, the depth down them;
-//    the transpose bit set in the instruction): 8-row groups of depth are
-//    `sbo` = 1024 bytes apart, and successive 64-wide column boxes `lbo`
-//    bytes apart. A k-step of 16 values is the start plus 16 rows.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled bf16 tile: start address,
+// leading and stride byte offsets, layout type (bits 62-63).
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t swizzle) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);  // layout type 1: 128-byte swizzle
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
+}
+
+// Depth step kk (16 values along the row) of a BfTile<D> read K-major
+// (the product's depth runs along the rows): rows are M or N, 8-row groups
+// one atom apart; `lbo` is unused. The step starts kk % (BOX_COLS / 16)
+// times 32 bytes into box kk / (BOX_COLS / 16).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
+  using G = BfTile<D>;
+  constexpr int STEPS = G::BOX_COLS / 16;  // depth steps a box
+  return desc_sw(tile + (kk / STEPS) * G::BOX + (kk % STEPS) * 32, 16,
+                 G::ATOM, G::SWIZZLE);
+}
+
+// Depth step kk (16 rows) of a BfTile<D> read MN-major (M or N, here the
+// head dim, runs along the rows; the transpose bit set in the
+// instruction): 8-row groups of depth one atom apart, successive boxes of
+// columns `lbo` apart (one box at D <= 64). The step starts 16 rows
+// further down.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
+  using G = BfTile<D>;
+  return desc_sw(tile + kk * 16 * G::ROW_BYTES, G::BOX, G::ATOM, G::SWIZZLE);
 }
 
 // Accumulator layout of m64nNk16 (f32), the same as mma.sync's per warp:
@@ -151,6 +187,7 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define SM90_D32 SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24)
 #define SM90_D64 SM90_D32, SM90_D8(32), SM90_D8(40), SM90_D8(48), SM90_D8(56)
+#define SM90_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define SM90_R32                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -177,7 +214,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 
 // D (+)= A B, m64n64k16, A from registers (four bf16 pairs a thread), B
 // from shared memory. (The score products are 64 wide; only these, the
-// products into the D-wide accumulators, also come 128 wide.)
+// products into the D-wide accumulators, also come 16 and 128 wide.)
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
@@ -186,6 +223,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_R32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : SM90_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+// The same, m64n16k16: the products into a head dim of 16 (eight
+// accumulator values a thread).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " SM90_R8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : SM90_D8(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TRANS_B));
 }
@@ -206,6 +257,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 #undef SM90_D8
 #undef SM90_D32
 #undef SM90_D64
+#undef SM90_R8
 #undef SM90_R32
 #undef SM90_R64
 
@@ -342,14 +394,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A TMA map over a bf16 [B, L, H, D] tensor (strides in elements, the D
-// axis unit-stride) as dims {D, H, L, B}, boxes of 64 columns x `rows`
-// rows of one (batch, head), 128-byte swizzle, zeros outside the tensor
-// (ragged tails load as zeros). TMA needs a 16-byte aligned base and byte
-// strides that are multiples of 16; the Python wrapper checks both. The
-// stride of an axis of size 1 is never used and is replaced by a valid one.
+// axis unit-stride) as dims {D, H, L, B}, boxes of BfTile<D>::BOX_COLS
+// columns x BfTile<D>::ROWS rows of one (batch, head), swizzled as wide as
+// the box row (128 or 32 bytes), zeros outside the tensor (ragged tails
+// load as zeros). TMA needs a 16-byte aligned base and byte strides that are
+// multiples of 16; the Python wrapper checks both. The stride of an axis
+// of size 1 is never used and is replaced by a valid one.
+template <int D>
 inline cudaError_t make_bhld_map(CUtensorMap* map, const void* base, int B,
-                                 int L, int H, int D, long long sb,
-                                 long long sl, long long sh, int rows) {
+                                 int L, int H, long long sb, long long sl,
+                                 long long sh) {
+  using G = BfTile<D>;
   if (L == 0) {  // nothing to load: the kernel issues no load through it
     memset(map, 0, sizeof(*map));
     return cudaSuccess;
@@ -363,13 +418,15 @@ inline cudaError_t make_bhld_map(CUtensorMap* map, const void* base, int B,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)G::BOX_COLS, 1, (cuuint32_t)G::ROWS,
+                              1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      G::ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

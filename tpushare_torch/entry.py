@@ -57,17 +57,16 @@ def entry(device: str | torch.device = "cuda"):
 def dryrun_config(width: str, mesh: par.Mesh) -> tuple[M.ModelConfig,
                                                         tuple[int, int]]:
     """(config, global batch) of the dry run: ``"tiny"`` is the JAX
-    package's (vocab 256, d_model 64, max(4, tp) heads, 2 layers, d_ff
-    128, 16·sp tokens a sequence, batch 2·dp) in fp32, where the JAX
-    package trains it in bf16: its head_dim of 16 is one the fp32 kernels
-    take and the bf16 ones (64 and 128) do not, and fp32 is what the
-    reference's other tiny parts run; ``"flagship"`` the default config
-    (bf16) at the 8 × 2048 batch one card trains."""
+    package's exactly (``__graft_entry__.dryrun_multichip``: vocab 256,
+    d_model 64, max(4, tp) heads, 2 layers, d_ff 128, 16·sp tokens a
+    sequence, batch 2·dp, the default dtype bf16, so head_dim 16 through
+    the bf16 kernels on a card); its other tiny parts set fp32 themselves,
+    as the reference's do. ``"flagship"`` is the default config (bf16) at
+    the 8 × 2048 batch one card trains."""
     if width == "flagship":
         return M.ModelConfig(), (8, 2048)
     cfg = M.ModelConfig(vocab_size=256, d_model=64, n_heads=max(4, mesh.tp),
-                        n_layers=2, d_ff=128, max_seq_len=16 * mesh.sp,
-                        dtype=torch.float32)
+                        n_layers=2, d_ff=128, max_seq_len=16 * mesh.sp)
     return cfg, (2 * mesh.dp, cfg.max_seq_len)
 
 
@@ -248,7 +247,8 @@ def _train_part(cfg, mesh, tokens, targets, attentions, steps, dev, save,
         if save and ckptr is not None:
             weights["final"] = _weights(params, mesh)
             saved["checkpoint"] = {"losses": losses, "weights": weights}
-        record["paths"][attention] = {"losses": losses, "step_ms": step_ms,
+        record["paths"][attention] = {"dtype": str(cfg.dtype),
+                                      "losses": losses, "step_ms": step_ms,
                                       "steps": list(range(done + 1,
                                                           steps + 1)),
                                       "launches_per_step": launches,

@@ -12,13 +12,12 @@ library with plain C entries, at first use, under ``build/tpushare_torch/``
 in the checkout, named by the hash of its source and of every header in
 ``csrc/`` (a changed source or header builds anew), and loaded with
 ``ctypes``. Launches go to the current stream. All three bf16 kernels
-(forward, dq and dk/dv) read their tiles with TMA, and the fp32 dq and
-dk/dv kernels with 16-byte ``cp.async``; both need a 16-byte aligned base
-and strides that are multiples of 16 bytes (:func:`tma_problem`), and
-those wrappers raise on anything else. The fp32 backward runs its
-products on the tensor cores in split-three TF32, which keeps fp32's
-precision (one TF32 pass would not); the fp32 forward still runs on the
-SIMT units. Head dims are 16, 64 and 128 in fp32, 64 and 128 in bf16.
+(forward, dq and dk/dv) read their tiles with TMA, and all three fp32
+kernels with 16-byte ``cp.async``; both need a 16-byte aligned base and
+strides that are multiples of 16 bytes (:func:`tma_problem`), and every
+wrapper raises on anything else. The fp32 kernels run their products on
+the tensor cores in split-three TF32, which keeps fp32's precision (one
+TF32 pass would not). Head dims are 16, 64 and 128 in both dtypes.
 
 Gradients: :func:`flash_block_with_lse` (and :func:`flash_attention`, its
 output alone) are one ``torch.autograd.Function`` when an input requires
@@ -57,8 +56,8 @@ FLASH_BWD_DKV_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpushare_torch"
-#: Head dims each dtype's kernels are built for.
-_HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (64, 128)}
+#: Head dims the kernels are built for, in both dtypes.
+_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: Library -> {C entry: (pointer arguments, stride arguments)}. Every entry
 #: then takes dtype, B, H, Lq, Lk, D, the strides, q_offset, kv_offset and
@@ -213,9 +212,9 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
                          f"takes float32 or bfloat16, all alike")
-    if q.shape[-1] not in _HEAD_DIMS[q.dtype]:
+    if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"head_dim {q.shape[-1]} not supported by the "
-                         f"{q.dtype} kernel (one of {_HEAD_DIMS[q.dtype]})")
+                         f"kernels (one of {_HEAD_DIMS})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head_dim axis of q, k, v must be unit-stride")
     if any(t.requires_grad for t in (q, k, v)):
@@ -276,14 +275,10 @@ def _read_problem(t: torch.Tensor) -> str | None:
     return tma_problem(t.shape, t.stride(), ptr, size)
 
 
-def _check_tma(fp32: bool = False, **tensors: torch.Tensor) -> None:
-    """Raise unless every bf16 tensor given can be read by TMA and, with
-    ``fp32``, every fp32 one by 16-byte ``cp.async`` (the fp32 backward
-    kernels; the same rule). The fp32 forward loads with plain loads and
-    takes any stride."""
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """Raise unless every tensor given can be read as the kernels read
+    it: by TMA in bf16, by 16-byte ``cp.async`` in fp32 (the same rule)."""
     for name, t in tensors.items():
-        if t.dtype == torch.float32 and not fp32:
-            continue
         problem = _read_problem(t)
         if problem:
             feed = ("TMA-fed bf16" if t.dtype == torch.bfloat16
@@ -335,7 +330,7 @@ def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's, ``delta`` = rowsum(do * out) - dlse, both fp32 [B, Lq, H]."""
     global FLASH_BWD_DQ_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    _check_tma(fp32=True, q=q, k=k, v=v, do=do)
+    _check_tma(q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     _launch("tpushare_flash_bwd_dq",
@@ -356,7 +351,7 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the same inputs as :func:`flash_bwd_dq_kernel`."""
     global FLASH_BWD_DKV_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    _check_tma(fp32=True, q=q, k=k, v=v, do=do)
+    _check_tma(q=q, k=k, v=v, do=do)
     b, lq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -533,7 +528,7 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Can the kernels, forward and backward, take these inputs?"""
     try:
         _check_kernel_inputs(q, k, v)
-        _check_tma(fp32=True, q=q, k=k, v=v)
+        _check_tma(q=q, k=k, v=v)
     except ValueError:
         return False
     return True
