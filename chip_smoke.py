@@ -21,7 +21,11 @@ backward, in split-three TF32 on the tensor cores) against plain
 attention; phase 5h runs the reference dry run, ``python -m
 tpushare_torch.entry`` at its tiny width (head_dim 16: training in the
 reference's bf16, the other parts in fp32) with every part, as a gang on
-the card held to the same gang on the host.
+the card held to the same gang on the host. Phase 3 also holds the bf16
+kernels to their plain version at L = 16384 and 32768; phase 8 runs the
+sections of ``bench_workload_torch.py`` (attention to L = 32768, flagship
+and large training, decode, continuous and paged serving) at the
+reference's shapes and prints its JSON document.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch.deviceplugin import discovery
@@ -142,6 +147,13 @@ F32_SHAPES = {
     "long_8192_d64": (1, 8192, 8192, 4, 64, 0, 0),
     "long_8192_d128": (1, 8192, 8192, 4, 128, 0, 0),
 }
+#: The bench twin's attention shapes past 2048 tokens, bf16 at head dim
+#: 128, as (B, L, H): the kernels run at the whole shape and are held to
+#: the plain version, which keeps [B, H, L, L] fp32 scores, on the heads
+#: listed (each (b, h) is a row of the kernels' grid of its own).
+LONG_SHAPES = {"l8192": (1, 8192, 8), "l16384": (1, 16384, 2),
+               "l32768": (1, 32768, 8)}
+LONG_HEADS = {"l8192": tuple(range(8)), "l16384": (0, 1), "l32768": (0, 7)}
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
 #: The fp32 forward's record: the train step's shape and the wide one.
@@ -187,11 +199,11 @@ TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
-#: bench_decode_paged): the cache length, the chunk and page size, the
-#: prompt mix and the decode steps between interleaved pieces.
+#: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
+#: the cache length, the chunk and page size and the decode steps between
+#: interleaved pieces.
 SERVE_MAX_LEN = 2048
 PIECE = 64
-PROMPT_MIX = (32, 64, 128, 128, 256, 512, 768, 1024)
 INTERLEAVE_STEPS = 8
 #: The paged pool is pages_for_grant(cfg, GRANT_GIB, headroom=0.5): the
 #: grant's allocator cap is 0.9 of the slice (14.4 GiB) and the phase
@@ -199,9 +211,6 @@ INTERLEAVE_STEPS = 8
 #: step's fp32 copies of them), so the default 0.8 (a 12.7 GiB pool)
 #: would leave the cap almost no room.
 PAGED_HEADROOM = 0.5
-#: The density arithmetic of bench_decode_paged: its grant and decode
-#: budget a stream.
-DENSITY_GRANT_GIB, DENSITY_NEW_TOKENS = 8.0, 256
 #: Phase 5d: gangs of rank processes on the card, as (ranks, mesh
 #: dp,tp,sp, attention strategies); each rank trains its shard of the
 #: flagship at phase 5b's global batch, SHARDED_STEPS steps a strategy,
@@ -253,6 +262,14 @@ FP32_STEPS = 3
 #: the GPipe's hidden states and the served prefill logits normalized).
 DRYRUN_RANKS = 8
 DRYRUN_ATTENTION = ("ring", "ulysses")
+#: Phase 8: the bench twin's sections at the reference's shapes and, for
+#: attention and training, its repetitions; the three serving sections,
+#: whose eager steps take most of the twin's time, time BENCH_SERVE_ITERS
+#: calls in each of BENCH_SERVE_REPS runs.
+BENCH_SERVE_ITERS, BENCH_SERVE_REPS = 3, 1
+#: The twin's density arithmetic, as both packages give it: whole-row
+#: streams, pages and paged streams under the 8 GiB grant, and the ratio.
+BENCH_DENSITY = (406, 12992, 1334, 3.29)
 
 
 def phase(name: str, **fields) -> None:
@@ -380,6 +397,8 @@ def main(usage_dir: str) -> int:
                             inputs["a_flagship_prefill", "float32"][0])
     phase("3 kernel vs plain", tma_refusal=refusals, no_key_rows=no_key,
           **{f"{n}/{d}": e for (n, d), e in errs.items()})
+    long_lengths = long_length_phase(gen)
+    phase("3 long lengths", card=card, **long_lengths)
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
@@ -507,18 +526,11 @@ def main(usage_dir: str) -> int:
 
     # The same request again under the profiler: the card's busy share
     # of the wall time (the profiler's own host cost lowers it a little).
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        S.generate(params, prompt, cfg, n_new=64, max_len=256,
-                   attn_fn=FA.flash_attention)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
+    prof_s, on_card, _ = profiled(lambda: S.generate(
+        params, prompt, cfg, n_new=64, max_len=256,
+        attn_fn=FA.flash_attention))
     prefills += 1
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(busy_us > 0, "the profiler saw no kernel on the card")
-    busy_share = busy_us / (prof_s * 1e6)
+    busy_share = _busy_us(on_card) / (prof_s * 1e6)
 
     ctx = tokens(2, 256)
     cache = S.init_cache(cfg, 2, 384)
@@ -665,6 +677,11 @@ def main(usage_dir: str) -> int:
           **{f"{n}/{d}": t for (n, d), t in bwd_timings.items()})
     ring_t = ring_step_timings(gen)
     phase("7c ring-step timings", card=card, **ring_t)
+
+    # 8. The bench twin: bench_workload_torch.py's sections in this process
+    # at the reference's shapes, their launches counted from 0 per section.
+    bench = bench_phase(card)
+    phase("8 bench twin", card=card, **bench)
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
@@ -679,7 +696,8 @@ def main(usage_dir: str) -> int:
                **{path: counts["flash_fwd"]
                   for path, counts in lifecycle["launches"].items()},
                **dryrun_paths(dry, "flash_fwd", train=True),
-               **fp32_paths(train32, dry, "flash_fwd")}
+               **fp32_paths(train32, dry, "flash_fwd"),
+               **bench_paths(bench, "flash_fwd")}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -748,7 +766,8 @@ def main(usage_dir: str) -> int:
                     *piped["launches"].values(),
                     *lifecycle["launches"].values()]) + sum(
                 dryrun_paths(dry, kname, train=True).values()) + sum(
-                fp32_paths(train32, dry, kname).values()),
+                fp32_paths(train32, dry, kname).values()) + sum(
+                bench_paths(bench, kname).values()),
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
@@ -759,7 +778,8 @@ def main(usage_dir: str) -> int:
                                  **{path: counts[kname] for path, counts
                                     in lifecycle["launches"].items()},
                                  **dryrun_paths(dry, kname, train=True),
-                                 **fp32_paths(train32, dry, kname)},
+                                 **fp32_paths(train32, dry, kname),
+                                 **bench_paths(bench, kname)},
             "max_abs_err": max(e[f"{g}_abs_err"] for e in bwd_errs.values()
                                for g in grads),
             "max_norm_err": max(e[f"{g}_norm_err"] for e in bwd_errs.values()
@@ -822,6 +842,13 @@ def fp32_paths(train32: dict, dry: dict, kname: str) -> dict:
     train steps and the fp32 parts of phase 5h's dry run."""
     return {"training_fp32": train32["launches"][kname],
             **dryrun_paths(dry, kname, train=False)}
+
+
+def bench_paths(bench: dict, kname: str) -> dict:
+    """A kernel's launches in phase 8's bench twin, by section."""
+    return {f"bench_{section}": counts[kname]
+            for section, counts in bench["launches"].items()
+            if counts[kname]}
 
 
 def fp32_record(t: dict, design: str, by_path: dict,
@@ -1030,6 +1057,12 @@ def _counts() -> dict:
             "flash_bwd_dkv": FA.FLASH_BWD_DKV_LAUNCHES}
 
 
+def _zero_counts() -> None:
+    FA.FLASH_FWD_LAUNCHES = 0
+    FA.FLASH_BWD_DQ_LAUNCHES = 0
+    FA.FLASH_BWD_DKV_LAUNCHES = 0
+
+
 def dq_launch(prof) -> dict:
     """The bf16 dq kernel's launch in a finished profiler run, as its trace
     records it: the block shape, registers a thread, and the consumer
@@ -1060,6 +1093,55 @@ def _synced_s(fn) -> float:
     return time.perf_counter() - t0
 
 
+def profiled(fn) -> tuple[float, list, profile]:
+    """``fn()`` under the profiler: its host seconds, synchronized on both
+    sides, the card's events in it, and the profile. Fails if the
+    profiler saw no kernel on the card."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        secs = _synced_s(fn)
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(sum(e.time_range.elapsed_us() for e in on_card) > 0,
+          "the profiler saw no kernel on the card")
+    return secs, on_card, prof
+
+
+def _busy_us(on_card: list) -> float:
+    return sum(e.time_range.elapsed_us() for e in on_card)
+
+
+def _by_name(on_card: list) -> collections.Counter:
+    """Device microseconds by kernel name (cut to 80 characters)."""
+    by_name = collections.Counter()
+    for e in on_card:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    return by_name
+
+
+def bench_breakdown(cfg: M.ModelConfig, batch: int) -> dict:
+    """One profiled flash train step of the bench twin's shape
+    (``make_train_step(cfg, attn_fn=flash_attention)``, ``batch`` x
+    ``cfg.max_seq_len``, no allocator cap), after two untimed steps: its
+    host ms, the card's busy ms and share, the flash kernels' device ms,
+    and the largest device times by kernel name."""
+    init_fn, step, _ = T.make_train_step(cfg, attn_fn=FA.flash_attention)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                           generator=_dev_gen(0), device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    params, opt = init_fn(_dev_gen(0), tokens)
+    for _ in range(2):
+        step(params, opt, tokens, targets)
+    secs, on_card, _ = profiled(lambda: step(params, opt, tokens, targets))
+    by_name = _by_name(on_card)
+    busy = sum(by_name.values())
+    return {"host_ms": secs * 1e3, "device_ms": busy / 1e3,
+            "busy_share": busy / (secs * 1e6),
+            "flash_device_ms": sum(us for name, us in by_name.items()
+                                   if "flash_" in name) / 1e3,
+            "top_device_us": dict(by_name.most_common(8))}
+
+
 def _clone_state(state: dict) -> dict:
     return {"cache": [{kv: t.clone() for kv, t in layer.items()}
                       for layer in state["cache"]],
@@ -1088,7 +1170,7 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
     every slot frees every page. Returns the phase's fields; its
     ``launches`` are the kernel's launches on each path."""
     n = cfg.n_layers
-    long_prompt = tokens(PROMPT_MIX[-1])
+    long_prompt = tokens(BW.PROMPT_MIX[-1])
     pieces = len(long_prompt) // PIECE
     torch.cuda.reset_peak_memory_stats()
     counted = {}
@@ -1121,9 +1203,9 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
     # the same chunks on a clone with no admission; one 128-step chunk sums
     # the same scores split otherwise between cache and ring, so it agrees
     # only up to rounding (reported, not gated).
-    slots = len(PROMPT_MIX)
+    slots = len(BW.PROMPT_MIX)
     st = S.init_server_state(cfg, slots, SERVE_MAX_LEN)
-    for slot, length in enumerate(PROMPT_MIX[:-1]):
+    for slot, length in enumerate(BW.PROMPT_MIX[:-1]):
         S.admit_chunked(params, st, tokens(length), slot, chunk=PIECE)
     ref, one = _clone_state(st), _clone_state(st)
     em_ref = torch.cat([S.serve_chunk(params, ref, INTERLEAVE_STEPS)[1]
@@ -1161,7 +1243,7 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
     del st, st_w, st_c
 
     # (c) The paged server against a contiguous one, 16 slots each.
-    prompts = [tokens(length) for length in PROMPT_MIX]
+    prompts = [tokens(length) for length in BW.PROMPT_MIX]
     pslots = 2 * len(prompts)
     total = S.pages_for_grant(cfg, GRANT_GIB, PIECE, headroom=PAGED_HEADROOM)
     pool = P.PagePool(total, page_tokens=PIECE)
@@ -1202,13 +1284,9 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
                  for _ in range(3)]
     rows16_s = [_synced_s(lambda: S.serve_chunk(params, st_r, PIECE))
                 for _ in range(3)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_s = _synced_s(lambda: S.serve_chunk_paged(params, st_p, pool,
-                                                       PIECE))
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(busy_us > 0, "the profiler saw no kernel on the card")
+    prof_s, on_card, _ = profiled(lambda: S.serve_chunk_paged(
+        params, st_p, pool, PIECE))
+    busy_us = _busy_us(on_card)
     peak = torch.cuda.max_memory_allocated()
     held = pool.stats()
     for slot in range(pslots):
@@ -1216,17 +1294,6 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
     check(pool.pages_free() == total,
           f"{total - pool.pages_free()} pages leaked after release")
     del st_p, st_r
-
-    # bench_decode_paged's density arithmetic at its grant.
-    rows_cap = S.max_batch_for_grant(cfg, DENSITY_GRANT_GIB, SERVE_MAX_LEN)
-    pages_cap = S.pages_for_grant(cfg, DENSITY_GRANT_GIB, PIECE)
-    admitted = used = 0
-    while rows_cap:
-        need = P.pages_for(min(PROMPT_MIX[admitted % len(PROMPT_MIX)]
-                               + DENSITY_NEW_TOKENS, SERVE_MAX_LEN), PIECE)
-        if used + need > pages_cap:
-            break
-        used, admitted = used + need, admitted + 1
     return {
         "launches": {"chunked_serving": counted["chunked_admit"]
                      + counted["interleaved_admit"],
@@ -1252,12 +1319,7 @@ def chunked_paged_phase(cfg: M.ModelConfig, params, tokens) -> dict:
         "per_stream_ratio": min(rows8_s) / min(paged16_s),
         "paged_chunk_busy_share": busy_us / (prof_s * 1e6),
         "peak_bytes": peak,
-        "density": {"grant_hbm_gib": DENSITY_GRANT_GIB,
-                    "decode_budget": DENSITY_NEW_TOKENS,
-                    "whole_row_streams": rows_cap, "pages_total": pages_cap,
-                    "paged_streams": admitted,
-                    "streams_per_row_stream": (admitted / rows_cap
-                                               if rows_cap else None)},
+        "density": BW.paged_density(),
     }
 
 
@@ -1280,9 +1342,7 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     n = cfg.n_layers
     want = {"flash_fwd": (1 + cfg.remat) * n, "flash_bwd_dq": n,
             "flash_bwd_dkv": n}
-    FA.FLASH_FWD_LAUNCHES = 0
-    FA.FLASH_BWD_DQ_LAUNCHES = 0
-    FA.FLASH_BWD_DKV_LAUNCHES = 0
+    _zero_counts()
     params, opt, losses, secs, per_step, retries = timed_steps(
         step, params, opt, batch, targets)
     launches = _counts()
@@ -1295,19 +1355,10 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     check(peak < GRANT_GIB << 30, f"train step peak {peak} bytes is over "
                                   f"the {GRANT_GIB} GiB grant")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, opt, _ = step(params, opt, batch, targets)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
-    check(busy_us > 0, "the profiler saw no kernel on the card")
-    by_name = collections.Counter()
-    for e in on_card:
-        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    prof_s, on_card, prof = profiled(lambda: step(params, opt, batch,
+                                                  targets))
+    busy_us = _busy_us(on_card)
+    by_name = _by_name(on_card)
     dq = dq_launch(prof)
 
     # The same weights through plain attention and PyTorch's autograd, on
@@ -1771,8 +1822,7 @@ def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
         prompts = E.serve_prompts(cfg, shape, dev)
         d_launches = launches.setdefault("checkpoint_d_serve",
                                          collections.Counter())
-        FA.FLASH_FWD_LAUNCHES = FA.FLASH_BWD_DQ_LAUNCHES = 0
-        FA.FLASH_BWD_DKV_LAUNCHES = 0
+        _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = S.generate(params, prompts, cfg, n_new, max_len,
@@ -1886,9 +1936,7 @@ def fp32_train_phase(tokens) -> dict:
     n = cfg.n_layers
     want = {"flash_fwd": (1 + cfg.remat) * n, "flash_bwd_dq": n,
             "flash_bwd_dkv": n}
-    FA.FLASH_FWD_LAUNCHES = 0
-    FA.FLASH_BWD_DQ_LAUNCHES = 0
-    FA.FLASH_BWD_DKV_LAUNCHES = 0
+    _zero_counts()
     params, opt, losses, secs, per_step, retries = timed_steps(
         step, params, opt, batch, targets, n=FP32_STEPS)
     launches = _counts()
@@ -1898,13 +1946,8 @@ def fp32_train_phase(tokens) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"fp32 losses {losses}")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_s = _synced_s(lambda: step(params, opt, batch, targets))
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
-    check(busy_us > 0, "the profiler saw no kernel on the card")
+    prof_s, on_card, _ = profiled(lambda: step(params, opt, batch, targets))
+    busy_us = _busy_us(on_card)
     pair_us = sum(e.time_range.elapsed_us() for e in on_card
                   if "flash_bwd_" in e.name and "_tf32x3" in e.name)
     fwd_us = sum(e.time_range.elapsed_us() for e in on_card
@@ -2328,6 +2371,215 @@ def _pick(t: dict) -> dict:
     """A timing's kernel, plain, library and bound fields."""
     return {key: t[key] for key in ("kernel_ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by") if key in t}
+
+
+def long_length_phase(gen: torch.Generator) -> dict:
+    """Phase 3 at ``LONG_SHAPES``: the forward, dq and dk/dv kernels at the
+    whole shape, held on ``LONG_HEADS`` to the plain version (from the
+    kernel's out and lse, as phase 3b) at phase 3's bf16 bounds, and their
+    device times at the whole shape beside SDPA's and its backward's, the
+    plain version's on one head, and the bounds. Returns the fields."""
+    fields = {}
+    for name, (b, L, h) in LONG_SHAPES.items():
+        d = 128
+        q, k, v, do = (torch.randn((b, L, h, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        with torch.inference_mode():
+            out, lse = FA.flash_fwd_kernel(q, k, v)
+            delta = FA.flash_bwd_delta(do, out, None)
+            dq = FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta)
+            dk, dv = FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            for t in (out, lse, dq, dk, dv):
+                check(bool(torch.isfinite(t).all()), f"{name}: not finite")
+            e = {"shape": [b, L, h, d], "heads_checked": list(LONG_HEADS[name])}
+            for hd in LONG_HEADS[name]:
+                one = slice(hd, hd + 1)
+                qh, kh, vh, doh = (t[:, :, one] for t in (q, k, v, do))
+                p_out, p_lse = FA.flash_block_with_lse_plain(qh, kh, vh)
+                errs = {"out": _norm_err(out[:, :, one], p_out),
+                        "lse": (lse[:, :, one] - p_lse).abs().max().item()}
+                ref = FA.flash_bwd_plain(qh, kh, vh, out[:, :, one],
+                                         lse[:, :, one], doh)
+                del p_out, p_lse
+                for gname, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                    errs[gname] = _norm_err(g[:, :, one], r)
+                del ref
+                check(errs["out"] <= OUT_TOL["bfloat16"]
+                      and errs["lse"] <= LSE_TOL["bfloat16"]
+                      and max(errs[g] for g in ("dq", "dk", "dv"))
+                      <= GRAD_TOL["bfloat16"],
+                      f"{name} head {hd}: kernels off the plain version "
+                      f"{errs}")
+                for key, err in errs.items():
+                    e[f"{key}_err"] = max(e.get(f"{key}_err", 0.0), err)
+            torch.cuda.empty_cache()
+            pairs = L * (L + 1) // 2 * b * h
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            _, library = library_bwd(q, k, v, do, 0, 0, "bfloat16")
+            one = slice(0, 1)
+            qh, kh, vh, doh = (t[:, :, one] for t in (q, k, v, do))
+            oh, lh = out[:, :, one], lse[:, :, one]
+            e["times"] = {
+                "flash_fwd": {
+                    "kernel_ms": device_ms(lambda: FA.flash_fwd_kernel(
+                        q, k, v), reps=5),
+                    **bounds(4 * d * pairs, 4 * q.numel() * 2
+                             + 4 * b * L * h, "bfloat16")},
+                "flash_bwd_dq": {
+                    "kernel_ms": device_ms(lambda: FA.flash_bwd_dq_kernel(
+                        q, k, v, do, lse, delta), reps=5),
+                    **bounds(6 * d * pairs, 5 * q.numel() * 2
+                             + 8 * b * L * h, "bfloat16")},
+                "flash_bwd_dkv": {
+                    "kernel_ms": device_ms(lambda: FA.flash_bwd_dkv_kernel(
+                        q, k, v, do, lse, delta), reps=5),
+                    **bounds(8 * d * pairs, 6 * q.numel() * 2
+                             + 8 * b * L * h, "bfloat16")},
+                "library_fwd_ms": device_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True),
+                    reps=5),
+                "library_bwd_ms": device_ms(library, reps=5),
+                "plain_fwd_one_head_ms": time_ms(
+                    lambda: FA.flash_block_with_lse_plain(qh, kh, vh),
+                    iters=2, warmup=1),
+                "plain_bwd_one_head_ms": time_ms(
+                    lambda: FA.flash_bwd_plain(qh, kh, vh, oh, lh, doh),
+                    iters=2, warmup=1),
+            }
+        fields[name] = e
+        del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, library
+        del qh, kh, vh, doh, oh, lh
+        torch.cuda.empty_cache()
+    return fields
+
+
+def _launch_check(section: str, got: dict, want: dict) -> None:
+    check(got == want, f"bench {section}: launches {got}, want {want}")
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 8: ``bench_workload_torch``'s sections on this card, through
+    its functions, at the reference's shapes (the serving sections at
+    ``BENCH_SERVE_ITERS`` x ``BENCH_SERVE_REPS`` timed calls), and its JSON
+    document. Fails unless one flash forward + backward launches one
+    forward, one dq and one dk/dv and the plain side none; every section
+    launched the kernels as designed; the paged streams are the contiguous
+    ones bit for bit; the density is ``BENCH_DENSITY``; the card's peak is
+    known and every MFU a number; and ``flash_runs_32k`` passed. A failing
+    performance gate is printed, not failed (the twin's ``--gate`` is
+    opt-in). Also times SDPA's forward + backward through the twin's
+    harness at each attention shape, a yardstick beside its flash_ms, and
+    the bound of each: 14 x D operations a visible pair at the bf16 peak
+    (4 x D forward, 10 x D for a backward that recomputes S once), with
+    ``split_bound_ms`` beside it for the 18 x D the three kernels do (dq
+    and dk/dv each recompute S and dP); and
+    profiles one step of each train shape (:func:`bench_breakdown`)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kind = torch.cuda.get_device_name(0)
+    power = card.rsplit(",", 1)[-1].strip()
+    zero = dict.fromkeys(_counts(), 0)
+    per_call = dict.fromkeys(_counts(), 1)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _counts()
+
+    q, k, v = BW.attention_inputs(2048, 4, 8, torch.device("cuda"))
+    _launch_check("one flash fwd+bwd", counted(
+        lambda: float(BW.fwd_bwd(FA.flash_attention)(q, k, v)))[1], per_call)
+    _launch_check("one plain fwd+bwd", counted(
+        lambda: float(BW.fwd_bwd(M.causal_attention)(q, k, v)))[1], zero)
+    del q, k, v
+    launches = {}
+    attn, launches["attention"] = counted(lambda: BW.bench_attention(False))
+    calls = sum(BW.WARMUP + 2 * n for *_, n in BW.ATTENTION_SHAPES)
+    _launch_check("attention", launches["attention"],
+                  dict.fromkeys(zero, calls))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v)),
+            is_causal=True).transpose(1, 2)
+
+    yardstick = {}
+    for L, b, h, n in BW.ATTENTION_SHAPES:
+        q, k, v = BW.attention_inputs(L, b, h, torch.device("cuda"))
+        ms, counts = counted(lambda: 1e3 * BW._time_scalar_fn(
+            BW.fwd_bwd(sdpa), q, k, v, iters=n))
+        _launch_check(f"SDPA at {L}", counts, zero)
+        d = BW.HEAD_DIM
+        pairs = b * h * (L * (L + 1) // 2)
+        nbytes = 8 * q.numel() * q.element_size() + 8 * b * L * h
+        yardstick[str(L)] = {
+            "flash_ms": attn[str(L)]["flash_ms"], "sdpa_ms": ms,
+            **bounds(14 * d * pairs, nbytes, "bfloat16"),
+            "split_bound_ms": bounds(18 * d * pairs, nbytes,
+                                     "bfloat16")["bound_ms"]}
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # A side's steps: its loss step, the warm-up and the twin's default
+    # (the reference's) 10 x 2 timed steps, 8 x 2 for the large config.
+    flagship = M.ModelConfig()
+    large_cfg = BW.large_config()
+    train, launches["train"] = counted(lambda: BW.bench_train(kind, False))
+    _launch_check("train", launches["train"], dict.fromkeys(
+        zero, (1 + BW.WARMUP + 10 * 2) * flagship.n_layers))
+    large, launches["train_large"] = counted(lambda: BW.bench_train(
+        kind, False, cfg=large_cfg, batch=8, iters=8, sides=("flash",)))
+    _launch_check("train_large", launches["train_large"], dict.fromkeys(
+        zero, (1 + BW.WARMUP + 8 * 2) * large_cfg.n_layers))
+
+    serve_kw = {"iters": BENCH_SERVE_ITERS, "reps": BENCH_SERVE_REPS}
+    serving, launches["decode"] = counted(
+        lambda: BW.bench_decode(False, **serve_kw))
+    _launch_check("decode", launches["decode"], zero)
+    continuous, launches["continuous"] = counted(
+        lambda: BW.bench_decode_continuous(False, **serve_kw))
+    pieces = continuous["chunked_prefill"]["pieces"]
+    _launch_check("continuous", launches["continuous"],
+                  {**zero, "flash_fwd": 2 * pieces * flagship.n_layers})
+    paged, launches["paged"] = counted(
+        lambda: BW.bench_decode_paged(False, **serve_kw))
+    page = paged["page_tokens"]
+    rows_pieces = sum(P.pages_for(n, page) for n in BW.PROMPT_MIX)
+    shared = sum(P.shareable_pages(n, page) for n in BW.PROMPT_MIX)
+    _launch_check("paged", launches["paged"], {
+        **zero, "flash_fwd": (3 * rows_pieces - shared) * flagship.n_layers})
+
+    doc = BW.document(kind, power, attn, train, large, serving, continuous,
+                      paged, gated=True)
+    check(paged["bit_identical"], "bench paged streams differ from the rows'")
+    dens = paged["density"]
+    check((dens["whole_row_streams"], dens["pages_total"],
+           dens["paged_streams"], dens["streams_per_row_stream"])
+          == BENCH_DENSITY, f"bench density {dens}")
+    check(doc["peak_bf16_tflops"] is not None, f"no bf16 peak for {kind!r}")
+    mfus = [train["xla"]["mfu"], train["flash"]["mfu"], large["flash"]["mfu"]]
+    check(all(isinstance(m, float) and math.isfinite(m) for m in mfus),
+          f"bench MFU values {mfus}")
+    check(doc["gates"]["flash_runs_32k"]["pass"], "flash did not run 32k")
+    for L, entry in attn.items():
+        check(math.isfinite(entry["flash_ms"]) and (
+            entry["xla_ms"] is not None or entry.get("xla_skip_reason")),
+              f"bench attention at {L}: {entry}")
+    breakdown = {"train": bench_breakdown(dataclasses.replace(
+                     flagship, remat=False), 16),
+                 "train_large": bench_breakdown(large_cfg, 8)}
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0, "launches": launches,
+            "train_breakdown": breakdown,
+            "serve_iters": BENCH_SERVE_ITERS, "serve_reps": BENCH_SERVE_REPS,
+            "failed_gates": [g for g, v in doc["gates"].items()
+                             if v["gated"] and not v["pass"]],
+            "attention_yardstick": yardstick, "document": doc}
 
 
 def ring_step_timings(gen: torch.Generator) -> dict:

@@ -124,6 +124,7 @@ def _port_files():
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "cogpucheck.py")
+    yield os.path.join(REPO, "bench_workload_torch.py")
     yield os.path.join(REPO, "tools", "estimator_peak.py")
     yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
     yield os.path.join(REPO, "tools", "nccl_gang.py")
@@ -151,13 +152,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "workload", "moe.py"),
                  ("tpushare_torch", "workload", "checkpoint.py"),
                  ("tpushare_torch", "deviceplugin", "discovery.py"),
-                 ("cogpucheck.py",)):
+                 ("cogpucheck.py",), ("bench_workload_torch.py",)):
         assert os.path.join(REPO, *name) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "orbax", "tpushare"), (
-                path, mod)
+            assert top not in ("jax", "jaxlib", "orbax", "tpushare",
+                               "bench_workload"), (path, mod)
 
 
 GANG = {const.ENV_POD_GROUP: "train", const.ENV_POD_GROUP_SIZE: "4"}
