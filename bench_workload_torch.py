@@ -41,9 +41,12 @@ Where the port differs from the reference, and why:
 * No probe round trip is subtracted from a time: ``torch.cuda.synchronize``
   waits for the card (the reference's tunnel did not synchronize on
   ``block_until_ready``; see :func:`_time_scalar_fn`).
-* The port runs eagerly, so there is no compile to keep out of a time
-  and no jit cache to count: ``admissions`` counts admissions, and
-  ``first_ms`` holds first-use costs such as the allocator's growth.
+* The port's compiled steps (``workload.graphs``) are CUDA graphs, the
+  twin of the reference's ``jax.jit``: every section times them as a
+  user calls them, a key's first call (eager, then the capture) outside
+  the clock as the reference keeps its compile out. ``admissions``
+  carries ``jitMisses``/``jitHits`` (graph captures and replays), and
+  ``first_ms`` holds a bucket's first admission, its capture included.
 * The port's servers update their state in place; each timed call gets
   a shallow copy of one state (see :func:`bench_decode_continuous`).
 * The paged section's contiguous server admits through
@@ -72,6 +75,7 @@ import time
 import torch
 
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import paging
 from tpushare_torch.workload import serving as S
@@ -339,7 +343,8 @@ def bench_train(kind: str, allow_cpu: bool, *, cfg: M.ModelConfig | None = None,
 
 def bench_decode(allow_cpu: bool, *, iters: int = 40, reps: int = 3) -> dict:
     """Whole greedy requests (``serving.generate``: prefill, then one
-    decode step a token) on the flagship, eager as the port runs them."""
+    decode step a token) on the flagship, each one replay of the
+    request's CUDA graph after the first call captures it."""
     device = _device(allow_cpu)
     cfg = dataclasses.replace(M.ModelConfig(), remat=False)
     batch, prompt_len, steps, max_len = 8, 128, 64, 256
@@ -452,10 +457,18 @@ def bench_decode_continuous(allow_cpu: bool, *, iters: int = 20,
     logits0, base_cache = S.prefill(params, static_tokens, base_cache)
 
     def run_static(params, cache, logits):
-        for pos in range(static_len, static_len + chunk):
-            logits, cache = S.decode_step(params, cache, logits.argmax(-1),
+        # The reference's run_static is jax.jit of a scan: compiled here
+        # too, one graph over the chunk's steps.
+        def body(logits):
+            for pos in range(static_len, static_len + chunk):
+                logits, _ = S.decode_step(params, cache, logits.argmax(-1),
                                           pos)
-        return logits.argmax(-1).sum().float()
+            return logits.argmax(-1).sum().float()
+        return graphs.run(
+            "static_decode", body, (logits,), static=(static_len, chunk),
+            bound=lambda: (*params.parameters(),
+                           *(layer[kv] for layer in cache
+                             for kv in ("k", "v"))))
 
     float(run_static(params, base_cache, logits0))
     ts = _time_scalar_fn(run_static, params, base_cache, logits0,

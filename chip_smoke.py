@@ -25,7 +25,12 @@ the card held to the same gang on the host. Phase 3 also holds the bf16
 kernels to their plain version at L = 16384 and 32768; phase 8 runs the
 sections of ``bench_workload_torch.py`` (attention to L = 32768, flagship
 and large training, decode, continuous and paged serving) at the
-reference's shapes and prints its JSON document.
+reference's shapes and prints its JSON document. The entry points the
+JAX package jits run as CUDA graphs (``workload.graphs``) from their
+second call; phase 9 replays each against its eager body
+(``graphs.disabled()``) from the same state, bit for bit, the sampled
+ones from generators seeded alike, and counts each kernel's launches in
+a profiler trace of the replays against what their captures recorded.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -57,6 +63,7 @@ from tpushare_torch.deviceplugin import discovery
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.workload import checkpoint as CK
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import moe
 from tpushare_torch.workload import paging as P
@@ -151,9 +158,10 @@ F32_SHAPES = {
 #: 128, as (B, L, H): the kernels run at the whole shape and are held to
 #: the plain version, which keeps [B, H, L, L] fp32 scores, on the heads
 #: listed (each (b, h) is a row of the kernels' grid of its own).
-LONG_SHAPES = {"l8192": (1, 8192, 8), "l16384": (1, 16384, 2),
-               "l32768": (1, 32768, 8)}
-LONG_HEADS = {"l8192": tuple(range(8)), "l16384": (0, 1), "l32768": (0, 7)}
+LONG_SHAPES = {"l2048": (4, 2048, 8), "l8192": (1, 8192, 8),
+               "l16384": (1, 16384, 2), "l32768": (1, 32768, 8)}
+LONG_HEADS = {"l2048": tuple(range(8)), "l8192": tuple(range(8)),
+              "l16384": (0, 1), "l32768": (0, 7)}
 TIMED_SHAPE = "b_long_prompt"       # the forward's line: a long prefill
 TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
 #: The fp32 forward's record: the train step's shape and the wide one.
@@ -484,8 +492,10 @@ def main(usage_dir: str) -> int:
     del runs, out, lse, delta, do, qkv, ref, edge_inputs, sharded_inputs
     del f32_inputs, got, dq_again, g, r
 
-    # 4. Forward through the entry point; from here the launches count.
+    # 4. Forward through the entry point; from here the launches count
+    # (replays of compiled steps add what their capture launched).
     FA.FLASH_FWD_LAUNCHES = 0
+    graphs.reset_stats()
     fwd, args = E.entry()
     logits = fwd(*args)
     torch.cuda.synchronize()
@@ -593,20 +603,24 @@ def main(usage_dir: str) -> int:
           slot_serve_2x64_s=serve_s,
           slot_tokens=int((emitted >= 0).sum().item()),
           admissions=S.admission_stats(), prefills=prefills,
-          launches=launches)
+          launches=launches, replayed=_replayed())
+    replayed = {"serving": _replayed()}
     del state, cache
 
     # 5c. Chunked, interleaved and paged admission and the paged server,
     # with bench_workload.py's traffic; each path's pieces are the forward
     # kernel at their offsets, counted from 0 per path.
+    graphs.reset_stats()
     served = chunked_paged_phase(cfg, params, tokens)
-    phase("5c chunked and paged serving", **served)
+    phase("5c chunked and paged serving", replayed=_replayed(), **served)
+    replayed["chunked_paged_serving"] = _replayed()
     del params
 
     # 5b. Training at flagship width under the grant: the train step a
     # user builds, with its defaults (kernel-backed flash attention, remat).
     train = train_phase(cfg, tokens)
     phase("5b training", **train)
+    replayed["training"] = train["replayed"]
 
     # 5d. Sharded training: gangs of ranks on this card through the entry
     # point's rank body, held to the single-process kernel step.
@@ -682,6 +696,14 @@ def main(usage_dir: str) -> int:
     # at the reference's shapes, their launches counted from 0 per section.
     bench = bench_phase(card)
     phase("8 bench twin", card=card, **bench)
+    replayed.update({f"bench_{section}": counts
+                     for section, counts in bench["replayed"].items()})
+
+    # 9. The compiled steps: each captured entry point replayed against its
+    # eager body from the same state, at flagship width under the grant.
+    compiled = compiled_phase(M.ModelConfig(), grant)
+    phase("9 compiled steps", card=card, **compiled)
+    replayed["compiled_steps"] = compiled["replayed"]
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
@@ -706,6 +728,12 @@ def main(usage_dir: str) -> int:
         "replaces": "tpushare/workload/flash_attention.py:61 (_flash_kernel)",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
+        "replay_launches_by_path": {path: counts["flash_fwd"]
+                                    for path, counts in replayed.items()},
+        "replay_launches_are": REPLAY_LAUNCHES_ARE,
+        "traced_replay_launches": {
+            path: counts["flash_fwd"]
+            for path, counts in compiled["traced_launches"].items()},
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "max_norm_err": max(e["norm_err"] for e in errs.values()
                             if "norm_err" in e),
@@ -768,6 +796,12 @@ def main(usage_dir: str) -> int:
                 dryrun_paths(dry, kname, train=True).values()) + sum(
                 fp32_paths(train32, dry, kname).values()) + sum(
                 bench_paths(bench, kname).values()),
+            "replay_launches_by_path": {
+                path: counts[kname] for path, counts in replayed.items()},
+            "replay_launches_are": REPLAY_LAUNCHES_ARE,
+            "traced_replay_launches": {
+                path: counts[kname]
+                for path, counts in compiled["traced_launches"].items()},
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
@@ -1063,6 +1097,16 @@ def _zero_counts() -> None:
     FA.FLASH_BWD_DKV_LAUNCHES = 0
 
 
+def _replayed() -> dict:
+    """Each kernel's launches inside graph replays since
+    ``graphs.reset_stats()``, over every compiled step."""
+    out = dict.fromkeys(_counts(), 0)
+    for st in graphs.stats().values():
+        for kname, counter in zip(out, graphs.COUNTERS):
+            out[kname] += st["launches"][counter]
+    return out
+
+
 def dq_launch(prof) -> dict:
     """The bf16 dq kernel's launch in a finished profiler run, as its trace
     records it: the block shape, registers a thread, and the consumer
@@ -1093,13 +1137,22 @@ def _synced_s(fn) -> float:
     return time.perf_counter() - t0
 
 
+#: Host seconds the profiler's window is held open on each side of the
+#: traced call. Without it a trace now and then loses the card's records
+#: near the window's end, or all of them, and a count of launches in it
+#: comes out short (``tools/trace_drops.py`` counts how often).
+TRACE_PAD_S = 0.02
+
+
 def profiled(fn) -> tuple[float, list, profile]:
     """``fn()`` under the profiler: its host seconds, synchronized on both
     sides, the card's events in it, and the profile. Fails if the
     profiler saw no kernel on the card."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         secs = _synced_s(fn)
+        time.sleep(TRACE_PAD_S)
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     check(sum(e.time_range.elapsed_us() for e in on_card) > 0,
@@ -1343,13 +1396,16 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
     want = {"flash_fwd": (1 + cfg.remat) * n, "flash_bwd_dq": n,
             "flash_bwd_dkv": n}
     _zero_counts()
+    graphs.reset_stats()
     params, opt, losses, secs, per_step, retries = timed_steps(
         step, params, opt, batch, targets)
     launches = _counts()
+    replayed = _replayed()
     for counts in per_step:
         check(counts == want, f"launches per train step {counts}, "
                               f"want {want}")
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     check(peak < GRANT_GIB << 30, f"train step peak {peak} bytes is over "
@@ -1388,6 +1444,7 @@ def train_phase(cfg: M.ModelConfig, tokens) -> dict:
         "step_s_mean": mean_s,
         "tokens_per_s": TRAIN_BATCH[0] * TRAIN_BATCH[1] / mean_s,
         "launches": launches, "launches_per_step": want,
+        "replayed": replayed, "peak_reserved_bytes": peak_reserved,
         "alloc_retries": retries, "profiled_step_s": prof_s,
         "profiled_device_ops": len(on_card),
         "profiled_device_us_top": dict(by_name.most_common(10)),
@@ -2484,11 +2541,16 @@ def bench_phase(card: str) -> dict:
     zero = dict.fromkeys(_counts(), 0)
     per_call = dict.fromkeys(_counts(), 1)
 
-    def counted(fn):
+    replayed = {}
+
+    def counted(fn, section: str | None = None):
         torch.cuda.synchronize()
         _zero_counts()
+        graphs.reset_stats()
         out = fn()
         torch.cuda.synchronize()
+        if section:
+            replayed[section] = _replayed()
         return out, _counts()
 
     q, k, v = BW.attention_inputs(2048, 4, 8, torch.device("cuda"))
@@ -2498,7 +2560,8 @@ def bench_phase(card: str) -> dict:
         lambda: float(BW.fwd_bwd(M.causal_attention)(q, k, v)))[1], zero)
     del q, k, v
     launches = {}
-    attn, launches["attention"] = counted(lambda: BW.bench_attention(False))
+    attn, launches["attention"] = counted(lambda: BW.bench_attention(False),
+                                         "attention")
     calls = sum(BW.WARMUP + 2 * n for *_, n in BW.ATTENTION_SHAPES)
     _launch_check("attention", launches["attention"],
                   dict.fromkeys(zero, calls))
@@ -2529,25 +2592,27 @@ def bench_phase(card: str) -> dict:
     # (the reference's) 10 x 2 timed steps, 8 x 2 for the large config.
     flagship = M.ModelConfig()
     large_cfg = BW.large_config()
-    train, launches["train"] = counted(lambda: BW.bench_train(kind, False))
+    train, launches["train"] = counted(lambda: BW.bench_train(kind, False),
+                                       "train")
     _launch_check("train", launches["train"], dict.fromkeys(
         zero, (1 + BW.WARMUP + 10 * 2) * flagship.n_layers))
     large, launches["train_large"] = counted(lambda: BW.bench_train(
-        kind, False, cfg=large_cfg, batch=8, iters=8, sides=("flash",)))
+        kind, False, cfg=large_cfg, batch=8, iters=8, sides=("flash",)),
+        "train_large")
     _launch_check("train_large", launches["train_large"], dict.fromkeys(
         zero, (1 + BW.WARMUP + 8 * 2) * large_cfg.n_layers))
 
     serve_kw = {"iters": BENCH_SERVE_ITERS, "reps": BENCH_SERVE_REPS}
     serving, launches["decode"] = counted(
-        lambda: BW.bench_decode(False, **serve_kw))
+        lambda: BW.bench_decode(False, **serve_kw), "decode")
     _launch_check("decode", launches["decode"], zero)
     continuous, launches["continuous"] = counted(
-        lambda: BW.bench_decode_continuous(False, **serve_kw))
+        lambda: BW.bench_decode_continuous(False, **serve_kw), "continuous")
     pieces = continuous["chunked_prefill"]["pieces"]
     _launch_check("continuous", launches["continuous"],
                   {**zero, "flash_fwd": 2 * pieces * flagship.n_layers})
     paged, launches["paged"] = counted(
-        lambda: BW.bench_decode_paged(False, **serve_kw))
+        lambda: BW.bench_decode_paged(False, **serve_kw), "paged")
     page = paged["page_tokens"]
     rows_pieces = sum(P.pages_for(n, page) for n in BW.PROMPT_MIX)
     shared = sum(P.shareable_pages(n, page) for n in BW.PROMPT_MIX)
@@ -2575,11 +2640,460 @@ def bench_phase(card: str) -> dict:
                  "train_large": bench_breakdown(large_cfg, 8)}
     torch.cuda.empty_cache()
     return {"seconds": time.perf_counter() - t0, "launches": launches,
+            "replayed": replayed,
             "train_breakdown": breakdown,
             "serve_iters": BENCH_SERVE_ITERS, "serve_reps": BENCH_SERVE_REPS,
             "failed_gates": [g for g, v in doc["gates"].items()
                              if v["gated"] and not v["pass"]],
             "attention_yardstick": yardstick, "document": doc}
+
+
+def _state_equal(a: dict, b: dict, tensors: tuple[str, ...]) -> bool:
+    """Two server states alike bit for bit: ``tensors``' entries (a list
+    of per-layer K/V dicts, or one tensor each), compared as bytes."""
+    def flat(state):
+        for key in tensors:
+            val = state[key]
+            if isinstance(val, list):
+                yield from (layer[kv] for layer in val for kv in ("k", "v"))
+            else:
+                yield val
+    return all(torch.equal(x.view(torch.uint8) if x.dtype.is_floating_point
+                           else x, y.view(torch.uint8)
+                           if y.dtype.is_floating_point else y)
+               for x, y in zip(flat(a), flat(b), strict=True))
+
+
+def _clone_paged(state: dict) -> dict:
+    return {"pages": [{kv: t.clone() for kv, t in layer.items()}
+                      for layer in state["pages"]],
+            **{key: state[key].clone()
+               for key in ("table", "pos", "active", "token")}}
+
+
+def _copy_state(state: dict, src: dict) -> None:
+    """Write ``src``'s tensors into ``state``'s in place (a compiled
+    step's bound cache keeps its address), and its pos / active / token
+    back into ``state``."""
+    with torch.inference_mode():
+        for key, val in src.items():
+            if isinstance(val, list):
+                for dst, layer in zip(state[key], val):
+                    for kv in ("k", "v"):
+                        dst[kv].copy_(layer[kv])
+            elif key in ("pos", "active", "token"):
+                state[key] = val.clone()
+            else:
+                state[key].copy_(val)
+
+
+def _peak() -> int:
+    """The allocator's peak reserved bytes since the last call (or the
+    last reset), and a new reset."""
+    peak = torch.cuda.max_memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def _same_draws(*pairs) -> bool:
+    """Each pair of generators at one state: the compiled path's and the
+    eager path's drew alike."""
+    return all(torch.equal(a.get_state(), b.get_state()) for a, b in pairs)
+
+
+#: What the kernels line's ``replay_launches_by_path`` counts.
+REPLAY_LAUNCHES_ARE = (
+    "derived: each replay adds the launches its capture recorded. "
+    "traced_replay_launches are counted by kernel name in a profiler trace "
+    "of one call of each compiled path in phase 9, which fails unless they "
+    "equal the derived count")
+#: What each flash kernel's (mangled) name in a trace holds, bf16 or fp32.
+TRACE_NAMES = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+               "flash_bwd_dkv": "flash_bwd_dkv_"}
+
+
+def _replays(name: str, fn, calls: int = 1) -> tuple:
+    """``fn()`` under the profiler; it must replay ``calls`` graphs of the
+    compiled step ``name`` and run no wrapper. Fails unless it did, and
+    unless each flash kernel's launches on the card, counted by name in
+    the trace, equal both what the replayed captures recorded and what
+    the launch counters added. Returns ``(fn()'s result, the traced
+    launches)``."""
+    stats = graphs.stats()[name]
+    replays, booked = stats["replays"], dict(stats["launches"])
+    before = _counts()
+    result = []
+    _, on_card, _ = profiled(lambda: result.append(fn()))
+    traced = {k: sum(part in e.name for e in on_card)
+              for k, part in TRACE_NAMES.items()}
+    stats = graphs.stats()[name]
+    booked = {k: stats["launches"][c] - booked[c]
+              for k, c in zip(TRACE_NAMES, graphs.COUNTERS)}
+    counted = {k: c - before[k] for k, c in _counts().items()}
+    check(stats["replays"] == replays + calls
+          and traced == booked == counted,
+          f"9 {name}: {stats['replays'] - replays} replays of {calls}; "
+          f"the trace holds {traced}, the captures recorded {booked}, "
+          f"the counters grew {counted}; the trace's kernels: "
+          f"{sorted({e.name[:60] for e in on_card})[:12]}")
+    return result[0], traced
+
+
+def _turns_ms(eager, compiled, rounds: int = 2) -> dict:
+    """Host ms of ``eager()`` (under ``graphs.disabled()``) and of
+    ``compiled()`` (a replay), synchronized, in turns: eager, compiled,
+    compiled, eager, ``rounds`` times."""
+    times = {"eager_ms": [], "compiled_ms": []}
+
+    def one(kind):
+        if kind == "eager_ms":
+            with graphs.disabled():
+                s = _synced_s(eager)
+        else:
+            s = _synced_s(compiled)
+        times[kind].append(1e3 * s)
+
+    for _ in range(rounds):
+        for kind in ("eager_ms", "compiled_ms", "compiled_ms", "eager_ms"):
+            one(kind)
+    times["eager_over_compiled"] = (min(times["eager_ms"])
+                                    / min(times["compiled_ms"]))
+    return times
+
+
+def compiled_phase(cfg: M.ModelConfig, grant) -> dict:
+    """Phase 9: the compiled steps (``workload.graphs``) at flagship width
+    under the grant's allocator cap. Each captured entry point runs the
+    same call twice from one starting state: replayed, and under
+    ``graphs.disabled()`` (the eager body); the sampled ones (``generate``,
+    an admission, both chunks) are captured drawing from one generator
+    and replayed with it or another, against eager calls from generators
+    seeded alike. Fails unless every stream, state, cache or page pool,
+    generator, loss and weight is bit-identical, each kernel's launches
+    in a profiler trace of the replays are those their captures recorded
+    (``_replays``), and the bucketed admissions miss once a bucket.
+    Records each entry point's capture seconds, eager and replay host ms
+    in turns, the traced launches, the graph pools' bytes, and each
+    serving section's peak reserved bytes under the cap (up to its check;
+    its turns count in the next section's)."""
+    fraction = torchenv.apply_memory_fraction(grant)
+    graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_before = {"allocated": torch.cuda.memory_allocated(),
+                     "reserved": torch.cuda.memory_reserved()}
+    gen = _dev_gen(9)
+    fields = {"memory_fraction": fraction}
+    traced = {}
+
+    # 3 flagship train steps at 8 x 2048 (bf16, remat), replayed, then the
+    # same steps eager from the same weights, while the card holds nothing
+    # else of this phase. Under the grant's cap a replayed step's pool and
+    # an eager step's working set do not fit together, so the graph is
+    # freed before the eager steps, and the two are timed in turns with
+    # the cap lifted (as phase 7a times the step).
+    init_fn, step, _ = T.make_train_step(cfg)
+    batch = torch.randint(0, cfg.vocab_size, TRAIN_BATCH, generator=gen,
+                          device="cuda")
+    targets = torch.roll(batch, -1, dims=1)
+    p_g, o_g = init_fn(_dev_gen(2), batch)
+    losses_g = [step(p_g, o_g, batch, targets)[2].item()]
+    for _ in range(2):
+        # The loss alone is kept: a name left holding the step's
+        # optimizer would keep the train graph (7.66 GB) alive.
+        out, traced["train_step"] = _replays(
+            "train_step", lambda: step(p_g, o_g, batch, targets)[2])
+        losses_g.append(out.item())
+    train_pool = graphs.pool_bytes()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    p_e, o_e = init_fn(_dev_gen(2), batch)
+    with graphs.disabled():
+        losses_e = [step(p_e, o_e, batch, targets)[2].item()
+                    for _ in range(3)]
+    same_w = all(torch.equal(a, b) for a, b in zip(p_g.parameters(),
+                                                   p_e.parameters()))
+    check(losses_g == losses_e and same_w,
+          f"9 train: replayed steps differ from eager ones: {losses_g} vs "
+          f"{losses_e}, weights equal {same_w}")
+    del p_e, o_e
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    step(p_g, o_g, batch, targets)                  # the capture again
+    fields["train_step"] = {"batch": list(TRAIN_BATCH), "remat": cfg.remat,
+                            "memory_before": memory_before,
+                            "pool_bytes": train_pool,
+                            "losses": losses_g, "bit_identical": True,
+                            "turns_cap": "none", **_turns_ms(
+        lambda: step(p_g, o_g, batch, targets),
+        lambda: step(p_g, o_g, batch, targets))}
+    del p_g, o_g, batch, targets
+    torchenv.apply_memory_fraction(grant)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(gen, cfg)
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device="cuda")
+
+    # generate 8 x (128 + 64), plain and flash prefill.
+    prompt = ids(8, 128)
+    for name, attn in (("generate", None),
+                       ("generate_flash", FA.flash_attention)):
+        def gen_call(attn=attn):
+            return S.generate(params, prompt, cfg, n_new=64, max_len=256,
+                              attn_fn=attn)
+        first = gen_call()
+        replayed, traced[name] = _replays("generate", gen_call)
+        with graphs.disabled():
+            eager = gen_call()
+        check(torch.equal(first, eager) and torch.equal(replayed, eager),
+              f"9 {name}: replayed stream differs from the eager one")
+        fields[name] = {"bit_identical": True,
+                        "peak_reserved_bytes": _peak(),
+                        **_turns_ms(gen_call, gen_call)}
+
+    # generate sampled (flash prefill): captured drawing from one
+    # generator, replayed with it and with another, against eager calls
+    # from generators seeded alike.
+    def sampled_call(g):
+        return S.generate(params, prompt, cfg, n_new=64, max_len=256,
+                          attn_fn=FA.flash_attention, temperature=0.8,
+                          generator=g)
+    got = []
+    ga, gb, ra, rb = (_dev_gen(s) for s in (21, 22, 21, 22))
+    got.append(sampled_call(ga))
+    for g in (ga, gb):
+        out, traced["generate_sampled"] = _replays(
+            "generate", lambda g=g: sampled_call(g))
+        got.append(out)
+    with graphs.disabled():
+        want = [sampled_call(g) for g in (ra, ra, rb)]
+    check(all(torch.equal(a, b) for a, b in zip(got, want))
+          and _same_draws((ga, ra), (gb, rb)),
+          "9 generate_sampled: replayed streams or generators differ from "
+          "the eager ones")
+    check(not torch.equal(got[0], got[1]), "9 generate_sampled: a replay "
+                                           "drew the capture's stream again")
+    fields["generate_sampled"] = {
+        "temperature": 0.8, "generators": 2, "bit_identical": True,
+        "peak_reserved_bytes": _peak(),
+        **_turns_ms(lambda: sampled_call(ra), lambda: sampled_call(ga))}
+
+    # Bucketed admissions of the twin's mix through the flash kernel, into
+    # a fresh state, then again into recycled slots.
+    lengths = BW.PROMPT_MIX
+    rounds = [[ids(length) for length in lengths] for _ in range(2)]
+    st_g = S.init_server_state(cfg, len(lengths), SERVE_MAX_LEN)
+    st_e = S.init_server_state(cfg, len(lengths), SERVE_MAX_LEN)
+    S.reset_admission_stats()
+
+    def admit_round(state, prompts):
+        for slot, p in enumerate(prompts):
+            S.release(state, slot)
+            S.admit_bucketed(params, state, p, slot,
+                             attn_fn=FA.flash_attention)
+
+    admit_round(st_g, rounds[0])
+    _, traced["admit"] = _replays(
+        "admit", lambda: admit_round(st_g, rounds[1]), len(lengths))
+    admissions = S.admission_stats()
+    with graphs.disabled():
+        for prompts in rounds:
+            admit_round(st_e, prompts)
+    keys = ("cache", "pos", "active", "token")
+    check(_state_equal(st_g, st_e, keys),
+          "9 admit: replayed admissions left another state than eager")
+    buckets = {S.bucket_len(length, max_len=SERVE_MAX_LEN)
+               for length in lengths}
+    check(set(admissions) == buckets
+          and all(e["jitMisses"] == 1 for e in admissions.values()),
+          f"9 admit: not one miss a bucket: {admissions}")
+    fields["admit"] = {"admissions": admissions, "bit_identical": True,
+                       "peak_reserved_bytes": _peak(),
+                       **_turns_ms(lambda: admit_round(st_e, rounds[1]),
+                                   lambda: admit_round(st_g, rounds[1]))}
+
+    # A sampled admission into slot 3, captured with one generator and
+    # replayed with another, against eager ones seeded alike.
+    def sampled_admit(state, g):
+        S.release(state, 3)
+        S.admit(params, state, rounds[0][3], 3, attn_fn=FA.flash_attention,
+                temperature=0.7, generator=g)
+    ga, gb, ra, rb = (_dev_gen(s) for s in (31, 32, 31, 32))
+    same = []
+    for g, r in ((ga, ra), (gb, rb)):
+        if g is ga:
+            sampled_admit(st_g, g)                  # the capture
+        else:
+            _, traced["admit_sampled"] = _replays(
+                "admit", lambda: sampled_admit(st_g, g))
+        with graphs.disabled():
+            sampled_admit(st_e, r)
+        same.append(_state_equal(st_g, st_e, keys))
+    check(all(same) and _same_draws((ga, ra), (gb, rb)),
+          f"9 admit_sampled: replayed admissions differ from eager ones "
+          f"({same})")
+    fields["admit_sampled"] = {"temperature": 0.7, "generators": 2,
+                               "bit_identical": True,
+                               "peak_reserved_bytes": _peak()}
+
+    # A 64-step chunk at 8 slots (one released), from the admitted state.
+    S.release(st_g, 2)
+    S.serve_chunk(params, st_g, PIECE)             # the capture
+    before = _clone_state(st_g)
+    em_g, traced["serve_chunk"] = _replays(
+        "serve_chunk", lambda: S.serve_chunk(params, st_g, PIECE)[1])
+    with graphs.disabled():
+        _, em_e = S.serve_chunk(params, before, PIECE)
+    check(torch.equal(em_g, em_e) and _state_equal(st_g, before, keys),
+          "9 serve_chunk: replayed chunk differs from the eager one")
+    check(bool((em_g[:, 2] == -1).all()), "9 serve_chunk: released slot "
+                                          "emitted")
+    fields["serve_chunk"] = {"slots": len(lengths), "n_steps": PIECE,
+                             "bit_identical": True,
+                             "peak_reserved_bytes": _peak(), **_turns_ms(
+        lambda: S.serve_chunk(params, dict(before), PIECE),
+        lambda: S.serve_chunk(params, dict(st_g), PIECE))}
+
+    # The chunk sampled (slot 1 greedy among sampled slots): each call from
+    # the same state, the capture drawing from one generator and the
+    # replay from another, against eager chunks seeded alike.
+    temps = torch.full((len(lengths),), 0.9, device="cuda")
+    temps[1] = 0.0
+    start = _clone_state(st_g)
+    ga, gb, ra, rb = (_dev_gen(s) for s in (41, 42, 41, 42))
+    same = []
+    for g, r in ((ga, ra), (gb, rb)):
+        _copy_state(st_g, start)
+        if g is ga:
+            em_g = S.serve_chunk(params, st_g, PIECE, temps, g)[1]
+        else:
+            em_g, traced["serve_chunk_sampled"] = _replays(
+                "serve_chunk", lambda: S.serve_chunk(params, st_g, PIECE,
+                                                     temps, g)[1])
+        eager_st = _clone_state(start)
+        with graphs.disabled():
+            em_e = S.serve_chunk(params, eager_st, PIECE, temps, r)[1]
+        same.append(torch.equal(em_g, em_e)
+                    and _state_equal(st_g, eager_st, keys))
+    check(all(same) and _same_draws((ga, ra), (gb, rb)),
+          f"9 serve_chunk_sampled: replayed chunks differ from eager ones "
+          f"({same})")
+    fields["serve_chunk_sampled"] = {"temperature": 0.9, "generators": 2,
+                                     "bit_identical": True,
+                                     "peak_reserved_bytes": _peak()}
+    del st_g, st_e, before, start, eager_st
+
+    # The paged chunk at 16 streams: the mix twice (prefix pages shared),
+    # one stream that self-retires inside the compared chunk, and a
+    # released stream whose unmapped table row clamps to page 0, which an
+    # active stream holds.
+    pslots = 2 * len(lengths)
+    retire_at = SERVE_MAX_LEN - PIECE - PIECE // 2
+    pages = 2 * sum(P.pages_for(min(length + 2 * PIECE, SERVE_MAX_LEN),
+                                PIECE) for length in lengths) + 64
+    pool = P.PagePool(pages, page_tokens=PIECE)
+    pst = S.init_paged_state(cfg, pslots, SERVE_MAX_LEN, pages, PIECE)
+    for slot in range(pslots - 1):
+        S.admit_paged(params, pst, pool, rounds[0][slot % len(lengths)],
+                      slot, tenant="tenant-a")
+    S.admit_paged(params, pst, pool, ids(retire_at), pslots - 1)
+    S.release_paged(pst, pool, 5)
+    S.ensure_chunk_pages(pst, pool, PIECE)
+    S._serve_chunk_paged(params, pst, PIECE, None, None)   # the capture
+    S.ensure_chunk_pages(pst, pool, PIECE)
+    holds_page0 = bool(((pst["table"] == 0) & pst["active"][:, None])
+                       .any())
+    check(holds_page0, "9 paged: no active stream holds page 0")
+    pbefore = _clone_paged(pst)
+    pem_g, traced["serve_chunk_paged"] = _replays(
+        "serve_chunk_paged",
+        lambda: S._serve_chunk_paged(params, pst, PIECE, None, None)[1])
+    with graphs.disabled():
+        _, pem_e = S._serve_chunk_paged(params, pbefore, PIECE, None, None)
+    pkeys = ("pages", "table", "pos", "active", "token")
+    check(torch.equal(pem_g, pem_e) and _state_equal(pst, pbefore, pkeys),
+          "9 paged: replayed chunk differs from the eager one")
+    live = pem_g[:, pslots - 1] >= 0
+    check(bool(live.any()) and not bool(live.all()),
+          "9 paged: the long stream did not retire inside the chunk")
+    fields["serve_chunk_paged"] = {
+        "streams": pslots, "n_steps": PIECE, "pool_pages": pages,
+        "retired_after_steps": int(live.sum()), "bit_identical": True,
+        "peak_reserved_bytes": _peak(),
+        **_turns_ms(
+            lambda: S._serve_chunk_paged(params, dict(pbefore), PIECE,
+                                         None, None),
+            lambda: S._serve_chunk_paged(params, dict(pst), PIECE, None,
+                                         None))}
+
+    # The paged chunk sampled, as the contiguous one, from the state after
+    # the compared chunk, its pages mapped for the next.
+    _copy_state(pst, pbefore)
+    S.ensure_chunk_pages(pst, pool, PIECE)
+    pbefore = _clone_paged(pst)
+    ptemps = torch.full((pslots,), 1.0, device="cuda")
+    ga, gb, ra, rb = (_dev_gen(s) for s in (51, 52, 51, 52))
+    same = []
+    for g, r in ((ga, ra), (gb, rb)):
+        _copy_state(pst, pbefore)
+        if g is ga:
+            pem_g = S._serve_chunk_paged(params, pst, PIECE, ptemps, g)[1]
+        else:
+            pem_g, traced["serve_chunk_paged_sampled"] = _replays(
+                "serve_chunk_paged", lambda: S._serve_chunk_paged(
+                    params, pst, PIECE, ptemps, g)[1])
+        eager_st = _clone_paged(pbefore)
+        with graphs.disabled():
+            pem_e = S._serve_chunk_paged(params, eager_st, PIECE, ptemps,
+                                         r)[1]
+        same.append(torch.equal(pem_g, pem_e)
+                    and _state_equal(pst, eager_st, pkeys))
+    check(all(same) and _same_draws((ga, ra), (gb, rb)),
+          f"9 serve_chunk_paged_sampled: replayed chunks differ from eager "
+          f"ones ({same})")
+    fields["serve_chunk_paged_sampled"] = {
+        "temperature": 1.0, "generators": 2, "bit_identical": True,
+        "peak_reserved_bytes": _peak()}
+    del pst, pbefore, pool, eager_st
+
+    # The forward make_forward_fn builds, at the entry's shape.
+    fwd = T.make_forward_fn(cfg)
+    toks = ids(2, 256)
+    first = fwd(params, toks)
+    replayed, traced["forward"] = _replays("forward",
+                                           lambda: fwd(params, toks))
+    with graphs.disabled():
+        eager = fwd(params, toks)
+    check(torch.equal(first, eager) and torch.equal(replayed, eager),
+          "9 forward: replayed logits differ from the eager ones")
+    fields["forward"] = {"bit_identical": True,
+                         "peak_reserved_bytes": _peak(),
+                         **_turns_ms(lambda: fwd(params, toks),
+                                     lambda: fwd(params, toks))}
+
+    captured = {}
+    for rec in graphs.CAPTURES:
+        captured.setdefault(rec["name"], []).append(rec)
+    fields["graphs"] = graphs.stats()
+    fields["replayed"] = _replayed()
+    fields["traced_launches"] = traced
+    fields["captures"] = {
+        name: {"count": len(recs),
+               "seconds": [r["seconds"] for r in recs],
+               "growth": [r["growth"] for r in recs]}
+        for name, recs in captured.items()}
+    fields["serving_pool_bytes"] = graphs.pool_bytes()
+    fields["serving_peak_reserved_bytes"] = max(
+        [torch.cuda.max_memory_reserved()]
+        + [f["peak_reserved_bytes"] for f in fields.values()
+           if isinstance(f, dict) and "peak_reserved_bytes" in f])
+    del params
+    graphs.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    return fields
 
 
 def ring_step_timings(gen: torch.Generator) -> dict:

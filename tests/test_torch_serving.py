@@ -262,7 +262,11 @@ def test_admission_stats_count_per_bucket(setup):
     for slot, n in enumerate((3, 7, 12)):
         st = S.admit_bucketed(params, st, _t(_prompt(30 + slot, n, 256)),
                               slot, buckets=(8, 16))
-    assert S.admission_stats() == {8: {"admits": 2}, 16: {"admits": 1}}
+    # The reference's shape: the second admission into bucket 8 reuses
+    # the first one's compiled key.
+    assert S.admission_stats() == {
+        8: {"admits": 2, "jitMisses": 1, "jitHits": 1},
+        16: {"admits": 1, "jitMisses": 1, "jitHits": 0}}
     S.reset_admission_stats()
     assert S.admission_stats() == {}
 

@@ -40,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
 from tpushare_torch.workload import flash_attention as FA  # noqa: E402
+from tpushare_torch.workload import graphs  # noqa: E402
 from tpushare_torch.workload import model as M  # noqa: E402
 from tpushare_torch.workload import train as T  # noqa: E402
 
@@ -60,11 +61,13 @@ def build(csrc: str, out_dir: str, name: str = "flash_bwd") -> dict:
 
 def swapped(fns: dict | None, name: str = "flash_bwd"):
     """Point the wrappers of library ``name`` at ``fns`` (None: this
-    checkout's library)."""
+    checkout's library), and drop the compiled steps, whose graphs hold
+    the kernels bound when they were captured."""
     for sym in FA._ENTRIES[name]:
         FA._fns.pop(sym, None)
         if fns is not None:
             FA._fns[sym] = fns[sym]
+    graphs.clear()
 
 
 def turns(names: list[str]) -> list[str]:

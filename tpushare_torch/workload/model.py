@@ -248,8 +248,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     x = params.embed[tokens]
     for block in params.blocks:
         if remat:
+            # The model draws no random numbers, so there is no RNG state
+            # to preserve for the recompute; saving it would read the
+            # card's generator, which a CUDA graph capture refuses.
             x = checkpoint(_run_block, block, x, positions, attn_fn, tp,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = _run_block(block, x, positions, attn_fn, tp)
     return logits_from_hidden(params, x)

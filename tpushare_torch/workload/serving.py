@@ -1,17 +1,26 @@
 """Inference serving: KV-cache prefill, single-token decode, and the
 continuous-batching slot server, ported from ``tpushare/workload/serving.py``.
 
-PyTorch runs eagerly, so every index is a concrete value: where the JAX
+Every index is checked on the host as a concrete value: where the JAX
 code clamps inside ``jit`` (``dynamic_update_slice``), this module
 validates and raises with the same messages. Cache writes are in place:
 the cache and server state handed to a function are consumed, and the
 returned ones are the same objects, updated. Everything runs under
 ``torch.inference_mode()``.
 
+The steps the JAX package jits run through :mod:`graphs`: ``generate``,
+``admit`` (so ``admit_bucketed``), ``serve_chunk`` and the paged chunk
+replay a CUDA graph on the card after their first call of a key, and run
+the same bodies eagerly on the CPU. So the bodies never read a device
+value on the host: an admission's slot and true length are 1-element
+device tensors, a sampled step's temperature is a device tensor, and the
+chunk's once-per-chunk flush has a fixed shape. The chunked and paged
+prefill pieces and tensor-parallel decode stay eager.
+
 Sampling draws from an explicit ``torch.Generator`` on the logits'
 device; it cannot reproduce JAX's threefry bits, only the contract
 (temperature 0 is greedy, the same generator state gives the same
-stream).
+stream, compiled or not).
 
 ``prefill``, ``decode_step`` and ``generate`` also run tensor-parallel:
 the rank's tp shard of the weights and its H / tp heads of the cache,
@@ -30,6 +39,7 @@ import torch.distributed as dist
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import paging
@@ -73,11 +83,20 @@ def _check_temperature(temperature: float, generator) -> None:
             "temperature > 0 requires an explicit torch.Generator")
 
 
-def _pick(logits: torch.Tensor, temperature: float,
+def _temperature(temperature: float,
+                 device: torch.device) -> torch.Tensor | None:
+    """A checked temperature as a compiled step reads it: None at 0
+    (greedy), else a 1-element fp32 tensor on ``device``."""
+    if temperature == 0:
+        return None
+    return torch.full((1,), temperature, dtype=torch.float32, device=device)
+
+
+def _pick(logits: torch.Tensor, temperature: torch.Tensor | None,
           generator: torch.Generator | None) -> torch.Tensor:
-    """Next token from [B, vocab] logits: argmax at temperature 0, else a
-    draw from softmax(logits / temperature)."""
-    if temperature <= 0:
+    """Next token from [B, vocab] logits: argmax where ``temperature`` is
+    None, else a draw from softmax(logits / temperature)."""
+    if temperature is None:
         return logits.argmax(dim=-1)
     probs = torch.softmax(logits / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -183,7 +202,13 @@ def generate(params: M.Transformer, tokens: torch.Tensor,
     stream comes back on every rank. Ranks along sp (and pp) are
     replicas. Every rank of a tp group holds the same logits, so at
     ``temperature > 0`` each must pass a generator seeded alike to pick
-    the same token."""
+    the same token.
+
+    On one device the prefill and the whole decode loop are one compiled
+    step (:mod:`graphs`) a (B, L, n_new, max_len, attn_fn, sampled), the
+    twin of the JAX ``scan``; each step's position is baked in, as
+    ``static_argnames`` bakes ``n_new``, and the temperature is an
+    input, as JAX traces it."""
     _check_temperature(temperature, generator)
     B, L = tokens.shape
     if L + n_new > max_len:
@@ -192,18 +217,32 @@ def generate(params: M.Transformer, tokens: torch.Tensor,
     tp = mesh.tp_group if mesh is not None and mesh.tp > 1 else None
     if mesh is not None:
         tokens = par.place_batch(mesh, tokens, sequence=False)
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
-                       tp=tp)
-    logits, cache = prefill(params, tokens, cache, attn_fn=attn_fn, tp=tp)
-    out = []
-    for pos in range(L, L + n_new):
-        token = _pick(logits, temperature, generator).to(tokens.dtype)
-        out.append(token)
-        logits, cache = decode_step(params, cache, token, pos, tp=tp)
-    stream = torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
-    if mesh is not None and mesh.dp > 1:
-        stream = C.all_gather(stream, mesh.dp_group, 0)
-    return stream
+
+    temp = _temperature(temperature, tokens.device)
+
+    def body(tokens, *temps):
+        t = temps[0] if temps else None
+        cache = init_cache(cfg, tokens.shape[0], max_len,
+                           device=tokens.device, tp=tp)
+        logits, cache = prefill(params, tokens, cache, attn_fn=attn_fn,
+                                tp=tp)
+        out = []
+        for pos in range(L, L + n_new):
+            token = _pick(logits, t, generator).to(tokens.dtype)
+            out.append(token)
+            logits, cache = decode_step(params, cache, token, pos, tp=tp)
+        return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
+
+    inputs = (tokens,) if temp is None else (tokens, temp)
+    if mesh is not None:
+        stream = body(*inputs)
+        if mesh.dp > 1:
+            stream = C.all_gather(stream, mesh.dp_group, 0)
+        return stream
+    return graphs.run("generate", body, inputs,
+                      static=(cfg, n_new, max_len, attn_fn),
+                      bound=params.parameters,
+                      generator=None if temp is None else generator)
 
 
 # --------------------------------------------------------------------------
@@ -241,24 +280,59 @@ def admit(params: M.Transformer, state: dict, prompt: torch.Tensor,
     ``true_len``: causal prefill keeps real tokens from seeing the pads,
     the slot's position starts at ``true_len``, and the first token
     comes from position ``true_len - 1``. ``temperature``/``generator``
-    sample that first token (``generate``'s semantics)."""
+    sample that first token (``generate``'s semantics).
+
+    An admission is one compiled step (:mod:`graphs`) a (prompt length,
+    ``attn_fn``, sampled), with the slot, true length and temperature as
+    device tensors, as the JAX package's ``_admit`` traces them; the
+    slot's position, activity and token are copied in and back out."""
     Lp = prompt.shape[0]
     max_len = state["cache"][0]["k"].shape[1]
     s, tl = _check_admit(Lp, max_len, state["pos"].shape[0], slot,
                          true_len, temperature, generator)
     if attn_fn is None:
         attn_fn = M.causal_attention
-    tokens = prompt[None, :]
-    positions = torch.arange(Lp, device=prompt.device)[None, :]
-    x = params.embed[tokens]
-    for block, slots_ in zip(params.blocks, state["cache"]):
-        q, k, v = M.qkv_proj(block, x, positions)
-        slots_["k"][s, :Lp] = k[0]
-        slots_["v"][s, :Lp] = v[0]
-        x = x + M.out_proj(block, attn_fn(q, k, v))
-        x = M.ffn_block(block, x)
-    return _finalize_admit(params, state, s, tl, x[0, tl - 1], temperature,
-                           generator)
+    cache = state["cache"]
+
+    def body(prompt, slot, true_len, pos, active, token, *temps):
+        positions = torch.arange(Lp, device=prompt.device)[None, :]
+        x = params.embed[prompt[None, :]]
+        for block, slots_ in zip(params.blocks, cache):
+            q, k, v = M.qkv_proj(block, x, positions)
+            slots_["k"][:, :Lp].index_copy_(0, slot, k)
+            slots_["v"][:, :Lp].index_copy_(0, slot, v)
+            x = x + M.out_proj(block, attn_fn(q, k, v))
+            x = M.ffn_block(block, x)
+        out = {"pos": pos, "active": active, "token": token}
+        _finalize_admit(params, out, slot, true_len,
+                        x[0].index_select(0, true_len - 1),
+                        temps[0] if temps else None, generator)
+        return pos, active, token
+
+    dev = state["pos"].device
+    temp = _temperature(temperature, dev)
+    got = graphs.run(
+        "admit", body,
+        (prompt, _scalar(s, dev), _scalar(tl, dev), state["pos"],
+         state["active"], state["token"]) + (() if temp is None else (temp,)),
+        static=(attn_fn,),
+        bound=lambda: (*params.parameters(), *_cache_tensors(cache)),
+        generator=None if temp is None else generator)
+    for name, t in zip(("pos", "active", "token"), got):
+        if t is not state[name]:
+            state[name].copy_(t)
+    return state
+
+
+def _scalar(value: int, device: torch.device) -> torch.Tensor:
+    """``value`` as a 1-element long tensor on ``device``: an index a
+    compiled body reads on the device (a 0-d one would be read on the
+    host)."""
+    return torch.full((1,), value, dtype=torch.long, device=device)
+
+
+def _cache_tensors(layers: list[dict]) -> list[torch.Tensor]:
+    return [layer[kv] for layer in layers for kv in ("k", "v")]
 
 
 def _check_admit(Lp: int, max_len: int, slots: int, slot: int,
@@ -291,17 +365,20 @@ def _check_admit(Lp: int, max_len: int, slots: int, slot: int,
     return s, tl
 
 
-def _finalize_admit(params: M.Transformer, state: dict, slot: int,
-                    true_len: int, hidden: torch.Tensor, temperature: float,
+def _finalize_admit(params: M.Transformer, state: dict, slot: torch.Tensor,
+                    true_len: torch.Tensor, hidden: torch.Tensor,
+                    temperature: torch.Tensor | None,
                     generator: torch.Generator | None) -> dict:
     """An admission's tail, for contiguous and paged state alike: the
-    first token from the final hidden state ``hidden`` [d] at position
+    first token from the final hidden state ``hidden`` [1, d] at position
     ``true_len - 1``, and the slot marked active at ``true_len`` (the
-    checks left decode room)."""
-    logits = M.logits_from_hidden(params, hidden[None])
-    state["pos"][slot] = true_len
-    state["active"][slot] = True
-    state["token"][slot] = _pick(logits, temperature, generator)[0]
+    checks left decode room). ``slot`` and ``true_len`` are
+    :func:`_scalar` tensors and ``temperature`` is :func:`_temperature`'s,
+    so nothing here is read on the host."""
+    logits = M.logits_from_hidden(params, hidden)
+    state["pos"].index_copy_(0, slot, true_len)
+    state["active"].index_fill_(0, slot, True)
+    state["token"].index_copy_(0, slot, _pick(logits, temperature, generator))
     return state
 
 
@@ -371,26 +448,76 @@ def serve_chunk(params: M.Transformer, state: dict, n_steps: int,
     t, or -1 while the slot was inactive.
 
     ``temperature`` [SLOTS] enables per-slot sampling (0 entries stay
-    greedy) from ``generator``, which is required then."""
-    temperature = _serve_temperature(state, temperature, generator)
-    cache, start_pos = state["cache"], state["pos"]
-    slots = start_pos.shape[0]
-    dev = start_pos.device
-    pos, active, token, emitted, ring = _decode_chunk(
-        params, cache, state, n_steps, temperature, generator)
+    greedy) from ``generator``, which is required then.
 
-    # Flush the ring into the cache once per chunk: row (b, t) goes to
-    # cache row start + t; steps where the slot was inactive are masked
-    # out before the index write.
-    valid = (emitted >= 0).T                            # [B, C]
-    rows = start_pos[:, None] + torch.arange(n_steps, device=dev)[None, :]
-    b_idx = torch.arange(slots, device=dev)[:, None].expand(slots, n_steps)
-    bi, ri = b_idx[valid], rows[valid]
-    for slots_, rg in zip(cache, ring):
-        slots_["k"][bi, ri] = rg["k"][valid]
-        slots_["v"][bi, ri] = rg["v"][valid]
+    A chunk is one compiled step (:mod:`graphs`) a (slots, max_len,
+    ``n_steps``, sampled): the decode steps and the flush, with the
+    temperature vector an input."""
+    temperature = _serve_temperature(state, temperature, generator)
+    cache = state["cache"]
+    slots, max_len = cache[0]["k"].shape[:2]
+
+    def body(pos, active, token, *temps):
+        start = {"pos": pos, "active": active, "token": token}
+        pos, active, token, emitted, ring = _decode_chunk(
+            params, cache, start, n_steps, temps[0] if temps else None,
+            generator)
+        # Row (b, t) goes to cache row start + t of slot b, in the
+        # [slots x max_len] rows of each layer.
+        rows = (start["pos"][:, None]
+                + torch.arange(n_steps, device=pos.device)[None, :])
+        flat = (torch.arange(slots, device=pos.device)[:, None] * max_len
+                + rows.clamp(max=max_len - 1))
+        _flush_ring([layer[kv].view(slots * max_len, *layer[kv].shape[2:])
+                     for layer in cache for kv in ("k", "v")],
+                    [rg[kv] for rg in ring for kv in ("k", "v")],
+                    flat, (emitted >= 0).T)
+        return pos, active, token, emitted
+
+    pos, active, token, emitted = _run_chunk(
+        "serve_chunk", body, state, n_steps, temperature, generator,
+        lambda: (*params.parameters(), *_cache_tensors(cache)))
     state.update(pos=pos, active=active, token=token)
     return state, emitted
+
+
+def _run_chunk(name: str, body, state: dict, n_steps: int,
+               temperature: torch.Tensor | None,
+               generator: torch.Generator | None, bound):
+    """A chunk's body through :mod:`graphs`, compiled by (slots,
+    ``n_steps``, sampled, the bound cache); ``body(pos, active, token,
+    *temperature)``."""
+    sampled = () if temperature is None else (temperature,)
+    return graphs.run(name, body,
+                      (state["pos"], state["active"], state["token"],
+                       *sampled),
+                      static=(n_steps,), bound=bound,
+                      generator=generator if sampled else None)
+
+
+def _flush_ring(dst: list[torch.Tensor], ring: list[torch.Tensor],
+                flat: torch.Tensor, valid: torch.Tensor) -> None:
+    """The once-per-chunk flush: entry (b, t) of each ring [B, C, H, D]
+    goes to row ``flat[b, t]`` of its destination [N, H, D] where
+    ``valid[b, t]``, and nothing else changes.
+
+    The write has one shape whatever the data, so it reads nothing on
+    the host: every invalid entry is sent to the row of one valid entry
+    with that entry's value (with none valid, to its own row with the
+    row's value), so duplicate targets always carry equal values and no
+    row that no valid step writes changes. Valid targets are distinct:
+    a slot's steps write distinct rows, and decode writes only a
+    stream's private pages."""
+    n = valid.numel()
+    valid, flat = valid.reshape(n), flat.reshape(n)
+    first = valid.to(torch.int8).argmax().reshape(1)
+    target = torch.where(valid, flat, flat.index_select(0, first))
+    keep = valid[:, None, None]
+    for d, r in zip(dst, ring):
+        r = r.reshape(n, *r.shape[2:])
+        canon = torch.where(valid.any(), r.index_select(0, first),
+                            d.index_select(0, target.index_select(0, first)))
+        d.index_put_((target,), torch.where(keep, r, canon))
 
 
 def _serve_temperature(state: dict, temperature,
@@ -572,7 +699,9 @@ def admit_interleaved(params: M.Transformer, state: dict,
                                     temperature=serve_temperature,
                                     generator=serve_generator)
             emitted.append(em)
-    state = _finalize_admit(params, state, s, tl, carry, temperature,
+    dev = state["pos"].device
+    state = _finalize_admit(params, state, _scalar(s, dev), _scalar(tl, dev),
+                            carry[None], _temperature(temperature, dev),
                             generator)
     if emitted:
         return state, torch.cat(emitted)
@@ -584,9 +713,11 @@ def admit_interleaved(params: M.Transformer, state: dict,
 # Bucketed admission
 # --------------------------------------------------------------------------
 
-#: bucket length -> {"admits": n}. The JAX package also counts jit-cache
-#: misses per bucket; eager PyTorch compiles nothing per shape, so there
-#: is nothing to count. Single-writer: the loop that owns admissions.
+#: bucket length -> {"admits": n, "jitMisses": n}, the JAX package's
+#: names: misses are the admissions whose key :mod:`graphs` had not
+#: compiled (graph captures on the card; the same keys on the CPU, where
+#: nothing is captured). After warm-up every admission is a hit.
+#: Single-writer: the loop that owns admissions.
 _ADMISSION_STATS: dict[int, dict[str, int]] = {}
 
 
@@ -625,19 +756,28 @@ def admit_bucketed(params: M.Transformer, state: dict, prompt: torch.Tensor,
                    attn_fn=None, temperature: float = 0.0,
                    generator: torch.Generator | None = None) -> dict:
     """:func:`admit` through the bucket table: pad to the bucket, pass the
-    real length as ``true_len``, and count the admission per bucket."""
+    real length as ``true_len``, and count the admission per bucket and
+    whether it compiled a new key (``jitMisses``)."""
     max_len = state["cache"][0]["k"].shape[1]
     padded, tl = pad_to_bucket(prompt, buckets, max_len)
+    before = graphs.cache_size("admit")
     out = admit(params, state, padded, slot, attn_fn=attn_fn, true_len=tl,
                 temperature=temperature, generator=generator)
-    entry = _ADMISSION_STATS.setdefault(int(padded.shape[0]), {"admits": 0})
+    entry = _ADMISSION_STATS.setdefault(int(padded.shape[0]),
+                                        {"admits": 0, "jitMisses": 0})
     entry["admits"] += 1
+    if graphs.cache_size("admit") > before:
+        entry["jitMisses"] += 1
     return out
 
 
 def admission_stats() -> dict[int, dict[str, int]]:
-    """Per-bucket admission counts: ``{bucket: {"admits": n}}``."""
-    return {b: dict(e) for b, e in sorted(_ADMISSION_STATS.items())}
+    """Per-bucket admission counts with derived hits, as the JAX package
+    reports them: ``{bucket: {admits, jitMisses, jitHits}}``. Misses and
+    hits count the admission step's graph captures and replays
+    (:mod:`graphs`)."""
+    return {b: dict(e, jitHits=e["admits"] - e["jitMisses"])
+            for b, e in sorted(_ADMISSION_STATS.items())}
 
 
 def reset_admission_stats() -> None:
@@ -807,8 +947,10 @@ def admit_paged(params: M.Transformer, state: dict, pool: paging.PagePool,
             carry = _prefill_paged_piece(
                 params, state, padded[i * page:(i + 1) * page], s, i, tl,
                 carry)
-        return _finalize_admit(params, state, s, tl, carry, temperature,
-                               generator)
+        dev = state["pos"].device
+        return _finalize_admit(params, state, _scalar(s, dev),
+                               _scalar(tl, dev), carry[None],
+                               _temperature(temperature, dev), generator)
     except BaseException:
         state["table"][s] = old_row
         pool.release(owner)
@@ -865,35 +1007,45 @@ def serve_chunk_paged(params: M.Transformer, state: dict,
                               generator)
 
 
+@torch.inference_mode()
 def _serve_chunk_paged(params: M.Transformer, state: dict, n_steps: int,
                        temperature: torch.Tensor | None,
                        generator: torch.Generator | None
                        ) -> tuple[dict, torch.Tensor]:
-    """The chunk itself, its pages already mapped."""
+    """The chunk itself, its pages already mapped: one compiled step
+    (:mod:`graphs`) a (streams, table, ``n_steps``, sampled)."""
     P, page, MP, max_len = _paged_dims(state)
-    start_pos = state["pos"]
-    B = start_pos.shape[0]
+    B = state["pos"].shape[0]
     H, D = state["pages"][0]["k"].shape[2:]
-    # The slot-contiguous view, gathered once per chunk. Unmapped entries
-    # clamp to page 0: their rows lie past every slot's position, where
-    # the step's mask hides them.
-    phys = state["table"].clamp(0, P - 1)                # [B, MP]
-    cache = [{"k": pg["k"][phys].view(B, max_len, H, D),
-              "v": pg["v"][phys].view(B, max_len, H, D)}
-             for pg in state["pages"]]
-    pos, active, token, emitted, ring = _decode_chunk(
-        params, cache, state, n_steps, temperature, generator)
+    pages, table = state["pages"], state["table"]
 
-    # The once-per-chunk flush, routed through the page table into the
-    # flat pool; steps where the slot was inactive are masked out.
-    valid = (emitted >= 0).T                             # [B, C]
-    rows = start_pos[:, None] + torch.arange(n_steps,
-                                             device=start_pos.device)
-    logical = (rows // page).clamp(0, MP - 1)
-    flat = (phys.gather(1, logical) * page + rows % page)[valid]
-    for pg, rg in zip(state["pages"], ring):
-        pg["k"].view(P * page, H, D)[flat] = rg["k"][valid]
-        pg["v"].view(P * page, H, D)[flat] = rg["v"][valid]
+    def body(pos, active, token, *temps):
+        # The slot-contiguous view, gathered once per chunk. Unmapped
+        # entries clamp to page 0: their rows lie past every slot's
+        # position, where the step's mask hides them.
+        phys = table.clamp(0, P - 1)                     # [B, MP]
+        cache = [{"k": pg["k"][phys].view(B, max_len, H, D),
+                  "v": pg["v"][phys].view(B, max_len, H, D)}
+                 for pg in pages]
+        start = {"pos": pos, "active": active, "token": token}
+        pos, active, token, emitted, ring = _decode_chunk(
+            params, cache, start, n_steps, temps[0] if temps else None,
+            generator)
+        # The once-per-chunk flush, routed through the page table into
+        # the flat pool.
+        rows = (start["pos"][:, None]
+                + torch.arange(n_steps, device=pos.device)[None, :])
+        logical = (rows // page).clamp(0, MP - 1)
+        flat = phys.gather(1, logical) * page + rows % page
+        _flush_ring([pg[kv].view(P * page, H, D)
+                     for pg in pages for kv in ("k", "v")],
+                    [rg[kv] for rg in ring for kv in ("k", "v")],
+                    flat, (emitted >= 0).T)
+        return pos, active, token, emitted
+
+    pos, active, token, emitted = _run_chunk(
+        "serve_chunk_paged", body, state, n_steps, temperature, generator,
+        lambda: (*params.parameters(), *_cache_tensors(pages), table))
     state.update(pos=pos, active=active, token=token)
     return state, emitted
 

@@ -7,6 +7,12 @@ the card, whose backward runs the dq and dk/dv kernels. Over a
 :class:`parallel.Mesh` each rank trains its (dp, tp, sp) shard: ring or
 Ulysses attention over sp through the same kernels, the tp pair of
 all-reduces in every block, and gradients all-reduced over dp × sp.
+
+The single-device step and :func:`make_forward_fn`'s forward are
+compiled steps (:mod:`graphs`), as the JAX package jits them: on the card
+the step's forward, backward and AdamW update replay one CUDA graph a
+batch shape. Sharded steps stay eager (their gloo collectives go through
+the host).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import parallel as par
 
@@ -99,11 +106,15 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
 
     def init_fn(generator: torch.Generator, example_tokens: torch.Tensor):
         """(params, opt_state): weights from ``generator`` (this rank's
-        shard of them under a mesh) and the optimizer over them.
+        shard of them under a mesh) and the optimizer over them, made
+        capturable for the compiled single-card step.
         ``example_tokens`` is unused, as in JAX."""
         params = M.init_params(generator, cfg, dev)
         if mesh is not None:
             params = par.shard_params(params, mesh)
+            return params, optimizer(params.parameters())
+        if dev.type == "cuda":
+            return params, optimizer(params.parameters(), capturable=True)
         return params, optimizer(params.parameters())
 
     def place_batch(tokens: torch.Tensor, targets: torch.Tensor):
@@ -133,6 +144,10 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
         them (the JAX step donates their buffers instead). Under a mesh,
         ``tokens`` and ``targets`` are this rank's shard (``place_batch``)
         and ``positions`` default to its global positions."""
+        if mesh is None:
+            loss = compiled_step(params, opt_state, tokens, targets,
+                                 positions)
+            return params, opt_state, loss
         if sequence and positions is None:
             b, ls = tokens.shape
             positions = par.global_positions(mesh, b * mesh.dp,
@@ -141,10 +156,42 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
         loss = loss_fn(params, tokens, targets, cfg, positions=positions,
                        attn_fn=attn_fn, tp=tp)
         loss.backward()
-        if mesh is not None and mesh.dp * mesh.sp > 1:
+        if mesh.dp * mesh.sp > 1:
             loss = reduce_grads(params, loss)
         opt_state.step()
         return params, opt_state, loss.detach()
+
+    def compiled_step(params, opt_state, tokens, targets, positions):
+        """The single-card step as one compiled step a batch shape: the
+        forward, backward and AdamW update; the gradients come out with
+        the loss, so each step's are the parameters' ``.grad`` as in the
+        eager step. ``zero_grad(set_to_none=True)`` runs before the
+        capture, so the graph's gradients are its own static tensors."""
+        plist = list(params.parameters())
+
+        def body(tokens, targets, *pos):
+            loss = loss_fn(params, tokens, targets, cfg,
+                           positions=pos[0] if pos else None,
+                           attn_fn=attn_fn)
+            loss.backward()
+            opt_state.step()
+            return (loss.detach(), *(p.grad for p in plist))
+
+        def bound():
+            return (*plist, *(t for state in opt_state.state.values()
+                              for t in state.values()
+                              if isinstance(t, torch.Tensor)))
+
+        hyper = tuple((k, v) for group in opt_state.param_groups
+                      for k, v in sorted(group.items()) if k != "params")
+        loss, *grads = graphs.run(
+            "train_step", body,
+            (tokens, targets) + (() if positions is None else (positions,)),
+            static=(cfg, attn_fn, hyper), bound=bound, group="train",
+            prepare=lambda: opt_state.zero_grad(set_to_none=True))
+        for p, g in zip(plist, grads):
+            p.grad = g
+        return loss
 
     return init_fn, step, place_batch
 
@@ -152,12 +199,15 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
 def make_forward_fn(cfg: M.ModelConfig, seq_len: int | None = None,
                     device: str | torch.device = "cuda"):
     """Single-device forward ``fwd(params, tokens) -> fp32 logits`` under
-    ``torch.inference_mode()``, attention from ``best_attn_fn(device)``.
+    ``torch.inference_mode()``, attention from ``best_attn_fn(device)``,
+    compiled (:mod:`graphs`) a tokens shape as the JAX package jits it.
     ``seq_len`` is taken for the JAX signature: the kernel takes every
     length, so it picks nothing here."""
     attn_fn = FA.best_attn_fn(device)
 
     @torch.inference_mode()
     def fwd(params: M.Transformer, tokens: torch.Tensor) -> torch.Tensor:
-        return M.forward(params, tokens, cfg, attn_fn=attn_fn)
+        return graphs.run(
+            "forward", lambda t: M.forward(params, t, cfg, attn_fn=attn_fn),
+            (tokens,), static=(cfg, attn_fn), bound=params.parameters)
     return fwd
