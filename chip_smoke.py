@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and the CUDA
-toolkit. It builds the flash-attention kernels (forward, and the dq and
-dk/dv backward) from the sources in this checkout, holds each against its
-plain PyTorch version, runs ``cogpucheck.py``'s co-tenancy suite (train
-and decode tenants as processes under grants carved from the card that
-NVIDIA discovery sizes), then drives the flagship LM's forward, serving
+toolkit. Phase 0 is the node side of a grant: discovery through the
+native shim, and the device plugin's allocation of a 16 GiB grant, whose
+env this process runs in. It builds the flash-attention kernels (forward,
+and the dq and dk/dv backward) from the sources in this checkout, holds
+each against its plain PyTorch version, runs ``cogpucheck.py``'s
+co-tenancy suite (train and decode tenants as processes under grants
+carved from the card that NVIDIA discovery sizes), starts a tenant in
+exactly the allocation's env that serves the flagship inside the grant
+(phase 2d), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -59,8 +63,9 @@ from torch.profiler import ProfilerActivity, profile
 import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
-from tpushare_torch.deviceplugin import discovery
+from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.runtime import launch, torchenv
+from tpushare_torch.utils import const
 from tpushare_torch.workload import checkpoint as CK
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import graphs
@@ -206,6 +211,19 @@ DLSE_SHAPES = ("b_long_prompt", "d_chunk_offsets", "ring_own",
 TRAIN_BATCH = (8, 2048)             # cochipcheck's batch, bench_train's L
 TRAIN_STEPS = 5
 GRANT_GIB = 16
+#: Phase 0's pod: its heartbeat directory is ``<usage dir>/<uid>``.
+SMOKE_POD_UID = "chip-smoke"
+#: Phase 2d: the flag that runs this script as the allocated tenant, the
+#: only variables of this process's env the tenant gets (the rest is the
+#: allocation's), its request (phase 5's ``generate``) and its deadline.
+TENANT_FLAG = "--allocated-tenant"
+TENANT_KEEP_ENV = ("PATH", "HOME", "PYTHONPATH", "TMPDIR", "LD_LIBRARY_PATH",
+                   "CUDA_HOME", "CUDA_PATH")
+TENANT_BATCH, TENANT_PROMPT, TENANT_NEW = 8, 128, 64
+TENANT_DEADLINE_S = 180
+#: The keys of a heartbeat, as the grant watchdog reads them.
+HEARTBEAT_KEYS = {"bytes_in_use", "peak_bytes", "bytes_limit", "source",
+                  "ts", "pid"}
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
 #: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
 #: the cache length, the chunk and page size and the decode steps between
@@ -297,23 +315,34 @@ def nvidia_smi(query: str) -> str:
 
 
 def main(usage_dir: str) -> int:
-    # 0. Grant: inject the device plugin's env before anything touches CUDA.
+    # 0. Grant: the node side of a grant, before anything touches CUDA
+    # (discovery never does): the native shim's inventory, the device
+    # plugin's allocation of GRANT_GIB on the first card, and this
+    # process configured from exactly the env that allocation emits.
     try:
         total_mib = int(nvidia_smi("memory.total").split()[0])
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"chip_smoke: no NVIDIA card ({exc})", file=sys.stderr)
         return 2
-    usage_file = os.path.join(usage_dir, "usage.json")
-    os.environ.update({
-        "TPUSHARE_CHIP_IDX": "0",
-        "TPUSHARE_HBM_POD_GIB": str(GRANT_GIB),
-        "TPUSHARE_HBM_CHIP_GIB": str(total_mib // 1024),
-        "TPUSHARE_USAGE_FILE": usage_file,
-    })
+    inv = discovery.discover_host()
+    check(inv is not None, "discovery found no NVIDIA card")
+    check(inv.source == "native", f"discovery ran the {inv.source} rung, "
+                                  f"not the native shim")
+    alloc = plugin.build_allocation(inv, [inv.chips[0].index], GRANT_GIB,
+                                    pod_uid=SMOKE_POD_UID,
+                                    usage_dir=usage_dir)
+    missing = [host for host, _ in alloc.devices if not os.path.exists(host)]
+    check(not missing, f"the allocation mounts devices that do not exist: "
+                       f"{missing}")
+    usage_file = alloc.envs[const.ENV_USAGE_FILE]
+    os.environ.update(alloc.envs)
     grant = torchenv.configure()
-    phase("0 grant", chip_ids=list(grant.chip_ids),
+    check(os.environ[const.ENV_CUDA_VISIBLE_DEVICES] == "0",
+          f"CUDA_VISIBLE_DEVICES {os.environ[const.ENV_CUDA_VISIBLE_DEVICES]}")
+    phase("0 grant", source=inv.source, chip_ids=list(grant.chip_ids),
           hbm_pod_gib=grant.hbm_pod_gib, hbm_chip_gib=grant.hbm_chip_gib,
-          cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"))
+          envs=alloc.envs, devices=[host for host, _ in alloc.devices],
+          mounts=alloc.mounts, annotations=alloc.annotations)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -325,19 +354,24 @@ def main(usage_dir: str) -> int:
     check(cap == (9, 0), f"needs compute capability (9, 0), got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # What the device plugin would advertise for this host: as many cards
-    # as torch sees, none sized past what nvidia-smi says it holds.
-    inv = discovery.discover_host()
-    check(inv is not None, "discovery found no NVIDIA card")
+    # What the device plugin advertises for this host (phase 0's
+    # inventory): as many cards as torch sees, none sized past what
+    # nvidia-smi says it holds.
+    chips = plugin.chip_devices(inv)
     rungs = {name: scan() for name, scan in (
+        ("native", lambda: discovery.NativeDiscovery().discover()),
         ("devfs", discovery.devfs_scan), ("sysfs", discovery.sysfs_scan),
         ("procfs", discovery.procfs_scan), ("env", discovery.env_discover))}
     phase("1 device", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, capability=list(cap),
           count=torch.cuda.device_count(), memory_total_mib=total_mib,
           inventory=dataclasses.asdict(inv),
+          advertised={"hbm": len(plugin.hbm_devices(inv)),
+                      "chips": [(d.id, d.health) for d in chips]},
           rungs={name: r and [r.chip_count, r.tpu_type]
                  for name, r in rungs.items()})
+    check({d.health for d in chips} == {plugin.HEALTHY},
+          "an advertised card is unhealthy")
     check(inv.chip_count == torch.cuda.device_count(),
           f"discovery counts {inv.chip_count} cards, torch "
           f"{torch.cuda.device_count()}")
@@ -358,6 +392,12 @@ def main(usage_dir: str) -> int:
     # 2c. Co-tenancy: cogpucheck's suite, once the kernels are built and
     # before phase 3 allocates, so this process holds only its context.
     cotenancy = cotenancy_phase()
+
+    # 2d. A tenant started in exactly the allocation's env serves the
+    # flagship through the forward kernel inside the grant's cap and
+    # heartbeats where the allocation mounted its usage file.
+    tenant = allocated_tenant_phase(alloc, inv.chips[0].hbm_gib)
+    phase("2d allocated tenant", card=card, **tenant)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -604,7 +644,7 @@ def main(usage_dir: str) -> int:
           slot_tokens=int((emitted >= 0).sum().item()),
           admissions=S.admission_stats(), prefills=prefills,
           launches=launches, replayed=_replayed())
-    replayed = {"serving": _replayed()}
+    replayed = {"serving": _replayed(), "allocated_tenant": tenant["replayed"]}
     del state, cache
 
     # 5c. Chunked, interleaved and paged admission and the paged server,
@@ -645,8 +685,7 @@ def main(usage_dir: str) -> int:
     snap = torchenv.write_usage()
     with open(usage_file, encoding="utf-8") as f:
         beat = json.load(f)
-    check(set(beat) == {"bytes_in_use", "peak_bytes", "bytes_limit",
-                        "source", "ts", "pid"}, f"heartbeat keys {set(beat)}")
+    check(set(beat) == HEARTBEAT_KEYS, f"heartbeat keys {set(beat)}")
     check(beat["bytes_in_use"] > 0 and beat == snap, "empty heartbeat")
     cap_bytes = fraction * torch.cuda.get_device_properties(0).total_memory
     try:
@@ -707,6 +746,7 @@ def main(usage_dir: str) -> int:
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
+               "allocated_tenant": tenant["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -1030,6 +1070,114 @@ def cotenancy_phase() -> dict:
           f"generates")
     return {"cotenancy_train": tr["launches"],
             "cotenancy_decode": de["launches"]}
+
+
+def tenant_env(alloc: plugin.ContainerAllocation, environ=None) -> dict:
+    """Phase 2d's tenant env: ``TENANT_KEEP_ENV`` of ``environ`` (this
+    process's by default), this checkout first on ``PYTHONPATH``, and
+    the allocation's envs; nothing else."""
+    src = os.environ if environ is None else environ
+    env = {k: src[k] for k in TENANT_KEEP_ENV if k in src}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH")) if p)
+    return {**env, **alloc.envs}
+
+
+def allocated_tenant_phase(alloc: plugin.ContainerAllocation,
+                           card_gib: int) -> dict:
+    """Phase 2d: start ``python3 chip_smoke.py --allocated-tenant`` with
+    only ``TENANT_KEEP_ENV`` of this process's env and the allocation's
+    envs (none of this process's ``TPUSHARE_*`` or
+    ``CUDA_VISIBLE_DEVICES``), and hold what it prints: one card, the
+    grant's cap, ``n_layers`` forward launches a prefill, and a heartbeat
+    with the watchdog's keys, within the grant, in the allocation's usage
+    file. Returns the phase's fields; ``launches`` is the tenant's
+    forward count."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = tenant_env(alloc)
+    t0 = time.perf_counter()
+    proc = subprocess.run(["python3", os.path.join(repo, "chip_smoke.py"),
+                           TENANT_FLAG], env=env, cwd=repo,
+                          capture_output=True, text=True,
+                          timeout=TENANT_DEADLINE_S)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(proc.returncode == 0 and lines,
+          f"allocated tenant exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    got = json.loads(lines[-1])
+    want_cap = round(int(alloc.envs[const.ENV_HBM_POD]) / card_gib
+                     * torchenv.DEFAULT_HEADROOM, 3)
+    check(got["device_count"] == 1, f"the tenant sees {got['device_count']} "
+                                    f"cards")
+    check(got["cuda_visible_devices"] == "0",
+          f"the tenant's CUDA_VISIBLE_DEVICES {got['cuda_visible_devices']}")
+    check(got["cap"] == want_cap, f"the tenant's cap {got['cap']}, want "
+                                  f"{want_cap}")
+    check(got["launches"] == got["n_layers"] * got["prefills"],
+          f"the tenant launched the forward kernel {got['launches']} times "
+          f"for {got['prefills']} prefills of {got['n_layers']} layers")
+    beat = got["heartbeat"]
+    with open(alloc.envs[const.ENV_USAGE_FILE], encoding="utf-8") as f:
+        on_disk = json.load(f)
+    check(set(beat) == HEARTBEAT_KEYS and on_disk == beat,
+          f"the tenant's heartbeat {beat} against its usage file {on_disk}")
+    grant_bytes = int(alloc.envs[const.ENV_HBM_POD]) << 30
+    check(0 < beat["bytes_in_use"] <= grant_bytes,
+          f"the tenant holds {beat['bytes_in_use']} bytes under a "
+          f"{grant_bytes}-byte grant")
+    return {**got, "seconds": seconds, "grant_bytes": grant_bytes,
+            "env_keys": sorted(env)}
+
+
+def allocated_tenant() -> int:
+    """The tenant of phase 2d, run in the allocation's env: configure
+    from the grant before CUDA starts, cap the allocator, build the
+    flagship from a seed, serve ``generate`` 8 x (128 + 64) twice through
+    ``best_attn_fn`` (the first call captures, the second replays),
+    heartbeat to the allocation's usage file, and print one JSON line."""
+    grant = torchenv.configure()
+    check(grant is not None, "the tenant has no grant in its env")
+    cap = torchenv.apply_memory_fraction(grant)
+    cfg = M.ModelConfig()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (TENANT_BATCH, TENANT_PROMPT),
+        generator=torch.Generator(device="cuda").manual_seed(1),
+        device="cuda")
+    attn = FA.best_attn_fn()
+    _zero_counts()
+    graphs.reset_stats()
+    outs, seconds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(S.generate(params, prompt, cfg, n_new=TENANT_NEW,
+                               max_len=TENANT_PROMPT + TENANT_NEW,
+                               attn_fn=attn))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    check(torch.equal(outs[0], outs[1]), "two greedy requests differ")
+    check(tuple(outs[0].shape) == (TENANT_BATCH, TENANT_PROMPT + TENANT_NEW)
+          and torch.equal(outs[0][:, :TENANT_PROMPT], prompt),
+          f"generate gave {tuple(outs[0].shape)}")
+    beat = torchenv.write_usage()
+    check(beat is not None, "the tenant wrote no heartbeat")
+    print(json.dumps({
+        "device_count": torch.cuda.device_count(),
+        "cuda_visible_devices": os.environ.get(
+            const.ENV_CUDA_VISIBLE_DEVICES),
+        "nvidia_visible_devices": os.environ.get(
+            const.ENV_NVIDIA_VISIBLE_DEVICES),
+        "chip_ids": list(grant.chip_ids), "cap": cap,
+        "launches": FA.FLASH_FWD_LAUNCHES, "prefills": len(outs),
+        "n_layers": cfg.n_layers, "replayed": _replayed(),
+        "first_request_s": seconds[0], "request_s": seconds[1],
+        "tok_per_s": TENANT_BATCH * TENANT_NEW / seconds[1],
+        "heartbeat": beat}), flush=True)
+    return 0
 
 
 def _kernel_name(mangled: str) -> str:
@@ -3122,6 +3270,8 @@ def ring_step_timings(gen: torch.Generator) -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [TENANT_FLAG]:
+        sys.exit(allocated_tenant())
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         code = main(tmp)
     sys.exit(code)

@@ -2,7 +2,8 @@
 ``cochipcheck.py``.
 
 Tenant processes share one card's memory under grants, each started with
-the env the device plugin injects (``_tenant_env``) and configured by the
+the env the device plugin's allocation emits (``_tenant_env``, through
+``deviceplugin.plugin.build_allocation``) and configured by the
 port's runtime contract (``torchenv.configure`` before CUDA starts, then
 ``torchenv.apply_memory_fraction``, which caps the caching allocator at
 the grant's fraction). The card's GiB comes from the port's NVIDIA
@@ -56,7 +57,7 @@ import time
 
 import torch
 
-from tpushare_torch.deviceplugin import discovery
+from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import flash_attention as FA
@@ -80,16 +81,34 @@ ESTIMATOR_MAX_LEN = 4096
 MATMUL_N, MATMUL_CHAIN = 4096, 16
 
 
+@dataclasses.dataclass(frozen=True)
+class Card:
+    """The card the co-tenants share: the host's inventory, the card's
+    record in it (host index, model, usable GiB) and the CUDA id this
+    process reaches it by."""
+
+    inv: discovery.HostInventory
+    chip: discovery.ChipSpec
+    cuda_id: str
+
+
 # ---------------------------------------------------------------------------
 # Tenant bodies (run in subprocesses with the injected env already set)
 # ---------------------------------------------------------------------------
 
-def _tenant_env(grant_gib: float, card_gib: int) -> dict:
-    """The env the device plugin would inject for this grant."""
-    env = dict(os.environ)
-    env[const.ENV_CHIP_IDX] = "0"
-    env[const.ENV_HBM_POD] = str(int(grant_gib))
-    env[const.ENV_HBM_CHIP] = str(card_gib)
+def _tenant_env(grant_gib: float, card: Card) -> dict:
+    """This process's env with the envs the device plugin's ``Allocate``
+    emits for this grant (``build_allocation`` on the shared card's host
+    index in the discovered inventory; no heartbeat file, which
+    ``_spawn`` gives only the tenants that beat). No container runtime
+    renumbers these processes' cards, so a tenant reaches the card by the
+    CUDA id this process reaches it by, not by the allocation's
+    in-container ordinal 0."""
+    alloc = plugin.build_allocation(card.inv, [card.chip.index],
+                                    int(grant_gib), pod_uid="cogpucheck",
+                                    usage_dir="")
+    env = {**os.environ, **alloc.envs}
+    env[const.ENV_CUDA_VISIBLE_DEVICES] = card.cuda_id
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
@@ -340,11 +359,11 @@ def _pump(stream, lines: queue.Queue) -> None:
     lines.put(None)
 
 
-def _spawn(tenant: str, grant_gib: float, *args, card_gib: int,
+def _spawn(tenant: str, grant_gib: float, *args, card: Card,
            spawned: list, extra_env: dict | None = None) -> _Tenant:
     cmd = [sys.executable, os.path.abspath(__file__), "--tenant", tenant,
            "--tenant-args", ",".join(str(a) for a in args)]
-    env = _tenant_env(grant_gib, card_gib)
+    env = _tenant_env(grant_gib, card)
     env.pop(const.ENV_USAGE_FILE, None)   # only the tenants given one beat
     env.update(extra_env or {})
     err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
@@ -447,12 +466,11 @@ def _compute_apps() -> dict[int, int] | None:
     return apps
 
 
-def card_gib(environ=None) -> tuple[str, int]:
-    """(model, usable GiB) of the card ``CUDA_VISIBLE_DEVICES`` names
-    (its first entry; card 0 when unset), from discovery. CUDA numbers
-    the cards a process sees from 0 in discovery's order, whatever their
-    device nodes' numbers (a container given ``/dev/nvidia5`` alone calls
-    it card 0)."""
+def find_card(environ=None) -> Card:
+    """The card ``CUDA_VISIBLE_DEVICES`` names (its first entry; card 0
+    when unset), from discovery. CUDA numbers the cards a process sees
+    from 0 in discovery's order, whatever their device nodes' numbers (a
+    container given ``/dev/nvidia5`` alone calls it card 0)."""
     env = os.environ if environ is None else environ
     inv = discovery.discover_host(environ=env)
     if inv is None:
@@ -461,19 +479,26 @@ def card_gib(environ=None) -> tuple[str, int]:
     pos = int(first) if first.isdigit() else 0
     if pos >= inv.chip_count or inv.chips[pos].hbm_gib <= 0:
         raise RuntimeError(f"discovery cannot size card {first!r}: {inv}")
-    return inv.chips[pos].chip_type, inv.chips[pos].hbm_gib
+    return Card(inv, inv.chips[pos], first or "0")
+
+
+def card_gib(environ=None) -> tuple[str, int]:
+    """(model, usable GiB) of :func:`find_card`'s card."""
+    chip = find_card(environ).chip
+    return chip.chip_type, chip.hbm_gib
 
 
 def run_suite(smoke: bool) -> dict:
     """Build the kernels, run the six phases and return the report, its
     ``gates`` and ``ok``. Every tenant started is stopped on the way
     out."""
-    model, card = card_gib()
+    found = find_card()
+    model, card = found.chip.chip_type, found.chip.hbm_gib
     FA.build()
     spawned: list[_Tenant] = []
 
     def spawn(tenant, grant_gib, *args, **kw):
-        return _spawn(tenant, grant_gib, *args, card_gib=card,
+        return _spawn(tenant, grant_gib, *args, card=found,
                       spawned=spawned, **kw)
 
     share = card * SHARE[0] // SHARE[1]

@@ -36,11 +36,19 @@ CARD_GIB = 79
 GRANT_KEYS = (const.ENV_CHIP_IDX, const.ENV_HBM_POD, const.ENV_HBM_CHIP)
 
 
+def _one_card(gib, index=0, cuda_id="0"):
+    """A host of one card (host index ``index``) as ``find_card`` gives
+    it."""
+    chip = discovery.ChipSpec(index, gib, f"/dev/nvidia{index}", "h100-80gb")
+    return cogpucheck.Card(discovery.HostInventory(
+        "h100-80gb", "", chips=(chip,), source="native"), chip, cuda_id)
+
+
 @pytest.mark.parametrize("grant,card", [(7, 16), (4, 79), (34, 79),
                                         (79, 79), (6.5, 80)])
 def test_tenant_env_matches_cochipcheck(grant, card):
     want = cochipcheck._tenant_env(grant, card)
-    got = cogpucheck._tenant_env(grant, card)
+    got = cogpucheck._tenant_env(grant, _one_card(card))
     assert {k: got[k] for k in GRANT_KEYS} == {k: want[k]
                                                 for k in GRANT_KEYS}
     assert got["PYTHONPATH"].split(os.pathsep)[0] == REPO
@@ -69,7 +77,7 @@ def _return_keys(fn_name):
 @pytest.fixture
 def granted(monkeypatch):
     """The env a 7/16 grant of a 79 GiB card injects, restored after."""
-    env = cogpucheck._tenant_env(CARD_GIB * 7 // 16, CARD_GIB)
+    env = cogpucheck._tenant_env(CARD_GIB * 7 // 16, _one_card(CARD_GIB))
     for key in GRANT_KEYS:
         monkeypatch.setenv(key, env[key])
     # Set, then removed, so that configure()'s setdefault is undone after.
@@ -124,6 +132,27 @@ def test_card_gib_counts_cuda_ordinals_in_discovery_order(monkeypatch,
     monkeypatch.setattr(discovery, "discover_host", lambda environ: inv)
     env = {} if visible is None else {"CUDA_VISIBLE_DEVICES": visible}
     assert cogpucheck.card_gib(env)[1] == want
+
+
+@pytest.mark.parametrize("visible,index,cuda_id", [
+    (None, 5, "0"), ("0", 5, "0"), ("1", 7, "1"), ("1,0", 7, "1")])
+def test_tenant_env_grants_the_discovered_host_card(monkeypatch, visible,
+                                                    index, cuda_id):
+    """The co-tenants' allocation names the shared card by its host index
+    (``TPUSHARE_CHIP_IDX``, ``NVIDIA_VISIBLE_DEVICES``) and keeps the CUDA
+    id this process reaches it by: no container renumbers it."""
+    inv = discovery.HostInventory("", "", source="native", chips=(
+        discovery.ChipSpec(5, 79, "/dev/nvidia5", "h100-80gb"),
+        discovery.ChipSpec(7, 79, "/dev/nvidia7", "h100-80gb")))
+    monkeypatch.setattr(discovery, "discover_host", lambda environ: inv)
+    env = {} if visible is None else {"CUDA_VISIBLE_DEVICES": visible}
+    card = cogpucheck.find_card(env)
+    assert (card.chip.index, card.cuda_id) == (index, cuda_id)
+    got = cogpucheck._tenant_env(16, card)
+    assert got[const.ENV_CHIP_IDX] == str(index)
+    assert got[const.ENV_NVIDIA_VISIBLE_DEVICES] == str(index)
+    assert got[const.ENV_CUDA_VISIBLE_DEVICES] == cuda_id
+    assert torchenv.read_grant(got).chip_ids == (index,)
 
 
 def test_card_gib_refuses_what_discovery_cannot_size(monkeypatch):

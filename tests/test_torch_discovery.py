@@ -1,6 +1,8 @@
 """The port's NVIDIA discovery (``tpushare_torch/deviceplugin/discovery.py``)
 on fake devfs, sysfs and procfs roots, and its inventory types against
-the JAX package's."""
+the JAX package's. The device nodes are counted by the native shim's rung
+(built with ``g++``; its own tests are in
+``tests/test_torch_native_discovery.py``), the rest by the Python rungs."""
 
 import dataclasses
 
@@ -59,7 +61,7 @@ def _discover(host, **kw):
 
 def test_devfs_counts_cards_not_control_nodes(host):
     inv = _discover(host)
-    assert inv.source == "devfs" and inv.chip_count == 4
+    assert inv.source == "native" and inv.chip_count == 4
     assert [c.index for c in inv.chips] == [0, 1, 2, 3]
     assert inv.chips[2].device_path.endswith("/dev/nvidia2")
     # Named by the procfs model line: 79 usable GiB each.
@@ -130,10 +132,10 @@ def test_gke_label(tmp_path, labels, model, count):
 
 
 @pytest.mark.parametrize("visible,source,indices", [
-    ("0", "devfs", [0]),
-    ("0,2", "devfs", [0, 2]),
-    ("all", "devfs", [0, 2]),
-    ("GPU-4f2f1c9e-0000-0000-0000-000000000001", "devfs", [0, 2]),
+    ("0", "native", [0]),
+    ("0,2", "native", [0, 2]),
+    ("all", "native", [0, 2]),
+    ("GPU-4f2f1c9e-0000-0000-0000-000000000001", "native", [0, 2]),
     ("5", "env", [5]),
 ])
 def test_visible_devices_restrict_the_file_rungs(tmp_path, visible, source,
@@ -157,7 +159,7 @@ def test_chain_order_and_none_when_every_rung_misses(host, tmp_path):
     none = str(tmp_path / "none")
     env = {D.ENV_VISIBLE_DEVICES: "0", D.ENV_GPU_MODEL: "l4"}
     labels = {D.GKE_ACCELERATOR_LABEL: "nvidia-l4"}
-    rungs = [("devfs_root", "devfs"), ("sysfs_root", "sysfs"),
+    rungs = [("devfs_root", "native"), ("sysfs_root", "sysfs"),
              ("procfs_root", "procfs")]
     kw = {**host, "environ": env, "node_labels": labels, "smi_path": NO_SMI}
     for i, (_, source) in enumerate(rungs):
@@ -186,7 +188,7 @@ def test_an_unnamed_card_takes_the_hint(tmp_path):
                           environ={D.ENV_GPU_MODEL: "NVIDIA L4"},
                           smi_path=NO_SMI)
     assert (inv.source, inv.tpu_type, inv.chips[0].hbm_gib) == (
-        "devfs", "l4", 22)
+        "native", "l4", 22)
     inv = D.discover_host(str(dev), none, none, environ={}, smi_path=NO_SMI)
     assert (inv.tpu_type, inv.total_hbm_gib) == ("", 0)
 
@@ -213,7 +215,7 @@ def test_nvidia_smi_names_a_card_no_file_names(tmp_path):
                           environ={D.ENV_VISIBLE_DEVICES: "0",
                                    D.ENV_GPU_MODEL: "l4"},
                           smi_path=smi)
-    assert (inv.source, inv.chip_count, inv.tpu_type) == ("devfs", 1,
+    assert (inv.source, inv.chip_count, inv.tpu_type) == ("native", 1,
                                                           "h100-80gb")
     assert inv.chips[0].hbm_gib == 79
     assert D.smi_models(NO_SMI) == {}

@@ -128,6 +128,7 @@ def _port_files():
     yield os.path.join(REPO, "tools", "estimator_peak.py")
     yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
     yield os.path.join(REPO, "tools", "nccl_gang.py")
+    yield os.path.join(REPO, "tools", "ring_model_fit.py")
     yield os.path.join(REPO, "tests", "torch_parallel_rank.py")
     yield os.path.join(REPO, "tests", "torch_pipeline_rank.py")
     yield os.path.join(REPO, "tests", "torch_checkpoint_rank.py")
@@ -152,6 +153,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "workload", "moe.py"),
                  ("tpushare_torch", "workload", "checkpoint.py"),
                  ("tpushare_torch", "deviceplugin", "discovery.py"),
+                 ("tpushare_torch", "deviceplugin", "plugin.py"),
+                 ("tpushare_torch", "workload", "parallel.py"),
+                 ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):
         assert os.path.join(REPO, *name) in files
     for path in files:

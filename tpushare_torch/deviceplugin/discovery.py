@@ -4,9 +4,21 @@ Counterpart of ``tpushare/deviceplugin/discovery.py`` for NVIDIA cards,
 with its own :class:`ChipSpec` and :class:`HostInventory` (the same
 fields and properties). The chain runs in order, first hit wins:
 
-1. **devfs** -- ``<devfs>/nvidia<N>``, one node per card. The control
-   nodes (``nvidiactl``, ``nvidia-uvm``, ``nvidia-uvm-tools``,
-   ``nvidia-modeset``, ``nvidia-caps/``) are not cards.
+1. **Native shim** -- ``tpushare_torch/native/nvdisc.cc``, the twin of
+   ``native/tpudisc.cc``, through ``ctypes``: the ``nvidia<N>`` nodes of
+   devfs (and of ``<devfs>/nvidia/``), each tied to its PCI function by
+   the kernel module's procfs where it shows one. It is built with
+   ``$CXX`` (``g++`` by default) at first use into ``build/`` in the
+   checkout, named by the hash of its source; ``NVDISC_LIB`` names a
+   prebuilt library instead. A failed build or load raises: the chain
+   falls through only when the shim runs and finds no card. It counts
+   by :func:`devfs_scan`'s rule (``<devfs>/nvidia<N>``, one node per
+   card; the control nodes ``nvidiactl``, ``nvidia-uvm``,
+   ``nvidia-uvm-tools``, ``nvidia-modeset`` and ``nvidia-caps/`` are
+   not cards), so that Python scan is no rung of its own: it would only
+   run after the shim found nothing among the same nodes. It stays as
+   the shim's reference in the tests and in the smoke's view of each
+   rung.
 2. **sysfs** -- PCI functions under ``<sysfs>/bus/pci/devices`` with
    NVIDIA's vendor id and a display or 3D class (``0x03xxxx``). NVSwitches
    and the cards' audio and USB functions carry the same vendor id.
@@ -29,12 +41,19 @@ what the card holds.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import glob
+import hashlib
 import logging
 import os
 import re
 import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+from tpushare_torch.utils import const
 
 log = logging.getLogger(__name__)
 
@@ -71,7 +90,7 @@ NVIDIA_VENDOR = 0x10de
 #: PCI base class of display controllers (VGA 0x0300, 3D 0x0302).
 _DISPLAY_CLASS = 0x03
 
-ENV_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
+ENV_VISIBLE_DEVICES = const.ENV_NVIDIA_VISIBLE_DEVICES
 #: The model hint for the environment rung (for example ``h100-80gb`` or
 #: ``NVIDIA H100 80GB HBM3``), set on the device plugin's pod.
 ENV_GPU_MODEL = "TPUSHARE_GPU_MODEL"
@@ -152,7 +171,142 @@ def _read(path: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Rung 1: devfs
+# Rung 1: the native shim (ctypes over tpushare_torch/native/nvdisc.cc)
+# ---------------------------------------------------------------------------
+
+_NATIVE_SRC = Path(__file__).resolve().parents[1] / "native" / "nvdisc.cc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpushare_torch"
+#: A prebuilt shim to load instead of building one (the twin of the JAX
+#: package's ``TPUDISC_LIB``).
+ENV_NATIVE_LIB = "NVDISC_LIB"
+_MAX_CARDS = 64
+_native_lock = threading.Lock()
+_native_libs: dict[str, ctypes.CDLL] = {}
+
+
+class _NvdiscCard(ctypes.Structure):
+    """Mirror of ``struct NvdiscCard`` in native/nvdisc.cc."""
+
+    _fields_ = [
+        ("index", ctypes.c_int32),
+        ("pci_vendor", ctypes.c_int32),
+        ("pci_device", ctypes.c_int32),
+        ("numa_node", ctypes.c_int32),
+        ("device_path", ctypes.c_char * 256),
+        ("bus_id", ctypes.c_char * 32),
+        ("model", ctypes.c_char * 64),
+    ]
+
+
+def native_lib_path() -> Path:
+    """Where the shim built from this checkout's ``nvdisc.cc`` lives,
+    named by the source's hash (a changed source builds anew)."""
+    digest = hashlib.sha256(_NATIVE_SRC.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"libnvdisc-{digest}.so"
+
+
+def build_native() -> Path:
+    """Build the shim with ``$CXX`` (``g++`` by default) unless a build
+    of its exact source exists; its path. Raises ``RuntimeError`` with
+    the compiler's output when the build fails."""
+    lib = native_lib_path()
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [os.environ.get("CXX") or "g++", "-O2", "-Wall", "-Wextra",
+           "-fPIC", "-std=c++17", "-shared", "-o", tmp, str(_NATIVE_SRC)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {_NATIVE_SRC.name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    except (OSError, subprocess.SubprocessError) as exc:
+        raise RuntimeError(f"building {_NATIVE_SRC.name} failed: "
+                           f"{' '.join(cmd)}: {exc}") from exc
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def _load_native(path: str) -> ctypes.CDLL:
+    """The shim at ``path``, loaded and typed once a process; raises when
+    it does not load or its card record is not :class:`_NvdiscCard`'s
+    size."""
+    if path in _native_libs:
+        return _native_libs[path]
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as exc:
+        raise RuntimeError(f"cannot load the discovery shim {path}: "
+                           f"{exc}") from exc
+    lib.nvdisc_enumerate.restype = ctypes.c_int
+    lib.nvdisc_enumerate.argtypes = [
+        ctypes.POINTER(_NvdiscCard), ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_char_p]
+    lib.nvdisc_version.restype = ctypes.c_char_p
+    lib.nvdisc_struct_size.restype = ctypes.c_int
+    size = lib.nvdisc_struct_size()
+    if size != ctypes.sizeof(_NvdiscCard):
+        raise RuntimeError(f"{path}: its card record is {size} bytes, "
+                           f"_NvdiscCard {ctypes.sizeof(_NvdiscCard)}")
+    _native_libs[path] = lib
+    return lib
+
+
+class NativeDiscovery:
+    """Discovery through the C++ shim: ``$NVDISC_LIB``, else the shim
+    built from this checkout (built at first use). Raises when the shim
+    cannot be built or loaded."""
+
+    def __init__(self, devfs_root: str = "/dev", sysfs_root: str = "/sys",
+                 procfs_root: str = "/proc"):
+        self.devfs_root = devfs_root
+        self.sysfs_root = sysfs_root
+        self.procfs_root = procfs_root
+        with _native_lock:
+            path = os.environ.get(ENV_NATIVE_LIB) or str(build_native())
+            self.lib = _load_native(path)
+
+    def enumerate(self) -> list[_NvdiscCard]:
+        """The shim's card records, sorted by index."""
+        buf = (_NvdiscCard * _MAX_CARDS)()
+        n = self.lib.nvdisc_enumerate(
+            buf, _MAX_CARDS, self.devfs_root.encode(),
+            self.sysfs_root.encode(), self.procfs_root.encode())
+        if n < 0:
+            raise RuntimeError(f"nvdisc_enumerate refused its arguments "
+                               f"({n})")
+        return list(buf[:n])
+
+    def discover(self, model_hint: str = "") -> HostInventory | None:
+        """The cards the shim counts, each named by its PCI device id or
+        its model line where the shim found them, else ``model_hint``;
+        None when it counts none."""
+        cards = self.enumerate()
+        if not cards:
+            return None
+        chips = []
+        for raw in cards:
+            model = ((PCI_DEVICE_MODELS.get(raw.pci_device, "")
+                      if raw.pci_vendor == NVIDIA_VENDOR else "")
+                     or parse_model(raw.model.decode()) or model_hint)
+            chips.append(ChipSpec(
+                index=raw.index, hbm_gib=HBM_GIB_BY_TYPE.get(model, 0),
+                device_path=raw.device_path.decode(), chip_type=model,
+                numa_node=raw.numa_node))
+        return HostInventory(
+            tpu_type=next((c.chip_type for c in chips if c.chip_type), ""),
+            topology="", chips=tuple(chips), source="native")
+
+
+# ---------------------------------------------------------------------------
+# The shim's reference: devfs in Python
 # ---------------------------------------------------------------------------
 
 _NODE_RE = re.compile(r"nvidia(\d+)$")
@@ -308,8 +462,23 @@ def gke_label_discover(labels: dict[str, str]) -> HostInventory | None:
 
 
 # ---------------------------------------------------------------------------
-# The chain
+# Fake (tests) + the chain
 # ---------------------------------------------------------------------------
+
+def fake_inventory(chips: int = 4, hbm_gib: int | None = None,
+                   tpu_type: str = "h100-80gb") -> HostInventory:
+    """A synthetic host of ``chips`` cards of ``tpu_type`` (its usable
+    GiB unless ``hbm_gib`` says otherwise), device paths under
+    ``/fake``."""
+    gib = HBM_GIB_BY_TYPE.get(tpu_type, 0) if hbm_gib is None else hbm_gib
+    return HostInventory(
+        tpu_type=tpu_type, topology="",
+        chips=tuple(ChipSpec(index=i, hbm_gib=gib,
+                             device_path=f"/fake/nvidia{i}",
+                             chip_type=tpu_type)
+                    for i in range(chips)),
+        source="fake")
+
 
 def _only(inv: HostInventory | None,
           indices: set[int] | None) -> HostInventory | None:
@@ -348,7 +517,8 @@ def discover_host(devfs_root: str = "/dev", sysfs_root: str = "/sys",
     ids = _visible_ids(env)
     visible = ({int(p) for p in ids} if ids and all(p.isdigit() for p in ids)
                else None)
-    inv = (_only(devfs_scan(devfs_root, model), visible)
+    shim = NativeDiscovery(devfs_root, sysfs_root, procfs_root)
+    inv = (_only(shim.discover(model), visible)
            or _only(sysfs_scan(sysfs_root, model), visible)
            or _only(procfs_scan(procfs_root, model), visible)
            or env_discover(env, model)

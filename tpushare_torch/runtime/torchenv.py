@@ -37,7 +37,7 @@ from tpushare_torch.utils.device import resolve_device
 #: Safety headroom applied to the granted fraction.
 DEFAULT_HEADROOM = 0.9
 
-ENV_CUDA_VISIBLE_DEVICES = "CUDA_VISIBLE_DEVICES"
+ENV_CUDA_VISIBLE_DEVICES = const.ENV_CUDA_VISIBLE_DEVICES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +76,16 @@ def read_grant(environ=None) -> ShareGrant | None:
 
 def configure(environ=None) -> ShareGrant | None:
     """Restrict the process to its granted card(s) before CUDA starts.
-    Sets ``CUDA_VISIBLE_DEVICES`` only where it is unset. Returns the
-    grant, or None (no-op) outside a tpushare pod."""
+    Returns the grant, or None (no-op) outside a tpushare pod.
+
+    The container contract (``deviceplugin.plugin.build_allocation``):
+    ``TPUSHARE_CHIP_IDX`` names the cards by *host* index, which the
+    watchdog and the annotations read; ``CUDA_VISIBLE_DEVICES`` holds
+    the ordinals the container sees (``0,…,k-1``: the NVIDIA container
+    runtime exposes only the cards in ``NVIDIA_VISIBLE_DEVICES`` and
+    numbers them from 0). This sets ``CUDA_VISIBLE_DEVICES`` only where
+    it is unset, to the host indices: right for a process outside a
+    container, which sees every card of the host."""
     env = os.environ if environ is None else environ
     grant = read_grant(env)
     if grant is not None and grant.chip_ids:

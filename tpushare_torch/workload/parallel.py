@@ -21,8 +21,10 @@ shard's program and calls the collectives itself
 (:mod:`collectives`): the ring's shift, the all-to-all, and the pair of
 all-reduces around each tensor-parallel product (:mod:`model`).
 
-The ring-latency model (``parallel.py:378-482`` of the JAX package)
-prices ICI placements for the control plane and is not ported.
+The ring-latency model (the JAX package's ``hop_time_us`` and the three
+functions that compose it) prices a placement's collectives in
+milliseconds; here its hops are NVLink through NVSwitch inside a node and
+the NIC across nodes.
 """
 
 from __future__ import annotations
@@ -432,3 +434,109 @@ def make_ulysses_attn_fn(mesh: Mesh, use_flash: bool | None = None):
         flash = _use_flash(use_flash, q, k, v, "ulysses attention")
         return ulysses_attention(q, k, v, mesh.sp_group, use_flash=flash)
     return attn
+
+
+# --------------------------------------------------------------------------
+# Ring-latency model: placement -> predicted step time
+# --------------------------------------------------------------------------
+#
+# The reference's composition, unchanged: a ring collective advances at
+# the pace of its slowest hop (every rank must receive its block before
+# the next rotation), a full pass is ``n - 1`` rotations, and a step adds
+# its sequence-parallel rings' and pipeline boundaries' time to a
+# placement-invariant compute time.
+#
+# The per-hop physics are the card's. Inside a node every GPU reaches
+# every other through NVSwitch, which does not block: a hop between any
+# two ranks of the node, at any distance, is one switch hop at the full
+# per-direction NVLink rate (no link is shared d ways, as a torus's ICI
+# links are). A hop that leaves the node (``None``) rides the NIC.
+#
+# The NVLink pair is fitted on the cards, and holds from 16 to 128 MiB.
+# ``tools/ring_model_fit.py`` timed NCCL rotations of a four-card ring (one
+# ``batch_isend_irecv`` a rotation, as ``collectives.shift`` posts them)
+# on four NVIDIA H100 80GB HBM3 at 700.00 W. At 16, 64 and 128 MiB they
+# lie on one line; least squares over those three gave 43.6 and 28.3 µs,
+# 171.0 and 167.2 GB/s in two runs, and the constants are their means.
+# Outside that window the line is off. Below 16 MiB a rotation sits on a
+# floor of 0.07-0.12 ms (about the host's time to post it), which the line
+# under-prices up to 3x (1 MiB: 42 µs against 72-124). At 256 MiB NCCL
+# moves the payload faster (0.90 ms, against 0.83 at 128 MiB), and the
+# line over-prices it 1.8x (1.62 ms). The published H100 SXM5 figures
+# the fit replaces: NVLink 4 at 900 GB/s per GPU both ways together, 450
+# GB/s a direction. The NIC rate is NVIDIA's published figure for one
+# ConnectX-7 per GPU, 400 Gb/s (50 GB/s). The NIC's latency is not
+# measured: one node cannot. It is the NVLink latency plus a guessed 10 µs
+# for the fabric crossing.
+
+#: NVLink bytes/s a direction, as a ring rotation of 16-128 MiB achieves
+#: it (fitted).
+NVLINK_BYTES_PER_S = 169.1e9
+#: One in-node ring hop's fixed cost, µs (fitted, 16-128 MiB).
+NVLINK_LATENCY_US = 35.9
+#: One ConnectX-7 NIC per GPU, bytes/s (published: 400 Gb/s).
+NIC_BYTES_PER_S = 50e9
+#: A hop through the NIC, µs: not measured. The NVLink latency plus a
+#: fabric crossing of 10 µs, a guess.
+NIC_LATENCY_US = NVLINK_LATENCY_US + 10.0
+
+
+def hop_time_us(hops: int | None, payload_bytes: float) -> float:
+    """Time for one logical ring hop carrying ``payload_bytes``.
+    ``hops`` is the distance between the ring neighbours, which inside a
+    node costs one NVSwitch hop whatever it is; ``None`` means the hop
+    leaves the node (the NIC)."""
+    if hops is None:
+        return NIC_LATENCY_US + payload_bytes / NIC_BYTES_PER_S * 1e6
+    return NVLINK_LATENCY_US + payload_bytes / NVLINK_BYTES_PER_S * 1e6
+
+
+def ring_rotation_time_us(hop_list: list[int | None],
+                          payload_bytes: float) -> float:
+    """One rotation of a ring collective over neighbours ``hop_list``
+    apart: all transfers run concurrently, the slowest gates the
+    rotation."""
+    if not hop_list:
+        return 0.0
+    return max(hop_time_us(h, payload_bytes) for h in hop_list)
+
+
+def ring_collective_time_us(hop_list: list[int | None],
+                            payload_bytes: float,
+                            rotations: int | None = None) -> float:
+    """A full ring pass (default n - 1 rotations, the shift count of ring
+    attention and of a ring all-reduce's reduce-scatter phase)."""
+    n = len(hop_list)
+    if n == 0:
+        return 0.0
+    if rotations is None:
+        rotations = n - 1
+    return rotations * ring_rotation_time_us(hop_list, payload_bytes)
+
+
+def predicted_step_time_ms(sp_rings: list[list[int | None]],
+                           pp_links: list[int | None],
+                           *,
+                           layers: int = 32,
+                           microbatches: int = 8,
+                           kv_block_bytes: float = 64 * 1024 * 1024,
+                           act_bytes: float = 32 * 1024 * 1024,
+                           compute_ms: float = 20.0) -> float:
+    """Predicted training-step time of a pp x sp mesh at a placement.
+
+    ``sp_rings``: per pipeline stage, the hop list of its sequence-
+    parallel ring (ring attention rotates KV blocks ``sp - 1`` times a
+    layer; stages run concurrently, so the slowest stage's ring gates the
+    step). ``pp_links``: each stage-to-stage boundary's hop; 1F1B crosses
+    each twice a microbatch (activation forward, gradient back).
+    ``compute_ms`` is the placement-invariant compute time."""
+    sp_us = 0.0
+    if sp_rings:
+        sp_us = layers * max(
+            ring_collective_time_us(ring, kv_block_bytes)
+            for ring in sp_rings)
+    pp_us = 0.0
+    if pp_links:
+        pp_us = 2 * microbatches * max(
+            hop_time_us(h, act_bytes) for h in pp_links)
+    return compute_ms + (sp_us + pp_us) / 1000.0
