@@ -35,6 +35,10 @@ second call; phase 9 replays each against its eager body
 (``graphs.disabled()``) from the same state, bit for bit, the sampled
 ones from generators seeded alike, and counts each kernel's launches in
 a profiler trace of the replays against what their captures recorded.
+The chunked, interleaved and paged prefill pieces are among them: the
+forward reads a piece's offsets from device memory, and phase 3 replays
+one captured launch at several offsets against the launch-argument
+kernel, bit for bit.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -45,6 +49,7 @@ CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -172,6 +177,11 @@ TRAIN_SHAPE = "f_flagship_train"    # the backward's line: one train step
 #: The fp32 forward's record: the train step's shape and the wide one.
 FP32_FWD_SHAPES = ("f_flagship_train", "c_large_width", "b_long_prompt")
 PIECE_SHAPE = "g_chunk_piece"       # the chunked and paged pieces' launch
+#: Phase 3's one captured launch, many offsets: a compiled piece's launch,
+#: 64 queries against the slot's whole 2048-key row at 8 heads of 64, its
+#: (q_offset, 0) read from device memory; replayed at each of these.
+DEVICE_OFFSET_SHAPE = (1, 64, 2048, 8, 64)
+DEVICE_OFFSETS = (0, 64, 960, 1984)
 #: Phases 3 and 3b also hold the kernels to their plain version at the
 #: blocks phase 5d's sharded paths hand them (flagship, 8 x 2048 global):
 #: a (2, 2, 2) ring rank's [4, 1024] tokens at H = 4 against its own
@@ -447,6 +457,8 @@ def main(usage_dir: str) -> int:
           **{f"{n}/{d}": e for (n, d), e in errs.items()})
     long_lengths = long_length_phase(gen)
     phase("3 long lengths", card=card, **long_lengths)
+    device_offsets = device_offsets_phase(gen)
+    phase("3 device offsets", card=card, **device_offsets)
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
@@ -743,6 +755,7 @@ def main(usage_dir: str) -> int:
     compiled = compiled_phase(M.ModelConfig(), grant)
     phase("9 compiled steps", card=card, **compiled)
     replayed["compiled_steps"] = compiled["replayed"]
+    replayed["compiled_pieces"] = compiled["replayed_pieces"]
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
@@ -795,6 +808,16 @@ def main(usage_dir: str) -> int:
         **{f"piece_{key}": piece_t[key]
            for key in ("kernel_ms", "kernel_call_ms", "plain_ms",
                        "library_ms", "bound_ms", "bound_by")},
+        "device_offsets": {
+            "shape": list(DEVICE_OFFSET_SHAPE),
+            "replayed_at": list(DEVICE_OFFSETS),
+            **{dn: {key: rec[key] for key in (
+                "timed_offset", "device_offset_kernel_ms",
+                "device_offset_call_ms", "kernel_ms", "kernel_call_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")}
+               | {"max_norm_err": max(e["norm_err"]
+                                      for e in rec["offsets"].values())}
+               for dn, rec in device_offsets.items()}},
         "ring_shapes": {name: _pick(ring_t[name]["forward"])
                         for name in RING_SHAPES},
         "d16": {f"{name} bfloat16": _times(timings[name, "bfloat16"],
@@ -989,6 +1012,69 @@ def random_inputs(gen: torch.Generator, shapes: dict,
                        for n in (lq, lk, lk))
             inputs[name, str(dt).split(".")[1]] = (q, k, v, qo, ko)
     return inputs
+
+
+def device_offsets_phase(gen: torch.Generator) -> dict:
+    """One forward launch captured in a CUDA graph with its offsets in
+    device memory (``DEVICE_OFFSET_SHAPE``, bf16 and fp32), replayed with
+    the pair set to each of ``DEVICE_OFFSETS``: every replay must give the
+    bits of the launch-argument kernel at that offset, and hold the
+    phase-3 tolerances against the plain version. Then, at offset 960,
+    the device ms of the device-offset launch and of the launch-argument
+    one on the same inputs, the eager call ms, the plain and library ms
+    and the bound (the keys past the piece are masked and never loaded,
+    so the work and the bytes are what (g) needs at 1024 keys)."""
+    b, lq, lk, h, d = DEVICE_OFFSET_SHAPE
+    fields = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        q, k, v = (torch.randn((b, n, h, d), generator=gen,
+                               device="cuda").to(dt) for n in (lq, lk, lk))
+        pair = torch.zeros(2, dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            graph, got = _capture_once(lambda: FA.flash_fwd_kernel(
+                q, k, v, pair[0:1], pair[1:2]))
+            per = {}
+            for off in DEVICE_OFFSETS:
+                pair.copy_(torch.tensor([off, 0], dtype=torch.int32))
+                graph.replay()
+                out, lse = FA.flash_fwd_kernel(q, k, v, off, 0)
+                torch.cuda.synchronize()
+                p_out, p_lse = FA.flash_block_with_lse_plain(q, k, v, off, 0)
+                same = torch.equal(got[0], out) and torch.equal(got[1], lse)
+                check(same, f"3 device offsets/{dn}: the replay at offset "
+                            f"{off} differs from the launch-argument kernel")
+                e = {"bit_identical": same,
+                     "norm_err": _norm_err(got[0], p_out),
+                     "lse_err": (got[1] - p_lse).abs().max().item()}
+                check(e["norm_err"] <= OUT_TOL[dn]
+                      and e["lse_err"] <= LSE_TOL[dn],
+                      f"3 device offsets/{dn} at {off}: {e}")
+                per[off] = e
+            del graph
+            off = 960
+            pair.copy_(torch.tensor([off, 0], dtype=torch.int32))
+            timed = time_shape(q, k, v, off, 0, dn)
+            timed["device_offset_kernel_ms"] = device_ms(
+                lambda: FA.flash_fwd_kernel(q, k, v, pair[0:1], pair[1:2]))
+            timed["device_offset_call_ms"] = time_ms(
+                lambda: FA.flash_fwd_kernel(q, k, v, pair[0:1], pair[1:2]))
+        fields[dn] = {"offsets": per, "timed_offset": off, **timed}
+    return fields
+
+
+def _capture_once(fn):
+    """``fn()`` captured in a CUDA graph after a warm-up on a side stream:
+    (the graph, its static outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
 
 
 def no_key_rows(gen: torch.Generator) -> dict:
@@ -1245,11 +1331,14 @@ def _zero_counts() -> None:
     FA.FLASH_BWD_DKV_LAUNCHES = 0
 
 
-def _replayed() -> dict:
+def _replayed(steps=None) -> dict:
     """Each kernel's launches inside graph replays since
-    ``graphs.reset_stats()``, over every compiled step."""
+    ``graphs.reset_stats()``, over every compiled step (or those named in
+    ``steps``)."""
     out = dict.fromkeys(_counts(), 0)
-    for st in graphs.stats().values():
+    for name, st in graphs.stats().items():
+        if steps is not None and name not in steps:
+            continue
         for kname, counter in zip(out, graphs.COUNTERS):
             out[kname] += st["launches"][counter]
     return out
@@ -2446,8 +2535,9 @@ def time_shape(q, k, v, q_offset: int, kv_offset: int,
     seen = (q_offset + torch.arange(lq) - kv_offset + 1).clamp(0, lk)
     pairs = int(seen.sum())
     ops = 4 * b * h * d * pairs
-    # Inputs are read once where a row sees a key; out and lse are written.
-    reads = (q.numel() + k.numel() + v.numel()) if pairs else 0
+    # Inputs are read once where a row sees a key, K and V up to the last
+    # key a row sees; out and lse are written.
+    reads = (q.numel() + 2 * b * int(seen.max()) * h * d) if pairs else 0
     nbytes = (reads + q.numel()) * q.element_size() + 4 * b * lq * h
     mask = (q_offset + torch.arange(lq, device="cuda")[:, None]
             >= kv_offset + torch.arange(lk, device="cuda")[None, :])
@@ -2849,9 +2939,18 @@ def _same_draws(*pairs) -> bool:
     return all(torch.equal(a.get_state(), b.get_state()) for a, b in pairs)
 
 
+#: Phase 9's admissions, as (slot, prompt length) into the 8-slot server:
+#: the twin's 1024-token prompt and two whose last piece is padded, three
+#: lengths in three slots, every piece through one graph.
+ADMIT_PROMPTS = ((5, 1024), (2, 500), (7, 777))
+#: The graphs of the prefill pieces (``workload.serving``).
+PIECE_STEPS = ("prefill_chunk", "prefill_paged_piece")
+
 #: What the kernels line's ``replay_launches_by_path`` counts.
 REPLAY_LAUNCHES_ARE = (
-    "derived: each replay adds the launches its capture recorded. "
+    "derived: each replay adds the launches its capture recorded "
+    "(compiled_pieces: the part of compiled_steps that the prefill "
+    "pieces' replays made). "
     "traced_replay_launches are counted by kernel name in a profiler trace "
     "of one call of each compiled path in phase 9, which fails unless they "
     "equal the derived count")
@@ -2887,13 +2986,16 @@ def _replays(name: str, fn, calls: int = 1) -> tuple:
     return result[0], traced
 
 
-def _turns_ms(eager, compiled, rounds: int = 2) -> dict:
+def _turns_ms(eager, compiled, rounds: int = 2, reset=None) -> dict:
     """Host ms of ``eager()`` (under ``graphs.disabled()``) and of
     ``compiled()`` (a replay), synchronized, in turns: eager, compiled,
-    compiled, eager, ``rounds`` times."""
+    compiled, eager, ``rounds`` times; ``reset()``, when given, runs
+    before each call, untimed."""
     times = {"eager_ms": [], "compiled_ms": []}
 
     def one(kind):
+        if reset is not None:
+            reset()
         if kind == "eager_ms":
             with graphs.disabled():
                 s = _synced_s(eager)
@@ -2907,6 +3009,327 @@ def _turns_ms(eager, compiled, rounds: int = 2) -> dict:
     times["eager_over_compiled"] = (min(times["eager_ms"])
                                     / min(times["compiled_ms"]))
     return times
+
+
+def compiled_admissions(cfg: M.ModelConfig, params, ids,
+                        traced: dict) -> dict:
+    """Phase 9's admissions, each compiled (the pieces and the finalize
+    replay their graphs) and eager (``graphs.disabled()``) from one state,
+    bit for bit in caches, page pools, tables, slots, emitted tokens and
+    generators: (a) ``admit_chunked`` of ``ADMIT_PROMPTS`` (three lengths
+    in three slots) and a sampled one twice, from two generators; (b)
+    ``admit_interleaved`` of the 1024-token prompt beside seven decoding
+    slots, greedy twice, then sampled (admission and co-tenants) from two
+    generators; (c) ``admit_paged`` of the 1024-token prompt into two
+    slots of one tenant (the second shares 15 prefix pages), one of 500
+    tokens, and a sampled one from two generators. Each piece key misses
+    once and never again on its cache; ``traced`` gets the flash launches
+    of every call whose pieces all replay (``_replays``)."""
+    n = cfg.n_layers
+    slots = len(BW.PROMPT_MIX)
+    keys = ("cache", "pos", "active", "token")
+    prompts = {length: ids(length) for _, length in ADMIT_PROMPTS}
+    fields = {}
+    # Earlier steps of the phase (the 16-stream paged server's admissions)
+    # left misses, and finalize keys of their slot count, which bind only
+    # the weights: count this section's own.
+    steps = (*PIECE_STEPS, "finalize_admit")
+    keys_before = {name: graphs.cache_size(name) for name in steps}
+    misses_before = {name: graphs.stats().get(name, {}).get("misses", 0)
+                     for name in steps}
+
+    def new(name: str) -> tuple[int, int]:
+        """(keys, misses) of ``name`` this section added."""
+        return (graphs.cache_size(name) - keys_before[name],
+                graphs.stats()[name]["misses"] - misses_before[name])
+
+    def pieces(length: int) -> int:
+        return -(-length // PIECE)
+
+    def run(step: str, fn, calls: int, trace_as: str | None):
+        """``fn()``; traced as ``trace_as`` (``_replays``: ``calls``
+        replays of ``step``, ``n_layers`` flash launches each) when
+        given."""
+        if trace_as is None:
+            return fn()
+        got, traced[trace_as] = _replays(step, fn, calls)
+        check(traced[trace_as]["flash_fwd"] == n * calls,
+              f"9 {trace_as}: {traced[trace_as]} traced for {calls} pieces")
+        return got
+
+    # (a) Chunked: three prompts in three slots, then a sampled one.
+    st_g = S.init_server_state(cfg, slots, SERVE_MAX_LEN)
+    st_e = S.init_server_state(cfg, slots, SERVE_MAX_LEN)
+    misses = []
+    for i, (slot, length) in enumerate(ADMIT_PROMPTS):
+        run("prefill_chunk", lambda slot=slot, length=length:
+                S.admit_chunked(params, st_g, prompts[length], slot,
+                                chunk=PIECE), pieces(length),
+                None if i == 0 else f"admit_chunked_{length}")
+        with graphs.disabled():
+            S.admit_chunked(params, st_e, prompts[length], slot, chunk=PIECE)
+        check(_state_equal(st_g, st_e, keys), f"9 admit_chunked {length}: "
+                                              f"replayed pieces differ")
+        misses.append(new("prefill_chunk"))
+    check(misses == [(1, 1)] * len(ADMIT_PROMPTS),
+          f"9 admit_chunked: piece (keys, misses) {misses}")
+    slot, length = ADMIT_PROMPTS[1]
+    gens = [(_dev_gen(s), _dev_gen(s)) for s in (61, 62)]
+    same = []
+    for i, (g, r) in enumerate(gens):
+        S.release(st_g, slot)
+        S.release(st_e, slot)
+        run("prefill_chunk", lambda g=g: S.admit_chunked(
+            params, st_g, prompts[length], slot, chunk=PIECE,
+            temperature=0.7, generator=g), pieces(length),
+            "admit_chunked_sampled" if i else None)
+        with graphs.disabled():
+            S.admit_chunked(params, st_e, prompts[length], slot,
+                            chunk=PIECE, temperature=0.7, generator=r)
+        same.append(_state_equal(st_g, st_e, keys))
+    check(all(same) and _same_draws(*gens),
+          f"9 admit_chunked_sampled: replays differ from eager ({same})")
+    fields["chunked"] = {
+        "prompts": [list(p) for p in ADMIT_PROMPTS], "piece": PIECE,
+        "piece_keys_misses": misses, "bit_identical": True,
+        "finalize_keys": new("finalize_admit")[0],
+        "peak_reserved_bytes": _peak()}
+    check(fields["chunked"]["finalize_keys"] == 2,
+          f"9 admit_chunked: {fields['chunked']['finalize_keys']} new "
+          f"finalize keys, not one greedy and one sampled")
+
+    # (b) Interleaved: four more of the mix decoding beside the three, the
+    # 1024-token prompt into slot 6, 8 decode steps after each piece.
+    for slot in (0, 1, 3, 4):
+        S.admit_chunked(params, st_g, ids(BW.PROMPT_MIX[slot]), slot,
+                        chunk=PIECE)
+    _copy_state(st_e, _clone_state(st_g))
+    big = prompts[1024]
+    temps = torch.full((slots,), 0.9, device=st_g["pos"].device)
+    temps[1] = 0.0
+    runs = [({}, None), ({}, "admit_interleaved")]
+    for s_ in (71, 72):
+        runs.append(({"temperature": 0.7, "serve_temperature": temps,
+                      "generator": s_}, "admit_interleaved_sampled"
+                     if s_ == 72 else None))
+    same, draws = [], []
+    for kw, trace_as in runs:
+        kw_g, kw_e = dict(kw), dict(kw)
+        if "generator" in kw:
+            g, r = _dev_gen(kw["generator"]), _dev_gen(kw["generator"])
+            kw_g.update(generator=g, serve_generator=g)
+            kw_e.update(generator=r, serve_generator=r)
+            draws.append((g, r))
+        for st in (st_g, st_e):
+            S.release(st, 6)
+        em_g = run("prefill_chunk", lambda kw_g=kw_g: S.admit_interleaved(
+            params, st_g, big, 6, chunk=PIECE, decode_steps=INTERLEAVE_STEPS,
+            **kw_g)[1], pieces(1024), trace_as)
+        with graphs.disabled():
+            em_e = S.admit_interleaved(params, st_e, big, 6, chunk=PIECE,
+                                       decode_steps=INTERLEAVE_STEPS,
+                                       **kw_e)[1]
+        same.append(torch.equal(em_g, em_e)
+                    and _state_equal(st_g, st_e, keys))
+    check(all(same) and _same_draws(*draws),
+          f"9 admit_interleaved: replays differ from eager ({same})")
+    check(new("prefill_chunk") == (1, 1),
+          f"9 admit_interleaved: piece (keys, misses) "
+          f"{new('prefill_chunk')}")
+    fields["interleaved"] = {"decode_steps": INTERLEAVE_STEPS,
+                             "runs": len(runs), "bit_identical": True,
+                             "peak_reserved_bytes": _peak()}
+    del st_g, st_e
+
+    # (c) Paged: the 1024-token prompt twice for one tenant (prefix pages
+    # shared), 500 tokens, then 777 sampled from two generators.
+    total = 96
+    pools = [P.PagePool(total, page_tokens=PIECE) for _ in range(2)]
+    pst_g, pst_e = (S.init_paged_state(cfg, slots, SERVE_MAX_LEN, total,
+                                       PIECE) for _ in range(2))
+    pkeys = ("pages", "table", "pos", "active", "token")
+    shared = P.shareable_pages(1024, PIECE)
+    plan = [(0, 1024, {}, None, pieces(1024)),
+            (1, 1024, {}, "admit_paged_shared", pieces(1024) - shared),
+            (2, 500, {}, "admit_paged_500", pieces(500))]
+    plan += [(3, 777, {"temperature": 0.7, "generator": s_},
+              "admit_paged_sampled" if s_ == 82 else None, pieces(777))
+             for s_ in (81, 82)]
+    same, draws = [], []
+    for slot, length, kw, trace_as, calls in plan:
+        kw_g, kw_e = dict(kw), dict(kw)
+        if "generator" in kw:
+            g, r = _dev_gen(kw["generator"]), _dev_gen(kw["generator"])
+            kw_g["generator"], kw_e["generator"] = g, r
+            draws.append((g, r))
+            for st, pool in zip((pst_g, pst_e), pools):
+                if bool(st["active"][slot]):
+                    S.release_paged(st, pool, slot)
+        run("prefill_paged_piece", lambda: S.admit_paged(
+            params, pst_g, pools[0], prompts[length], slot, tenant="a",
+            **kw_g), calls, trace_as)
+        with graphs.disabled():
+            S.admit_paged(params, pst_e, pools[1], prompts[length], slot,
+                          tenant="a", **kw_e)
+        same.append(_state_equal(pst_g, pst_e, pkeys)
+                    and pools[0].stats() == pools[1].stats())
+    check(all(same) and _same_draws(*draws),
+          f"9 admit_paged: replays differ from eager ({same})")
+    check(pools[0].stats()["prefixHits"] == shared,
+          f"9 admit_paged: prefixHits {pools[0].stats()['prefixHits']}, "
+          f"want {shared}")
+    check(int(pst_g["token"][1]) == int(pst_g["token"][0]),
+          "9 admit_paged: the prefix-shared slot's first token differs")
+    check(new("prefill_paged_piece") == (1, 1),
+          f"9 admit_paged: paged piece (keys, misses) "
+          f"{new('prefill_paged_piece')}")
+    fields["paged"] = {"prefix_hits": shared, "bit_identical": True,
+                       "pool": pools[0].stats(),
+                       "peak_reserved_bytes": _peak()}
+    fields["graphs"] = {name: graphs.stats()[name]
+                        for name in (*PIECE_STEPS, "finalize_admit")}
+    return fields
+
+
+def admission_turns(cfg: M.ModelConfig, params, ids) -> dict:
+    """Host ms, eager against compiled in turns (``_turns_ms``), of the
+    three admissions of the 1024-token prompt at C = 64 on the 8-slot
+    server: ``admit_chunked`` (and the pause a piece, the twin's
+    ``max_pause_ms``: the admission over its pieces); ``admit_interleaved``
+    beside seven decoding slots, and the pause a co-tenant sees: its
+    order run by hand, each piece timed alone (synchronized on both
+    sides) between the 8-step chunks; ``admit_paged`` of the prompt (no
+    shared page). Each call starts from the same state (``reset``,
+    untimed). Then one compiled piece of each kind at offset 960 under
+    the profiler (``_piece_device``)."""
+    slots, length = len(BW.PROMPT_MIX), 1024
+    pieces = length // PIECE
+    prompt = ids(length)
+    state = S.init_server_state(cfg, slots, SERVE_MAX_LEN)
+    for slot, n in enumerate(BW.PROMPT_MIX[:-1]):
+        S.admit_chunked(params, state, ids(n), slot, chunk=PIECE)
+    start = _clone_state(state)
+    dev = state["pos"].device
+    slot_t, tl_t = S._scalar(slots - 1, dev), S._scalar(length, dev)
+    carry = params.embed.new_zeros((1, params.embed.shape[1]))
+
+    def reset():
+        _copy_state(state, start)
+
+    def chunked():
+        S.admit_chunked(params, state, prompt, slots - 1, chunk=PIECE)
+
+    def interleaved():
+        S.admit_interleaved(params, state, prompt, slots - 1, chunk=PIECE,
+                            decode_steps=INTERLEAVE_STEPS)
+
+    @torch.inference_mode()
+    def pauses() -> list[float]:
+        """``admit_interleaved``'s pieces and chunks, each piece's host
+        ms alone: what a co-tenant waits between its chunks."""
+        h, ms = carry, []
+        for i in range(pieces):
+            off = S._scalar(i * PIECE, dev)
+            ms.append(1e3 * _synced_s(lambda: S._prefill_chunk(
+                params, state, prompt[i * PIECE:(i + 1) * PIECE], slot_t,
+                off, tl_t, h)))
+            S.serve_chunk(params, state, INTERLEAVE_STEPS)
+        return ms
+
+    for fn in (chunked, interleaved):             # the captures
+        reset()
+        fn()
+    out = {"prompt_len": length, "piece": PIECE, "pieces": pieces,
+           "decode_steps": INTERLEAVE_STEPS}
+    out["chunked"] = _turns_ms(chunked, chunked, reset=reset)
+    out["interleaved"] = _turns_ms(interleaved, interleaved, reset=reset)
+    for kind in ("eager_ms", "compiled_ms"):
+        out[f"pause_per_piece_{kind}"] = min(out["chunked"][kind]) / pieces
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        reset()
+        with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+            ms = pauses()
+        out.setdefault(f"cotenant_pause_{mode}_ms", []).append(
+            {"median": sorted(ms)[len(ms) // 2], "max": max(ms)})
+
+    # One compiled piece at offset 960, and the gather alone.
+    reset()
+    off_t = S._scalar(960, dev)
+    tokens = prompt[960:960 + PIECE]
+
+    @torch.inference_mode()
+    def piece():
+        return S._prefill_chunk(params, state, tokens, slot_t, off_t, tl_t,
+                                carry)
+
+    def gather():
+        for layer in state["cache"]:
+            layer["k"].index_select(0, slot_t)
+            layer["v"].index_select(0, slot_t)
+
+    out["piece_contiguous"] = _piece_device(piece, gather)
+    del state, start
+
+    pages = 2 * pieces + 2
+    pool = P.PagePool(pages, page_tokens=PIECE)
+    pst = S.init_paged_state(cfg, slots, SERVE_MAX_LEN, pages, PIECE)
+
+    def paged():
+        S.admit_paged(params, pst, pool, prompt, 0)
+
+    def paged_reset():
+        if bool(pst["active"][0]):
+            S.release_paged(pst, pool, 0)
+
+    paged_reset()
+    paged()                                        # the capture
+    out["paged"] = _turns_ms(paged, paged, reset=paged_reset)
+    out["paged_pause_per_piece_compiled_ms"] = (
+        min(out["paged"]["compiled_ms"]) / pieces)
+    piece_t = S._scalar(15, dev)
+    slot0 = S._scalar(0, dev)
+    P_, _, _, _ = S._paged_dims(pst)
+
+    @torch.inference_mode()
+    def paged_piece():
+        return S._prefill_paged_piece(params, pst, tokens, slot0, piece_t,
+                                      tl_t, carry)
+
+    def paged_gather():
+        row = pst["table"].index_select(0, slot0)[0].clamp(0, P_ - 1)
+        for pg in pst["pages"]:
+            pg["k"].index_select(0, row)
+            pg["v"].index_select(0, row)
+
+    out["piece_paged"] = _piece_device(paged_piece, paged_gather)
+    paged_reset()
+    del pst, pool
+    return out
+
+
+def _piece_device(piece, gather) -> dict:
+    """One compiled piece (its key already captured) under the profiler,
+    after two untimed calls: host ms, the card's busy ms, the flash
+    kernels' device ms, the largest device times by name, and the index
+    selects' (the gather and the carry's row) in the trace; and the
+    gather's device ms alone (``device_ms``: its K and V rows, every
+    layer, back to back) and its share of the busy ms."""
+    for _ in range(2):
+        piece()
+    secs, on_card, _ = profiled(piece)
+    by_name = _by_name(on_card)
+    busy_ms = sum(by_name.values()) / 1e3
+    gather_ms = device_ms(gather)
+    selects_ms = sum(us for name, us in by_name.items()
+                     if "indexSelect" in name) / 1e3
+    return {"host_ms": 1e3 * secs, "device_ms": busy_ms,
+            "flash_device_ms": sum(us for name, us in by_name.items()
+                                   if "flash_fwd_" in name) / 1e3,
+            "gather_device_ms": gather_ms,
+            "gather_share": gather_ms / busy_ms,
+            "index_select_traced_ms": selects_ms,
+            "index_select_traced_share": selects_ms / busy_ms,
+            "top_device_us": dict(by_name.most_common(8))}
 
 
 def compiled_phase(cfg: M.ModelConfig, grant) -> dict:
@@ -3206,6 +3629,12 @@ def compiled_phase(cfg: M.ModelConfig, grant) -> dict:
         "peak_reserved_bytes": _peak()}
     del pst, pbefore, pool, eager_st
 
+    # The chunked, interleaved and paged admissions, greedy and sampled,
+    # compiled against eager; then their host ms in turns and a piece's
+    # device ms.
+    fields["admissions"] = compiled_admissions(cfg, params, ids, traced)
+    fields["admission_turns"] = admission_turns(cfg, params, ids)
+
     # The forward make_forward_fn builds, at the entry's shape.
     fwd = T.make_forward_fn(cfg)
     toks = ids(2, 256)
@@ -3226,6 +3655,7 @@ def compiled_phase(cfg: M.ModelConfig, grant) -> dict:
         captured.setdefault(rec["name"], []).append(rec)
     fields["graphs"] = graphs.stats()
     fields["replayed"] = _replayed()
+    fields["replayed_pieces"] = _replayed(PIECE_STEPS)
     fields["traced_launches"] = traced
     fields["captures"] = {
         name: {"count": len(recs),

@@ -460,8 +460,13 @@ def test_serving_replays_are_the_eager_steps(setup, stand_in):
                         S._cache_tensors(pref["pages"])):
             assert _bits_equal(a, b)
     # generate, admit and serve_chunk replayed twice each, the paged chunk
-    # once.
-    assert stand_in.replays == 7
+    # once; _paged_state's four admissions (2 + 3 + 6 + 1 pieces) replayed
+    # every piece but the first and every finalize but the first.
+    replays = {name: s["replays"] for name, s in graphs.stats().items()}
+    assert replays == {"generate": 2, "admit": 2, "serve_chunk": 2,
+                       "serve_chunk_paged": 1, "prefill_paged_piece": 11,
+                       "finalize_admit": 3}
+    assert stand_in.replays == sum(replays.values())
 
 
 def test_sampled_serving_replays_are_the_eager_steps(setup, stand_in):
@@ -519,7 +524,13 @@ def test_sampled_serving_replays_are_the_eager_steps(setup, stand_in):
     assert {name: graphs.cache_size(name) for name in
             ("generate", "admit", "serve_chunk", "serve_chunk_paged")} == \
         {"generate": 1, "admit": 5, "serve_chunk": 1, "serve_chunk_paged": 1}
-    assert stand_in.replays == 10
+    # Besides those steps' 10 replays, _paged_state's greedy admissions
+    # replayed 11 of their 12 pieces and 3 of their 4 finalizes.
+    replays = {name: s["replays"] for name, s in graphs.stats().items()}
+    assert replays == {"generate": 3, "admit": 3, "serve_chunk": 3,
+                       "serve_chunk_paged": 1, "prefill_paged_piece": 11,
+                       "finalize_admit": 3}
+    assert stand_in.replays == sum(replays.values())
 
 
 def test_train_step_replays_are_the_eager_steps(stand_in):

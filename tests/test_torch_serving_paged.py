@@ -451,27 +451,42 @@ def _spy(monkeypatch):
     return calls
 
 
+def _device_offset(t):
+    """The value of an offset the kernel reads on the device (a 1-element
+    int32 tensor), read here on the host."""
+    assert isinstance(t, torch.Tensor) and t.dtype == torch.int32
+    assert t.numel() == 1
+    return int(t)
+
+
 def test_chunked_pieces_call_the_kernel_at_their_offset(setup, monkeypatch):
     """Each piece of admit_chunked is one flash_block_with_lse call a
-    layer with q_offset = offset and Lk = offset + C, on the slot's
-    cache rows in place (the call that is the kernel on the card)."""
+    layer with Lk = max_len and q_offset a device scalar holding the
+    piece's offset, on a copy of the slot's whole cache row (the call that
+    is the kernel on the card): its rows through the piece are the slot's
+    final rows, the rows after it still the zeros of a fresh cache."""
     _, tcfg, _, params = setup
     calls = _spy(monkeypatch)
     st = S.init_server_state(tcfg, 3, MAX_LEN, device="cpu")
     S.admit_chunked(params, st, _t(_prompt(90, 11)), 2, chunk=4)
     n = tcfg.n_layers
-    assert [(c["lq"], c["lk"], c["q_offset"], c["kv_offset"])
-            for c in calls] == [(4, off + 4, off, 0)
-                                for off in (0, 4, 8) for _ in range(n)]
+    assert [(c["lq"], c["lk"], _device_offset(c["q_offset"]),
+             _device_offset(c["kv_offset"])) for c in calls] == [
+        (4, MAX_LEN, off, 0) for off in (0, 4, 8) for _ in range(n)]
     for i, c in enumerate(calls):
-        layer = st["cache"][i % n]
-        assert c["k"].data_ptr() == layer["k"][2].data_ptr()
-        assert c["v"].data_ptr() == layer["v"][2].data_ptr()
+        layer, end = st["cache"][i % n], _device_offset(c["q_offset"]) + 4
+        for kv in ("k", "v"):
+            assert c[kv].shape == (1, MAX_LEN, *layer[kv].shape[2:])
+            assert c[kv].data_ptr() != layer[kv].data_ptr()
+            assert torch.equal(c[kv][0, :end], layer[kv][2, :end])
+            assert not c[kv][0, end:].any()
 
 
 def test_paged_pieces_call_the_kernel_at_their_offset(setup, monkeypatch):
-    """admit_paged runs only the unshared pieces, each at q_offset =
-    piece * page against the gathered pages [0, piece]."""
+    """admit_paged runs only the unshared pieces, each with Lk = max_len
+    and q_offset a device scalar holding piece * page, against the slot's
+    whole table row of pages gathered: through the piece, the pages its
+    table maps."""
     _, tcfg, _, params = setup
     calls = _spy(monkeypatch)
     st, pool = _paged(tcfg, 2)
@@ -479,10 +494,18 @@ def test_paged_pieces_call_the_kernel_at_their_offset(setup, monkeypatch):
     S.admit_paged(params, st, pool, prompt, 0, tenant="t")
     S.admit_paged(params, st, pool, prompt, 1, tenant="t")
     n = tcfg.n_layers
-    shapes = [(c["lq"], c["lk"], c["q_offset"]) for c in calls]
-    first = [(PAGE, (i + 1) * PAGE, i * PAGE) for i in range(3)]
+    shapes = [(c["lq"], c["lk"], _device_offset(c["q_offset"]),
+               _device_offset(c["kv_offset"])) for c in calls]
+    first = [(PAGE, MAX_LEN, i * PAGE, 0) for i in range(3)]
     second = first[P.shareable_pages(10, PAGE):]  # shared pieces skipped
     assert shapes == [s for s in first + second for _ in range(n)]
+    slots = [0] * (3 * n) + [1] * (len(second) * n)
+    for i, (c, slot) in enumerate(zip(calls, slots)):
+        pg, end = st["pages"][i % n], _device_offset(c["q_offset"]) + PAGE
+        row = st["table"][slot].clamp(0, pool.total_pages - 1)
+        for kv in ("k", "v"):
+            view = pg[kv][row].view(1, MAX_LEN, *pg[kv].shape[2:])
+            assert torch.equal(c[kv][:, :end], view[:, :end])
 
 
 def test_pieces_feed_tma_at_flagship_head_shape(monkeypatch):

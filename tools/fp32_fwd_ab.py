@@ -9,7 +9,9 @@ and the headers it includes, e.g. ``tpushare_torch/csrc`` of an earlier
 commit unpacked with ``git archive`` into an ignored directory. Each
 build's ``tpushare_flash_fwd`` is built with the ``nvcc`` command
 ``flash_attention.build`` uses for this checkout's, and loaded with
-``ctypes`` (``tools/fp32_bwd_ab.py``'s ``build``).
+``ctypes`` (``tools/fp32_bwd_ab.py``'s ``build``) with this checkout's
+argument types: an earlier build must take the offsets pair's pointer
+before the stream, as this one does (``flash_attention.entry_argtypes``).
 
 For each fp32 shape (phase 3's long prompt (b), the large width (c), the
 train shape (f), the head-dim-16 blocks and 8192 tokens at D = 64 and

@@ -14,8 +14,14 @@ Then one call of each path is profiled in each mode, after two untimed
 calls: its host ms, the card's busy ms and their ratio (``generate`` 8 x
 (128 + 64), a 64-step chunk of the 8-slot server at the twin's prompt
 mix, the paged chunk at 16 streams, the flagship train step at 16 x
-2048). Prints one JSON object and the card's name and power limit as
-``nvidia-smi`` gives them; writes the JSON to ``--out``. Needs one card.
+2048). Then the three admissions of a 1024-token prompt in 64-token
+pieces on the 8-slot server, eager against compiled in turns
+(``chip_smoke.admission_turns``, what phase 9 records): chunked (and the
+pause a piece), interleaved beside seven decoding slots (and the pause a
+co-tenant sees a piece) and paged, and one compiled piece of each kind
+profiled, with the gather of the slot's row timed alone. Prints one
+JSON object and the card's name and power limit as ``nvidia-smi`` gives
+them; writes the JSON to ``--out``. Needs one card.
 """
 
 from __future__ import annotations
@@ -145,6 +151,23 @@ def busy_shares() -> dict:
     return result
 
 
+def admissions() -> dict:
+    """The chunked, interleaved and paged admissions, eager against
+    compiled in turns, at flagship width (``chip_smoke.admission_turns``)."""
+    cfg = M.ModelConfig()
+    gen = CS._dev_gen(3)
+    params = M.init_params(gen, cfg)
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device="cuda")
+
+    result = CS.admission_turns(cfg, params, ids)
+    print(f"  admissions: {result}", file=sys.stderr, flush=True)
+    _fresh()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -160,7 +183,8 @@ def main() -> int:
     result = {"card": CS.nvidia_smi("name,power.limit"), "order": MODES,
               "iters": args.iters,
               "sections": sections(kind, args.iters),
-              "busy": busy_shares()}
+              "busy": busy_shares(),
+              "admissions": admissions()}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w", encoding="utf-8") as f:
         json.dump(result, f, indent=1)

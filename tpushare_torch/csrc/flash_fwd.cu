@@ -34,7 +34,11 @@
 //  * K and V tiles of 64 keys arrive in a ring of two stages while the
 //    previous tile's products run;
 //  * blocks launch heaviest first (the last Q tiles see the most keys), so
-//    the longest blocks do not run as a tail.
+//    the longest blocks do not run as a tail;
+//  * the offsets are launch arguments or, as the TPU kernel's SMEM scalars,
+//    an int32 pair in device memory that each block reads first, so one
+//    launch captured in a CUDA graph serves every offset: the keys past the
+//    diagonal the pair sets are never loaded, whatever Lk the launch has.
 //
 // bf16 (the serving and training dtype; head dims 16, 64 and 128) is built
 // for Hopper (sm90.cuh):
@@ -105,8 +109,13 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
 flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Lq, int Lk, Strides st,
-                 int q_offset, int kv_offset, float scale_log2) {
+                 int q_offset, int kv_offset,
+                 const int* __restrict__ offsets, float scale_log2) {
   using T = F32Tile<D>;
+  if (offsets != nullptr) {  // the device pair (tpushare_flash_fwd)
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Ks = Qs + T::FLOATS;              // [TC_STAGES]
@@ -275,9 +284,13 @@ flash_fwd_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                     __grid_constant__ const CUtensorMap tm_v,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                     int H, int Lq, int Lk, int q_offset, int kv_offset,
-                    float scale_log2) {
+                    const int* __restrict__ offsets, float scale_log2) {
   using Lay = FwdLayout<D>;
   using G = typename Lay::G;
+  if (offsets != nullptr) {
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Lay::BAR_OFF);
@@ -461,7 +474,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int H, int Lq, int Lk,
                        const Strides& st, int q_offset, int kv_offset,
-                       cudaStream_t stream) {
+                       const int* offsets, cudaStream_t stream) {
   constexpr size_t smem = fwd_f32_smem_bytes<D>();
   static std::atomic<uint32_t> attr_set{0};
   cudaError_t err =
@@ -471,7 +484,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   flash_fwd_tf32x3<D><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, H, Lq, Lk,
-      st, q_offset, kv_offset, softmax_scale(D) * LOG2E);
+      st, q_offset, kv_offset, offsets, softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
@@ -479,7 +492,7 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int H, int Lq, int Lk,
                         const Strides& st, int q_offset, int kv_offset,
-                        cudaStream_t stream) {
+                        const int* offsets, cudaStream_t stream) {
   using Lay = FwdLayout<D>;
   static std::atomic<uint32_t> attr_set{0};
   cudaError_t err =
@@ -496,7 +509,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
   flash_fwd_bf16_sm90<D><<<grid, Lay::THREADS, Lay::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, Lq, Lk, q_offset,
-      kv_offset, softmax_scale(D) * LOG2E);
+      kv_offset, offsets, softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
@@ -506,7 +519,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // (batch, length, head) for q, then k, then v; the head_dim axis is
 // unit-stride, the bases 16-byte aligned and every stride a multiple of 16
 // bytes (TMA reads bf16, 16-byte cp.async fp32). Head dims: 16, 64 and 128
-// in both dtypes. Returns a cudaError_t (0 on success).
+// in both dtypes. `offsets` is null (the offsets are q_offset and
+// kv_offset) or a device pointer to the int32 pair (q_offset, kv_offset),
+// which every block reads when it starts, the twin of the TPU kernel's
+// SMEM scalars: a launch captured in a CUDA graph then serves whatever
+// pair the buffer holds at each replay. Given either way, the arithmetic
+// is the same. Returns a cudaError_t (0 on success).
 extern "C" int tpushare_flash_fwd(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int dtype, int B,
                                   int H, int Lq, int Lk, int D,
@@ -515,28 +533,29 @@ extern "C" int tpushare_flash_fwd(const void* q, const void* k, const void* v,
                                   long long k_sl, long long k_sh,
                                   long long v_sb, long long v_sl,
                                   long long v_sh, int q_offset,
-                                  int kv_offset, void* stream) {
+                                  int kv_offset, const int* offsets,
+                                  void* stream) {
   if (Lq == 0 || B * H == 0) return cudaSuccess;
   const Strides st = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 16)
     return launch_f32<16>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                          kv_offset, s);
+                          kv_offset, offsets, s);
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                          kv_offset, s);
+                          kv_offset, offsets, s);
   if (dtype == 0 && D == 128)
     return launch_f32<128>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                           kv_offset, s);
+                           kv_offset, offsets, s);
   if (dtype == 1 && D == 16)
     return launch_bf16<16>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                           kv_offset, s);
+                           kv_offset, offsets, s);
   if (dtype == 1 && D == 64)
     return launch_bf16<64>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                           kv_offset, s);
+                           kv_offset, offsets, s);
   if (dtype == 1 && D == 128)
     return launch_bf16<128>(q, k, v, out, l, B, H, Lq, Lk, st, q_offset,
-                            kv_offset, s);
+                            kv_offset, offsets, s);
   return cudaErrorInvalidValue;
 }

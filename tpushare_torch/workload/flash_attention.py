@@ -59,13 +59,14 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpushare_torch"
 #: Head dims the kernels are built for, in both dtypes.
 _HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: Library -> {C entry: (pointer arguments, stride arguments)}. Every entry
-#: then takes dtype, B, H, Lq, Lk, D, the strides, q_offset, kv_offset and
-#: the stream.
+#: Library -> {C entry: (pointer arguments, stride arguments, device
+#: pointers before the stream)}. Every entry takes its pointers, then
+#: dtype, B, H, Lq, Lk, D, the strides, q_offset, kv_offset, its device
+#: pointers (the forward's: the offsets pair, or null) and the stream.
 _ENTRIES = {
-    "flash_fwd": {"tpushare_flash_fwd": (5, 9)},
-    "flash_bwd": {"tpushare_flash_bwd_dq": (7, 12),
-                  "tpushare_flash_bwd_dkv": (8, 12)},
+    "flash_fwd": {"tpushare_flash_fwd": (5, 9, 1)},
+    "flash_bwd": {"tpushare_flash_bwd_dq": (7, 12, 0),
+                  "tpushare_flash_bwd_dkv": (8, 12, 0)},
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 _lib_lock = threading.Lock()
@@ -104,16 +105,23 @@ def nvcc_command(source: str | Path, out: str | Path) -> list[str]:
             "-o", str(out), str(source)]
 
 
+def entry_argtypes(name: str, sym: str) -> list:
+    """The ``ctypes`` argument types of the C entry ``sym`` of library
+    ``name``, in the order :data:`_ENTRIES` describes."""
+    n_ptr, n_strides, n_dev = _ENTRIES[name][sym]
+    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * n_strides + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * n_dev + [ctypes.c_void_p])
+
+
 def bind_library(path: str | Path, name: str) -> dict[str, ctypes._CFuncPtr]:
     """Load the library ``path`` built from ``{name}.cu`` and type its C
     entries."""
     lib = ctypes.CDLL(str(path))
     fns = {}
-    for sym, (n_ptr, n_strides) in _ENTRIES[name].items():
+    for sym in _ENTRIES[name]:
         fn = getattr(lib, sym)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * n_strides
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = entry_argtypes(name, sym)
         fn.restype = ctypes.c_int
         fns[sym] = fn
     return fns
@@ -303,21 +311,64 @@ def _strides(*ts: torch.Tensor) -> tuple[int, ...]:
     return tuple(s for t in ts for s in t.stride()[:3])
 
 
+#: An offset: a Python int, or a 1-element int32 tensor on q's device.
+Offset = int | torch.Tensor
+
+
+def _check_offsets(q: torch.Tensor, *offsets: Offset) -> None:
+    """Raise on an offset tensor the forward cannot read on q's device
+    (never reads its value: on the card that would wait for it)."""
+    for t in offsets:
+        if isinstance(t, torch.Tensor) and (
+                t.dtype != torch.int32 or t.numel() != 1
+                or t.device != q.device):
+            raise ValueError(f"an offset tensor must be one int32 element on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def _offset_pair(q: torch.Tensor, q_offset: Offset,
+                 kv_offset: Offset) -> torch.Tensor | None:
+    """None for int offsets; else the int32 pair (q_offset, kv_offset) as
+    one 2-element buffer on q's device: the given tensors' own storage
+    when they are already adjacent elements of one (``pair[0:1]``,
+    ``pair[1:2]``), else a new one made on the device."""
+    if not (isinstance(q_offset, torch.Tensor)
+            or isinstance(kv_offset, torch.Tensor)):
+        return None
+    parts = [t.reshape(1) if isinstance(t, torch.Tensor)
+             else torch.full((1,), t, dtype=torch.int32, device=q.device)
+             for t in (q_offset, kv_offset)]
+    first, second = parts
+    if (first.untyped_storage().data_ptr()
+            == second.untyped_storage().data_ptr()
+            and second.data_ptr() == first.data_ptr() + 4):
+        return first.as_strided((2,), (1,))
+    return torch.cat(parts)
+
+
 def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_offset: int = 0, kv_offset: int = 0
+                     q_offset: Offset = 0, kv_offset: Offset = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: ([B, Lq, H, D] out in q's dtype,
-    [B, Lq, H] fp32 lse)."""
+    [B, Lq, H] fp32 lse). Offsets given as tensors are read by the kernel
+    on the card (:func:`_offset_pair`), never on the host, so a launch
+    captured in a CUDA graph serves whatever offsets they hold at each
+    replay; the result is the one the same offsets as ints give."""
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v)
     _check_tma(q=q, k=k, v=v)
+    _check_offsets(q, q_offset, kv_offset)
+    pair = _offset_pair(q, q_offset, kv_offset)
+    ints = (0, 0) if pair is not None else (int(q_offset), int(kv_offset))
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)
     _launch("tpushare_flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, lq, k.shape[1], d,
-             *_strides(q, k, v), int(q_offset), int(kv_offset)), q)
+             *_strides(q, k, v), *ints,
+             None if pair is None else pair.data_ptr()), q)
     FLASH_FWD_LAUNCHES += 1
     return out, lse
 
@@ -364,23 +415,25 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
-def _mask(lq: int, lk: int, q_offset: int, kv_offset: int,
+def _mask(lq: int, lk: int, q_offset: Offset, kv_offset: Offset,
           device: torch.device) -> torch.Tensor:
-    """[Lq, Lk] causal mask on global positions."""
+    """[Lq, Lk] causal mask on global positions (an offset tensor is added
+    on its device, as the kernel reads it)."""
     q_pos = q_offset + torch.arange(lq, device=device)
     kv_pos = kv_offset + torch.arange(lk, device=device)
     return q_pos[:, None] >= kv_pos[None, :]
 
 
 def flash_block_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, q_offset: int = 0,
-                               kv_offset: int = 0
+                               v: torch.Tensor, q_offset: Offset = 0,
+                               kv_offset: Offset = 0
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's plain version, twin of the JAX package's
     ``_xla_block_with_lse``: same (out [B, Lq, H, D], lse [B, Lq, H]
     fp32) semantics, with all softmax arithmetic in fp32. A row that
     sees no key gets what the kernel gives it, out 0 and lse
-    ``NEG_INF``, where the XLA twin averages ``v``."""
+    ``NEG_INF``, where the XLA twin averages ``v``. Offsets are ints or
+    1-element tensors, as the kernel's wrapper takes them."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = _mask(q.shape[1], k.shape[1], q_offset, kv_offset, q.device)
@@ -434,9 +487,10 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int, kv_offset: int
+                   q_offset: Offset, kv_offset: Offset
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
+        _check_offsets(q, q_offset, kv_offset)
         return flash_block_with_lse_plain(q, k, v, q_offset, kv_offset)
     return flash_fwd_kernel(q, k, v, q_offset, kv_offset)
 
@@ -489,7 +543,7 @@ class _FlashBlock(torch.autograd.Function):
 
 
 def flash_block_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         q_offset: int = 0, kv_offset: int = 0
+                         q_offset: Offset = 0, kv_offset: Offset = 0
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Local Q against one KV block at global offsets: (out [B, Lq, H, D],
     lse [B, Lq, H] fp32), the statistic :func:`merge_partials` combines.
@@ -498,9 +552,16 @@ def flash_block_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     adds nothing to dk or dv. (The JAX package's Pallas kernel and XLA
     twin disagree on such rows; ``merge_partials`` weighs them 0 either
     way.) Differentiable in q, k and v (both outputs) when grad is
-    enabled; otherwise nothing is saved."""
+    enabled; otherwise nothing is saved. The offsets are ints, or 1-element
+    int32 tensors on q's device that the forward reads there (a compiled
+    step's offsets); the backward kernels take ints only, so a tensor
+    offset under grad raises ``TypeError``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if any(isinstance(t, torch.Tensor) for t in (q_offset, kv_offset)):
+            raise TypeError("flash_block_with_lse: the backward kernels take "
+                            "int offsets only; pass ints under grad, or run "
+                            "under torch.inference_mode()")
         return _FlashBlock.apply(q, k, v, q_offset, kv_offset)
     return _block_forward(q, k, v, q_offset, kv_offset)
 

@@ -9,13 +9,14 @@ returned ones are the same objects, updated. Everything runs under
 ``torch.inference_mode()``.
 
 The steps the JAX package jits run through :mod:`graphs`: ``generate``,
-``admit`` (so ``admit_bucketed``), ``serve_chunk`` and the paged chunk
-replay a CUDA graph on the card after their first call of a key, and run
-the same bodies eagerly on the CPU. So the bodies never read a device
-value on the host: an admission's slot and true length are 1-element
-device tensors, a sampled step's temperature is a device tensor, and the
-chunk's once-per-chunk flush has a fixed shape. The chunked and paged
-prefill pieces and tensor-parallel decode stay eager.
+``admit`` (so ``admit_bucketed``), ``serve_chunk``, the paged chunk, the
+chunked and paged prefill pieces and their finalize replay a CUDA graph
+on the card after their first call of a key, and run the same bodies
+eagerly on the CPU. So the bodies never read a device value on the host:
+an admission's slot, true length and piece offset are 1-element device
+tensors (the flash forward reads the offset on the card), a sampled
+step's temperature is a device tensor, and the chunk's once-per-chunk
+flush has a fixed shape. Tensor-parallel decode stays eager.
 
 Sampling draws from an explicit ``torch.Generator`` on the logits'
 device; it cannot reproduce JAX's threefry bits, only the contract
@@ -27,8 +28,8 @@ the rank's tp shard of the weights and its H / tp heads of the cache,
 with the tp pair of all-reduces ``model.forward`` takes as ``tp``.
 
 Chunked and paged admission prefill a prompt in pieces; each piece's
-attention is the flash forward at the piece's offset against the keys
-before it (the kernel on the card, its plain version on the CPU).
+attention is the flash forward at the piece's offset against the slot's
+whole row (the kernel on the card, its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -580,49 +581,106 @@ def _decode_chunk(params: M.Transformer, cache: list[dict], state: dict,
 # ``serve_chunk`` steps between pieces (:func:`admit_interleaved`), so an
 # admission costs the running batch a bounded pause per piece. A piece at
 # ``offset`` writes its K/V into the slot's rows [offset, offset + C) and
-# attends them and every row before it: the flash forward with
-# ``q_offset = offset`` against keys [0, offset + C). The JAX package
-# attends the slot's whole max_len row there; the rows past offset + C are
-# all masked, so this is the same function with less work.
+# attends the slot's whole max_len row, as the JAX package's
+# ``dynamic_slice`` does: the flash forward with ``q_offset = offset`` read
+# on the device, whose causal mask hides the rows past offset + C (the
+# kernel never loads them).
+#
+# Each piece is one compiled step (:mod:`graphs`) a (C, cache), the twin
+# of the JAX package's jitted ``_prefill_chunk``: the slot, the offset (or
+# the paged piece index) and the true length are device scalars, so one
+# graph serves every piece of every prompt in every slot. The tail,
+# ``_finalize_admit``, is one more, greedy or sampled.
 
 
-def _run_piece(params: M.Transformer, piece: torch.Tensor, offset: int,
-               true_len: int, carry: torch.Tensor, store_kv
-               ) -> torch.Tensor:
-    """One ``[C]`` piece of a prompt at global position ``offset``.
-    ``store_kv(layer, k, v)`` stores the piece's K/V [1, C, H, D] and
-    returns the keys and values the piece attends, [1, offset + C, H, D]
-    each. Returns ``carry``, replaced by the final hidden state at
-    position ``true_len - 1`` when this piece holds it."""
-    C = piece.shape[0]
-    positions = (offset + torch.arange(C, device=piece.device))[None, :]
-    x = params.embed[piece][None, :]
+def _run_piece(params: M.Transformer, tokens: torch.Tensor,
+               offset: torch.Tensor, true_len: torch.Tensor,
+               carry: torch.Tensor, store_kv) -> torch.Tensor:
+    """One ``[C]`` piece of a prompt at the global position ``offset`` (a
+    :func:`_scalar`). ``store_kv(layer, k, v)`` stores the piece's K/V
+    [1, C, H, D] and returns the keys and values the piece attends, the
+    slot's whole [1, max_len, H, D] row each. Returns ``carry`` [1, d],
+    replaced by the final hidden state at position ``true_len - 1`` when
+    this piece holds it, selected on the device as JAX's ``where`` over a
+    clamped index."""
+    C = tokens.shape[0]
+    rows = offset + torch.arange(C, device=tokens.device)
+    # The kernel reads (q_offset, kv_offset) = (offset, 0) on the card.
+    pair = torch.cat([offset, torch.zeros_like(offset)]).to(torch.int32)
+    x = params.embed[tokens][None, :]
     for i, block in enumerate(params.blocks):
-        q, k, v = M.qkv_proj(block, x, positions)
+        q, k, v = M.qkv_proj(block, x, rows[None, :])
         ck, cv = store_kv(i, k, v)
-        out = FA.flash_block_with_lse(q, ck, cv, q_offset=offset)[0]
+        out = FA.flash_block_with_lse(q, ck, cv, q_offset=pair[0:1],
+                                      kv_offset=pair[1:2])[0]
         x = x + M.out_proj(block, out)
         x = M.ffn_block(block, x)
     idx = true_len - 1 - offset
-    return x[0, idx] if 0 <= idx < C else carry
+    inside = (idx >= 0) & (idx < C)
+    hidden = x[0].index_select(0, idx.clamp(0, C - 1))
+    return torch.where(inside[:, None], hidden, carry)
 
 
 def _prefill_chunk(params: M.Transformer, state: dict, piece: torch.Tensor,
-                   slot: int, offset: int, true_len: int,
-                   carry: torch.Tensor) -> torch.Tensor:
-    """Prefill one piece into ``slot``'s cache rows [offset, offset + C);
-    it attends the slot's rows [0, offset + C) in place (a [1, ...] view
-    of the cache). Returns the carried hidden state."""
-    end = offset + piece.shape[0]
+                   slot: torch.Tensor, offset: torch.Tensor,
+                   true_len: torch.Tensor, carry: torch.Tensor
+                   ) -> torch.Tensor:
+    """Prefill one piece into ``slot``'s cache rows [offset, offset + C),
+    all three :func:`_scalar` tensors; it attends the slot's whole row,
+    gathered into a buffer of its own (JAX's ``dynamic_slice``). One
+    compiled step a (C, cache). Returns the carried hidden state [1, d]."""
+    cache = state["cache"]
+    max_len = cache[0]["k"].shape[1]
 
-    def store_kv(i, k, v):
-        layer = state["cache"][i]
-        layer["k"][slot, offset:end] = k[0]
-        layer["v"][slot, offset:end] = v[0]
-        return (layer["k"][slot:slot + 1, :end],
-                layer["v"][slot:slot + 1, :end])
+    def body(piece, slot, offset, true_len, carry):
+        flat = slot * max_len + offset + torch.arange(
+            piece.shape[0], device=piece.device)
 
-    return _run_piece(params, piece, offset, true_len, carry, store_kv)
+        def store_kv(i, k, v):
+            layer = cache[i]
+            for kv, new in (("k", k), ("v", v)):
+                t = layer[kv]
+                t.view(-1, *t.shape[2:]).index_copy_(0, flat, new[0])
+            return (layer["k"].index_select(0, slot),
+                    layer["v"].index_select(0, slot))
+
+        return _run_piece(params, piece, offset, true_len, carry, store_kv)
+
+    return graphs.run("prefill_chunk", body,
+                      (piece, slot, offset, true_len, carry),
+                      bound=lambda: (*params.parameters(),
+                                     *_cache_tensors(cache)))
+
+
+def _finalize_compiled(params: M.Transformer, state: dict, slot: int,
+                       true_len: int, carry: torch.Tensor,
+                       temperature: float,
+                       generator: torch.Generator | None) -> dict:
+    """:func:`_finalize_admit` of a chunked or paged admission as one
+    compiled step (:mod:`graphs`), greedy or sampled, the twin of the JAX
+    package's jitted ``_finalize_admit`` / ``_finalize_admit_paged``:
+    slot, true length, carry and temperature are inputs, the slot's
+    position, activity and token copied in and back out. It touches no
+    cache, so contiguous and paged servers of one slot count share it."""
+    dev = state["pos"].device
+    temp = _temperature(temperature, dev)
+
+    def body(slot, true_len, carry, pos, active, token, *temps):
+        out = {"pos": pos, "active": active, "token": token}
+        _finalize_admit(params, out, slot, true_len, carry,
+                        temps[0] if temps else None, generator)
+        return pos, active, token
+
+    got = graphs.run(
+        "finalize_admit", body,
+        (_scalar(slot, dev), _scalar(true_len, dev), carry, state["pos"],
+         state["active"], state["token"]) + (() if temp is None else (temp,)),
+        bound=params.parameters,
+        generator=None if temp is None else generator)
+    for name, t in zip(("pos", "active", "token"), got):
+        if t is not state[name]:
+            state[name].copy_(t)
+    return state
 
 
 def _chunk_plan(prompt: torch.Tensor, chunk: int, max_len: int, slots: int,
@@ -688,21 +746,21 @@ def admit_interleaved(params: M.Transformer, state: dict,
     padded, s, tl, n_pieces = _chunk_plan(
         prompt, chunk, max_len, slots, slot, true_len, temperature,
         generator)
-    carry = params.embed.new_zeros(params.embed.shape[1])
+    dev = state["pos"].device
+    carry = params.embed.new_zeros((1, params.embed.shape[1]))
+    slot_t, tl_t = _scalar(s, dev), _scalar(tl, dev)
     emitted = []
     for i in range(n_pieces):
         carry = _prefill_chunk(params, state,
-                               padded[i * chunk:(i + 1) * chunk], s,
-                               i * chunk, tl, carry)
+                               padded[i * chunk:(i + 1) * chunk], slot_t,
+                               _scalar(i * chunk, dev), tl_t, carry)
         if decode_steps > 0:
             state, em = serve_chunk(params, state, decode_steps,
                                     temperature=serve_temperature,
                                     generator=serve_generator)
             emitted.append(em)
-    dev = state["pos"].device
-    state = _finalize_admit(params, state, _scalar(s, dev), _scalar(tl, dev),
-                            carry[None], _temperature(temperature, dev),
-                            generator)
+    state = _finalize_compiled(params, state, s, tl, carry, temperature,
+                               generator)
     if emitted:
         return state, torch.cat(emitted)
     return state, torch.zeros((0, slots), dtype=torch.long,
@@ -883,28 +941,39 @@ def _paged_dims(state: dict) -> tuple[int, int, int, int]:
 
 
 def _prefill_paged_piece(params: M.Transformer, state: dict,
-                         piece_tokens: torch.Tensor, slot: int, piece: int,
-                         true_len: int, carry: torch.Tensor) -> torch.Tensor:
-    """Prefill logical page ``piece`` of ``slot`` (a page-sized piece)
-    into the physical page its table row maps, then attend the slot's
-    pages [0, piece] gathered into a [1, (piece + 1) * page, H, D] view:
-    the contiguous piece's keys and values. Returns the carried hidden
-    state."""
-    P, page, _, _ = _paged_dims(state)
-    # Every page up to this one is mapped before any piece runs;
-    # the clamp keeps an index in range regardless.
-    row = state["table"][slot, :piece + 1].clamp(0, P - 1)
-    pid = row[piece:]
+                         piece_tokens: torch.Tensor, slot: torch.Tensor,
+                         piece: torch.Tensor, true_len: torch.Tensor,
+                         carry: torch.Tensor) -> torch.Tensor:
+    """Prefill logical page ``piece`` of ``slot`` (a page-sized piece; all
+    three :func:`_scalar` tensors) into the physical page its table row
+    maps, then attend the slot's whole table row gathered into a
+    [1, max_len, H, D] view, unmapped entries clamped to page 0 (JAX's
+    gather; the causal mask hides every row past the piece). One compiled
+    step a (page, pages and table). Returns the carried hidden state."""
+    P, page, _, max_len = _paged_dims(state)
+    pages, table = state["pages"], state["table"]
 
-    def store_kv(i, k, v):
-        pg = state["pages"][i]
-        pg["k"][pid] = k
-        pg["v"][pid] = v
-        shape = (1, (piece + 1) * page, *pg["k"].shape[2:])
-        return pg["k"][row].view(shape), pg["v"][row].view(shape)
+    def body(piece_tokens, slot, piece, true_len, carry):
+        # Every page up to this one is mapped before any piece runs; the
+        # clamp keeps an index in range regardless.
+        row = table.index_select(0, slot)[0].clamp(0, P - 1)      # [MP]
+        pid = row.index_select(0, piece)
 
-    return _run_piece(params, piece_tokens, piece * page, true_len, carry,
-                      store_kv)
+        def store_kv(i, k, v):
+            pg = pages[i]
+            pg["k"].index_copy_(0, pid, k)
+            pg["v"].index_copy_(0, pid, v)
+            shape = (1, max_len, *pg["k"].shape[2:])
+            return (pg["k"].index_select(0, row).view(shape),
+                    pg["v"].index_select(0, row).view(shape))
+
+        return _run_piece(params, piece_tokens, piece * page, true_len,
+                          carry, store_kv)
+
+    return graphs.run("prefill_paged_piece", body,
+                      (piece_tokens, slot, piece, true_len, carry),
+                      bound=lambda: (*params.parameters(),
+                                     *_cache_tensors(pages), table))
 
 
 @torch.inference_mode()
@@ -938,19 +1007,19 @@ def admit_paged(params: M.Transformer, state: dict, pool: paging.PagePool,
         row = torch.full((MP,), -1, dtype=torch.long)
         row[:n_pages] = torch.tensor(lease.pages)
         state["table"][s] = row
-        carry = params.embed.new_zeros(params.embed.shape[1])
+        dev = state["pos"].device
+        carry = params.embed.new_zeros((1, params.embed.shape[1]))
+        slot_t, tl_t = _scalar(s, dev), _scalar(tl, dev)
         # Shared pages already hold bit-equal K/V (chain-hash match), so
         # their pieces are skipped. The page holding position
         # true_len - 1 is never shared (paging.shareable_pages), so a
         # piece that runs always computes the carried hidden state.
         for i in range(lease.shared, n_pages):
             carry = _prefill_paged_piece(
-                params, state, padded[i * page:(i + 1) * page], s, i, tl,
-                carry)
-        dev = state["pos"].device
-        return _finalize_admit(params, state, _scalar(s, dev),
-                               _scalar(tl, dev), carry[None],
-                               _temperature(temperature, dev), generator)
+                params, state, padded[i * page:(i + 1) * page], slot_t,
+                _scalar(i, dev), tl_t, carry)
+        return _finalize_compiled(params, state, s, tl, carry, temperature,
+                                  generator)
     except BaseException:
         state["table"][s] = old_row
         pool.release(owner)
