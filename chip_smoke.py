@@ -72,12 +72,14 @@ from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import checkpoint as CK
+from tpushare_torch.workload import convert
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import moe
 from tpushare_torch.workload import paging as P
 from tpushare_torch.workload import parallel as par
+from tpushare_torch.workload import pipeline as PP
 from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
 
@@ -458,7 +460,9 @@ def main(usage_dir: str) -> int:
     long_lengths = long_length_phase(gen)
     phase("3 long lengths", card=card, **long_lengths)
     device_offsets = device_offsets_phase(gen)
-    phase("3 device offsets", card=card, **device_offsets)
+    bwd_offsets = device_offsets_bwd_phase(gen)
+    phase("3 device offsets", card=card, **device_offsets,
+          backward=bwd_offsets)
 
     # 3b. Backward kernels against their plain version, from the forward
     # kernel's out and lse, at the same shapes and inputs and at the edge
@@ -691,7 +695,13 @@ def main(usage_dir: str) -> int:
     # fresh gangs on the same and on another mesh resume from it, one
     # process restores it unsharded and serves, a tp gang serves it.
     lifecycle = checkpoint_phase(cfg, inv.chips[0].hbm_gib)
-    phase("5f checkpoint, resume and tp serving", card=card, **lifecycle)
+    # Its pipe legs: a pipe gang's checkpoint in the reference's stacked
+    # layout, resumed on another tp, whole in this process, and refused
+    # onto another stage count.
+    pipe_ckpt = pipe_checkpoint_phase(cfg, inv.chips[0].hbm_gib, fraction)
+    lifecycle["launches"].update(pipe_ckpt.pop("launches"))
+    phase("5f checkpoint, resume and tp serving", card=card, **lifecycle,
+          pipe=pipe_ckpt)
 
     # 6. Heartbeat, and whether the grant's allocator cap holds.
     snap = torchenv.write_usage()
@@ -895,6 +905,14 @@ def main(usage_dir: str) -> int:
             "plain_and_library_compute": "dq, dk and dv in one call",
             **({"launch": train["dq_launch"]} if kname == "flash_bwd_dq"
                else {}),
+            "device_offsets": {
+                "shape": bwd_offsets["timed"]["bfloat16"]["shape"],
+                "checked_at": {"offsets": list(DEVICE_OFFSETS),
+                               "shape": list(DEVICE_OFFSET_SHAPE[:4]),
+                               "head_dims": [16, 64, 128]},
+                **{dn: {**t[kname], "plain_ms": t["plain_ms"],
+                        "library_ms": t["library_ms"]}
+                   for dn, t in bwd_offsets["timed"].items()}},
             "ring_shapes": {
                 name: {**_pick(ring_t[name]["backward"][kname]),
                        "plain_ms": ring_t[name]["backward"]["plain_ms"],
@@ -1061,6 +1079,200 @@ def device_offsets_phase(gen: torch.Generator) -> dict:
                 lambda: FA.flash_fwd_kernel(q, k, v, pair[0:1], pair[1:2]))
         fields[dn] = {"offsets": per, "timed_offset": off, **timed}
     return fields
+
+
+def device_offsets_bwd_phase(gen: torch.Generator) -> dict:
+    """Phase 3's device offsets, the backward half.
+
+    (1) At ``DEVICE_OFFSET_SHAPE`` with head dims 16, 64 and 128, bf16 and
+    fp32, a nonzero lse cotangent: one dq and one dk/dv launch captured
+    in a CUDA graph with the offsets pair in device memory, replayed at
+    each of ``DEVICE_OFFSETS`` (the forward's lse and delta at that offset
+    copied into the captured inputs first), must give the bits of the
+    launch-argument kernels at that offset, and so must an eager
+    device-offset launch. (2) ``flash_block_with_lse`` with the pair as
+    its offsets, forward and backward through autograd captured in one
+    CUDA graph (D = 64, both dtypes), replayed at each offset, must give
+    out, lse, dq, dk and dv bit for bit as eager autograd with int
+    offsets; a profiler trace of one replay must hold one forward, one dq
+    and one dk/dv launch. (3) At ring block (h) (``RING_SHAPES``,
+    offsets (1024, 0), dlse nonzero), both dtypes: each backward kernel's
+    device ms with the pair in device memory beside the launch-argument
+    launch on the same inputs, with (h)'s bound, plain and library ms
+    (:func:`time_bwd_shape`), and (4) every wrapper there with offsets
+    that are not one buffer's (:func:`_offsets_apart`). These launches
+    compare and time the kernels; none is counted on a path."""
+    b, lq, lk, h, _ = DEVICE_OFFSET_SHAPE
+    fields = {"replays": {}, "autograd_graph": {}, "timed": {},
+              "apart": {}}
+    pair = torch.zeros(2, dtype=torch.int32, device="cuda")
+
+    def set_pair(off):
+        pair.copy_(torch.tensor([off, 0], dtype=torch.int32))
+
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for d in (16, 64, 128):
+            q, k, v = (torch.randn((b, n, h, d), generator=gen,
+                                   device="cuda").to(dt)
+                       for n in (lq, lk, lk))
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            dlse = torch.randn((b, lq, h), generator=gen, device="cuda")
+            with torch.inference_mode():
+                lse = torch.empty((b, lq, h), dtype=torch.float32,
+                                  device="cuda")
+                delta = torch.empty_like(lse)
+                set_pair(DEVICE_OFFSETS[-1])
+                graph, got = _capture_once(lambda: (
+                    FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                           pair[0:1], pair[1:2]),
+                    *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                             pair[0:1], pair[1:2])))
+                per = {}
+                for off in DEVICE_OFFSETS:
+                    out, lse_off = FA.flash_fwd_kernel(q, k, v, off, 0)
+                    lse.copy_(lse_off)
+                    delta.copy_(FA.flash_bwd_delta(do, out, dlse))
+                    set_pair(off)
+                    graph.replay()
+                    want = (FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                   off, 0),
+                            *FA.flash_bwd_dkv_kernel(q, k, v, do, lse,
+                                                     delta, off, 0))
+                    eager = (FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                    pair[0:1], pair[1:2]),
+                             *FA.flash_bwd_dkv_kernel(q, k, v, do, lse,
+                                                      delta, pair[0:1],
+                                                      pair[1:2]))
+                    torch.cuda.synchronize()
+                    same = {g: torch.equal(x, w) and torch.equal(e, w)
+                            for g, x, e, w in zip(("dq", "dk", "dv"), got,
+                                                  eager, want)}
+                    check(all(same.values()) and all(
+                        bool(torch.isfinite(x).all()) for x in got),
+                          f"3 device offsets/backward {dn} D={d} at {off}: "
+                          f"bit-identical {same}")
+                    per[off] = same
+                del graph, got
+            fields["replays"][f"{dn}/d{d}"] = per
+        fields["autograd_graph"][dn] = _autograd_offsets_graph(gen, dt, pair)
+        name = "h_ring_past"
+        bb, lq_h, lk_h, hh, dd, qo, ko = RING_SHAPES[name]
+        q, k, v = (torch.randn((bb, n, hh, dd), generator=gen,
+                               device="cuda").to(dt) for n in (lq_h, lk_h,
+                                                               lk_h))
+        dlse = torch.randn((bb, lq_h, hh), generator=gen, device="cuda")
+        base = time_bwd_shape(q, k, v, qo, ko, dn, dlse)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        pair.copy_(torch.tensor([qo, ko], dtype=torch.int32))
+        with torch.inference_mode():
+            out, lse = FA.flash_fwd_kernel(q, k, v, qo, ko)
+            delta = FA.flash_bwd_delta(do, out, dlse)
+            fns = {"flash_bwd_dq": FA.flash_bwd_dq_kernel,
+                   "flash_bwd_dkv": FA.flash_bwd_dkv_kernel}
+            timed = {"shape": [bb, lq_h, lk_h, hh, dd, qo, ko],
+                     "library": base["library"],
+                     "plain_ms": base["plain_ms"],
+                     "library_ms": base["library_ms"]}
+            for kname, fn in fns.items():
+                timed[kname] = {
+                    "launch_argument_kernel_ms": device_ms(
+                        lambda: fn(q, k, v, do, lse, delta, qo, ko)),
+                    "device_offset_kernel_ms": device_ms(
+                        lambda: fn(q, k, v, do, lse, delta, pair[0:1],
+                                   pair[1:2])),
+                    "device_offset_call_ms": time_ms(
+                        lambda: fn(q, k, v, do, lse, delta, pair[0:1],
+                                   pair[1:2])),
+                    **{key: base[kname][key] for key in (
+                        "bound_ms", "bound_by", "ops", "bytes")}}
+            fields["apart"][dn] = _offsets_apart(q, k, v, do, lse, delta,
+                                                 qo, ko, dn)
+        fields["timed"][dn] = timed
+    return fields
+
+
+def _offsets_apart(q, k, v, do, lse, delta, qo: int, ko: int,
+                   dn: str) -> dict:
+    """Each kernel's wrapper at ring block (h) with offsets that are not
+    adjacent elements of one buffer, (tensor, int), (int, tensor) and two
+    separate tensors, so the wrapper puts their pair together on the
+    card: eager, and captured in a CUDA graph and replayed, out, lse, dq,
+    dk and dv bit for bit the launch-argument launches'. (h)'s grid takes
+    more than one wave, so late blocks read the pair well after the
+    wrapper's later allocations."""
+    def calls(q_off, kv_off):
+        return (*FA.flash_fwd_kernel(q, k, v, q_off, kv_off),
+                FA.flash_bwd_dq_kernel(q, k, v, do, lse, delta, q_off,
+                                       kv_off),
+                *FA.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, q_off,
+                                         kv_off))
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.int32, device="cuda")
+
+    want = calls(qo, ko)
+    forms = {"tensor_int": (one(qo), ko), "int_tensor": (qo, one(ko)),
+             "two_tensors": (one(qo), one(ko))}
+    fields = {}
+    for form, offs in forms.items():
+        eager = calls(*offs)
+        graph, got = _capture_once(lambda offs=offs: calls(*offs))
+        graph.replay()
+        torch.cuda.synchronize()
+        same = {name: torch.equal(e, w) and torch.equal(g, w)
+                for name, e, g, w in zip(("out", "lse", "dq", "dk", "dv"),
+                                         eager, got, want)}
+        check(all(same.values()), f"3 device offsets/apart {dn} {form}: "
+                                  f"bit-identical {same}")
+        fields[form] = same
+        del graph, got
+    return fields
+
+
+def _autograd_offsets_graph(gen: torch.Generator, dt: torch.dtype,
+                            pair: torch.Tensor) -> dict:
+    """``flash_block_with_lse(q, k, v, pair[0:1], pair[1:2])`` and its
+    backward (``torch.autograd.grad`` with a nonzero lse cotangent) in one
+    CUDA graph at ``DEVICE_OFFSET_SHAPE`` (D = 64), replayed at each of
+    ``DEVICE_OFFSETS`` against eager autograd with the same offsets as
+    ints: out, lse, dq, dk and dv bit for bit. One replay is traced: one
+    forward, one dq and one dk/dv launch."""
+    dn = str(dt).split(".")[1]
+    b, lq, lk, h, d = DEVICE_OFFSET_SHAPE
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+               .to(dt).requires_grad_() for n in (lq, lk, lk))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+    dlse = torch.randn((b, lq, h), generator=gen, device="cuda")
+
+    def step(q_off, kv_off):
+        out, lse = FA.flash_block_with_lse(q, k, v, q_off, kv_off)
+        grads = torch.autograd.grad((out, lse), (q, k, v), (do, dlse))
+        return (out.detach(), lse.detach(), *grads)
+
+    pair.copy_(torch.tensor([DEVICE_OFFSETS[-1], 0], dtype=torch.int32))
+    graph, got = _capture_once(lambda: step(pair[0:1], pair[1:2]))
+    per, traced = {}, None
+    for off in DEVICE_OFFSETS:
+        pair.copy_(torch.tensor([off, 0], dtype=torch.int32))
+        if traced is None:
+            _, on_card, _ = profiled(graph.replay)
+            traced = {kname: sum(part in e.name for e in on_card)
+                      for kname, part in TRACE_NAMES.items()}
+        else:
+            graph.replay()
+        want = step(off, 0)
+        torch.cuda.synchronize()
+        same = {name: torch.equal(x, w) for name, x, w in zip(
+            ("out", "lse", "dq", "dk", "dv"), got, want)}
+        check(all(same.values()), f"3 device offsets/autograd graph {dn} at "
+                                  f"{off}: bit-identical {same}")
+        per[off] = same
+    check(traced == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+          f"3 device offsets/autograd graph {dn}: a replay launched "
+          f"{traced}")
+    del graph
+    return {"offsets": per, "traced_launches_a_replay": traced}
 
 
 def _capture_once(fn):
@@ -2181,6 +2393,200 @@ def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
             "generate_ms_by_rank": [p["generate_ms"] for p in per_rank],
             "new_tok_per_s_by_rank": [p["new_tok_per_s"] for p in per_rank],
             "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank]}
+    fields.update(launches={k: dict(v) for k, v in launches.items()},
+                  clock="host, collectives over gloo via host")
+    return fields
+
+
+def pipe_checkpoint_phase(cfg: M.ModelConfig, card_gib: int,
+                          fraction: float) -> dict:
+    """Phase 5f's pipe legs: checkpoints of a 1F1B flagship pipe gang
+    (bf16, phase 5b's 8 x 2048 global batch, the dry run's weights, M =
+    4) in the reference's stacked layout, gangs of ``python -m
+    tpushare_torch.entry`` over gloo under grants of floor(``card_gib`` /
+    ranks), the checkpoint in a temporary directory:
+
+    (f) a (2, 1, 1, 2) gang (the ``dp_pp`` part of a (2, 1, 2) training
+        mesh) takes ``CKPT_STEPS`` AdamW steps with an async save after
+        step ``CKPT_AT``;
+    (g) a fresh 8-rank (2, 2, 1, 2) gang (``dp_tp_pp``) restores that
+        step, tp 1 -> 2 on the same two stages: its gathered weights and
+        both AdamW moments bit for bit the saved ones, its next loss
+        within ``TRAIN_LOSS_TOL`` of (f)'s;
+    (h) this process restores the whole stacked tree (at the stage count
+        the checkpoint holds) bit for bit and takes the next step with
+        ``flagship_pipeline_reference`` and AdamW on the card, without
+        the grant's cap (its plain attention holds [B, H, L, L] fp32
+        scores): the loss within ``TRAIN_LOSS_TOL`` of (f)'s;
+    (i) a gang of four ranks whose ``pipe`` part pipes over the sp axis
+        of a (1, 1, 4) mesh, four stages, resumes from that checkpoint:
+        the gang fails on a ``ValueError`` naming both counts, raised in
+        ``Checkpointer._check_stages``, which reads the metadata alone,
+        with no frame of ``dcp.load`` in the failing rank's traceback.
+
+    Every rank must launch, each call, 2·k·M forwards and k·M of each
+    backward (k = n_layers / 2 layers a stage), and the GPipe forward
+    that (f)'s part runs after k·M forwards. Returns the legs' fields and
+    ``launches`` by leg. Host clocks throughout."""
+    fields, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pipe-ckpt-") as tmp:
+        ckdir = os.path.join(tmp, "ckpt")
+
+        def leg(name, world, mesh, part, *extra):
+            save = os.path.join(tmp, f"{name}.pt")
+            grant = card_gib // world
+            t0 = time.perf_counter()
+            records = launch.launch(
+                ["-m", "tpushare_torch.entry", "--mesh", mesh, "--parts",
+                 part, "--width", "flagship", "--steps", str(CKPT_STEPS),
+                 "--device", "cuda", "--backend", "gloo", "--save-grads",
+                 save, "--ckpt-dir", ckdir, *extra], world,
+                deadline_s=GANG_DEADLINE_S, grant_gib=grant,
+                card_gib=card_gib)
+            secs = time.perf_counter() - t0
+            got = torch.load(save)[f"pipe_{part}"]["checkpoint"]
+            per_rank = [r["parts"][part] for r in records]
+            shape = per_rank[0]["mesh_shape"]
+            k = cfg.n_layers // shape["pp"]
+            m = per_rank[0]["microbatches"]
+            want = {"flash_fwd": 2 * k * m, "flash_bwd_dq": k * m,
+                    "flash_bwd_dkv": k * m}
+            path = launches.setdefault(f"pipe_checkpoint_{name}",
+                                       collections.Counter())
+            losses = per_rank[0]["losses"]
+            for rank, p in enumerate(per_rank):
+                check(p["losses"] == losses, f"5f({name}) rank {rank} "
+                      f"losses {p['losses']}, rank 0 {losses}")
+                for counts in p["launches_per_call"]:
+                    check(counts == want, f"5f({name}) rank {rank} "
+                          f"launches {counts}, want {want}")
+                    path.update(counts)
+                if "gpipe" in p:
+                    want_g = {"flash_fwd": k * m, "flash_bwd_dq": 0,
+                              "flash_bwd_dkv": 0}
+                    check(p["gpipe"]["launches"] == want_g,
+                          f"5f({name}) gpipe rank {rank} launches "
+                          f"{p['gpipe']['launches']}, want {want_g}")
+                    launches.setdefault(f"pipe_checkpoint_{name}_gpipe",
+                                        collections.Counter()).update(
+                        p["gpipe"]["launches"])
+            check(all(math.isfinite(x) for x in losses),
+                  f"5f({name}) losses {losses}")
+            ck = [p["checkpoint"] for p in per_rank]
+            rec = {"ranks": world, "training_mesh": mesh, "part": part,
+                   "mesh_shape": shape, "grant_gib": grant, "seconds": secs,
+                   "steps": per_rank[0]["steps"], "losses": losses,
+                   "launches_per_call": want,
+                   "call_ms_by_rank": [p["call_ms"] for p in per_rank],
+                   "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank],
+                   "checkpoint_by_rank": ck}
+            return rec, got["states"]
+
+        # (f) Train the dp x pp pipe, save asynchronously after CKPT_AT.
+        f, states_f = leg("f", 4, "2,1,2", "dp_pp", "--ckpt-every",
+                          str(CKPT_AT))
+        ck = f["checkpoint_by_rank"]
+        check(f["steps"] == list(range(1, CKPT_STEPS + 1))
+              and all(c["saved_steps"] == [CKPT_AT] for c in ck),
+              f"5f(f) saved {ck}")
+        pipe_dir = os.path.join(ckdir, E.PIPE_CKPT_SUBDIR)
+        on_disk = sorted(os.listdir(pipe_dir))
+        check(on_disk == [str(CKPT_AT)], f"5f(f) left {on_disk}")
+        saved = states_f[CKPT_AT]
+        check(int(saved["step"]) == CKPT_AT, f"5f(f) saved step "
+                                             f"{saved['step']}")
+        f.update(save_blocked_ms=[c["save_blocked_ms"][0] for c in ck],
+                 durable_ms=[c["durable_ms"] for c in ck],
+                 checkpoint_bytes=ck[0]["bytes"])
+        fields["f"] = f
+
+        # (g) A fresh dp x tp x pp gang of 8 resumes: tp 1 -> 2.
+        g, states_g = leg("g", 8, "2,2,2", "dp_tp_pp", "--resume")
+        check(g["steps"] == list(range(CKPT_AT + 1, CKPT_STEPS + 1))
+              and all(c["restored_step"] == CKPT_AT
+                      for c in g["checkpoint_by_rank"]),
+              f"5f(g) ran steps {g['steps']}")
+        check(_same_weights(states_g["restored"], saved),
+              "5f(g) restored weights or moments differ from the saved ones")
+        loss_err = abs(g["losses"][0] - f["losses"][CKPT_AT]) / abs(
+            f["losses"][CKPT_AT])
+        check(loss_err <= TRAIN_LOSS_TOL, f"5f(g) loss {g['losses'][0]} vs "
+                                          f"(f)'s {f['losses'][CKPT_AT]}")
+        g.update(vs_f_loss_rel_err=loss_err, restored_bit_identical=True,
+                 restore_ms=[c["restore_ms"]
+                             for c in g["checkpoint_by_rank"]])
+        fields["g"] = g
+
+        # (h) The whole stacked tree in this process, and the next step.
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        params = M.init_params(_dev_gen(9), cfg)
+        stage = PP.flagship_stage([{k: p.detach() for k, p in
+                                    blk.named_parameters()}
+                                   for blk in params.blocks])
+        edge = PP.flagship_edge(params.embed.detach(),
+                                params.final_norm.detach())
+        del params
+        opt = T.make_optimizer()([*stage.parameters(), *edge.parameters()])
+        ckptr = CK.Checkpointer(CK.CheckpointConfig(pipe_dir),
+                                pipe_axis="pp")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, step = ckptr.restore((stage, edge), opt)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        ckptr.close()
+        check(step == CKPT_AT, f"5f(h) restored step {step}")
+        whole = convert.pipeline_state(opt, stage, edge,
+                                       n_stages=f["mesh_shape"]["pp"])
+        check(_same_weights(whole, saved),
+              "5f(h) the restored stacked tree differs from the saved one")
+        tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
+                               generator=E.dryrun_generator(1)).cuda()
+        _zero_counts()
+        loss = PP.flagship_pipeline_reference(cfg, stage, edge, tokens,
+                                              torch.roll(tokens, -1, 1))
+        loss.backward()
+        opt.step()
+        h_loss = loss.item()
+        check(_counts() == dict.fromkeys(_counts(), 0),
+              f"5f(h) the plain reference launched {_counts()}")
+        h_err = abs(h_loss - f["losses"][CKPT_AT]) / abs(f["losses"][CKPT_AT])
+        check(math.isfinite(h_loss) and h_err <= TRAIN_LOSS_TOL,
+              f"5f(h) loss {h_loss} vs (f)'s {f['losses'][CKPT_AT]}")
+        fields["h"] = {"restored_step": step, "restore_ms": restore_ms,
+                       "restore_stats": ckptr.last_restore_stats,
+                       "restored_bit_identical": True, "next_loss": h_loss,
+                       "vs_f_loss_rel_err": h_err,
+                       "n_stages": f["mesh_shape"]["pp"]}
+
+        del stage, edge, opt, loss
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(fraction)
+
+        # (i) A 4-stage gang is refused before dcp.load.
+        want = (f"ValueError: the checkpoint holds a pipe of "
+                f"{f['mesh_shape']['pp']} stages, the target has 4")
+        t0 = time.perf_counter()
+        try:
+            launch.launch(
+                ["-m", "tpushare_torch.entry", "--mesh", "1,1,4", "--parts",
+                 "pipe", "--width", "flagship", "--device", "cuda",
+                 "--backend", "gloo", "--ckpt-dir", ckdir, "--resume"], 4,
+                deadline_s=GANG_DEADLINE_S, grant_gib=card_gib // 4,
+                card_gib=card_gib)
+            refused = None
+        except launch.GangError as exc:
+            refused = str(exc)
+        # dcp.load lives in state_dict_loader.py: no frame of it is in
+        # the traceback of a refusal raised before it.
+        check(refused is not None and want in refused
+              and "in _check_stages" in refused
+              and "state_dict_loader" not in refused,
+              f"5f(i) a 4-stage gang: {refused!r}")
+        fields["i"] = {"ranks": 4, "training_mesh": "1,1,4", "part": "pipe",
+                       "refused": want, "raised_in": "_check_stages",
+                       "seconds": time.perf_counter() - t0}
     fields.update(launches={k: dict(v) for k, v in launches.items()},
                   clock="host, collectives over gloo via host")
     return fields

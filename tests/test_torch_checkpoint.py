@@ -300,12 +300,23 @@ def test_opt_state_to_numpy_of_a_fresh_optimizer_is_optax_init():
     assert all(not a.any() for a in _flat(got["mu"]).values())
 
 
-def test_a_pipeline_mesh_is_refused():
-    """A pipe's stages are not a ``Transformer``: no global view of them,
-    refused before any collective."""
-    with pytest.raises(ValueError, match="pipeline mesh"):
-        Checkpointer(CheckpointConfig("unused"), par.Mesh(1, 1, 2, 0, {},
-                                                          pp=2))
+@pytest.mark.parametrize("shape,axes", [
+    ((2, 1, 2, 1), ("dp", "tp", "sp")),
+    ((1, 2, 1, 2), ("dp", "tp", "sp", "pp")),
+    ((2, 1, 1, 2), ("dp", "tp", "sp", "pp"))])
+def test_host_device_mesh_of_a_pipe_is_4d(monkeypatch, shape, axes):
+    """``host_device_mesh`` builds the CPU mesh of a pipeline's mesh with
+    its pipe axis, (dp, tp, sp, pp) in ``make_mesh``'s row-major order,
+    and keeps a mesh without one 3-D (dp, tp, sp), as checkpoints written
+    before pipes were saved."""
+    calls = []
+    monkeypatch.setattr(par, "init_device_mesh",
+                        lambda *args, **kw: calls.append((args, kw)))
+    dp, tp, sp, pp = shape
+    par.host_device_mesh(par.Mesh(dp, tp, sp, 0, {}, pp=pp))
+    (args, kw), = calls
+    assert args == ("cpu", shape[:len(axes)])
+    assert kw == {"mesh_dim_names": axes}
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,7 @@ stand-in for capture are the eager bodies bit for bit, greedy and sampled;
 one piece key serves every piece of every prompt in every slot; a piece
 with device scalars against the JAX package's jitted piece; the plain
 attention with offsets as device tensors against int offsets; and the
-forward's C entry as ``ctypes`` binds it."""
+C entries as ``ctypes`` binds them."""
 
 import ctypes
 import dataclasses
@@ -306,24 +306,22 @@ def test_offset_pair_is_one_device_buffer():
     assert FA._offset_pair(q, 4, 1) is None
 
 
-def test_tensor_offset_under_grad_raises():
-    """The backward kernels take int offsets only: a tensor offset where
-    autograd would record the block raises, and a tensor offset of another
-    dtype or size is refused."""
-    q, k, v = (torch.randn((1, 4, 2, 16), requires_grad=True)
-               for _ in range(3))
-    with pytest.raises(TypeError, match="int offsets"):
-        FA.flash_block_with_lse(q, k, v, _offset(2))
-    with pytest.raises(TypeError, match="int offsets"):
-        FA.flash_block_with_lse(q, k, v, 0, _offset(1))
-    with torch.no_grad():
-        FA.flash_block_with_lse(q, k, v, _offset(2))
-    q, k, v = (t.detach() for t in (q, k, v))
-    with pytest.raises(ValueError, match="int32"):
-        FA.flash_block_with_lse(q, k, v, torch.tensor([2]))
-    with pytest.raises(ValueError, match="int32"):
-        FA.flash_block_with_lse(q, k, v, torch.tensor([2, 0],
-                                                      dtype=torch.int32))
+@pytest.mark.parametrize("form", ["tensor_int", "int_tensor", "two_tensors",
+                                  "adjacent"])
+def test_offset_args_hand_back_the_pair_they_point_at(form):
+    """The C entry's pointer is the pair's, and the pair comes back with
+    it for the wrapper to hold through the launch: a pair put together
+    from offsets that are not adjacent is otherwise freed before the
+    kernel reads it."""
+    q = torch.zeros((1, 2, 1, 16))
+    both = torch.tensor([7, 3], dtype=torch.int32)
+    q_off, kv_off = {"tensor_int": (_offset(7), 3),
+                     "int_tensor": (7, _offset(3)),
+                     "two_tensors": (_offset(7), _offset(3)),
+                     "adjacent": (both[0:1], both[1:2])}[form]
+    args, pair = FA._offset_args(q, q_off, kv_off)
+    assert args == (0, 0, pair.data_ptr()) and pair.tolist() == [7, 3]
+    assert FA._offset_args(q, 7, 3) == ((7, 3, None), None)
 
 
 def _c_params(entry: str) -> list[str]:
@@ -342,8 +340,8 @@ def _c_params(entry: str) -> list[str]:
 def test_ctypes_binding_matches_the_c_entry(lib, entry):
     """``bind_library``'s argument types match each C entry's parameters
     one for one: a pointer where the source has one, an int, a 64-bit
-    stride. The forward takes the offsets pair's pointer before the
-    stream, 24 arguments; the backward entries are as they were."""
+    stride. Every entry takes the offsets pair's pointer before the
+    stream: the forward 24 arguments, dq 29 and dk/dv 30."""
     params = _c_params(entry)
     types = FA.entry_argtypes(lib, entry)
     assert len(types) == len(params)
@@ -354,8 +352,7 @@ def test_ctypes_binding_matches_the_c_entry(lib, entry):
             assert t is ctypes.c_longlong, c
         else:
             assert c.startswith("int ") and t is ctypes.c_int, c
-    if entry == "tpushare_flash_fwd":
-        assert len(types) == 24
-        assert params[-2] == "const int* offsets"
-    else:
-        assert not any("offsets" in p for p in params)
+    assert len(types) == {"tpushare_flash_fwd": 24,
+                          "tpushare_flash_bwd_dq": 29,
+                          "tpushare_flash_bwd_dkv": 30}[entry]
+    assert params[-2] == "const int* offsets"

@@ -190,8 +190,13 @@ flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Lq, int Lk, Strides st, int q_offset,
-                    int kv_offset, float scale, float scale_log2) {
+                    int kv_offset, const int* __restrict__ offsets,
+                    float scale, float scale_log2) {
   using T = F32Tile<D>;
+  if (offsets != nullptr) {  // the device pair (see the C entries)
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Os = Qs + T::FLOATS;                // dO
@@ -328,9 +333,14 @@ flash_bwd_dkv_tf32x3(const float* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Lq, int Lk, Strides st,
-                     int q_offset, int kv_offset, float scale,
+                     int q_offset, int kv_offset,
+                     const int* __restrict__ offsets, float scale,
                      float scale_log2) {
   using T = F32Tile<D>;
+  if (offsets != nullptr) {  // the device pair (see the C entries)
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   static_assert(BQ % QC == 0, "a Q tile is whole chunks");
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);
@@ -545,9 +555,14 @@ flash_bwd_dq_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
-                       int q_offset, int kv_offset, float scale,
+                       int q_offset, int kv_offset,
+                       const int* __restrict__ offsets, float scale,
                        float scale_log2) {
   using Lay = DqLayout<D>;
+  if (offsets != nullptr) {  // the device pair (see the C entries)
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   using G = typename Lay::G;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
@@ -735,9 +750,14 @@ flash_bwd_dkv_bf16_sm90(__grid_constant__ const CUtensorMap tm_q,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
-                        int q_offset, int kv_offset, float scale,
+                        int q_offset, int kv_offset,
+                        const int* __restrict__ offsets, float scale,
                         float scale_log2) {
   using Lay = DkvLayout<D, NWG>;
+  if (offsets != nullptr) {  // the device pair (see the C entries)
+    q_offset = offsets[0];
+    kv_offset = offsets[1];
+  }
   using G = typename Lay::G;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = sm90::align_1024(smem_raw);
@@ -943,6 +963,7 @@ struct Args {
   int B, H, Lq, Lk;
   Strides st;
   int q_offset, kv_offset;
+  const int* offsets;  // the device pair, or null: q_offset, kv_offset
   cudaStream_t stream;
 };
 
@@ -963,7 +984,8 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(dq), a.H, a.Lq, a.Lk, a.st,
-      a.q_offset, a.kv_offset, softmax_scale(D), softmax_scale(D) * LOG2E);
+      a.q_offset, a.kv_offset, a.offsets, softmax_scale(D),
+      softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
@@ -977,7 +999,7 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.H,
-      a.Lq, a.Lk, a.st, a.q_offset, a.kv_offset, softmax_scale(D),
+      a.Lq, a.Lk, a.st, a.q_offset, a.kv_offset, a.offsets, softmax_scale(D),
       softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
@@ -1009,7 +1031,7 @@ cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   dim3 grid(a.B * a.H, (a.Lq + BQ - 1) / BQ);
   flash_bwd_dq_bf16_sm90<D><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
       tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), a.H,
-      a.Lq, a.Lk, a.q_offset, a.kv_offset, softmax_scale(D),
+      a.Lq, a.Lk, a.q_offset, a.kv_offset, a.offsets, softmax_scale(D),
       softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
@@ -1025,7 +1047,7 @@ cudaError_t launch_dkv_bf16_nwg(const Args& a, void* dk, void* dv) {
   flash_bwd_dkv_bf16_sm90<D, NWG><<<grid, Lay::THREADS, Lay::SMEM, a.stream>>>(
       tq, tk, tv, to, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), a.H, a.Lq, a.Lk, a.q_offset,
-      a.kv_offset, softmax_scale(D), softmax_scale(D) * LOG2E);
+      a.kv_offset, a.offsets, softmax_scale(D), softmax_scale(D) * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1048,13 +1070,14 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, int B, int H, int Lq,
                int Lk, const long long* s, int q_offset, int kv_offset,
-               void* stream) {
+               const int* offsets, void* stream) {
   return Args{q, k, v, dout,
               static_cast<const float*>(lse), static_cast<const float*>(delta),
               B, H, Lq, Lk,
               Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
                       s[9], s[10], s[11]},
-              q_offset, kv_offset, static_cast<cudaStream_t>(stream)};
+              q_offset, kv_offset, offsets,
+              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -1064,19 +1087,27 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // is unit-stride, the bases 16-byte aligned and every stride a multiple of
 // 16 bytes (TMA reads bf16, 16-byte cp.async fp32). lse and delta are
 // contiguous fp32 [B, Lq, H]. Head dims: 16, 64 and 128 in both dtypes.
-// Each entry returns a cudaError_t (0 on success).
+// `offsets` is null (the offsets are q_offset and kv_offset) or a device
+// pointer to the int32 pair (q_offset, kv_offset), as tpushare_flash_fwd
+// takes it: every thread of every block reads it when the block starts,
+// before any mask bound, tile count or early exit is derived from it, so
+// a launch captured in a CUDA graph serves whatever pair the buffer holds
+// at each replay. The grid and the TMA maps depend on B, H, Lq, Lk and D
+// alone. Given either way, the arithmetic is the same. Each entry returns
+// a cudaError_t (0 on success).
 extern "C" int tpushare_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int dtype, int B, int H,
     int Lq, int Lk, int D, long long q_sb, long long q_sl, long long q_sh,
     long long k_sb, long long k_sl, long long k_sh, long long v_sb,
     long long v_sl, long long v_sh, long long o_sb, long long o_sl,
-    long long o_sh, int q_offset, int kv_offset, void* stream) {
+    long long o_sh, int q_offset, int kv_offset, const int* offsets,
+    void* stream) {
   if (Lq == 0 || B * H == 0) return cudaSuccess;
   const long long s[12] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
                            v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Lq, Lk, s,
-                           q_offset, kv_offset, stream);
+                           q_offset, kv_offset, offsets, stream);
   if (dtype == 0 && D == 16) return launch_dq_f32<16>(a, dq);
   if (dtype == 0 && D == 64) return launch_dq_f32<64>(a, dq);
   if (dtype == 0 && D == 128) return launch_dq_f32<128>(a, dq);
@@ -1093,12 +1124,12 @@ extern "C" int tpushare_flash_bwd_dkv(
     long long q_sh, long long k_sb, long long k_sl, long long k_sh,
     long long v_sb, long long v_sl, long long v_sh, long long o_sb,
     long long o_sl, long long o_sh, int q_offset, int kv_offset,
-    void* stream) {
+    const int* offsets, void* stream) {
   if (Lk == 0 || B * H == 0) return cudaSuccess;
   const long long s[12] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
                            v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Lq, Lk, s,
-                           q_offset, kv_offset, stream);
+                           q_offset, kv_offset, offsets, stream);
   if (dtype == 0 && D == 16) return launch_dkv_f32<16>(a, dk, dv);
   if (dtype == 0 && D == 64) return launch_dkv_f32<64>(a, dk, dv);
   if (dtype == 0 && D == 128) return launch_dkv_f32<128>(a, dk, dv);

@@ -8,9 +8,10 @@ flash kernel on the card).
 
 :func:`dryrun_multichip` is the rank body of the JAX package's multi-chip
 dry run: dp × tp × sp training (checkpointed and resumed on request),
-the ring-MoE, the flagship pipes and the tp-sharded decode
-(:data:`PARTS`). Each rank of a gang started by ``runtime.launch`` runs
-it (``python -m tpushare_torch.entry ...``) and prints one JSON line.
+the ring-MoE, the flagship pipes (trained with AdamW, checkpointed and
+resumed, on request) and the tp-sharded decode (:data:`PARTS`). Each
+rank of a gang started by ``runtime.launch`` runs it (``python -m
+tpushare_torch.entry ...``) and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -75,6 +77,8 @@ def dryrun_config(width: str, mesh: par.Mesh) -> tuple[M.ModelConfig,
 #: over the sp axis, dp × pp, dp × tp × pp and dp × tp × sp × pp, and the
 #: tensor-parallel decode on the training mesh's dp × tp.
 PARTS = ("train", "moe", "pipe", "dp_pp", "dp_tp_pp", "4d", "serve")
+#: The parts that run the flagship 1F1B pipe.
+PIPE_PARTS = ("pipe", "dp_pp", "dp_tp_pp", "4d")
 
 
 def _launches() -> dict[str, int]:
@@ -299,45 +303,105 @@ def _moe_part(width, mesh, steps, dev, save, saved) -> dict:
             **_memory(dev)}
 
 
-def _pipe_part(part, width, train_mesh, world, steps, dev, save,
-               saved) -> dict:
+#: The subdirectory of ``--ckpt-dir`` the pipe parts checkpoint in: one
+#: pipe's state, whichever part saved it (dp × pp and dp × tp × pp share
+#: their stages' layout, so one restores what the other saved).
+PIPE_CKPT_SUBDIR = "pipe"
+
+
+def _pipe_part(part, width, train_mesh, world, steps, dev, save, saved,
+               ckpt: dict) -> dict:
     """A flagship pipe part (:func:`pipe_setup`) through the 1F1B train_fn,
     ``steps`` calls at the same weights; dp × pp also runs the GPipe
-    forward over the same stages."""
+    forward over the same stages. With ``ckpt["directory"]`` the pipe
+    trains and checkpoints (``workload.checkpoint``, in the reference's
+    stacked layout, under :data:`PIPE_CKPT_SUBDIR`): an AdamW step
+    (``train.make_optimizer``) after every call, a resume from the latest
+    step first (``ckpt["resume"]``; the calls then run the steps after
+    it), and an async save after every ``ckpt["every"]``-th step."""
     setup = pipe_setup(part, width, train_mesh, world)
     if setup is None:
         return {"skipped": f"a gang of {world} ranks has no room for it"}
     shape, axis, cfg, m, (rows, seq), kw = setup
     mesh = par.make_mesh(*shape) if shape else train_mesh
+    tp_axis = kw.get("tp_axis")
     init_fn, train_fn = pipeline.make_flagship_pipeline(
         cfg, mesh, axis, n_microbatches=m, device=dev, **kw)
     stage, edge = init_fn(dryrun_generator(0))
     tokens = torch.randint(0, cfg.vocab_size, (rows, seq),
                            generator=dryrun_generator(1)).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
+    opt = ckptr = None
+    done, ckpt_rec, states = 0, {}, {}
+    if ckpt["directory"]:
+        opt = T.make_optimizer()([*stage.parameters(), *edge.parameters()])
+        ckptr = CK.Checkpointer(
+            CK.CheckpointConfig(os.path.join(ckpt["directory"],
+                                             PIPE_CKPT_SUBDIR)),
+            mesh, pipe_axis=axis, tp_axis=tp_axis)
+    if ckptr is not None and ckpt["resume"]:
+        restored, ms, _ = _timed(dev, lambda: ckptr.restore((stage, edge),
+                                                            opt))
+        if restored is None:
+            raise RuntimeError(f"nothing to resume from in "
+                               f"{ckpt['directory']}")
+        done = restored[2]
+        ckpt_rec.update(restored_step=done, restore_ms=ms,
+                        restore_stats=ckptr.last_restore_stats)
+        if save:
+            states["restored"] = convert.pipeline_state(
+                opt, stage, edge, mesh, axis, tp_axis)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, call_ms, launches = [], [], []
-    for _ in range(steps):
-        loss, ms, counts = _timed(
-            dev, lambda: train_fn(stage, edge, tokens, targets))
+
+    def call():
+        loss = train_fn(stage, edge, tokens, targets)
+        if opt is not None:
+            opt.step()
+        return loss
+
+    losses, call_ms, launches, grads = [], [], [], None
+    for i in range(done, steps):
+        loss, ms, counts = _timed(dev, call)
         losses.append(loss.item())
         call_ms.append(ms)
         launches.append(counts)
+        if i == done and save:
+            grads = convert.pipeline_grads_to_numpy(stage, edge, mesh, axis,
+                                                    tp_axis)
+        every = ckpt["every"]
+        if ckptr is not None and every and (i + 1) % every == 0:
+            ckptr.save(i + 1, (stage, edge), opt)
+            ckpt_rec.setdefault("saved_steps", []).append(i + 1)
+            ckpt_rec.setdefault("save_blocked_ms", []).append(
+                1e3 * ckptr.last_save_stats["blocked_s"])
+            if save:
+                states[i + 1] = convert.pipeline_state(
+                    opt, stage, edge, mesh, axis, tp_axis)
+    if ckptr is not None:
+        ckptr.close()
+        stats = ckptr.last_save_stats
+        if "durable_s" in stats:
+            ckpt_rec.update(durable_ms=1e3 * stats["durable_s"],
+                            bytes=stats.get("bytes"))
     rec = {"mesh_shape": mesh.shape, "pipe_axis": axis, "microbatches": m,
            "layers_per_stage": len(stage), "batch": [rows, seq],
            "dtype": str(cfg.dtype), "losses": losses, "call_ms": call_ms,
+           "steps": list(range(done + 1, steps + 1)),
            "launches_per_call": launches,
-           "stash_peak": train_fn.pipe.stash_peak, **_memory(dev)}
+           "stash_peak": train_fn.pipe.stash_peak,
+           **({"checkpoint": ckpt_rec} if ckptr is not None else {}),
+           **_memory(dev)}
     out = {}
-    if save:
-        g_stacked, g_edge = convert.pipeline_grads_to_numpy(
-            stage, edge, mesh, axis, kw.get("tp_axis"))
+    if save and grads is not None:
+        g_stacked, g_edge = grads
         out = {"loss": losses[0], "grads": {
             **{k: torch.from_numpy(g) for k, g in g_edge.items()},
             **{f"blocks.{i}.{k}": torch.from_numpy(layer)
                for k, g in g_stacked.items()
                for i, layer in enumerate(g.reshape((-1,) + g.shape[2:]))}}}
+    if save and ckptr is not None:
+        out["checkpoint"] = {"losses": losses, "states": states}
     if part == "dp_pp":
         fwd = pipeline.make_pipeline_fn(train_fn.stage_fn, mesh, axis,
                                         n_microbatches=m)
@@ -455,11 +519,15 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
     the latest step first (training then runs the steps after it, up to
     ``steps``), and an async save follows every ``ckpt_every``-th step;
     the serve part, with ``resume``, serves the latest step's weights.
+    A pipe part checkpoints the same way in ``ckpt_dir``'s
+    :data:`PIPE_CKPT_SUBDIR`, with an AdamW step after every call; one
+    pipe part a checkpointed run.
 
     With ``save_grads``, rank 0 saves each path's first loss and gathered
     gradients there (``torch.save``; the MoE's output too, the GPipe's
     last-stage hidden states, the gathered weights at each save, after a
-    restore and after the last step, the served stream and its prefill
+    restore and (training) after the last step, a pipe's with its AdamW
+    moments in the stacked layout; the served stream and its prefill
     logits). Returns this rank's record: per path the losses, host ms and
     kernel launches of each step or call, peak allocated bytes, and the
     card's memory in use with every rank's held; the checkpoint's save
@@ -497,6 +565,10 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
         save = save_grads is not None
         ckpt = {"directory": ckpt_dir, "every": ckpt_every,
                 "resume": resume}
+        piped = [p for p in parts if p in PIPE_PARTS]
+        if ckpt_dir and len(piped) > 1:
+            raise ValueError(f"a checkpointed run pipes one part, got "
+                             f"{piped}")
         for part in (p for p in PARTS if p in parts):
             if part == "train":
                 _train_part(cfg, mesh, tokens, targets, attentions, steps,
@@ -509,7 +581,8 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                                                   save, saved)
             else:
                 record["parts"][part] = _pipe_part(part, width, mesh, world,
-                                                   steps, dev, save, saved)
+                                                   steps, dev, save, saved,
+                                                   ckpt)
         if save and spec.process_id == 0:
             torch.save(saved, save_grads)
         return record
@@ -533,10 +606,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--backend")
     ap.add_argument("--init-method")
     ap.add_argument("--save-grads")
-    ap.add_argument("--ckpt-dir", help="checkpoint directory of the train "
-                    "and serve parts")
+    ap.add_argument("--ckpt-dir", help="checkpoint directory of the train, "
+                    "serve and pipe parts (a pipe part trains with AdamW "
+                    "then, one pipe part a run)")
     ap.add_argument("--ckpt-every", type=int,
-                    help="save after every N-th training step")
+                    help="save after every N-th training step or pipe call")
     ap.add_argument("--resume", action="store_true",
                     help="restore the latest checkpoint first")
     args = ap.parse_args(argv)

@@ -42,6 +42,19 @@ for the JAX package, done here explicitly:
   optimizer's (``get_optimizer_state_dict`` creates them) so the next
   update bias-corrects from the restored ``step``. The optimizer's
   hyperparameters are the target's own, as optax's live in its code.
+* **A pipe is saved in the reference's stacked layout.** A 1F1B pipe's
+  state (``pipeline.make_flagship_pipeline``: each rank's stage of
+  blocks, the edge every rank holds, AdamW over both) is the tree the
+  reference's orbax ``Checkpointer`` writes for its ``(stacked, edge)``
+  and optax's ``adamw`` state: ``params.0.<w>`` is block weight ``w`` of
+  every stage, ``[n_stages, per_stage, *shape]``, sharded over the pipe
+  axis on dim 0 (and over tp on its tp dim + 2), ``params.1.<name>`` the
+  edge whole; ``opt_state.0.mu`` and ``opt_state.0.nu`` the moments in
+  the same two layouts, ``opt_state.0.count`` the step. It restores onto
+  any dp / tp (and sp) placement with the same stage count, or whole
+  into one process at the stage count it was saved with, as orbax
+  restores the saved shape: a gang of another stage count is refused
+  before anything is read but the metadata.
 
 A checkpoint's collectives run on a gloo group of their own, on host
 tensors: gloo cannot send CUDA tensors, and a group apart keeps the
@@ -60,11 +73,14 @@ import time
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch import nn
 from torch.distributed.checkpoint.state_dict import (
     get_optimizer_state_dict, set_optimizer_state_dict)
 from torch.distributed.tensor import DTensor
 
+from tpushare_torch.workload import model as M
 from tpushare_torch.workload import parallel as par
+from tpushare_torch.workload import pipeline as P
 
 log = logging.getLogger(__name__)
 
@@ -89,6 +105,19 @@ class Checkpointer:
     (building it is a collective) and calls each method; ``mesh=None``
     saves and restores this process alone, whole tensors.
 
+    A pipe's Checkpointer is built with ``pipe_axis`` (the mesh axis the
+    stages lie along, ``"pp"``, or ``"sp"`` on a mesh without one) and
+    the ``tp_axis`` its stages are split over, if any; ``params`` is then
+    the pair ``(stage, edge)`` that ``pipeline.make_flagship_pipeline``'s
+    ``init_fn`` returns (the reference's ``(stacked, edge)``), and
+    ``opt_state`` the AdamW over ``[*stage.parameters(),
+    *edge.parameters()]``. In one process (``mesh=None``, ``pipe_axis``
+    naming the axis of the gang that saved) it restores a pipe's
+    checkpoint whole: ``stage`` holds every block in order, and the
+    stage count is the checkpoint's (``pipeline.stage_tree``), as orbax
+    restores the stacked tree into one host. A pipe is saved by its gang
+    only: one process holds no stage count of its own.
+
     Restore targets the CURRENT mesh's shards (pass your freshly
     initialized state), so a job saved on a (2, 2, 1) gang restores onto
     a (1, 1, 4) one, or into one process, with nothing but a different
@@ -102,9 +131,18 @@ class Checkpointer:
     every rank), building the targets (the optimizer's state created),
     in ``dcp.load``, and copying the result in."""
 
-    def __init__(self, cfg: CheckpointConfig, mesh: par.Mesh | None = None):
+    def __init__(self, cfg: CheckpointConfig, mesh: par.Mesh | None = None,
+                 *, pipe_axis: str | None = None,
+                 tp_axis: str | None = None):
         self.cfg = cfg
         self._group = self._device_mesh = None
+        if tp_axis is not None and pipe_axis is None:
+            raise ValueError("tp_axis names the axis a pipe's stages are "
+                             "split over: it takes pipe_axis")
+        #: A pipe's (pipe axis, tp axis, its size under the mesh, or None
+        #: in one process); None for a Transformer.
+        self._pipe = None if pipe_axis is None else (
+            pipe_axis, tp_axis, None if mesh is None else mesh.size(pipe_axis))
         if mesh is not None:
             self._device_mesh = par.host_device_mesh(mesh)
             self._group = dist.new_group(backend="gloo")
@@ -153,19 +191,42 @@ class Checkpointer:
         if self._group is not None:
             dist.barrier(group=self._group)
 
-    def _host(self, name: str, t: torch.Tensor):
-        """A host copy of ``t`` (parameter ``name``'s shard, or a tensor of
-        its shape), as its global tensor under a mesh."""
-        local = t.detach().to("cpu", copy=True)
-        if self._device_mesh is None:
+    def _view(self, name: str, local: torch.Tensor):
+        """``local``, a host tensor laid out as parameter ``name`` (a pipe's
+        stacked weight ``"0.<w>"`` or edge tensor ``"1.<name>"``), as its
+        global tensor under a mesh; itself in one process."""
+        dm = self._device_mesh
+        if dm is None:
             return local
-        return par.global_view(name, local, self._device_mesh)
+        if self._pipe is None:
+            return par.global_view(name, local, dm)
+        pipe_axis, tp_axis = self._pipe[:2]
+        part, _, leaf = name.partition(".")
+        if part == "0":
+            return par.stacked_global_view(leaf, local, dm, pipe_axis,
+                                           tp_axis)
+        return par.replicated_view(local, dm)
 
-    def _state(self, params, opt_state, make) -> dict:
-        """The checkpoint's tree: ``make(name, tensor)`` of every
+    def _state(self, params, opt_state, local, n_local: int = 1) -> dict:
+        """The checkpoint's tree, from ``local(tensor)``, a host tensor of
+        each tensor's shape (a copy, or an empty target); a pipe's with
+        ``n_local`` of its stages in this process."""
+        if self._pipe is not None:
+            return self._pipe_state(params, opt_state, local, n_local)
+        if not isinstance(params, M.Transformer):
+            raise TypeError(f"params must be a model.Transformer, got "
+                            f"{type(params).__name__}; a pipe's (stage, "
+                            f"edge) takes Checkpointer(..., pipe_axis=...)")
+        return self._model_state(params, opt_state, local)
+
+    def _model_state(self, params, opt_state, local) -> dict:
+        """A Transformer's tree: the global view of ``local`` of every
         parameter and of every optimizer state tensor of its parameter's
         shape; other state (AdamW's scalar ``step``) as a host copy."""
         shapes = {name: p.shape for name, p in params.named_parameters()}
+
+        def make(name, t):
+            return self._view(name, local(t))
 
         def leaf(name, v):
             if not isinstance(v, torch.Tensor):
@@ -183,6 +244,94 @@ class Checkpointer:
                               params, opt_state).items()},
         }
 
+    def _pipe_state(self, params, opt_state, local, n_local: int) -> dict:
+        """A pipe's tree, the reference's ``(stacked, edge)`` and optax's
+        ``(ScaleByAdamState(count, mu, nu), ...)``: ``params.0.<w>`` the
+        stacked view of ``local`` of this process's ``n_local`` stages of
+        block weight ``w``, ``params.1.<name>`` of the edge;
+        ``opt_state.0.mu`` and ``.nu`` the moments laid out alike;
+        ``opt_state.0.count`` a host copy of AdamW's step, which every
+        parameter shares."""
+        stage, edge, module = _pipe_modules(params)
+        per = _optimizer_state(module, opt_state)
+
+        def pair(get):
+            stacked = P.stage_tree(stage, n_local,
+                                   lambda name, p: local(get(f"stage.{name}",
+                                                             p)))
+            return {"0": {w: self._view(f"0.{w}", t)
+                          for w, t in stacked.items()},
+                    "1": {k: self._view(f"1.{k}", local(get(f"edge.{k}", p)))
+                          for k, p in edge.named_parameters()}}
+
+        def moment(key):
+            return pair(lambda fqn, p: per[fqn][key])
+
+        steps = [st["step"] for st in per.values()]
+        if len({float(t) for t in steps}) != 1:
+            raise ValueError("the pipe's parameters have taken different "
+                             "step counts; optax keeps one")
+        return {"params": pair(lambda fqn, p: p),
+                "opt_state": {"0": {"count": _host_copy(steps[0]),
+                                    "mu": moment("exp_avg"),
+                                    "nu": moment("exp_avg_sq")}}}
+
+    def _check_stages(self, saved: dict) -> int:
+        """The stages of the checkpoint's pipe this process holds, from its
+        metadata (``saved``, by key) alone: in one process all of them;
+        under a mesh one, and a ``ValueError`` naming both counts unless
+        the pipe axis has as many ranks as the checkpoint has stages."""
+        sizes = [md.size for key, md in saved.items()
+                 if key.startswith("params.0.")]
+        if not sizes:
+            raise ValueError("the checkpoint holds no params.0.*: not a "
+                             "pipe's")
+        n_saved, n_target = sizes[0][0], self._pipe[2]
+        if n_target is None:
+            return n_saved
+        if n_target != n_saved:
+            raise ValueError(
+                f"the checkpoint holds a pipe of {n_saved} stages, the "
+                f"target has {n_target}: a pipe restores onto the stage "
+                f"count it was saved with")
+        return 1
+
+    @staticmethod
+    def _check_shapes(state: dict, saved: dict) -> None:
+        """Raise ``ValueError`` unless the checkpoint holds each of the
+        target's stacked weights at its global shape."""
+        for w, t in state["params"]["0"].items():
+            key = f"params.0.{w}"
+            got = tuple(saved[key].size) if key in saved else None
+            if got != tuple(t.shape):
+                raise ValueError(f"{key}: saved {got}, target "
+                                 f"{tuple(t.shape)}")
+
+    def _apply_pipe(self, state: dict, params, opt_state) -> None:
+        """Copy a loaded pipe tree into ``params`` and ``opt_state``."""
+        stage, edge, module = _pipe_modules(params)
+
+        def blocks(tree):
+            return P.stage_blocks({w: _local(t)
+                                   for w, t in tree["0"].items()})
+
+        def by_fqn(tree):
+            out = {f"stage.{i}.{w}": t for i, blk in enumerate(blocks(tree))
+                   for w, t in blk.items()}
+            out.update({f"edge.{k}": _local(t) for k, t in tree["1"].items()})
+            return out
+
+        weights = by_fqn(state["params"])
+        with torch.no_grad():
+            for fqn, p in module.named_parameters():
+                p.copy_(weights[fqn])
+        adam = state["opt_state"]["0"]
+        mu, nu = by_fqn(adam["mu"]), by_fqn(adam["nu"])
+        _set_optimizer_state(module, opt_state, {
+            fqn: {"step": adam["count"].clone(), "exp_avg": mu[fqn],
+                  "exp_avg_sq": nu[fqn]}
+            for fqn, _ in module.named_parameters()})
+
     def save(self, step: int, params, opt_state, *, force: bool = False,
              wait: bool = False) -> bool:
         """Async by default (training continues while the write drains);
@@ -190,11 +339,15 @@ class Checkpointer:
         memory before this returns, so the caller may step at once."""
         if not force and not self._should_save(step):
             return False
+        if self._pipe is not None and self._pipe[2] is None:
+            raise ValueError("a pipe is saved by its gang: one process "
+                             "restores its checkpoint, and holds no stage "
+                             "count to save one")
         if os.path.isdir(self._path(step)):
             raise ValueError(f"checkpoint for step {step} already exists")
         t0 = time.perf_counter()
         self.wait()
-        state = self._state(params, opt_state, self._host)
+        state = self._state(params, opt_state, _host_copy)
         partial = self._path(step, partial=True)
         if self._is_coordinator():
             shutil.rmtree(partial, ignore_errors=True)
@@ -262,26 +415,27 @@ class Checkpointer:
             return None
         marks.append(time.perf_counter())
 
-        def target(name, t):
-            local = torch.empty(t.shape, dtype=t.dtype, device="cpu")
-            if self._device_mesh is None:
-                return local
-            return par.global_view(name, local, self._device_mesh)
-
-        state = self._state(params_target, opt_state_target, target)
+        reader = dcp.FileSystemReader(self._path(step))
+        if self._pipe is None:
+            state = self._state(params_target, opt_state_target, _host_empty)
+        else:
+            saved = reader.read_metadata().state_dict_metadata
+            state = self._state(params_target, opt_state_target, _host_empty,
+                                self._check_stages(saved))
+            self._check_shapes(state, saved)
         marks.append(time.perf_counter())
-        dcp.load(state, storage_reader=dcp.FileSystemReader(
-            self._path(step)), process_group=self._group,
-            no_dist=self._group is None)
+        dcp.load(state, storage_reader=reader, process_group=self._group,
+                 no_dist=self._group is None)
         marks.append(time.perf_counter())
-        with torch.no_grad():
-            for name, p in params_target.named_parameters():
-                p.copy_(_local(state["params"][name]))
-        osd = {"state": {name: {key: _local(v) for key, v in per.items()}
-                         for name, per in state["opt_state"].items()},
-               "param_groups": get_optimizer_state_dict(
-                   params_target, opt_state_target)["param_groups"]}
-        set_optimizer_state_dict(params_target, opt_state_target, osd)
+        if self._pipe is not None:
+            self._apply_pipe(state, params_target, opt_state_target)
+        else:
+            with torch.no_grad():
+                for name, p in params_target.named_parameters():
+                    p.copy_(_local(state["params"][name]))
+            _set_optimizer_state(params_target, opt_state_target, {
+                name: {key: _local(v) for key, v in per.items()}
+                for name, per in state["opt_state"].items()})
         marks.append(time.perf_counter())
         self.last_restore_stats = {
             "step": step, "seconds": marks[-1] - marks[0],
@@ -320,6 +474,34 @@ def _optimizer_state(params, opt_state) -> dict:
             if isinstance(per.get("step"), torch.Tensor):
                 per["step"].zero_()
     return osd
+
+
+def _pipe_modules(params) -> tuple[nn.ModuleList, nn.Module, nn.ModuleDict]:
+    """(stage, edge, one module over both, stage first: the order the
+    pipe's optimizer holds them in) of a pipe's ``params``."""
+    if not (isinstance(params, tuple) and len(params) == 2
+            and isinstance(params[0], nn.ModuleList)
+            and isinstance(params[1], nn.Module)):
+        raise TypeError(f"a pipe's params are the pair (stage: "
+                        f"nn.ModuleList, edge), got {type(params).__name__}")
+    stage, edge = params
+    return stage, edge, nn.ModuleDict({"stage": stage, "edge": edge})
+
+
+def _set_optimizer_state(module: nn.Module, opt_state, state: dict) -> None:
+    """Set ``opt_state``'s per-parameter state (by ``module``'s parameter
+    names), keeping its param groups."""
+    groups = get_optimizer_state_dict(module, opt_state)["param_groups"]
+    set_optimizer_state_dict(module, opt_state,
+                             {"state": state, "param_groups": groups})
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _host_empty(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="cpu")
 
 
 def _local(t):

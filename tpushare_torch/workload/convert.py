@@ -61,7 +61,9 @@ def _tree(params: Transformer, leaf) -> dict:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """An fp32 numpy copy of ``t`` (never a view of a host tensor, which
+    a later in-place update, such as an optimizer step, would change)."""
+    return np.array(t.detach().float().cpu().numpy(), copy=True)
 
 
 def params_to_numpy(params: Transformer) -> dict:
@@ -178,6 +180,77 @@ def pipeline_params_from_jax(stacked: dict, edge: dict, mesh, axis_name: str,
             P.flagship_edge(tensor(edge["embed"]), tensor(edge["final_norm"])))
 
 
+def _stage_shard(stacked: dict, idx: int, j: int, key: str, mesh,
+                 tp_axis: str | None) -> np.ndarray:
+    """Block ``j`` of stage ``idx`` of a stacked leaf, this rank's tp
+    shard of it under ``tp_axis`` (as ``pipeline.flagship_stage`` splits
+    the weights)."""
+    a = np.asarray(stacked[key][idx][j], dtype=np.float32)
+    axis = par.TP_AXIS.get(key)
+    if tp_axis is not None and axis is not None and mesh.size(tp_axis) > 1:
+        a = np.split(a, mesh.size(tp_axis), axis=axis)[mesh.index(tp_axis)]
+    return a
+
+
+def pipeline_opt_state_from_jax(opt_state, stage, edge,
+                                optimizer: torch.optim.Optimizer, mesh,
+                                axis_name: str,
+                                tp_axis: str | None = None
+                                ) -> torch.optim.Optimizer:
+    """Fill ``optimizer`` (the port's AdamW over ``[*stage.parameters(),
+    *edge.parameters()]``, this rank's pipe state) with the reference's
+    optax ``adamw`` state over ``(stacked, edge)``, numpy leaves: its
+    ``ScaleByAdamState`` gives every parameter's ``step`` (count), and
+    ``exp_avg`` and ``exp_avg_sq`` (mu and nu: this rank's stage on the
+    pipe axis, its tp shard under ``tp_axis``, the edge's whole). The
+    twin of :func:`opt_state_from_jax`; the optimizer's hyperparameters
+    stay its own. Returns ``optimizer``."""
+    count, (mu_st, mu_edge), (nu_st, nu_edge) = opt_state[0]
+    n_stages = np.shape(mu_st["wqkv"])[0]
+    P._check_stage_count(n_stages, mesh, axis_name)
+    idx = mesh.index(axis_name)
+    step = float(np.asarray(count))
+    module = torch.nn.ModuleDict({"stage": stage, "edge": edge})
+    state = {}
+    for fqn, p in module.named_parameters():
+        part, _, name = fqn.partition(".")
+        if part == "stage":
+            j, _, key = name.partition(".")
+            mu, nu = (_stage_shard(t, idx, int(j), key, mesh, tp_axis)
+                      for t in (mu_st, nu_st))
+        else:
+            mu, nu = (np.asarray(t[name], np.float32)
+                      for t in (mu_edge, nu_edge))
+        if mu.shape != tuple(p.shape):
+            raise ValueError(f"{fqn}: moment shape {mu.shape} does not "
+                             f"match the parameter's {tuple(p.shape)}")
+        state[fqn] = {"step": torch.tensor(step, dtype=torch.float32),
+                      "exp_avg": torch.tensor(mu),
+                      "exp_avg_sq": torch.tensor(nu)}
+    groups = get_optimizer_state_dict(module, optimizer)["param_groups"]
+    set_optimizer_state_dict(module, optimizer, {"state": state,
+                                                 "param_groups": groups})
+    return optimizer
+
+
+def _gathered(stage, edge, mesh, axis_name: str, tp_axis: str | None, get,
+              n_stages: int = 1):
+    """The reference's (stacked, edge) trees of fp32 numpy arrays of
+    ``get(name, parameter)``, leaves [n_stages, per_stage, ...]
+    (``pipeline.stage_tree``): under ``mesh`` each block weight's gathered
+    over tp (its shards) and over the pipe axis (the stages), a
+    collective over those groups that gives every rank the trees; with
+    ``mesh`` None, ``stage`` holds every block of ``n_stages`` stages."""
+    stacked = P.stage_tree(stage, 1 if mesh is not None else n_stages, get)
+    for key, g in stacked.items() if mesh is not None else ():
+        axis = par.TP_AXIS.get(key)
+        if tp_axis is not None and axis is not None:
+            g = C.all_gather(g, mesh.group(tp_axis), axis + 2)
+        stacked[key] = C.all_gather(g, mesh.group(axis_name), 0)
+    return ({k: _numpy(t) for k, t in stacked.items()},
+            {k: _numpy(get(k, p)) for k, p in edge.items()})
+
+
 def pipeline_grads_to_numpy(stage, edge, mesh, axis_name: str,
                             tp_axis: str | None = None):
     """The reference's (``g_stacked``, ``g_edge``) trees of fp32 numpy
@@ -185,12 +258,70 @@ def pipeline_grads_to_numpy(stage, edge, mesh, axis_name: str,
     gathered over tp (its shards) and over the pipe axis (the stages),
     leaves [n_stages, per_stage, ...]. A collective over those groups;
     every rank gets the trees."""
-    stacked = {}
-    for key in _BLOCK_KEYS:
-        g = torch.stack([getattr(blk, key).grad for blk in stage])
-        axis = par.TP_AXIS.get(key)
-        if tp_axis is not None and axis is not None:
-            g = C.all_gather(g, mesh.group(tp_axis), axis + 1)
-        stacked[key] = _numpy(C.all_gather(g[None], mesh.group(axis_name),
-                                           0))
-    return stacked, {k: _numpy(p.grad) for k, p in edge.items()}
+    def grad(name, p):
+        if p.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        return p.grad
+
+    return _gathered(stage, edge, mesh, axis_name, tp_axis, grad)
+
+
+def pipeline_params_to_numpy(stage, edge, mesh, axis_name: str = "pp",
+                             tp_axis: str | None = None, *,
+                             n_stages: int = 1):
+    """The reference's (``stacked``, ``edge``) trees of fp32 numpy arrays
+    holding the pipe's weights, gathered as
+    :func:`pipeline_grads_to_numpy` gathers the gradients (a
+    collective); with ``mesh`` None, of one process whose ``stage`` holds
+    every block of ``n_stages`` stages."""
+    return _gathered(stage, edge, mesh, axis_name, tp_axis,
+                     lambda name, p: p.detach(), n_stages)
+
+
+def pipeline_opt_state_to_numpy(optimizer: torch.optim.Optimizer, stage,
+                                edge, mesh, axis_name: str = "pp",
+                                tp_axis: str | None = None, *,
+                                n_stages: int = 1) -> dict:
+    """The pipe's AdamW state as the fields of optax's ``ScaleByAdamState``
+    over ``(stacked, edge)``: ``{"count": int32, "mu": (stacked, edge),
+    "nu": (stacked, edge)}``, fp32 numpy, each moment gathered as
+    :func:`pipeline_params_to_numpy` gathers its parameter (a
+    collective, or one process's with ``mesh`` None). An optimizer that
+    has taken no step has count 0 and zero moments, as optax's init."""
+    def moment(key):
+        def get(name, p):
+            st = optimizer.state.get(p, {})
+            return st[key] if key in st else torch.zeros_like(p)
+        return _gathered(stage, edge, mesh, axis_name, tp_axis, get,
+                         n_stages)
+
+    steps = {float(st["step"]) for st in optimizer.state.values()
+             if "step" in st}
+    if len(steps) > 1:
+        raise ValueError(f"parameters have taken different step counts "
+                         f"{sorted(steps)}; optax keeps one")
+    return {"count": np.int32(steps.pop() if steps else 0),
+            "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+
+
+def pipeline_state(optimizer: torch.optim.Optimizer, stage, edge,
+                   mesh=None, axis_name: str = "pp",
+                   tp_axis: str | None = None, *,
+                   n_stages: int = 1) -> dict:
+    """The pipe's weights and AdamW state in the reference's stacked
+    layout, as host tensors in the weights' dtype by key: ``weight/<w>``
+    and ``weight/<edge name>``, the same under ``exp_avg/`` and
+    ``exp_avg_sq/``, and the ``step``. Gathered under ``mesh`` as
+    :func:`pipeline_params_to_numpy` gathers (a collective), or one
+    process's with ``mesh`` None and ``n_stages``."""
+    dtype = edge["embed"].dtype
+    trees = {"weight": pipeline_params_to_numpy(
+        stage, edge, mesh, axis_name, tp_axis, n_stages=n_stages)}
+    adam = pipeline_opt_state_to_numpy(optimizer, stage, edge, mesh,
+                                       axis_name, tp_axis, n_stages=n_stages)
+    trees.update(exp_avg=adam["mu"], exp_avg_sq=adam["nu"])
+    out = {f"{kind}/{k}": torch.from_numpy(a).to(dtype)
+           for kind, (stacked, ends) in trees.items()
+           for k, a in {**stacked, **ends}.items()}
+    out["step"] = torch.tensor(int(adam["count"]))
+    return out

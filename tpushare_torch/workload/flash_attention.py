@@ -62,11 +62,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: Library -> {C entry: (pointer arguments, stride arguments, device
 #: pointers before the stream)}. Every entry takes its pointers, then
 #: dtype, B, H, Lq, Lk, D, the strides, q_offset, kv_offset, its device
-#: pointers (the forward's: the offsets pair, or null) and the stream.
+#: pointer (the offsets pair, or null) and the stream.
 _ENTRIES = {
     "flash_fwd": {"tpushare_flash_fwd": (5, 9, 1)},
-    "flash_bwd": {"tpushare_flash_bwd_dq": (7, 12, 0),
-                  "tpushare_flash_bwd_dkv": (8, 12, 0)},
+    "flash_bwd": {"tpushare_flash_bwd_dq": (7, 12, 1),
+                  "tpushare_flash_bwd_dkv": (8, 12, 1)},
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 _lib_lock = threading.Lock()
@@ -316,7 +316,7 @@ Offset = int | torch.Tensor
 
 
 def _check_offsets(q: torch.Tensor, *offsets: Offset) -> None:
-    """Raise on an offset tensor the forward cannot read on q's device
+    """Raise on an offset tensor the kernels cannot read on q's device
     (never reads its value: on the card that would wait for it)."""
     for t in offsets:
         if isinstance(t, torch.Tensor) and (
@@ -347,6 +347,21 @@ def _offset_pair(q: torch.Tensor, q_offset: Offset,
     return torch.cat(parts)
 
 
+def _offset_args(q: torch.Tensor, q_offset: Offset, kv_offset: Offset
+                 ) -> tuple[tuple[int, int, int | None], torch.Tensor | None]:
+    """A C entry's (q_offset, kv_offset, offsets) arguments, and the pair
+    they point at: the ints and a null pointer, or zeros and the device
+    pair (:func:`_offset_pair`). The caller holds the pair until its
+    launch is queued: a pair made here is freed with its last reference,
+    and the launch's own outputs could then be allocated over it.
+    Checks the offset tensors and never reads their values."""
+    _check_offsets(q, q_offset, kv_offset)
+    pair = _offset_pair(q, q_offset, kv_offset)
+    if pair is None:
+        return (int(q_offset), int(kv_offset), None), None
+    return (0, 0, pair.data_ptr()), pair
+
+
 def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_offset: Offset = 0, kv_offset: Offset = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -358,51 +373,53 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global FLASH_FWD_LAUNCHES
     _check_kernel_inputs(q, k, v)
     _check_tma(q=q, k=k, v=v)
-    _check_offsets(q, q_offset, kv_offset)
-    pair = _offset_pair(q, q_offset, kv_offset)
-    ints = (0, 0) if pair is not None else (int(q_offset), int(kv_offset))
+    offsets, pair = _offset_args(q, q_offset, kv_offset)
     b, lq, h, d = q.shape
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, lq, h), dtype=torch.float32, device=q.device)
     _launch("tpushare_flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, lq, k.shape[1], d,
-             *_strides(q, k, v), *ints,
-             None if pair is None else pair.data_ptr()), q)
+             *_strides(q, k, v), *offsets), q)
+    del pair            # only now: the launch that reads it is queued
     FLASH_FWD_LAUNCHES += 1
     return out, lse
 
 
 def flash_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor,
-                        delta: torch.Tensor, q_offset: int = 0,
-                        kv_offset: int = 0) -> torch.Tensor:
+                        delta: torch.Tensor, q_offset: Offset = 0,
+                        kv_offset: Offset = 0) -> torch.Tensor:
     """Launch the dq kernel: [B, Lq, H, D] dq in q's dtype. ``lse`` is the
-    forward's, ``delta`` = rowsum(do * out) - dlse, both fp32 [B, Lq, H]."""
+    forward's, ``delta`` = rowsum(do * out) - dlse, both fp32 [B, Lq, H].
+    Offsets as :func:`flash_fwd_kernel` takes them."""
     global FLASH_BWD_DQ_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
     _check_tma(q=q, k=k, v=v, do=do)
+    offsets, pair = _offset_args(q, q_offset, kv_offset)
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     _launch("tpushare_flash_bwd_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _DTYPE_CODE[q.dtype], b, h, lq, k.shape[1], d,
-             *_strides(q, k, v, do), int(q_offset), int(kv_offset)), q)
+             *_strides(q, k, v, do), *offsets), q)
+    del pair            # only now: the launch that reads it is queued
     FLASH_BWD_DQ_LAUNCHES += 1
     return dq
 
 
 def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          do: torch.Tensor, lse: torch.Tensor,
-                         delta: torch.Tensor, q_offset: int = 0,
-                         kv_offset: int = 0
+                         delta: torch.Tensor, q_offset: Offset = 0,
+                         kv_offset: Offset = 0
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel: ([B, Lk, H, D] dk, dv) in k's dtype, from
     the same inputs as :func:`flash_bwd_dq_kernel`."""
     global FLASH_BWD_DKV_LAUNCHES
     _check_bwd_inputs(q, k, v, do, lse, delta)
     _check_tma(q=q, k=k, v=v, do=do)
+    offsets, pair = _offset_args(q, q_offset, kv_offset)
     b, lq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -410,7 +427,8 @@ def flash_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _DTYPE_CODE[q.dtype], b, h, lq, k.shape[1], d,
-             *_strides(q, k, v, do), int(q_offset), int(kv_offset)), q)
+             *_strides(q, k, v, do), *offsets), q)
+    del pair            # only now: the launch that reads it is queued
     FLASH_BWD_DKV_LAUNCHES += 1
     return dk, dv
 
@@ -461,12 +479,13 @@ def flash_bwd_delta(do: torch.Tensor, out: torch.Tensor,
 
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                    dlse: torch.Tensor | None = None, q_offset: int = 0,
-                    kv_offset: int = 0
+                    dlse: torch.Tensor | None = None, q_offset: Offset = 0,
+                    kv_offset: Offset = 0
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' plain version, twin of the JAX package's
     ``_flash_bwd_call`` in the port's layout ([B, L, H, D] tensors, lse
-    and dlse [B, Lq, H]), with the kernels' formulas in fp32. Returns
+    and dlse [B, Lq, H]), with the kernels' formulas in fp32. Offsets are
+    ints or 1-element tensors, as the kernels' wrappers take them. Returns
     (dq, dk, dv) in the input dtypes."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -497,13 +516,14 @@ def _block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _block_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                    dlse: torch.Tensor | None, q_offset: int,
-                    kv_offset: int
+                    dlse: torch.Tensor | None, q_offset: Offset,
+                    kv_offset: Offset
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): :func:`flash_bwd_plain` on the CPU, the dq and dk/dv
     kernels on the card (delta is a plain reduction there, as the JAX
     package left it to XLA)."""
     if q.device.type == "cpu":
+        _check_offsets(q, q_offset, kv_offset)
         return flash_bwd_plain(q, k, v, out, lse, do, dlse, q_offset,
                                kv_offset)
     do = _kernel_cotangent(do)
@@ -517,14 +537,21 @@ def _block_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashBlock(torch.autograd.Function):
     """Twin of the JAX package's ``custom_vjp`` on ``flash_block_with_lse``:
     the forward saves (q, k, v, out, lse); the backward rebuilds each
-    tile's probabilities from them, so no [Lq, Lk] matrix is stored."""
+    tile's probabilities from them, so no [Lq, Lk] matrix is stored.
+    Offset tensors are saved with them and handed to the backward kernels
+    as they are, which read them on the card, as the reference's backward
+    takes its traced offsets; they get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_offset):
         out, lse = _block_forward(q.detach(), k.detach(), v.detach(),
                                   q_offset, kv_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.offsets = (q_offset, kv_offset)
+        offsets = (q_offset, kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse, *(
+            t for t in offsets if isinstance(t, torch.Tensor)))
+        # The int offsets; None where the offset is a saved tensor.
+        ctx.int_offsets = tuple(None if isinstance(t, torch.Tensor) else t
+                                for t in offsets)
         # An unused output's cotangent arrives as None, not zeros.
         ctx.set_materialize_grads(False)
         return out, lse
@@ -534,11 +561,12 @@ class _FlashBlock(torch.autograd.Function):
     def backward(ctx, do, dlse):
         if do is None and dlse is None:
             return None, None, None, None, None
-        q, k, v, out, lse = (t.detach() for t in ctx.saved_tensors)
+        q, k, v, out, lse, *saved = (t.detach() for t in ctx.saved_tensors)
+        offsets = [saved.pop(0) if t is None else t
+                   for t in ctx.int_offsets]
         if do is None:
             do = torch.zeros_like(out)
-        dq, dk, dv = _block_backward(q, k, v, out, lse, do, dlse,
-                                     *ctx.offsets)
+        dq, dk, dv = _block_backward(q, k, v, out, lse, do, dlse, *offsets)
         return dq, dk, dv, None, None
 
 
@@ -553,15 +581,11 @@ def flash_block_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     twin disagree on such rows; ``merge_partials`` weighs them 0 either
     way.) Differentiable in q, k and v (both outputs) when grad is
     enabled; otherwise nothing is saved. The offsets are ints, or 1-element
-    int32 tensors on q's device that the forward reads there (a compiled
-    step's offsets); the backward kernels take ints only, so a tensor
-    offset under grad raises ``TypeError``."""
+    int32 tensors on q's device that the kernels, forward and backward,
+    read there (a compiled step's offsets, the twin of the reference's
+    traced ones); the gradients are those the same offsets as ints give."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if any(isinstance(t, torch.Tensor) for t in (q_offset, kv_offset)):
-            raise TypeError("flash_block_with_lse: the backward kernels take "
-                            "int offsets only; pass ints under grad, or run "
-                            "under torch.inference_mode()")
         return _FlashBlock.apply(q, k, v, q_offset, kv_offset)
     return _block_forward(q, k, v, q_offset, kv_offset)
 

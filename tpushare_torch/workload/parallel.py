@@ -221,16 +221,27 @@ def shard_params(params: M.Transformer, mesh: Mesh) -> M.Transformer:
 
 
 def host_device_mesh(mesh: Mesh) -> DeviceMesh:
-    """A CPU ``DeviceMesh`` over the gang, laid out as ``mesh`` (dp, tp,
-    sp; row-major, as :func:`make_mesh` fills it): what a
-    :func:`global_view` of a rank's host copies needs. Creating it is a
-    collective over the gang (it makes a group for each of its axes);
-    pipeline meshes are refused."""
-    if mesh.pp > 1:
-        raise ValueError("a pipeline mesh has no global view of its stages' "
-                         "weights here; the mesh must have pp = 1")
-    return init_device_mesh("cpu", (mesh.dp, mesh.tp, mesh.sp),
-                            mesh_dim_names=AXES[:3])
+    """A CPU ``DeviceMesh`` over the gang, laid out as ``mesh`` (row-major,
+    as :func:`make_mesh` fills it, its dimensions named as
+    :attr:`Mesh.axes`): (dp, tp, sp), or (dp, tp, sp, pp) for a mesh
+    with a pipe axis. It is what a global view of a rank's host copies
+    needs (:func:`global_view`, :func:`stacked_global_view`). Creating
+    it is a collective over the gang (it makes a group for each of its
+    axes)."""
+    return init_device_mesh("cpu", tuple(mesh.size(a) for a in mesh.axes),
+                            mesh_dim_names=mesh.axes)
+
+
+def _placements(device_mesh: DeviceMesh, shards: dict) -> list:
+    """A placement for each dimension of ``device_mesh``: ``Shard(dim)``
+    where ``shards`` maps the dimension's name to a tensor dim, else
+    ``Replicate()``."""
+    names = device_mesh.mesh_dim_names
+    unknown = set(shards) - set(names)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} are not among the "
+                         f"host mesh's {names}")
+    return [Shard(shards[n]) if n in shards else Replicate() for n in names]
 
 
 def global_view(name: str, local: torch.Tensor,
@@ -238,13 +249,41 @@ def global_view(name: str, local: torch.Tensor,
     """``local``, a rank's copy of parameter ``name`` (or of a tensor laid
     out as it, such as an AdamW moment) on the host, as the global tensor
     it is a part of: sharded over tp along :data:`TP_AXIS` and replicated
-    over dp and sp. Nothing is communicated; the global shape is the
+    over the other axes. Nothing is communicated; the global shape is the
     shard's times tp, as :func:`shard_params` splits evenly."""
     axis = _tp_axis(name)
-    placements = [Replicate(), Shard(axis) if axis is not None
-                  else Replicate(), Replicate()]
-    return DTensor.from_local(local, device_mesh, placements,
+    return DTensor.from_local(
+        local, device_mesh,
+        _placements(device_mesh, {} if axis is None else {"tp": axis}),
+        run_check=False)
+
+
+def stacked_global_view(weight: str, local: torch.Tensor,
+                        device_mesh: DeviceMesh, pipe_axis: str,
+                        tp_axis: str | None = None) -> DTensor:
+    """``local``, a pipe rank's ``[1, per_stage, *shape]`` slice of block
+    weight ``weight`` in the reference's stacked layout
+    (``pipeline.stage_tree``), as the global ``[n_stages, per_stage,
+    *shape]`` tensor: sharded over the pipe axis (named: ``pp``, or the
+    ``sp`` a pipe runs over on a mesh without one) on dim 0 and, under
+    ``tp_axis``, over it on dim ``TP_AXIS[weight] + 2``; replicated over
+    the other axes. Nothing is communicated."""
+    shards = {pipe_axis: 0}
+    if tp_axis is not None and TP_AXIS.get(weight) is not None:
+        if tp_axis == pipe_axis:
+            raise ValueError(f"the pipe and tp axes are both {tp_axis!r}")
+        shards[tp_axis] = TP_AXIS[weight] + 2
+    return DTensor.from_local(local, device_mesh,
+                              _placements(device_mesh, shards),
                               run_check=False)
+
+
+def replicated_view(local: torch.Tensor,
+                    device_mesh: DeviceMesh) -> DTensor:
+    """``local`` as a global tensor every rank holds whole (a pipe's
+    edge and its moments)."""
+    return DTensor.from_local(local, device_mesh,
+                              _placements(device_mesh, {}), run_check=False)
 
 
 def gather_shards(tensors: dict, mesh: Mesh) -> dict:

@@ -62,6 +62,50 @@ def _check_stage_count(n_stages: int, mesh: par.Mesh, axis_name: str) -> None:
             f"{mesh.size(axis_name)} stages (one per rank), got {n_stages}")
 
 
+def stack_stage_params(per_stage: list):
+    """Stack a list of identically-shaped per-stage trees (tensors, or
+    dicts of them, nested alike) into one tree with a leading
+    [n_stages] axis, the axis the pipe shards: the reference's
+    ``stack_stage_params`` on dicts of tensors."""
+    first = per_stage[0]
+    if isinstance(first, dict):
+        return {k: stack_stage_params([tree[k] for tree in per_stage])
+                for k in first}
+    return torch.stack(list(per_stage))
+
+
+def stage_tree(stage: nn.ModuleList, n_stages: int = 1, leaf=None) -> dict:
+    """The slice of the reference's stacked tree that ``stage`` holds, by
+    block weight name: ``[n_stages, per_stage, *shape]`` tensors of
+    ``leaf(name, parameter)`` (the parameter itself by default), where
+    ``stage`` holds ``n_stages`` whole stages of blocks in order. Stage
+    parameter ``"{i}.{w}"`` sits at ``[i // per_stage, i % per_stage]``
+    of ``w``: a pipe rank's stage (``n_stages=1``) is its index's row,
+    one process holding every block (``n_stages`` of the pipe) the whole
+    tree. :func:`stage_blocks` is the inverse."""
+    if not len(stage) or len(stage) % n_stages:
+        raise ValueError(f"{len(stage)} blocks do not split into "
+                         f"{n_stages} stages")
+    leaf = leaf or (lambda name, p: p)
+    per_stage = len(stage) // n_stages
+    layers = stack_stage_params([
+        {w: leaf(f"{i}.{w}", p) for w, p in blk.named_parameters()}
+        for i, blk in enumerate(stage)])
+    return {w: t.reshape((n_stages, per_stage) + t.shape[1:])
+            for w, t in layers.items()}
+
+
+def stage_blocks(stacked: dict) -> list[dict]:
+    """The blocks of a stacked tree (leaves ``[n_stages, per_stage, ...]``
+    by weight name), one dict a block, in layer order: block
+    ``s * per_stage + j`` is ``stacked[w][s, j]``. With
+    :func:`flagship_stage` one process builds the blocks that
+    :func:`flagship_pipeline_reference` runs."""
+    n_stages, per_stage = next(iter(stacked.values())).shape[:2]
+    return [{w: t[s, j] for w, t in stacked.items()}
+            for s in range(n_stages) for j in range(per_stage)]
+
+
 def place_pipeline_params(stacked: dict, mesh: par.Mesh,
                           axis_name: str = "pp") -> nn.ParameterDict:
     """This rank's stage of ``stacked`` (a dict of [n_stages, ...]
@@ -365,11 +409,12 @@ def _block(tensors: dict) -> M.Block:
     return blk
 
 
-def flagship_stage(blocks: list[dict], mesh: par.Mesh,
+def flagship_stage(blocks: list[dict], mesh: par.Mesh | None = None,
                    tp_axis: str | None = None) -> nn.ModuleList:
     """A stage of flagship blocks from their full weights (a dict by
     weight name, one a layer): with ``tp_axis``, this rank's share of the
-    heads and of the ffn's hidden axis (``parallel.TP_AXIS``)."""
+    heads and of the ffn's hidden axis (``parallel.TP_AXIS``) under
+    ``mesh``."""
     tp = mesh.size(tp_axis) if tp_axis else 1
     tp_idx = mesh.index(tp_axis) if tp_axis else 0
 
@@ -484,6 +529,8 @@ def flagship_pipeline_reference(cfg: M.ModelConfig, blocks, edge,
                                 targets: torch.Tensor) -> torch.Tensor:
     """Single-device flagship forward + mean token cross-entropy with the
     pipe's own helpers, every block in order: what
-    :func:`make_flagship_pipeline`'s train_fn must match."""
+    :func:`make_flagship_pipeline`'s train_fn must match. ``blocks`` is
+    every block in order, e.g. ``flagship_stage(stage_blocks(stacked))``
+    of a stacked tree."""
     x = _flagship_blocks_apply(blocks, _embed(edge, tokens))
     return _flagship_loss_sum(edge, x, targets) / tokens.numel()
