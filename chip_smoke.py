@@ -38,7 +38,14 @@ a profiler trace of the replays against what their captures recorded.
 The chunked, interleaved and paged prefill pieces are among them: the
 forward reads a piece's offsets from device memory, and phase 3 replays
 one captured launch at several offsets against the launch-argument
-kernel, bit for bit.
+kernel, bit for bit. Phase 9b runs the compiled sharded steps in gangs
+of ``python3 chip_smoke.py --compiled-gang SPEC`` ranks: (a) a one-rank
+NCCL gang through the mesh branches of the train step (with a
+checkpoint restore whose next step replays) and ``generate``, compiled
+against eager bit for bit and traced, (b) a two-rank gloo gang whose
+(1, 1, 2) ring step stays eager by the backend rule, and (c), on a host
+of four cards or more, the four-card NCCL gangs ``tools/nccl_gang.py
+--compiled`` runs.
 One line per phase;
 then a ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line ``{"ok": true, "device":
@@ -72,6 +79,7 @@ from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import checkpoint as CK
+from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import convert
 from tpushare_torch.workload import flash_attention as FA
 from tpushare_torch.workload import graphs
@@ -766,6 +774,15 @@ def main(usage_dir: str) -> int:
     phase("9 compiled steps", card=card, **compiled)
     replayed["compiled_steps"] = compiled["replayed"]
     replayed["compiled_pieces"] = compiled["replayed_pieces"]
+
+    # 9b. The compiled sharded steps: gangs whose train step, generate,
+    # pipe calls and ring-MoE replay a CUDA graph a rank under NCCL, held
+    # to their eager calls; a gloo gang stays eager.
+    meshed = compiled_mesh_phase(M.ModelConfig(), inv.chip_count)
+    phase("9b compiled sharded steps", card=card, **meshed)
+    replayed.update(meshed["replayed"])
+    traced_launches = {**compiled["traced_launches"],
+                       **meshed["traced_launches"]}
     main_t = timings[TIMED_SHAPE, "bfloat16"]
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
@@ -782,7 +799,9 @@ def main(usage_dir: str) -> int:
                   for path, counts in lifecycle["launches"].items()},
                **dryrun_paths(dry, "flash_fwd", train=True),
                **fp32_paths(train32, dry, "flash_fwd"),
-               **bench_paths(bench, "flash_fwd")}
+               **bench_paths(bench, "flash_fwd"),
+               **{path: counts["flash_fwd"]
+                  for path, counts in meshed["launches"].items()}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -796,7 +815,7 @@ def main(usage_dir: str) -> int:
         "replay_launches_are": REPLAY_LAUNCHES_ARE,
         "traced_replay_launches": {
             path: counts["flash_fwd"]
-            for path, counts in compiled["traced_launches"].items()},
+            for path, counts in traced_launches.items()},
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "max_norm_err": max(e["norm_err"] for e in errs.values()
                             if "norm_err" in e),
@@ -865,7 +884,8 @@ def main(usage_dir: str) -> int:
                 counts[kname] for counts in [
                     *cotenancy.values(), *sharded["launches"].values(),
                     *piped["launches"].values(),
-                    *lifecycle["launches"].values()]) + sum(
+                    *lifecycle["launches"].values(),
+                    *meshed["launches"].values()]) + sum(
                 dryrun_paths(dry, kname, train=True).values()) + sum(
                 fp32_paths(train32, dry, kname).values()) + sum(
                 bench_paths(bench, kname).values()),
@@ -874,7 +894,7 @@ def main(usage_dir: str) -> int:
             "replay_launches_are": REPLAY_LAUNCHES_ARE,
             "traced_replay_launches": {
                 path: counts[kname]
-                for path, counts in compiled["traced_launches"].items()},
+                for path, counts in traced_launches.items()},
             "launches_by_path": {"training": train["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
@@ -884,6 +904,8 @@ def main(usage_dir: str) -> int:
                                     in piped["launches"].items()},
                                  **{path: counts[kname] for path, counts
                                     in lifecycle["launches"].items()},
+                                 **{path: counts[kname] for path, counts
+                                    in meshed["launches"].items()},
                                  **dryrun_paths(dry, kname, train=True),
                                  **fp32_paths(train32, dry, kname),
                                  **bench_paths(bench, kname)},
@@ -1578,11 +1600,15 @@ def dq_launch(prof) -> dict:
 
 
 def _synced_s(fn) -> float:
-    """Host seconds of ``fn()``, synchronized on both sides."""
-    torch.cuda.synchronize()
+    """Host seconds of ``fn()``, synchronized on both sides (on a host
+    without a card, the call's own)."""
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
+    if card:
+        torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
@@ -3358,8 +3384,9 @@ REPLAY_LAUNCHES_ARE = (
     "(compiled_pieces: the part of compiled_steps that the prefill "
     "pieces' replays made). "
     "traced_replay_launches are counted by kernel name in a profiler trace "
-    "of one call of each compiled path in phase 9, which fails unless they "
-    "equal the derived count")
+    "of one call of each compiled path in phase 9, and of one replay a "
+    "graph on every rank in phase 9b (compiled_mesh_*: summed over the "
+    "ranks), which fail unless they equal the derived count")
 #: What each flash kernel's (mangled) name in a trace holds, bf16 or fp32.
 TRACE_NAMES = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
                "flash_bwd_dkv": "flash_bwd_dkv_"}
@@ -4080,6 +4107,648 @@ def compiled_phase(cfg: M.ModelConfig, grant) -> dict:
     return fields
 
 
+#: Phase 9b: the compiled sharded steps (``graphs.run`` under a mesh),
+#: each rank of a gang running the rank body :func:`compiled_gang_rank`
+#: (``python3 chip_smoke.py --compiled-gang SPEC``). On one card: (a) a
+#: one-rank NCCL gang, mesh (1, 1, 1), through the mesh branches of the
+#: train step and ``generate``, and a checkpoint restore between steps;
+#: (b) a two-rank gloo gang, a (1, 1, 2) ring step. On four cards or more
+#: (c) :data:`FOUR_CARD_CASES`, one rank a card over NCCL, the cases
+#: ``tools/nccl_gang.py`` runs.
+COMPILED_GANG_FLAG = "--compiled-gang"
+ONE_CARD_CASES = (
+    {"name": "train_1x1x1", "kind": "train", "mesh": [1, 1, 1],
+     "steps": 3, "restore": True},
+    {"name": "generate_1x1x1", "kind": "generate", "mesh": [1, 1, 1]})
+GLOO_CASES = (
+    {"name": "train_1x1x2_gloo", "kind": "train", "mesh": [1, 1, 2],
+     "steps": 2},)
+FOUR_CARD_CASES = (
+    {"name": "train_ring_1x2x2", "kind": "train", "mesh": [1, 2, 2],
+     "attention": "ring", "steps": 3},
+    {"name": "train_ulysses_1x2x2", "kind": "train", "mesh": [1, 2, 2],
+     "attention": "ulysses", "steps": 3},
+    {"name": "train_2x2x1", "kind": "train", "mesh": [2, 2, 1], "steps": 3},
+    {"name": "generate_2x2x1", "kind": "generate", "mesh": [2, 2, 1]},
+    {"name": "pipe_1f1b_2x1x1x2", "kind": "pipe", "mesh": [2, 1, 1, 2],
+     "kw": {"dp_axis": "dp"}, "m": 4, "gpipe": True},
+    {"name": "pipe_1f1b_1x1x2x2", "kind": "pipe", "mesh": [1, 1, 2, 2],
+     "kw": {"sp_axis": "sp"}, "m": 8},
+    {"name": "moe_1x2x2", "kind": "moe", "mesh": [1, 2, 2]})
+#: Compiled calls of each case (the key's eager first call, then
+#: replays), then as many eager calls from the same init.
+COMPILED_CALLS = 3
+COMPILED_GANG_DEADLINE_S = 420
+
+
+def _gang_config(width: str):
+    """(config, global batch) of a compiled gang's cases: the flagship at
+    phase 5b's 8 x 2048, or the dry run's tiny width in fp32 (a host
+    smoke of the rank body)."""
+    if width == "flagship":
+        return M.ModelConfig(), TRAIN_BATCH
+    cfg, _ = E.dryrun_config("tiny", par.Mesh(1, 1, 2, 0, {}))
+    return dataclasses.replace(cfg, dtype=torch.float32), (8, 32)
+
+
+def _sync_if(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _traced_call(name: str, fn, dev: torch.device, captured: bool):
+    """``fn()``, a replay of ``name`` traced (:func:`_replays`) where the
+    step is captured; else the call and its counted launches."""
+    if captured and dev.type == "cuda":
+        return _replays(name, fn)
+    before = _counts()
+    out = fn()
+    return out, {k: c - before[k] for k, c in _counts().items()}
+
+
+def _gang_record(dev: torch.device, mesh, counts0: dict, t0: float) -> dict:
+    """What every case of a compiled gang records beside its checks: the
+    registry's stats and captures, the graph pools, peak memory, the
+    launches the case made, its seconds."""
+    captured = {}
+    for rec in graphs.CAPTURES:
+        captured.setdefault(rec["name"], []).append(
+            {"seconds": rec["seconds"], "growth": list(rec["growth"])})
+    out = {"mesh": mesh.shape, "backend": mesh.backend,
+           "captured_here": graphs.captures(dev, mesh),
+           "stats": graphs.stats(), "captures": captured,
+           "launches": {k: c - counts0[k] for k, c in _counts().items()},
+           "replayed": _replayed(), "seconds": time.perf_counter() - t0}
+    if dev.type == "cuda":
+        out.update(pool_bytes=graphs.pool_bytes(),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def _gang_train(case: dict, dev: torch.device, width: str, begin: tuple,
+                saved: dict) -> dict:
+    """The sharded train step eager, then compiled (``COMPILED_CALLS``
+    steps, or ``steps``: the key's first call, then replays, the last
+    traced) from the same init: losses, weights and AdamW state bit for
+    bit; then host ms in turns. With ``restore``, a
+    save after the steps, one more step, a restore, and the step after it
+    must replay and repeat that step's loss bit for bit, ``step`` on the
+    parameters' device. Keeps the first step's loss and gathered
+    gradients in ``saved``."""
+    cfg, shape = _gang_config(width)
+    mesh = par.make_mesh(*case["mesh"])
+    init_fn, step, place = T.make_train_step(
+        cfg, mesh, attention=case.get("attention"), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, shape,
+                           generator=E.dryrun_generator(1)).to(dev)
+    shard = place(tokens, torch.roll(tokens, -1, dims=1))
+    captured = graphs.captures(dev, mesh)
+    steps = case.get("steps", COMPILED_CALLS)
+
+    params, opt = init_fn(E.dryrun_generator(0), tokens)
+    with graphs.disabled():
+        eager = [step(params, opt, *shard)[2] for _ in range(steps)]
+        eager += list(params.parameters()) + [
+            t for st in opt.state.values() for t in st.values()]
+    params, opt = init_fn(E.dryrun_generator(0), tokens)
+    losses, per_step, traced = [], [], None
+    for i in range(steps):
+        last = captured and i == steps - 1 and i > 0
+        loss, counted = _traced_call(
+            "train_step", lambda: step(params, opt, *shard)[2], dev, last)
+        per_step.append(counted)
+        traced = counted if last else traced
+        losses.append(loss)
+        if i == 0:
+            grads = par.gather_shards(
+                {n: p.grad for n, p in params.named_parameters()}, mesh)
+            saved[case["name"]] = {
+                "loss": loss.item(),
+                "grads": {n: g.float().cpu() for n, g in grads.items()}}
+    compiled = losses + list(params.parameters()) + [
+        t for st in opt.state.values() for t in st.values()]
+    check(all(torch.equal(a, b) for a, b in zip(compiled, eager,
+                                                 strict=True)),
+          f"9b {case['name']}: compiled steps differ from eager ones")
+    del eager, compiled
+    out = {"losses": [x.item() for x in losses],
+           "bit_identical": True, "launches_per_step": per_step,
+           "traced_replay_launches": traced,
+           "capturable": bool(opt.param_groups[0]["capturable"])}
+    if case.get("restore"):
+        out["restore"] = _gang_restore(step, params, opt, shard, captured)
+    if captured:
+        # Under gloo the compiled path is the eager body: nothing to time.
+        out["turns"] = _turns_ms(lambda: step(params, opt, *shard),
+                                 lambda: step(params, opt, *shard))
+    return {**_gang_record(dev, mesh, *begin), **out}
+
+
+def _gang_restore(step, params, opt, shard, captured: bool) -> dict:
+    """Save (one process's checkpoint of this rank's state), take a step,
+    restore, take the step again: it must not miss (where the step is
+    ``captured``, both steps replay) and must give the step's loss again,
+    bit for bit, with AdamW's ``step`` on the parameters' device."""
+    before = graphs.stats()["train_step"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-restore-") as tmp:
+        ckpt = CK.Checkpointer(CK.CheckpointConfig(tmp))
+        ckpt.save(1, params, opt, force=True)
+        ckpt.wait()
+        after_save = step(params, opt, *shard)[2].clone()
+        restored = ckpt.restore(params, opt)
+        ckpt.close()
+    again = step(params, opt, *shard)[2]
+    stats = graphs.stats()["train_step"]
+    on_device = all(st["step"].device == p.device
+                    for p, st in opt.state.items())
+    check(restored is not None and stats["misses"] == before["misses"]
+          and stats["replays"] == before["replays"] + 2 * captured
+          and torch.equal(again, after_save) and on_device,
+          f"9b restore: misses {before['misses']} -> {stats['misses']}, "
+          f"replays {before['replays']} -> {stats['replays']}, loss "
+          f"{again.item()} against {after_save.item()}, step on the "
+          f"parameters' device {on_device}")
+    return {"misses_after": stats["misses"], "replayed": captured,
+            "loss_repeated": True, "step_on_device": on_device}
+
+
+def _gang_generate(case: dict, dev: torch.device, width: str, begin: tuple,
+                   saved: dict) -> dict:
+    """``generate(mesh=)``, 8 x (128 + 64) at flagship width: greedy
+    compiled (a capture, then a traced replay) against eager, and sampled
+    (captured drawing from one generator, replayed with it and another)
+    against eager calls from generators seeded alike on every rank; every
+    rank must hold the same streams. Then host ms in turns."""
+    cfg, _ = _gang_config(width)
+    mesh = par.make_mesh(*case["mesh"])
+    rows, prompt, n_new = ((8, 128, 64) if width == "flagship"
+                           else (2, 8, 4))
+    params = par.shard_params(M.init_params(E.dryrun_generator(4), cfg,
+                                            dev), mesh)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, prompt),
+                            generator=E.dryrun_generator(5)).to(dev)
+    attn = FA.best_attn_fn(dev)
+    captured = graphs.captures(dev, mesh)
+
+    def call(g=None):
+        return S.generate(params, prompts, cfg, n_new, prompt + n_new,
+                          attn_fn=attn, temperature=0.8 if g else 0.0,
+                          generator=g, mesh=mesh)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    first = call()
+    replayed, traced = _traced_call("generate", call, dev, captured)
+    with graphs.disabled():
+        eager = call()
+    ga, gb, ra, rb = (gen(x) for x in (21, 22, 21, 22))
+    got = [call(ga)]
+    for g in (ga, gb):
+        got.append(_traced_call("generate", lambda g=g: call(g), dev,
+                                captured)[0])
+    with graphs.disabled():
+        want = [call(g) for g in (ra, ra, rb)]
+    draws = all(torch.equal(a.get_state(), b.get_state())
+                for a, b in ((ga, ra), (gb, rb)))
+    every = C.all_gather(torch.stack(got)[None], mesh.group(*mesh.axes), 0)
+    check(torch.equal(first, eager) and torch.equal(replayed, eager)
+          and all(torch.equal(a, b) for a, b in zip(got, want)) and draws,
+          f"9b {case['name']}: compiled streams or draws differ from eager")
+    check(bool((every == every[0]).all()), f"9b {case['name']}: ranks hold "
+                                           f"different sampled streams")
+    check(tuple(first.shape) == (rows, prompt + n_new)
+          and torch.equal(first[:, :prompt], prompts),
+          f"9b {case['name']}: stream {tuple(first.shape)}")
+    out = {"bit_identical": True, "ranks_agree": True,
+           "shape": list(first.shape), "traced_replay_launches": traced,
+           "turns": _turns_ms(call, call),
+           "sampled_turns": _turns_ms(lambda: call(ra), lambda: call(ga),
+                                      rounds=1)}
+    return {**_gang_record(dev, mesh, *begin), **out}
+
+
+def _gang_pipe(case: dict, dev: torch.device, width: str, begin: tuple,
+               saved: dict) -> dict:
+    """A flagship pipe (``make_flagship_pipeline`` over pp, the case's
+    axes), eager and then compiled from the same init: with ``gpipe``,
+    first the GPipe forward of the stages (a capture, a traced replay);
+    then ``COMPILED_CALLS`` 1F1B calls (the last traced) with an eager
+    AdamW step after each; hidden states, losses, gradients and weights
+    bit for bit; then host ms in turns. Keeps the first call's loss and
+    gathered gradients, and the GPipe's last-stage hidden states, in
+    ``saved``."""
+    cfg, shape = _gang_config(width)
+    mesh = par.make_mesh(*case["mesh"])
+    kw, m = case.get("kw", {}), case["m"]
+    init_fn, train_fn = PP.make_flagship_pipeline(
+        cfg, mesh, "pp", n_microbatches=m, device=dev, **kw)
+    tokens = torch.randint(0, cfg.vocab_size, shape,
+                           generator=E.dryrun_generator(1)).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    captured = graphs.captures(dev, mesh)
+    gen = E.dryrun_generator
+
+    def calls(stage, edge, call) -> list:
+        """``COMPILED_CALLS`` 1F1B calls ``call(i)``, an eager AdamW step
+        after each: each loss and gradient, then the weights."""
+        params = [*stage.parameters(), *edge.parameters()]
+        opt = T.make_optimizer()(params)
+        got = []
+        for i in range(COMPILED_CALLS):
+            got += [call(i), *(p.grad.clone() for p in params)]
+            opt.step()
+        return got + [p.detach().clone() for p in params]
+
+    stage, edge = init_fn(gen(0))
+    fwd = (PP.make_pipeline_fn(train_fn.stage_fn, mesh, "pp",
+                               n_microbatches=m)
+           if case.get("gpipe") else None)
+    with torch.no_grad():
+        x = edge["embed"][tokens.chunk(mesh.dp)[mesh.dp_rank]]
+    with graphs.disabled():
+        hidden = fwd(stage, x) if fwd else None
+        eager = calls(stage, edge,
+                      lambda i: train_fn(stage, edge, tokens, targets))
+    stage, edge = init_fn(gen(0))
+    out, per_call = {}, []
+    if fwd:
+        first = fwd(stage, x)
+        replayed, out["gpipe_traced"] = _traced_call(
+            "pipe_gpipe", lambda: fwd(stage, x), dev, captured)
+        check(torch.equal(first, hidden) and torch.equal(replayed, hidden),
+              f"9b {case['name']}: GPipe calls differ from eager")
+        every = C.all_gather(first[None], mesh.group("dp", "pp"), 0)
+        saved[f"{case['name']}_gpipe"] = torch.cat(
+            [PP.last_stage_output(o)
+             for o in every[mesh.pp - 1::mesh.pp]]).cpu()
+        out["gpipe_turns"] = _turns_ms(lambda: fwd(stage, x),
+                                       lambda: fwd(stage, x))
+
+    def compiled_call(i):
+        last = captured and i == COMPILED_CALLS - 1
+        loss, counted = _traced_call(
+            "pipe_1f1b", lambda: train_fn(stage, edge, tokens, targets),
+            dev, last)
+        per_call.append(counted)
+        if last:
+            out["traced_replay_launches"] = counted
+        if i == 0:
+            saved[case["name"]] = {
+                "loss": loss.item(),
+                "grads": {n: g.float() for n, g in E.pipe_grads(
+                    stage, edge, mesh, "pp", kw.get("tp_axis")).items()}}
+        return loss
+
+    compiled = calls(stage, edge, compiled_call)
+    check(all(torch.equal(a, b) for a, b in zip(compiled, eager,
+                                                 strict=True)),
+          f"9b {case['name']}: compiled pipe calls differ from eager ones")
+    n = len(list(stage.parameters())) + len(list(edge.parameters()))
+    out.update(bit_identical=True, launches_per_call=per_call,
+               microbatches=m, layers_per_stage=cfg.n_layers // mesh.pp,
+               stash_peak=train_fn.pipe.stash_peak,
+               losses=[x.item() for x in compiled[:COMPILED_CALLS * (n + 1)
+                                                  :n + 1]],
+               turns=_turns_ms(
+                   lambda: train_fn(stage, edge, tokens, targets),
+                   lambda: train_fn(stage, edge, tokens, targets)))
+    return {**_gang_record(dev, mesh, *begin), **out}
+
+
+def _gang_moe(case: dict, dev: torch.device, width: str, begin: tuple,
+              saved: dict) -> dict:
+    """The ring-MoE's value and gradient over sp (``entry.moe_inputs``:
+    E = 2·sp, fp32), ``COMPILED_CALLS`` calls eager, then as many
+    compiled (the last traced): losses, outputs and gradients bit for
+    bit. Keeps the last call's output and gradients, gathered, in
+    ``saved``."""
+    mesh = par.make_mesh(*case["mesh"])
+    params, x = E.moe_inputs(width if width == "flagship" else "tiny", mesh,
+                             dev)
+    xs = x.chunk(mesh.sp, dim=1)[mesh.sp_rank]
+    vg = moe.make_ring_moe_value_and_grad(mesh, "sp")
+    captured = graphs.captures(dev, mesh)
+
+    def calls(call) -> tuple[dict, list]:
+        """``COMPILED_CALLS`` calls ``call(placed, i)`` on fresh shards:
+        the shards, and each loss, output and gradient."""
+        placed = {k: v.clone().requires_grad_() for k, v in
+                  moe.place_moe_params(params, mesh, "sp").items()}
+        got = []
+        for i in range(COMPILED_CALLS):
+            got += [*call(placed, i),
+                    *(placed[k].grad.clone() for k in sorted(placed))]
+        return placed, got
+
+    with graphs.disabled():
+        _, eager = calls(lambda placed, i: vg(placed, xs, x.numel()))
+    out = {}
+
+    def compiled_call(placed, i):
+        last = captured and i == COMPILED_CALLS - 1
+        got, counted = _traced_call(
+            "moe_value_and_grad", lambda: vg(placed, xs, x.numel()), dev,
+            last)
+        if last:
+            out["traced_replay_launches"] = counted
+        return got
+
+    placed, compiled = calls(compiled_call)
+    check(all(torch.equal(a, b) for a, b in zip(compiled, eager,
+                                                 strict=True)),
+          f"9b {case['name']}: compiled MoE calls differ from eager ones")
+    loss, y = compiled[-5:-3]
+    group = mesh.sp_group
+    saved[case["name"]] = {
+        "loss": loss.item(), "y": C.all_gather(y, group, 1).cpu(),
+        "grads": {"router": placed["router"].grad.cpu(),
+                  **{k: C.all_gather(placed[k].grad, group, 0).cpu()
+                     for k in ("w1", "w2")}}}
+    out.update(bit_identical=True, experts=params["w1"].shape[0],
+               turns=_turns_ms(lambda: vg(placed, xs, x.numel()),
+                               lambda: vg(placed, xs, x.numel())))
+    return {**_gang_record(dev, mesh, *begin), **out}
+
+
+GANG_CASES = {"train": _gang_train, "generate": _gang_generate,
+              "pipe": _gang_pipe, "moe": _gang_moe}
+
+
+def compiled_gang_rank(spec: dict) -> int:
+    """One rank of a compiled gang: join the gang (``spec["backend"]``,
+    one card a rank over NCCL), run each of ``spec["cases"]`` (a fresh
+    registry and stats each), print one JSON line of every case's record;
+    rank 0 saves the cases' first-step arrays to ``spec["save"]``. Any
+    failed check raises."""
+    dev = torch.device(spec.get("device", "cuda"))
+    width = spec.get("width", "flagship")
+    if torchenv.init_distributed(backend=spec["backend"], device=dev) is None:
+        # A gang of one is no gang by the pod's env: its group is made here.
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            spec["backend"], world_size=1, rank=0,
+            init_method=f"tcp://localhost:{launch.free_port()}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    record, saved = {"rank": rank, "device": str(dev), "cases": {}}, {}
+    try:
+        for case in spec["cases"]:
+            graphs.clear()
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            begin = (_counts(), time.perf_counter())
+            record["cases"][case["name"]] = GANG_CASES[case["kind"]](
+                case, dev, width, begin, saved)
+        if rank == 0 and spec.get("save"):
+            torch.save(saved, spec["save"])
+    finally:
+        # A graph that holds NCCL work keeps its communicator: free the
+        # graphs before the groups go.
+        graphs.clear()
+        torch.distributed.destroy_process_group()
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+def compiled_gang(cases, world: int, backend: str, *, save=None,
+                  env=None, width: str = "flagship",
+                  device: str = "cuda") -> list[dict]:
+    """Run ``cases`` in one gang of ``world`` ranks of
+    :func:`compiled_gang_rank` (``runtime.launch``) and hold what the
+    ranks agree on: every rank's stats and captures' growth equal, one
+    miss a key and, where the gang captures, a replay for every later
+    call. Returns the rank records."""
+    spec = {"cases": list(cases), "backend": backend, "save": save,
+            "width": width, "device": device}
+    records = launch.launch(
+        [os.path.abspath(__file__), COMPILED_GANG_FLAG, json.dumps(spec)],
+        world, deadline_s=COMPILED_GANG_DEADLINE_S, env=env)
+    for case in cases:
+        recs = [r["cases"][case["name"]] for r in records]
+        first = recs[0]
+        check(all(r["stats"] == first["stats"]
+                  and [[c["growth"] for c in v] for v in
+                       r["captures"].values()]
+                  == [[c["growth"] for c in v] for v in
+                      first["captures"].values()] for r in recs),
+              f"9b {case['name']}: ranks disagree on the registry: "
+              f"{[r['stats'] for r in recs]}")
+        for name, st in first["stats"].items():
+            check(st["misses"] >= 1, f"9b {case['name']}: {name} {st}")
+            if first["captured_here"]:
+                check(st["replays"] > 0 and len(first["captures"][name])
+                      == st["misses"],
+                      f"9b {case['name']}: {name} {st}, captures "
+                      f"{first['captures'].get(name)}")
+            else:
+                check(st["replays"] == 0 and not first["captures"],
+                      f"9b {case['name']}: {name} captured under "
+                      f"{first['backend']}: {st}")
+    return records
+
+
+def _traced_equal_recorded(name: str, recs: list[dict]) -> dict:
+    """A case's traced replay launches, one dict a graph it traced, each
+    equal to the growth its capture recorded (the rank body's
+    ``_replays`` already held them to the counters)."""
+    out = {}
+    for key in ("traced_replay_launches", "gpipe_traced"):
+        traced = recs[0].get(key)
+        if traced is None or not recs[0]["captured_here"]:
+            continue
+        graph = {"gpipe_traced": "pipe_gpipe"}.get(key) or {
+            "train": "train_step", "generate": "generate",
+            "pipe": "pipe_1f1b", "moe": "moe_value_and_grad"}[
+            name.split("_")[0]]
+        growth = dict(zip(_counts(), recs[0]["captures"][graph][-1]
+                          ["growth"]))
+        check(all(r.get(key) == traced for r in recs) and traced == growth,
+              f"9b {name}: traced {traced}, recorded {growth}")
+        out[graph] = traced
+    return out
+
+
+def four_card_gangs(cfg: M.ModelConfig, cards: int, ref: dict | None = None,
+                    env=None, strict: bool = True) -> dict:
+    """(c) :data:`FOUR_CARD_CASES`, one NCCL gang of four ranks (one a
+    card) for the cases of each kind: each compiled against eager bit for
+    bit, traced, and the first step of each train case and pipe held to
+    the single-process kernel step ``ref`` at phase 5b's bounds (the
+    GPipe's hidden states at ``GPIPE_TOL``, the MoE at ``MOE_TOL`` against
+    one process). A gang that fails is recorded under ``failed`` and the
+    other kinds still run; with ``strict`` a failure then raises. What
+    ``tools/nccl_gang.py --compiled`` runs."""
+    check(cards >= 4, f"the four-card gangs need four cards, have {cards}")
+    ref = ref or single_process_step(cfg)
+    fields = {"cards": cards, "ranks": 4, "backend": "nccl", "seconds": {},
+              "cases": {}, "failed": {}}
+    kinds = dict.fromkeys(c["kind"] for c in FOUR_CARD_CASES)
+    for kind in kinds:
+        cases = [c for c in FOUR_CARD_CASES if c["kind"] == kind]
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke-9b-") as tmp:
+                save = os.path.join(tmp, "saved.pt")
+                records = compiled_gang(cases, 4, "nccl", save=save, env=env)
+                saved = torch.load(save)
+            for case in cases:
+                fields["cases"][case["name"]] = _four_card_case(
+                    case, records, saved, ref)
+        except (launch.GangError, RuntimeError) as exc:
+            fields["failed"][kind] = str(exc)[-3000:]
+        fields["seconds"][kind] = time.perf_counter() - t0
+    check(not (strict and fields["failed"]),
+          f"9b (c): gangs failed: {fields['failed']}")
+    return fields
+
+
+def _four_card_case(case: dict, records: list, saved: dict,
+                    ref: dict) -> dict:
+    """A four-card case's fields, and its first step held to the single
+    process's."""
+    name = case["name"]
+    recs = [r["cases"][name] for r in records]
+    rec = {"mesh": case["mesh"], **_gang_fields(recs),
+           "traced": _traced_equal_recorded(name, recs)}
+    got = saved.get(name)
+    if case["kind"] in ("train", "pipe"):
+        loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        errs = {n: _norm_err(g.cuda(), ref["grads"][n])
+                for n, g in got["grads"].items()}
+        worst = max(errs, key=errs.get)
+        check(set(errs) == set(ref["grads"])
+              and loss_err <= TRAIN_LOSS_TOL
+              and errs[worst] <= TRAIN_GRAD_TOL,
+              f"9b {name}: first step off the single process's: loss "
+              f"{loss_err}, {worst} {errs[worst]}")
+        rec.update(vs_single_loss_rel_err=loss_err,
+                   vs_single_max_grad_err=errs[worst],
+                   vs_single_worst_leaf=worst)
+    if case.get("gpipe"):
+        err = _norm_err(saved[f"{name}_gpipe"].cuda().float(),
+                        ref["hidden"].float())
+        check(err <= GPIPE_TOL, f"9b {name}: GPipe hidden off by {err}")
+        rec["gpipe_vs_single_hidden_err"] = err
+    if case["kind"] == "moe":
+        want = moe_reference(",".join(map(str, case["mesh"])))
+        errs = {"y": _norm_err(got["y"].cuda(), want["y"]),
+                **{k: _norm_err(g.cuda(), want["grads"][k])
+                   for k, g in got["grads"].items()}}
+        worst = max(errs, key=errs.get)
+        check(set(errs) == {"y", "router", "w1", "w2"}
+              and errs[worst] <= MOE_TOL,
+              f"9b {name}: {worst} off one process's by {errs[worst]}")
+        rec["vs_single_errs"] = errs
+    return rec
+
+
+def _gang_fields(recs: list[dict]) -> dict:
+    """The per-rank numbers of a case, side by side."""
+    first = recs[0]
+    keys = ("turns", "sampled_turns", "gpipe_turns", "peak_reserved_bytes",
+            "peak_allocated_bytes", "pool_bytes", "seconds", "launches",
+            "replayed", "launches_per_step", "launches_per_call",
+            "stash_peak", "restore", "capturable", "losses")
+    out = {"backend": first["backend"], "captured": first["captured_here"],
+           "stats": first["stats"],
+           "capture_s": {n: [c["seconds"] for c in v]
+                         for n, v in first["captures"].items()}}
+    for key in keys:
+        if key in first:
+            out[f"{key}_by_rank"] = [r.get(key) for r in recs]
+    return out
+
+
+def compiled_mesh_phase(cfg: M.ModelConfig, cards: int, ref=None,
+                        env=None) -> dict:
+    """Phase 9b on this host: (a) :data:`ONE_CARD_CASES` in a one-rank
+    NCCL gang (its collectives are no-ops at size 1: the train step
+    reduces nothing, ring attention over one shard shifts nothing); (b)
+    :data:`GLOO_CASES` in a two-rank gloo gang on the card, eager by the
+    backend rule; (c) with four cards or more,
+    :func:`four_card_gangs`. Returns the phase's fields; ``launches``
+    sums each path's launches over its ranks, ``replayed`` and
+    ``traced_launches`` those inside replays (derived, and traced)."""
+    fields = {"cards": cards, "gangs": []}
+    launches, replayed, traced = {}, {}, {}
+    t0 = time.perf_counter()
+    one = compiled_gang(ONE_CARD_CASES, 1, "nccl", env=env)
+    fields["a_one_rank_nccl"] = {
+        "collectives": "none issued: every group of a (1,1,1) mesh holds "
+                       "one rank",
+        "seconds": time.perf_counter() - t0,
+        **{c["name"]: {**_gang_fields([one[0]["cases"][c["name"]]]),
+                       "traced": _traced_equal_recorded(
+                           c["name"], [one[0]["cases"][c["name"]]]),
+                       **{k: one[0]["cases"][c["name"]].get(k)
+                          for k in ("bit_identical", "restore", "shape")}}
+           for c in ONE_CARD_CASES}}
+    fields["gangs"].append("a: 1 rank, nccl, (1,1,1)")
+    for c in ONE_CARD_CASES:
+        rec = one[0]["cases"][c["name"]]
+        check(rec["captured_here"] and rec["stats"][
+            {"train": "train_step", "generate": "generate"}[c["kind"]]][
+            "replays"] > 0, f"9b (a) {c['name']}: nothing replayed")
+    t0 = time.perf_counter()
+    two = compiled_gang(GLOO_CASES, 2, "gloo", env=env)
+    for c in GLOO_CASES:
+        recs = [r["cases"][c["name"]] for r in two]
+        check(not recs[0]["captured_here"]
+              and recs[0]["stats"]["train_step"]["keys"] == 1
+              and not any(r["capturable"] for r in recs),
+              f"9b (b): a gloo gang captured or made AdamW capturable: "
+              f"{recs[0]['stats']}")
+        fields["b_two_rank_gloo"] = {"seconds": time.perf_counter() - t0,
+                                     c["name"]: _gang_fields(recs)}
+    fields["gangs"].append("b: 2 ranks, gloo, (1,1,2) ring, eager")
+    groups = [(one, ONE_CARD_CASES), (two, GLOO_CASES)]
+    if cards >= 4:
+        # Every card of the host to the ranks, rank i on card i.
+        four = four_card_gangs(cfg, cards, ref, env={
+            **(env or {}),
+            "CUDA_VISIBLE_DEVICES": ",".join(map(str, range(cards)))})
+        fields["c_four_card_nccl"] = four
+        fields["gangs"].append("c: 4 ranks, nccl, one a card")
+        groups.append((None, FOUR_CARD_CASES))
+        for case in FOUR_CARD_CASES:
+            rec = four["cases"][case["name"]]
+            path = f"compiled_mesh_{case['name']}_4cards"
+            launches[path] = _sum_counts(rec["launches_by_rank"])
+            replayed[path] = _sum_counts(rec["replayed_by_rank"])
+            traced[path] = _sum_counts(rec["traced"].values())
+    else:
+        fields["c_four_card_nccl"] = (f"not run: {cards} card(s); "
+                                      f"tools/nccl_gang.py runs it on four")
+    for records, cases in groups[:2]:
+        for case in cases:
+            recs = [r["cases"][case["name"]] for r in records]
+            path = f"compiled_mesh_{case['name']}"
+            launches[path] = _sum_counts(r["launches"] for r in recs)
+            replayed[path] = _sum_counts(r["replayed"] for r in recs)
+            if recs[0]["captured_here"]:
+                traced[path] = _sum_counts(_traced_equal_recorded(
+                    case["name"], recs).values())
+    fields.update(launches=launches, replayed=replayed,
+                  traced_launches=traced)
+    return fields
+
+
+def _sum_counts(dicts) -> dict:
+    out = dict.fromkeys(_counts(), 0)
+    for d in dicts:
+        for k in out:
+            out[k] += d[k]
+    return out
+
+
 def ring_step_timings(gen: torch.Generator) -> dict:
     """Phase 7c: ``RING_SHAPES`` in bf16, forward (:func:`time_shape`)
     and backward with a nonzero lse cotangent (:func:`time_bwd_shape`),
@@ -4108,6 +4777,8 @@ def ring_step_timings(gen: torch.Generator) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:] == [TENANT_FLAG]:
         sys.exit(allocated_tenant())
+    if sys.argv[1:2] == [COMPILED_GANG_FLAG]:
+        sys.exit(compiled_gang_rank(json.loads(sys.argv[2])))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         code = main(tmp)
     sys.exit(code)

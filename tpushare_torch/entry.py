@@ -31,6 +31,7 @@ from tpushare_torch.workload import checkpoint as CK
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import convert
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import moe
 from tpushare_torch.workload import parallel as par
@@ -269,21 +270,13 @@ def _moe_part(width, mesh, steps, dev, save, saved) -> dict:
     placed = {k: v.requires_grad_() for k, v in
               moe.place_moe_params(params, mesh, "sp").items()}
     xs = x.chunk(mesh.sp, dim=1)[mesh.sp_rank]
-    fn = moe.make_ring_moe_fn(mesh, "sp")
+    vg = moe.make_ring_moe_value_and_grad(mesh, "sp")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses, call_ms, launches = [], [], []
-
-    def call():
-        for v in placed.values():
-            v.grad = None
-        y = fn(placed, xs)
-        local = y.square().sum() / x.numel()
-        local.backward()
-        return y, C.all_reduce(local.detach(), mesh.sp_group)
-
     for _ in range(steps):
-        (y, loss), ms, counts = _timed(dev, call)
+        (loss, y), ms, counts = _timed(dev, lambda: vg(placed, xs,
+                                                       x.numel()))
         losses.append(loss.item())
         call_ms.append(ms)
         launches.append(counts)
@@ -307,6 +300,20 @@ def _moe_part(width, mesh, steps, dev, save, saved) -> dict:
 #: pipe's state, whichever part saved it (dp × pp and dp × tp × pp share
 #: their stages' layout, so one restores what the other saved).
 PIPE_CKPT_SUBDIR = "pipe"
+
+
+def pipe_grads(stage, edge, mesh: par.Mesh, axis: str,
+               tp_axis: str | None = None) -> dict:
+    """Every rank's pipe gradients (``.grad`` of its stage and the edge),
+    gathered over tp and the pipe axis and named as one process's
+    ``Transformer`` names them (``embed``, ``blocks.<i>.<w>``): host
+    tensors, on every rank (a collective)."""
+    g_stacked, g_edge = convert.pipeline_grads_to_numpy(stage, edge, mesh,
+                                                        axis, tp_axis)
+    return {**{k: torch.from_numpy(g) for k, g in g_edge.items()},
+            **{f"blocks.{i}.{k}": torch.from_numpy(layer)
+               for k, g in g_stacked.items()
+               for i, layer in enumerate(g.reshape((-1,) + g.shape[2:]))}}
 
 
 def _pipe_part(part, width, train_mesh, world, steps, dev, save, saved,
@@ -367,8 +374,7 @@ def _pipe_part(part, width, train_mesh, world, steps, dev, save, saved,
         call_ms.append(ms)
         launches.append(counts)
         if i == done and save:
-            grads = convert.pipeline_grads_to_numpy(stage, edge, mesh, axis,
-                                                    tp_axis)
+            grads = pipe_grads(stage, edge, mesh, axis, tp_axis)
         every = ckpt["every"]
         if ckptr is not None and every and (i + 1) % every == 0:
             ckptr.save(i + 1, (stage, edge), opt)
@@ -394,12 +400,7 @@ def _pipe_part(part, width, train_mesh, world, steps, dev, save, saved,
            **_memory(dev)}
     out = {}
     if save and grads is not None:
-        g_stacked, g_edge = grads
-        out = {"loss": losses[0], "grads": {
-            **{k: torch.from_numpy(g) for k, g in g_edge.items()},
-            **{f"blocks.{i}.{k}": torch.from_numpy(layer)
-               for k, g in g_stacked.items()
-               for i, layer in enumerate(g.reshape((-1,) + g.shape[2:]))}}}
+        out = {"loss": losses[0], "grads": grads}
     if save and ckptr is not None:
         out["checkpoint"] = {"losses": losses, "states": states}
     if part == "dp_pp":
@@ -587,6 +588,9 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
             torch.save(saved, save_grads)
         return record
     finally:
+        # A CUDA graph that holds NCCL collectives keeps its communicator
+        # until the graph is freed: free them before the groups go.
+        graphs.clear()
         dist.destroy_process_group()
 
 

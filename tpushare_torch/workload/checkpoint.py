@@ -42,6 +42,9 @@ for the JAX package, done here explicitly:
   optimizer's (``get_optimizer_state_dict`` creates them) so the next
   update bias-corrects from the restored ``step``. The optimizer's
   hyperparameters are the target's own, as optax's live in its code.
+  State the optimizer already holds is copied into, not replaced
+  (``convert.set_optimizer_state``): a compiled step reads it in place,
+  so the step after a restore replays its graph.
 * **A pipe is saved in the reference's stacked layout.** A 1F1B pipe's
   state (``pipeline.make_flagship_pipeline``: each rank's stage of
   blocks, the edge every rank holds, AdamW over both) is the tree the
@@ -74,10 +77,10 @@ import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 from torch import nn
-from torch.distributed.checkpoint.state_dict import (
-    get_optimizer_state_dict, set_optimizer_state_dict)
+from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
 from torch.distributed.tensor import DTensor
 
+from tpushare_torch.workload import convert
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import pipeline as P
@@ -327,7 +330,7 @@ class Checkpointer:
                 p.copy_(weights[fqn])
         adam = state["opt_state"]["0"]
         mu, nu = by_fqn(adam["mu"]), by_fqn(adam["nu"])
-        _set_optimizer_state(module, opt_state, {
+        convert.set_optimizer_state(module, opt_state, {
             fqn: {"step": adam["count"].clone(), "exp_avg": mu[fqn],
                   "exp_avg_sq": nu[fqn]}
             for fqn, _ in module.named_parameters()})
@@ -433,7 +436,7 @@ class Checkpointer:
             with torch.no_grad():
                 for name, p in params_target.named_parameters():
                     p.copy_(_local(state["params"][name]))
-            _set_optimizer_state(params_target, opt_state_target, {
+            convert.set_optimizer_state(params_target, opt_state_target, {
                 name: {key: _local(v) for key, v in per.items()}
                 for name, per in state["opt_state"].items()})
         marks.append(time.perf_counter())
@@ -486,14 +489,6 @@ def _pipe_modules(params) -> tuple[nn.ModuleList, nn.Module, nn.ModuleDict]:
                         f"nn.ModuleList, edge), got {type(params).__name__}")
     stage, edge = params
     return stage, edge, nn.ModuleDict({"stage": stage, "edge": edge})
-
-
-def _set_optimizer_state(module: nn.Module, opt_state, state: dict) -> None:
-    """Set ``opt_state``'s per-parameter state (by ``module``'s parameter
-    names), keeping its param groups."""
-    groups = get_optimizer_state_dict(module, opt_state)["param_groups"]
-    set_optimizer_state_dict(module, opt_state,
-                             {"state": state, "param_groups": groups})
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:

@@ -32,21 +32,65 @@ group every tensor travels through a fresh host buffer, made in
 :func:`_wire_buffer` and nowhere else, one rule for every collective; on
 any other backend (NCCL) the buffer stays on the tensor's device. The
 choice follows the group's backend, never a failure.
+
+**Under capture** (``workload.graphs``, a sharded step compiled on an
+NCCL mesh). On NCCL every collective here is stream work and nothing
+else: the buffer is made on the tensor's device, ``.to(x.device)`` hands
+back the tensor itself, and ProcessGroupNCCL's ``wait()`` makes the
+current stream wait on the collective's stream, without blocking the
+host (unless ``TORCH_NCCL_BLOCKING_WAIT`` asks it to). So a capture holds
+each collective's kernels and the stream waits around them, and a replay
+runs them with the peers' replays. A gloo collective cannot be captured,
+and :func:`_wire_buffer` raises inside a capture rather than let a host
+copy be recorded. :func:`recorded` lists the collectives a block issues
+(kind, group, peers, shape, dtype): a capture must issue exactly those
+of its warm-up, which made every communicator it uses.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
 
+#: The lists :func:`recorded` blocks are filling, innermost last.
+_RECORDS: list[list] = []
+
+
+@contextlib.contextmanager
+def recorded():
+    """Inside the block, every collective of this module is listed, in
+    order, in the list it yields, as ``(kind, group ranks, peers, shape,
+    dtype)``."""
+    out: list = []
+    _RECORDS.append(out)
+    try:
+        yield out
+    finally:
+        _RECORDS.remove(out)
+
+
+def _record(kind: str, x: torch.Tensor, group, peers=()) -> None:
+    if _RECORDS:
+        entry = (kind, tuple(dist.get_process_group_ranks(group)), peers,
+                 tuple(x.shape), x.dtype)
+        for out in _RECORDS:
+            out.append(entry)
+
+
 def _wire_buffer(x: torch.Tensor, group) -> torch.Tensor:
     """A fresh contiguous copy of ``x`` that the group's transport can
     read and overwrite: in host memory on a gloo group, on ``x``'s device
-    otherwise."""
-    device = (torch.device("cpu") if dist.get_backend(group) == "gloo"
-              else x.device)
+    otherwise. A gloo collective inside a CUDA graph capture raises."""
+    gloo = dist.get_backend(group) == "gloo"
+    if (gloo and x.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("a gloo collective goes through host memory and "
+                           "cannot be captured in a CUDA graph")
+    device = torch.device("cpu") if gloo else x.device
     return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
 
 
@@ -56,6 +100,7 @@ def _exchange(x: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
     itself comes back (a copy)."""
     if to == frm == dist.get_rank(group):
         return x.clone()
+    _record("exchange", x, group, (to, frm))
     send = _wire_buffer(x, group)
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, to),
@@ -69,6 +114,7 @@ def _exchange(x: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group, as a new tensor (no gradient)."""
+    _record("all_reduce", x, group)
     buf = _wire_buffer(x, group)
     dist.all_reduce(buf, group=group)
     return buf.to(x.device)
@@ -77,6 +123,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in group-rank order
     (no gradient)."""
+    _record("all_gather", x, group)
     buf = _wire_buffer(x, group)
     parts = [torch.empty_like(buf)
              for _ in range(dist.get_world_size(group))]
@@ -85,6 +132,7 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    _record("all_to_all", x, group)
     send = _wire_buffer(x, group)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)

@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.checkpoint.state_dict import (
-    get_optimizer_state_dict, set_optimizer_state_dict)
 
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
@@ -93,6 +91,41 @@ def _named(tree: dict) -> dict:
                for i, blk in enumerate(tree["blocks"]) for key in _BLOCK_KEYS}}
 
 
+def set_optimizer_state(module: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        state: dict) -> None:
+    """Set ``optimizer``'s per-parameter state from ``state`` (by
+    ``module``'s parameter names; host tensors will do). A value whose
+    key the optimizer already holds for that parameter is copied into the
+    tensor it holds: a compiled step reads that state in place and is
+    keyed on its addresses (:mod:`graphs`), so a restore that replaced
+    the tensors would miss its key and capture again. A new value is
+    placed as ``Optimizer.load_state_dict`` places it: ``step`` in fp32 on
+    its parameter's device for a capturable (or fused) AdamW and on the
+    host for another, the rest in the parameter's dtype on its device.
+    The param groups stay the optimizer's own."""
+    params = dict(module.named_parameters())
+    group_of = {id(p): g for g in optimizer.param_groups
+                for p in g["params"]}
+    with torch.no_grad():
+        for name, values in state.items():
+            p = params[name]
+            group = group_of[id(p)]
+            held = optimizer.state[p]
+            for key, value in values.items():
+                value = torch.as_tensor(value)
+                if key in held:
+                    held[key].copy_(value)
+                elif key == "step":
+                    on_card = group.get("capturable") or group.get("fused")
+                    held[key] = value.to(
+                        dtype=torch.float32,
+                        device=p.device if on_card else "cpu", copy=True)
+                else:
+                    held[key] = value.to(dtype=p.dtype, device=p.device,
+                                         copy=True)
+
+
 def opt_state_from_jax(opt_state, params: Transformer,
                        optimizer: torch.optim.Optimizer
                        ) -> torch.optim.Optimizer:
@@ -116,9 +149,7 @@ def opt_state_from_jax(opt_state, params: Transformer,
                                  dtype=torch.float32),
             "exp_avg": torch.tensor(np.asarray(mu[name], np.float32)),
             "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32))}
-    groups = get_optimizer_state_dict(params, optimizer)["param_groups"]
-    set_optimizer_state_dict(params, optimizer, {"state": state,
-                                                 "param_groups": groups})
+    set_optimizer_state(params, optimizer, state)
     return optimizer
 
 
@@ -227,9 +258,7 @@ def pipeline_opt_state_from_jax(opt_state, stage, edge,
         state[fqn] = {"step": torch.tensor(step, dtype=torch.float32),
                       "exp_avg": torch.tensor(mu),
                       "exp_avg_sq": torch.tensor(nu)}
-    groups = get_optimizer_state_dict(module, optimizer)["param_groups"]
-    set_optimizer_state_dict(module, optimizer, {"state": state,
-                                                 "param_groups": groups})
+    set_optimizer_state(module, optimizer, state)
     return optimizer
 
 

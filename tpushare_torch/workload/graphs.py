@@ -59,6 +59,23 @@ The contract:
    from one replay to the next. An entry whose bound tensors are freed is
    dropped (a weakref on each), and with it its graph; :func:`clear`
    drops them all.
+8. Under a mesh (``parallel.Mesh``: a rank's sharded step, its
+   collectives in the body), the key also holds the mesh's shape and this
+   rank's coordinates, and :func:`captures` decides, from the groups'
+   backend and never from a failure, whether the body is captured: on
+   the card only when every group is NCCL, whose collectives are stream
+   work a graph holds. A gloo group stages every tensor through a host
+   buffer and a TCP send, which no graph can hold, so under a gloo mesh
+   on the card the body runs eagerly every call (one miss a key, no
+   graph), as on the CPU without a stand-in. Every rank runs the same
+   program, so every rank misses, captures and replays the same keys on
+   the same calls, and a replay's collectives meet their peers'. A
+   capture under a mesh must issue exactly the collectives its warm-up
+   issued (:func:`collectives.recorded`), or it raises: the warm-up makes
+   every NCCL communicator and p2p connection the graph uses, and none
+   may be made inside a capture. A graph that holds NCCL work keeps its
+   communicator: :func:`clear` the graphs before the process groups are
+   destroyed.
 """
 
 from __future__ import annotations
@@ -71,6 +88,7 @@ import weakref
 
 import torch
 
+from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
 
 #: The launch counters of :mod:`flash_attention` a replay adds to.
@@ -97,20 +115,25 @@ STAND_IN = None
 
 class _Entry:
     __slots__ = ("graph", "static_in", "static_out", "growth", "generator",
-                 "refs")
+                 "backend", "refs")
 
     def __init__(self, graph=None, static_in=(), static_out=(),
-                 growth=(), generator=None):
+                 growth=(), generator=None, backend=None):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.growth = growth
         self.generator = generator
+        self.backend = backend
         self.refs = ()
 
 
 class _CudaGraphs:
-    """Warm-up, capture and replay on a CUDA device."""
+    """Warm-up, capture and replay on a CUDA device, capturing in
+    ``mode`` (``torch.cuda.graph``'s ``capture_error_mode``)."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
 
     @staticmethod
     def warm_up(body, inputs: tuple, dev: torch.device):
@@ -125,8 +148,7 @@ class _CudaGraphs:
         main.wait_stream(side)
         return out
 
-    @staticmethod
-    def capture(body, static_in: tuple, bound: list, group: str,
+    def capture(self, body, static_in: tuple, bound: list, group: str,
                 dev: torch.device, prepare, generator):
         if prepare is not None:
             prepare()
@@ -149,7 +171,8 @@ class _CudaGraphs:
         torch._C._cuda_clearCublasWorkspaces()
         try:
             with torch.cuda.graph(graph.graph, pool=graph.pool,
-                                  stream=_side(dev)):
+                                  stream=_side(dev),
+                                  capture_error_mode=self.mode):
                 out = body(*static_in)
         finally:
             torch._C._cuda_clearCublasWorkspaces()
@@ -197,8 +220,33 @@ def _index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _backend(dev: torch.device):
-    return _CudaGraphs if dev.type == "cuda" else STAND_IN
+#: Captures of one device's own work. "global" refuses a call that is
+#: unsafe during a capture from any thread of the process.
+_CAPTURE = _CudaGraphs("global")
+#: Captures that hold NCCL collectives. ProcessGroupNCCL's watchdog
+#: thread queries the CUDA events of its work while a rank captures, and
+#: under "global" such a query from another thread breaks the capture;
+#: "thread_local" refuses unsafe calls of the capturing thread only.
+_CAPTURE_COLLECTIVES = _CudaGraphs("thread_local")
+
+
+def captures(dev: torch.device, mesh=None) -> bool:
+    """Whether a compiled step on ``dev`` under ``mesh`` (None: one
+    device) is captured as a CUDA graph: on the card, alone or under a
+    mesh whose groups are NCCL. Never under a gloo mesh, whose
+    collectives go through host buffers and TCP, nor on the CPU (where
+    :data:`STAND_IN`, when set, stands in for capture)."""
+    return dev.type == "cuda" and (mesh is None or mesh.backend == "nccl")
+
+
+def _backend(dev: torch.device, mesh=None):
+    """What captures a step on ``dev`` under ``mesh``: a CUDA graph
+    capture, the CPU's stand-in, or None (the body runs eagerly)."""
+    if dev.type != "cuda":
+        return STAND_IN
+    if not captures(dev, mesh):
+        return None
+    return _CAPTURE if mesh is None else _CAPTURE_COLLECTIVES
 
 
 def _counts() -> tuple[int, ...]:
@@ -215,6 +263,14 @@ def _stats(name: str) -> dict[str, int]:
                                     **dict.fromkeys(COUNTERS, 0)})
 
 
+def _mesh_key(mesh) -> tuple:
+    """The part of a key a mesh gives: its shape and this rank's
+    coordinates, as ``jit`` keys on the mesh a step is traced under."""
+    if mesh is None:
+        return ()
+    return (tuple(mesh.shape.items()), mesh.coords)
+
+
 def _key(static: tuple, inputs: tuple, bound: list, generator) -> tuple:
     return (static, inputs[0].device,
             tuple((t.shape, t.dtype) for t in inputs),
@@ -228,7 +284,7 @@ def _as_tuple(out) -> tuple:
 
 def run(name: str, body, inputs: tuple, *, static: tuple = (),
         bound=lambda: (), group: str = "serve", prepare=None,
-        generator: torch.Generator | None = None):
+        generator: torch.Generator | None = None, mesh=None):
     """``body(*inputs)``, compiled by key (see the module docstring).
 
     ``body`` returns a tensor or a tuple of tensors; it may read and
@@ -238,11 +294,14 @@ def run(name: str, body, inputs: tuple, *, static: tuple = (),
     ``generator``. ``prepare()``, when given, runs before the body's
     eager calls and before a capture, never before a replay: the part of
     the step a graph must not hold (the train step's
-    ``zero_grad(set_to_none=True)``). ``group`` names the graph pool."""
+    ``zero_grad(set_to_none=True)``). ``group`` names the graph pool.
+    ``mesh`` is the ``parallel.Mesh`` a sharded body's collectives run
+    over (point 8 of the module docstring)."""
     dev = inputs[0].device
     if _DISABLED or (dev.type == "cuda"
                      and torch.cuda.is_current_stream_capturing()):
         return _eager(body, inputs, prepare)
+    static = static + _mesh_key(mesh)
     entry = _REGISTRY.get(name, {}).get(
         _key(static, inputs, list(bound()), generator))
     if entry is not None:
@@ -250,16 +309,23 @@ def run(name: str, body, inputs: tuple, *, static: tuple = (),
             return _eager(body, inputs, prepare)
         return _replay(name, entry, inputs, generator)
     _stats(name)["misses"] += 1
-    backend = _backend(dev)
+    backend = _backend(dev, mesh)
     if backend is None:
         out = _eager(body, inputs, prepare)
         entry = _Entry()
     else:
         if prepare is not None:
             prepare()
-        out = backend.warm_up(body, inputs, dev)
-        entry = _capture(name, backend, body, inputs, list(bound()), group,
-                         prepare, dev, generator)
+        with C.recorded() as warm:
+            out = backend.warm_up(body, inputs, dev)
+        with C.recorded() as held:
+            entry = _capture(name, backend, body, inputs, list(bound()),
+                             group, prepare, dev, generator)
+        if held != warm:
+            raise RuntimeError(
+                f"{name}: the capture issued other collectives than its "
+                f"warm-up, which made the communicators: {held} against "
+                f"{warm}")
     _register(name, static, inputs, list(bound()), generator, entry)
     return out
 
@@ -283,7 +349,8 @@ def _capture(name: str, backend, body, inputs: tuple, bound: list,
     growth = tuple(a - b for a, b in zip(_counts(), before))
     _set_counts(before)
     CAPTURES.append({"name": name, "seconds": seconds, "growth": growth})
-    return _Entry(graph, static_in, _as_tuple(out), growth, generator)
+    return _Entry(graph, static_in, _as_tuple(out), growth, generator,
+                  backend)
 
 
 def _register(name: str, static: tuple, inputs: tuple, bound: list,
@@ -307,13 +374,13 @@ def _replay(name: str, entry: _Entry, inputs: tuple, generator):
         static.copy_(x)
     lent = entry.generator
     if generator is None or generator is lent:
-        _backend(inputs[0].device).replay(entry.graph)
+        entry.backend.replay(entry.graph)
     else:
         # The registered generator draws from the caller's state for this
         # replay, and the caller's generator takes the advanced state.
         own = lent.get_state()
         lent.set_state(generator.get_state())
-        _backend(inputs[0].device).replay(entry.graph)
+        entry.backend.replay(entry.graph)
         generator.set_state(lent.get_state())
         lent.set_state(own)
     _set_counts(a + g for a, g in zip(_counts(), entry.growth))

@@ -17,6 +17,11 @@ home through the shift's backward.
 The expert math is the reference's, with one trap: ``jax.nn.gelu``
 defaults to the tanh approximation, ``torch.nn.functional.gelu`` to the
 exact erf form, so the port asks for ``approximate="tanh"``.
+
+:func:`make_ring_moe_value_and_grad` is the reference dry run's
+``jax.jit(jax.value_and_grad(lambda p: mean(moe_fn(p, x) ** 2)))``: the
+forward, the backward and the loss's reduction as one compiled step
+(:mod:`graphs`), a rank's CUDA graph under an NCCL mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload.parallel import Mesh
 
 
@@ -90,6 +96,41 @@ def make_ring_moe_fn(mesh: Mesh, axis_name: str = "sp"):
         return out
 
     return fn
+
+
+def make_ring_moe_value_and_grad(mesh: Mesh, axis_name: str = "sp"):
+    """Build ``vg(params, x, size) -> (loss, y)`` over
+    ``mesh.group(axis_name)``: ``y`` is :func:`make_ring_moe_fn`'s output
+    on this rank's shard ``x``, ``loss`` the sum of y² over the group's
+    shards divided by ``size`` (the global element count: the mean of y²
+    over the global tokens), and each of ``params``' tensors (leaves that
+    require grad) gets its gradient of that loss in ``.grad``, set anew
+    each call. One compiled step (:mod:`graphs`) a shape, as the
+    reference jits its value and gradient."""
+    fn = make_ring_moe_fn(mesh, axis_name)
+    group = mesh.group(axis_name)
+
+    def vg(params: dict, x: torch.Tensor, size: int):
+        keys = sorted(params)
+
+        def body(x):
+            for k in keys:
+                params[k].grad = None
+            y = fn(params, x)
+            local = y.square().sum() / size
+            local.backward()
+            return (C.all_reduce(local.detach(), group), y.detach(),
+                    *(params[k].grad for k in keys))
+
+        loss, y, *grads = graphs.run(
+            "moe_value_and_grad", body, (x,), static=(vg, size),
+            bound=lambda: [params[k] for k in keys], group="train",
+            mesh=mesh)
+        for k, g in zip(keys, grads):
+            params[k].grad = g
+        return loss, y
+
+    return vg
 
 
 def place_moe_params(params: dict, mesh: Mesh, axis_name: str = "sp") -> dict:

@@ -30,6 +30,7 @@ the NIC across nodes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 
@@ -66,6 +67,11 @@ class Mesh:
     (``pp == 1``) has the axes ("dp", "tp", "sp") alone, in ``shape``
     and ``coords``.
 
+    :attr:`backend` is what every group rides on. It decides whether a
+    compiled step under this mesh is captured (``graphs.captures``):
+    NCCL's collectives are stream work a CUDA graph can hold, gloo's go
+    through the host.
+
     A small class rather than ``torch.distributed.device_mesh.DeviceMesh``:
     the gradient reductions need groups over two or three axes, which a
     DeviceMesh offers only by flattening its dimensions (a private method
@@ -78,6 +84,17 @@ class Mesh:
     rank: int
     groups: dict
     pp: int = 1
+
+    @functools.cached_property
+    def backend(self) -> str | None:
+        """The groups' one backend (``dist.get_backend`` of each, read
+        once); None for a mesh without groups (built by hand). Groups of
+        several backends raise."""
+        backends = {dist.get_backend(g) for g in self.groups.values()}
+        if len(backends) > 1:
+            raise ValueError(f"the mesh's groups ride on {sorted(backends)}; "
+                             f"a mesh has one backend")
+        return backends.pop() if backends else None
 
     @property
     def axes(self) -> tuple[str, ...]:

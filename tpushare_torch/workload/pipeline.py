@@ -32,6 +32,15 @@ ranks of an sp or tp group share their pipe coordinate and so their
 schedule. After the last tick, whose messages nothing would read, none
 are sent.
 
+Both calls are compiled steps (:mod:`graphs`), the twin of
+``jax.jit(pipe_train)``: a rank's tick loop is host control flow, so its
+capture unrolls it, every tick's messages and the in-stage collectives
+included, in the eager call's order. On the card under an NCCL mesh each
+rank replays one CUDA graph a call from its second call; under gloo, and
+on the CPU, each call runs eagerly (``graphs.captures``). The 1F1B
+graph's outputs are the loss and every parameter's gradient, cloned out
+and set as ``.grad``.
+
 Microbatch streams keep the reference's contract: no rank holds the
 replicated stream. Rank h stores microbatches i = h (mod n) and the store
 rotates one rank toward rank 0, the injector, after every F tick of rank
@@ -49,6 +58,7 @@ from torch import nn
 from tpushare_torch.utils.device import resolve_device
 from tpushare_torch.workload import collectives as C
 from tpushare_torch.workload import flash_attention as FA
+from tpushare_torch.workload import graphs
 from tpushare_torch.workload import model as M
 from tpushare_torch.workload import parallel as par
 
@@ -146,6 +156,34 @@ def _store(x_mb: torch.Tensor, n: int, idx: int) -> torch.Tensor:
     return _stream_shard(x_mb, n)[idx].contiguous()
 
 
+def _tensors(tree) -> list[torch.Tensor]:
+    """The tensors a stage (a module, or a dict of tensors or of such
+    dicts) holds: what a compiled pipe call reads in place."""
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
+def _compiled_grads(name: str, call, modules, inputs: tuple, static: tuple,
+                    mesh: par.Mesh):
+    """``call(*inputs)``, which leaves every parameter's gradient in its
+    ``.grad``, as one compiled step (:mod:`graphs`): the graph's outputs
+    are the call's result and the gradients, which are set as ``.grad``
+    again after a replay. Returns the result."""
+    params = [p for mod in modules for p in _tensors(mod)]
+
+    def body(*xs):
+        return (call(*xs), *(p.grad for p in params))
+
+    out, *grads = graphs.run(name, body, inputs, static=static,
+                             bound=lambda: params, group="train", mesh=mesh)
+    for p, g in zip(params, grads):
+        p.grad = g
+    return out
+
+
 def _microbatches(x: torch.Tensor, m: int) -> torch.Tensor:
     if x.shape[0] % m:
         raise ValueError(f"batch {x.shape[0]} not divisible by "
@@ -175,21 +213,27 @@ def make_pipeline_fn(stage_fn, mesh: par.Mesh, axis_name: str = "pp",
     @torch.no_grad()
     def fn(stage, x: torch.Tensor) -> torch.Tensor:
         m = n_microbatches
-        x_mb = _microbatches(x, m)
-        store = _store(x_mb, n, idx)
-        outs = torch.zeros_like(x_mb)
-        held = idle = torch.zeros_like(x_mb[0])
-        for t in range(m + n - 1):
-            y = idle
-            if 0 <= t - idx < m:
-                y = stage_fn(stage, store[t // n] if idx == 0 else held)
-                if idx == n - 1:
-                    outs[t - idx] = y
-            if t == m + n - 2:
-                break
-            held = C.shift(y, group)
-            store = C.shift_back(store, group)
-        return outs
+
+        def body(x):
+            x_mb = _microbatches(x, m)
+            store = _store(x_mb, n, idx)
+            outs = torch.zeros_like(x_mb)
+            held = idle = torch.zeros_like(x_mb[0])
+            for t in range(m + n - 1):
+                y = idle
+                if 0 <= t - idx < m:
+                    y = stage_fn(stage, store[t // n] if idx == 0 else held)
+                    if idx == n - 1:
+                        outs[t - idx] = y
+                if t == m + n - 2:
+                    break
+                held = C.shift(y, group)
+                store = C.shift_back(store, group)
+            return outs
+
+        return graphs.run("pipe_gpipe", body, (x,), static=(fn,),
+                          bound=lambda: _tensors(stage), group="train",
+                          mesh=mesh)
 
     return fn
 
@@ -263,7 +307,9 @@ def make_pipeline_train_fn(stage_fn, embed_fn, loss_fn, mesh: par.Mesh,
     reduced.
 
     ``fn.stash_peak`` is the most stage inputs the rank held at once in
-    its last call: at most n, whatever M."""
+    its last eager call (a replay leaves it): at most n, whatever M.
+    ``fn.eager`` is the call's body, which a compiled caller that adds
+    to the step (:func:`make_flagship_pipeline`'s ``train_fn``) wraps."""
     group = mesh.group(axis_name)
     n, idx = mesh.size(axis_name), mesh.index(axis_name)
     data_axes = tuple(a for a in (dp_axis, sp_axis) if a is not None)
@@ -281,8 +327,8 @@ def make_pipeline_train_fn(stage_fn, embed_fn, loss_fn, mesh: par.Mesh,
             x = x.chunk(sp, dim=2)[mesh.index(sp_axis)]
         return x
 
-    def fn(stage: nn.Module, edge: nn.Module, tokens: torch.Tensor,
-           targets: torch.Tensor) -> torch.Tensor:
+    def eager(stage: nn.Module, edge: nn.Module, tokens: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
         m = n_microbatches
         mb = tokens.shape[0] // m
         if mb % dp:
@@ -355,7 +401,15 @@ def make_pipeline_train_fn(stage_fn, embed_fn, loss_fn, mesh: par.Mesh,
             (loss,) = edge_grads.reduce(edge_group, [loss_acc])
         return loss
 
+    def fn(stage: nn.Module, edge: nn.Module, tokens: torch.Tensor,
+           targets: torch.Tensor) -> torch.Tensor:
+        return _compiled_grads(
+            "pipe_1f1b", lambda tokens, targets: eager(stage, edge, tokens,
+                                                       targets),
+            (stage, edge), (tokens, targets), (fn,), mesh)
+
     fn.stash_peak = 0
+    fn.eager = eager
     return fn
 
 
@@ -512,12 +566,16 @@ def make_flagship_pipeline(cfg: M.ModelConfig, mesh: par.Mesh,
                               params.final_norm.detach()))
 
     def train_fn(stage, edge, tokens, targets):
-        loss = pipe(stage, edge, tokens, targets)
-        scale = 1.0 / tokens.numel()
-        with torch.no_grad():
-            for p in [*stage.parameters(), *edge.parameters()]:
-                p.grad.mul_(scale)
-        return loss * scale
+        def call(tokens, targets):
+            loss = pipe.eager(stage, edge, tokens, targets)
+            scale = 1.0 / tokens.numel()
+            with torch.no_grad():
+                for p in [*stage.parameters(), *edge.parameters()]:
+                    p.grad.mul_(scale)
+            return loss * scale
+
+        return _compiled_grads("pipe_1f1b", call, (stage, edge),
+                               (tokens, targets), (train_fn,), mesh)
 
     # The stage and its pipe, for a GPipe stream over the same stages.
     train_fn.stage_fn, train_fn.pipe = stage_fn, pipe

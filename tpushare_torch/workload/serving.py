@@ -16,7 +16,8 @@ eagerly on the CPU. So the bodies never read a device value on the host:
 an admission's slot, true length and piece offset are 1-element device
 tensors (the flash forward reads the offset on the card), a sampled
 step's temperature is a device tensor, and the chunk's once-per-chunk
-flush has a fixed shape. Tensor-parallel decode stays eager.
+flush has a fixed shape. Tensor-parallel ``generate`` is compiled too, a
+rank's graph under an NCCL mesh (``graphs.captures``), eager under gloo.
 
 Sampling draws from an explicit ``torch.Generator`` on the logits'
 device; it cannot reproduce JAX's threefry bits, only the contract
@@ -205,11 +206,14 @@ def generate(params: M.Transformer, tokens: torch.Tensor,
     ``temperature > 0`` each must pass a generator seeded alike to pick
     the same token.
 
-    On one device the prefill and the whole decode loop are one compiled
-    step (:mod:`graphs`) a (B, L, n_new, max_len, attn_fn, sampled), the
-    twin of the JAX ``scan``; each step's position is baked in, as
+    The prefill and the whole decode loop are one compiled step
+    (:mod:`graphs`) a (B, L, n_new, max_len, attn_fn, sampled), the twin
+    of the JAX ``scan``; each step's position is baked in, as
     ``static_argnames`` bakes ``n_new``, and the temperature is an
-    input, as JAX traces it."""
+    input, as JAX traces it. Under a mesh the key holds its shape and the
+    rank's coordinates, and the body ends with the dp gather of the
+    stream; a sampled step registers the rank's generator, as on one
+    device."""
     _check_temperature(temperature, generator)
     B, L = tokens.shape
     if L + n_new > max_len:
@@ -232,18 +236,17 @@ def generate(params: M.Transformer, tokens: torch.Tensor,
             token = _pick(logits, t, generator).to(tokens.dtype)
             out.append(token)
             logits, cache = decode_step(params, cache, token, pos, tp=tp)
-        return torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
-
-    inputs = (tokens,) if temp is None else (tokens, temp)
-    if mesh is not None:
-        stream = body(*inputs)
-        if mesh.dp > 1:
+        stream = torch.cat([tokens, torch.stack(out, dim=1)], dim=1)
+        if mesh is not None and mesh.dp > 1:
             stream = C.all_gather(stream, mesh.dp_group, 0)
         return stream
+
+    inputs = (tokens,) if temp is None else (tokens, temp)
     return graphs.run("generate", body, inputs,
                       static=(cfg, n_new, max_len, attn_fn),
                       bound=params.parameters,
-                      generator=None if temp is None else generator)
+                      generator=None if temp is None else generator,
+                      mesh=mesh)
 
 
 # --------------------------------------------------------------------------

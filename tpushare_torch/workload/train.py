@@ -8,11 +8,12 @@ the card, whose backward runs the dq and dk/dv kernels. Over a
 Ulysses attention over sp through the same kernels, the tp pair of
 all-reduces in every block, and gradients all-reduced over dp × sp.
 
-The single-device step and :func:`make_forward_fn`'s forward are
-compiled steps (:mod:`graphs`), as the JAX package jits them: on the card
-the step's forward, backward and AdamW update replay one CUDA graph a
-batch shape. Sharded steps stay eager (their gloo collectives go through
-the host).
+The step and :func:`make_forward_fn`'s forward are compiled steps
+(:mod:`graphs`), as the JAX package jits them, alone and under a mesh: on
+the card the step's forward, backward, gradient all-reduce and AdamW
+update replay one CUDA graph a batch shape (a rank's graph under an NCCL
+mesh). Under a gloo mesh the sharded step runs eagerly (its collectives
+go through the host; ``graphs.captures``).
 """
 
 from __future__ import annotations
@@ -107,13 +108,12 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
     def init_fn(generator: torch.Generator, example_tokens: torch.Tensor):
         """(params, opt_state): weights from ``generator`` (this rank's
         shard of them under a mesh) and the optimizer over them, made
-        capturable for the compiled single-card step.
-        ``example_tokens`` is unused, as in JAX."""
+        capturable where the step is captured (the card, alone or under
+        an NCCL mesh). ``example_tokens`` is unused, as in JAX."""
         params = M.init_params(generator, cfg, dev)
         if mesh is not None:
             params = par.shard_params(params, mesh)
-            return params, optimizer(params.parameters())
-        if dev.type == "cuda":
+        if graphs.captures(dev, mesh):
             return params, optimizer(params.parameters(), capturable=True)
         return params, optimizer(params.parameters())
 
@@ -144,36 +144,32 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
         them (the JAX step donates their buffers instead). Under a mesh,
         ``tokens`` and ``targets`` are this rank's shard (``place_batch``)
         and ``positions`` default to its global positions."""
-        if mesh is None:
-            loss = compiled_step(params, opt_state, tokens, targets,
-                                 positions)
-            return params, opt_state, loss
-        if sequence and positions is None:
-            b, ls = tokens.shape
-            positions = par.global_positions(mesh, b * mesh.dp,
-                                             ls * mesh.sp, tokens.device)
-        opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, targets, cfg, positions=positions,
-                       attn_fn=attn_fn, tp=tp)
-        loss.backward()
-        if mesh.dp * mesh.sp > 1:
-            loss = reduce_grads(params, loss)
-        opt_state.step()
-        return params, opt_state, loss.detach()
+        loss = compiled_step(params, opt_state, tokens, targets, positions)
+        return params, opt_state, loss
 
     def compiled_step(params, opt_state, tokens, targets, positions):
-        """The single-card step as one compiled step a batch shape: the
-        forward, backward and AdamW update; the gradients come out with
-        the loss, so each step's are the parameters' ``.grad`` as in the
-        eager step. ``zero_grad(set_to_none=True)`` runs before the
-        capture, so the graph's gradients are its own static tensors."""
+        """The step as one compiled step a batch shape (a rank's, under a
+        mesh): the forward, backward, the gradients' all-reduce over dp ×
+        sp and the AdamW update; the gradients come out with the loss, so
+        each step's are the parameters' ``.grad`` as in the eager step.
+        ``zero_grad(set_to_none=True)`` runs before the capture, so the
+        graph's gradients are its own static tensors."""
         plist = list(params.parameters())
 
         def body(tokens, targets, *pos):
-            loss = loss_fn(params, tokens, targets, cfg,
-                           positions=pos[0] if pos else None,
-                           attn_fn=attn_fn)
+            if pos:
+                pos = pos[0]
+            elif sequence:
+                b, ls = tokens.shape
+                pos = par.global_positions(mesh, b * mesh.dp, ls * mesh.sp,
+                                           tokens.device)
+            else:
+                pos = None
+            loss = loss_fn(params, tokens, targets, cfg, positions=pos,
+                           attn_fn=attn_fn, tp=tp)
             loss.backward()
+            if mesh is not None and mesh.dp * mesh.sp > 1:
+                loss = reduce_grads(params, loss)
             opt_state.step()
             return (loss.detach(), *(p.grad for p in plist))
 
@@ -188,7 +184,8 @@ def make_train_step(cfg: M.ModelConfig, mesh: par.Mesh | None = None,
             "train_step", body,
             (tokens, targets) + (() if positions is None else (positions,)),
             static=(cfg, attn_fn, hyper), bound=bound, group="train",
-            prepare=lambda: opt_state.zero_grad(set_to_none=True))
+            prepare=lambda: opt_state.zero_grad(set_to_none=True),
+            mesh=mesh)
         for p, g in zip(plist, grads):
             p.grad = g
         return loss
