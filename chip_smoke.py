@@ -11,7 +11,11 @@ each against its plain PyTorch version, runs ``cogpucheck.py``'s
 co-tenancy suite (train and decode tenants as processes under grants
 carved from the card that NVIDIA discovery sizes), starts a tenant in
 exactly the allocation's env that serves the flagship inside the grant
-(phase 2d), then drives the flagship LM's forward, serving
+(phase 2d), and runs the node daemon (phase 2e: the port's device plugin
+annotates a node with the card and advertises it, matches and commits a
+pod the extender assumed in Allocate, in process and over gRPC to a fake
+kubelet, a tenant serves in the response's env, and the grant watchdog
+sweeps its heartbeat), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -66,6 +70,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -75,7 +80,8 @@ from torch.profiler import ProfilerActivity, profile
 import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
-from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.deviceplugin import discovery, kubelet, plugin, watchdog
+from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import checkpoint as CK
@@ -241,6 +247,19 @@ TENANT_KEEP_ENV = ("PATH", "HOME", "PYTHONPATH", "TMPDIR", "LD_LIBRARY_PATH",
                    "CUDA_HOME", "CUDA_PATH")
 TENANT_BATCH, TENANT_PROMPT, TENANT_NEW = 8, 128, 64
 TENANT_DEADLINE_S = 180
+#: Phase 2e: the flag that runs this script as the daemon's tenant (phase
+#: 2d's, which then heartbeats every DAEMON_BEAT_S seconds and holds the
+#: card until its stdin closes), the fake apiserver's node, and the pods
+#: the extender assumed on the first card as (name, GiB) in assume order:
+#: in-process Allocate takes 7 GiB (the first pod, not the 4 GiB one),
+#: then over gRPC 7 GiB again, which the earlier of the last two pods
+#: must win. DAEMON_SWEEPS sweeps, a second apart, at most.
+HELD_TENANT_FLAG = "--held-tenant"
+DAEMON_BEAT_S = 1.0
+DAEMON_NODE = "chip-smoke-node"
+DAEMON_PODS = (("early", 7), ("small", 4), ("wire-early", 7),
+               ("wire-late", 7))
+DAEMON_SWEEPS = 30
 #: The keys of a heartbeat, as the grant watchdog reads them.
 HEARTBEAT_KEYS = {"bytes_in_use", "peak_bytes", "bytes_limit", "source",
                   "ts", "pid"}
@@ -418,6 +437,12 @@ def main(usage_dir: str) -> int:
     # heartbeats where the allocation mounted its usage file.
     tenant = allocated_tenant_phase(alloc, inv.chips[0].hbm_gib)
     phase("2d allocated tenant", card=card, **tenant)
+
+    # 2e. The node daemon: annotate, advertise, match and commit an assumed
+    # pod in Allocate (in process, then over gRPC), serve a tenant in the
+    # wire response's env and sweep its heartbeat with the watchdog.
+    daemon = node_daemon_phase(inv, total_mib, usage_dir)
+    phase("2e node daemon", card=card, **daemon)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -787,6 +812,7 @@ def main(usage_dir: str) -> int:
     piece_t = timings[PIECE_SHAPE, "bfloat16"]
     by_path = {"serving": launches,
                "allocated_tenant": tenant["launches"],
+               "node_daemon_tenant": daemon["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -1451,12 +1477,15 @@ def allocated_tenant_phase(alloc: plugin.ContainerAllocation,
             "env_keys": sorted(env)}
 
 
-def allocated_tenant() -> int:
+def allocated_tenant(hold: bool = False) -> int:
     """The tenant of phase 2d, run in the allocation's env: configure
     from the grant before CUDA starts, cap the allocator, build the
     flagship from a seed, serve ``generate`` 8 x (128 + 64) twice through
     ``best_attn_fn`` (the first call captures, the second replays),
-    heartbeat to the allocation's usage file, and print one JSON line."""
+    heartbeat to the allocation's usage file, and print one JSON line.
+    Held (phase 2e), it then heartbeats every ``DAEMON_BEAT_S`` seconds
+    (``torchenv.start_usage_reporter``), prints ``READY`` and keeps the
+    card until its stdin closes."""
     grant = torchenv.configure()
     check(grant is not None, "the tenant has no grant in its env")
     cap = torchenv.apply_memory_fraction(grant)
@@ -1485,6 +1514,8 @@ def allocated_tenant() -> int:
           f"generate gave {tuple(outs[0].shape)}")
     beat = torchenv.write_usage()
     check(beat is not None, "the tenant wrote no heartbeat")
+    if hold:
+        torchenv.start_usage_reporter(interval=DAEMON_BEAT_S)
     print(json.dumps({
         "device_count": torch.cuda.device_count(),
         "cuda_visible_devices": os.environ.get(
@@ -1496,8 +1527,247 @@ def allocated_tenant() -> int:
         "n_layers": cfg.n_layers, "replayed": _replayed(),
         "first_request_s": seconds[0], "request_s": seconds[1],
         "tok_per_s": TENANT_BATCH * TENANT_NEW / seconds[1],
-        "heartbeat": beat}), flush=True)
+        "pid": os.getpid(), "heartbeat": beat}), flush=True)
+    if hold:
+        print(cogpucheck.READY, flush=True)
+        sys.stdin.read()
     return 0
+
+
+def daemon_pods(inv: discovery.HostInventory) -> list[dict]:
+    """Phase 2e's pods as the extender's bind leaves them on
+    ``DAEMON_NODE``: ``DAEMON_PODS`` assumed on the first card, one
+    nanosecond apart in that order, uids ``uid-<name>``."""
+    chip = inv.chips[0]
+    return [cogpucheck.assumed_pod(name, gib, chip.index, chip.hbm_gib,
+                                   assume_ns=i + 1, node=DAEMON_NODE)
+            for i, (name, gib) in enumerate(DAEMON_PODS)]
+
+
+def wire_allocation(resp) -> plugin.ContainerAllocation:
+    """A ``ContainerAllocateResponse`` from the wire as the plugin's
+    allocation."""
+    return plugin.ContainerAllocation(
+        envs=dict(resp.envs),
+        devices=tuple((d.host_path, d.container_path) for d in resp.devices),
+        annotations=dict(resp.annotations),
+        mounts=tuple((m.host_path, m.container_path, m.read_only)
+                     for m in resp.mounts))
+
+
+def daemon_sweep_gates(sweep: dict, annotations: dict, uid: str,
+                       grant_gib: int) -> dict[str, bool]:
+    """Phase 2e(d)'s verdicts on the tenant ``uid`` from a sweep document
+    and its pod's annotations: its heartbeat fresh, its use above 0 and
+    within its grant, no tenant over its grant, and the pod annotated
+    with its use and not as an overrunner."""
+    entry = next((t for t in sweep["tenants"] if t["uid"] == uid), None)
+    fresh = entry is not None and entry["used_gib"] is not None
+    return {
+        "fresh": fresh,
+        "within_grant": fresh and not entry["overrun"]
+        and 0 < entry["used_gib"] <= grant_gib,
+        "no_overrun": sweep["overruns"] == [],
+        "annotated": const.ANN_HBM_USED in annotations
+        and const.ANN_OVERRUN not in annotations,
+    }
+
+
+def node_daemon_phase(inv: discovery.HostInventory, total_mib: int,
+                      usage_dir: str) -> dict:
+    """Phase 2e: the node daemon on this host's cards. (a) The port's
+    plugin annotates a node of the fake apiserver from phase 0's
+    inventory (the card's GiB and model) and advertises a device a GiB,
+    all healthy. (b) Of ``DAEMON_PODS``, in-process
+    ``preferred_ids_batch`` and ``allocate_hbm_batch`` of 7 GiB match and
+    commit "early" and hand back ``build_allocation``'s response; then
+    ``run_node_daemon`` serves both resources to a ``FakeKubelet``, whose
+    GetPreferredAllocation and Allocate of 7 GiB go over gRPC and must
+    match "wire-early". The H100 machines this runs on have grpc and
+    protobuf (grpc 1.80.0, protobuf 6.33.6 when checked), so the round
+    trip always runs: the import is unconditional.
+    (c) A tenant started in exactly the wire response's env serves the
+    flagship (phase 2d's tenant, held) and (d) the port's
+    ``GrantWatchdog`` sweeps until its heartbeat is fresh: within its
+    grant, no overrun; its heartbeat beside ``nvidia-smi``'s figure for
+    its process."""
+    card_name = torch.cuda.get_device_name(0)
+    model = discovery.parse_model(card_name)
+    chip = inv.chips[0]
+    api = FakeApiServer()
+    api.create_node({"apiVersion": "v1", "kind": "Node",
+                     "metadata": {"name": DAEMON_NODE}})
+    for doc in daemon_pods(inv):
+        api.create_pod(doc)
+
+    def assigned(name):
+        return api.get_pod("default", name).annotations[
+            const.ANN_ASSIGNED] == const.ASSIGNED_TRUE
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-plugins-") as pdir:
+        # (a) Annotate and advertise.
+        plug = plugin.TPUSharePlugin(DAEMON_NODE, api, inv, state_dir=pdir,
+                                     usage_dir=usage_dir)
+        plug.annotate_node()
+        ann = api.get_node(DAEMON_NODE).annotations
+        check(ann[const.ANN_NODE_CHIP_HBM]
+              == ",".join(str(c.hbm_gib) for c in inv.chips)
+              and ann.get(const.ANN_NODE_TPU_TYPE) == model == inv.tpu_type
+              and const.ANN_NODE_TOPOLOGY not in ann,
+              f"node annotations {ann} for {card_name!r}")
+        check(all(c.hbm_gib == discovery.HBM_GIB_BY_TYPE[model]
+                  and c.hbm_gib << 10 <= total_mib
+                  and c.device_path == f"/dev/nvidia{c.index}"
+                  for c in inv.chips), f"inventory {inv}")
+        devs = plug.hbm_devices()
+        check(len(devs) == inv.total_hbm_gib
+              and {d.health for d in devs} == {plugin.HEALTHY},
+              f"{len(devs)} GiB devices advertised, health "
+              f"{ {d.health for d in devs} }")
+        avail = [d.id for d in devs]
+        # (b) In process, then over the wire.
+        t0 = time.perf_counter()
+        [ids] = plug.preferred_ids_batch(const.HBM_RESOURCE, [(avail, 7)])
+        preferred_ms = (time.perf_counter() - t0) * 1e3
+        check(ids == [plugin.HBM_DEV_FMT.format(chip=chip.index, gib=g)
+                      for g in range(7)], f"preferred {ids}")
+        t0 = time.perf_counter()
+        [alloc] = plug.allocate_hbm_batch([ids])
+        allocate_ms = (time.perf_counter() - t0) * 1e3
+        check(assigned("early") and not assigned("small"),
+              "Allocate of 7 GiB did not commit the earlier pod alone")
+        want = plugin.build_allocation(inv, [chip.index], 7,
+                                       pod_uid="uid-early",
+                                       usage_dir=usage_dir)
+        check(alloc == want, f"Allocate gave {alloc}, want {want}")
+        fake = kubelet.FakeKubelet(pdir)
+        fake.start()
+        servers = []
+        try:
+            servers = kubelet.run_node_daemon(DAEMON_NODE, api, inv,
+                                              plugin_dir=pdir,
+                                              usage_dir=usage_dir)
+            endpoint = kubelet.socket_name(const.HBM_RESOURCE)
+            registered = sorted(r.resource_name for r in fake.registrations)
+            wire_devs = fake.snapshot_devices(endpoint)
+            t0 = time.perf_counter()
+            wire_ids = fake.preferred(endpoint, avail, 7)
+            wire_preferred_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            resp = fake.allocate(endpoint, wire_ids)
+            wire_allocate_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for server in servers:
+                server.stop()
+            fake.stop()
+    check(registered == sorted((const.HBM_RESOURCE, const.CHIP_RESOURCE)),
+          f"kubelet saw {registered}")
+    check(len(wire_devs) == inv.total_hbm_gib
+          and {d.health for d in wire_devs} == {plugin.HEALTHY},
+          f"ListAndWatch sent {len(wire_devs)} devices")
+    check(wire_ids == ids, f"GetPreferredAllocation gave {wire_ids}")
+    check(assigned("wire-early") and not assigned("wire-late")
+          and not assigned("small"),
+          "Allocate over gRPC did not commit the earlier pod alone")
+    wire = wire_allocation(resp.container_responses[0])
+    want = plugin.build_allocation(inv, [chip.index], 7,
+                                   pod_uid="uid-wire-early",
+                                   usage_dir=usage_dir)
+    check(wire == want, f"Allocate over gRPC gave {wire}, want {want}")
+    # (c) and (d).
+    tenant = held_tenant_phase(wire, chip.hbm_gib, api, "wire-early",
+                               usage_dir)
+    return {"node_annotations": ann, "advertised_gib": len(devs),
+            "registered": registered, "matched": "early",
+            "wire_matched": "wire-early", "envs": wire.envs,
+            "devices": [host for host, _ in wire.devices],
+            "preferred_ms": preferred_ms, "allocate_ms": allocate_ms,
+            "wire_preferred_ms": wire_preferred_ms,
+            "wire_allocate_ms": wire_allocate_ms, **tenant}
+
+
+def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
+                      api: FakeApiServer, pod: str, usage_dir: str) -> dict:
+    """Phase 2e (c) and (d): start ``python3 chip_smoke.py
+    --held-tenant`` in ``alloc``'s env (as phase 2d does), hold what it
+    prints as phase 2d holds it, then sweep the tenant's pod with the
+    port's ``GrantWatchdog`` while it holds the card, a second apart,
+    until its heartbeat is fresh; ``daemon_sweep_gates`` must all hold.
+    Releases the tenant and returns the phase's fields; ``launches`` is
+    its forward count."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    grant = int(alloc.envs[const.ENV_HBM_POD])
+    err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["python3", os.path.join(repo, "chip_smoke.py"),
+                             HELD_TENANT_FLAG], env=tenant_env(alloc),
+                            cwd=repo, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    deadline = threading.Timer(TENANT_DEADLINE_S, proc.kill)
+    deadline.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            if line.strip() == cogpucheck.READY:
+                break
+            lines.append(line)
+        ready_s = time.perf_counter() - t0
+        err.seek(0)
+        results = [ln for ln in lines if ln.startswith("{")]
+        check(bool(results), f"the daemon's tenant printed no result: "
+                             f"{err.read()[-2000:]}")
+        got = json.loads(results[-1])
+        want_cap = round(grant / card_gib * torchenv.DEFAULT_HEADROOM, 3)
+        check(got["device_count"] == 1 and got["cuda_visible_devices"] == "0"
+              and got["cap"] == want_cap
+              and got["launches"] == got["n_layers"] * got["prefills"],
+              f"the daemon's tenant: {got}")
+        wd = watchdog.GrantWatchdog(DAEMON_NODE, api, usage_dir=usage_dir)
+        uid = api.get_pod("default", pod).uid
+        for sweeps in range(1, DAEMON_SWEEPS + 1):
+            sweep = wd.sweep()
+            if daemon_sweep_gates(sweep, {}, uid, grant)["fresh"]:
+                break
+            time.sleep(1.0)
+        apps = cogpucheck._compute_apps()
+        annotations = api.get_pod("default", pod).annotations
+        with open(alloc.envs[const.ENV_USAGE_FILE], encoding="utf-8") as f:
+            beat = json.load(f)
+    finally:
+        deadline.cancel()
+        try:
+            proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        err.close()
+    check(proc.returncode == 0, f"the daemon's tenant exited "
+                                f"{proc.returncode}")
+    gates = daemon_sweep_gates(sweep, annotations, uid, grant)
+    check(all(gates.values()), f"sweep {sweep} with {annotations}: {gates}")
+    check(set(beat) == HEARTBEAT_KEYS and beat["pid"] == got["pid"],
+          f"the heartbeat {beat}")
+    smi_mib = (apps or {}).get(got["pid"])
+    [entry] = [t for t in sweep["tenants"] if t["uid"] == uid]
+    return {"tenant": {k: got[k] for k in (
+                "device_count", "cuda_visible_devices",
+                "nvidia_visible_devices", "chip_ids", "cap", "launches",
+                "prefills", "n_layers", "first_request_s", "request_s",
+                "tok_per_s", "pid")},
+            "launches": got["launches"], "ready_s": ready_s,
+            "sweeps": sweeps, "sweep_entry": entry, "gates": gates,
+            "pod_annotations": annotations,
+            "heartbeat_bytes": beat["bytes_in_use"],
+            "heartbeat_peak_bytes": beat["peak_bytes"],
+            "nvidia_smi_apps_mib": apps,
+            "nvidia_smi_mib": smi_mib if smi_mib is not None
+            else "not visible",
+            "smi_minus_heartbeat_bytes": (smi_mib << 20) - beat[
+                "bytes_in_use"] if smi_mib is not None else "not visible"}
 
 
 def _kernel_name(mangled: str) -> str:
@@ -4777,6 +5047,8 @@ def ring_step_timings(gen: torch.Generator) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:] == [TENANT_FLAG]:
         sys.exit(allocated_tenant())
+    if sys.argv[1:] == [HELD_TENANT_FLAG]:
+        sys.exit(allocated_tenant(hold=True))
     if sys.argv[1:2] == [COMPILED_GANG_FLAG]:
         sys.exit(compiled_gang_rank(json.loads(sys.argv[2])))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:

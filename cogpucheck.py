@@ -30,11 +30,15 @@ budgets):
 5. **Full grant.** Two ballasts under 7/16 grants each hold 85% of the
    grant (the allocator cap is 90% of it), then, released together,
    multiply together.
-6. **Heartbeats.** An uncooperative hog (grant 4, 10 GiB, no cap) and an
-   innocent ballast (grant 7, holding 6) heartbeat into
-   ``<dir>/<uid>/usage.json``, the layout the grant watchdog reads: the
-   hog's ``bytes_in_use`` is above its grant, the innocent's within it.
-   Each heartbeat is set beside ``nvidia-smi``'s per-process memory.
+6. **Watchdog.** An uncooperative hog (grant 4, 10 GiB, no cap) and an
+   innocent ballast (grant 7, holding 6) start in the envs of the port's
+   device plugin's ``Allocate`` for two pods the extender assumed on the
+   card, and heartbeat into ``<dir>/<uid>/usage.json``: the hog's
+   ``bytes_in_use`` is above its grant, the innocent's within it. The
+   port's ``GrantWatchdog`` sweeps them and must name the hog alone, put a
+   Warning event on it, and attribute the innocent's failures to it by
+   name in an event on the innocent. Each heartbeat is set beside
+   ``nvidia-smi``'s per-process memory.
 
 Usage: ``python cogpucheck.py [--smoke] [--out COTENANCY_gpu.json]``
 (a tenant runs as ``python cogpucheck.py --tenant NAME``). Exits 2 with
@@ -57,7 +61,9 @@ import time
 
 import torch
 
-from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.deviceplugin import discovery, plugin, watchdog
+from tpushare_torch.k8s import events
+from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import flash_attention as FA
@@ -79,6 +85,12 @@ ESTIMATOR_CFG = M.ModelConfig(d_model=1024, n_layers=8, d_ff=4096,
 ESTIMATOR_MAX_LEN = 4096
 #: A ballast's work: 16 products of 4096 x 4096 bf16 an iteration.
 MATMUL_N, MATMUL_CHAIN = 4096, 16
+#: Phase 6: the node of the fake apiserver, and the two pods the
+#: extender assumed on the card as (name, grant GiB), in assume order.
+NODE = "cogpucheck-node"
+WATCHDOG_PODS = (("hog", 4), ("innocent", 7))
+#: Sweeps a second until both tenants' heartbeats are fresh.
+SWEEP_DEADLINE_S = 60
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,18 +108,21 @@ class Card:
 # Tenant bodies (run in subprocesses with the injected env already set)
 # ---------------------------------------------------------------------------
 
-def _tenant_env(grant_gib: float, card: Card) -> dict:
-    """This process's env with the envs the device plugin's ``Allocate``
-    emits for this grant (``build_allocation`` on the shared card's host
-    index in the discovered inventory; no heartbeat file, which
-    ``_spawn`` gives only the tenants that beat). No container runtime
+def _tenant_env(grant_gib: float, card: Card,
+                alloc: plugin.ContainerAllocation | None = None) -> dict:
+    """This process's env, without its heartbeat file, with the envs the
+    device plugin's ``Allocate`` emitted (``alloc``), or emits for this
+    grant (``build_allocation`` on the shared card's host index in the
+    discovered inventory, with no heartbeat file). No container runtime
     renumbers these processes' cards, so a tenant reaches the card by the
     CUDA id this process reaches it by, not by the allocation's
     in-container ordinal 0."""
-    alloc = plugin.build_allocation(card.inv, [card.chip.index],
-                                    int(grant_gib), pod_uid="cogpucheck",
-                                    usage_dir="")
-    env = {**os.environ, **alloc.envs}
+    if alloc is None:
+        alloc = plugin.build_allocation(card.inv, [card.chip.index],
+                                        int(grant_gib),
+                                        pod_uid="cogpucheck", usage_dir="")
+    env = {k: v for k, v in os.environ.items() if k != const.ENV_USAGE_FILE}
+    env.update(alloc.envs)
     env[const.ENV_CUDA_VISIBLE_DEVICES] = card.cuda_id
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
@@ -360,12 +375,11 @@ def _pump(stream, lines: queue.Queue) -> None:
 
 
 def _spawn(tenant: str, grant_gib: float, *args, card: Card,
-           spawned: list, extra_env: dict | None = None) -> _Tenant:
+           spawned: list,
+           alloc: plugin.ContainerAllocation | None = None) -> _Tenant:
     cmd = [sys.executable, os.path.abspath(__file__), "--tenant", tenant,
            "--tenant-args", ",".join(str(a) for a in args)]
-    env = _tenant_env(grant_gib, card)
-    env.pop(const.ENV_USAGE_FILE, None)   # only the tenants given one beat
-    env.update(extra_env or {})
+    env = _tenant_env(grant_gib, card, alloc)
     err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
     proc = subprocess.Popen(cmd, env=env, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE, stderr=err, text=True)
@@ -488,6 +502,67 @@ def card_gib(environ=None) -> tuple[str, int]:
     return chip.chip_type, chip.hbm_gib
 
 
+def assumed_pod(name: str, gib: int, chip: int, card_gib: int,
+                assume_ns: int, node: str = NODE) -> dict:
+    """A one-container pod asking ``gib`` GiB, as the extender's bind
+    leaves it on ``node``: bound, assumed on host card ``chip`` of
+    ``card_gib`` GiB, not yet assigned, its uid ``uid-<name>``."""
+    return {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": name, "namespace": "default",
+                     "uid": f"uid-{name}", "annotations": {
+                         const.ANN_CHIP_IDX: str(chip),
+                         const.ANN_HBM_POD: str(gib),
+                         const.ANN_HBM_CHIP: str(card_gib),
+                         const.ANN_ASSIGNED: const.ASSIGNED_FALSE,
+                         const.ANN_ASSUME_TIME: str(assume_ns)}},
+        "spec": {"nodeName": node, "containers": [{
+            "name": "main",
+            "resources": {"limits": {const.HBM_RESOURCE: str(gib)}}}]},
+        "status": {"phase": "Pending"},
+    }
+
+
+def watchdog_allocations(card: Card, usage_dir: str
+                         ) -> tuple[FakeApiServer, dict]:
+    """The node side of phase 6: the pods of ``WATCHDOG_PODS`` assumed on
+    the card, and the port's plugin's ``Allocate`` of each one's grant,
+    which commits it and names its heartbeat file under ``usage_dir``.
+    Returns the apiserver and the allocations by pod name."""
+    api = FakeApiServer()
+    api.create_node({"apiVersion": "v1", "kind": "Node",
+                     "metadata": {"name": NODE}})
+    for i, (name, gib) in enumerate(WATCHDOG_PODS):
+        api.create_pod(assumed_pod(name, gib, card.chip.index,
+                                   card.chip.hbm_gib, i + 1))
+    plug = plugin.TPUSharePlugin(NODE, api, card.inv, usage_dir=usage_dir)
+    plug.annotate_node()
+    allocs = {name: plug.allocate_hbm([f"gib-{i}" for i in range(gib)])
+              for name, gib in WATCHDOG_PODS}
+    for name, _ in WATCHDOG_PODS:
+        pod = api.get_pod("default", name)
+        if pod.annotations.get(const.ANN_ASSIGNED) != const.ASSIGNED_TRUE:
+            raise RuntimeError(f"Allocate did not commit {name}")
+    return api, allocs
+
+
+def watchdog_verdicts(sweep: dict, events_seen: list) -> dict[str, bool]:
+    """Phase 6's watchdog gates over a sweep document and the events
+    posted as (pod, reason, message): the overruns are exactly the hog,
+    a Warning of overrun is on the hog, and the innocent's event names
+    the hog."""
+    return {
+        "overrunner_named": [o["pod"] for o in sweep.get("overruns", [])]
+        == ["hog"],
+        "overrun_event_on_hog": any(
+            name == "hog" and reason == watchdog.REASON_OVERRUN
+            for name, reason, _ in events_seen),
+        "innocent_attributed": any(
+            name == "innocent" and reason == watchdog.REASON_STARVED
+            and "hog" in msg for name, reason, msg in events_seen),
+    }
+
+
 def run_suite(smoke: bool) -> dict:
     """Build the kernels, run the six phases and return the report, its
     ``gates`` and ``ok``. Every tenant started is stopped on the way
@@ -508,7 +583,7 @@ def run_suite(smoke: bool) -> dict:
                                 "apply_memory_fraction -> "
                                 "set_per_process_memory_fraction"}
     try:
-        _phases(report, spawn, card, share, smoke)
+        _phases(report, spawn, found, share, smoke)
     finally:
         for t in spawned:
             if t.proc.poll() is None:
@@ -519,7 +594,9 @@ def run_suite(smoke: bool) -> dict:
     return report
 
 
-def _phases(report: dict, spawn, card: int, share: int, smoke: bool) -> None:
+def _phases(report: dict, spawn, found: Card, share: int,
+            smoke: bool) -> None:
+    card = found.chip.hbm_gib
     busy_s = 15 if smoke else 45
     iters = 100 if smoke else 400
 
@@ -594,25 +671,43 @@ def _phases(report: dict, spawn, card: int, share: int, smoke: bool) -> None:
         "wall_s": round(time.time() - t0, 1),
     }
 
-    # 6. Heartbeats of an uncooperative hog and an innocent ballast, in
-    # the watchdog's <dir>/<uid>/usage.json layout.
+    # 6. The grant watchdog over an uncooperative hog and an innocent
+    # ballast, each started in its pod's Allocate env.
+    report["heartbeats"] = watchdog_phase(spawn, found)
+
+
+def watchdog_phase(spawn, found: Card) -> dict:
+    """Phase 6: the hog and the innocent of ``WATCHDOG_PODS`` started in
+    the envs of the port's plugin's Allocate (``watchdog_allocations``),
+    swept by the port's ``GrantWatchdog`` until both heartbeats are
+    fresh; returns the report's ``heartbeats`` section."""
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="cogpucheck-usage-") as usage:
-        paths = {uid: os.path.join(usage, uid, "usage.json")
-                 for uid in ("uid-hog", "uid-innocent")}
-        hog = spawn("overrun", 4, 10, 0, extra_env={
-            const.ENV_USAGE_FILE: paths["uid-hog"]})
-        inn = spawn("ballast", 7, 6, 2, extra_env={
-            const.ENV_USAGE_FILE: paths["uid-innocent"]})
+        api, allocs = watchdog_allocations(found, usage)
+        hog = spawn("overrun", 4, 10, 0, alloc=allocs["hog"])
+        inn = spawn("ballast", 7, 6, 2, alloc=allocs["innocent"])
         ready = [_wait_ready(t, 600) for t in (hog, inn)]
+        wd = watchdog.GrantWatchdog(NODE, api, usage_dir=usage)
+        deadline = time.time() + SWEEP_DEADLINE_S
+        sweep = wd.sweep()
+        while (any(t["used_gib"] is None for t in sweep["tenants"])
+               and time.time() < deadline):
+            time.sleep(1.0)
+            sweep = wd.sweep()
+        events.flush(timeout=10)
+        seen = [(e["involvedObject"]["name"], e["reason"], e["message"])
+                for _, e in api.events]
         beats = {}
-        for uid, path in paths.items():
+        for name, _ in WATCHDOG_PODS:
             try:
-                with open(path, encoding="utf-8") as f:
-                    beats[uid] = json.load(f)
+                with open(wd.usage_path(f"uid-{name}"),
+                          encoding="utf-8") as f:
+                    beats[f"uid-{name}"] = json.load(f)
             except (OSError, ValueError):
-                beats[uid] = None
+                beats[f"uid-{name}"] = None
         apps = _compute_apps()
+        annotations = {name: api.get_pod("default", name).annotations
+                       for name, _ in WATCHDOG_PODS}
         _release(hog, inn)
         r_hog, r_inn = _collect(hog, 300), _collect(inn, 300)
     gaps = {}
@@ -620,22 +715,27 @@ def _phases(report: dict, spawn, card: int, share: int, smoke: bool) -> None:
         used = (apps or {}).get(beat["pid"]) if beat else None
         gaps[uid] = ("not visible" if used is None
                      else (used << 20) - beat["bytes_in_use"])
-    report["heartbeats"] = {
+    return {
         "hog": r_hog, "innocent": r_inn, "ready": ready, "beats": beats,
-        "grants_gib": {"uid-hog": 4, "uid-innocent": 7},
+        "grants_gib": {f"uid-{n}": g for n, g in WATCHDOG_PODS},
+        "allocation_envs": {n: a.envs for n, a in allocs.items()},
         "nvidia_smi_apps_mib": apps,
         "smi_minus_heartbeat_bytes": gaps,
         "hog_over_grant": bool(beats["uid-hog"])
         and beats["uid-hog"]["bytes_in_use"] > 4 * GIB,
         "innocent_within_grant": bool(beats["uid-innocent"])
         and 0 < beats["uid-innocent"]["bytes_in_use"] <= 7 * GIB,
+        "sweep": sweep, "events": [(n, r, m[:160]) for n, r, m in seen],
+        "annotations": annotations,
+        **watchdog_verdicts(sweep, seen),
         "wall_s": round(time.time() - t0, 1),
     }
 
 
 def gates(report: dict) -> dict[str, bool]:
-    """cochipcheck's gates, with the heartbeats in place of the watchdog
-    it ran in-process, plus the isolation gate and the 2.5x refusal."""
+    """cochipcheck's gates, the port's watchdog's verdicts on the hog and
+    the innocent among them, plus the isolation gate and the 2.5x
+    refusal."""
     c, e, h = (report["concurrent"], report["estimator"],
                report["heartbeats"])
     return {
@@ -647,6 +747,9 @@ def gates(report: dict) -> dict[str, bool]:
         "exactly_one_refused": report["isolation"]["exactly_one_refused"],
         "hog_over_grant": h["hog_over_grant"],
         "innocent_within_grant": h["innocent_within_grant"],
+        "overrunner_named": h["overrunner_named"],
+        "overrun_event_on_hog": h["overrun_event_on_hog"],
+        "innocent_attributed": h["innocent_attributed"],
     }
 
 

@@ -175,7 +175,10 @@ def _passing_report():
         "estimator": {"prediction_fits": True, "overshoot_refused": True},
         "isolation": {"exactly_one_refused": True},
         "heartbeats": {"hog_over_grant": True,
-                       "innocent_within_grant": True},
+                       "innocent_within_grant": True,
+                       "overrunner_named": True,
+                       "overrun_event_on_hog": True,
+                       "innocent_attributed": True},
     }
 
 
@@ -186,7 +189,10 @@ GATE_FIELDS = [("concurrent", "both_tenants_ok"),
                ("estimator", "overshoot_refused"),
                ("isolation", "exactly_one_refused"),
                ("heartbeats", "hog_over_grant"),
-               ("heartbeats", "innocent_within_grant")]
+               ("heartbeats", "innocent_within_grant"),
+               ("heartbeats", "overrunner_named"),
+               ("heartbeats", "overrun_event_on_hog"),
+               ("heartbeats", "innocent_attributed")]
 
 
 def test_gates_pass_on_a_passing_report():
@@ -299,3 +305,73 @@ def test_unchanged_watchdog_names_the_torch_hog(monkeypatch, tmp_path):
                and "hog" in msg for name, reason, msg in ev)
     assert any(name == "hog" and reason == REASON_OVERRUN
                for name, reason, _ in ev)
+
+
+@pytest.mark.parametrize("index", [0, 5])
+def test_phase_6_tenants_start_from_the_plugin_s_allocate(tmp_path,
+                                                          monkeypatch,
+                                                          index):
+    """Phase 6's node side: the hog and the innocent, assumed on the
+    shared card, each matched and committed by the port's plugin, whose
+    Allocate env (its heartbeat file among it) the tenant starts in; the
+    port's watchdog then names the hog from torchenv's heartbeats."""
+    from tpushare_torch.deviceplugin import watchdog as TW
+    from tpushare_torch.k8s import events as TEV
+
+    card = _one_card(CARD_GIB, index=index, cuda_id="0")
+    usage = str(tmp_path / "usage")
+    api, allocs = cogpucheck.watchdog_allocations(card, usage)
+    assert set(allocs) == {"hog", "innocent"}
+    node = api.get_node(cogpucheck.NODE).annotations
+    assert node[const.ANN_NODE_CHIP_HBM] == str(CARD_GIB)
+    for name, gib in cogpucheck.WATCHDOG_PODS:
+        pod = api.get_pod("default", name)
+        assert pod.annotations[const.ANN_ASSIGNED] == const.ASSIGNED_TRUE
+        envs = allocs[name].envs
+        assert envs[const.ENV_HBM_POD] == str(gib)
+        assert envs[const.ENV_CHIP_IDX] == str(index)
+        assert envs[const.ENV_USAGE_FILE] == os.path.join(
+            usage, f"uid-{name}", "usage.json")
+        monkeypatch.setenv(const.ENV_USAGE_FILE, "/parent/usage.json")
+        env = cogpucheck._tenant_env(gib, card, allocs[name])
+        assert env[const.ENV_USAGE_FILE] == envs[const.ENV_USAGE_FILE]
+        assert env[const.ENV_CUDA_VISIBLE_DEVICES] == "0"
+        assert env[const.ENV_NVIDIA_VISIBLE_DEVICES] == str(index)
+    # Without an allocation a tenant gets no heartbeat file, even one of
+    # the parent's.
+    assert const.ENV_USAGE_FILE not in cogpucheck._tenant_env(4, card)
+    _torch_heartbeat(monkeypatch, allocs["hog"].envs[const.ENV_USAGE_FILE],
+                     10)
+    _torch_heartbeat(monkeypatch,
+                     allocs["innocent"].envs[const.ENV_USAGE_FILE], 6)
+    wd = TW.GrantWatchdog(cogpucheck.NODE, api, usage_dir=usage)
+    doc = wd.sweep()
+    assert TEV.flush(timeout=10)
+    seen = [(e["involvedObject"]["name"], e["reason"], e["message"])
+            for _, e in api.events]
+    assert cogpucheck.watchdog_verdicts(doc, seen) == {
+        "overrunner_named": True, "overrun_event_on_hog": True,
+        "innocent_attributed": True}
+    assert {t["pod"]: t["used_gib"] for t in doc["tenants"]} == {
+        "hog": 10.0, "innocent": 6.0}
+
+
+SWEEP = {"overruns": [{"pod": "hog"}], "tenants": []}
+EVENTS = [("hog", "TPUShareGrantOverrun", "HBM grant overrun"),
+          ("innocent", "TPUShareStarvedByCoTenant", "co-tenant default/hog")]
+
+
+@pytest.mark.parametrize("sweep,seen,failing", [
+    (SWEEP, EVENTS, set()),
+    ({"overruns": [], "tenants": []}, EVENTS, {"overrunner_named"}),
+    ({"overruns": [{"pod": "hog"}, {"pod": "innocent"}]}, EVENTS,
+     {"overrunner_named"}),
+    (SWEEP, EVENTS[1:], {"overrun_event_on_hog"}),
+    (SWEEP, EVENTS[:1], {"innocent_attributed"}),
+    (SWEEP, [EVENTS[0], ("innocent", "TPUShareStarvedByCoTenant",
+                         "co-tenant default/other")],
+     {"innocent_attributed"}),
+])
+def test_watchdog_verdicts_on_a_synthetic_sweep(sweep, seen, failing):
+    got = cogpucheck.watchdog_verdicts(sweep, seen)
+    assert {k for k, v in got.items() if not v} == failing

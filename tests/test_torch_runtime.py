@@ -10,9 +10,10 @@ import types
 import pytest
 import torch
 
-from tpushare.deviceplugin.watchdog import GrantWatchdog
+from tpushare.deviceplugin.watchdog import GrantWatchdog as JaxWatchdog
 from tpushare.runtime import jaxenv
 from tpushare.utils import const as jconst
+from tpushare_torch.deviceplugin.watchdog import GrantWatchdog
 from tpushare_torch.runtime import torchenv
 from tpushare_torch.utils import const
 
@@ -87,7 +88,8 @@ def test_no_card_no_heartbeat(tmp_path):
 
 def test_heartbeat_is_read_by_the_watchdog(tmp_path, monkeypatch):
     """On a (simulated) two-card host the heartbeat sums both cards'
-    allocator counters into the keys the unchanged watchdog reads."""
+    allocator counters into the keys the port's watchdog reads, as the
+    JAX package's watchdog reads them too."""
     stats = [{"reserved_bytes.all.current": 3 << 30,
               "reserved_bytes.all.peak": 5 << 30},
              {"reserved_bytes.all.current": 1 << 30,
@@ -114,6 +116,9 @@ def test_heartbeat_is_read_by_the_watchdog(tmp_path, monkeypatch):
     read = wd._read_heartbeat("pod-uid")
     assert read["bytes_in_use"] == 4 << 30
     assert read["peak_bytes"] == 6 << 30
+    ref = JaxWatchdog("node-a", client=None, usage_dir=str(tmp_path))
+    assert ref.usage_path("pod-uid") == path
+    assert ref._read_heartbeat("pod-uid") == read
 
 
 def _port_files():
@@ -154,6 +159,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "workload", "checkpoint.py"),
                  ("tpushare_torch", "deviceplugin", "discovery.py"),
                  ("tpushare_torch", "deviceplugin", "plugin.py"),
+                 ("tpushare_torch", "deviceplugin", "kubelet.py"),
+                 ("tpushare_torch", "deviceplugin", "watchdog.py"),
+                 ("tpushare_torch", "k8s", "client.py"),
+                 ("tpushare_torch", "k8s", "fake.py"),
+                 ("tpushare_torch", "api", "objects.py"),
+                 ("tpushare_torch", "cmd", "deviceplugin_main.py"),
                  ("tpushare_torch", "workload", "parallel.py"),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):

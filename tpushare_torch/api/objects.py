@@ -1,0 +1,126 @@
+"""Views over raw apiserver documents: the node daemon's ``Pod`` and
+``Node``.
+
+The port's copy of ``tpushare/api/objects.py`` (``K8sObject``, ``Pod``,
+``Node``), cut to the fields the device plugin and the grant watchdog
+read. A view holds a reference to the underlying dict (``raw``), so the
+daemon mutates a document and commits it back as it came.
+"""
+
+from __future__ import annotations
+
+import copy
+import re
+from typing import Iterator, TypeVar
+
+_K = TypeVar("_K", bound="K8sObject")
+
+_QUANTITY_RE = re.compile(r"^([+-]?[0-9.]+(?:[eE][+-]?[0-9]+)?)([A-Za-z]*)$")
+
+_SUFFIX_MULTIPLIERS = {
+    "": 1, "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12, "P": 10**15,
+    "E": 10**18, "Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40,
+    "Pi": 2**50, "Ei": 2**60, "m": 1e-3,
+}
+
+
+def parse_quantity(value) -> int:
+    """A Kubernetes resource quantity ("2", "16Gi", "500m") as an integer,
+    truncated toward zero as ``resource.Quantity.Value()`` does."""
+    if isinstance(value, (int, float)):
+        return int(value)
+    m = _QUANTITY_RE.match(str(value).strip())
+    if not m:
+        raise ValueError(f"invalid quantity: {value!r}")
+    number, suffix = m.groups()
+    try:
+        mult = _SUFFIX_MULTIPLIERS[suffix]
+    except KeyError:
+        raise ValueError(f"invalid quantity suffix: {value!r}") from None
+    return int(float(number) * mult)
+
+
+class K8sObject:
+    """Metadata accessors over a raw apiserver JSON document."""
+
+    __slots__ = ("raw",)
+
+    def __init__(self, raw: dict) -> None:
+        self.raw = raw
+
+    @property
+    def metadata(self) -> dict:
+        return self.raw.setdefault("metadata", {})
+
+    @property
+    def name(self) -> str:
+        return self.metadata.get("name", "")
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.get("namespace", "default")
+
+    @property
+    def uid(self) -> str:
+        return self.metadata.get("uid", "")
+
+    @property
+    def resource_version(self) -> str:
+        return self.metadata.get("resourceVersion", "")
+
+    @property
+    def annotations(self) -> dict:
+        return self.metadata.get("annotations") or {}
+
+    @property
+    def labels(self) -> dict:
+        return self.metadata.get("labels") or {}
+
+    @property
+    def deletion_timestamp(self) -> str | None:
+        return self.metadata.get("deletionTimestamp")
+
+    def deepcopy(self: _K) -> _K:
+        return type(self)(copy.deepcopy(self.raw))
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"{type(self).__name__}({self.namespace}/{self.name})"
+
+
+class Pod(K8sObject):
+    """A ``v1.Pod`` view."""
+
+    @property
+    def spec(self) -> dict:
+        return self.raw.setdefault("spec", {})
+
+    @property
+    def status(self) -> dict:
+        return self.raw.get("status") or {}
+
+    @property
+    def node_name(self) -> str:
+        return self.spec.get("nodeName", "")
+
+    @property
+    def phase(self) -> str:
+        return self.status.get("phase", "")
+
+    @property
+    def containers(self) -> list[dict]:
+        return self.spec.get("containers") or []
+
+    def iter_resource_limits(self, resource: str) -> Iterator[int]:
+        """The parsed limit of ``resource`` of each container that sets
+        one."""
+        for c in self.containers:
+            limits = (c.get("resources") or {}).get("limits") or {}
+            if resource in limits:
+                yield parse_quantity(limits[resource])
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+class Node(K8sObject):
+    """A ``v1.Node`` view."""

@@ -1,0 +1,221 @@
+"""Minimal Kubernetes REST client for the node daemon (stdlib only).
+
+The port's copy of ``tpushare/k8s/client.py``'s ``ClusterConfig`` and of
+the ``ApiClient`` calls the device plugin and the grant watchdog make:
+nodes and pods (get, list by node, create, update, delete, evict) and
+Events. It has the calls of :class:`tpushare_torch.k8s.fake.FakeApiServer`,
+so the daemon runs against either.
+
+Auth: the in-cluster service-account token and CA, or a kubeconfig with
+token or client-certificate auth (``KUBECONFIG``).
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import os
+import ssl
+import tempfile
+import urllib.error
+import urllib.request
+from urllib.parse import quote
+
+from tpushare_torch.api.objects import Node, Pod
+from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
+
+log = logging.getLogger(__name__)
+
+SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+
+
+def _pem_file(data: str) -> str:
+    """A kubeconfig's base64 ``*-data`` field written to a file, as the
+    ssl module loads certificates from paths."""
+    with tempfile.NamedTemporaryFile(delete=False, suffix=".pem") as tmp:
+        tmp.write(base64.b64decode(data))
+        return tmp.name
+
+
+class ClusterConfig:
+    def __init__(self, host: str, token: str = "", ca_file: str | None = None,
+                 client_cert: str | None = None,
+                 client_key: str | None = None, verify: bool = True):
+        self.host = host.rstrip("/")
+        self.token = token
+        self.ca_file = ca_file
+        self.client_cert = client_cert
+        self.client_key = client_key
+        self.verify = verify
+
+    @classmethod
+    def in_cluster(cls) -> "ClusterConfig":
+        host = os.environ.get("KUBERNETES_SERVICE_HOST")
+        port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
+        if not host:
+            raise RuntimeError("not running in a cluster "
+                               "(KUBERNETES_SERVICE_HOST unset)")
+        with open(f"{SERVICE_ACCOUNT_DIR}/token", encoding="utf-8") as f:
+            token = f.read().strip()
+        return cls(host=f"https://{host}:{port}", token=token,
+                   ca_file=f"{SERVICE_ACCOUNT_DIR}/ca.crt")
+
+    @classmethod
+    def from_kubeconfig(cls, path: str | None = None) -> "ClusterConfig":
+        import yaml
+
+        path = path or os.environ.get("KUBECONFIG",
+                                      os.path.expanduser("~/.kube/config"))
+        with open(path, encoding="utf-8") as f:
+            cfg = yaml.safe_load(f)
+
+        def by_name(section, name):
+            for item in cfg.get(section, []):
+                if item.get("name") == name:
+                    return item
+            raise RuntimeError(f"kubeconfig: no {section} entry {name!r}")
+
+        ctx = by_name("contexts", cfg.get("current-context"))["context"]
+        cluster = by_name("clusters", ctx["cluster"])["cluster"]
+        user = by_name("users", ctx["user"])["user"]
+
+        def materialize(section, data_key, file_key):
+            if section.get(file_key):
+                return section[file_key]
+            if section.get(data_key):
+                return _pem_file(section[data_key])
+            return None
+
+        return cls(
+            host=cluster["server"],
+            token=user.get("token", ""),
+            ca_file=materialize(cluster, "certificate-authority-data",
+                                "certificate-authority"),
+            client_cert=materialize(user, "client-certificate-data",
+                                    "client-certificate"),
+            client_key=materialize(user, "client-key-data", "client-key"),
+            verify=not cluster.get("insecure-skip-tls-verify", False),
+        )
+
+    @classmethod
+    def auto(cls) -> "ClusterConfig":
+        """In-cluster first, then the kubeconfig."""
+        try:
+            return cls.in_cluster()
+        except (RuntimeError, OSError):
+            return cls.from_kubeconfig()
+
+
+class ApiClient:
+    def __init__(self, config: ClusterConfig):
+        self.config = config
+        self._ssl = self._build_ssl_context()
+
+    def _build_ssl_context(self) -> ssl.SSLContext | None:
+        if not self.config.host.startswith("https"):
+            return None
+        ctx = ssl.create_default_context(cafile=self.config.ca_file)
+        if not self.config.verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        if self.config.client_cert:
+            ctx.load_cert_chain(self.config.client_cert,
+                                self.config.client_key)
+        return ctx
+
+    def _request(self, method: str, path: str, body: dict | None = None,
+                 timeout: float = 30.0) -> dict:
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(f"{self.config.host}{path}", data=data,
+                                     method=method)
+        req.add_header("Accept", "application/json")
+        if data is not None:
+            req.add_header("Content-Type", "application/json")
+        if self.config.token:
+            req.add_header("Authorization", f"Bearer {self.config.token}")
+        try:
+            with urllib.request.urlopen(req, timeout=timeout,
+                                        context=self._ssl) as resp:
+                payload = resp.read()
+                return json.loads(payload) if payload else {}
+        except urllib.error.HTTPError as e:
+            text = e.read().decode(errors="replace")
+            if e.code == 404:
+                raise NotFoundError(body=text) from None
+            if e.code == 409:
+                raise ConflictError(body=text) from None
+            raise ApiError(e.code, reason=e.reason, body=text) from None
+        except urllib.error.URLError as e:
+            raise ApiError(0, reason=str(e.reason)) from None
+
+    # -- nodes --------------------------------------------------------- #
+
+    def create_node(self, raw: dict) -> Node:
+        return Node(self._request("POST", "/api/v1/nodes", body=raw))
+
+    def get_node(self, name: str) -> Node | None:
+        try:
+            return Node(self._request("GET", f"/api/v1/nodes/{name}"))
+        except NotFoundError:
+            return None
+
+    def update_node(self, node: Node) -> Node:
+        """PUT the node object itself: annotations do not persist through
+        the /status subresource."""
+        return Node(self._request("PUT", f"/api/v1/nodes/{node.name}",
+                                  body=node.raw))
+
+    # -- pods ---------------------------------------------------------- #
+
+    def create_pod(self, raw: dict) -> Pod:
+        ns = raw.get("metadata", {}).get("namespace", "default")
+        return Pod(self._request("POST", f"/api/v1/namespaces/{ns}/pods",
+                                 body=raw))
+
+    def get_pod(self, namespace: str, name: str) -> Pod:
+        return Pod(self._request(
+            "GET", f"/api/v1/namespaces/{namespace}/pods/{name}"))
+
+    def list_pods(self, node_name: str | None = None) -> list[Pod]:
+        """All pods, or one node's (filtered on the server), following
+        the list's pagination."""
+        base = "/api/v1/pods?limit=5000"
+        if node_name:
+            base += f"&fieldSelector=spec.nodeName%3D{node_name}"
+        pods: list[Pod] = []
+        cont = ""
+        while True:
+            doc = self._request(
+                "GET", base + (f"&continue={quote(cont)}" if cont else ""))
+            pods.extend(Pod(item) for item in doc.get("items", []))
+            cont = doc.get("metadata", {}).get("continue", "")
+            if not cont:
+                return pods
+
+    def update_pod(self, pod: Pod) -> Pod:
+        return Pod(self._request(
+            "PUT", f"/api/v1/namespaces/{pod.namespace}/pods/{pod.name}",
+            body=pod.raw))
+
+    def delete_pod(self, namespace: str, name: str) -> None:
+        self._request("DELETE",
+                      f"/api/v1/namespaces/{namespace}/pods/{name}")
+
+    def evict_pod(self, namespace: str, name: str) -> None:
+        """Deletion through the ``pods/eviction`` subresource, which
+        honors PodDisruptionBudgets (429 while one has no disruption
+        left)."""
+        self._request(
+            "POST", f"/api/v1/namespaces/{namespace}/pods/{name}/eviction",
+            body={"apiVersion": "policy/v1", "kind": "Eviction",
+                  "metadata": {"name": name, "namespace": namespace}})
+
+    # -- events -------------------------------------------------------- #
+
+    def create_event(self, namespace: str, event: dict) -> None:
+        try:
+            self._request("POST", f"/api/v1/namespaces/{namespace}/events",
+                          body=event)
+        except ApiError as e:  # events are best-effort
+            log.debug("event create failed: %s", e)

@@ -1,0 +1,207 @@
+"""In-memory apiserver with the calls the node daemon makes.
+
+The port's copy of the part of ``tpushare/k8s/fake.py`` that the device
+plugin and the grant watchdog reach: nodes, pods (optimistic-concurrency
+updates: a stale ``resourceVersion`` gets a real 409), the
+``pods/eviction`` subresource with PodDisruptionBudget semantics, and
+Events. The client (:mod:`tpushare_torch.k8s.client`) has the same calls
+over the apiserver's REST API, so the daemon runs against either.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import threading
+
+from tpushare_torch.api.objects import Node, Pod
+from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
+
+
+def _dcopy(obj):
+    """Deep copy of a JSON document (dicts, lists and scalars)."""
+    if type(obj) is dict:
+        return {k: _dcopy(v) for k, v in obj.items()}
+    if type(obj) is list:
+        return [_dcopy(v) for v in obj]
+    return obj
+
+
+def _pdb_blocks(pdb: dict, pod: Pod) -> bool:
+    """A PodDisruptionBudget with no disruption left whose selector
+    (``matchLabels``, and ``matchExpressions`` with In, NotIn, Exists,
+    DoesNotExist) picks ``pod``, which is not already being disrupted. An
+    empty selector picks nothing."""
+    meta, spec = pdb.get("metadata") or {}, pdb.get("spec") or {}
+    status = pdb.get("status") or {}
+    if meta.get("namespace", "default") != pod.namespace:
+        return False
+    try:
+        allowed = int(status.get("disruptionsAllowed", 0))
+    except (TypeError, ValueError):
+        allowed = 0
+    if allowed > 0 or pod.name in (status.get("disruptedPods") or {}):
+        return False
+    selector = spec.get("selector") or {}
+    match, exprs = (selector.get("matchLabels") or {},
+                    selector.get("matchExpressions") or [])
+    if not match and not exprs:
+        return False
+    labels = pod.labels
+    if any(labels.get(k) != v for k, v in match.items()):
+        return False
+    for expr in exprs:
+        key, op = expr.get("key", ""), expr.get("operator", "")
+        values = expr.get("values") or []
+        ok = {"In": lambda: labels.get(key) in values,
+              "NotIn": lambda: labels.get(key) not in values,
+              "Exists": lambda: key in labels,
+              "DoesNotExist": lambda: key not in labels}.get(op)
+        if ok is None or not ok():
+            return False
+    return True
+
+
+class FakeApiServer:
+    """Thread-safe in-memory store of nodes, pods, PodDisruptionBudgets
+    and Events."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._pods: dict[str, dict] = {}    # "ns/name" -> raw pod
+        self._nodes: dict[str, dict] = {}   # name -> raw node
+        self._pdbs: dict[str, dict] = {}    # "ns/name" -> raw pdb
+        self._rv = itertools.count(1)
+        self._uid = itertools.count(1)
+        self.events: list[tuple[str, dict]] = []  # (namespace, event)
+
+    def _bump(self, obj: dict) -> None:
+        obj.setdefault("metadata", {})["resourceVersion"] = str(next(self._rv))
+
+    # -- nodes --------------------------------------------------------- #
+
+    def create_node(self, raw: dict) -> Node:
+        with self._lock:
+            node = _dcopy(raw)
+            self._bump(node)
+            self._nodes[node["metadata"]["name"]] = node
+            return Node(_dcopy(node))
+
+    def get_node(self, name: str) -> Node | None:
+        with self._lock:
+            raw = self._nodes.get(name)
+            return Node(_dcopy(raw)) if raw else None
+
+    def update_node(self, node: Node) -> Node:
+        with self._lock:
+            if node.name not in self._nodes:
+                raise NotFoundError(reason=f"node {node.name} not found")
+            updated = _dcopy(node.raw)
+            self._bump(updated)
+            self._nodes[node.name] = updated
+            return Node(_dcopy(updated))
+
+    # -- pods ---------------------------------------------------------- #
+
+    def create_pod(self, raw: dict) -> Pod:
+        with self._lock:
+            pod = _dcopy(raw)
+            meta = pod.setdefault("metadata", {})
+            meta.setdefault("namespace", "default")
+            meta.setdefault("uid", f"uid-{next(self._uid)}")
+            meta.setdefault(
+                "creationTimestamp",
+                datetime.datetime.now(datetime.timezone.utc).strftime(
+                    "%Y-%m-%dT%H:%M:%SZ"))
+            key = f"{meta['namespace']}/{meta['name']}"
+            if key in self._pods:
+                raise ConflictError(reason=f"pod {key} already exists")
+            self._bump(pod)
+            self._pods[key] = pod
+            return Pod(_dcopy(pod))
+
+    def get_pod(self, namespace: str, name: str) -> Pod:
+        with self._lock:
+            key = f"{namespace}/{name}"
+            if key not in self._pods:
+                raise NotFoundError(reason=f"pod {key} not found")
+            return Pod(_dcopy(self._pods[key]))
+
+    def list_pods(self, node_name: str | None = None) -> list[Pod]:
+        with self._lock:
+            pods = [Pod(_dcopy(p)) for p in self._pods.values()]
+        if node_name:
+            pods = [p for p in pods if p.node_name == node_name]
+        return pods
+
+    def update_pod(self, pod: Pod) -> Pod:
+        """A stale resourceVersion gets a 409, as from the apiserver."""
+        with self._lock:
+            key = pod.key()
+            current = self._pods.get(key)
+            if current is None:
+                raise NotFoundError(reason=f"pod {key} not found")
+            cur_rv = current["metadata"].get("resourceVersion")
+            if pod.resource_version and pod.resource_version != cur_rv:
+                raise ConflictError(
+                    reason="the object has been modified; please apply your "
+                           "changes to the latest version and try again")
+            updated = _dcopy(pod.raw)
+            updated["metadata"]["uid"] = current["metadata"]["uid"]
+            self._bump(updated)
+            self._pods[key] = updated
+            return Pod(_dcopy(updated))
+
+    def delete_pod(self, namespace: str, name: str) -> None:
+        with self._lock:
+            key = f"{namespace}/{name}"
+            if self._pods.pop(key, None) is None:
+                raise NotFoundError(reason=f"pod {key} not found")
+
+    def evict_pod(self, namespace: str, name: str) -> None:
+        """``POST pods/{name}/eviction``: refused with 429 while a
+        matching PodDisruptionBudget has no disruption left."""
+        with self._lock:
+            key = f"{namespace}/{name}"
+            raw = self._pods.get(key)
+            if raw is None:
+                raise NotFoundError(reason=f"pod {key} not found")
+            pod = Pod(_dcopy(raw))
+            for pdb_key, pdb in self._pdbs.items():
+                if _pdb_blocks(pdb, pod):
+                    raise ApiError(
+                        429, reason="TooManyRequests",
+                        body=f"Cannot evict pod as it would violate the "
+                             f"pod's disruption budget {pdb_key}")
+            del self._pods[key]
+
+    # -- PodDisruptionBudgets (policy/v1), raw documents ---------------- #
+
+    def create_pdb(self, raw: dict) -> dict:
+        with self._lock:
+            pdb = _dcopy(raw)
+            meta = pdb.setdefault("metadata", {})
+            meta.setdefault("namespace", "default")
+            key = f"{meta['namespace']}/{meta['name']}"
+            if key in self._pdbs:
+                raise ConflictError(reason=f"pdb {key} already exists")
+            self._bump(pdb)
+            self._pdbs[key] = pdb
+            return _dcopy(pdb)
+
+    def update_pdb(self, raw: dict) -> dict:
+        with self._lock:
+            meta = raw.get("metadata") or {}
+            key = f"{meta.get('namespace', 'default')}/{meta.get('name')}"
+            if key not in self._pdbs:
+                raise NotFoundError(reason=f"pdb {key} not found")
+            updated = _dcopy(raw)
+            self._bump(updated)
+            self._pdbs[key] = updated
+            return _dcopy(updated)
+
+    # -- events -------------------------------------------------------- #
+
+    def create_event(self, namespace: str, event: dict) -> None:
+        with self._lock:
+            self.events.append((namespace, _dcopy(event)))

@@ -1,12 +1,47 @@
 """Names of the device plugin's grant contract.
 
-A copy of the names the tenant runtime and the allocation use from
-``tpushare/utils/const.py``; the port keeps its own copy so that it
-never imports the JAX package.
+A copy of the names the tenant runtime, the allocation, the node daemon
+and the grant watchdog use from ``tpushare/utils/const.py``, letter for
+letter: the extender reads what the daemon writes under these names. The
+port keeps its own copy so that it never imports the JAX package.
 """
+
+#: Extended resources the daemon advertises and pods request: HBM GiB
+#: of one card, and whole cards. The names are the extender's and the
+#: pod specs', whatever the accelerator.
+HBM_RESOURCE = "tpushare.io/tpu-hbm"
+CHIP_RESOURCE = "tpushare.io/tpu-chip"
 
 #: Pod annotation naming the granted chip(s) by host index.
 ANN_CHIP_IDX = "tpushare.io/chip-idx"
+
+#: The bind-time grant record the extender writes: GiB granted, the
+#: card's GiB, the two-phase flag ("false" at bind, "true" once the
+#: device plugin's Allocate pinned the pod) and the nanosecond assume
+#: time that orders the plugin's matching of pending pods.
+ANN_HBM_POD = "tpushare.io/hbm-pod"
+ANN_HBM_CHIP = "tpushare.io/hbm-chip"
+ANN_ASSIGNED = "tpushare.io/assigned"
+ANN_ASSUME_TIME = "tpushare.io/assume-time"
+ASSIGNED_FALSE = "false"
+ASSIGNED_TRUE = "true"
+
+#: What the grant watchdog writes onto a pod: its reported GiB in use
+#: (one decimal), and "true" while that is above its grant.
+ANN_HBM_USED = "tpushare.io/hbm-used"
+ANN_OVERRUN = "tpushare.io/grant-overrun"
+
+#: Node annotations the daemon publishes: per-card GiB ("79,79"), the
+#: chip topology (empty on NVIDIA cards: no ICI mesh), the model, and
+#: the multi-host slice the node belongs to.
+ANN_NODE_CHIP_HBM = "tpushare.io/chip-hbm"
+ANN_NODE_TOPOLOGY = "tpushare.io/topology"
+ANN_NODE_TPU_TYPE = "tpushare.io/tpu-type"
+ANN_NODE_SLICE = "tpushare.io/slice-id"
+
+#: A gang member's pod group and its minimum size.
+ANN_POD_GROUP = "tpushare.io/pod-group"
+ANN_POD_GROUP_MIN = "tpushare.io/pod-group-min"
 
 ENV_CHIP_IDX = "TPUSHARE_CHIP_IDX"
 ENV_HBM_POD = "TPUSHARE_HBM_POD_GIB"
