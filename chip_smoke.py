@@ -15,7 +15,12 @@ exactly the allocation's env that serves the flagship inside the grant
 annotates a node with the card and advertises it, matches and commits a
 pod the extender assumed in Allocate, in process and over gRPC to a fake
 kubelet, a tenant serves in the response's env, and the grant watchdog
-sweeps its heartbeat), then drives the flagship LM's forward, serving
+sweeps its heartbeat) and the scheduler extender (phase 2f: the port's
+``serve_stack`` places a tenant on the card's node through filter,
+prioritize and bind over HTTP, the daemon commits that very pod over
+gRPC and the tenant serves in its env; then a seeded churn binds 4,096
+pods on a fleet of 1,024 H100 nodes, with p50 and p99 of the three
+verbs), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -66,6 +71,7 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import subprocess
 import sys
@@ -80,8 +86,12 @@ from torch.profiler import ProfilerActivity, profile
 import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
+from tpushare_torch.cache.cache import SchedulerCache
+from tpushare_torch.cmd import main as extender_main
 from tpushare_torch.deviceplugin import discovery, kubelet, plugin, watchdog
+from tpushare_torch.k8s.builders import make_pod
 from tpushare_torch.k8s.fake import FakeApiServer
+from tpushare_torch.utils import pod as podutils
 from tpushare_torch.runtime import launch, torchenv
 from tpushare_torch.utils import const
 from tpushare_torch.workload import checkpoint as CK
@@ -263,6 +273,23 @@ DAEMON_SWEEPS = 30
 #: The keys of a heartbeat, as the grant watchdog reads them.
 HEARTBEAT_KEYS = {"bytes_in_use", "peak_bytes", "bytes_limit", "source",
                   "ts", "pid"}
+#: Phase 2f: the scheduler extender. The card's node; the fleet beside it,
+#: ``bench.py``'s scale fleet of 1,024 nodes (``SCALE_NODES``), each an
+#: H100 host of 8 cards as ``discovery.fake_inventory(chips=8)`` makes
+#: it; the tenant's GiB; a copy of ``bench.py``'s ``SIZE_MIX`` (GiB slices
+#: and whole 4-card pods, with their weights) and ``SCALE_TTL_ROUNDS``
+#: (this script may not import ``bench.py``, which imports the JAX
+#: package); the pods the churn binds, its seed and its round cap.
+EXTENDER_NODE = "chip-smoke-extender-node"
+EXTENDER_FLEET = 1024
+EXTENDER_FLEET_CARDS = 8
+EXTENDER_TENANT_GIB = 7
+EXTENDER_SIZE_MIX = (("hbm", 16, 20), ("hbm", 24, 15), ("hbm", 44, 20),
+                     ("chip", 4, 45))
+EXTENDER_TTL_ROUNDS = (2, 5)
+EXTENDER_BOUND = 4096
+EXTENDER_SEED = 11
+EXTENDER_MAX_ROUNDS = 60
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
 #: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
 #: the cache length, the chunk and page size and the decode steps between
@@ -443,6 +470,13 @@ def main(usage_dir: str) -> int:
     # wire response's env and sweep its heartbeat with the watchdog.
     daemon = node_daemon_phase(inv, total_mib, usage_dir)
     phase("2e node daemon", card=card, **daemon)
+
+    # 2f. The scheduler extender: the port's serve_stack places a tenant
+    # on this card's node over HTTP, the port's daemon commits that pod
+    # over gRPC, the tenant serves in its env; then a seeded churn binds
+    # EXTENDER_BOUND pods on a fleet of EXTENDER_FLEET H100 nodes.
+    extender = extender_phase(inv, usage_dir)
+    phase("2f extender", card=card, **extender)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -813,6 +847,7 @@ def main(usage_dir: str) -> int:
     by_path = {"serving": launches,
                "allocated_tenant": tenant["launches"],
                "node_daemon_tenant": daemon["launches"],
+               "extender_tenant": extender["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -1687,7 +1722,8 @@ def node_daemon_phase(inv: discovery.HostInventory, total_mib: int,
 
 
 def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
-                      api: FakeApiServer, pod: str, usage_dir: str) -> dict:
+                      api: FakeApiServer, pod: str, usage_dir: str,
+                      node: str = DAEMON_NODE) -> dict:
     """Phase 2e (c) and (d): start ``python3 chip_smoke.py
     --held-tenant`` in ``alloc``'s env (as phase 2d does), hold what it
     prints as phase 2d holds it, then sweep the tenant's pod with the
@@ -1722,7 +1758,7 @@ def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
               and got["cap"] == want_cap
               and got["launches"] == got["n_layers"] * got["prefills"],
               f"the daemon's tenant: {got}")
-        wd = watchdog.GrantWatchdog(DAEMON_NODE, api, usage_dir=usage_dir)
+        wd = watchdog.GrantWatchdog(node, api, usage_dir=usage_dir)
         uid = api.get_pod("default", pod).uid
         for sweeps in range(1, DAEMON_SWEEPS + 1):
             sweep = wd.sweep()
@@ -1768,6 +1804,301 @@ def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
             else "not visible",
             "smi_minus_heartbeat_bytes": (smi_mib << 20) - beat[
                 "bytes_in_use"] if smi_mib is not None else "not visible"}
+
+
+class ExtenderClient:
+    """One keep-alive connection to the extender, as kube-scheduler's
+    transport keeps one. ``post`` returns the status, the JSON body and
+    the handler's ms from ``Server-Timing`` (handler and gate queue)."""
+
+    def __init__(self, server):
+        import http.client
+
+        host, port = server.server_address[:2]
+        self.conn = http.client.HTTPConnection(host, port, timeout=60)
+        self.prefix = "/tpushare-scheduler"
+
+    def post(self, path: str, doc: dict) -> tuple[int, object, float]:
+        self.conn.request("POST", self.prefix + path,
+                          body=json.dumps(doc).encode(),
+                          headers={"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        body = json.loads(resp.read())
+        timing = {name.strip(): float(dur) for name, _, dur in (
+            part.partition(";dur=")
+            for part in (resp.getheader("Server-Timing") or "").split(","))
+            if dur}
+        return resp.status, body, sum(timing.values())
+
+    def get(self, path: str) -> dict:
+        self.conn.request("GET", self.prefix + path)
+        resp = self.conn.getresponse()
+        check(resp.status == 200, f"GET {path}: {resp.status}")
+        return json.loads(resp.read())
+
+    def schedule(self, pod, candidates: list[str]
+                 ) -> tuple[str | None, float, float]:
+        """filter, prioritize over the nodes that passed, bind to the
+        first of the best scores, as kube-scheduler does. Returns (the
+        node bound, or None; the three handlers' ms; the wire's ms)."""
+        t0 = time.perf_counter()
+        status, passed, h_f = self.post("/filter", {
+            "Pod": pod.raw, "NodeNames": candidates})
+        check(status == 200, f"filter: {status} {passed}")
+        if not passed["NodeNames"]:
+            return None, h_f, (time.perf_counter() - t0) * 1e3
+        status, ranked, h_p = self.post("/prioritize", {
+            "Pod": pod.raw, "NodeNames": passed["NodeNames"]})
+        check(status == 200, f"prioritize: {status} {ranked}")
+        best = max(ranked, key=lambda e: e["Score"])["Host"]
+        status, result, h_b = self.post("/bind", {
+            "PodName": pod.name, "PodNamespace": pod.namespace,
+            "PodUID": pod.uid, "Node": best})
+        wire_ms = (time.perf_counter() - t0) * 1e3
+        return (best if status == 200 else None), h_f + h_p + h_b, wire_ms
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def advertised_node(name: str, inv: discovery.HostInventory) -> dict:
+    """A Node as kubelet reports it once the daemon registered: capacity
+    is the count of devices advertised for each resource."""
+    counts = {const.HBM_RESOURCE: str(len(plugin.hbm_devices(inv))),
+              const.CHIP_RESOURCE: str(len(plugin.chip_devices(inv)))}
+    return {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": name},
+            "status": {"capacity": counts, "allocatable": dict(counts)}}
+
+
+def extender_fleet(api: FakeApiServer, nodes: int) -> list[str]:
+    """``nodes`` H100 hosts of ``EXTENDER_FLEET_CARDS`` cards, each
+    annotated by the port's plugin from its inventory."""
+    inv = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS)
+    names = [f"h100-{i:04d}" for i in range(nodes)]
+    for name in names:
+        api.create_node(advertised_node(name, inv))
+        plugin.TPUSharePlugin(name, api, inv, usage_dir="").annotate_node()
+    return names
+
+
+def draw_shape(rng) -> tuple[str, int]:
+    """``bench.py``'s ``_draw_shape`` over ``EXTENDER_SIZE_MIX``."""
+    total = sum(w for _, _, w in EXTENDER_SIZE_MIX)
+    roll = rng.uniform(0, total)
+    for kind, size, w in EXTENDER_SIZE_MIX:
+        roll -= w
+        if roll <= 0:
+            return kind, size
+    return EXTENDER_SIZE_MIX[-1][0], EXTENDER_SIZE_MIX[-1][1]
+
+
+def scale_candidates(rng, names: list[str]) -> list[str]:
+    """``bench.py``'s ``_scale_candidates``: the nodes kube-scheduler
+    offers an extender at this fleet size (its adaptive
+    percentageOfNodesToScore, max(50 - n/125, 5)% with a 100-node
+    floor); about 430 of 1,024, all of 16."""
+    n = len(names)
+    k = int(max(n * max(50.0 - n / 125.0, 5.0) / 100.0, min(100, n)))
+    return list(names) if k >= n else rng.sample(names, k)
+
+
+def ledger_checks(api: FakeApiServer, stack, client: ExtenderClient,
+                  names: list[str]) -> dict:
+    """Over ``names``: no card holds more than its GiB; inspect's used GiB
+    equals the sum of the grants bound there (the ``hbm-pod`` of every
+    live pod bound to a node of ``names``); a cache rebuilt from the
+    apiserver, as after a restart, equals the live ledger."""
+    wanted = set(names)
+    doc = client.get("/inspect")
+    nodes = [n for n in doc["nodes"] if n["name"] in wanted]
+    over = [(n["name"], c["id"]) for n in nodes for c in n["chips"]
+            if c["usedHBM"] > c["totalHBM"]]
+    check(not over, f"cards over their GiB: {over[:8]}")
+    used = sum(n["usedHBM"] for n in nodes)
+    total = sum(n["totalHBM"] for n in nodes)
+    granted = sum(podutils.get_hbm_from_pod_annotation(p)
+                  for p in api.list_pods()
+                  if p.node_name in wanted and podutils.is_assumed(p)
+                  and not podutils.is_complete_pod(p))
+    check(used == granted, f"inspect says {used} GiB used, the bound "
+                           f"grants {granted}")
+    rebuilt = SchedulerCache(api.get_node, api.list_pods)
+    rebuilt.build()
+    live = stack.controller.cache
+    differ = [n for n in names if rebuilt.get_node_info(n).get_available_hbm()
+              != live.get_node_info(n).get_available_hbm()]
+    check(not differ, f"rebuilt ledger differs on {differ[:8]}")
+    return {"used_gib": used, "total_gib": total, "granted_gib": granted}
+
+
+def _percentiles(xs: list[float]) -> tuple[float, float]:
+    """p50 and p99, nearest rank."""
+    ordered = sorted(xs)
+    if not ordered:
+        return 0.0, 0.0
+    rank = lambda q: ordered[min(len(ordered) - 1,
+                                 max(0, math.ceil(q * len(ordered)) - 1))]
+    return rank(0.50), rank(0.99)
+
+
+def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
+                   names: list[str], target: int = EXTENDER_BOUND,
+                   seed: int = EXTENDER_SEED) -> dict:
+    """``bench.py``'s scale churn (``bench_scale``) over ``names``: each
+    round the pods past their TTL succeed, max(n/2, 48) pods of
+    ``EXTENDER_SIZE_MIX`` arrive, and up to twice that many of the
+    backlog are scheduled over HTTP on the candidates
+    ``scale_candidates`` offers, until ``target`` pods are bound. Returns
+    p50 and p99 of filter + prioritize + bind on the handlers' clock and
+    on the wire's, the pods bound, the mean GiB utilisation from round 2
+    on, and the final ``ledger_checks``."""
+    rng = random.Random(seed)
+    arrivals = max(len(names) // 2, 48)
+    backlog, live, handler_ms, wire_ms, util = [], [], [], [], []
+    seq = bound = rounds = 0
+    t0 = time.perf_counter()
+    while bound < target and rounds < EXTENDER_MAX_ROUNDS:
+        rnd, rounds = rounds, rounds + 1
+        still = []
+        for name, expires in live:
+            if expires <= rnd:
+                api.update_pod_status("default", name, "Succeeded")
+            else:
+                still.append((name, expires))
+        live = still
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        for _ in range(arrivals):
+            kind, size = draw_shape(rng)
+            name = f"churn-{seq:05d}"
+            seq += 1
+            pod = api.create_pod(make_pod(name, chips=size)
+                                 if kind == "chip" else
+                                 make_pod(name, hbm=size))
+            backlog.append((pod, rng.randint(*EXTENDER_TTL_ROUNDS)))
+        kept = []
+        for i, (pod, ttl) in enumerate(backlog):
+            if i >= 2 * arrivals or bound >= target:
+                kept.extend(backlog[i:])
+                break
+            node, h_ms, w_ms = client.schedule(pod,
+                                               scale_candidates(rng, names))
+            if node is None:
+                kept.append((pod, ttl))
+                continue
+            handler_ms.append(h_ms)
+            wire_ms.append(w_ms)
+            bound += 1
+            live.append((pod.name, rnd + ttl))
+        backlog = kept
+        doc = client.get("/inspect")
+        if rnd >= 2:
+            util.append(100.0 * sum(n["usedHBM"] for n in doc["nodes"]
+                                    if n["name"] != EXTENDER_NODE)
+                        / sum(n["totalHBM"] for n in doc["nodes"]
+                              if n["name"] != EXTENDER_NODE))
+    seconds = time.perf_counter() - t0
+    check(bound >= target, f"the churn bound {bound} pods in {rounds} "
+                           f"rounds, not {target}")
+    check(stack.controller.wait_idle(timeout=120),
+          "the extender's controller did not settle")
+    h50, h99 = _percentiles(handler_ms)
+    w50, w99 = _percentiles(wire_ms)
+    return {"nodes": len(names), "bound": bound, "rounds": rounds,
+            "backlog": len(backlog), "seconds": seconds,
+            "handler_p50_ms": h50, "handler_p99_ms": h99,
+            "wire_p50_ms": w50, "wire_p99_ms": w99,
+            "gib_utilisation_pct": (sum(util) / len(util) if util
+                                    else 0.0),
+            **ledger_checks(api, stack, client, names)}
+
+
+def extender_phase(inv: discovery.HostInventory, usage_dir: str,
+                   fleet: int = EXTENDER_FLEET,
+                   target: int = EXTENDER_BOUND) -> dict:
+    """Phase 2f: (a) the port's ``serve_stack`` over the port's
+    ``FakeApiServer``, HTTP on 127.0.0.1; (b) the port's plugin annotates
+    the card's node from phase 0's inventory and ``fleet`` H100 nodes
+    beside it; (c) a ``EXTENDER_TENANT_GIB`` GiB pod placed on the card's
+    node as kube-scheduler places it, filter (offered the card's node
+    alone, as a ``nodeSelector`` would), prioritize, bind; (d) the
+    port's daemon, over gRPC to a ``FakeKubelet``, matches and commits
+    that very pod and answers with ``build_allocation``'s response for
+    the card the extender chose; (e) the tenant serves the flagship in
+    that response's env, ``n_layers`` forward launches a prefill, its
+    heartbeat fresh and within its grant (``held_tenant_phase``); (f)
+    ``extender_churn`` binds ``target`` pods on the fleet."""
+    api = FakeApiServer()
+    stack, server = extender_main.serve_stack(api)
+    client = ExtenderClient(server)
+    try:
+        # (b) The card's node, then the fleet.
+        api.create_node(advertised_node(EXTENDER_NODE, inv))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-ext-") as pdir:
+            plug = plugin.TPUSharePlugin(EXTENDER_NODE, api, inv,
+                                         state_dir=pdir, usage_dir=usage_dir)
+            plug.annotate_node()
+            t0 = time.perf_counter()
+            names = extender_fleet(api, fleet)
+            fleet_s = time.perf_counter() - t0
+            check(stack.controller.wait_idle(timeout=120),
+                  "the extender's controller did not settle")
+            # (c) The tenant, placed through the three verbs.
+            tenant = api.create_pod(make_pod(
+                "extender-tenant", hbm=EXTENDER_TENANT_GIB,
+                uid="uid-extender-tenant"))
+            node, handler_ms, wire_ms = client.schedule(tenant,
+                                                        [EXTENDER_NODE])
+            check(node == EXTENDER_NODE, f"the tenant was bound to {node}")
+            placed = api.get_pod("default", tenant.name)
+            position = podutils.get_chip_ids_from_annotation(placed)
+            check(placed.node_name == EXTENDER_NODE and len(position) == 1
+                  and placed.annotations[const.ANN_HBM_POD]
+                  == str(EXTENDER_TENANT_GIB)
+                  and not podutils.is_assigned(placed),
+                  f"the bound tenant: {placed.raw}")
+            chip = inv.chips[position[0]]
+            # (d) The daemon's Allocate over gRPC.
+            fake = kubelet.FakeKubelet(pdir)
+            fake.start()
+            servers = []
+            try:
+                servers = kubelet.run_node_daemon(EXTENDER_NODE, api, inv,
+                                                  plugin_dir=pdir,
+                                                  usage_dir=usage_dir)
+                endpoint = kubelet.socket_name(const.HBM_RESOURCE)
+                avail = [d.id for d in plug.hbm_devices()]
+                ids = fake.preferred(endpoint, avail, EXTENDER_TENANT_GIB)
+                resp = fake.allocate(endpoint, ids)
+            finally:
+                for srv in servers:
+                    srv.stop()
+                fake.stop()
+        check(ids == [plugin.HBM_DEV_FMT.format(chip=chip.index, gib=g)
+                      for g in range(EXTENDER_TENANT_GIB)],
+              f"GetPreferredAllocation gave {ids}")
+        check(podutils.is_assigned(api.get_pod("default", tenant.name)),
+              "the daemon did not commit the pod the extender bound")
+        wire = wire_allocation(resp.container_responses[0])
+        want = plugin.build_allocation(inv, [chip.index],
+                                       EXTENDER_TENANT_GIB,
+                                       pod_uid=tenant.uid,
+                                       usage_dir=usage_dir)
+        check(wire == want, f"Allocate over gRPC gave {wire}, want {want}")
+        # (e) The tenant on the card.
+        served = held_tenant_phase(wire, chip.hbm_gib, api, tenant.name,
+                                   usage_dir, node=EXTENDER_NODE)
+        # (f) The churn.
+        churn = extender_churn(api, stack, client, names, target=target)
+    finally:
+        client.close()
+        extender_main.shutdown_stack(stack, server)
+    return {"tenant_node": node, "tenant_card": chip.index,
+            "tenant_position": position[0],
+            "tenant_handler_ms": handler_ms, "tenant_wire_ms": wire_ms,
+            "committed": tenant.name, "envs": wire.envs,
+            "fleet_seconds": fleet_s, "churn": churn, **served}
 
 
 def _kernel_name(mangled: str) -> str:

@@ -1,0 +1,132 @@
+"""Phase 2f of ``chip_smoke.py`` (``extender_phase``) on the CPU, at a
+fleet of 16 H100 nodes.
+
+The card's node comes from an inventory as the native shim reports a
+host whose visible cards are host indices 3 and 4, so the extender's
+position 0 is host card 3. The held tenant is recorded instead of
+started; everything else runs as on the card: the port's extender over
+HTTP places the tenant, the port's daemon commits that pod over gRPC to
+a ``FakeKubelet``, and the seeded churn binds its pods with the ledger
+checks. The churn's traffic is ``bench.py``'s, draw for draw.
+"""
+
+from __future__ import annotations
+
+import random
+
+import pytest
+import torch
+
+import bench
+import chip_smoke
+from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.utils import const
+
+
+def _host(cards=2, first=3):
+    """A host of H100s as the native shim names them."""
+    return discovery.HostInventory(
+        "h100-80gb", "", source="native", chips=tuple(
+            discovery.ChipSpec(i, 79, f"/dev/nvidia{i}", "h100-80gb")
+            for i in range(first, first + cards)))
+
+
+def test_the_churn_s_traffic_is_bench_s():
+    assert list(chip_smoke.EXTENDER_SIZE_MIX) == [
+        tuple(m) for m in bench.SIZE_MIX]
+    assert chip_smoke.EXTENDER_TTL_ROUNDS == bench.SCALE_TTL_ROUNDS
+    assert chip_smoke.EXTENDER_FLEET == bench.SCALE_NODES
+    for seed in range(3):
+        a, b = random.Random(seed), random.Random(seed)
+        assert [chip_smoke.draw_shape(a) for _ in range(500)] == [
+            bench._draw_shape(b) for _ in range(500)]
+    names = [f"n{i}" for i in range(1024)]
+    for n in (16, 100, 300, 1024):
+        a, b = random.Random(n), random.Random(n)
+        assert chip_smoke.scale_candidates(a, names[:n]) == \
+            bench._scale_candidates(b, names[:n])
+
+
+def test_advertised_node_counts_the_daemon_s_devices():
+    inv = discovery.fake_inventory(chips=8)
+    doc = chip_smoke.advertised_node("n", inv)
+    assert doc["status"]["capacity"] == {const.HBM_RESOURCE: "632",
+                                         const.CHIP_RESOURCE: "8"}
+
+
+def test_percentiles_are_nearest_rank():
+    assert chip_smoke._percentiles([]) == (0.0, 0.0)
+    assert chip_smoke._percentiles([float(i) for i in range(1, 101)]) == (
+        50.0, 99.0)
+    assert chip_smoke._percentiles([3.0]) == (3.0, 3.0)
+
+
+@pytest.fixture
+def held(monkeypatch):
+    """The held tenant recorded instead of started; every card healthy."""
+    monkeypatch.setattr(plugin, "chip_health", lambda path: plugin.HEALTHY)
+    calls = []
+
+    def record(alloc, card_gib, api, pod, usage_dir, node=None):
+        calls.append(dict(alloc=alloc, card_gib=card_gib, api=api, pod=pod,
+                          usage_dir=usage_dir, node=node))
+        return {"launches": 8}
+    monkeypatch.setattr(chip_smoke, "held_tenant_phase", record)
+    return calls
+
+
+def test_extender_phase_places_commits_and_churns(held, tmp_path):
+    inv = _host()
+    usage = str(tmp_path / "usage")
+    got = chip_smoke.extender_phase(inv, usage, fleet=16, target=200)
+    assert got["tenant_node"] == chip_smoke.EXTENDER_NODE
+    assert (got["tenant_position"], got["tenant_card"]) == (0, 3)
+    assert got["launches"] == 8
+    [call] = held
+    assert call["pod"] == "extender-tenant"
+    assert call["node"] == chip_smoke.EXTENDER_NODE
+    assert call["card_gib"] == 79
+    api = call["api"]
+    pod = api.get_pod("default", "extender-tenant")
+    assert pod.node_name == chip_smoke.EXTENDER_NODE
+    assert pod.annotations[const.ANN_ASSIGNED] == const.ASSIGNED_TRUE
+    assert pod.annotations[const.ANN_CHIP_IDX] == "0"
+    want = plugin.build_allocation(inv, [3], 7, pod_uid=pod.uid,
+                                   usage_dir=usage)
+    assert call["alloc"] == want and got["envs"] == want.envs
+    assert want.envs[const.ENV_NVIDIA_VISIBLE_DEVICES] == "3"
+    churn = got["churn"]
+    assert churn["nodes"] == 16 and churn["bound"] >= 200
+    assert churn["used_gib"] == churn["granted_gib"] > 0
+    assert churn["total_gib"] == 16 * 8 * 79
+    assert 0 < churn["handler_p50_ms"] <= churn["handler_p99_ms"]
+    assert 0 < churn["wire_p50_ms"] <= churn["wire_p99_ms"]
+    assert churn["handler_p50_ms"] <= churn["wire_p50_ms"]
+    assert 0 < churn["gib_utilisation_pct"] <= 100
+
+
+def test_ledger_checks_catch_a_ledger_that_lies(held, tmp_path,
+                                               monkeypatch):
+    """A live ledger that drops a bound pod disagrees with the grants in
+    the apiserver, and the phase fails."""
+    from tpushare_torch.cache import cache as C
+
+    real = C.SchedulerCache.add_or_update_pod
+
+    def lossy(self, pod):
+        if pod.name == "churn-00003":
+            return False
+        return real(self, pod)
+    monkeypatch.setattr(C.SchedulerCache, "add_or_update_pod", lossy)
+    with pytest.raises(RuntimeError):
+        chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
+                                  target=60)
+
+
+def test_no_card_means_no_result(monkeypatch, capsys):
+    """Without a card the script exits nonzero before any phase."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(chip_smoke, "nvidia_smi",
+                        lambda q: (_ for _ in ()).throw(OSError("none")))
+    assert chip_smoke.main(str("/nonexistent")) == 2
+    assert "ok" not in capsys.readouterr().out

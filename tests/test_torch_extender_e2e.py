@@ -1,0 +1,491 @@
+"""The port's scheduler extender against the JAX package's, both whole
+and over real HTTP.
+
+Each side runs its own ``serve_stack`` (controller, informer, cache,
+verbs, HTTP server) over its own fake apiserver, and both are fed the
+same documents: nodes, and pods with the same uids. A minimal
+kube-scheduler drives both alike: filter, then prioritize over the nodes
+that passed, then bind to the first of the best scores. For every pod
+the two must give the same filter response (``NodeNames`` and
+``FailedNodes``, byte for byte), the same prioritize scores (byte for
+byte), the same bind status, and leave the same node, cards and
+annotations in the apiserver (the assume time and the JAX stack's
+decision-trace ids aside). At the end the
+inspect documents are equal, after deletes too, and a cache rebuilt from
+each apiserver equals the live ledger of both.
+
+The traffic: one seeded churn of ``bench.py``'s ``SIZE_MIX`` (16, 24
+and 44 GiB slices and whole 4-card pods, TTLs of 2-5 rounds) over 16 H100
+nodes (8 cards of 79 GiB, no topology), and the single-pod stories of
+``tests/test_e2e.py``. The JAX stack wires quota, gangs, observability
+and the slice placer as well; with no quota ConfigMap, no gang pod and no
+slice shape in this traffic they change no answer.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from tpushare.api.extender import (ExtenderArgs as JArgs,
+                                   ExtenderFilterResult as JFilterResult,
+                                   HostPriority as JHostPriority)
+from tpushare.cache.cache import SchedulerCache as JCache
+from tpushare.cmd import main as jmain
+from tpushare.k8s.builders import make_node, make_pod
+from tpushare.k8s.fake import FakeApiServer as JFake
+from tpushare.routes import wire as jwire
+from tpushare.utils import const as JC
+from tpushare_torch.api.extender import (ExtenderArgs as TArgs,
+                                         ExtenderFilterResult as TFilterResult,
+                                         HostPriority as THostPriority)
+from tpushare_torch.cache.cache import SchedulerCache as TCache
+from tpushare_torch.cmd import main as tmain
+from tpushare_torch.k8s.fake import FakeApiServer as TFake
+from tpushare_torch.routes import wire as twire
+from tpushare_torch.utils import const
+
+PREFIX = "/tpushare-scheduler"
+
+#: A copy of bench.py's SIZE_MIX and its scale TTLs.
+SIZE_MIX = [("hbm", 16, 20), ("hbm", 24, 15), ("hbm", 44, 20),
+            ("chip", 4, 45)]
+TTL_ROUNDS = (2, 5)
+#: Arrivals a round: more than the 16 nodes hold, so pods wait in the
+#: backlog and filter refuses some on every node.
+ARRIVALS = 24
+H100 = dict(chips=8, hbm_per_chip=79, topology="", tpu_type="h100-80gb")
+
+
+class Side:
+    """One package's extender over HTTP on its own fake apiserver."""
+
+    def __init__(self, fake, main):
+        self.api = fake()
+        self.main = main
+        self.stack, self.server = main.serve_stack(self.api)
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def post(self, path: str, doc: dict) -> tuple[int, bytes]:
+        req = urllib.request.Request(
+            f"{self.base}{PREFIX}{path}", data=json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def inspect(self, node: str | None = None) -> dict:
+        path = f"{self.base}{PREFIX}/inspect" + (f"/{node}" if node else "")
+        with urllib.request.urlopen(path, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def idle(self) -> None:
+        assert self.stack.controller.wait_idle(timeout=60)
+
+    def close(self) -> None:
+        self.main.shutdown_stack(self.stack, self.server)
+
+
+#: Annotations one side writes and the other may not or not alike: the
+#: assume time (a clock), and the JAX stack's decision-trace keys (the
+#: port's decision traces come with their own slice).
+UNCOMPARED = (const.ANN_ASSUME_TIME, JC.ANN_TRACE_ID, JC.ANN_TRACE_PARENT)
+
+
+def granted(pod) -> tuple:
+    ann = {k: v for k, v in pod.annotations.items() if k not in UNCOMPARED}
+    return pod.node_name, ann
+
+
+class Pair:
+    """The JAX side and the port's, driven alike and compared."""
+
+    def __init__(self):
+        self.jax = Side(JFake, jmain)
+        self.port = Side(TFake, tmain)
+        self.sides = (self.jax, self.port)
+        self.uids = 0
+
+    def close(self):
+        for side in self.sides:
+            side.close()
+
+    def create_node(self, doc: dict) -> None:
+        for side in self.sides:
+            side.api.create_node(doc)
+
+    def create_pod(self, doc: dict) -> dict:
+        self.uids += 1
+        doc = json.loads(json.dumps(doc))
+        doc["metadata"].setdefault("uid", f"uid-{self.uids}")
+        for side in self.sides:
+            side.api.create_pod(doc)
+        return doc
+
+    def schedule(self, name: str, candidates: list[str] | None = None,
+                 namespace: str = "default") -> tuple[bool, object]:
+        """filter, prioritize, bind on both; every response compared.
+        Returns (bound, node or the filter's FailedNodes)."""
+        pods = [side.api.get_pod(namespace, name) for side in self.sides]
+        names = candidates or [n.name for n in self.jax.api.list_nodes()]
+        outs = [side.post("/filter", {"Pod": pod.raw, "NodeNames": names})
+                for side, pod in zip(self.sides, pods)]
+        assert outs[1] == outs[0], (name, outs)
+        status, body = outs[0]
+        assert status == 200, body
+        result = json.loads(body)
+        passing = result["NodeNames"] or []
+        if not passing:
+            return False, result["FailedNodes"]
+        outs = [side.post("/prioritize", {"Pod": pod.raw,
+                                          "NodeNames": passing})
+                for side, pod in zip(self.sides, pods)]
+        assert outs[1] == outs[0], (name, outs)
+        assert outs[0][0] == 200
+        ranked = json.loads(outs[0][1])
+        best = max(ranked, key=lambda e: e["Score"])["Host"]
+        outs = [side.post("/bind", {"PodName": name,
+                                    "PodNamespace": namespace,
+                                    "PodUID": pod.uid, "Node": best})
+                for side, pod in zip(self.sides, pods)]
+        assert outs[1] == outs[0], (name, outs)
+        after = [granted(side.api.get_pod(namespace, name))
+                 for side in self.sides]
+        assert after[1] == after[0], name
+        return outs[0][0] == 200, best
+
+    def set_phase(self, name: str, phase: str) -> None:
+        for side in self.sides:
+            side.api.update_pod_status("default", name, phase)
+
+    def delete_pod(self, name: str) -> None:
+        for side in self.sides:
+            side.api.delete_pod("default", name)
+
+    def idle(self) -> None:
+        for side in self.sides:
+            side.idle()
+
+    def same_inspect(self, node: str | None = None) -> dict:
+        self.idle()
+        docs = [side.inspect(node) for side in self.sides]
+        assert docs[1] == docs[0]
+        return docs[0]
+
+    def same_rebuilt_cache(self) -> None:
+        """A cache rebuilt from each apiserver (as after a restart)
+        equals the live ledger, on both sides."""
+        self.idle()
+        views = []
+        for side, cache_cls in zip(self.sides, (JCache, TCache)):
+            live = side.stack.controller.cache
+            rebuilt = cache_cls(side.api.get_node, side.api.list_pods)
+            rebuilt.build()
+            names = sorted(n.name for n in side.api.list_nodes())
+            view = {n: rebuilt.get_node_info(n).get_available_hbm()
+                    for n in names}
+            assert view == {n: live.get_node_info(n).get_available_hbm()
+                            for n in names}
+            views.append(view)
+        assert views[1] == views[0]
+
+
+@pytest.fixture
+def pair():
+    p = Pair()
+    yield p
+    p.close()
+
+
+def _draw_shape(rng: random.Random) -> tuple[str, int]:
+    """bench.py's ``_draw_shape`` over the copy of its SIZE_MIX."""
+    total = sum(w for _, _, w in SIZE_MIX)
+    roll = rng.uniform(0, total)
+    for kind, size, w in SIZE_MIX:
+        roll -= w
+        if roll <= 0:
+            return kind, size
+    return SIZE_MIX[-1][0], SIZE_MIX[-1][1]
+
+
+def test_seeded_churn_on_h100_nodes(pair):
+    nodes = [f"h100-{i:02d}" for i in range(16)]
+    for n in nodes:
+        pair.create_node(make_node(n, **H100))
+    rng = random.Random(11)
+    backlog, live, bound, seq = [], [], 0, 0
+    for rnd in range(10):
+        still = []
+        for rec in live:
+            if rec["expires"] <= rnd:
+                pair.set_phase(rec["name"], "Succeeded")
+            else:
+                still.append(rec)
+        live = still
+        pair.idle()
+        for _ in range(ARRIVALS):
+            kind, size = _draw_shape(rng)
+            name = f"sp-{seq:04d}"
+            seq += 1
+            pair.create_pod(make_pod(name, chips=size) if kind == "chip"
+                            else make_pod(name, hbm=size))
+            backlog.append((name, rng.randint(*TTL_ROUNDS)))
+        kept = []
+        for name, ttl in backlog:
+            ok, where = pair.schedule(name, nodes)
+            if not ok:
+                kept.append((name, ttl))
+                continue
+            bound += 1
+            live.append({"name": name, "expires": rnd + ttl})
+        backlog = kept
+        doc = pair.same_inspect()
+        for node in doc["nodes"]:
+            assert all(c["usedHBM"] <= c["totalHBM"] for c in node["chips"])
+    assert bound >= 60 and backlog, (bound, len(backlog))
+    # The demand the filter found unplaceable everywhere (pods, GiB,
+    # cards), pruned against each informer's view: equal.
+    demand = [side.stack.predicate.demand.snapshot() for side in pair.sides]
+    assert demand[1] == demand[0] and demand[0][0] > 0
+    # Deletes: bound and pending pods alike.
+    for rec in live[::2]:
+        pair.delete_pod(rec["name"])
+    for name, _ in backlog[::2]:
+        pair.delete_pod(name)
+    pair.same_inspect()
+    pair.same_rebuilt_cache()
+
+
+# -- the single-pod stories of tests/test_e2e.py --------------------------- #
+
+def story_binpack_demo(pair):
+    pair.create_node(make_node("v5e-0"))
+    for name in ("binpack-1", "binpack-2", "binpack-3"):
+        pair.create_pod(make_pod(name, hbm=2))
+        assert pair.schedule(name)[0]
+    chips = pair.same_inspect("v5e-0")["nodes"][0]["chips"]
+    assert [c["usedHBM"] for c in chips] == [6, 0, 0, 0]
+
+
+def story_oversized_pod_rejected(pair):
+    pair.create_node(make_node("v5e-0"))
+    pair.create_pod(make_pod("huge", hbm=16276))
+    ok, detail = pair.schedule("huge")
+    assert not ok and "v5e-0" in detail
+
+
+def story_four_replicas_two_chips(pair):
+    pair.create_node(make_node("v5e-0", chips=2, hbm_per_chip=16,
+                               topology="2x1"))
+    for i in range(4):
+        pair.create_pod(make_pod(f"replica-{i}", hbm=8))
+        assert pair.schedule(f"replica-{i}")[0]
+    doc = pair.same_inspect("v5e-0")
+    assert [c["usedHBM"] for c in doc["nodes"][0]["chips"]] == [16, 16]
+
+
+def story_v5p_north_star_packing(pair):
+    pair.create_node(make_node("v5p-0", chips=4, hbm_per_chip=95,
+                               topology="2x2x1", tpu_type="v5p"))
+    for i in range(8):
+        pair.create_pod(make_pod(f"infer-{i}", hbm=44))
+        assert pair.schedule(f"infer-{i}")[0]
+    node = pair.same_inspect("v5p-0")["nodes"][0]
+    assert all(c["usedHBM"] == 88 for c in node["chips"])
+
+
+def story_multi_node_spillover(pair):
+    for n in ("v5e-0", "v5e-1"):
+        pair.create_node(make_node(n, chips=1, hbm_per_chip=16,
+                                   topology="1"))
+    where = []
+    for i in range(2):
+        pair.create_pod(make_pod(f"p{i}", hbm=16))
+        ok, node = pair.schedule(f"p{i}")
+        assert ok
+        where.append(node)
+    assert sorted(where) == ["v5e-0", "v5e-1"]
+
+
+def story_h100_tenant(pair):
+    """An H100 node as the port's daemon annotates it (no topology): a
+    7 GiB tenant, then a spread one, then whole cards."""
+    pair.create_node(make_node("h100-0", **H100))
+    pair.create_pod(make_pod("llm", hbm=7))
+    assert pair.schedule("llm") == (True, "h100-0")
+    pair.create_pod(make_pod("decode", hbm=7, annotations={
+        const.ANN_SCORING: "spread"}))
+    assert pair.schedule("decode")[0]
+    pair.create_pod(make_pod("trainer", chips=4))
+    assert pair.schedule("trainer")[0]
+    chips = pair.same_inspect("h100-0")["nodes"][0]["chips"]
+    assert [c["usedHBM"] for c in chips][:2] == [7, 7]
+    assert sum(c["usedHBM"] == 79 for c in chips) == 4
+
+
+def story_nominated_pod_earmarks_a_card(pair):
+    """A pending pod that a preemption round nominated to a node holds
+    its demand there: a lower-priority pod that would take the last card
+    is refused until the nominee binds, then the nominee binds."""
+    pair.create_node(make_node("v5e-0"))
+    doc = make_pod("nominee", hbm=16, priority=10)
+    doc["status"]["nominatedNodeName"] = "v5e-0"
+    pair.create_pod(doc)
+    for i in range(3):
+        pair.create_pod(make_pod(f"low-{i}", hbm=16))
+        pair.idle()
+        assert pair.schedule(f"low-{i}")[0]
+    pair.create_pod(make_pod("late", hbm=16))
+    pair.idle()
+    ok, detail = pair.schedule("late")
+    assert not ok and "v5e-0" in detail
+    assert pair.schedule("nominee") == (True, "v5e-0")
+
+
+STORIES = [story_binpack_demo, story_oversized_pod_rejected,
+           story_four_replicas_two_chips, story_v5p_north_star_packing,
+           story_multi_node_spillover, story_h100_tenant,
+           story_nominated_pod_earmarks_a_card]
+
+
+@pytest.mark.parametrize("story", STORIES, ids=[s.__name__[6:]
+                                                for s in STORIES])
+def test_single_pod_story(pair, story):
+    story(pair)
+    pair.same_inspect()
+    pair.same_rebuilt_cache()
+
+
+def test_restart_rebuilds_from_annotations():
+    """tests/test_e2e.py's crash restart: bind, stop both stacks, start
+    fresh ones over the same apiservers; the ledgers rebuild from the
+    annotations alone and keep packing on the same card."""
+    first = Pair()
+    try:
+        first.create_node(make_node("v5e-0"))
+        first.create_pod(make_pod("p1", hbm=10))
+        assert first.schedule("p1")[0]
+        first.set_phase("p1", "Running")
+        first.idle()
+    finally:
+        first.close()
+    second = Pair.__new__(Pair)
+    second.jax = Side.__new__(Side)
+    second.port = Side.__new__(Side)
+    for side, old, main in ((second.jax, first.jax, jmain),
+                            (second.port, first.port, tmain)):
+        side.api, side.main = old.api, main
+        side.stack, side.server = main.serve_stack(old.api)
+        side.base = f"http://127.0.0.1:{side.server.server_address[1]}"
+    second.sides, second.uids = (second.jax, second.port), first.uids
+    try:
+        assert second.same_inspect("v5e-0")["nodes"][0]["usedHBM"] == 10
+        second.create_pod(make_pod("p2", hbm=6))
+        assert second.schedule("p2")[0]
+        doc = second.same_inspect("v5e-0")
+        assert doc["nodes"][0]["chips"][0]["usedHBM"] == 16
+    finally:
+        second.close()
+
+
+def test_verbs_unwired_in_this_slice_answer_as_the_reference(pair):
+    """preempt and validate answer 404 "not configured" on the port, as
+    the reference does where they are not wired; a malformed body is a
+    400 on both; an unknown node fails the bind on both."""
+    for path, want in (("/preempt", "preempt not configured"),
+                       ("/validate", "admission not configured")):
+        status, body = pair.port.post(path, {"Pod": {}})
+        assert (status, json.loads(body)) == (404, {"Error": want})
+    for side in pair.sides:
+        req = urllib.request.Request(f"{side.base}{PREFIX}/filter",
+                                     data=b"[1, 2]")
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(req, timeout=60)
+        assert exc.value.code == 400
+    pair.create_pod(make_pod("lost", hbm=1))
+    outs = [side.post("/bind", {"PodName": "lost",
+                                "PodNamespace": "default",
+                                "PodUID": "uid-1", "Node": "nowhere"})
+            for side in pair.sides]
+    assert outs[1] == outs[0] and outs[0][0] == 500
+
+
+# -- wire.py ---------------------------------------------------------------- #
+
+def _results(seed: int):
+    rng = np.random.default_rng(seed)
+    names = [f"node-{i}" for i in range(int(rng.integers(0, 40)))]
+    passed = [n for n in names if rng.random() < 0.5]
+    failed = {n: f"insufficient TPU HBM in one chip {int(rng.integers(9))}"
+              for n in names if n not in passed}
+    scores = [(n, int(rng.integers(0, 11))) for n in names]
+    return names, passed, failed, scores
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_wire_encodings_are_byte_equal(seed):
+    names, passed, failed, scores = _results(seed)
+    for node_names in (passed, [], None):
+        got = twire.encode_filter_result(TFilterResult(
+            node_names=node_names, failed_nodes=failed))
+        want = jwire.encode_filter_result(JFilterResult(
+            node_names=node_names, failed_nodes=failed))
+        assert got == want
+        assert got == json.dumps(
+            TFilterResult(node_names=node_names,
+                          failed_nodes=failed).to_json(),
+            separators=(",", ":")).encode()
+    got = twire.encode_host_priorities(
+        [THostPriority(h, s) for h, s in scores])
+    assert got == jwire.encode_host_priorities(
+        [JHostPriority(h, s) for h, s in scores])
+    # The repeat-shape parse gives what the general parser gives.
+    pod = make_pod(f"p{seed}", hbm=seed + 1)
+    for body in ({"Pod": pod, "NodeNames": names},
+                 {"pod": pod, "nodenames": names},
+                 {"Pod": pod, "Nodes": {"items": [
+                     make_node(n) for n in names[:3]]}}):
+        raw = json.dumps(body).encode()
+        for _ in range(2):  # a memo miss, then a hit
+            got = twire.parse_extender_args(raw)
+            want = jwire.parse_extender_args(raw)
+            assert got.pod.raw == want.pod.raw
+            assert got.candidate_names() == want.candidate_names()
+            assert (got.node_names, got.nodes is None) == (
+                want.node_names, want.nodes is None)
+    assert TArgs.from_json({"Pod": pod, "NodeNames": names}
+                           ).candidate_names() == JArgs.from_json(
+        {"Pod": pod, "NodeNames": names}).candidate_names()
+
+
+def test_concurrent_requests_coalesce_to_the_same_answers(pair):
+    """Filter and prioritize requests sent at once from many threads go
+    through the micro-batch gate and get the answers they get one at a
+    time, on the port as on the reference."""
+    import concurrent.futures
+
+    nodes = [f"h100-{i:02d}" for i in range(8)]
+    for n in nodes:
+        pair.create_node(make_node(n, **H100))
+    docs = [pair.create_pod(make_pod(f"c{i}", hbm=8 * (i % 5 + 1)))
+            for i in range(24)]
+    for name in ("c0", "c1", "c2"):
+        assert pair.schedule(name, nodes)[0]
+    pair.idle()
+    bodies = [(verb, {"Pod": pair.port.api.get_pod("default",
+                                                  d["metadata"]["name"]).raw,
+                      "NodeNames": nodes})
+              for d in docs for verb in ("/filter", "/prioritize")]
+    alone = [[side.post(v, b) for v, b in bodies] for side in pair.sides]
+    assert alone[1] == alone[0]
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        together = list(pool.map(lambda vb: pair.port.post(*vb),
+                                 bodies * 3))
+    assert together == alone[1] * 3

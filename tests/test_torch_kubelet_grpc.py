@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import threading
 import types
 import urllib.request
@@ -246,16 +245,13 @@ def test_fake_kubelet_asks_the_preferred_allocation(tmp_path):
 # The daemon's main
 # --------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_daemon_serves_gauges_and_reregisters(tmp_path, monkeypatch):
     """``run``: both resources registered, the watchdog's gauges on the
     metrics port, and a recreated kubelet socket answered by fresh
-    plugin sockets and a second registration."""
+    plugin sockets and a second registration. The daemon binds the
+    metrics port itself and reports it (a port picked here and freed
+    before the daemon binds it can be taken by another process), and
+    every wait is on the condition it stands for."""
     from tpushare_torch.k8s.fake import FakeApiServer
 
     monkeypatch.setattr(main_mod, "KUBELET_POLL_S", 0.05)
@@ -275,38 +271,50 @@ def test_daemon_serves_gauges_and_reregisters(tmp_path, monkeypatch):
     with open(os.path.join(usage, "uid-t", "usage.json"), "w",
               encoding="utf-8") as f:
         json.dump({"bytes_in_use": 6 << 30, "ts": 4e9}, f)
-    port = _free_port()
     stop = threading.Event()
-    monkeypatch.setattr(main_mod.GrantWatchdog, "run",
-                        lambda self, stop, interval=10.0: self.sweep())
+    swept, ports, gone = threading.Event(), [], threading.Event()
+
+    def sweep_once(self, stop, interval=10.0):
+        self.sweep()
+        swept.set()
+    monkeypatch.setattr(main_mod.GrantWatchdog, "run", sweep_once)
+    real_inode = main_mod._inode
+
+    def inode(path):
+        # The daemon's poll of kubelet's socket: note when it saw the
+        # socket gone.
+        ino = real_inode(path)
+        if ino is None and path == kubelet.socket_path:
+            gone.set()
+        return ino
+    monkeypatch.setattr(main_mod, "_inode", inode)
     t = threading.Thread(target=main_mod.run, args=(
         NODE, api, TORCH.inventory(), stop), kwargs=dict(
-        plugin_dir=plugin_dir, usage_dir=usage, metrics_port=port),
-        daemon=True)
+        plugin_dir=plugin_dir, usage_dir=usage, metrics_port=0,
+        metrics_bound=ports.append), daemon=True)
     t.start()
     second = None
     try:
-        assert TK.wait_for(lambda: len(kubelet.registrations) == 2)
-        body = ""
-        for _ in range(100):
-            body = urllib.request.urlopen(
-                f"http://127.0.0.1:{port}/metrics", timeout=5).read().decode()
-            if 'pod="t"' in body:
-                break
-            stop.wait(0.05)
+        assert TK.wait_for(lambda: len(kubelet.registrations) == 2,
+                           timeout=60)
+        assert TK.wait_for(lambda: bool(ports) and swept.is_set(),
+                           timeout=60)
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{ports[0]}/metrics",
+            timeout=30).read().decode()
         assert ('tpushare_hbm_used_gib{namespace="default",node="host-a",'
                 'pod="t"} 6.0') in body
         assert ('tpushare_grant_overrun{namespace="default",node="host-a",'
                 'pod="t"} 1.0') in body
         # kubelet restarts: its socket goes, and comes back under a new
-        # inode.
+        # inode once the daemon's poll has seen it gone.
         kubelet.stop()
         assert TK.wait_for(lambda: not os.path.exists(kubelet.socket_path))
-        stop.wait(0.5)  # a restart takes longer than the daemon's poll
+        assert gone.wait(60)
         second = TK.FakeKubelet(plugin_dir)
         second.start()
         assert TK.wait_for(lambda: len(second.registrations) == 2,
-                           timeout=10)
+                           timeout=60)
         assert {r.resource_name for r in second.registrations} == {
             const.HBM_RESOURCE, const.CHIP_RESOURCE}
         assert len(second.snapshot_devices(

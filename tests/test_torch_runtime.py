@@ -138,6 +138,7 @@ def _port_files():
     yield os.path.join(REPO, "tests", "torch_pipeline_rank.py")
     yield os.path.join(REPO, "tests", "torch_checkpoint_rank.py")
     yield os.path.join(REPO, "tests", "torch_serving_tp_rank.py")
+    yield os.path.join(REPO, "tests", "torch_extender_daemon_side.py")
 
 
 def _imports(path):
@@ -166,6 +167,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "api", "objects.py"),
                  ("tpushare_torch", "cmd", "deviceplugin_main.py"),
                  ("tpushare_torch", "workload", "parallel.py"),
+                 ("tpushare_torch", "api", "extender.py"),
+                 ("tpushare_torch", "topology", "topology.py"),
+                 ("tpushare_torch", "cache", "chipinfo.py"),
+                 ("tpushare_torch", "cache", "nodeinfo.py"),
+                 ("tpushare_torch", "cache", "cache.py"),
+                 ("tpushare_torch", "k8s", "informer.py"),
+                 ("tpushare_torch", "k8s", "workqueue.py"),
+                 ("tpushare_torch", "k8s", "builders.py"),
+                 ("tpushare_torch", "controller", "controller.py"),
+                 ("tpushare_torch", "scheduler", "predicate.py"),
+                 ("tpushare_torch", "scheduler", "prioritize.py"),
+                 ("tpushare_torch", "scheduler", "bind.py"),
+                 ("tpushare_torch", "scheduler", "inspect.py"),
+                 ("tpushare_torch", "routes", "wire.py"),
+                 ("tpushare_torch", "routes", "batch.py"),
+                 ("tpushare_torch", "routes", "server.py"),
+                 ("tpushare_torch", "cmd", "main.py"),
+                 ("tpushare_torch", "utils", "node.py"),
+                 ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):
         assert os.path.join(REPO, *name) in files

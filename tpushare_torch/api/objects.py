@@ -1,10 +1,11 @@
-"""Views over raw apiserver documents: the node daemon's ``Pod`` and
-``Node``.
+"""Views over raw apiserver documents: ``Pod`` and ``Node``, and the
+``Binding`` the extender posts.
 
 The port's copy of ``tpushare/api/objects.py`` (``K8sObject``, ``Pod``,
-``Node``), cut to the fields the device plugin and the grant watchdog
-read. A view holds a reference to the underlying dict (``raw``), so the
-daemon mutates a document and commits it back as it came.
+``Node``, ``binding_doc``), cut to the fields the device plugin, the
+grant watchdog and the scheduler extender read. A view holds a reference
+to the underlying dict (``raw``), so a caller mutates a document and
+commits it back as it came.
 """
 
 from __future__ import annotations
@@ -103,8 +104,23 @@ class Pod(K8sObject):
         return self.spec.get("nodeName", "")
 
     @property
+    def nominated_node_name(self) -> str:
+        """``status.nominatedNodeName``: the node a preemption round
+        earmarked for the pod until it binds."""
+        return self.status.get("nominatedNodeName", "")
+
+    @property
     def phase(self) -> str:
         return self.status.get("phase", "")
+
+    @property
+    def priority(self) -> int:
+        """``spec.priority``; 0 when unset."""
+        val = self.spec.get("priority")
+        try:
+            return int(val) if val is not None else 0
+        except (TypeError, ValueError):
+            return 0
 
     @property
     def containers(self) -> list[dict]:
@@ -124,3 +140,39 @@ class Pod(K8sObject):
 
 class Node(K8sObject):
     """A ``v1.Node`` view."""
+
+    @property
+    def spec(self) -> dict:
+        return self.raw.get("spec") or {}
+
+    @property
+    def unschedulable(self) -> bool:
+        """``spec.unschedulable``: the node is cordoned."""
+        return bool(self.spec.get("unschedulable"))
+
+    @property
+    def taints(self) -> list[dict]:
+        return self.spec.get("taints") or []
+
+    @property
+    def status(self) -> dict:
+        return self.raw.get("status") or {}
+
+    @property
+    def capacity(self) -> dict:
+        return self.status.get("capacity") or {}
+
+    def capacity_of(self, resource: str) -> int:
+        val = self.capacity.get(resource)
+        return parse_quantity(val) if val is not None else 0
+
+
+def binding_doc(pod: Pod, node_name: str) -> dict:
+    """The ``v1.Binding`` posted to ``pods/{name}/binding``."""
+    return {
+        "apiVersion": "v1",
+        "kind": "Binding",
+        "metadata": {"name": pod.name, "namespace": pod.namespace,
+                     "uid": pod.uid},
+        "target": {"apiVersion": "v1", "kind": "Node", "name": node_name},
+    }

@@ -38,6 +38,7 @@ import signal
 import sys
 import threading
 import time
+from typing import Callable
 
 from tpushare_torch.deviceplugin import discovery
 from tpushare_torch.deviceplugin.kubelet import (
@@ -99,10 +100,14 @@ def _inode(path: str) -> int | None:
 def run(node_name: str, client, inventory, stop: threading.Event,
         plugin_dir: str = DEVICE_PLUGIN_PATH,
         usage_dir: str = const.USAGE_DIR_DEFAULT, evict_after: int = 0,
-        metrics_port: int = 0) -> None:
+        metrics_port: int = 0,
+        metrics_bound: Callable[[int], None] | None = None) -> None:
     """The daemon until ``stop``: serve both resources, sweep the
     heartbeats, serve the gauges, and serve again when kubelet's socket
-    is recreated."""
+    is recreated. The gauges are served on ``metrics_port``, or not at
+    all when it is 0, unless ``metrics_bound`` is given: then on the port
+    the kernel picks when ``metrics_port`` is 0, and ``metrics_bound`` is
+    called with the port bound, once it serves."""
     servers = run_node_daemon(node_name, client, inventory,
                               plugin_dir=plugin_dir, usage_dir=usage_dir)
     metrics = None
@@ -112,8 +117,10 @@ def run(node_name: str, client, inventory, stop: threading.Event,
                                  evict_after=evict_after)
         threading.Thread(target=watchdog.run, args=(stop,),
                          name="tpushare-grant-watchdog", daemon=True).start()
-        if metrics_port:
+        if metrics_port or metrics_bound is not None:
             metrics = serve_metrics(watchdog, metrics_port)
+            if metrics_bound is not None:
+                metrics_bound(metrics.server_address[1])
     kubelet_sock = os.path.join(plugin_dir, KUBELET_SOCKET)
     kubelet_ino = _inode(kubelet_sock)
     try:

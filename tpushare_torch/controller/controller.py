@@ -1,0 +1,221 @@
+"""Sync controller: keeps the ledger consistent with the apiserver.
+
+The port's copy of ``tpushare/controller/controller.py`` (gpushare's
+``pkg/gpushare/controller.go``) for the single-pod path: informer
+handlers keep the pods that request HBM or cards, funnel their keys
+through a rate-limited workqueue, and ``sync_pod`` reconciles the cache.
+A deleted pod is stashed until its sync frees it, since the apiserver's
+copy is gone by then. Worker threads loop until shutdown, as many as
+asked. The quota and SLO ConfigMaps, the gang reaper, defragmentation
+and autoscaling come with their own slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+from tpushare_torch.api.objects import Pod
+from tpushare_torch.cache.cache import SchedulerCache
+from tpushare_torch.k8s.errors import ApiError, NotFoundError
+from tpushare_torch.k8s.informer import InformerHub
+from tpushare_torch.k8s.workqueue import RateLimitedQueue
+from tpushare_torch.utils import const
+from tpushare_torch.utils import pod as podutils
+
+log = logging.getLogger(__name__)
+
+
+class Controller:
+    def __init__(self, client, hub: InformerHub | None = None,
+                 default_scoring: str | None = None):
+        self.client = client
+        self.hub = hub or InformerHub(client)
+        self.queue = RateLimitedQueue()
+        # default_scoring reaches every ledger's chip picker, so placement
+        # within a node agrees with the prioritize verb's fleet policy.
+        self.cache = SchedulerCache(self._get_node, self._list_pods,
+                                    default_scoring=default_scoring)
+        self._removed_lock = threading.RLock()
+        #: ns/name -> last seen Pod, for deletes (gpushare's
+        #: removePodCache)
+        self._removed: dict[str, Pod] = {}
+        self._workers: list[threading.Thread] = []
+        self._stop = threading.Event()
+
+        self.hub.add_pod_handler(
+            on_add=self._on_pod_add,
+            on_update=self._on_pod_update,
+            on_delete=self._on_pod_delete,
+            filter_fn=self._is_relevant_pod,
+        )
+        # The verbs' fast paths serve cached ledgers, so a changed node
+        # document (capacity, sharing annotation) reaches the cache from
+        # the watch.
+        self.hub.add_node_handler(
+            on_update=self._on_node_update,
+            on_delete=self._on_node_delete)
+
+    # -- listers wired into the cache ----------------------------------- #
+
+    def _get_node(self, name: str):
+        """None only for a node confirmed missing (both clients map 404
+        to None); a transient error propagates, and the cache then serves
+        its cached ledger."""
+        node = self.hub.get_node(name)
+        if node is not None:
+            return node
+        # The informer may not have seen the node yet.
+        return self.client.get_node(name)
+
+    def _list_pods(self):
+        pods = self.hub.pods.list()
+        return pods if pods else self.client.list_pods()
+
+    @staticmethod
+    def _is_relevant_pod(pod: Pod) -> bool:
+        """Informer-side filter (gpushare filters on IsGPUsharingPod)."""
+        return (podutils.is_tpu_sharing_pod(pod)
+                or podutils.is_tpu_chip_pod(pod)
+                or podutils.is_assumed(pod))
+
+    # -- event handlers --------------------------------------------------- #
+
+    def _on_pod_add(self, pod: Pod) -> None:
+        self.queue.add(pod.key())
+
+    @staticmethod
+    def _usage_changed(old: Pod | None, new: Pod) -> bool:
+        """Did the watchdog's usage annotations on the pod change?"""
+        if old is None:
+            return (const.ANN_HBM_USED in new.annotations
+                    or const.ANN_OVERRUN in new.annotations)
+        return any(old.annotations.get(k) != new.annotations.get(k)
+                   for k in (const.ANN_HBM_USED, const.ANN_OVERRUN))
+
+    def _on_pod_update(self, old: Pod | None, new: Pod) -> None:
+        """Enqueue iff the update changes the ledger: a known pod that
+        completed, or whose watchdog usage changed (inspect shows it); an
+        unknown pod that gained a bound assignment; or a nomination set
+        or cleared by a preemption round."""
+        known = self.cache.known_pod(new.uid)
+        if known and podutils.is_complete_pod(new):
+            self.queue.add(new.key())
+        elif known and self._usage_changed(old, new):
+            self.queue.add(new.key())
+        elif not known and podutils.is_assumed(new) and new.node_name:
+            self.queue.add(new.key())
+        elif new.nominated_node_name != (
+                old.nominated_node_name if old is not None else ""):
+            self.queue.add(new.key())
+        elif new.nominated_node_name and podutils.is_complete_pod(new):
+            # A nominated pod that dies pending must sync too, or its
+            # earmark blocks that node forever.
+            self.queue.add(new.key())
+
+    def _on_pod_delete(self, pod: Pod) -> None:
+        with self._removed_lock:
+            self._removed[pod.key()] = pod
+        self.queue.add(pod.key())
+
+    def _on_node_update(self, old, new) -> None:
+        """The node document changed: bring its cached ledger in line."""
+        self.cache.refresh_node(new)
+
+    def _on_node_delete(self, node) -> None:
+        """The Node object is gone: drop its ledger (inline: removal is
+        idempotent and needs no apiserver round trip)."""
+        self.cache.remove_node(node.name)
+
+    # -- reconcile (gpushare's syncPod) ----------------------------------- #
+
+    def sync_pod(self, key: str) -> None:
+        namespace, name = key.split("/", 1)
+        pod = self.hub.get_pod(namespace, name)
+        if pod is None:
+            try:
+                pod = self.client.get_pod(namespace, name)
+            except NotFoundError:
+                pod = None
+        with self._removed_lock:
+            stashed = self._removed.pop(key, None)
+        if stashed is not None and (pod is None
+                                    or pod.uid != stashed.uid):
+            # The deleted instance is gone: the key is empty, or holds a
+            # successor under a new uid. A same-uid live pod means the
+            # delete was stale: touch nothing.
+            self.cache.remove_pod(stashed)
+            log.info("sync: removed deleted pod %s (uid %s) from ledger",
+                     key, stashed.uid)
+        if pod is None:
+            return
+        if podutils.is_complete_pod(pod):
+            self.cache.remove_pod(pod)
+            log.info("sync: pod %s complete, freed its HBM", key)
+        elif podutils.is_assumed(pod) and pod.node_name:
+            self.cache.add_or_update_pod(pod)
+        elif not podutils.is_assumed(pod):
+            # Pending: track (or drop) its preemption nomination.
+            self.cache.note_nominated(pod)
+        else:
+            # Assumed but unbound: its ledger reservation holds its
+            # capacity; a nomination on top would hold it twice.
+            self.cache.clear_nominated(pod.uid)
+
+    # -- workers ---------------------------------------------------------- #
+
+    def _worker(self) -> None:
+        while not self._stop.is_set():
+            key = self.queue.get(timeout=0.5)
+            if key is None:
+                continue
+            try:
+                self.sync_pod(key)
+            except ApiError as e:
+                log.warning("sync of %s failed (%s); requeueing", key, e)
+                self.queue.add_rate_limited(key)
+            except Exception:
+                log.exception("sync of %s crashed; requeueing", key)
+                self.queue.add_rate_limited(key)
+            else:
+                self.queue.forget(key)
+            finally:
+                self.queue.done(key)
+
+    # -- lifecycle -------------------------------------------------------- #
+
+    def start(self, workers: int = 4) -> None:
+        self.hub.start()
+        if not self.hub.wait_for_sync():
+            raise RuntimeError("informer cache never synced")
+        self.cache.build()
+        for i in range(workers):
+            t = threading.Thread(target=self._worker,
+                                 name=f"tpushare-sync-{i}", daemon=True)
+            t.start()
+            self._workers.append(t)
+        log.info("controller started with %d sync workers", workers)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.queue.shut_down()
+        self.hub.stop()
+        for t in self._workers:
+            t.join(timeout=2)
+
+    def wait_idle(self, timeout: float = 5.0) -> bool:
+        """Block until the cache has converged on the apiserver: every
+        delivered watch event dispatched, then the workqueue drained (in
+        that order: dispatch enqueues work). Stable once the caller has
+        stopped writing to the apiserver."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.hub.quiesced():
+                with self.queue._cond:
+                    busy = (len(self.queue._queue) + len(self.queue._delayed)
+                            + len(self.queue._processing))
+                if busy == 0:
+                    return True
+            time.sleep(0.01)
+        return False

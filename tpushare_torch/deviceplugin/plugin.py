@@ -332,14 +332,16 @@ class TPUSharePlugin:
             if chips:
                 # The extender's placement over kubelet's pick; container
                 # k takes the span after the cards earlier ones got.
-                planned = podutils.get_chip_ids_from_annotation(pod)
+                planned = self.host_ids(
+                    podutils.get_chip_ids_from_annotation(pod))
                 chip_ids = (self._planned_span(planned, served, requested)
                             or req_ids)
                 total = podutils.get_chips_from_pod_resource(pod)
                 alloc = self._build_allocation(pod, chip_ids,
                                                whole_chips=True)
             else:
-                chip_ids = podutils.get_chip_ids_from_annotation(pod)
+                chip_ids = self.host_ids(
+                    podutils.get_chip_ids_from_annotation(pod))
                 total = podutils.get_hbm_from_pod_resource(pod)
                 alloc = self._build_allocation(pod, chip_ids,
                                                granted_gib=requested)
@@ -362,6 +364,18 @@ class TPUSharePlugin:
         if touched:
             self._save_state()
         return allocations
+
+    def host_ids(self, planned: list[int]) -> list[int]:
+        """The host indices of the cards the extender planned. Its indices
+        are positions in this node's ``chip-hbm`` annotation, which lists
+        the inventory's cards in order, so position p is the inventory's
+        p-th card. On a host that sees all its cards (numbered 0..n-1)
+        the two are the same; on one that sees a subset (a container
+        given host card 5 alone) position 0 is card 5. An index past the
+        inventory is taken as a host index already."""
+        cards = self.inventory.chips
+        return [cards[p].index if 0 <= p < len(cards) else p
+                for p in planned]
 
     @staticmethod
     def _planned_span(planned: list[int], served: list[int],
@@ -403,7 +417,8 @@ class TPUSharePlugin:
                 if pod is None:
                     out.append([])
                     continue
-                planned = podutils.get_chip_ids_from_annotation(pod)
+                planned = self.host_ids(
+                    podutils.get_chip_ids_from_annotation(pod))
                 if not planned:
                     out.append([])
                     continue

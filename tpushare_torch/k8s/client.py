@@ -1,10 +1,11 @@
-"""Minimal Kubernetes REST client for the node daemon (stdlib only).
+"""Minimal Kubernetes REST client (stdlib only).
 
 The port's copy of ``tpushare/k8s/client.py``'s ``ClusterConfig`` and of
-the ``ApiClient`` calls the device plugin and the grant watchdog make:
-nodes and pods (get, list by node, create, update, delete, evict) and
-Events. It has the calls of :class:`tpushare_torch.k8s.fake.FakeApiServer`,
-so the daemon runs against either.
+the ``ApiClient`` calls the device plugin, the grant watchdog and the
+scheduler extender make: nodes and pods (get, list, create, update,
+delete, evict, bind), Events, and the pod and node watch streams. It has
+the calls of :class:`tpushare_torch.k8s.fake.FakeApiServer`, so either
+runs under both.
 
 Auth: the in-cluster service-account token and CA, or a kubeconfig with
 token or client-certificate auth (``KUBECONFIG``).
@@ -16,8 +17,10 @@ import base64
 import json
 import logging
 import os
+import queue
 import ssl
 import tempfile
+import threading
 import urllib.error
 import urllib.request
 from urllib.parse import quote
@@ -111,6 +114,7 @@ class ApiClient:
     def __init__(self, config: ClusterConfig):
         self.config = config
         self._ssl = self._build_ssl_context()
+        self._watch_threads: dict[int, threading.Event] = {}
 
     def _build_ssl_context(self) -> ssl.SSLContext | None:
         if not self.config.host.startswith("https"):
@@ -160,6 +164,10 @@ class ApiClient:
         except NotFoundError:
             return None
 
+    def list_nodes(self) -> list[Node]:
+        doc = self._request("GET", "/api/v1/nodes")
+        return [Node(item) for item in doc.get("items", [])]
+
     def update_node(self, node: Node) -> Node:
         """PUT the node object itself: annotations do not persist through
         the /status subresource."""
@@ -202,6 +210,14 @@ class ApiClient:
         self._request("DELETE",
                       f"/api/v1/namespaces/{namespace}/pods/{name}")
 
+    def bind_pod(self, binding: dict) -> None:
+        """POST the ``v1.Binding`` to the pod's binding subresource."""
+        meta = binding["metadata"]
+        ns = meta.get("namespace", "default")
+        self._request(
+            "POST", f"/api/v1/namespaces/{ns}/pods/{meta['name']}/binding",
+            body=binding)
+
     def evict_pod(self, namespace: str, name: str) -> None:
         """Deletion through the ``pods/eviction`` subresource, which
         honors PodDisruptionBudgets (429 while one has no disruption
@@ -219,3 +235,69 @@ class ApiClient:
                           body=event)
         except ApiError as e:  # events are best-effort
             log.debug("event create failed: %s", e)
+
+    # -- watch: the queue interface of FakeApiServer.watch ------------- #
+
+    def watch(self) -> queue.Queue:
+        """One LIST + WATCH stream a kind (pods, nodes) into one queue of
+        ``(kind, event_type, raw)``."""
+        q: queue.Queue = queue.Queue()
+        stop = threading.Event()
+        for kind, path in (("Pod", "/api/v1/pods"), ("Node", "/api/v1/nodes")):
+            threading.Thread(target=self._watch_loop,
+                             args=(kind, path, q, stop),
+                             name=f"tpushare-watch-{kind.lower()}",
+                             daemon=True).start()
+        self._watch_threads[id(q)] = stop
+        return q
+
+    def stop_watch(self, q: queue.Queue) -> None:
+        stop = self._watch_threads.pop(id(q), None)
+        if stop is not None:
+            stop.set()
+
+    def _watch_loop(self, kind: str, path: str, q: queue.Queue,
+                    stop: threading.Event) -> None:
+        """LIST, hand the items on as one RELIST (the informer diffs it
+        against its store, so what changed while the watch was down is
+        not lost), then WATCH from the list's resourceVersion until the
+        stream ends or errs (410 Gone comes as an ERROR event), and LIST
+        again."""
+        while not stop.is_set():
+            try:
+                listing = self._request("GET", path)
+                rv = listing.get("metadata", {}).get("resourceVersion", "")
+                q.put((kind, "RELIST", listing.get("items", []) or []))
+                url = (f"{self.config.host}{path}?watch=true"
+                       f"&resourceVersion={rv}&timeoutSeconds=300"
+                       "&allowWatchBookmarks=true")
+                req = urllib.request.Request(url)
+                if self.config.token:
+                    req.add_header("Authorization",
+                                   f"Bearer {self.config.token}")
+                with urllib.request.urlopen(req, timeout=330,
+                                            context=self._ssl) as resp:
+                    for line in resp:
+                        if stop.is_set():
+                            return
+                        if not line.strip():
+                            continue
+                        evt = json.loads(line)
+                        etype = evt.get("type", "")
+                        if etype in ("ADDED", "MODIFIED", "DELETED"):
+                            q.put((kind, etype, evt.get("object", {})))
+                        elif etype == "ERROR":
+                            break  # LIST again, at a fresh resourceVersion
+            except (ApiError, OSError, json.JSONDecodeError) as e:
+                if stop.is_set():
+                    return
+                status = (e.status if isinstance(e, ApiError)
+                          else getattr(e, "code", None))
+                if status in (403, 404):
+                    # Denied or absent: that does not heal in a second.
+                    log.warning("watch %s unavailable (%s); retrying in "
+                                "60s", kind, e)
+                    stop.wait(60.0)
+                    continue
+                log.warning("watch %s dropped (%s); re-listing", kind, e)
+                stop.wait(1.0)

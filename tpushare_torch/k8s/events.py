@@ -91,3 +91,7 @@ def record(client, pod: Pod, reason: str, message: str,
                     pod.key())
         return
     _ensure_worker()
+
+#: The extender's reasons (the reference's names).
+REASON_BOUND = "TPUShareBound"
+REASON_BIND_FAILED = "TPUShareBindFailed"

@@ -1,17 +1,20 @@
-"""In-memory apiserver with the calls the node daemon makes.
+"""In-memory apiserver with the calls the node daemon and the extender
+make.
 
 The port's copy of the part of ``tpushare/k8s/fake.py`` that the device
-plugin and the grant watchdog reach: nodes, pods (optimistic-concurrency
-updates: a stale ``resourceVersion`` gets a real 409), the
-``pods/eviction`` subresource with PodDisruptionBudget semantics, and
-Events. The client (:mod:`tpushare_torch.k8s.client`) has the same calls
-over the apiserver's REST API, so the daemon runs against either.
+plugin, the grant watchdog and the scheduler extender reach: nodes, pods
+(optimistic-concurrency updates: a stale ``resourceVersion`` gets a real
+409), the ``pods/binding`` and ``pods/eviction`` subresources (the
+latter with PodDisruptionBudget semantics), Events, and watch streams of
+pods and nodes. The client (:mod:`tpushare_torch.k8s.client`) has the
+same calls over the apiserver's REST API, so either runs under both.
 """
 
 from __future__ import annotations
 
 import datetime
 import itertools
+import queue
 import threading
 
 from tpushare_torch.api.objects import Node, Pod
@@ -64,7 +67,7 @@ def _pdb_blocks(pdb: dict, pod: Pod) -> bool:
 
 class FakeApiServer:
     """Thread-safe in-memory store of nodes, pods, PodDisruptionBudgets
-    and Events."""
+    and Events, with watch fan-out of pods and nodes."""
 
     def __init__(self):
         self._lock = threading.RLock()
@@ -74,9 +77,29 @@ class FakeApiServer:
         self._rv = itertools.count(1)
         self._uid = itertools.count(1)
         self.events: list[tuple[str, dict]] = []  # (namespace, event)
+        self._watchers: list[queue.Queue] = []
 
     def _bump(self, obj: dict) -> None:
         obj.setdefault("metadata", {})["resourceVersion"] = str(next(self._rv))
+
+    # -- watch --------------------------------------------------------- #
+
+    def _notify(self, kind: str, event_type: str, obj: dict) -> None:
+        for q in list(self._watchers):
+            q.put((kind, event_type, _dcopy(obj)))
+
+    def watch(self) -> queue.Queue:
+        """Subscribe to ``(kind, event_type, raw)`` tuples: kind "Pod" or
+        "Node", event_type "ADDED", "MODIFIED" or "DELETED"."""
+        q: queue.Queue = queue.Queue()
+        with self._lock:
+            self._watchers.append(q)
+        return q
+
+    def stop_watch(self, q: queue.Queue) -> None:
+        with self._lock:
+            if q in self._watchers:
+                self._watchers.remove(q)
 
     # -- nodes --------------------------------------------------------- #
 
@@ -85,12 +108,17 @@ class FakeApiServer:
             node = _dcopy(raw)
             self._bump(node)
             self._nodes[node["metadata"]["name"]] = node
+            self._notify("Node", "ADDED", node)
             return Node(_dcopy(node))
 
     def get_node(self, name: str) -> Node | None:
         with self._lock:
             raw = self._nodes.get(name)
             return Node(_dcopy(raw)) if raw else None
+
+    def list_nodes(self) -> list[Node]:
+        with self._lock:
+            return [Node(_dcopy(n)) for n in self._nodes.values()]
 
     def update_node(self, node: Node) -> Node:
         with self._lock:
@@ -99,7 +127,14 @@ class FakeApiServer:
             updated = _dcopy(node.raw)
             self._bump(updated)
             self._nodes[node.name] = updated
+            self._notify("Node", "MODIFIED", updated)
             return Node(_dcopy(updated))
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            node = self._nodes.pop(name, None)
+            if node is not None:
+                self._notify("Node", "DELETED", node)
 
     # -- pods ---------------------------------------------------------- #
 
@@ -118,6 +153,7 @@ class FakeApiServer:
                 raise ConflictError(reason=f"pod {key} already exists")
             self._bump(pod)
             self._pods[key] = pod
+            self._notify("Pod", "ADDED", pod)
             return Pod(_dcopy(pod))
 
     def get_pod(self, namespace: str, name: str) -> Pod:
@@ -150,13 +186,41 @@ class FakeApiServer:
             updated["metadata"]["uid"] = current["metadata"]["uid"]
             self._bump(updated)
             self._pods[key] = updated
+            self._notify("Pod", "MODIFIED", updated)
             return Pod(_dcopy(updated))
+
+    def update_pod_status(self, namespace: str, name: str, phase: str) -> Pod:
+        with self._lock:
+            pod = self._pods.get(f"{namespace}/{name}")
+            if pod is None:
+                raise NotFoundError(reason=f"pod {namespace}/{name} not found")
+            pod.setdefault("status", {})["phase"] = phase
+            self._bump(pod)
+            self._notify("Pod", "MODIFIED", pod)
+            return Pod(_dcopy(pod))
 
     def delete_pod(self, namespace: str, name: str) -> None:
         with self._lock:
             key = f"{namespace}/{name}"
-            if self._pods.pop(key, None) is None:
+            pod = self._pods.pop(key, None)
+            if pod is None:
                 raise NotFoundError(reason=f"pod {key} not found")
+            self._notify("Pod", "DELETED", pod)
+
+    def bind_pod(self, binding: dict) -> None:
+        """``POST pods/{name}/binding``: sets ``spec.nodeName``; a bound
+        pod gets a 409."""
+        with self._lock:
+            meta = binding.get("metadata", {})
+            key = f"{meta.get('namespace', 'default')}/{meta.get('name')}"
+            pod = self._pods.get(key)
+            if pod is None:
+                raise NotFoundError(reason=f"pod {key} not found")
+            if pod.get("spec", {}).get("nodeName"):
+                raise ConflictError(reason=f"pod {key} is already bound")
+            pod.setdefault("spec", {})["nodeName"] = binding["target"]["name"]
+            self._bump(pod)
+            self._notify("Pod", "MODIFIED", pod)
 
     def evict_pod(self, namespace: str, name: str) -> None:
         """``POST pods/{name}/eviction``: refused with 429 while a
@@ -174,6 +238,7 @@ class FakeApiServer:
                         body=f"Cannot evict pod as it would violate the "
                              f"pod's disruption budget {pdb_key}")
             del self._pods[key]
+            self._notify("Pod", "DELETED", raw)
 
     # -- PodDisruptionBudgets (policy/v1), raw documents ---------------- #
 

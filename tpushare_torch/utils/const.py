@@ -1,9 +1,11 @@
-"""Names of the device plugin's grant contract.
+"""Names of the grant contract: resources, annotations and env.
 
-A copy of the names the tenant runtime, the allocation, the node daemon
-and the grant watchdog use from ``tpushare/utils/const.py``, letter for
-letter: the extender reads what the daemon writes under these names. The
-port keeps its own copy so that it never imports the JAX package.
+A copy of the names the tenant runtime, the allocation, the node daemon,
+the grant watchdog and the scheduler extender use from
+``tpushare/utils/const.py``, letter for letter: the extender reads what
+the daemon writes under these names, and the daemon what the extender
+writes. The port keeps its own copy so that it never imports the JAX
+package.
 """
 
 #: Extended resources the daemon advertises and pods request: HBM GiB
@@ -39,9 +41,36 @@ ANN_NODE_TOPOLOGY = "tpushare.io/topology"
 ANN_NODE_TPU_TYPE = "tpushare.io/tpu-type"
 ANN_NODE_SLICE = "tpushare.io/slice-id"
 
+#: The whole multi-host slice's chip topology and this host's worker
+#: index in it (row-major over the slice's host grid).
+ANN_NODE_SLICE_TOPOLOGY = "tpushare.io/slice-topology"
+ANN_NODE_WORKER = "tpushare.io/worker-index"
+
+#: GKE's well-known labels, the fallbacks when the annotations above are
+#: absent.
+GKE_TPU_TOPOLOGY_LABEL = "cloud.google.com/gke-tpu-topology"
+GKE_TPU_WORKER_LABEL = "cloud.google.com/gke-tpu-worker-id"
+GKE_TPU_ACCELERATOR_LABEL = "cloud.google.com/gke-tpu-accelerator"
+GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
+
+#: Pod label naming the tenant a pod's usage is charged to (default: its
+#: namespace).
+LABEL_TENANT = "tpushare.io/tenant"
+
 #: A gang member's pod group and its minimum size.
 ANN_POD_GROUP = "tpushare.io/pod-group"
 ANN_POD_GROUP_MIN = "tpushare.io/pod-group-min"
+
+#: A gang's requested slice shape in chip dims ("4x4x4").
+ANN_SLICE_SHAPE = "tpushare.io/slice-shape"
+
+#: Per-pod scoring policy for the prioritize verb and the chip picker,
+#: and its legal values (the fleet default is ``TPUSHARE_SCORING``).
+ANN_SCORING = "tpushare.io/scoring"
+SCORING_POLICIES = ("binpack", "spread")
+
+#: Chip index meaning "no assignment recorded".
+NO_CHIP = -1
 
 ENV_CHIP_IDX = "TPUSHARE_CHIP_IDX"
 ENV_HBM_POD = "TPUSHARE_HBM_POD_GIB"

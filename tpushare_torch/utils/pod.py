@@ -1,11 +1,14 @@
-"""Pod-level readers and classifiers the node daemon calls.
+"""Pod-level readers, classifiers and the bind-time writer.
 
-The port's copy of the twelve helpers of ``tpushare/utils/pod.py`` that
-the device plugin and the grant watchdog use, with the same semantics:
-the annotation schema stays the extender's.
+The port's copy of ``tpushare/utils/pod.py``: the helpers the device
+plugin, the grant watchdog and the scheduler extender use, with the same
+semantics, so the annotation schema is one on both sides.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.utils import const
@@ -27,18 +30,45 @@ def is_assigned_non_terminated(pod: Pod) -> bool:
 
 
 def get_hbm_from_pod_resource(pod: Pod) -> int:
-    """Sum of the containers' ``tpu-hbm`` limits, GiB."""
-    return sum(pod.iter_resource_limits(const.HBM_RESOURCE))
+    """Sum of the containers' ``tpu-hbm`` limits, GiB. Kept on the pod
+    object: the filter reads one pod once per candidate node, and a pod's
+    limits never change."""
+    try:
+        return pod._req_hbm_memo
+    except AttributeError:
+        val = pod._req_hbm_memo = sum(
+            pod.iter_resource_limits(const.HBM_RESOURCE))
+        return val
 
 
 def get_chips_from_pod_resource(pod: Pod) -> int:
-    """Sum of the containers' whole-card limits."""
-    return sum(pod.iter_resource_limits(const.CHIP_RESOURCE))
+    """Sum of the containers' whole-card limits (kept on the pod too)."""
+    try:
+        return pod._req_chips_memo
+    except AttributeError:
+        val = pod._req_chips_memo = sum(
+            pod.iter_resource_limits(const.CHIP_RESOURCE))
+        return val
+
+
+def is_tpu_sharing_pod(pod: Pod) -> bool:
+    """The pod requests an HBM slice."""
+    return get_hbm_from_pod_resource(pod) > 0
 
 
 def is_tpu_chip_pod(pod: Pod) -> bool:
     """The pod requests whole cards rather than an HBM slice."""
     return get_chips_from_pod_resource(pod) > 0
+
+
+def is_gang_pod(pod: Pod) -> bool:
+    return const.ANN_POD_GROUP in pod.annotations
+
+
+def get_tenant(pod: Pod) -> str:
+    """Whom the pod's usage is charged to: its ``tpushare.io/tenant``
+    label, else its namespace."""
+    return pod.labels.get(const.LABEL_TENANT) or pod.namespace
 
 
 def get_chip_ids_from_annotation(pod: Pod) -> list[int]:
@@ -51,6 +81,12 @@ def get_chip_ids_from_annotation(pod: Pod) -> list[int]:
     except ValueError:
         return []
     return [i for i in ids if i >= 0]
+
+
+def get_chip_id_from_annotation(pod: Pod) -> int:
+    """The first granted card index, or ``NO_CHIP``."""
+    ids = get_chip_ids_from_annotation(pod)
+    return ids[0] if ids else const.NO_CHIP
 
 
 def get_hbm_from_pod_annotation(pod: Pod) -> int:
@@ -96,8 +132,56 @@ def get_pod_group(pod: Pod) -> tuple[str, int]:
     return group, max(minimum, 0)
 
 
+def get_slice_shape(pod: Pod) -> tuple[int, ...] | None:
+    """A gang's requested slice shape (``tpushare.io/slice-shape``), or
+    None when absent or malformed: a typo degrades to placement without
+    topology, never breaks a bind."""
+    spec = pod.annotations.get(const.ANN_SLICE_SHAPE, "")
+    if not spec:
+        return None
+    from tpushare_torch.topology.topology import parse_topology
+
+    try:
+        return parse_topology(str(spec))
+    except ValueError:
+        return None
+
+
+def effective_scoring(pod: Pod, default: str | None = None) -> str:
+    """The pod's scoring policy: its ``tpushare.io/scoring`` annotation
+    when valid, else ``default`` (or ``TPUSHARE_SCORING``), else binpack.
+    The prioritize verb and the chip picker both read it, so "spread"
+    means fewer co-tenants across nodes and within one."""
+    override = pod.annotations.get(const.ANN_SCORING, "")
+    if override in const.SCORING_POLICIES:
+        return override
+    if default is None:
+        default = os.environ.get("TPUSHARE_SCORING", "binpack")
+    return default if default in const.SCORING_POLICIES else "binpack"
+
+
 def pod_used_hbm(pod: Pod) -> int:
     """GiB the pod holds against its card: its grant, 0 once complete."""
     if is_complete_pod(pod):
         return 0
     return get_hbm_from_pod_annotation(pod)
+
+
+def updated_pod_annotation_spec(pod: Pod, chip_ids: list[int], hbm_pod: int,
+                                hbm_chip: int,
+                                assume_time_ns: int | None = None) -> Pod:
+    """A deep copy of ``pod`` with the bind-time grant written: the card
+    indices, the GiB granted and the card's, ``assigned`` "false" and the
+    nanosecond assume time, which orders the device plugin's matching.
+    The ledger is rebuilt from these annotations after a restart."""
+    new_pod = pod.deepcopy()
+    ann = new_pod.metadata.setdefault("annotations", {})
+    if ann is None:  # metadata.annotations may be an explicit null
+        ann = new_pod.metadata["annotations"] = {}
+    now_ns = time.time_ns() if assume_time_ns is None else assume_time_ns
+    ann[const.ANN_CHIP_IDX] = ",".join(str(i) for i in chip_ids)
+    ann[const.ANN_HBM_POD] = str(hbm_pod)
+    ann[const.ANN_HBM_CHIP] = str(hbm_chip)
+    ann[const.ANN_ASSIGNED] = const.ASSIGNED_FALSE
+    ann[const.ANN_ASSUME_TIME] = str(now_ns)
+    return new_pod
