@@ -20,7 +20,13 @@ sweeps its heartbeat) and the scheduler extender (phase 2f: the port's
 prioritize and bind over HTTP, the daemon commits that very pod over
 gRPC and the tenant serves in its env; then a seeded churn binds 4,096
 pods on a fleet of 1,024 H100 nodes, with p50 and p99 of the three
-verbs), then drives the flagship LM's forward, serving
+verbs) and gangs (phase 2g: a gang of four placed on the card's node by
+the extender, all or nothing through bind, and granted by the daemon
+over gRPC trains flagship steps on the card in gloo ranks started from
+only their Allocate responses; the controller reaps a gang that lost a
+member, a gang that never reaches quorum is rolled back at its TTL, and
+256 gangs of four whole nodes churn through the 1,024-node fleet, none
+ever bound in part), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -89,7 +95,10 @@ from tpushare_torch import entry as E
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cmd import main as extender_main
 from tpushare_torch.deviceplugin import discovery, kubelet, plugin, watchdog
+from tpushare_torch.gang.planner import QUORUM_HOLD_MARKER
+from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.builders import make_pod
+from tpushare_torch.k8s.errors import NotFoundError
 from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.utils import pod as podutils
 from tpushare_torch.runtime import launch, torchenv
@@ -290,6 +299,23 @@ EXTENDER_TTL_ROUNDS = (2, 5)
 EXTENDER_BOUND = 4096
 EXTENDER_SEED = 11
 EXTENDER_MAX_ROUNDS = 60
+#: Phase 2g: gangs. The card's node; the gang of GANG_MEMBERS members
+#: (``w-0`` ...) that the extender places there, each asking for a
+#: GANG_MEMBERS-th of the card's GiB, trains GANG_STEPS flagship steps as
+#: a (GANG_MEMBERS, 1, 1) gloo gang; the TTL a group is given before its
+#: last member fails to come; the churn's gangs of GANG_MEMBERS whole H100
+#: nodes (``chips=8``) on phase 2f's fleet, GANG_CHURN_WINDOW gangs
+#: arriving a round, their members shuffled together, its seed and round
+#: cap.
+GANG_NODE = "chip-smoke-gang-node"
+GANG_GROUP = "smoke"
+GANG_MEMBERS = 4
+GANG_STEPS = 3
+GANG_TTL_S = 0.5
+GANG_CHURN_GANGS = 256
+GANG_CHURN_WINDOW = 16
+GANG_CHURN_SEED = 13
+GANG_CHURN_MAX_ROUNDS = 80
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
 #: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
 #: the cache length, the chunk and page size and the decode steps between
@@ -477,6 +503,16 @@ def main(usage_dir: str) -> int:
     # EXTENDER_BOUND pods on a fleet of EXTENDER_FLEET H100 nodes.
     extender = extender_phase(inv, usage_dir)
     phase("2f extender", card=card, **extender)
+
+    # 2g. Gangs: a gang of four placed on this card's node by the port's
+    # extender (all or nothing through bind) and granted by the port's
+    # daemon trains flagship steps on the card from only those grants,
+    # held to the single-process step (computed once, here, and handed on
+    # to phase 5d); then the reaper, the TTL rollback and a churn of 256
+    # gangs through 1,024 H100 nodes.
+    step_ref = single_process_step(M.ModelConfig())
+    gang = gang_phase(inv, usage_dir, step_ref)
+    phase("2g gang", card=card, **gang)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -747,7 +783,7 @@ def main(usage_dir: str) -> int:
 
     # 5d. Sharded training: gangs of ranks on this card through the entry
     # point's rank body, held to the single-process kernel step.
-    ref = single_process_step(cfg)
+    ref, step_ref = step_ref, None
     sharded = sharded_phase(cfg, inv.chips[0].hbm_gib, ref=ref)
     phase("5d sharded training", card=card, **sharded)
 
@@ -848,6 +884,7 @@ def main(usage_dir: str) -> int:
                "allocated_tenant": tenant["launches"],
                "node_daemon_tenant": daemon["launches"],
                "extender_tenant": extender["launches"],
+               "gang_tenant": gang["launches"]["flash_fwd"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -943,6 +980,7 @@ def main(usage_dir: str) -> int:
                         f"(_{kname[6:]}_kernel)",
             "launches": train["launches"][kname] + sum(
                 counts[kname] for counts in [
+                    gang["launches"],
                     *cotenancy.values(), *sharded["launches"].values(),
                     *piped["launches"].values(),
                     *lifecycle["launches"].values(),
@@ -957,6 +995,7 @@ def main(usage_dir: str) -> int:
                 path: counts[kname]
                 for path, counts in traced_launches.items()},
             "launches_by_path": {"training": train["launches"][kname],
+                                 "gang_tenant": gang["launches"][kname],
                                  **{path: counts[kname] for path, counts
                                     in cotenancy.items()},
                                  **{path: counts[kname] for path, counts
@@ -1809,7 +1848,8 @@ def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
 class ExtenderClient:
     """One keep-alive connection to the extender, as kube-scheduler's
     transport keeps one. ``post`` returns the status, the JSON body and
-    the handler's ms from ``Server-Timing`` (handler and gate queue)."""
+    the handler's ms from ``Server-Timing`` (handler and gate queue);
+    ``last_bind`` holds the last bind's status and body."""
 
     def __init__(self, server):
         import http.client
@@ -1817,6 +1857,8 @@ class ExtenderClient:
         host, port = server.server_address[:2]
         self.conn = http.client.HTTPConnection(host, port, timeout=60)
         self.prefix = "/tpushare-scheduler"
+        #: The last bind's status and body (``schedule``); None before.
+        self.last_bind: tuple[int, object] | None = None
 
     def post(self, path: str, doc: dict) -> tuple[int, object, float]:
         self.conn.request("POST", self.prefix + path,
@@ -1855,6 +1897,7 @@ class ExtenderClient:
             "PodName": pod.name, "PodNamespace": pod.namespace,
             "PodUID": pod.uid, "Node": best})
         wire_ms = (time.perf_counter() - t0) * 1e3
+        self.last_bind = (status, result)
         return (best if status == 200 else None), h_f + h_p + h_b, wire_ms
 
     def close(self) -> None:
@@ -2099,6 +2142,414 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
             "tenant_handler_ms": handler_ms, "tenant_wire_ms": wire_ms,
             "committed": tenant.name, "envs": wire.envs,
             "fleet_seconds": fleet_s, "churn": churn, **served}
+
+
+def gang_pod(name: str, gib: int, group: str, minimum: int,
+             chips: int = 0, extra: dict | None = None) -> dict:
+    """A gang member's pod: ``gib`` GiB (or ``chips`` whole cards) in
+    pod group ``group`` of ``minimum`` members."""
+    return make_pod(name, hbm=0 if chips else gib, chips=chips,
+                    uid=f"uid-{name}", annotations={
+                        const.ANN_POD_GROUP: group,
+                        const.ANN_POD_GROUP_MIN: str(minimum),
+                        **(extra or {})})
+
+
+def gang_binds(api: FakeApiServer, client: ExtenderClient, group: str,
+               names: list[str], gib: int, node: str,
+               extra: dict | None = None) -> dict:
+    """Phase 2g (b): create the members of ``group`` and place each through
+    filter, prioritize and bind over HTTP, offered ``node`` alone. Every
+    bind before the last must answer 500 with the quorum hold, post no
+    binding, and show the group in inspect's ``gangs`` with one member
+    more reserved; the last commits every member to ``node``. Returns the
+    binds' handler and wire ms."""
+    pods = [api.create_pod(gang_pod(n, gib, group, len(names), extra=extra))
+            for n in names]
+    handler_ms, wire_ms = [], []
+    for i, pod in enumerate(pods):
+        bound, h_ms, w_ms = client.schedule(pod, [node])
+        handler_ms.append(h_ms)
+        wire_ms.append(w_ms)
+        status, body = client.last_bind
+        if i < len(pods) - 1:
+            check(bound is None and status == 500
+                  and QUORUM_HOLD_MARKER in body["Error"],
+                  f"bind {i + 1} of {group}: {status} {body}")
+            check(not any(api.get_pod("default", p.name).node_name
+                          for p in pods),
+                  f"{group}: a binding was posted below quorum")
+            held = {g["name"]: g for g in client.get("/inspect").get(
+                "gangs", [])}
+            check(held.get(group, {}).get("reserved") == i + 1,
+                  f"inspect's gangs after bind {i + 1}: {held}")
+        else:
+            check(bound == node and status == 200,
+                  f"the last bind of {group}: {status} {body}")
+    placed = [api.get_pod("default", p.name).node_name for p in pods]
+    check(placed == [node] * len(pods), f"{group} bound to {placed}")
+    return {"handler_ms": handler_ms, "wire_ms": wire_ms}
+
+
+def gang_grants(api: FakeApiServer, inv: discovery.HostInventory,
+                pdir: str, usage_dir: str, names: list[str], gib: int,
+                group: str) -> tuple[list[plugin.ContainerAllocation],
+                                     list[float]]:
+    """Phase 2g (c): the port's daemon over gRPC to a ``FakeKubelet``:
+    GetPreferredAllocation and Allocate for each member in turn, kubelet's
+    available devices shrinking by each grant. Each response must be
+    ``build_allocation``'s for that pod with the gang's group and size,
+    and every member ``assigned``. Returns the allocations and each
+    member's preferred + Allocate ms."""
+    fake = kubelet.FakeKubelet(pdir)
+    fake.start()
+    servers, allocs, ms = [], [], []
+    try:
+        servers = kubelet.run_node_daemon(GANG_NODE, api, inv,
+                                          plugin_dir=pdir,
+                                          usage_dir=usage_dir)
+        endpoint = kubelet.socket_name(const.HBM_RESOURCE)
+        avail = [d.id for d in plugin.hbm_devices(inv)]
+        for _ in names:
+            t0 = time.perf_counter()
+            ids = fake.preferred(endpoint, avail, gib)
+            resp = fake.allocate(endpoint, ids)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            avail = [d for d in avail if d not in ids]
+            allocs.append(wire_allocation(resp.container_responses[0]))
+    finally:
+        for srv in servers:
+            srv.stop()
+        fake.stop()
+    for name, alloc in zip(names, allocs):
+        pod = api.get_pod("default", name)
+        check(podutils.is_assigned(pod), f"the daemon did not commit {name}")
+        cards = [inv.chips[p].index
+                 for p in podutils.get_chip_ids_from_annotation(pod)]
+        want = plugin.build_allocation(inv, cards, gib, pod_uid=pod.uid,
+                                       group=group, group_size=len(names),
+                                       usage_dir=usage_dir)
+        check(alloc == want, f"Allocate for {name} gave {alloc}, want {want}")
+    return allocs, ms
+
+
+def gang_train(api: FakeApiServer, allocs: list, names: list[str],
+               gib: int, usage_dir: str, ref: dict) -> dict:
+    """Phase 2g (d): the gang trains GANG_STEPS flagship steps on the card,
+    rank i started in member i's Allocate response alone
+    (``tenant_env``), the launcher adding only the coordinator and
+    ``JOB_COMPLETION_INDEX``; a (GANG_MEMBERS, 1, 1) mesh over gloo. Every
+    rank must launch the forward 2·n_layers times and each backward
+    n_layers times a step, the ranks' losses must agree and be finite, the
+    first step's loss and gathered gradients must be within phase 5d's
+    bounds of ``ref`` (``single_process_step``), and the port's watchdog
+    must find each member's heartbeat fresh and within its grant."""
+    world = len(allocs)
+    n = M.ModelConfig().n_layers  # the entry's flagship width
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-2g-") as tmp:
+        save = os.path.join(tmp, "grads.pt")
+        t0 = time.perf_counter()
+        records = launch.launch(
+            ["-m", "tpushare_torch.entry", "--mesh", f"{world},1,1",
+             "--parts", "train", "--width", "flagship",
+             "--steps", str(GANG_STEPS), "--device", "cuda",
+             "--backend", "gloo", "--save-grads", save], world,
+            deadline_s=GANG_DEADLINE_S,
+            envs=[tenant_env(a) for a in allocs])
+        seconds = time.perf_counter() - t0
+        saved = torch.load(save)["ring"]
+    per_rank = [r["paths"]["ring"] for r in records]
+    launches = collections.Counter()
+    for rank, path in enumerate(per_rank):
+        steps = path["launches_per_step"]
+        check(len(steps) == GANG_STEPS, f"rank {rank} counted {len(steps)} "
+                                        f"steps, ran {GANG_STEPS}")
+        for counts in steps:
+            check(counts == want, f"rank {rank} launches {counts}, "
+                                  f"want {want}")
+            launches.update(counts)
+    losses = per_rank[0]["losses"]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(all(p["losses"] == losses for p in per_rank),
+          "the gang's ranks disagree on the loss")
+    loss_err = abs(saved["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_errs = {k: _norm_err(g.cuda(), ref["grads"][k])
+                 for k, g in saved["grads"].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(loss_err <= TRAIN_LOSS_TOL, f"the gang's loss {saved['loss']} vs "
+                                      f"one process {ref['loss']}")
+    check(grad_errs[worst] <= TRAIN_GRAD_TOL,
+          f"the gang's grad of {worst}: {grad_errs[worst]}")
+    sweep = watchdog.GrantWatchdog(GANG_NODE, api,
+                                   usage_dir=usage_dir).sweep()
+    gates = {}
+    for name, rec in zip(names, records):
+        pod = api.get_pod("default", name)
+        gates[name] = daemon_sweep_gates(sweep, pod.annotations, pod.uid,
+                                         gib)
+        check(all(gates[name].values()) and rec.get("heartbeat"),
+              f"{name}'s heartbeat: {gates[name]} {rec.get('heartbeat')}")
+    return {"ranks": world, "seconds": seconds, "losses": losses,
+            "vs_single_loss_rel_err": loss_err,
+            "vs_single_max_grad_err": grad_errs[worst],
+            "vs_single_worst_leaf": worst, "launches_per_step": want,
+            "launches": dict(launches),
+            "devices": [r["device"] for r in records],
+            "memory_fraction": records[0]["memory_fraction"],
+            "step_ms_by_rank": [p["step_ms"] for p in per_rank],
+            "peak_bytes_by_rank": [p["peak_bytes"] for p in per_rank],
+            "heartbeat_bytes_by_rank": [r["heartbeat"]["bytes_in_use"]
+                                        for r in records],
+            "gates": gates}
+
+
+def _gone(api: FakeApiServer, names: list[str], timeout: float = 30.0
+          ) -> bool:
+    """True once none of ``names`` is in the apiserver, within
+    ``timeout`` seconds."""
+    def alive(name):
+        try:
+            api.get_pod("default", name)
+            return True
+        except NotFoundError:
+            return False
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if not any(alive(n) for n in names):
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _node_used_gib(stack, client: ExtenderClient, node: str) -> tuple:
+    """(the ledger's, inspect's) GiB in use on ``node``, once the
+    controller settled."""
+    check(stack.controller.wait_idle(timeout=60),
+          "the extender's controller did not settle")
+    info = stack.controller.cache.get_node_info(node)
+    return (sum(c.get_used_hbm() for c in info.chips.values()),
+            client.get(f"/inspect/{node}")["nodes"][0]["usedHBM"])
+
+
+def gang_reaper(api: FakeApiServer, stack, client: ExtenderClient,
+                names: list[str], gib: int) -> dict:
+    """Phase 2g (e): evict one member of the committed gang mid-run (a
+    delete, as ``tests/test_controller.py:302``): the port's controller
+    must delete the survivors (below ``pod-group-min``) and the node's
+    ledger and inspect return to 0 GiB. Then a gang of the same shape with
+    ``pod-group-reap: "false"`` loses a member and keeps its survivors;
+    they are deleted after, back to 0 GiB."""
+    t0 = time.perf_counter()
+    api.delete_pod("default", names[2])
+    survivors = [n for n in names if n != names[2]]
+    check(_gone(api, survivors), f"the reaper left {survivors}")
+    reap_s = time.perf_counter() - t0
+    used = _node_used_gib(stack, client, GANG_NODE)
+    check(used == (0, 0), f"after the reap the node holds {used} GiB")
+    keep = [f"k-{i}" for i in range(len(names))]
+    gang_binds(api, client, "keep", keep, gib, GANG_NODE,
+               extra={const.ANN_POD_GROUP_REAP: "false"})
+    api.delete_pod("default", keep[1])
+    check(stack.controller.wait_idle(timeout=60),
+          "the extender's controller did not settle")
+    time.sleep(0.5)  # a reap would have been issued by now
+    check(stack.controller.wait_idle(timeout=60),
+          "the extender's controller did not settle")
+    kept = [n for n in keep if n != keep[1]]
+    check(all(api.get_pod("default", n).node_name == GANG_NODE
+              for n in kept), "an opted-out gang was reaped")
+    for n in kept:
+        api.delete_pod("default", n)
+    used_after = _node_used_gib(stack, client, GANG_NODE)
+    check(used_after == (0, 0), f"the node holds {used_after} GiB")
+    events_ok = tevents.flush()
+    reaped = sorted(e["involvedObject"]["name"] for _, e in api.events
+                    if e["reason"] == tevents.REASON_GANG_REAPED)
+    check(events_ok and reaped == sorted(survivors),
+          f"GangReaped Events on {reaped}")
+    return {"reaped": survivors, "reap_seconds": reap_s,
+            "kept_opted_out": kept, "used_gib_after": used_after[0]}
+
+
+def gang_ttl(api: FakeApiServer, stack, client: ExtenderClient,
+             gib: int) -> dict:
+    """Phase 2g (f): a gang of GANG_MEMBERS in which one member never
+    comes. The planner's ``ttl`` is set to GANG_TTL_S before its first
+    member binds (as the reference's tests build ``GangPlanner(ttl=...)``)
+    and put back after; once the housekeeping thread's ``expire_stale``
+    ran, the reservations must be gone from the ledger and inspect, their
+    annotations stripped and no pod bound."""
+    planner = stack.binder.gang_planner
+    old_ttl, planner.ttl = planner.ttl, GANG_TTL_S
+    names = [f"t-{i}" for i in range(GANG_MEMBERS)]
+    try:
+        pods = [api.create_pod(gang_pod(n, gib, "ttl", GANG_MEMBERS))
+                for n in names]
+        for pod in pods[:-1]:
+            bound, _, _ = client.schedule(pod, [GANG_NODE])
+            check(bound is None and QUORUM_HOLD_MARKER in
+                  client.last_bind[1]["Error"],
+                  f"{pod.name}: {client.last_bind}")
+        held = _node_used_gib(stack, client, GANG_NODE)
+        reserved = (len(pods) - 1) * gib
+        check(held == (reserved, reserved), f"reserved {held} GiB")
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 30
+        while "default/ttl" in planner.stats():
+            check(time.monotonic() < deadline, "the gang never expired")
+            time.sleep(0.05)
+        rollback_s = time.perf_counter() - t0
+    finally:
+        planner.ttl = old_ttl
+    used = _node_used_gib(stack, client, GANG_NODE)
+    check(used == (0, 0), f"after the rollback the node holds {used} GiB")
+    for n in names:
+        pod = api.get_pod("default", n)
+        check(not pod.node_name and not any(
+            k in pod.annotations for k in const.GRANT_ANNOTATIONS),
+            f"{n} after the rollback: {pod.raw}")
+    check("gangs" not in client.get("/inspect"), "inspect keeps the gang")
+    for n in names:
+        api.delete_pod("default", n)
+    return {"reserved_gib": held[0], "rollback_seconds": rollback_s,
+            "used_gib_after": used[0]}
+
+
+def _all_or_none(api: FakeApiServer, groups: dict[str, list[str]]) -> int:
+    """How many gangs of ``groups`` are bound; fails if one is bound in
+    part."""
+    bound: collections.Counter = collections.Counter()
+    for pod in api.list_pods():
+        group = pod.annotations.get(const.ANN_POD_GROUP)
+        if group in groups and pod.node_name:
+            bound[group] += 1
+    half = {g: k for g, k in bound.items() if k != len(groups[g])}
+    check(not half, f"gangs bound in part: {half}")
+    return len(bound)
+
+
+def gang_churn(api: FakeApiServer, stack, client: ExtenderClient,
+               names: list[str], gangs: int = GANG_CHURN_GANGS,
+               seed: int = GANG_CHURN_SEED) -> dict:
+    """Phase 2g (g): ``gangs`` gangs of GANG_MEMBERS whole H100 nodes
+    (``chips=8``) on the fleet ``names``. Each round GANG_CHURN_WINDOW
+    gangs arrive, their members shuffled together as a kube-scheduler's
+    queue delivers them, and the backlog is scheduled over HTTP on the
+    candidates ``scale_candidates`` offers. A member the filter finds no
+    room for waits for the next round; one held below quorum is reserved
+    and is bound by its gang's commit (not scheduled again). A gang's
+    commit latency runs from the start of its first reserving member's
+    filter to the end of the bind that committed it (its bindings are
+    posted inside that bind). After every round each gang must be bound
+    all or none. Returns p50 / p99 of the commit latency, the gangs
+    committed and the rounds."""
+    rng = random.Random(seed)
+    groups: dict[str, list[str]] = {}
+    backlog, first, done = [], {}, {}
+    rounds = 0
+    t_all = time.perf_counter()
+    while len(done) < gangs and rounds < GANG_CHURN_MAX_ROUNDS:
+        rounds += 1
+        window = []
+        for g in range(len(groups),
+                       min(len(groups) + GANG_CHURN_WINDOW, gangs)):
+            group = f"churn-g{g:03d}"
+            groups[group] = [f"{group}-{i}" for i in range(GANG_MEMBERS)]
+            window += [(group, api.create_pod(gang_pod(
+                n, 0, group, GANG_MEMBERS, chips=EXTENDER_FLEET_CARDS)))
+                for n in groups[group]]
+        rng.shuffle(window)
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        kept = []
+        for group, pod in backlog + window:
+            if group in done:
+                continue
+            client.last_bind = None
+            t0 = time.perf_counter()
+            node, _, _ = client.schedule(pod, scale_candidates(rng, names))
+            if client.last_bind is None:
+                kept.append((group, pod))  # no candidate had room
+                continue
+            status, body = client.last_bind
+            first.setdefault(group, t0)
+            if node is not None:
+                done[group] = time.perf_counter()
+            else:
+                check(status == 500 and QUORUM_HOLD_MARKER in body["Error"],
+                      f"{pod.name}: {status} {body}")
+        backlog = kept
+        _all_or_none(api, groups)
+    seconds = time.perf_counter() - t_all
+    check(len(done) == gangs, f"{len(done)} of {gangs} gangs committed in "
+                              f"{rounds} rounds")
+    check(stack.controller.wait_idle(timeout=120),
+          "the extender's controller did not settle")
+    committed = _all_or_none(api, groups)
+    latency = [1e3 * (done[g] - first[g]) for g in done]
+    p50, p99 = _percentiles(latency)
+    return {"nodes": len(names), "gangs": gangs, "members": GANG_MEMBERS,
+            "committed": committed, "rounds": rounds, "seconds": seconds,
+            "commit_p50_ms": p50, "commit_p99_ms": p99,
+            "commit_max_ms": max(latency)}
+
+
+def gang_phase(inv: discovery.HostInventory, usage_dir: str,
+               ref: dict | None, fleet: int = EXTENDER_FLEET,
+               gangs: int = GANG_CHURN_GANGS) -> dict:
+    """Phase 2g: gangs through the port's extender and daemon. (a) The
+    port's ``serve_stack`` over the port's ``FakeApiServer``, the card's
+    node annotated by the port's plugin from phase 0's inventory; (b) a
+    gang of GANG_MEMBERS members of a GANG_MEMBERS-th of the card's GiB
+    commits at quorum through the three verbs over HTTP
+    (``gang_binds``); (c) the port's daemon grants all of them over gRPC
+    (``gang_grants``); (d) with ``ref`` (phase 5d's
+    ``single_process_step``), the gang trains on the card from only those
+    grants (``gang_train``; ``ref`` None leaves it out, as the CPU tests
+    do); (e) the reaper (``gang_reaper``); (f) the TTL rollback
+    (``gang_ttl``); (g) ``gangs`` gangs churn through ``fleet`` H100
+    nodes (``gang_churn``). Returns the phase's fields; ``launches`` is
+    the gang's kernel launches, summed over its ranks and steps."""
+    t_phase = time.perf_counter()
+    card_gib = inv.chips[0].hbm_gib
+    gib = card_gib // GANG_MEMBERS
+    names = [f"w-{i}" for i in range(GANG_MEMBERS)]
+    api = FakeApiServer()
+    stack, server = extender_main.serve_stack(api)
+    client = ExtenderClient(server)
+    try:
+        api.create_node(advertised_node(GANG_NODE, inv))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-gang-") as pdir:
+            plugin.TPUSharePlugin(GANG_NODE, api, inv, state_dir=pdir,
+                                  usage_dir=usage_dir).annotate_node()
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            binds = gang_binds(api, client, GANG_GROUP, names, gib,
+                               GANG_NODE)
+            allocs, grant_ms = gang_grants(api, inv, pdir, usage_dir, names,
+                                           gib, GANG_GROUP)
+        trained = (gang_train(api, allocs, names, gib, usage_dir, ref)
+                   if ref is not None else None)
+        reaper = gang_reaper(api, stack, client, names, gib)
+        ttl = gang_ttl(api, stack, client, gib)
+        t0 = time.perf_counter()
+        fleet_names = extender_fleet(api, fleet)
+        fleet_s = time.perf_counter() - t0
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        churn = gang_churn(api, stack, client, fleet_names, gangs)
+    finally:
+        client.close()
+        extender_main.shutdown_stack(stack, server)
+    return {"member_gib": gib, "card_gib": card_gib,
+            "bind_handler_ms": binds["handler_ms"],
+            "bind_wire_ms": binds["wire_ms"],
+            "grant_ms": grant_ms, "envs": [a.envs for a in allocs],
+            "train": trained, "reaper": reaper, "ttl": ttl,
+            "fleet_seconds": fleet_s, "churn": churn,
+            "seconds": time.perf_counter() - t_phase,
+            "launches": trained["launches"] if trained else {}}
 
 
 def _kernel_name(mangled: str) -> str:

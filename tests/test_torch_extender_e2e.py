@@ -16,10 +16,13 @@ each apiserver equals the live ledger of both.
 
 The traffic: one seeded churn of ``bench.py``'s ``SIZE_MIX`` (16, 24
 and 44 GiB slices and whole 4-card pods, TTLs of 2-5 rounds) over 16 H100
-nodes (8 cards of 79 GiB, no topology), and the single-pod stories of
-``tests/test_e2e.py``. The JAX stack wires quota, gangs, observability
-and the slice placer as well; with no quota ConfigMap, no gang pod and no
-slice shape in this traffic they change no answer.
+nodes (8 cards of 79 GiB, no topology), with one gang of three 24 GiB
+members among its pods, and the single-pod stories of
+``tests/test_e2e.py``. Both stacks wire the gang planner; a gang's
+``ttlRemaining`` in inspect is a clock, held within a second across the
+two. The JAX stack wires quota and observability as well; with no quota
+ConfigMap they change no answer. ``tests/test_torch_gang_e2e.py`` holds
+the gang stories.
 """
 
 from __future__ import annotations
@@ -99,6 +102,19 @@ class Side:
 UNCOMPARED = (const.ANN_ASSUME_TIME, JC.ANN_TRACE_ID, JC.ANN_TRACE_PARENT)
 
 
+def same_ttl(docs: list[dict]) -> None:
+    """A gang's ``ttlRemaining`` counts down on each side's clock: hold
+    the two within a second, then take the reference's."""
+    gangs = [doc.get("gangs", []) for doc in docs]
+    assert [len(g) for g in gangs] == [len(gangs[0])] * len(gangs)
+    for want, got in zip(gangs[0], gangs[1]):
+        a, b = want.get("ttlRemaining"), got.get("ttlRemaining")
+        assert (a is None) == (b is None), (want, got)
+        if a is not None:
+            assert abs(a - b) <= 1.0, (want, got)
+            got["ttlRemaining"] = a
+
+
 def granted(pod) -> tuple:
     ann = {k: v for k, v in pod.annotations.items() if k not in UNCOMPARED}
     return pod.node_name, ann
@@ -176,6 +192,7 @@ class Pair:
     def same_inspect(self, node: str | None = None) -> dict:
         self.idle()
         docs = [side.inspect(node) for side in self.sides]
+        same_ttl(docs)
         assert docs[1] == docs[0]
         return docs[0]
 
@@ -230,6 +247,15 @@ def test_seeded_churn_on_h100_nodes(pair):
                 still.append(rec)
         live = still
         pair.idle()
+        if rnd == 2:
+            # A gang of three 24 GiB members, reserved below quorum and
+            # committed by its third member.
+            for i in range(3):
+                name = f"gang-{i}"
+                pair.create_pod(make_pod(name, hbm=24, annotations={
+                    const.ANN_POD_GROUP: "churn-gang",
+                    const.ANN_POD_GROUP_MIN: "3"}))
+                backlog.append((name, 5))
         for _ in range(ARRIVALS):
             kind, size = _draw_shape(rng)
             name = f"sp-{seq:04d}"
@@ -250,6 +276,8 @@ def test_seeded_churn_on_h100_nodes(pair):
         for node in doc["nodes"]:
             assert all(c["usedHBM"] <= c["totalHBM"] for c in node["chips"])
     assert bound >= 60 and backlog, (bound, len(backlog))
+    gang = [pair.port.api.get_pod("default", f"gang-{i}") for i in range(3)]
+    assert all(p.node_name for p in gang), "the gang never committed"
     # The demand the filter found unplaceable everywhere (pods, GiB,
     # cards), pruned against each informer's view: equal.
     demand = [side.stack.predicate.demand.snapshot() for side in pair.sides]

@@ -185,6 +185,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "routes", "server.py"),
                  ("tpushare_torch", "cmd", "main.py"),
                  ("tpushare_torch", "utils", "node.py"),
+                 ("tpushare_torch", "topology", "fleet.py"),
+                 ("tpushare_torch", "gang", "planner.py"),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):

@@ -17,6 +17,7 @@ from typing import Callable
 
 from tpushare_torch.api.objects import Node, Pod
 from tpushare_torch.cache.nodeinfo import NodeInfo
+from tpushare_torch.utils import const
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
 
@@ -166,6 +167,23 @@ class SchedulerCache:
         # the two un-nested keeps the acquisition graph a DAG.
         info.apply_node_document(node)
         return info
+
+    def peek_node_info(self, name: str) -> NodeInfo | None:
+        """The cached ledger without :meth:`get_node_info`'s check of the
+        node document: for advisory reads (the gang quorum pre-check,
+        steering) where a slightly stale ledger is fine."""
+        with self._lock:
+            return self._nodes.get(name)
+
+    def gang_members(self, namespace: str, group: str) -> list[Pod]:
+        """Every known (assumed or bound) pod of gang ``namespace/group``,
+        across the fleet."""
+        if not group:
+            return []
+        with self._lock:
+            return [p for p in self._known_pods.values()
+                    if p.namespace == namespace
+                    and p.annotations.get(const.ANN_POD_GROUP) == group]
 
     def get_node_infos(self) -> list[NodeInfo]:
         with self._lock:

@@ -80,6 +80,13 @@ class ChipInfo:
         with self._lock:
             return list(self.pods.values())
 
+    def snapshot_contributions(self) -> list[tuple[Pod, int]]:
+        """(pod, GiB it pins on this card) for every resident pod, as the
+        ledger priced it: what evicting it would free."""
+        with self._lock:
+            return [(p, self._contrib.get(uid, 0))
+                    for uid, p in self.pods.items()]
+
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"ChipInfo(idx={self.idx}, "
                 f"hbm={self.get_used_hbm()}/{self.total_hbm})")

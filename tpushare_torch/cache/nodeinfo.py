@@ -337,6 +337,34 @@ class NodeInfo:
             return sum(v // req_hbm
                        for v in self.get_available_hbm().values())
 
+    def count_fits_preemptable(self, pod: Pod) -> int:
+        """Upper bound on the copies of ``pod``'s request this node could
+        host were every resident of priority strictly below the pod's
+        evicted, free capacity included: the quorum pre-check's bound for
+        a priority gang, whose members can preempt their way in."""
+        with self._lock:
+            req_chips = podutils.get_chips_from_pod_resource(pod)
+            if req_chips > 0:
+                clearable = 0
+                for chip in self.chips.values():
+                    if all(p.priority < pod.priority
+                           for p, c in chip.snapshot_contributions()
+                           if c > 0 and not podutils.is_complete_pod(p)):
+                        clearable += 1
+                return clearable // req_chips
+            req_hbm = podutils.get_hbm_from_pod_resource(pod)
+            if req_hbm <= 0:
+                return 0
+            avail = self.get_available_hbm()
+            copies = 0
+            for idx, chip in self.chips.items():
+                freeable = avail.get(idx, 0) + sum(
+                    c for p, c in chip.snapshot_contributions()
+                    if c > 0 and not podutils.is_complete_pod(p)
+                    and p.priority < pod.priority)
+                copies += min(freeable, chip.total_hbm) // req_hbm
+            return copies
+
     # ------------------------------------------------------------------ #
     # Admission (reference Assume, nodeinfo.go:113-137)
     # ------------------------------------------------------------------ #

@@ -19,12 +19,16 @@ Environment:
 * ``TPUSHARE_SCORING``: ``binpack`` (default, tightest fit) or ``spread``
   (the emptiest placement wins), for the prioritize verb and the chip
   picker alike.
+* ``TPUSHARE_TOPOLOGY``: ``off`` (or ``0``, ``false``, ``no``) turns off
+  the slice placer's election and steering of slice-shape gangs; on by
+  default.
 * ``TPUSHARE_HTTP_WORKERS``, ``TPUSHARE_HTTP_TIMEOUT_S``,
   ``TPUSHARE_BATCH``, ``TPUSHARE_BATCH_MAX``, ``TPUSHARE_BATCH_WINDOW_MS``:
   the wire path (routes/server.py).
 
-The gang planner, quotas, preemption, admission, leader election and
-the observability routes come with their own slices.
+Gangs go through the gang planner (all or nothing, a housekeeping
+thread for expiry and binding retries). Quotas, preemption, admission,
+leader election and the observability routes come with their own slices.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import threading
 from typing import NamedTuple
 
 from tpushare_torch.controller.controller import Controller
+from tpushare_torch.gang.planner import GangPlanner
 from tpushare_torch.k8s.client import ApiClient, ClusterConfig
 from tpushare_torch.routes.server import (ExtenderHTTPServer, enable_tls,
                                           serve_forever)
@@ -70,19 +75,38 @@ class Stack(NamedTuple):
     inspect: Inspect
 
 
-def build_stack(client) -> Stack:
-    """The controller and the verbs over its cache. One read of
-    ``TPUSHARE_SCORING`` feeds the prioritize verb and every ledger's chip
-    picker, so the two never disagree on the fleet default."""
+def build_stack(client, is_leader=None) -> Stack:
+    """The controller, the gang planner and the verbs over one cache.
+    One read of ``TPUSHARE_SCORING`` feeds the prioritize verb and every
+    ledger's chip picker, so the two never disagree on the fleet default.
+    ``is_leader`` (``() -> bool``) gates the planner's binding retries and
+    the controller's gang reaper. Starts the planner's housekeeping
+    thread; :func:`shutdown_stack` stops it."""
     scoring = os.environ.get("TPUSHARE_SCORING", "binpack")
-    controller = Controller(client, default_scoring=scoring)
+    controller = Controller(client, is_leader=is_leader,
+                            default_scoring=scoring)
+    # The slice placer costs nothing until a slice-shape gang arrives;
+    # TPUSHARE_TOPOLOGY=off is the fleet-wide kill switch.
+    placer = None
+    if os.environ.get("TPUSHARE_TOPOLOGY", "on").lower() not in (
+            "off", "0", "false", "no"):
+        from tpushare_torch.topology.fleet import SlicePlacer
+        placer = SlicePlacer(controller.cache)
+    # The quorum pre-check lists nodes from the informer's store: no
+    # apiserver LIST on the bind path.
+    gang = GangPlanner(controller.cache, client,
+                       node_lister=controller.hub.nodes.list,
+                       is_leader=is_leader, placer=placer)
+    gang.start()
     # Demand entries prune against the informer's pod view.
     predicate = Predicate(controller.cache, demand=DemandTracker(
         pod_lookup=controller.hub.get_pod))
-    prioritize = Prioritize(controller.cache, policy=scoring)
-    binder = Bind(controller.cache, client,
+    prioritize = Prioritize(controller.cache, gang_planner=gang,
+                            policy=scoring)
+    binder = Bind(controller.cache, client, gang_planner=gang,
                   pod_lister=controller.hub.get_pod)
-    inspect = Inspect(controller.cache, client.list_nodes)
+    inspect = Inspect(controller.cache, client.list_nodes,
+                      gang_planner=gang)
     return Stack(controller, predicate, prioritize, binder, inspect)
 
 
@@ -101,6 +125,7 @@ def shutdown_stack(stack, server) -> None:
     """Tear down a :func:`serve_stack` harness."""
     server.shutdown()
     server.server_close()
+    stack.binder.gang_planner.stop()
     stack.controller.stop()
 
 
@@ -182,6 +207,7 @@ def main() -> None:
     stop.wait()
     log.info("shutting down")
     server.shutdown()
+    stack.binder.gang_planner.stop()
     stack.controller.stop()
 
 

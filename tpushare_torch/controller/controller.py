@@ -5,9 +5,10 @@ The port's copy of ``tpushare/controller/controller.py`` (gpushare's
 handlers keep the pods that request HBM or cards, funnel their keys
 through a rate-limited workqueue, and ``sync_pod`` reconciles the cache.
 A deleted pod is stashed until its sync frees it, since the apiserver's
-copy is gone by then. Worker threads loop until shutdown, as many as
-asked. The quota and SLO ConfigMaps, the gang reaper, defragmentation
-and autoscaling come with their own slices.
+copy is gone by then; a committed gang member's death reaps the
+survivors when the group falls below its minimum (``_maybe_reap_gang``).
+Worker threads loop until shutdown, as many as asked. The quota and SLO
+ConfigMaps, defragmentation and autoscaling come with their own slices.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import time
 
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.cache.cache import SchedulerCache
+from tpushare_torch.k8s import events
 from tpushare_torch.k8s.errors import ApiError, NotFoundError
 from tpushare_torch.k8s.informer import InformerHub
 from tpushare_torch.k8s.workqueue import RateLimitedQueue
@@ -29,7 +31,7 @@ log = logging.getLogger(__name__)
 
 class Controller:
     def __init__(self, client, hub: InformerHub | None = None,
-                 default_scoring: str | None = None):
+                 is_leader=None, default_scoring: str | None = None):
         self.client = client
         self.hub = hub or InformerHub(client)
         self.queue = RateLimitedQueue()
@@ -41,6 +43,12 @@ class Controller:
         #: ns/name -> last seen Pod, for deletes (gpushare's
         #: removePodCache)
         self._removed: dict[str, Pod] = {}
+        #: uids the gang reaper deleted itself: their deletes must not reap
+        #: again (the owner may be recreating the group by then).
+        self._reaped_uids: set[str] = set()
+        #: ``() -> bool``: gates the deletes this controller issues (the
+        #: gang reaper); the ledger's upkeep runs on every replica.
+        self._is_leader = is_leader or (lambda: True)
         self._workers: list[threading.Thread] = []
         self._stop = threading.Event()
 
@@ -148,6 +156,7 @@ class Controller:
             self.cache.remove_pod(stashed)
             log.info("sync: removed deleted pod %s (uid %s) from ledger",
                      key, stashed.uid)
+            self._maybe_reap_gang(stashed)
         if pod is None:
             return
         if podutils.is_complete_pod(pod):
@@ -162,6 +171,68 @@ class Controller:
             # Assumed but unbound: its ledger reservation holds its
             # capacity; a nomination on top would hold it twice.
             self.cache.clear_nominated(pod.uid)
+
+    def _maybe_reap_gang(self, dead: Pod) -> None:
+        """A bound gang member died mid-run (eviction, preemption, node
+        loss) and its group can no longer reach quorum: the survivors are
+        useless but still hold their cards, so delete them; an owner that
+        recreates the group re-gangs it whole. Opt out a group with
+        ``tpushare.io/pod-group-reap: "false"``."""
+        group, minimum = podutils.get_pod_group(dead)
+        if not group or minimum <= 1:
+            return
+        if podutils.is_complete_pod(dead) or not podutils.is_assumed(dead):
+            # Finished (the survivors are fine), or never granted cards
+            # (the planner's TTL rollback owns reservations).
+            return
+        if not dead.node_name:
+            # Granted but never bound: the gang was still forming, which
+            # is the planner's rollback to handle.
+            return
+        with self._removed_lock:
+            if dead.uid in self._reaped_uids:
+                # Our own reap: no cascade onto the owner's replacements.
+                self._reaped_uids.discard(dead.uid)
+                return
+        if not self._is_leader():
+            return  # one replica reaps
+        if dead.annotations.get(const.ANN_POD_GROUP_REAP, "").lower() in (
+                "false", "0", "no"):
+            return
+        # Only granted members count and die: a recreated replacement, not
+        # yet scheduled, neither props up the quorum nor is killed.
+        survivors = [
+            p for p in self.hub.pods.list()
+            if p.namespace == dead.namespace
+            and p.annotations.get(const.ANN_POD_GROUP) == group
+            and p.uid != dead.uid
+            and podutils.is_assumed(p)
+            and not podutils.is_complete_pod(p)
+        ]
+        if not survivors or len(survivors) >= minimum:
+            return  # gone already, or still at quorum
+        with self._removed_lock:
+            self._reaped_uids.update(p.uid for p in survivors)
+        log.warning(
+            "gang %s/%s below quorum after %s died (%d survivors < min "
+            "%d); reaping survivors to free their chips",
+            dead.namespace, group, dead.name, len(survivors), minimum)
+        for p in survivors:
+            try:
+                self.client.delete_pod(p.namespace, p.name)
+                events.record(
+                    self.client, p, events.REASON_GANG_REAPED,
+                    f"gang {group} lost member {dead.name} and cannot "
+                    f"reach quorum ({len(survivors)} < {minimum}); "
+                    "reclaiming this member's chips", event_type="Warning")
+            except NotFoundError:
+                pass  # the owner or another pass deleted it
+            except ApiError as e:
+                # Not deleted: its eventual death must reap again.
+                with self._removed_lock:
+                    self._reaped_uids.discard(p.uid)
+                log.warning("gang reap of %s failed (%s); its deletion "
+                            "will retrigger the reaper", p.key(), e)
 
     # -- workers ---------------------------------------------------------- #
 

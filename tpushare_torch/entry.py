@@ -532,7 +532,9 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
     logits). Returns this rank's record: per path the losses, host ms and
     kernel launches of each step or call, peak allocated bytes, and the
     card's memory in use with every rank's held; the checkpoint's save
-    and restore ms and bytes on disk."""
+    and restore ms and bytes on disk; and, where the env names a usage
+    file (``TPUSHARE_USAGE_FILE``), the heartbeat written there at the
+    end."""
     unknown = set(parts) - set(PARTS)
     if unknown:
         raise ValueError(f"unknown dry-run parts {sorted(unknown)}; the "
@@ -586,6 +588,11 @@ def dryrun_multichip(mesh_shape: tuple[int, int, int] | None = None, *,
                                                    ckpt)
         if save and spec.process_id == 0:
             torch.save(saved, save_grads)
+        # A rank that runs in a pod's grant heartbeats where its
+        # allocation mounted the usage file, as the watchdog reads it.
+        beat = torchenv.write_usage()
+        if beat is not None:
+            record["heartbeat"] = beat
         return record
     finally:
         # A CUDA graph that holds NCCL collectives keeps its communicator

@@ -95,3 +95,7 @@ def record(client, pod: Pod, reason: str, message: str,
 #: The extender's reasons (the reference's names).
 REASON_BOUND = "TPUShareBound"
 REASON_BIND_FAILED = "TPUShareBindFailed"
+REASON_GANG_PENDING = "TPUShareGangPending"
+REASON_GANG_EXPIRED = "TPUShareGangExpired"
+REASON_GANG_REAPED = "TPUShareGangReaped"
+REASON_GANG_COMMITTED = "TPUShareGangCommitted"

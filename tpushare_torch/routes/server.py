@@ -6,7 +6,8 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
 * ``POST {prefix}/filter`` — the predicate
 * ``POST {prefix}/prioritize`` — node scoring
 * ``POST {prefix}/bind`` — bind; HTTP 500 on error, so the scheduler
-  retries
+  retries (a gang member held below quorum too, though that is not
+  counted as a failed bind)
 * ``POST {prefix}/preempt``, ``{prefix}/validate`` — 404 "not
   configured", as the reference answers when they are not wired
 * ``GET  {prefix}/inspect[/<node>]`` — the utilization document
@@ -74,6 +75,10 @@ class ExtenderHTTPServer(HTTPServer):
         self.inspect = inspect
         self.prioritize = prioritize
         self.prefix = prefix
+        #: Binds that failed; a gang member held below quorum is an
+        #: expected hold and not counted.
+        self.bind_errors = 0
+        self._bind_errors_lock = threading.Lock()
         env = os.environ.get
         self.http_workers = max(1, int(env("TPUSHARE_HTTP_WORKERS",
                                            str(DEFAULT_HTTP_WORKERS))))
@@ -352,8 +357,11 @@ class _Handler(BaseHTTPRequestHandler):
                 t0 = time.perf_counter()
                 result = self.server.binder.handle(args)
                 handler_ms = (time.perf_counter() - t0) * 1e3
+                if result.error and not result.pending:
+                    with self.server._bind_errors_lock:
+                        self.server.bind_errors += 1
                 # gpushare answers 500 when bind fails, so the scheduler
-                # retries.
+                # retries; so does a member held below quorum.
                 self._send_json(result.to_json(),
                                 500 if result.error else 200,
                                 extra_headers=_server_timing(handler_ms))

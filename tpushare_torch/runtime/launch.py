@@ -11,6 +11,10 @@ its gang through ``torchenv.init_distributed``, driven by
 ``torchenv.distributed_spec``, as in a pod. ``LOCAL_RANK`` and
 ``LOCAL_WORLD_SIZE`` say that the ranks share this host.
 
+With ``envs``, rank i runs instead in ``envs[i]`` (a gang member's
+Allocate response, say) plus only the coordinator's address and its
+``JOB_COMPLETION_INDEX``.
+
 Each rank prints one JSON line as the last line of its standard output;
 :func:`launch` returns them in rank order. A gang that is not done by its
 deadline is killed and fails, and so is the rest of a gang once one rank
@@ -75,19 +79,40 @@ def _tail(path: Path, limit: int = 4000) -> str:
 def launch(argv: list[str], world: int, *, deadline_s: float,
            coordinator: str | None = None,
            grant_gib: int | None = None, card_gib: int | None = None,
-           env: dict[str, str] | None = None) -> list[dict]:
+           env: dict[str, str] | None = None,
+           envs: list[dict[str, str]] | None = None) -> list[dict]:
     """Run ``python *argv`` as ``world`` ranks of one gang and return each
     rank's last stdout line, parsed as JSON, in rank order.
 
-    ``coordinator`` defaults to a free port on localhost. ``env`` is added
-    to this process's environment for every rank. Raises
-    :class:`GangError` (after killing every rank still running) when a
-    rank exits nonzero or prints no JSON line, or when ``deadline_s``
-    seconds pass before every rank has exited."""
+    ``coordinator`` defaults to a free port on localhost. Each rank runs
+    in this process's environment, ``env`` added, and :func:`gang_env`
+    (group, size, index, coordinator, and the grant of ``grant_gib``);
+    or, with ``envs``, in ``envs[i]`` and ``env`` alone, to which the
+    launcher adds only ``TPUSHARE_COORDINATOR`` and ``JOB_COMPLETION_INDEX``
+    (``grant_gib`` and ``card_gib`` must then be None). Either way this
+    checkout comes first on ``PYTHONPATH``. Raises :class:`GangError`
+    (after killing every rank still running) when a rank exits nonzero or
+    prints no JSON line, or when ``deadline_s`` seconds pass before every
+    rank has exited."""
+    if envs is not None and (len(envs) != world or grant_gib is not None
+                             or card_gib is not None):
+        raise ValueError(f"envs needs one env a rank ({len(envs)} for "
+                         f"{world}) and no grant_gib or card_gib")
     coordinator = coordinator or f"localhost:{free_port()}"
-    base = {**os.environ, **(env or {})}
-    base["PYTHONPATH"] = os.pathsep.join(
-        p for p in (_ROOT, base.get("PYTHONPATH")) if p)
+
+    def rank_env(i: int) -> dict[str, str]:
+        if envs is None:
+            out = {**os.environ, **(env or {}),
+                   **gang_env(GROUP, world, i, coordinator, grant_gib,
+                              card_gib)}
+        else:
+            out = {**envs[i], **(env or {}),
+                   const.ENV_COORDINATOR: coordinator,
+                   "JOB_COMPLETION_INDEX": str(i)}
+        out["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_ROOT, out.get("PYTHONPATH")) if p)
+        return out
+
     with tempfile.TemporaryDirectory(prefix="tpushare-gang-") as tmp:
         procs, outs, errs = [], [], []
         try:
@@ -98,8 +123,7 @@ def launch(argv: list[str], world: int, *, deadline_s: float,
                 with open(out, "wb") as fo, open(err, "wb") as fe:
                     procs.append(subprocess.Popen(
                         [sys.executable, *argv],
-                        env={**base, **gang_env(GROUP, world, i, coordinator,
-                                                grant_gib, card_gib)},
+                        env=rank_env(i),
                         stdin=subprocess.DEVNULL, stdout=fo, stderr=fe))
             end = time.monotonic() + deadline_s
             while None in [p.poll() for p in procs]:

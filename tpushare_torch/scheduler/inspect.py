@@ -3,13 +3,13 @@
 The port's copy of ``tpushare/scheduler/inspect.py`` (gpushare's
 ``pkg/scheduler/inspect.go``): per node, per card the total and used GiB
 and the resident (assigned, running) pods, with the node's topology and
-each card's coordinates, and the HBM a namespace holds. The gang
-planner's in-flight groups come with its slice.
+each card's coordinates, and the HBM a namespace holds; with a gang
+planner wired, the groups in flight under ``gangs``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cache.nodeinfo import NodeInfo
@@ -22,9 +22,11 @@ class Inspect:
     name = "tpushare-inspect"
 
     def __init__(self, cache: SchedulerCache,
-                 node_lister: Callable[[], list] | None = None) -> None:
+                 node_lister: Callable[[], list] | None = None,
+                 gang_planner: Any = None) -> None:
         self.cache = cache
         self._node_lister = node_lister  # () -> list[Node], for all-nodes view
+        self._gang_planner = gang_planner  # the groups in flight
 
     def _build_node(self, info: NodeInfo) -> dict:
         """Per-node document (reference inspect.go:33-71)."""
@@ -130,6 +132,10 @@ class Inspect:
         namespaces = self._namespace_usage(nodes)
         if namespaces:
             doc["namespaces"] = namespaces
+        if self._gang_planner is not None:
+            gangs = self._gang_planner.snapshot()
+            if gangs:
+                doc["gangs"] = gangs
         return doc
 
     @staticmethod

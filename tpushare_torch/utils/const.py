@@ -27,6 +27,16 @@ ANN_ASSIGNED = "tpushare.io/assigned"
 ANN_ASSUME_TIME = "tpushare.io/assume-time"
 ASSIGNED_FALSE = "false"
 ASSIGNED_TRUE = "true"
+#: The reference extender's decision-trace keys on a bound pod. The port
+#: writes neither until decision traces are ported, but strips both with
+#: the grant, as the reference does.
+ANN_TRACE_ID = "tpushare.io/trace-id"
+ANN_TRACE_PARENT = "tpushare.io/trace-parent"
+
+#: What a gang's rollback strips from a member so it schedules afresh.
+GRANT_ANNOTATIONS = (ANN_CHIP_IDX, ANN_HBM_POD, ANN_HBM_CHIP,
+                     ANN_ASSIGNED, ANN_ASSUME_TIME, ANN_TRACE_ID,
+                     ANN_TRACE_PARENT)
 
 #: What the grant watchdog writes onto a pod: its reported GiB in use
 #: (one decimal), and "true" while that is above its grant.
@@ -60,6 +70,10 @@ LABEL_TENANT = "tpushare.io/tenant"
 #: A gang member's pod group and its minimum size.
 ANN_POD_GROUP = "tpushare.io/pod-group"
 ANN_POD_GROUP_MIN = "tpushare.io/pod-group-min"
+#: "false" (or "0", "no") keeps a committed gang's survivors running
+#: when a member dies and the group falls below its minimum; by default
+#: the controller deletes them so their cards return.
+ANN_POD_GROUP_REAP = "tpushare.io/pod-group-reap"
 
 #: A gang's requested slice shape in chip dims ("4x4x4").
 ANN_SLICE_SHAPE = "tpushare.io/slice-shape"
