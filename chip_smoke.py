@@ -115,6 +115,7 @@ from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import pipeline as PP
 from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
+from tpushare_torch.utils import runtime as gc_runtime
 
 #: Kernel vs plain version on the card, rows that see a key:
 #: normalized out error (max |diff| / max |plain|) and absolute lse error.
@@ -316,6 +317,29 @@ GANG_CHURN_GANGS = 256
 GANG_CHURN_WINDOW = 16
 GANG_CHURN_SEED = 13
 GANG_CHURN_MAX_ROUNDS = 80
+#: Phase 2h: tenancy and HA. The two replicas' Lease and its renewal
+#: period (s); the card's node and TENANCY_FLEET H100 nodes beside it;
+#: the victim's and the preemptor's GiB (the PDB'd pod's too); the tenants
+#: (namespaces): the victim's borrows (guarantee 0), the PDB'd pod's
+#: runs within its guarantee, the fillers of priority 20 are another's,
+#: the preemptor's has no spec until phase (e) caps it; the priorities.
+TENANCY_LEASE_S = 2.0
+TENANCY_RENEW_S = 0.5
+TENANCY_NODE = "chip-smoke-tenancy-node"
+TENANCY_FLEET = 7
+TENANCY_GIB = 16
+TENANCY_SERVE, TENANCY_GUARDED = "team-serve", "team-guarded"
+TENANCY_STEADY, TENANCY_BURST = "team-steady", "team-burst"
+TENANCY_FILL_PRIORITY, TENANCY_PREEMPT_PRIORITY = 20, 10
+#: Phase 2h (f): the admission review's pod, more GiB than a card holds.
+TENANCY_OVERSIZE_GIB = 96
+#: Phase 2h (g): bench.py's preempt twins (bench_preempt on 8 saturated
+#: nodes, bench_gang_preempt with a priority-5 gang of 4 whole-node
+#: members), then the preempt verb alone over phase 2f's 1,024 saturated
+#: nodes, PREEMPT_REPEATS times.
+PREEMPT_BENCH_NODES = 8
+PREEMPT_GANG_HOSTS = 4
+PREEMPT_REPEATS = 5
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
 #: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
 #: the cache length, the chunk and page size and the decode steps between
@@ -390,7 +414,13 @@ BENCH_SERVE_ITERS, BENCH_SERVE_REPS = 3, 1
 BENCH_DENSITY = (406, 12992, 1334, 3.29)
 
 
+#: When this process started its phases: each phase line carries the
+#: seconds since (``elapsed_s``), so a run's time can be split by phase.
+_STARTED = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    fields.setdefault("elapsed_s", time.perf_counter() - _STARTED)
     print(f"[{name}] " + json.dumps(fields, sort_keys=True), flush=True)
 
 
@@ -513,6 +543,14 @@ def main(usage_dir: str) -> int:
     step_ref = single_process_step(M.ModelConfig())
     gang = gang_phase(inv, usage_dir, step_ref)
     phase("2g gang", card=card, **gang)
+
+    # 2h. Tenancy and HA: two extender replicas under leader election over
+    # one apiserver; a tenant placed and granted on this card serves until
+    # the leader fails over and a priority pod preempts it, then the
+    # preemptor serves in its place; quota and admission on the new
+    # leader; bench.py's preempt twins and the preempt verb at 1,024 nodes.
+    tenancy = tenancy_phase(inv, usage_dir)
+    phase("2h tenancy", card=card, **tenancy)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -885,6 +923,7 @@ def main(usage_dir: str) -> int:
                "node_daemon_tenant": daemon["launches"],
                "extender_tenant": extender["launches"],
                "gang_tenant": gang["launches"]["flash_fwd"],
+               **tenancy["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -1573,7 +1612,7 @@ def allocated_tenant(hold: bool = False) -> int:
     attn = FA.best_attn_fn()
     _zero_counts()
     graphs.reset_stats()
-    outs, seconds = [], []
+    outs, seconds, done_unix = [], [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1582,6 +1621,7 @@ def allocated_tenant(hold: bool = False) -> int:
                                attn_fn=attn))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        done_unix.append(time.time())
     check(torch.equal(outs[0], outs[1]), "two greedy requests differ")
     check(tuple(outs[0].shape) == (TENANT_BATCH, TENANT_PROMPT + TENANT_NEW)
           and torch.equal(outs[0][:, :TENANT_PROMPT], prompt),
@@ -1600,6 +1640,7 @@ def allocated_tenant(hold: bool = False) -> int:
         "launches": FA.FLASH_FWD_LAUNCHES, "prefills": len(outs),
         "n_layers": cfg.n_layers, "replayed": _replayed(),
         "first_request_s": seconds[0], "request_s": seconds[1],
+        "first_request_done_unix": done_unix[0],
         "tok_per_s": TENANT_BATCH * TENANT_NEW / seconds[1],
         "pid": os.getpid(), "heartbeat": beat}), flush=True)
     if hold:
@@ -1760,38 +1801,75 @@ def node_daemon_phase(inv: discovery.HostInventory, total_mib: int,
             "wire_allocate_ms": wire_allocate_ms, **tenant}
 
 
+class ServingTenant:
+    """``python3 chip_smoke.py --held-tenant`` (phase 2d's tenant, held) in
+    an allocation's env: :meth:`start` waits for its ``READY`` and returns
+    the JSON it printed; :meth:`stop` closes its stdin, as kubelet kills
+    the container, and returns its exit code. ``TENANT_DEADLINE_S`` bounds
+    the wait for ``READY``."""
+
+    def __init__(self, alloc: plugin.ContainerAllocation):
+        self.alloc = alloc
+        self.proc = None
+        self.err = None
+        self.ready_s = None
+        self.started_unix = None
+
+    def start(self) -> dict:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
+        t0 = time.perf_counter()
+        self.started_unix = time.time()
+        self.proc = subprocess.Popen(
+            ["python3", os.path.join(repo, "chip_smoke.py"),
+             HELD_TENANT_FLAG], env=tenant_env(self.alloc), cwd=repo,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err,
+            text=True)
+        deadline = threading.Timer(TENANT_DEADLINE_S, self.proc.kill)
+        deadline.start()
+        try:
+            lines = []
+            for line in self.proc.stdout:
+                if line.strip() == cogpucheck.READY:
+                    break
+                lines.append(line)
+        finally:
+            deadline.cancel()
+        self.ready_s = time.perf_counter() - t0
+        self.err.seek(0)
+        results = [ln for ln in lines if ln.startswith("{")]
+        check(bool(results), f"the held tenant printed no result: "
+                             f"{self.err.read()[-2000:]}")
+        return json.loads(results[-1])
+
+    def stop(self) -> int | None:
+        if self.proc is None:
+            return None
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        return self.proc.returncode
+
+
 def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
                       api: FakeApiServer, pod: str, usage_dir: str,
                       node: str = DAEMON_NODE) -> dict:
-    """Phase 2e (c) and (d): start ``python3 chip_smoke.py
-    --held-tenant`` in ``alloc``'s env (as phase 2d does), hold what it
-    prints as phase 2d holds it, then sweep the tenant's pod with the
-    port's ``GrantWatchdog`` while it holds the card, a second apart,
-    until its heartbeat is fresh; ``daemon_sweep_gates`` must all hold.
-    Releases the tenant and returns the phase's fields; ``launches`` is
-    its forward count."""
-    repo = os.path.dirname(os.path.abspath(__file__))
+    """Phase 2e (c) and (d): a :class:`ServingTenant` in ``alloc``'s env,
+    held as phase 2d holds it, swept with the port's ``GrantWatchdog``
+    while it holds the card, a second apart, until its heartbeat is
+    fresh; ``daemon_sweep_gates`` must all hold. Releases the tenant and
+    returns the phase's fields; ``launches`` is its forward count."""
     grant = int(alloc.envs[const.ENV_HBM_POD])
-    err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(["python3", os.path.join(repo, "chip_smoke.py"),
-                             HELD_TENANT_FLAG], env=tenant_env(alloc),
-                            cwd=repo, stdin=subprocess.PIPE,
-                            stdout=subprocess.PIPE, stderr=err, text=True)
-    deadline = threading.Timer(TENANT_DEADLINE_S, proc.kill)
-    deadline.start()
+    tenant = ServingTenant(alloc)
     try:
-        lines = []
-        for line in proc.stdout:
-            if line.strip() == cogpucheck.READY:
-                break
-            lines.append(line)
-        ready_s = time.perf_counter() - t0
-        err.seek(0)
-        results = [ln for ln in lines if ln.startswith("{")]
-        check(bool(results), f"the daemon's tenant printed no result: "
-                             f"{err.read()[-2000:]}")
-        got = json.loads(results[-1])
+        got = tenant.start()
         want_cap = round(grant / card_gib * torchenv.DEFAULT_HEADROOM, 3)
         check(got["device_count"] == 1 and got["cuda_visible_devices"] == "0"
               and got["cap"] == want_cap
@@ -1809,19 +1887,8 @@ def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
         with open(alloc.envs[const.ENV_USAGE_FILE], encoding="utf-8") as f:
             beat = json.load(f)
     finally:
-        deadline.cancel()
-        try:
-            proc.stdin.close()
-        except OSError:
-            pass
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        err.close()
-    check(proc.returncode == 0, f"the daemon's tenant exited "
-                                f"{proc.returncode}")
+        code = tenant.stop()
+    check(code == 0, f"the daemon's tenant exited {code}")
     gates = daemon_sweep_gates(sweep, annotations, uid, grant)
     check(all(gates.values()), f"sweep {sweep} with {annotations}: {gates}")
     check(set(beat) == HEARTBEAT_KEYS and beat["pid"] == got["pid"],
@@ -1833,7 +1900,7 @@ def held_tenant_phase(alloc: plugin.ContainerAllocation, card_gib: int,
                 "nvidia_visible_devices", "chip_ids", "cap", "launches",
                 "prefills", "n_layers", "first_request_s", "request_s",
                 "tok_per_s", "pid")},
-            "launches": got["launches"], "ready_s": ready_s,
+            "launches": got["launches"], "ready_s": tenant.ready_s,
             "sweeps": sweeps, "sweep_entry": entry, "gates": gates,
             "pod_annotations": annotations,
             "heartbeat_bytes": beat["bytes_in_use"],
@@ -1872,11 +1939,17 @@ class ExtenderClient:
             if dur}
         return resp.status, body, sum(timing.values())
 
-    def get(self, path: str) -> dict:
-        self.conn.request("GET", self.prefix + path)
+    def get(self, path: str, prefixed: bool = True) -> dict:
+        self.conn.request("GET", (self.prefix if prefixed else "") + path)
         resp = self.conn.getresponse()
         check(resp.status == 200, f"GET {path}: {resp.status}")
         return json.loads(resp.read())
+
+    def healthz(self) -> str:
+        self.conn.request("GET", "/healthz")
+        resp = self.conn.getresponse()
+        check(resp.status == 200, f"GET /healthz: {resp.status}")
+        return resp.read().decode()
 
     def schedule(self, pod, candidates: list[str]
                  ) -> tuple[str | None, float, float]:
@@ -2071,7 +2144,9 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
     the card the extender chose; (e) the tenant serves the flagship in
     that response's env, ``n_layers`` forward launches a prefill, its
     heartbeat fresh and within its grant (``held_tenant_phase``); (f)
-    ``extender_churn`` binds ``target`` pods on the fleet."""
+    ``extender_churn`` binds ``target`` pods on the fleet, with the
+    interpreter's GC thresholds; (g) ``gc_posture_churn`` runs it again on
+    a fresh fleet under the reference extender's GC posture."""
     api = FakeApiServer()
     stack, server = extender_main.serve_stack(api)
     client = ExtenderClient(server)
@@ -2103,27 +2178,17 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
                   f"the bound tenant: {placed.raw}")
             chip = inv.chips[position[0]]
             # (d) The daemon's Allocate over gRPC.
-            fake = kubelet.FakeKubelet(pdir)
-            fake.start()
-            servers = []
+            grants = NodeGrants(EXTENDER_NODE, api, inv, pdir, usage_dir)
             try:
-                servers = kubelet.run_node_daemon(EXTENDER_NODE, api, inv,
-                                                  plugin_dir=pdir,
-                                                  usage_dir=usage_dir)
-                endpoint = kubelet.socket_name(const.HBM_RESOURCE)
-                avail = [d.id for d in plug.hbm_devices()]
-                ids = fake.preferred(endpoint, avail, EXTENDER_TENANT_GIB)
-                resp = fake.allocate(endpoint, ids)
+                wire, _ = grants.allocate(tenant.name, EXTENDER_TENANT_GIB)
             finally:
-                for srv in servers:
-                    srv.stop()
-                fake.stop()
+                grants.close()
+        ids = grants.held[tenant.name]
         check(ids == [plugin.HBM_DEV_FMT.format(chip=chip.index, gib=g)
                       for g in range(EXTENDER_TENANT_GIB)],
               f"GetPreferredAllocation gave {ids}")
         check(podutils.is_assigned(api.get_pod("default", tenant.name)),
               "the daemon did not commit the pod the extender bound")
-        wire = wire_allocation(resp.container_responses[0])
         want = plugin.build_allocation(inv, [chip.index],
                                        EXTENDER_TENANT_GIB,
                                        pod_uid=tenant.uid,
@@ -2137,11 +2202,14 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
     finally:
         client.close()
         extender_main.shutdown_stack(stack, server)
+    # (g) The same churn under the reference extender's GC posture.
+    posture = gc_posture_churn(fleet, target)
     return {"tenant_node": node, "tenant_card": chip.index,
             "tenant_position": position[0],
             "tenant_handler_ms": handler_ms, "tenant_wire_ms": wire_ms,
             "committed": tenant.name, "envs": wire.envs,
-            "fleet_seconds": fleet_s, "churn": churn, **served}
+            "fleet_seconds": fleet_s, "churn": churn,
+            "churn_gc_posture": posture, **served}
 
 
 def gang_pod(name: str, gib: int, group: str, minimum: int,
@@ -2201,26 +2269,15 @@ def gang_grants(api: FakeApiServer, inv: discovery.HostInventory,
     ``build_allocation``'s for that pod with the gang's group and size,
     and every member ``assigned``. Returns the allocations and each
     member's preferred + Allocate ms."""
-    fake = kubelet.FakeKubelet(pdir)
-    fake.start()
-    servers, allocs, ms = [], [], []
+    grants = NodeGrants(GANG_NODE, api, inv, pdir, usage_dir)
+    allocs, ms = [], []
     try:
-        servers = kubelet.run_node_daemon(GANG_NODE, api, inv,
-                                          plugin_dir=pdir,
-                                          usage_dir=usage_dir)
-        endpoint = kubelet.socket_name(const.HBM_RESOURCE)
-        avail = [d.id for d in plugin.hbm_devices(inv)]
-        for _ in names:
-            t0 = time.perf_counter()
-            ids = fake.preferred(endpoint, avail, gib)
-            resp = fake.allocate(endpoint, ids)
-            ms.append((time.perf_counter() - t0) * 1e3)
-            avail = [d for d in avail if d not in ids]
-            allocs.append(wire_allocation(resp.container_responses[0]))
+        for name in names:
+            alloc, grant_ms = grants.allocate(name, gib)
+            allocs.append(alloc)
+            ms.append(grant_ms)
     finally:
-        for srv in servers:
-            srv.stop()
-        fake.stop()
+        grants.close()
     for name, alloc in zip(names, allocs):
         pod = api.get_pod("default", name)
         check(podutils.is_assigned(pod), f"the daemon did not commit {name}")
@@ -2550,6 +2607,685 @@ def gang_phase(inv: discovery.HostInventory, usage_dir: str,
             "fleet_seconds": fleet_s, "churn": churn,
             "seconds": time.perf_counter() - t_phase,
             "launches": trained["launches"] if trained else {}}
+
+
+def gc_posture_churn(fleet: int = EXTENDER_FLEET,
+                     target: int = EXTENDER_BOUND) -> dict:
+    """Phase 2f's GC turn: the same seeded churn on a fresh fleet under
+    the reference extender's GC posture, as ``bench.py --scale`` takes it:
+    ``tune_gc()`` at start, ``gc.collect(); tune_gc(freeze=True)`` after
+    the warm start (fleet annotated, informer synced). The previous
+    thresholds come back and the heap is unfrozen afterwards, so later
+    phases run as before."""
+    before = gc.get_threshold()
+    api = FakeApiServer()
+    stack = server = client = None
+    try:
+        gc_runtime.tune_gc()
+        stack, server = extender_main.serve_stack(api)
+        client = ExtenderClient(server)
+        names = extender_fleet(api, fleet)
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        gc.collect()
+        gc_runtime.tune_gc(freeze=True)
+        frozen = gc.get_freeze_count()
+        churn = extender_churn(api, stack, client, names, target=target)
+    finally:
+        if client is not None:
+            client.close()
+        if stack is not None:
+            extender_main.shutdown_stack(stack, server)
+        gc.unfreeze()
+        gc.set_threshold(*before)
+    return {**churn, "thresholds": [gc_runtime.DEFAULT_GEN0,
+                                    gc_runtime.DEFAULT_GEN1,
+                                    gc_runtime.DEFAULT_GEN2],
+            "frozen_objects": frozen, "restored_thresholds": list(before)}
+
+
+def card_free_bytes() -> int:
+    """The card's free bytes, as CUDA counts them across every
+    process."""
+    return torch.cuda.mem_get_info()[0]
+
+
+def tenancy_pod(name: str, namespace: str, gib: int, priority: int,
+                labels: dict | None = None) -> dict:
+    return make_pod(name, hbm=gib, namespace=namespace, priority=priority,
+                    uid=f"uid-{name}", labels=labels)
+
+
+def quota_configmap(entries: dict) -> dict:
+    return {"apiVersion": "v1", "kind": "ConfigMap",
+            "metadata": {"name": const.QUOTA_CONFIGMAP,
+                         "namespace": os.environ.get(
+                             "TPUSHARE_QUOTA_NAMESPACE", "kube-system")},
+            "data": {t: json.dumps(spec) for t, spec in entries.items()}}
+
+
+def _until(pred, timeout: float, what: str, every: float = 0.01) -> float:
+    """Seconds until ``pred()`` held; fails the run after ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"{what} within {timeout} s")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+class NodeGrants:
+    """The port's daemon for one node over gRPC to a ``FakeKubelet``, as
+    kubelet drives it: each :meth:`allocate` of ``gib`` GiB takes
+    GetPreferredAllocation and Allocate from the devices no pod holds, and
+    :meth:`release` hands a dead pod's devices back."""
+
+    def __init__(self, node: str, api: FakeApiServer,
+                 inv: discovery.HostInventory, pdir: str, usage_dir: str):
+        self.fake = kubelet.FakeKubelet(pdir)
+        self.fake.start()
+        self.servers = kubelet.run_node_daemon(node, api, inv,
+                                               plugin_dir=pdir,
+                                               usage_dir=usage_dir)
+        self.endpoint = kubelet.socket_name(const.HBM_RESOURCE)
+        self.avail = [d.id for d in plugin.hbm_devices(inv)]
+        self.held: dict[str, list[str]] = {}
+
+    def allocate(self, pod: str, gib: int
+                 ) -> tuple[plugin.ContainerAllocation, float]:
+        t0 = time.perf_counter()
+        ids = self.fake.preferred(self.endpoint, self.avail, gib)
+        resp = self.fake.allocate(self.endpoint, ids)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.avail = [d for d in self.avail if d not in ids]
+        self.held[pod] = ids
+        return wire_allocation(resp.container_responses[0]), ms
+
+    def release(self, pod: str) -> None:
+        self.avail += self.held.pop(pod)
+
+    def close(self) -> None:
+        for srv in self.servers:
+            srv.stop()
+        self.fake.stop()
+
+
+def _granted(api: FakeApiServer, inv: discovery.HostInventory, name: str,
+             namespace: str, gib: int, usage_dir: str,
+             alloc: plugin.ContainerAllocation) -> None:
+    pod = api.get_pod(namespace, name)
+    check(podutils.is_assigned(pod), f"the daemon did not commit {name}")
+    cards = [inv.chips[p].index
+             for p in podutils.get_chip_ids_from_annotation(pod)]
+    want = plugin.build_allocation(inv, cards, gib, pod_uid=pod.uid,
+                                   usage_dir=usage_dir)
+    check(alloc == want, f"Allocate for {name} gave {alloc}, want {want}")
+
+
+def _serving(tenant, got: dict, alloc: plugin.ContainerAllocation,
+             card_gib: int, api: FakeApiServer, node: str, pod: str,
+             namespace: str, usage_dir: str) -> dict:
+    """A served tenant's checks: one card, the grant's cap, ``n_layers``
+    forward launches a prefill, its heartbeat fresh and within its grant
+    in the watchdog's sweep."""
+    grant = int(alloc.envs[const.ENV_HBM_POD])
+    want_cap = round(grant / card_gib * torchenv.DEFAULT_HEADROOM, 3)
+    check(got["device_count"] == 1 and got["cuda_visible_devices"] == "0"
+          and got["cap"] == want_cap
+          and got["launches"] == got["n_layers"] * got["prefills"],
+          f"the tenant {pod}: {got}")
+    wd = watchdog.GrantWatchdog(node, api, usage_dir=usage_dir)
+    uid = api.get_pod(namespace, pod).uid
+    for sweeps in range(1, DAEMON_SWEEPS + 1):
+        sweep = wd.sweep()
+        gates = daemon_sweep_gates(sweep, {}, uid, grant)
+        if gates["fresh"]:
+            break
+        time.sleep(1.0)
+    check(gates["fresh"] and gates["within_grant"],
+          f"the tenant {pod}'s heartbeat in the sweep: {sweep}")
+    [entry] = [t for t in sweep["tenants"] if t["uid"] == uid]
+    return {"launches": got["launches"], "prefills": got["prefills"],
+            "n_layers": got["n_layers"], "tok_per_s": got["tok_per_s"],
+            "first_request_s": got["first_request_s"],
+            "ready_s": tenant.ready_s, "used_gib": entry["used_gib"],
+            "sweeps": sweeps}
+
+
+def tenancy_ha(api: FakeApiServer, client: ExtenderClient,
+               other: ExtenderClient, names: list[str],
+               electors: list) -> dict:
+    """Phase 2h (a): exactly one of the two electors holds the Lease, its
+    replica's ``/healthz`` reads "ok leader" and the other's "ok
+    follower", the follower answers bind with 503, both answer filter
+    alike."""
+    holders = [e.identity for e in electors if e.is_leader()]
+    lease = api.get_lease("kube-system", electors[0].name)
+    check(len(holders) == 1 and lease["spec"]["holderIdentity"] == holders[0],
+          f"Lease holders {holders}, the Lease says {lease['spec']}")
+    health = [client.healthz(), other.healthz()]
+    check(health == ["ok leader", "ok follower"], f"/healthz {health}")
+    probe = api.create_pod(tenancy_pod("ha-probe", TENANCY_STEADY, 8,
+                                       TENANCY_FILL_PRIORITY))
+    status, body, _ = other.post("/bind", {
+        "PodName": probe.name, "PodNamespace": probe.namespace,
+        "PodUID": probe.uid, "Node": names[1]})
+    check(status == 503 and body == {"Error": "not the leader"},
+          f"the follower's bind: {status} {body}")
+    check(not api.get_pod(probe.namespace, probe.name).node_name,
+          "the follower bound a pod")
+    filters = [c.post("/filter", {"Pod": probe.raw, "NodeNames": names})
+               for c in (client, other)]
+    check([f[0] for f in filters] == [200, 200]
+          and filters[0][1] == filters[1][1]
+          and filters[0][1]["NodeNames"],
+          f"filter on both replicas: {filters}")
+    api.delete_pod(probe.namespace, probe.name)
+    return {"leader": holders[0], "healthz": health,
+            "follower_bind_status": status}
+
+
+def tenancy_failover(api: FakeApiServer, stacks: list, clients: list,
+                     electors: list, names: list[str]) -> dict:
+    """Phase 2h (c): stop the leader's elector and server; the follower
+    takes the Lease and answers its first 200 on bind (a pod of 8 GiB on
+    a node of the fleet); no card goes over its GiB, on the new leader's
+    ledger and in the apiserver."""
+    probe = api.create_pod(tenancy_pod("failover-probe", TENANCY_STEADY, 8,
+                                       TENANCY_FILL_PRIORITY))
+    bind = {"PodName": probe.name, "PodNamespace": probe.namespace,
+            "PodUID": probe.uid, "Node": names[1]}
+    t0 = time.perf_counter()
+    electors[0].stop()
+    clients[0].close()
+    extender_main.shutdown_stack(*stacks[0])
+    stacks[0] = clients[0] = None
+    statuses = []
+
+    def bound():
+        status, _, _ = clients[1].post("/bind", bind)
+        statuses.append(status)
+        return status == 200
+    seconds = _until(bound, 5 * TENANCY_LEASE_S, "the follower's first bind",
+                     every=0.05)
+    check(electors[1].is_leader(), "the follower bound without the Lease")
+    check(set(statuses[:-1]) <= {503}, f"binds before the hand-off: "
+                                       f"{sorted(set(statuses))}")
+    check(stacks[1][0].controller.wait_idle(timeout=60),
+          "the new leader's controller did not settle")
+    checks = ledger_checks(api, stacks[1][0], clients[1], names)
+    return {"failover_s": seconds, "binds_refused_first": len(statuses) - 1,
+            "lease_s": TENANCY_LEASE_S, "renew_s": TENANCY_RENEW_S,
+            "ledger": checks}
+
+
+def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
+                  names: list[str], spec: dict) -> dict:
+    """Phase 2h (e): cap the preemptor's tenant at its usage; its next
+    pod is refused by filter with the quota reason on every node and a
+    Warning Event follows; raise the cap and it binds; ``/debug/quota``
+    equals the ledger's usage."""
+    quota = stack.controller.quota
+    used = quota.usage(TENANCY_BURST)[0]
+    meta = quota_configmap({})["metadata"]
+    cm = api.get_configmap(meta["namespace"], meta["name"])
+
+    def apply(limit: int) -> None:
+        cm.raw["data"] = {**quota_configmap(spec)["data"],
+                          TENANCY_BURST: json.dumps({"limitHBM": limit})}
+        api.update_configmap(cm)
+        _until(lambda: quota.config_for(TENANCY_BURST).limit_hbm == limit,
+               30, "the quota ConfigMap applied")
+    apply(used)
+    pod = api.create_pod(tenancy_pod("burst-next", TENANCY_BURST,
+                                     TENANCY_GIB, TENANCY_PREEMPT_PRIORITY))
+    status, doc, denied_ms = client.post("/filter", {"Pod": pod.raw,
+                                                     "NodeNames": names})
+    reasons = set(doc["FailedNodes"].values())
+    check(status == 200 and not doc["NodeNames"] and len(reasons) == 1
+          and next(iter(reasons)).startswith(
+              f"quota: tenant {TENANCY_BURST} over HBM limit"),
+          f"the capped tenant's filter: {doc}")
+    check(tevents.flush(), "events did not flush")
+    warned = [e for _, e in api.events
+              if e["reason"] == tevents.REASON_QUOTA_DENIED
+              and e["involvedObject"]["name"] == pod.name
+              and e["type"] == "Warning"]
+    check(len(warned) == 1, f"quota Warning Events: {warned}")
+    apply(used + TENANCY_GIB)
+    node, handler_ms, _ = client.schedule(pod, names)
+    check(node is not None, f"the raised cap still refuses: "
+                            f"{client.last_bind}")
+    check(stack.controller.wait_idle(timeout=60),
+          "the extender's controller did not settle")
+    snap = client.get("/debug/quota", prefixed=False)["tenants"]
+    usage: dict = {}
+    for p in api.list_pods():
+        if p.node_name and podutils.is_assumed(p) \
+                and not podutils.is_complete_pod(p):
+            h, n = usage.get(p.namespace, (0, 0))
+            usage[p.namespace] = (h + podutils.get_hbm_from_pod_annotation(p),
+                                  n + 1)
+    got = {t["tenant"]: (t["usedHBM"], t["pods"]) for t in snap if t["pods"]}
+    check(got == usage, f"/debug/quota {got}, the ledger {usage}")
+    return {"capped_at_gib": used, "reason": next(iter(reasons)),
+            "filter_handler_ms": denied_ms, "raised_to_gib": used +
+            TENANCY_GIB, "bound_to": node, "bind_handler_ms": handler_ms,
+            "snapshot": snap}
+
+
+def tenancy_admission(client: ExtenderClient, card_gib: int) -> dict:
+    """Phase 2h (f): the admission webhook denies a pod asking more GiB
+    than any card holds, with the fleet's limit, and allows one that
+    fits."""
+    out = {}
+    for name, gib in (("oversize", TENANCY_OVERSIZE_GIB),
+                      ("fits", TENANCY_GIB)):
+        status, doc, ms = client.post("/validate", {
+            "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": f"review-{name}",
+                        "object": make_pod(name, hbm=gib)}})
+        check(status == 200, f"validate {name}: {status} {doc}")
+        out[name] = {"response": doc["response"], "handler_ms": ms}
+    denied, allowed = out["oversize"]["response"], out["fits"]["response"]
+    check(denied["allowed"] is False and denied["status"]["code"] == 422
+          and f"the largest chip in the fleet has {card_gib} GiB"
+          in denied["status"]["message"], f"the oversize review: {denied}")
+    check(allowed == {"uid": "review-fits", "allowed": True},
+          f"the fitting review: {allowed}")
+    return out
+
+
+def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
+                  fleet: int = EXTENDER_FLEET,
+                  bench_nodes: int = PREEMPT_BENCH_NODES,
+                  gang_hosts: int = PREEMPT_GANG_HOSTS) -> dict:
+    """Phase 2h: tenancy and HA on the card. (a) Two port extenders over
+    one fake apiserver, each with its own ``LeaderElector``
+    (``tenancy_ha``), on the card's node and ``TENANCY_FLEET`` H100 nodes;
+    a quota ConfigMap: the victim's tenant borrows, the PDB'd pod's
+    tenant runs within its guarantee. (b) A priority-0 pod of
+    ``TENANCY_GIB`` GiB placed on the card's node through the leader,
+    granted by the port's daemon over gRPC, served on the card
+    (``ServingTenant``); the rest of the card's GiB held by ledger-only
+    pods (granted, nothing started): one priority-0 pod of the victim's
+    size under a PodDisruptionBudget of ``minAvailable`` 1 and two of
+    priority 20. (c) The failover (``tenancy_failover``). (d) A priority
+    10 pod of ``TENANCY_GIB`` GiB: filter refuses the card's node;
+    ``/preempt`` names the serving tenant alone; eviction through the
+    fake's eviction (which refuses the PDB'd pod), the tenant's process
+    stopped, the card memory it freed, the preemptor bound, granted and
+    served on the card; its time from ``/preempt`` to the end of its first
+    request, split. (e) ``tenancy_quota``; (f) ``tenancy_admission``; (g)
+    ``preempt_benches``. Returns the phase's fields; ``launches`` are the
+    two tenants' forward counts."""
+    from tpushare_torch.k8s.leader import LeaderElector
+
+    t_phase = time.perf_counter()
+    card_gib = inv.chips[0].hbm_gib
+    fill = card_gib - 2 * TENANCY_GIB
+    fillers = ((fill - 7) // 2, fill - (fill - 7) // 2)
+    spec = {TENANCY_SERVE: {"guaranteeHBM": 0},
+            TENANCY_GUARDED: {"guaranteeHBM": TENANCY_GIB}}
+    api = FakeApiServer()
+    api.create_configmap(quota_configmap(spec))
+    electors = [LeaderElector(api, f"chip-smoke-replica-{i}",
+                              lease_duration=TENANCY_LEASE_S,
+                              renew_period=TENANCY_RENEW_S)
+                for i in range(2)]
+    electors[0].start()
+    _until(electors[0].is_leader, 30, "the first replica's Lease")
+    electors[1].start()
+    stacks, clients, tenants, grants = [], [], [], None
+    try:
+        for e in electors:
+            stacks.append(extender_main.serve_stack(api, leader=e))
+            clients.append(ExtenderClient(stacks[-1][1]))
+        api.create_node(advertised_node(TENANCY_NODE, inv))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-ten-") as pdir:
+            plugin.TPUSharePlugin(TENANCY_NODE, api, inv, state_dir=pdir,
+                                  usage_dir=usage_dir).annotate_node()
+            fleet_inv = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS)
+            names = [TENANCY_NODE]
+            for i in range(TENANCY_FLEET):
+                names.append(f"h100-tenancy-{i}")
+                api.create_node(advertised_node(names[-1], fleet_inv))
+                plugin.TPUSharePlugin(names[-1], api, fleet_inv,
+                                      usage_dir="").annotate_node()
+            for stack, _ in stacks:
+                check(stack.controller.wait_idle(timeout=60),
+                      "an extender's controller did not settle")
+            ha = tenancy_ha(api, clients[0], clients[1], names, electors)
+            leader = clients[0]
+            # (b) The victim, served; then the ledger-only pods.
+            grants = NodeGrants(TENANCY_NODE, api, inv, pdir, usage_dir)
+            victim = api.create_pod(tenancy_pod("victim", TENANCY_SERVE,
+                                                TENANCY_GIB, 0))
+            node, _, _ = leader.schedule(victim, [TENANCY_NODE])
+            check(node == TENANCY_NODE, f"the victim went to {node}")
+            alloc, victim_allocate_ms = grants.allocate("victim",
+                                                        TENANCY_GIB)
+            _granted(api, inv, "victim", TENANCY_SERVE, TENANCY_GIB,
+                     usage_dir, alloc)
+            tenants.append(ServingTenant(alloc))
+            served_victim = _serving(
+                tenants[0], tenants[0].start(), alloc, card_gib, api,
+                TENANCY_NODE, "victim", TENANCY_SERVE, usage_dir)
+            api.create_pdb({
+                "apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+                "metadata": {"name": "guarded", "namespace": TENANCY_GUARDED},
+                "spec": {"minAvailable": 1,
+                         "selector": {"matchLabels": {"app": "guarded"}}},
+                "status": {"disruptionsAllowed": 0, "currentHealthy": 1,
+                           "desiredHealthy": 1, "expectedPods": 1}})
+            ledger_only = [("guarded", TENANCY_GUARDED, TENANCY_GIB, 0,
+                            {"app": "guarded"})] + [
+                (f"steady-{i}", TENANCY_STEADY, gib, TENANCY_FILL_PRIORITY,
+                 None) for i, gib in enumerate(fillers)]
+            for name, ns, gib, prio, labels in ledger_only:
+                pod = api.create_pod(tenancy_pod(name, ns, gib, prio,
+                                                 labels))
+                node, _, _ = leader.schedule(pod, [TENANCY_NODE])
+                check(node == TENANCY_NODE, f"{name} went to {node}")
+                got_alloc, _ = grants.allocate(name, gib)
+                _granted(api, inv, name, ns, gib, usage_dir, got_alloc)
+            doc = leader.get(f"/inspect/{TENANCY_NODE}")
+            [card] = [c for n in doc["nodes"] for c in n["chips"]]
+            check(card["usedHBM"] == card["totalHBM"] == card_gib,
+                  f"the card's node is not full: {card}")
+            # (c) The failover.
+            failover = tenancy_failover(api, stacks, clients, electors,
+                                        names)
+            stack, client = stacks[1][0], clients[1]
+            # (d) The preemption.
+            pre = api.create_pod(tenancy_pod(
+                "preemptor", TENANCY_BURST, TENANCY_GIB,
+                TENANCY_PREEMPT_PRIORITY))
+            status, doc, _ = client.post("/filter", {
+                "Pod": pre.raw, "NodeNames": [TENANCY_NODE]})
+            check(status == 200 and not doc["NodeNames"],
+                  f"the preemptor fits without a preemption: {doc}")
+            free_before = card_free_bytes()
+            t0_unix = time.time()
+            t0 = time.perf_counter()
+            status, plan, preempt_handler_ms = client.post("/preempt", {
+                "Pod": pre.raw,
+                "NodeNameToMetaVictims": {TENANCY_NODE: {"Pods": []}}})
+            t_preempt = time.perf_counter()
+            want = {"NodeNameToMetaVictims": {TENANCY_NODE: {
+                "Pods": [{"UID": victim.uid}], "NumPDBViolations": 0}}}
+            check(status == 200 and plan == want,
+                  f"/preempt named {plan}, want the serving tenant alone")
+            api.evict_pod(TENANCY_SERVE, "victim")
+            t_evict = time.perf_counter()
+            exit_code = tenants[0].stop()
+            t_exit = time.perf_counter()
+            check(exit_code == 0, f"the victim exited {exit_code}")
+            freed = card_free_bytes() - free_before
+            grants.release("victim")
+            try:
+                api.evict_pod(TENANCY_GUARDED, "guarded")
+                refused = None
+            except Exception as exc:  # noqa: BLE001 - the 429 is the check
+                refused = getattr(exc, "status", repr(exc))
+            check(refused == 429, f"the PDB'd pod's eviction: {refused}")
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            node, bind_handler_ms, _ = client.schedule(pre, [TENANCY_NODE])
+            t_bind = time.perf_counter()
+            check(node == TENANCY_NODE, f"the preemptor went to {node}: "
+                                        f"{client.last_bind}")
+            alloc, pre_allocate_ms = grants.allocate("preemptor",
+                                                     TENANCY_GIB)
+            t_alloc = time.perf_counter()
+            _granted(api, inv, "preemptor", TENANCY_BURST, TENANCY_GIB,
+                     usage_dir, alloc)
+            tenants.append(ServingTenant(alloc))
+            got = tenants[1].start()
+            first_s = got["first_request_done_unix"] - t0_unix
+            served_pre = _serving(tenants[1], got, alloc, card_gib, api,
+                                  TENANCY_NODE, "preemptor", TENANCY_BURST,
+                                  usage_dir)
+            checks = ledger_checks(api, stack, client, names)
+            # (e), (f).
+            quota = tenancy_quota(api, stack, client, names, spec)
+            admission = tenancy_admission(client, card_gib)
+    finally:
+        for tenant in tenants:
+            tenant.stop()
+        if grants is not None:
+            grants.close()
+        for c in clients:
+            if c is not None:
+                c.close()
+        for pair in stacks:
+            if pair is not None:
+                extender_main.shutdown_stack(*pair)
+        for e in electors:
+            e.stop()
+    benches = preempt_benches(fleet, bench_nodes, gang_hosts)
+    return {
+        "ha": ha, "failover": failover, "card_gib": card_gib,
+        "fillers_gib": [TENANCY_GIB, *fillers],
+        "victim": served_victim, "victim_allocate_ms": victim_allocate_ms,
+        "preempt": {
+            "plan": plan, "handler_ms": preempt_handler_ms,
+            "wire_ms": (t_preempt - t0) * 1e3,
+            "card_freed_bytes": freed,
+            "to_first_request_done_s": first_s,
+            "split_s": {"preempt": t_preempt - t0,
+                        "eviction": t_evict - t_preempt,
+                        "process_exit": t_exit - t_evict,
+                        "bind": t_bind - t_exit,
+                        "allocate": t_alloc - t_bind,
+                        "to_first_request_done": first_s - (t_alloc - t0)},
+            "bind_handler_ms": bind_handler_ms,
+            "allocate_ms": pre_allocate_ms,
+            "pdb_eviction_refused": refused},
+        "preemptor": served_pre, "ledger": checks, "quota": quota,
+        "admission": admission, **benches,
+        "seconds": time.perf_counter() - t_phase,
+        "launches": {"tenancy_victim": served_victim["launches"],
+                     "tenancy_preemptor": served_pre["launches"]}}
+
+
+def _saturated(api: FakeApiServer, client: ExtenderClient,
+               names: list[str], gib: int) -> None:
+    """bench.py's fill: a pod of a whole card's GiB a card, each placed by
+    filter and bind over HTTP."""
+    for i in range(len(names) * EXTENDER_FLEET_CARDS):
+        pod = api.create_pod(make_pod(f"filler-{i:04d}", hbm=gib))
+        status, doc, _ = client.post("/filter", {"Pod": pod.raw,
+                                                 "NodeNames": names})
+        check(status == 200 and doc["NodeNames"], f"filler {i}: {doc}")
+        status, doc, _ = client.post("/bind", {
+            "PodName": pod.name, "PodNamespace": "default",
+            "PodUID": pod.uid, "Node": doc["NodeNames"][0]})
+        check(status == 200, f"filler {i}'s bind: {doc}")
+
+
+def _evict_plan(api: FakeApiServer, plan: dict) -> tuple[str, int]:
+    """bench.py's pick: the node of the fewest victims; its victims
+    deleted. Returns the node and the victims."""
+    node, victims = min(plan["NodeNameToMetaVictims"].items(),
+                        key=lambda kv: len(kv[1]["Pods"]))
+    uids = {v["UID"] for v in victims["Pods"]}
+    for p in api.list_pods():
+        if p.uid in uids:
+            api.delete_pod(p.namespace, p.name)
+    return node, len(uids)
+
+
+def bench_preempt_twin(nodes: int) -> dict:
+    """``bench.py``'s ``bench_preempt`` on ``nodes`` H100 nodes of 8 x 79
+    GiB, saturated: filter fails everywhere, ``/preempt`` plans, the
+    victims are deleted, filter again until the node passes, bind.
+    Returns ``preempt_place_ms`` and the victims."""
+    api = FakeApiServer()
+    stack, server = extender_main.serve_stack(api)
+    client = ExtenderClient(server)
+    try:
+        names = extender_fleet(api, nodes)
+        check(stack.controller.wait_idle(timeout=60), "did not settle")
+        gib = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS
+                                       ).chips[0].hbm_gib
+        _saturated(api, client, names, gib)
+        urgent = api.create_pod(make_pod("urgent", hbm=gib, priority=1000))
+        t0 = time.perf_counter()
+        status, doc, _ = client.post("/filter", {"Pod": urgent.raw,
+                                                 "NodeNames": names})
+        check(status == 200 and not doc["NodeNames"], "fleet not saturated")
+        status, plan, _ = client.post("/preempt", {
+            "Pod": urgent.raw,
+            "NodeNameToMetaVictims": {n: {"Pods": []} for n in names}})
+        check(status == 200 and plan["NodeNameToMetaVictims"], f"{plan}")
+        node, victims = _evict_plan(api, plan)
+
+        def passes():
+            _, doc, _ = client.post("/filter", {"Pod": urgent.raw,
+                                                "NodeNames": [node]})
+            return bool(doc["NodeNames"])
+        _until(passes, 10, "the freed node passing filter", every=0.001)
+        status, doc, _ = client.post("/bind", {
+            "PodName": "urgent", "PodNamespace": "default",
+            "PodUID": urgent.uid, "Node": node})
+        ms = (time.perf_counter() - t0) * 1e3
+        check(status == 200, f"the urgent pod's bind: {doc}")
+    finally:
+        client.close()
+        extender_main.shutdown_stack(stack, server)
+    return {"preempt_place_ms": ms, "victims": victims, "nodes": nodes}
+
+
+def bench_gang_preempt_twin(hosts: int) -> dict:
+    """``bench.py``'s ``bench_gang_preempt``: a priority-5 gang of
+    ``hosts`` whole-node members (8 cards each) on ``hosts`` saturated
+    H100 nodes; each member's filter fails, ``/preempt`` plans, the
+    victims are deleted and the member's ``nominatedNodeName`` recorded,
+    as kube-scheduler does; the nominations must land on distinct hosts;
+    then the members bind and the last commits the gang. Returns
+    ``gang_preempt_place_ms`` and the victims."""
+    api = FakeApiServer()
+    stack, server = extender_main.serve_stack(api)
+    client = ExtenderClient(server)
+    try:
+        names = extender_fleet(api, hosts)
+        check(stack.controller.wait_idle(timeout=60), "did not settle")
+        gib = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS
+                                       ).chips[0].hbm_gib
+        _saturated(api, client, names, gib)
+        ann = {const.ANN_POD_GROUP: "urgent-slice",
+               const.ANN_POD_GROUP_MIN: str(hosts)}
+        members = [api.create_pod(make_pod(
+            f"gw-{i}", chips=EXTENDER_FLEET_CARDS, priority=5,
+            annotations=ann)) for i in range(hosts)]
+        evicted, nominated = 0, {}
+        t0 = time.perf_counter()
+        for member in members:
+            status, doc, _ = client.post("/filter", {"Pod": member.raw,
+                                                     "NodeNames": names})
+            check(status == 200 and not doc["NodeNames"],
+                  "fleet not saturated for a gang member")
+            status, plan, _ = client.post("/preempt", {
+                "Pod": member.raw,
+                "NodeNameToMetaVictims": {n: {"Pods": []} for n in names}})
+            check(status == 200 and plan["NodeNameToMetaVictims"], f"{plan}")
+            node, n = _evict_plan(api, plan)
+            evicted += n
+            fresh = api.get_pod(member.namespace, member.name)
+            fresh.raw.setdefault("status", {})["nominatedNodeName"] = node
+            api.update_pod(fresh)
+            nominated[member.name] = node
+            check(stack.controller.wait_idle(timeout=10), "did not settle")
+        check(len(set(nominated.values())) == hosts,
+              f"the nominations did not steer the members apart: "
+              f"{nominated}")
+        for member in members:
+            client.post("/bind", {
+                "PodName": member.name, "PodNamespace": member.namespace,
+                "PodUID": member.uid, "Node": nominated[member.name]})
+        _until(lambda: all(api.get_pod("default", m.name).node_name
+                           for m in members), 30, "the gang's commit",
+               every=0.0005)
+        ms = (time.perf_counter() - t0) * 1e3
+        placed = {api.get_pod("default", m.name).node_name for m in members}
+        check(len(placed) == hosts, f"the gang landed on {placed}")
+    finally:
+        client.close()
+        extender_main.shutdown_stack(stack, server)
+    return {"gang_preempt_place_ms": ms, "victims": evicted,
+            "hosts": hosts, "nominated": nominated}
+
+
+def preempt_at_scale(nodes: int) -> dict:
+    """``bench_preempt``'s preempt verb over ``nodes`` saturated H100
+    nodes: the fillers (a whole card's GiB on every card) are written
+    with the grant annotations bind writes, so the cache's rebuild reads
+    them and the fill costs no HTTP; then an urgent pod's filter fails on
+    all of them and ``/preempt`` over the whole candidate map is timed
+    ``PREEMPT_REPEATS`` times on the handlers' clock and the wire's. Each
+    answer names one victim on every node."""
+    api = FakeApiServer()
+    names = extender_fleet(api, nodes)
+    gib = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS
+                                   ).chips[0].hbm_gib
+    t0 = time.perf_counter()
+    seq = 0
+    for name in names:
+        for card in range(EXTENDER_FLEET_CARDS):
+            seq += 1
+            api.create_pod(make_pod(
+                f"filler-{seq:05d}", hbm=gib, node_name=name,
+                uid=f"uid-filler-{seq:05d}", phase="Running", annotations={
+                    const.ANN_CHIP_IDX: str(card),
+                    const.ANN_HBM_POD: str(gib),
+                    const.ANN_HBM_CHIP: str(gib),
+                    const.ANN_ASSIGNED: const.ASSIGNED_TRUE,
+                    const.ANN_ASSUME_TIME: str(seq)}))
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stack, server = extender_main.serve_stack(api)
+    build_s = time.perf_counter() - t0
+    client = ExtenderClient(server)
+    try:
+        check(stack.controller.wait_idle(timeout=120), "did not settle")
+        urgent = api.create_pod(make_pod("urgent", hbm=gib, priority=1000))
+        t0 = time.perf_counter()
+        status, doc, filter_handler_ms = client.post("/filter", {
+            "Pod": urgent.raw, "NodeNames": names})
+        filter_wire_ms = (time.perf_counter() - t0) * 1e3
+        check(status == 200 and not doc["NodeNames"]
+              and len(doc["FailedNodes"]) == nodes, "fleet not saturated")
+        body = {"Pod": urgent.raw,
+                "NodeNameToMetaVictims": {n: {"Pods": []} for n in names}}
+        handler_ms, wire_ms = [], []
+        for _ in range(PREEMPT_REPEATS):
+            t0 = time.perf_counter()
+            status, plan, h_ms = client.post("/preempt", body)
+            wire_ms.append((time.perf_counter() - t0) * 1e3)
+            handler_ms.append(h_ms)
+            victims = plan["NodeNameToMetaVictims"]
+            check(status == 200 and len(victims) == nodes
+                  and all(len(v["Pods"]) == 1 for v in victims.values()),
+                  f"/preempt over {nodes} nodes named "
+                  f"{sum(len(v['Pods']) for v in victims.values())} "
+                  f"victims on {len(victims)} nodes")
+    finally:
+        client.close()
+        extender_main.shutdown_stack(stack, server)
+    return {"nodes": nodes, "fillers": seq, "fill_s": fill_s,
+            "cache_build_s": build_s,
+            "filter_handler_ms": filter_handler_ms,
+            "filter_wire_ms": filter_wire_ms,
+            "preempt_handler_ms": handler_ms, "preempt_wire_ms": wire_ms,
+            "victims_per_node": 1}
+
+
+def preempt_benches(fleet: int, bench_nodes: int, gang_hosts: int) -> dict:
+    """Phase 2h (g): ``bench_preempt_twin``, ``bench_gang_preempt_twin``
+    and ``preempt_at_scale``."""
+    return {"bench_preempt": bench_preempt_twin(bench_nodes),
+            "bench_gang_preempt": bench_gang_preempt_twin(gang_hosts),
+            "preempt_at_scale": preempt_at_scale(fleet)}
 
 
 def _kernel_name(mangled: str) -> str:

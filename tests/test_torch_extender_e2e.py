@@ -17,18 +17,22 @@ each apiserver equals the live ledger of both.
 The traffic: one seeded churn of ``bench.py``'s ``SIZE_MIX`` (16, 24
 and 44 GiB slices and whole 4-card pods, TTLs of 2-5 rounds) over 16 H100
 nodes (8 cards of 79 GiB, no topology), with one gang of three 24 GiB
-members among its pods, and the single-pod stories of
-``tests/test_e2e.py``. Both stacks wire the gang planner; a gang's
-``ttlRemaining`` in inspect is a clock, held within a second across the
-two. The JAX stack wires quota and observability as well; with no quota
-ConfigMap they change no answer. ``tests/test_torch_gang_e2e.py`` holds
-the gang stories.
+members among its pods; the same churn over three tenants under a
+``tpushare-quotas`` ConfigMap (limits that refuse pods mid-churn,
+guarantees that bias the scores), with ``/debug/quota`` equal after every
+round; and the single-pod stories of ``tests/test_e2e.py``. Both stacks
+wire the gang planner and the quota ledger; a gang's ``ttlRemaining`` in
+inspect is a clock, held within a second across the two. The JAX stack
+wires observability as well, which changes no answer.
+``tests/test_torch_gang_e2e.py`` holds the gang stories,
+``tests/test_torch_quota.py`` the quota stories.
 """
 
 from __future__ import annotations
 
 import json
 import random
+import time
 import urllib.error
 import urllib.request
 
@@ -50,8 +54,10 @@ from tpushare_torch.api.extender import (ExtenderArgs as TArgs,
 from tpushare_torch.cache.cache import SchedulerCache as TCache
 from tpushare_torch.cmd import main as tmain
 from tpushare_torch.k8s.fake import FakeApiServer as TFake
+from tpushare_torch.routes import server as tserver
 from tpushare_torch.routes import wire as twire
 from tpushare_torch.utils import const
+from tpushare_torch.utils import pod as podutils
 
 PREFIX = "/tpushare-scheduler"
 
@@ -177,9 +183,10 @@ class Pair:
         assert after[1] == after[0], name
         return outs[0][0] == 200, best
 
-    def set_phase(self, name: str, phase: str) -> None:
+    def set_phase(self, name: str, phase: str,
+                  namespace: str = "default") -> None:
         for side in self.sides:
-            side.api.update_pod_status("default", name, phase)
+            side.api.update_pod_status(namespace, name, phase)
 
     def delete_pod(self, name: str) -> None:
         for side in self.sides:
@@ -288,6 +295,83 @@ def test_seeded_churn_on_h100_nodes(pair):
     for name, _ in backlog[::2]:
         pair.delete_pod(name)
     pair.same_inspect()
+    pair.same_rebuilt_cache()
+
+
+def test_seeded_churn_under_a_quota_configmap(pair):
+    """bench.py's churn over three tenants: team-a limited to 400 GiB and
+    24 cards with a guarantee of 200 GiB and 8 cards, team-b guaranteed
+    100 GiB, everyone else limited by the default to 300 GiB and 16
+    cards. Every verb's answer, every pod and the quota snapshot equal;
+    the snapshot's usage is the ledger's."""
+    nodes = [f"h100-{i:02d}" for i in range(8)]
+    for n in nodes:
+        pair.create_node(make_node(n, **H100))
+    data = {"team-a": {"guaranteeHBM": 200, "limitHBM": 400,
+                       "guaranteeChips": 8, "limitChips": 24},
+            "team-b": {"guaranteeHBM": 100},
+            "*": {"limitHBM": 300, "limitChips": 16}}
+    for side in pair.sides:
+        side.api.create_configmap({
+            "metadata": {"name": const.QUOTA_CONFIGMAP,
+                         "namespace": "kube-system"},
+            "data": {k: json.dumps(v) for k, v in data.items()}})
+    deadline = time.monotonic() + 10
+    while not all(side.stack.controller.quota.config_for(
+            "team-a").limit_hbm == 400 for side in pair.sides):
+        assert time.monotonic() < deadline, "quota never applied"
+        time.sleep(0.02)
+    rng = random.Random(23)
+    backlog, live, seq, denied = [], [], 0, 0
+    for rnd in range(8):
+        still = []
+        for rec in live:
+            if rec["expires"] <= rnd:
+                pair.set_phase(rec["name"], "Succeeded", rec["ns"])
+            else:
+                still.append(rec)
+        live = still
+        pair.idle()
+        for _ in range(16):
+            kind, size = _draw_shape(rng)
+            ns = rng.choice(["team-a", "team-b", "team-c"])
+            name = f"q-{seq:04d}"
+            seq += 1
+            pair.create_pod(make_pod(name, chips=size, namespace=ns)
+                            if kind == "chip"
+                            else make_pod(name, hbm=size, namespace=ns))
+            backlog.append((name, ns, rng.randint(*TTL_ROUNDS)))
+        kept = []
+        for name, ns, ttl in backlog:
+            ok, where = pair.schedule(name, nodes, namespace=ns)
+            if not ok:
+                denied += any(str(r).startswith("quota:")
+                              for r in dict(where).values())
+                kept.append((name, ns, ttl))
+                continue
+            live.append({"name": name, "ns": ns, "expires": rnd + ttl})
+        backlog = kept
+        pair.same_inspect()
+        docs = []
+        for side in pair.sides:
+            with urllib.request.urlopen(f"{side.base}/debug/quota",
+                                        timeout=60) as resp:
+                docs.append(resp.read())
+        assert docs[1] == docs[0]
+    assert denied, "no pod met its tenant's limit"
+    usage: dict = {}
+    for p in pair.port.api.list_pods():
+        if p.node_name and p.phase != "Succeeded":
+            cards = len(p.annotations[const.ANN_CHIP_IDX].split(","))
+            if podutils.get_chips_from_pod_resource(p) > 0:
+                hbm = 0
+            else:
+                hbm, cards = int(p.annotations[const.ANN_HBM_POD]), 0
+            h, c, n = usage.get(p.namespace, (0, 0, 0))
+            usage[p.namespace] = (h + hbm, c + cards, n + 1)
+    snap = {t["tenant"]: (t["usedHBM"], t["usedChips"], t["pods"])
+            for t in json.loads(docs[0])["tenants"] if t["pods"]}
+    assert snap == usage
     pair.same_rebuilt_cache()
 
 
@@ -424,13 +508,33 @@ def test_restart_rebuilds_from_annotations():
 
 
 def test_verbs_unwired_in_this_slice_answer_as_the_reference(pair):
-    """preempt and validate answer 404 "not configured" on the port, as
-    the reference does where they are not wired; a malformed body is a
-    400 on both; an unknown node fails the bind on both."""
-    for path, want in (("/preempt", "preempt not configured"),
-                       ("/validate", "admission not configured")):
-        status, body = pair.port.post(path, {"Pod": {}})
-        assert (status, json.loads(body)) == (404, {"Error": want})
+    """preempt and validate answer as the reference's on both stacks (a
+    pod that asks for no card: its victims echoed, none; a review of no
+    object: allowed), and 404 "not configured" on a port server built
+    without them, as the reference does where they are not wired; a
+    malformed body is a 400 on both; an unknown node fails the bind on
+    both."""
+    for path, doc in (("/preempt", {"Pod": {}}),
+                      ("/validate", {"request": {"uid": "u"}})):
+        outs = [side.post(path, doc) for side in pair.sides]
+        assert outs[1] == outs[0] and outs[0][0] == 200, outs
+    stack = pair.port.stack
+    bare = tserver.ExtenderHTTPServer(("127.0.0.1", 0), stack.predicate,
+                                      stack.binder, stack.inspect)
+    tserver.serve_forever(bare)
+    try:
+        base = f"http://127.0.0.1:{bare.server_address[1]}{PREFIX}"
+        for path, want in (("/preempt", "preempt not configured"),
+                           ("/validate", "admission not configured")):
+            req = urllib.request.Request(f"{base}{path}",
+                                         data=json.dumps({"Pod": {}}).encode())
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                urllib.request.urlopen(req, timeout=60)
+            assert exc.value.code == 404
+            assert json.loads(exc.value.read()) == {"Error": want}
+    finally:
+        bare.shutdown()
+        bare.server_close()
     for side in pair.sides:
         req = urllib.request.Request(f"{side.base}{PREFIX}/filter",
                                      data=b"[1, 2]")

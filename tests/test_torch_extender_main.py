@@ -52,9 +52,14 @@ def test_main_reads_its_environment(no_cluster, monkeypatch, env, port,
     monkeypatch.setattr(M.Controller, "start", start)
 
     class Server:
-        def __init__(self, addr, predicate, binder, inspect, prioritize):
+        def __init__(self, addr, predicate, binder, inspect, prioritize,
+                     preempt, admission, leader, quota):
             seen.update(addr=addr, policy=prioritize.policy,
                         scoring=predicate.cache._default_scoring)
+            # Every verb is wired, over the controller's one quota ledger;
+            # no election without LEADER_ELECT.
+            assert preempt.quota is quota is predicate.quota
+            assert admission is not None and leader is None
             self.closed = threading.Event()
 
         def serve_forever(self):

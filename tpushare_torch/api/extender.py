@@ -4,8 +4,8 @@ The port's copy of ``tpushare/api/extender.py``'s filter, prioritize and
 bind types: JSON-compatible dataclasses for the kube-scheduler ↔
 extender webhook, read in either era's field casing (the legacy
 capitalized names and the modern camelCase tags). Both the node-name and
-the full-node forms of the filter are supported. The preemption types
-come with the preempt verb.
+the full-node forms of the filter are supported, and both victim forms of
+the preempt verb (full pods, or bare uids).
 """
 
 from __future__ import annotations
@@ -128,3 +128,71 @@ class ExtenderBindingResult:
 
     def to_json(self) -> dict:
         return {"Error": self.error}
+
+
+@dataclass
+class Victims:
+    """One node's proposed eviction set, in either wire form: full pods
+    (``schedulerapi.Victims``) or bare uids (``MetaVictims``), by the
+    scheduler's ``nodeCacheCapable``."""
+
+    pods: list[Pod] = field(default_factory=list)
+    uids: list[str] = field(default_factory=list)
+    num_pdb_violations: int = 0
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "Victims":
+        pods = [Pod(p) for p in _either(doc, "Pods", "pods") or []
+                if isinstance(p, dict)]
+        # A MetaPod carries its uid at the top level; a full v1.Pod only
+        # under metadata.
+        uids = [_either(p.raw, "UID", "uid") for p in pods
+                if "UID" in p.raw or "uid" in p.raw]
+        pods = [p for p in pods if "UID" not in p.raw and "uid" not in p.raw]
+        return cls(pods=pods, uids=uids,
+                   num_pdb_violations=int(
+                       _either(doc, "NumPDBViolations",
+                               "numPDBViolations", 0)))
+
+    def victim_uids(self) -> list[str]:
+        return self.uids + [p.uid for p in self.pods if p.uid]
+
+
+@dataclass
+class ExtenderPreemptionArgs:
+    """``POST .../preempt``: the preemptor and the scheduler's candidate
+    victims a node, in either form."""
+
+    pod: Pod
+    node_victims: dict[str, Victims] = field(default_factory=dict)
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "ExtenderPreemptionArgs":
+        pod = Pod(_either(doc, "Pod", "pod") or {})
+        raw = (_either(doc, "NodeNameToMetaVictims",
+                       "nodeNameToMetaVictims")
+               or _either(doc, "NodeNameToVictims",
+                          "nodeNameToVictims") or {})
+        victims = {name: Victims.from_json(v or {})
+                   for name, v in raw.items()}
+        return cls(pod=pod, node_victims=victims)
+
+
+@dataclass
+class ExtenderPreemptionResult:
+    """The surviving candidate nodes, each with the victims this
+    extender's resources need, always in the uid (MetaVictims) form."""
+
+    node_victims: dict[str, list[str]] = field(default_factory=dict)
+    pdb_violations: dict[str, int] = field(default_factory=dict)
+
+    def to_json(self) -> dict:
+        return {
+            "NodeNameToMetaVictims": {
+                name: {
+                    "Pods": [{"UID": uid} for uid in uids],
+                    "NumPDBViolations": self.pdb_violations.get(name, 0),
+                }
+                for name, uids in self.node_victims.items()
+            }
+        }

@@ -1,9 +1,11 @@
-"""Views over raw apiserver documents: ``Pod`` and ``Node``, and the
-``Binding`` the extender posts.
+"""Views over raw apiserver documents: ``Pod``, ``Node``,
+``PodDisruptionBudget`` and ``ConfigMap``, and the ``Binding`` the
+extender posts.
 
 The port's copy of ``tpushare/api/objects.py`` (``K8sObject``, ``Pod``,
-``Node``, ``binding_doc``), cut to the fields the device plugin, the
-grant watchdog and the scheduler extender read. A view holds a reference
+``Node``, ``PodDisruptionBudget``, ``ConfigMap``, ``binding_doc``), cut to
+the fields the device plugin, the grant watchdog and the scheduler
+extender read. A view holds a reference
 to the underlying dict (``raw``), so a caller mutates a document and
 commits it back as it came.
 """
@@ -165,6 +167,77 @@ class Node(K8sObject):
     def capacity_of(self, resource: str) -> int:
         val = self.capacity.get(resource)
         return parse_quantity(val) if val is not None else 0
+
+
+class PodDisruptionBudget(K8sObject):
+    """A ``policy/v1.PodDisruptionBudget`` view: what the preempt verb
+    needs to count ``NumPDBViolations`` for the victim sets it names."""
+
+    @property
+    def spec(self) -> dict:
+        return self.raw.get("spec") or {}
+
+    @property
+    def status(self) -> dict:
+        return self.raw.get("status") or {}
+
+    @property
+    def disruptions_allowed(self) -> int:
+        """``status.disruptionsAllowed``, which the disruption controller
+        keeps and upstream preemption reads."""
+        try:
+            return int(self.status.get("disruptionsAllowed", 0))
+        except (TypeError, ValueError):
+            return 0
+
+    @property
+    def disrupted_pods(self) -> set[str]:
+        """Names of pods whose disruption is in flight
+        (``status.disruptedPods``)."""
+        return set((self.status.get("disruptedPods") or {}).keys())
+
+    def matches(self, pod: Pod) -> bool:
+        """Namespace and label selector (``matchLabels``; In, NotIn,
+        Exists and DoesNotExist of ``matchExpressions``; another operator
+        matches nothing). An empty selector matches nothing, as in the
+        scheduler's ``filterPodsWithPDBViolation``."""
+        if pod.namespace != self.namespace:
+            return False
+        selector = self.spec.get("selector")
+        if not selector or (not selector.get("matchLabels")
+                            and not selector.get("matchExpressions")):
+            return False
+        labels = pod.labels
+        for k, v in (selector.get("matchLabels") or {}).items():
+            if labels.get(k) != v:
+                return False
+        for expr in selector.get("matchExpressions") or []:
+            key = expr.get("key", "")
+            op = expr.get("operator", "")
+            values = expr.get("values") or []
+            if op == "In":
+                if labels.get(key) not in values:
+                    return False
+            elif op == "NotIn":
+                if key in labels and labels[key] in values:
+                    return False
+            elif op == "Exists":
+                if key not in labels:
+                    return False
+            elif op == "DoesNotExist":
+                if key in labels:
+                    return False
+            else:
+                return False
+        return True
+
+
+class ConfigMap(K8sObject):
+    """A ``v1.ConfigMap`` view: the quota table's document."""
+
+    @property
+    def data(self) -> dict:
+        return self.raw.get("data") or {}
 
 
 def binding_doc(pod: Pod, node_name: str) -> dict:

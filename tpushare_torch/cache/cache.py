@@ -5,8 +5,9 @@ The port's copy of ``tpushare/cache/cache.py`` (gpushare's
 annotations in the apiserver; :meth:`SchedulerCache.build` rebuilds the
 ledger from them, which makes the extender restartable with no database.
 Every read of the node table holds the lock, and a cached NodeInfo is
-rebuilt when the node's card capacities change. Tenant quotas come with
-their own slice.
+rebuilt when the node's card capacities change. A tenant quota ledger,
+when given, is charged and uncharged on the same path as the card
+ledger, the rebuild included, so tenant usage survives a restart too.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Callable
 
 from tpushare_torch.api.objects import Node, Pod
 from tpushare_torch.cache.nodeinfo import NodeInfo
+from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import const
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
@@ -27,15 +29,20 @@ log = logging.getLogger(__name__)
 class SchedulerCache:
     def __init__(self, node_getter: Callable[[str], Node | None],
                  pod_lister: Callable[[], list[Pod]],
-                 default_scoring: str | None = None) -> None:
+                 default_scoring: str | None = None,
+                 quota: QuotaManager | None = None) -> None:
         """``node_getter(name) -> Node | None`` and
         ``pod_lister() -> list[Pod]`` are the informer's listers, or a
         fake client's bound methods. ``default_scoring`` is the fleet
         scoring policy handed to every ledger's chip picker, the value
-        the prioritize verb uses too."""
+        the prioritize verb uses too. ``quota`` (a
+        :class:`tpushare_torch.quota.manager.QuotaManager`) is charged
+        what the card ledger prices."""
         self._node_getter = node_getter
         self._pod_lister = pod_lister
         self._default_scoring = default_scoring
+        #: The tenant ledger mirroring this cache's known pods, or None.
+        self.quota = quota
         self._lock = threading.RLock()
         self._nodes: dict[str, NodeInfo] = {}
         #: uid -> annotated pod
@@ -282,6 +289,10 @@ class SchedulerCache:
                 self._known_pods[pod.uid] = pod
                 # Placed: its ledger entry accounts for it from here on.
                 self._nominated.pop(pod.uid, None)
+                if self.quota is not None:
+                    # The tenant ledger charges what the card ledger just
+                    # priced, from the same annotations.
+                    self.quota.charge(pod)
         if added:
             # Rebuild the admission summary HERE, on the mutating
             # thread (a sync worker, usually) — a churn wave otherwise
@@ -295,6 +306,8 @@ class SchedulerCache:
         with self._lock:
             self._known_pods.pop(pod.uid, None)
             self._nominated.pop(pod.uid, None)
+            if self.quota is not None:
+                self.quota.uncharge(pod)
             info = self._nodes.get(pod.node_name)
         if info is not None:
             info.remove_pod(pod)

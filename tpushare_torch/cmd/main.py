@@ -2,7 +2,8 @@
 
 The twin of ``tpushare/cmd/main.py`` (gpushare's ``cmd/main.go``): build
 the kube client, start the sync controller, wire the filter, prioritize,
-bind and inspect verbs over one cache, and serve HTTP until signalled.
+bind, preempt, admission and inspect verbs over one cache and one tenant
+quota ledger, and serve HTTP until signalled.
 
     python -m tpushare_torch.cmd.main
 
@@ -25,10 +26,21 @@ Environment:
 * ``TPUSHARE_HTTP_WORKERS``, ``TPUSHARE_HTTP_TIMEOUT_S``,
   ``TPUSHARE_BATCH``, ``TPUSHARE_BATCH_MAX``, ``TPUSHARE_BATCH_WINDOW_MS``:
   the wire path (routes/server.py).
+* ``LEADER_ELECT``: ``1`` (or ``true``, ``yes``) joins a Lease election
+  (``k8s/leader.py``), so several replicas can run and only the Lease
+  holder binds; followers answer bind with 503 and serve the read verbs.
+  ``LEASE_NAMESPACE`` holds the Lease, ``kube-system`` by default.
+* ``TPUSHARE_QUOTA_NAMESPACE``: the one namespace the ``tpushare-quotas``
+  ConfigMap is trusted from, ``kube-system`` by default.
+* ``TPUSHARE_GC_TUNE``: the fleet-scale GC posture (``utils/runtime.py``),
+  on by default (``off``, ``0``, ``false``, ``no`` keep the interpreter's
+  thresholds); ``TPUSHARE_GC_GEN0`` sets the gen-0 threshold. ``main``
+  applies it; ``serve_stack`` does not.
 
-Gangs go through the gang planner (all or nothing, a housekeeping
-thread for expiry and binding retries). Quotas, preemption, admission,
-leader election and the observability routes come with their own slices.
+Variables of the reference's main that the port does not yet read
+(``NOT_PORTED``: structured logs, the debug routes and profiler, the SLO
+ConfigMap, defragmentation and autoscaling) are logged as a warning, one
+line each, when set.
 """
 
 from __future__ import annotations
@@ -45,12 +57,52 @@ from tpushare_torch.gang.planner import GangPlanner
 from tpushare_torch.k8s.client import ApiClient, ClusterConfig
 from tpushare_torch.routes.server import (ExtenderHTTPServer, enable_tls,
                                           serve_forever)
+from tpushare_torch.scheduler.admission import Admission
 from tpushare_torch.scheduler.bind import Bind
 from tpushare_torch.scheduler.inspect import Inspect
 from tpushare_torch.scheduler.predicate import DemandTracker, Predicate
+from tpushare_torch.scheduler.preempt import Preempt
 from tpushare_torch.scheduler.prioritize import Prioritize
 
 log = logging.getLogger(__name__)
+
+#: The reference main's variables that the port does not read yet, and
+#: what of the reference each one sets.
+NOT_PORTED = {
+    "TPUSHARE_LOG_JSON": "structured JSON console logs",
+    "DEBUG_ROUTES": "the /debug/pprof suite",
+    "TPUSHARE_PROFILE": "the continuous profiler",
+    "TPUSHARE_PROFILE_HZ": "the continuous profiler's rate",
+    "TPUSHARE_SLO_NAMESPACE": "the tpushare-slos ConfigMap",
+    "TPUSHARE_TIMELINE": "the retrospective timeline",
+    "TPUSHARE_BLACKBOX_DIR": "the black-box flight journal",
+    "TPUSHARE_BLACKBOX_SEGMENT_BYTES": "the black-box flight journal",
+    "TPUSHARE_BLACKBOX_SEGMENTS": "the black-box flight journal",
+    "TPUSHARE_EXPORT_URL": "the push exporter",
+    "TPUSHARE_DEFRAG_MODE": "the defragmentation rebalancer",
+    "TPUSHARE_DEFRAG_MAX_MOVES": "the defragmentation rebalancer",
+    "TPUSHARE_DEFRAG_MOVES_PER_HOUR": "the defragmentation rebalancer",
+    "TPUSHARE_DEFRAG_NODE_COOLDOWN_S": "the defragmentation rebalancer",
+    "TPUSHARE_DEFRAG_MAX_CONCURRENT": "the defragmentation rebalancer",
+    "TPUSHARE_DEFRAG_INTERVAL_S": "the defragmentation rebalancer",
+    "TPUSHARE_AUTOSCALE": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_MIN_NODES": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_MAX_NODES": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_UP_DELAY_S": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_DOWN_DELAY_S": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_COOLDOWN_S": "the fleet autoscaler",
+    "TPUSHARE_AUTOSCALE_INTERVAL_S": "the fleet autoscaler",
+}
+
+
+def warn_not_ported() -> list[str]:
+    """Log one warning for each variable of ``NOT_PORTED`` that is set;
+    returns their names."""
+    names = [name for name in NOT_PORTED if os.environ.get(name)]
+    for name in names:
+        log.warning("%s is set but not read: %s is not yet ported",
+                    name, NOT_PORTED[name])
+    return names
 
 
 def setup_signals(stop_event: threading.Event) -> None:
@@ -73,15 +125,19 @@ class Stack(NamedTuple):
     prioritize: Prioritize
     binder: Bind
     inspect: Inspect
+    preempt: Preempt
+    admission: Admission
 
 
 def build_stack(client, is_leader=None) -> Stack:
     """The controller, the gang planner and the verbs over one cache.
     One read of ``TPUSHARE_SCORING`` feeds the prioritize verb and every
     ledger's chip picker, so the two never disagree on the fleet default.
-    ``is_leader`` (``() -> bool``) gates the planner's binding retries and
-    the controller's gang reaper. Starts the planner's housekeeping
-    thread; :func:`shutdown_stack` stops it."""
+    The controller's quota ledger is the one object every verb reads, so
+    filter, bind, scoring, the gang pre-check and preemption agree on a
+    tenant's standing. ``is_leader`` (``() -> bool``) gates the planner's
+    binding retries and the controller's gang reaper. Starts the
+    planner's housekeeping thread; :func:`shutdown_stack` stops it."""
     scoring = os.environ.get("TPUSHARE_SCORING", "binpack")
     controller = Controller(client, is_leader=is_leader,
                             default_scoring=scoring)
@@ -96,27 +152,50 @@ def build_stack(client, is_leader=None) -> Stack:
     # apiserver LIST on the bind path.
     gang = GangPlanner(controller.cache, client,
                        node_lister=controller.hub.nodes.list,
-                       is_leader=is_leader, placer=placer)
+                       is_leader=is_leader, quota=controller.quota,
+                       placer=placer)
     gang.start()
     # Demand entries prune against the informer's pod view.
     predicate = Predicate(controller.cache, demand=DemandTracker(
-        pod_lookup=controller.hub.get_pod))
+        pod_lookup=controller.hub.get_pod),
+        quota=controller.quota, client=client)
     prioritize = Prioritize(controller.cache, gang_planner=gang,
-                            policy=scoring)
+                            policy=scoring, quota=controller.quota)
     binder = Bind(controller.cache, client, gang_planner=gang,
-                  pod_lister=controller.hub.get_pod)
+                  pod_lister=controller.hub.get_pod,
+                  quota=controller.quota)
     inspect = Inspect(controller.cache, client.list_nodes,
                       gang_planner=gang)
-    return Stack(controller, predicate, prioritize, binder, inspect)
+    # The budgets feed preempt's violation count for the victim sets it
+    # names (the scheduler's counts are for its own sets).
+    preempt = Preempt(controller.cache, pdb_lister=controller.hub.pdbs.list,
+                      quota=controller.quota)
+    admission = Admission(controller.cache,
+                          node_lister=controller.hub.nodes.list)
+    return Stack(controller, predicate, prioritize, binder, inspect,
+                 preempt, admission)
 
 
-def serve_stack(client, address=("127.0.0.1", 0), workers: int = 2):
+def make_server(stack: Stack, address, leader=None) -> ExtenderHTTPServer:
+    """The HTTP server over every verb of ``stack``."""
+    return ExtenderHTTPServer(address, stack.predicate, stack.binder,
+                              stack.inspect, prioritize=stack.prioritize,
+                              preempt=stack.preempt,
+                              admission=stack.admission, leader=leader,
+                              quota=stack.controller.quota)
+
+
+def serve_stack(client, address=("127.0.0.1", 0), workers: int = 2,
+                leader=None):
     """Boot a wired stack and its HTTP server over ``client``; returns
-    ``(stack, server)``. The harness of tests and of ``chip_smoke.py``."""
-    stack = build_stack(client)
+    ``(stack, server)``. The harness of tests and of ``chip_smoke.py``.
+    ``leader`` (a started :class:`tpushare_torch.k8s.leader.
+    LeaderElector`) gates bind, the planner's retries and the reaper on
+    its Lease, as ``main`` does under ``LEADER_ELECT``."""
+    stack = build_stack(
+        client, is_leader=leader.is_leader if leader is not None else None)
     stack.controller.start(workers=workers)
-    server = ExtenderHTTPServer(address, stack.predicate, stack.binder,
-                                stack.inspect, prioritize=stack.prioritize)
+    server = make_server(stack, address, leader=leader)
     serve_forever(server)
     return stack, server
 
@@ -180,8 +259,35 @@ def configure_logging(level_name: str | None = None,
         root.addHandler(fh)
 
 
+def start_leader(client):
+    """A started :class:`tpushare_torch.k8s.leader.LeaderElector` when
+    ``LEADER_ELECT`` is on, else None. Its identity is unique even
+    without ``HOSTNAME``: two replicas sharing one would both pass the
+    holder's renewal check."""
+    env = os.environ
+    if env.get("LEADER_ELECT", "").lower() not in ("1", "true", "yes"):
+        return None
+    from uuid import uuid4
+
+    from tpushare_torch.k8s.leader import LeaderElector
+    identity = (f"{env.get('HOSTNAME') or 'pid'}-{os.getpid()}-"
+                f"{uuid4().hex[:8]}")
+    leader = LeaderElector(
+        client, identity,
+        namespace=env.get("LEASE_NAMESPACE", "kube-system"))
+    leader.start()
+    log.info("leader election enabled (identity %s)", identity)
+    return leader
+
+
 def main() -> None:
     configure_logging()
+    # The fleet-scale GC posture (TPUSHARE_GC_TUNE, on by default): the
+    # default thresholds' gen-2 pauses make the webhook's p99 at 1,024
+    # nodes.
+    from tpushare_torch.utils.runtime import tune_gc_from_env
+    tune_gc_from_env()
+    warn_not_ported()
     port = int(os.environ.get("PORT", "39999"))
     workers = int(os.environ.get("WORKERS", "4"))
     cert, key = os.environ.get("TLS_CERT_FILE"), os.environ.get(
@@ -192,13 +298,14 @@ def main() -> None:
                   "behind an enableHTTPS registration")
         sys.exit(2)
     client = ApiClient(ClusterConfig.auto())
-    stack = build_stack(client)
+    # Before the stack, so the planner's retries are leader-gated.
+    leader = start_leader(client)
+    stack = build_stack(
+        client, is_leader=leader.is_leader if leader is not None else None)
     stop = threading.Event()
     setup_signals(stop)
     stack.controller.start(workers=workers)
-    server = ExtenderHTTPServer(("0.0.0.0", port), stack.predicate,
-                                stack.binder, stack.inspect,
-                                prioritize=stack.prioritize)
+    server = make_server(stack, ("0.0.0.0", port), leader=leader)
     if cert and key:
         enable_tls(server, cert, key)
         log.info("TLS enabled (%s)", cert)
@@ -207,6 +314,8 @@ def main() -> None:
     stop.wait()
     log.info("shutting down")
     server.shutdown()
+    if leader is not None:
+        leader.stop()
     stack.binder.gang_planner.stop()
     stack.controller.stop()
 

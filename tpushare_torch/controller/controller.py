@@ -7,22 +7,28 @@ through a rate-limited workqueue, and ``sync_pod`` reconciles the cache.
 A deleted pod is stashed until its sync frees it, since the apiserver's
 copy is gone by then; a committed gang member's death reaps the
 survivors when the group falls below its minimum (``_maybe_reap_gang``).
-Worker threads loop until shutdown, as many as asked. The quota and SLO
-ConfigMaps, defragmentation and autoscaling come with their own slices.
+Worker threads loop until shutdown, as many as asked. The controller
+owns the tenant quota ledger: the cache charges it, and the
+``tpushare-quotas`` ConfigMap configures it, trusted only from
+``TPUSHARE_QUOTA_NAMESPACE`` (``kube-system`` by default). The SLO
+ConfigMap, defragmentation and autoscaling come with their own slices.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 
-from tpushare_torch.api.objects import Pod
+from tpushare_torch.api.objects import ConfigMap, Pod
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.k8s import events
 from tpushare_torch.k8s.errors import ApiError, NotFoundError
 from tpushare_torch.k8s.informer import InformerHub
 from tpushare_torch.k8s.workqueue import RateLimitedQueue
+from tpushare_torch.quota import config as quota_config
+from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import const
 from tpushare_torch.utils import pod as podutils
 
@@ -35,10 +41,19 @@ class Controller:
         self.client = client
         self.hub = hub or InformerHub(client)
         self.queue = RateLimitedQueue()
+        #: The tenant ledger: the cache charges it, the tpushare-quotas
+        #: ConfigMap configures it, and build_stack hands it to the verbs.
+        self.quota = QuotaManager()
+        #: The one namespace the quota ConfigMap is trusted from: the
+        #: watch is cluster-wide, and a match by name alone would let any
+        #: namespace rewrite (or delete) the fleet's quota table.
+        self._quota_namespace = os.environ.get("TPUSHARE_QUOTA_NAMESPACE",
+                                               "kube-system")
         # default_scoring reaches every ledger's chip picker, so placement
         # within a node agrees with the prioritize verb's fleet policy.
         self.cache = SchedulerCache(self._get_node, self._list_pods,
-                                    default_scoring=default_scoring)
+                                    default_scoring=default_scoring,
+                                    quota=self.quota)
         self._removed_lock = threading.RLock()
         #: ns/name -> last seen Pod, for deletes (gpushare's
         #: removePodCache)
@@ -64,6 +79,12 @@ class Controller:
         self.hub.add_node_handler(
             on_update=self._on_node_update,
             on_delete=self._on_node_delete)
+        self.hub.add_configmap_handler(
+            on_add=self._on_quota_configmap,
+            on_update=lambda old, new: self._on_quota_configmap(new),
+            on_delete=lambda cm: self.quota.set_config(quota_config.EMPTY),
+            filter_fn=self._is_quota_configmap,
+        )
 
     # -- listers wired into the cache ----------------------------------- #
 
@@ -80,6 +101,15 @@ class Controller:
     def _list_pods(self):
         pods = self.hub.pods.list()
         return pods if pods else self.client.list_pods()
+
+    def _is_quota_configmap(self, cm: ConfigMap) -> bool:
+        return (cm.name == const.QUOTA_CONFIGMAP
+                and cm.namespace == self._quota_namespace)
+
+    def _on_quota_configmap(self, cm: ConfigMap) -> None:
+        """Applied inline: ``set_config`` is idempotent and needs no
+        apiserver round trip."""
+        self.quota.set_config(quota_config.parse_configmap(cm))
 
     @staticmethod
     def _is_relevant_pod(pod: Pod) -> bool:
@@ -260,6 +290,11 @@ class Controller:
         self.hub.start()
         if not self.hub.wait_for_sync():
             raise RuntimeError("informer cache never synced")
+        # The initial LIST fills the stores without calling handlers:
+        # seed the quota table from it, so the first filter enforces it.
+        for cm in self.hub.configmaps.list():
+            if self._is_quota_configmap(cm):
+                self._on_quota_configmap(cm)
         self.cache.build()
         for i in range(workers):
             t = threading.Thread(target=self._worker,

@@ -25,7 +25,11 @@ the group table; no apiserver round trip runs under either, so one
 gang's writes never stall another gang's bind. Every annotation, Event,
 binding and error string is the reference's. The reference's decision
 trace notes, timeline marks and topology gauges come with the
-observability slice; its tenant-quota gate with the quota slice.
+observability slice. With a quota ledger, a gang whose outstanding
+members must take its tenant past the hard limit is refused at its
+quorum pre-check, before it reserves; the group's charge needs nothing
+more, since each reservation goes through the cache (which charges) and
+the rollback through ``remove_pod`` (which uncharges).
 """
 
 from __future__ import annotations
@@ -91,9 +95,12 @@ class _Group:
 class GangPlanner:
     def __init__(self, cache, client, ttl: float = 120.0,
                  housekeeping_interval: float = 5.0, node_lister=None,
-                 is_leader=None, placer=None):
+                 is_leader=None, quota=None, placer=None):
         self.cache = cache
         self.client = client
+        #: A QuotaManager, or None: the quorum pre-check's doomed-gang
+        #: test against the tenant's hard limit.
+        self.quota = quota
         #: Optional ``fleet.SlicePlacer``: a gang with
         #: ``tpushare.io/slice-shape`` gets a contiguous host block
         #: elected at its first member's quorum pre-check, later members
@@ -227,6 +234,16 @@ class GangPlanner:
         needed = group.minimum - len(group.reservations) - bound_n
         if needed <= 0:
             return True, ""
+        if self.quota is not None:
+            # The hard limit over the whole outstanding group (clones of
+            # this pod, as below): a per-member check would admit the
+            # first members and leave the gang squatting.
+            ok, reason = self.quota.admit(pod, count=needed)
+            if not ok:
+                return False, (
+                    f"gang {group.name}: quorum {group.minimum} can never "
+                    f"assemble under its tenant's quota ({reason}); "
+                    "rejecting without reserving")
         # A slice-shape gang elects its block here, while the group holds
         # nothing. An elected block of enough hosts proves capacity; a
         # failed election is no infeasibility (the walk below decides).

@@ -25,12 +25,25 @@ import urllib.error
 import urllib.request
 from urllib.parse import quote
 
-from tpushare_torch.api.objects import Node, Pod
+from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
+                                        PodDisruptionBudget)
 from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
+from tpushare_torch.utils import const
 
 log = logging.getLogger(__name__)
 
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+
+#: The ConfigMaps the extender reads, each over a LIST/WATCH of its own
+#: name (a fieldSelector cannot OR names; a watch of every ConfigMap
+#: would keep each namespace's documents in the store). The reference
+#: also watches ``tpushare-slos``, whose engine the port has not yet.
+_WATCHED_CONFIGMAPS = (const.QUOTA_CONFIGMAP,)
+
+
+def _configmap_path(name: str) -> str:
+    return ("/api/v1/configmaps?fieldSelector="
+            + quote(f"metadata.name={name}"))
 
 
 def _pem_file(data: str) -> str:
@@ -227,6 +240,50 @@ class ApiClient:
             body={"apiVersion": "policy/v1", "kind": "Eviction",
                   "metadata": {"name": name, "namespace": namespace}})
 
+    # -- budgets, ConfigMaps, Leases --------------------------------- #
+
+    def list_pdbs(self) -> list[PodDisruptionBudget]:
+        """Every PodDisruptionBudget (policy/v1): the preempt verb's
+        violation count. Needs a ``poddisruptionbudgets`` list/watch
+        RBAC rule."""
+        doc = self._request("GET", "/apis/policy/v1/poddisruptionbudgets")
+        return [PodDisruptionBudget(item) for item in doc.get("items", [])]
+
+    def get_configmap(self, namespace: str, name: str) -> ConfigMap:
+        return ConfigMap(self._request(
+            "GET", f"/api/v1/namespaces/{namespace}/configmaps/{name}"))
+
+    def list_configmaps(self) -> list[ConfigMap]:
+        """The ConfigMaps named in ``_WATCHED_CONFIGMAPS``, one LIST a
+        name filtered on the server. Needs a ``configmaps`` get/list/watch
+        RBAC rule."""
+        out: list[ConfigMap] = []
+        for name in _WATCHED_CONFIGMAPS:
+            doc = self._request("GET", _configmap_path(name))
+            out.extend(ConfigMap(item) for item in doc.get("items", []))
+        return out
+
+    def get_lease(self, namespace: str, name: str) -> dict | None:
+        try:
+            return self._request(
+                "GET", f"/apis/coordination.k8s.io/v1/namespaces/"
+                       f"{namespace}/leases/{name}")
+        except NotFoundError:
+            return None
+
+    def create_lease(self, namespace: str, raw: dict) -> dict:
+        return self._request(
+            "POST",
+            f"/apis/coordination.k8s.io/v1/namespaces/{namespace}/leases",
+            body=raw)
+
+    def update_lease(self, namespace: str, name: str, raw: dict) -> dict:
+        """PUT with the read resourceVersion: a stale one gets a 409."""
+        return self._request(
+            "PUT", f"/apis/coordination.k8s.io/v1/namespaces/"
+                   f"{namespace}/leases/{name}",
+            body=raw)
+
     # -- events -------------------------------------------------------- #
 
     def create_event(self, namespace: str, event: dict) -> None:
@@ -239,14 +296,22 @@ class ApiClient:
     # -- watch: the queue interface of FakeApiServer.watch ------------- #
 
     def watch(self) -> queue.Queue:
-        """One LIST + WATCH stream a kind (pods, nodes) into one queue of
-        ``(kind, event_type, raw)``."""
+        """One LIST + WATCH stream a kind (pods, nodes, budgets) and one a
+        watched ConfigMap name, into one queue of ``(kind, event_type,
+        raw)``. A ConfigMap stream's RELIST names its scope, so the
+        informer diffs only that name's documents."""
         q: queue.Queue = queue.Queue()
         stop = threading.Event()
-        for kind, path in (("Pod", "/api/v1/pods"), ("Node", "/api/v1/nodes")):
+        streams = [("Pod", "/api/v1/pods", ""),
+                   ("Node", "/api/v1/nodes", ""),
+                   ("PodDisruptionBudget",
+                    "/apis/policy/v1/poddisruptionbudgets", "")]
+        streams += [("ConfigMap", _configmap_path(name), name)
+                    for name in _WATCHED_CONFIGMAPS]
+        for i, (kind, path, scope) in enumerate(streams):
             threading.Thread(target=self._watch_loop,
-                             args=(kind, path, q, stop),
-                             name=f"tpushare-watch-{kind.lower()}",
+                             args=(kind, path, q, stop, scope),
+                             name=f"tpushare-watch-{kind.lower()}-{i}",
                              daemon=True).start()
         self._watch_threads[id(q)] = stop
         return q
@@ -257,7 +322,7 @@ class ApiClient:
             stop.set()
 
     def _watch_loop(self, kind: str, path: str, q: queue.Queue,
-                    stop: threading.Event) -> None:
+                    stop: threading.Event, scope: str = "") -> None:
         """LIST, hand the items on as one RELIST (the informer diffs it
         against its store, so what changed while the watch was down is
         not lost), then WATCH from the list's resourceVersion until the
@@ -267,8 +332,12 @@ class ApiClient:
             try:
                 listing = self._request("GET", path)
                 rv = listing.get("metadata", {}).get("resourceVersion", "")
-                q.put((kind, "RELIST", listing.get("items", []) or []))
-                url = (f"{self.config.host}{path}?watch=true"
+                items = listing.get("items", []) or []
+                q.put((kind, "RELIST",
+                       {"scope": scope, "items": items} if scope
+                       else items))
+                sep = "&" if "?" in path else "?"
+                url = (f"{self.config.host}{path}{sep}watch=true"
                        f"&resourceVersion={rv}&timeoutSeconds=300"
                        "&allowWatchBookmarks=true")
                 req = urllib.request.Request(url)

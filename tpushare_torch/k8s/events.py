@@ -99,3 +99,4 @@ REASON_GANG_PENDING = "TPUShareGangPending"
 REASON_GANG_EXPIRED = "TPUShareGangExpired"
 REASON_GANG_REAPED = "TPUShareGangReaped"
 REASON_GANG_COMMITTED = "TPUShareGangCommitted"
+REASON_QUOTA_DENIED = "TPUShareQuotaDenied"

@@ -5,8 +5,10 @@ The port's copy of the part of ``tpushare/k8s/fake.py`` that the device
 plugin, the grant watchdog and the scheduler extender reach: nodes, pods
 (optimistic-concurrency updates: a stale ``resourceVersion`` gets a real
 409), the ``pods/binding`` and ``pods/eviction`` subresources (the
-latter with PodDisruptionBudget semantics), Events, and watch streams of
-pods and nodes. The client (:mod:`tpushare_torch.k8s.client`) has the
+latter with PodDisruptionBudget semantics), PodDisruptionBudgets,
+ConfigMaps, Leases (optimistic concurrency too: leader election's safety
+rests on it), Events, and watch streams of pods, nodes, budgets and
+ConfigMaps. The client (:mod:`tpushare_torch.k8s.client`) has the
 same calls over the apiserver's REST API, so either runs under both.
 """
 
@@ -17,7 +19,8 @@ import itertools
 import queue
 import threading
 
-from tpushare_torch.api.objects import Node, Pod
+from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
+                                        PodDisruptionBudget)
 from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
 
 
@@ -66,14 +69,16 @@ def _pdb_blocks(pdb: dict, pod: Pod) -> bool:
 
 
 class FakeApiServer:
-    """Thread-safe in-memory store of nodes, pods, PodDisruptionBudgets
-    and Events, with watch fan-out of pods and nodes."""
+    """Thread-safe in-memory store of nodes, pods, PodDisruptionBudgets,
+    ConfigMaps, Leases and Events, with watch fan-out."""
 
     def __init__(self):
         self._lock = threading.RLock()
         self._pods: dict[str, dict] = {}    # "ns/name" -> raw pod
         self._nodes: dict[str, dict] = {}   # name -> raw node
         self._pdbs: dict[str, dict] = {}    # "ns/name" -> raw pdb
+        self._configmaps: dict[str, dict] = {}  # "ns/name" -> raw cm
+        self._leases: dict[str, dict] = {}  # "ns/name" -> raw lease
         self._rv = itertools.count(1)
         self._uid = itertools.count(1)
         self.events: list[tuple[str, dict]] = []  # (namespace, event)
@@ -89,8 +94,9 @@ class FakeApiServer:
             q.put((kind, event_type, _dcopy(obj)))
 
     def watch(self) -> queue.Queue:
-        """Subscribe to ``(kind, event_type, raw)`` tuples: kind "Pod" or
-        "Node", event_type "ADDED", "MODIFIED" or "DELETED"."""
+        """Subscribe to ``(kind, event_type, raw)`` tuples: kind "Pod",
+        "Node", "PodDisruptionBudget" or "ConfigMap", event_type "ADDED",
+        "MODIFIED" or "DELETED"."""
         q: queue.Queue = queue.Queue()
         with self._lock:
             self._watchers.append(q)
@@ -240,18 +246,22 @@ class FakeApiServer:
             del self._pods[key]
             self._notify("Pod", "DELETED", raw)
 
-    # -- PodDisruptionBudgets (policy/v1), raw documents ---------------- #
+    # -- PodDisruptionBudgets (policy/v1) ------------------------------ #
 
     def create_pdb(self, raw: dict) -> dict:
+        """Returns the stored document (the daemon's callers edit it and
+        hand it back to :meth:`update_pdb`)."""
         with self._lock:
             pdb = _dcopy(raw)
             meta = pdb.setdefault("metadata", {})
             meta.setdefault("namespace", "default")
+            meta.setdefault("uid", f"uid-{next(self._uid)}")
             key = f"{meta['namespace']}/{meta['name']}"
             if key in self._pdbs:
                 raise ConflictError(reason=f"pdb {key} already exists")
             self._bump(pdb)
             self._pdbs[key] = pdb
+            self._notify("PodDisruptionBudget", "ADDED", pdb)
             return _dcopy(pdb)
 
     def update_pdb(self, raw: dict) -> dict:
@@ -263,6 +273,100 @@ class FakeApiServer:
             updated = _dcopy(raw)
             self._bump(updated)
             self._pdbs[key] = updated
+            self._notify("PodDisruptionBudget", "MODIFIED", updated)
+            return _dcopy(updated)
+
+    def delete_pdb(self, namespace: str, name: str) -> None:
+        with self._lock:
+            pdb = self._pdbs.pop(f"{namespace}/{name}", None)
+            if pdb is not None:
+                self._notify("PodDisruptionBudget", "DELETED", pdb)
+
+    def list_pdbs(self) -> list[PodDisruptionBudget]:
+        with self._lock:
+            return [PodDisruptionBudget(_dcopy(p))
+                    for p in self._pdbs.values()]
+
+    # -- ConfigMaps (the quota table travels in one) -------------------- #
+
+    def create_configmap(self, raw: dict) -> ConfigMap:
+        with self._lock:
+            cm = _dcopy(raw)
+            meta = cm.setdefault("metadata", {})
+            meta.setdefault("namespace", "default")
+            key = f"{meta['namespace']}/{meta['name']}"
+            if key in self._configmaps:
+                raise ConflictError(reason=f"configmap {key} already exists")
+            self._bump(cm)
+            self._configmaps[key] = cm
+            self._notify("ConfigMap", "ADDED", cm)
+            return ConfigMap(_dcopy(cm))
+
+    def get_configmap(self, namespace: str, name: str) -> ConfigMap:
+        with self._lock:
+            key = f"{namespace}/{name}"
+            if key not in self._configmaps:
+                raise NotFoundError(reason=f"configmap {key} not found")
+            return ConfigMap(_dcopy(self._configmaps[key]))
+
+    def update_configmap(self, cm: ConfigMap) -> ConfigMap:
+        with self._lock:
+            key = f"{cm.namespace}/{cm.name}"
+            if key not in self._configmaps:
+                raise NotFoundError(reason=f"configmap {key} not found")
+            updated = _dcopy(cm.raw)
+            self._bump(updated)
+            self._configmaps[key] = updated
+            self._notify("ConfigMap", "MODIFIED", updated)
+            return ConfigMap(_dcopy(updated))
+
+    def delete_configmap(self, namespace: str, name: str) -> None:
+        with self._lock:
+            cm = self._configmaps.pop(f"{namespace}/{name}", None)
+            if cm is not None:
+                self._notify("ConfigMap", "DELETED", cm)
+
+    def list_configmaps(self) -> list[ConfigMap]:
+        with self._lock:
+            return [ConfigMap(_dcopy(c)) for c in self._configmaps.values()]
+
+    # -- Leases (coordination.k8s.io), raw documents -------------------- #
+
+    def get_lease(self, namespace: str, name: str) -> dict | None:
+        with self._lock:
+            raw = self._leases.get(f"{namespace}/{name}")
+            return _dcopy(raw) if raw else None
+
+    def create_lease(self, namespace: str, raw: dict) -> dict:
+        with self._lock:
+            lease = _dcopy(raw)
+            meta = lease.setdefault("metadata", {})
+            meta.setdefault("namespace", namespace)
+            key = f"{namespace}/{meta['name']}"
+            if key in self._leases:
+                raise ConflictError(reason=f"lease {key} already exists")
+            self._bump(lease)
+            self._leases[key] = lease
+            return _dcopy(lease)
+
+    def update_lease(self, namespace: str, name: str, raw: dict) -> dict:
+        """A stale resourceVersion gets a 409: of two candidates racing
+        for an expired lease, one wins."""
+        with self._lock:
+            key = f"{namespace}/{name}"
+            current = self._leases.get(key)
+            if current is None:
+                raise NotFoundError(reason=f"lease {key} not found")
+            cur_rv = current["metadata"].get("resourceVersion")
+            new_rv = raw.get("metadata", {}).get("resourceVersion")
+            if new_rv and new_rv != cur_rv:
+                raise ConflictError(
+                    reason="the object has been modified; please apply "
+                           "your changes to the latest version and try "
+                           "again")
+            updated = _dcopy(raw)
+            self._bump(updated)
+            self._leases[key] = updated
             return _dcopy(updated)
 
     # -- events -------------------------------------------------------- #

@@ -1,11 +1,12 @@
 """Informer: LIST + WATCH into a local store, with event handlers.
 
-The port's copy of ``tpushare/k8s/informer.py`` for pods and nodes (the
-kinds the extender's single-pod path watches): one daemon thread consumes
-the watch stream of a :class:`tpushare_torch.k8s.fake.FakeApiServer` or
-an :class:`tpushare_torch.k8s.client.ApiClient`, keeps a thread-safe
-store a kind (the "lister") and calls the registered add, update and
-delete handlers.
+The port's copy of ``tpushare/k8s/informer.py`` for pods, nodes,
+PodDisruptionBudgets (the preempt verb's violation count) and ConfigMaps
+(the quota table): one daemon thread consumes the watch stream of a
+:class:`tpushare_torch.k8s.fake.FakeApiServer` or an
+:class:`tpushare_torch.k8s.client.ApiClient`, keeps a thread-safe store a
+kind (the "lister") and calls the registered add, update and delete
+handlers.
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ from __future__ import annotations
 import logging
 import threading
 
-from tpushare_torch.api.objects import Node, Pod
+from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
+                                        PodDisruptionBudget)
 
 log = logging.getLogger(__name__)
 
-_WRAPPERS = {"Pod": Pod, "Node": Node}
+_WRAPPERS = {"Pod": Pod, "Node": Node,
+             "PodDisruptionBudget": PodDisruptionBudget,
+             "ConfigMap": ConfigMap}
 
 
 class Store:
@@ -29,7 +33,7 @@ class Store:
 
     @staticmethod
     def key_of(obj) -> str:
-        if isinstance(obj, Pod):
+        if isinstance(obj, (Pod, PodDisruptionBudget, ConfigMap)):
             return f"{obj.namespace}/{obj.name}"
         return obj.name
 
@@ -66,7 +70,7 @@ class Store:
 
 
 class InformerHub:
-    """One watch stream fanned out to the pod and node informers.
+    """One watch stream fanned out to the informers of each kind.
 
     ``start()`` makes the initial LIST (so ``wait_for_sync`` means what
     client-go's ``WaitForCacheSync`` does) and then consumes watch events
@@ -77,7 +81,11 @@ class InformerHub:
         self.client = client
         self.pods = Store()
         self.nodes = Store()
-        self._handlers: dict[str, list] = {"Pod": [], "Node": []}
+        self.pdbs = Store()
+        self.configmaps = Store()
+        self._handlers: dict[str, list] = {"Pod": [], "Node": [],
+                                           "PodDisruptionBudget": [],
+                                           "ConfigMap": []}
         self._synced = threading.Event()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -95,12 +103,29 @@ class InformerHub:
         self._handlers["Node"].append((on_add, on_update, on_delete,
                                        filter_fn))
 
+    def add_configmap_handler(self, on_add=None, on_update=None,
+                              on_delete=None, filter_fn=None) -> None:
+        self._handlers["ConfigMap"].append((on_add, on_update, on_delete,
+                                            filter_fn))
+
     # -- lifecycle ------------------------------------------------------ #
 
     def start(self) -> None:
         self._watch_queue = self.client.watch()
         self.pods.replace(self.client.list_pods())
         self.nodes.replace(self.client.list_nodes())
+        # Budgets and ConfigMaps are optional on a client (and RBAC may
+        # deny them): without them the listers are empty.
+        for store, name in ((self.pdbs, "list_pdbs"),
+                            (self.configmaps, "list_configmaps")):
+            lister = getattr(self.client, name, None)
+            if lister is None:
+                continue
+            try:
+                store.replace(lister())
+            except Exception:  # noqa: BLE001 - the watch recovers it
+                log.warning("%s failed; its store stays empty until the "
+                            "watch recovers", name, exc_info=True)
         self._synced.set()
         self._thread = threading.Thread(
             target=self._run, name="tpushare-informer", daemon=True)
@@ -128,12 +153,21 @@ class InformerHub:
                 wrapper = _WRAPPERS.get(kind)
                 if wrapper is None:
                     continue
-                store = self.pods if kind == "Pod" else self.nodes
+                store = {"Pod": self.pods, "Node": self.nodes,
+                         "PodDisruptionBudget": self.pdbs,
+                         "ConfigMap": self.configmaps}[kind]
                 if event_type == "RELIST":
                     # The watch reconnected: diff the fresh LIST against
-                    # the store and make up the events of the gap.
+                    # the store and make up the events of the gap. A
+                    # stream of one ConfigMap name diffs only documents
+                    # of that name.
+                    scope = ""
+                    if isinstance(raw, dict):
+                        scope = raw.get("scope") or ""
+                        raw = raw.get("items", [])
                     self._handle_relist(kind, store,
-                                        [wrapper(r) for r in raw])
+                                        [wrapper(r) for r in raw],
+                                        scope=scope)
                     continue
                 obj = wrapper(raw)
                 old = store.get(Store.key_of(obj))
@@ -152,9 +186,11 @@ class InformerHub:
         q = self._watch_queue
         return q is None or q.unfinished_tasks == 0
 
-    def _handle_relist(self, kind: str, store: Store, objs: list) -> None:
+    def _handle_relist(self, kind: str, store: Store, objs: list,
+                       scope: str = "") -> None:
         fresh = {Store.key_of(o): o for o in objs}
-        stale = [o for o in store.list() if Store.key_of(o) not in fresh]
+        stale = [o for o in store.list() if Store.key_of(o) not in fresh
+                 and (not scope or o.name == scope)]
         for obj in objs:
             old = store.get(Store.key_of(obj))
             store.upsert(obj)

@@ -8,10 +8,18 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
 * ``POST {prefix}/bind`` — bind; HTTP 500 on error, so the scheduler
   retries (a gang member held below quorum too, though that is not
   counted as a failed bind)
-* ``POST {prefix}/preempt``, ``{prefix}/validate`` — 404 "not
-  configured", as the reference answers when they are not wired
+* ``POST {prefix}/preempt`` — victims a candidate node
+  (``ExtenderPreemptionArgs`` in either era's keys)
+* ``POST {prefix}/validate`` — the admission webhook (AdmissionReview)
 * ``GET  {prefix}/inspect[/<node>]`` — the utilization document
-* ``GET  /version``, ``/healthz``
+* ``GET  /debug/quota`` — the tenant quota ledger's snapshot
+* ``GET  /version``, ``/healthz`` (``ok leader`` / ``ok follower`` under
+  leader election)
+
+Under leader election a follower answers bind with 503 "not the leader"
+(``Retry-After: 1``), so the scheduler retries and the Service lands the
+retry on the leader; every replica serves the read verbs. A verb that is
+not wired answers 404 "... not configured".
 
 Every verb answers with a ``Server-Timing`` header: the handler's own ms
 and, for the read verbs, the micro-batch gate's queue wait. A malformed
@@ -19,8 +27,8 @@ body is refused with 400 and the handler returns. A bounded pool of
 workers serves the accepted connections (``TPUSHARE_HTTP_WORKERS``, 8),
 each for its keep-alive lifetime; a full hand-off queue blocks the
 accept loop. The read verbs pass the micro-batch gate (routes/batch.py)
-and the repeat-shape fast paths of routes/wire.py. ``/metrics`` and
-``/debug/*`` come with the observability slice.
+and the repeat-shape fast paths of routes/wire.py. ``/metrics`` and the
+other ``/debug/*`` routes come with the observability slice.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import tpushare_torch
-from tpushare_torch.api.extender import ExtenderBindingArgs
+from tpushare_torch.api.extender import (ExtenderBindingArgs,
+                                         ExtenderPreemptionArgs)
 from tpushare_torch.routes import wire
 from tpushare_torch.routes.batch import VerbBatcher, WorkItem
 
@@ -69,11 +78,19 @@ class ExtenderHTTPServer(HTTPServer):
     request_queue_size = ACCEPT_QUEUE_DEPTH
 
     def __init__(self, addr, predicate, binder, inspect,
-                 prefix: str = DEFAULT_PREFIX, prioritize=None):
+                 prefix: str = DEFAULT_PREFIX, prioritize=None,
+                 preempt=None, admission=None, leader=None, quota=None):
         self.predicate = predicate
         self.binder = binder
         self.inspect = inspect
         self.prioritize = prioritize
+        self.preempt = preempt
+        self.admission = admission
+        #: The leader elector (``is_leader() -> bool``) under leader
+        #: election: only the leader binds.
+        self.leader = leader
+        #: The tenant quota ledger, for ``GET /debug/quota``.
+        self.quota = quota
         self.prefix = prefix
         #: Binds that failed; a gang member held below quorum is an
         #: expected hold and not counted.
@@ -314,7 +331,17 @@ class _Handler(BaseHTTPRequestHandler):
             if path == "/version":
                 self._send_json({"version": tpushare_torch.__version__})
             elif path == "/healthz":
-                self._send_text(b"ok")
+                role = ""
+                if self.server.leader is not None:
+                    role = (" leader" if self.server.leader.is_leader()
+                            else " follower")
+                self._send_text(f"ok{role}".encode())
+            elif path == "/debug/quota":
+                if self.server.quota is None:
+                    self._send_json({"Error": "quota not configured"}, 404)
+                else:
+                    self._send_json(
+                        {"tenants": self.server.quota.snapshot()})
             elif (path == f"{prefix}/inspect"
                   or path.startswith(f"{prefix}/inspect/")):
                 rest = path[len(f"{prefix}/inspect"):]
@@ -343,17 +370,47 @@ class _Handler(BaseHTTPRequestHandler):
                         {"Error": "prioritize not configured"}, 404)
                     return
                 self._gated(self.server.prioritize_gate, args)
-            elif path in (f"{prefix}/preempt", f"{prefix}/validate"):
-                if self._read_json() is not None:
-                    what = ("preempt" if path.endswith("/preempt")
-                            else "admission")
-                    self._send_json({"Error": f"{what} not configured"},
+            elif path == f"{prefix}/preempt":
+                doc = self._read_json()
+                if doc is None:
+                    return
+                if self.server.preempt is None:
+                    self._send_json({"Error": "preempt not configured"}, 404)
+                    return
+                pre_args = ExtenderPreemptionArgs.from_json(doc)
+                t0 = time.perf_counter()
+                result = self.server.preempt.handle(pre_args)
+                handler_ms = (time.perf_counter() - t0) * 1e3
+                self._send_json(result.to_json(),
+                                extra_headers=_server_timing(handler_ms))
+            elif path == f"{prefix}/validate":
+                doc = self._read_json()
+                if doc is None:
+                    return
+                if self.server.admission is None:
+                    self._send_json({"Error": "admission not configured"},
                                     404)
+                    return
+                t0 = time.perf_counter()
+                result = self.server.admission.handle(doc)
+                handler_ms = (time.perf_counter() - t0) * 1e3
+                self._send_json(result,
+                                extra_headers=_server_timing(handler_ms))
             elif path == f"{prefix}/bind":
                 doc = self._read_json()
                 if doc is None:
                     return
                 args = ExtenderBindingArgs.from_json(doc)
+                if (self.server.leader is not None
+                        and not self.server.leader.is_leader()):
+                    # A follower must not bind against its own, possibly
+                    # stale, ledger. Checked at the last moment before the
+                    # ledger commit; a write already in flight when
+                    # leadership decays is bounded by the apiserver's
+                    # request timeout (keep it below the lease duration).
+                    self._send_json({"Error": "not the leader"}, 503,
+                                    extra_headers={"Retry-After": "1"})
+                    return
                 t0 = time.perf_counter()
                 result = self.server.binder.handle(args)
                 handler_ms = (time.perf_counter() - t0) * 1e3

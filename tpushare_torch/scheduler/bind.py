@@ -6,8 +6,9 @@ apiserver when the lister has none or another uid, then run the node
 ledger's ``allocate`` (annotate, bind, update the ledger) and record the
 outcome as an Event. A gang pod goes to the gang planner instead, so a
 pod group is only ever committed all or nothing; a member reserved
-below quorum answers a pending error, which the scheduler retries. The
-quota's last-moment check comes with its own slice.
+below quorum answers a pending error, which the scheduler retries. With
+a quota ledger, the tenant's hard limit is checked again at the last
+moment, and the pod's request reserved under the same lock.
 """
 
 from __future__ import annotations
@@ -33,14 +34,17 @@ class Bind:
 
     def __init__(self, cache: SchedulerCache, client: Any,
                  gang_planner: Any = None,
-                 pod_lister: Callable[[str, str], Pod | None] | None = None
-                 ) -> None:
+                 pod_lister: Callable[[str, str], Pod | None] | None = None,
+                 quota: Any = None) -> None:
         self.cache = cache
         self.client = client
         self.gang_planner = gang_planner
         #: The informer's fetch ``(ns, name) -> Pod | None``; when wired,
         #: reads go to the local store first.
         self.pod_lister = pod_lister
+        #: A QuotaManager, or None. Sibling binds can land between a pod's
+        #: filter and its bind, so the hard limit is checked again here.
+        self.quota = quota
 
     def _get_pod(self, args: ExtenderBindingArgs) -> Pod | None:
         """Lister first, the apiserver when the lister has none or holds
@@ -66,6 +70,22 @@ class Bind:
         info = self.cache.get_node_info(args.node)
         if info is None:
             return ExtenderBindingResult(error=f"unknown node {args.node}")
+        reserved = False
+        if (self.quota is not None
+                and (podutils.is_tpu_sharing_pod(pod)
+                     or podutils.is_tpu_chip_pod(pod))):
+            # Check and reserve under one lock: two binds of one tenant on
+            # two HTTP threads must not both pass a bare check.
+            ok, reason = self.quota.admit_and_reserve(pod)
+            if not ok:
+                log.warning("bind refused for pod %s/%s: %s",
+                            args.pod_namespace, args.pod_name, reason)
+                events.record(self.client, pod,
+                              events.REASON_QUOTA_DENIED,
+                              f"node {args.node}: {reason}",
+                              event_type="Warning")
+                return ExtenderBindingResult(error=reason)
+            reserved = True
         try:
             if self.gang_planner is not None and podutils.is_gang_pod(pod):
                 self.gang_planner.bind_member(pod, args.node)
@@ -89,3 +109,9 @@ class Bind:
             events.record(self.client, pod, events.REASON_BIND_FAILED,
                           f"node {args.node}: {e}", event_type="Warning")
             return ExtenderBindingResult(error=str(e))
+        finally:
+            # Release the reservation unless the cache took the pod (a
+            # placement, or a reserved gang member): its charge replaced
+            # the reservation under the same uid.
+            if reserved and not self.cache.known_pod(pod.uid):
+                self.quota.uncharge(pod)

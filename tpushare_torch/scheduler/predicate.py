@@ -5,7 +5,9 @@ The port's copy of ``tpushare/scheduler/predicate.py`` (gpushare's
 nodes with the HBM-share admission check bound over the cache. A pure
 read path, no apiserver round trip. It takes both wire forms
 (``NodeNames`` when the scheduler is ``nodeCacheCapable``, full
-``Nodes`` otherwise). Tenant quotas come with their own slice.
+``Nodes`` otherwise). A tenant over its quota's hard limit is refused
+on every node before any node is priced, with a quota reason and a
+Warning Event at most once a tenant every ``QUOTA_EVENT_INTERVAL_S``.
 """
 
 from __future__ import annotations
@@ -19,10 +21,17 @@ from tpushare_torch.api.extender import ExtenderArgs, ExtenderFilterResult
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cache.nodeinfo import MEMO_CAP, NodeInfo, NodeSummary
+from tpushare_torch.k8s import events
+from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
 
 log = logging.getLogger(__name__)
+
+#: Seconds between quota-denial Events a tenant: the scheduler retries a
+#: denied pod every cycle, and an Event each time would flood the events
+#: pipeline for a tenant parked over its limit.
+QUOTA_EVENT_INTERVAL_S = 30.0
 
 
 class DemandTracker:
@@ -138,9 +147,43 @@ class Predicate:
     name = "tpushare-filter"
 
     def __init__(self, cache: SchedulerCache,
-                 demand: DemandTracker | None = None) -> None:
+                 demand: DemandTracker | None = None,
+                 quota: QuotaManager | None = None,
+                 client: object | None = None) -> None:
+        """``quota`` arms the hard-limit gate (None: no tenancy).
+        ``client`` writes the denial Events; without it a denial is still
+        enforced, just not visible to ``kubectl describe``."""
         self.cache = cache
         self.demand = demand or DemandTracker()
+        self.quota = quota
+        self.client = client
+        self._quota_event_lock = threading.RLock()
+        #: tenant -> monotonic stamp of its last denial Event.
+        self._quota_event_at: dict[str, float] = {}
+
+    def _deny_quota(self, args: ExtenderArgs, pod: Pod,
+                    reason: str) -> ExtenderFilterResult:
+        """Refuse every candidate with the quota reason. Not recorded as
+        unplaceable demand: capacity exists, the tenant is over policy."""
+        tenant = podutils.get_tenant(pod)
+        failed = {name: reason for name in args.candidate_names()}
+        self.demand.clear(pod.uid)
+        if self.client is not None:
+            now = time.monotonic()
+            with self._quota_event_lock:
+                due = (now - self._quota_event_at.get(tenant, 0.0)
+                       >= QUOTA_EVENT_INTERVAL_S)
+                if due:
+                    self._quota_event_at[tenant] = now
+            if due:
+                events.record(self.client, pod, events.REASON_QUOTA_DENIED,
+                              reason, event_type="Warning")
+        log.debug("filter pod %s: quota-denied (%s)", pod.key(), reason)
+        return ExtenderFilterResult(
+            node_names=[] if args.node_names is not None else None,
+            nodes=[] if args.nodes is not None else None,
+            failed_nodes=failed,
+        )
 
     def filter_node(self, pod: Pod, node_name: str) -> tuple[bool, str]:
         """The per-node admission check (reference
@@ -196,6 +239,13 @@ class Predicate:
             return ExtenderFilterResult(
                 node_names=args.node_names, nodes=args.nodes, failed_nodes={}
             )
+
+        if self.quota is not None:
+            # The tenant's hard limit first: no node is worth pricing for
+            # a pod its tenant may not place anywhere.
+            ok, reason = self.quota.admit(pod)
+            if not ok:
+                return self._deny_quota(args, pod, reason)
 
         req_chips = podutils.get_chips_from_pod_resource(pod)
         req_hbm = podutils.get_hbm_from_pod_resource(pod)

@@ -19,8 +19,10 @@ weight):
   host grid), and, for a slice-shape gang, the top score on every host
   of the block the gang planner elected.
 
-A lone pod takes the fast path over the admission summaries. The quota's
-fairness nudge comes with its own slice.
+A lone pod takes the fast path over the admission summaries. With a
+quota ledger, every feasible node's score moves by the tenant's standing:
++1 while it asks within its guarantee, -1 once it borrows beyond it
+(the elected block of a slice-shape gang excepted).
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ class Prioritize:
     name = "tpushare-prioritize"
 
     def __init__(self, cache: SchedulerCache, gang_planner: Any = None,
-                 policy: str = "binpack") -> None:
+                 policy: str = "binpack", quota: Any = None) -> None:
         """``policy``: ``"binpack"`` (default: tightest fit, keeping whole
         cards free for multi-card pods) or ``"spread"`` (the emptiest
         placement wins: fewer co-tenants a card for latency-sensitive
-        inference). The gang bonuses apply under both."""
+        inference). The gang bonuses apply under both. ``quota``: a
+        QuotaManager whose ``score_adjust`` biases the scores."""
         if policy not in const.SCORING_POLICIES:
             raise ValueError(
                 f"unknown scoring policy {policy!r}; expected "
@@ -58,6 +61,7 @@ class Prioritize:
         self.cache = cache
         self.gang_planner = gang_planner
         self.policy = policy
+        self.quota = quota
 
     def _policy_for(self, pod: Pod) -> str:
         """The pod's ``tpushare.io/scoring`` annotation when valid, else
@@ -303,6 +307,15 @@ class Prioritize:
                         memo.clear()
                     ent = memo[shape] = (s, score)
                 out.append(HostPriority(host=n, score=ent[1]))
+        if self.quota is not None and not elected:
+            adjust = self.quota.score_adjust(pod)
+            if adjust:
+                # Only feasible nodes move: a zero means "cannot host".
+                out = [HostPriority(host=e.host,
+                                    score=min(max(e.score + adjust, 1),
+                                              MAX_SCORE))
+                       if e.score > 0 else e
+                       for e in out]
         if log.isEnabledFor(logging.DEBUG):
             log.debug("prioritize pod %s: %s", pod.key(),
                       {e.host: e.score for e in out})

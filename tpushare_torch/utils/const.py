@@ -67,6 +67,14 @@ GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
 #: namespace).
 LABEL_TENANT = "tpushare.io/tenant"
 
+#: The ConfigMap of per-tenant quota specs (trusted only from
+#: ``TPUSHARE_QUOTA_NAMESPACE``): each data key a tenant, or
+#: QUOTA_DEFAULT_KEY for the spec of tenants without their own; each
+#: value a JSON object of ``guaranteeHBM`` / ``limitHBM`` (GiB) and
+#: ``guaranteeChips`` / ``limitChips``.
+QUOTA_CONFIGMAP = "tpushare-quotas"
+QUOTA_DEFAULT_KEY = "*"
+
 #: A gang member's pod group and its minimum size.
 ANN_POD_GROUP = "tpushare.io/pod-group"
 ANN_POD_GROUP_MIN = "tpushare.io/pod-group-min"
