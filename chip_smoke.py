@@ -92,6 +92,7 @@ from torch.profiler import ProfilerActivity, profile
 import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
+from tpushare_torch import trace as ttrace
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cmd import main as extender_main
 from tpushare_torch.deviceplugin import discovery, kubelet, plugin, watchdog
@@ -1916,23 +1917,29 @@ class ExtenderClient:
     """One keep-alive connection to the extender, as kube-scheduler's
     transport keeps one. ``post`` returns the status, the JSON body and
     the handler's ms from ``Server-Timing`` (handler and gate queue);
-    ``last_bind`` holds the last bind's status and body."""
+    ``last_bind`` holds the last bind's status and body,
+    ``last_traceparent`` the last reply's ``traceparent`` header and
+    ``sent`` the POSTs sent, by path."""
 
     def __init__(self, server):
         import http.client
 
-        host, port = server.server_address[:2]
-        self.conn = http.client.HTTPConnection(host, port, timeout=60)
+        self.address = server.server_address[:2]
+        self.conn = http.client.HTTPConnection(*self.address, timeout=60)
         self.prefix = "/tpushare-scheduler"
         #: The last bind's status and body (``schedule``); None before.
         self.last_bind: tuple[int, object] | None = None
+        self.last_traceparent: str | None = None
+        self.sent: collections.Counter = collections.Counter()
 
     def post(self, path: str, doc: dict) -> tuple[int, object, float]:
+        self.sent[path] += 1
         self.conn.request("POST", self.prefix + path,
                           body=json.dumps(doc).encode(),
                           headers={"Content-Type": "application/json"})
         resp = self.conn.getresponse()
         body = json.loads(resp.read())
+        self.last_traceparent = resp.getheader("traceparent")
         timing = {name.strip(): float(dur) for name, _, dur in (
             part.partition(";dur=")
             for part in (resp.getheader("Server-Timing") or "").split(","))
@@ -1944,6 +1951,23 @@ class ExtenderClient:
         resp = self.conn.getresponse()
         check(resp.status == 200, f"GET {path}: {resp.status}")
         return json.loads(resp.read())
+
+    def text(self, path: str) -> bytes:
+        """GET a path of the server's root; its body, which must be a
+        200."""
+        self.conn.request("GET", path)
+        resp = self.conn.getresponse()
+        body = resp.read()
+        check(resp.status == 200, f"GET {path}: {resp.status} {body[:200]}")
+        return body
+
+    def metrics(self) -> dict:
+        """``/metrics``, parsed (``parse_metrics``)."""
+        return parse_metrics(self.text("/metrics").decode())
+
+    def decision(self, namespace: str, name: str) -> dict:
+        """The pod's newest decision, ``/debug/trace/<ns>/<pod>``."""
+        return self.get(f"/debug/trace/{namespace}/{name}", prefixed=False)
 
     def healthz(self) -> str:
         self.conn.request("GET", "/healthz")
@@ -1975,6 +1999,166 @@ class ExtenderClient:
 
     def close(self) -> None:
         self.conn.close()
+
+
+def parse_metrics(text: str) -> dict:
+    """The samples of a text-format 0.0.4 body: ``{(name, labels):
+    value}``, ``labels`` a sorted tuple of (name, value) pairs."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        pairs = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                        labels)))
+        out[(name, pairs)] = float(value)
+    return out
+
+
+def sample(samples: dict, name: str, **labels) -> float:
+    """One sample of ``parse_metrics``' result; 0.0 for a labelled child
+    never made (a counter that never counted)."""
+    return samples.get((name, tuple(sorted(labels.items()))), 0.0)
+
+
+def rise(after: dict, before: dict, name: str, **labels) -> float:
+    return sample(after, name, **labels) - sample(before, name, **labels)
+
+
+class Scraper:
+    """A Prometheus server's view of the extender: a thread that GETs
+    ``/metrics`` every ``every`` seconds over its own connection until
+    :meth:`stop`, which scrapes once more and returns that last scrape,
+    parsed. Keeps each scrape's ms, and the body's bytes and series."""
+
+    def __init__(self, address, every: float = 1.0):
+        import http.client
+
+        self.conn = http.client.HTTPConnection(*address, timeout=60)
+        self.every = every
+        self.ms: list[float] = []
+        self.bytes = self.series = 0
+        self.error: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="chip-smoke-scraper",
+                                        daemon=True)
+        self._thread.start()
+
+    def scrape(self) -> str:
+        t0 = time.perf_counter()
+        self.conn.request("GET", "/metrics")
+        resp = self.conn.getresponse()
+        body = resp.read()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        check(resp.status == 200, f"a scrape: {resp.status} {body[:200]}")
+        text = body.decode()
+        self.bytes = len(body)
+        self.series = sum(1 for line in text.splitlines()
+                          if line and not line.startswith("#"))
+        return text
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.wait(self.every):
+                self.scrape()
+        except BaseException as exc:  # noqa: BLE001 - raised in stop()
+            self.error = exc
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(60)
+        try:
+            if self.error is not None:
+                raise self.error
+            return parse_metrics(self.scrape())
+        finally:
+            self.conn.close()
+
+    def abandon(self) -> None:
+        """Stop without the last scrape (the run already failed)."""
+        self._stop.set()
+        self._thread.join(60)
+        self.conn.close()
+
+    def fields(self) -> dict:
+        p50, _ = _percentiles(self.ms)
+        return {"scrapes": len(self.ms), "scrape_p50_ms": p50,
+                "scrape_max_ms": max(self.ms), "scrape_bytes": self.bytes,
+                "scrape_series": self.series}
+
+
+#: The fake's calls that are apiserver requests, with the HTTP method the
+#: port's ApiClient sends for each.
+_API_METHODS = {"get_pod": "GET", "list_pods": "GET", "update_pod": "PUT",
+                "bind_pod": "POST", "delete_pod": "DELETE",
+                "evict_pod": "POST", "get_node": "GET", "list_nodes": "GET",
+                "update_node": "PUT", "create_event": "POST",
+                "get_configmap": "GET", "list_pdbs": "GET"}
+
+
+class WireTimedApi(FakeApiServer):
+    """The port's fake apiserver, each request noted on the calling
+    thread's open decision span (``trace.note_api_call``), as the port's
+    ``ApiClient`` notes its HTTP round trips: a decision traced over the
+    fake counts its apiserver requests as it would against a cluster."""
+
+
+def _timed(name: str, method: str):
+    call = getattr(FakeApiServer, name)
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return call(self, *args, **kwargs)
+        finally:
+            ttrace.note_api_call(time.perf_counter() - t0, method, name)
+    return timed
+
+
+for _name, _method in _API_METHODS.items():
+    setattr(WireTimedApi, _name, _timed(_name, _method))
+
+
+def bound_trace_checks(api: FakeApiServer, client: ExtenderClient,
+                       namespace: str, name: str, node: str,
+                       positions: list[int], gib: int) -> dict:
+    """A pod ``client.schedule`` just bound: its decision (``/debug/
+    trace``) is ``bound`` on ``node`` with filter, prioritize and bind
+    spans and, under bind at depth 1, an ``allocate`` span noting its
+    cards and GiB with at least two apiserver requests (the grant's PUT
+    and the binding); its ``trace-id`` annotation, the bind reply's
+    ``traceparent`` and its ``TPUShareBound`` Event's ``[trace <id>]``
+    name that decision."""
+    doc = client.decision(namespace, name)
+    tid = api.get_pod(namespace, name).annotations.get(const.ANN_TRACE_ID)
+    check(tid == doc["traceId"], f"{name}'s trace-id {tid}, /debug/trace "
+                                 f"{doc['traceId']}")
+    check(doc["outcome"] == "bound" and doc["node"] == node,
+          f"{name}'s decision: {doc['outcome']} on {doc['node']}")
+    spans = [(s["phase"], s["depth"]) for s in doc["spans"]]
+    for want in (("filter", 0), ("prioritize", 0), ("bind", 0)):
+        check(want in spans, f"{name}'s spans {spans} lack {want}")
+    at = spans.index(("bind", 0))
+    check(spans[at + 1:at + 2] == [("allocate", 1)],
+          f"{name}'s bind span holds no allocate span: {spans}")
+    alloc = doc["spans"][at + 1]
+    attrs = alloc.get("attrs", {})
+    check(attrs.get("chips") == positions and attrs.get("hbmGiB") == gib
+          and alloc["apiCalls"] >= 2, f"{name}'s allocate span: {alloc}")
+    check(client.last_traceparent == ttrace.format_traceparent(tid),
+          f"the bind's traceparent {client.last_traceparent}, id {tid}")
+    check(tevents.flush(), "events did not flush")
+    bound = [e["message"] for _, e in api.events
+             if e["reason"] == tevents.REASON_BOUND
+             and e["involvedObject"]["name"] == name]
+    check(bound and bound[-1].endswith(f"[trace {tid}]"),
+          f"{name}'s TPUShareBound Event: {bound}")
+    return {"trace_id": tid, "spans": spans, "outcome": doc["outcome"],
+            "allocate_api_calls": alloc["apiCalls"],
+            "allocate_attrs": attrs,
+            "traceparent": client.last_traceparent}
 
 
 def advertised_node(name: str, inv: discovery.HostInventory) -> dict:
@@ -2060,74 +2244,115 @@ def _percentiles(xs: list[float]) -> tuple[float, float]:
 
 def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
                    names: list[str], target: int = EXTENDER_BOUND,
-                   seed: int = EXTENDER_SEED) -> dict:
+                   seed: int = EXTENDER_SEED,
+                   scrape_every: float | None = 1.0) -> dict:
     """``bench.py``'s scale churn (``bench_scale``) over ``names``: each
     round the pods past their TTL succeed, max(n/2, 48) pods of
     ``EXTENDER_SIZE_MIX`` arrive, and up to twice that many of the
     backlog are scheduled over HTTP on the candidates
-    ``scale_candidates`` offers, until ``target`` pods are bound. Returns
-    p50 and p99 of filter + prioritize + bind on the handlers' clock and
-    on the wire's, the pods bound, the mean GiB utilisation from round 2
-    on, and the final ``ledger_checks``."""
+    ``scale_candidates`` offers, until ``target`` pods are bound. A
+    ``Scraper`` GETs ``/metrics`` every ``scrape_every`` seconds
+    throughout (None: never) and once at the end; then
+    ``tpushare_filter_requests_total`` and the three verbs' latency
+    ``_count``s must have risen by the requests sent, the node
+    gauges ``tpushare_node_hbm_used_gib`` of ``names`` must sum to the
+    ledger's used GiB, and ``/debug/flight`` must hold 256 decisions with
+    no recording drop. Returns p50 and p99 of filter + prioritize + bind
+    on the handlers' clock and on the wire's, the pods bound, the mean
+    GiB utilisation from round 2 on, the final ``ledger_checks`` and the
+    scrapes' ms, bytes and series."""
     rng = random.Random(seed)
-    arrivals = max(len(names) // 2, 48)
-    backlog, live, handler_ms, wire_ms, util = [], [], [], [], []
-    seq = bound = rounds = 0
-    t0 = time.perf_counter()
-    while bound < target and rounds < EXTENDER_MAX_ROUNDS:
-        rnd, rounds = rounds, rounds + 1
-        still = []
-        for name, expires in live:
-            if expires <= rnd:
-                api.update_pod_status("default", name, "Succeeded")
-            else:
-                still.append((name, expires))
-        live = still
+    before, sent0 = client.metrics(), dict(client.sent)
+    scraper = Scraper(client.address, scrape_every) if scrape_every else None
+    try:
+        arrivals = max(len(names) // 2, 48)
+        backlog, live, handler_ms, wire_ms, util = [], [], [], [], []
+        seq = bound = rounds = 0
+        t0 = time.perf_counter()
+        while bound < target and rounds < EXTENDER_MAX_ROUNDS:
+            rnd, rounds = rounds, rounds + 1
+            still = []
+            for name, expires in live:
+                if expires <= rnd:
+                    api.update_pod_status("default", name, "Succeeded")
+                else:
+                    still.append((name, expires))
+            live = still
+            check(stack.controller.wait_idle(timeout=120),
+                  "the extender's controller did not settle")
+            for _ in range(arrivals):
+                kind, size = draw_shape(rng)
+                name = f"churn-{seq:05d}"
+                seq += 1
+                pod = api.create_pod(make_pod(name, chips=size)
+                                     if kind == "chip" else
+                                     make_pod(name, hbm=size))
+                backlog.append((pod, rng.randint(*EXTENDER_TTL_ROUNDS)))
+            kept = []
+            for i, (pod, ttl) in enumerate(backlog):
+                if i >= 2 * arrivals or bound >= target:
+                    kept.extend(backlog[i:])
+                    break
+                node, h_ms, w_ms = client.schedule(
+                    pod, scale_candidates(rng, names))
+                if node is None:
+                    kept.append((pod, ttl))
+                    continue
+                handler_ms.append(h_ms)
+                wire_ms.append(w_ms)
+                bound += 1
+                live.append((pod.name, rnd + ttl))
+            backlog = kept
+            doc = client.get("/inspect")
+            if rnd >= 2:
+                util.append(100.0 * sum(n["usedHBM"] for n in doc["nodes"]
+                                        if n["name"] != EXTENDER_NODE)
+                            / sum(n["totalHBM"] for n in doc["nodes"]
+                                  if n["name"] != EXTENDER_NODE))
+        seconds = time.perf_counter() - t0
+        check(bound >= target, f"the churn bound {bound} pods in {rounds} "
+                               f"rounds, not {target}")
         check(stack.controller.wait_idle(timeout=120),
               "the extender's controller did not settle")
-        for _ in range(arrivals):
-            kind, size = draw_shape(rng)
-            name = f"churn-{seq:05d}"
-            seq += 1
-            pod = api.create_pod(make_pod(name, chips=size)
-                                 if kind == "chip" else
-                                 make_pod(name, hbm=size))
-            backlog.append((pod, rng.randint(*EXTENDER_TTL_ROUNDS)))
-        kept = []
-        for i, (pod, ttl) in enumerate(backlog):
-            if i >= 2 * arrivals or bound >= target:
-                kept.extend(backlog[i:])
-                break
-            node, h_ms, w_ms = client.schedule(pod,
-                                               scale_candidates(rng, names))
-            if node is None:
-                kept.append((pod, ttl))
-                continue
-            handler_ms.append(h_ms)
-            wire_ms.append(w_ms)
-            bound += 1
-            live.append((pod.name, rnd + ttl))
-        backlog = kept
-        doc = client.get("/inspect")
-        if rnd >= 2:
-            util.append(100.0 * sum(n["usedHBM"] for n in doc["nodes"]
-                                    if n["name"] != EXTENDER_NODE)
-                        / sum(n["totalHBM"] for n in doc["nodes"]
-                              if n["name"] != EXTENDER_NODE))
-    seconds = time.perf_counter() - t0
-    check(bound >= target, f"the churn bound {bound} pods in {rounds} "
-                           f"rounds, not {target}")
-    check(stack.controller.wait_idle(timeout=120),
-          "the extender's controller did not settle")
+    except BaseException:
+        if scraper is not None:
+            scraper.abandon()
+        raise
+    after = scraper.stop() if scraper is not None else client.metrics()
     h50, h99 = _percentiles(handler_ms)
     w50, w99 = _percentiles(wire_ms)
+    ledger = ledger_checks(api, stack, client, names)
+    sent = {p: client.sent[p] - sent0.get(p, 0)
+            for p in ("/filter", "/prioritize", "/bind")}
+    counted = {"/filter": rise(after, before,
+                               "tpushare_filter_requests_total")}
+    for verb in ("filter", "prioritize", "bind"):
+        counted[f"{verb}_count"] = rise(
+            after, before, f"tpushare_{verb}_latency_seconds_count")
+    check(counted == {"/filter": sent["/filter"],
+                      **{f"{p[1:]}_count": n for p, n in sent.items()}},
+          f"/metrics counted {counted}, the churn sent {sent}")
+    wanted = set(names)
+    gauged = sum(v for (n, labels), v in after.items()
+                 if n == "tpushare_node_hbm_used_gib"
+                 and dict(labels).get("node") in wanted)
+    check(gauged == ledger["used_gib"],
+          f"tpushare_node_hbm_used_gib sums to {gauged}, the ledger "
+          f"{ledger['used_gib']}")
+    flight = client.get("/debug/flight", prefixed=False)
+    check(len(flight["decisions"]) == ttrace.DEFAULT_CAPACITY
+          and flight["recordingDrops"] == 0,
+          f"/debug/flight holds {len(flight['decisions'])} decisions, "
+          f"{flight['recordingDrops']} drops")
     return {"nodes": len(names), "bound": bound, "rounds": rounds,
             "backlog": len(backlog), "seconds": seconds,
             "handler_p50_ms": h50, "handler_p99_ms": h99,
             "wire_p50_ms": w50, "wire_p99_ms": w99,
             "gib_utilisation_pct": (sum(util) / len(util) if util
                                     else 0.0),
-            **ledger_checks(api, stack, client, names)}
+            "sent": sent, "metrics_gib_used": gauged,
+            "flight_decisions": len(flight["decisions"]),
+            **(scraper.fields() if scraper is not None else {}), **ledger}
 
 
 def extender_phase(inv: discovery.HostInventory, usage_dir: str,
@@ -2146,10 +2371,14 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
     heartbeat fresh and within its grant (``held_tenant_phase``); (f)
     ``extender_churn`` binds ``target`` pods on the fleet, with the
     interpreter's GC thresholds; (g) ``gc_posture_churn`` runs it again on
-    a fresh fleet under the reference extender's GC posture."""
-    api = FakeApiServer()
+    a fresh fleet under the reference extender's GC posture. The tenant's
+    decision trace and the metrics of its bind are checked on the way
+    (``bound_trace_checks``; the fake is a ``WireTimedApi``, so the
+    allocate span counts its apiserver requests)."""
+    api = WireTimedApi()
     stack, server = extender_main.serve_stack(api)
     client = ExtenderClient(server)
+    before = client.metrics()
     try:
         # (b) The card's node, then the fleet.
         api.create_node(advertised_node(EXTENDER_NODE, inv))
@@ -2176,6 +2405,18 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
                   == str(EXTENDER_TENANT_GIB)
                   and not podutils.is_assigned(placed),
                   f"the bound tenant: {placed.raw}")
+            traced = bound_trace_checks(api, client, "default", tenant.name,
+                                        EXTENDER_NODE, position,
+                                        EXTENDER_TENANT_GIB)
+            after = client.metrics()
+            gauged = sample(after, "tpushare_node_hbm_used_gib",
+                            node=EXTENDER_NODE)
+            binds = rise(after, before, "tpushare_bind_latency_seconds_count")
+            check(gauged == EXTENDER_TENANT_GIB
+                  and binds == client.sent["/bind"],
+                  f"/metrics: {gauged} GiB used on the card's node, "
+                  f"{binds} binds of {client.sent['/bind']} sent")
+            traced.update(hbm_used_gib=gauged, binds_counted=binds)
             chip = inv.chips[position[0]]
             # (d) The daemon's Allocate over gRPC.
             grants = NodeGrants(EXTENDER_NODE, api, inv, pdir, usage_dir)
@@ -2205,7 +2446,7 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
     # (g) The same churn under the reference extender's GC posture.
     posture = gc_posture_churn(fleet, target)
     return {"tenant_node": node, "tenant_card": chip.index,
-            "tenant_position": position[0],
+            "tenant_position": position[0], "tenant_trace": traced,
             "tenant_handler_ms": handler_ms, "tenant_wire_ms": wire_ms,
             "committed": tenant.name, "envs": wire.envs,
             "fleet_seconds": fleet_s, "churn": churn,
@@ -2230,15 +2471,20 @@ def gang_binds(api: FakeApiServer, client: ExtenderClient, group: str,
     filter, prioritize and bind over HTTP, offered ``node`` alone. Every
     bind before the last must answer 500 with the quorum hold, post no
     binding, and show the group in inspect's ``gangs`` with one member
-    more reserved; the last commits every member to ``node``. Returns the
-    binds' handler and wire ms."""
+    more reserved and ``tpushare_gangs_pending`` 1; the last commits every
+    member to ``node`` and the gauge reads 0. Then each member's
+    ``trace-id`` annotation, its ``TPUShareGangCommitted`` Event's
+    ``[trace <id>]`` and its newest ``/debug/trace`` decision are one id.
+    Returns the binds' handler and wire ms, the gauge after each bind and
+    the members' trace ids."""
     pods = [api.create_pod(gang_pod(n, gib, group, len(names), extra=extra))
             for n in names]
-    handler_ms, wire_ms = [], []
+    handler_ms, wire_ms, pending = [], [], []
     for i, pod in enumerate(pods):
         bound, h_ms, w_ms = client.schedule(pod, [node])
         handler_ms.append(h_ms)
         wire_ms.append(w_ms)
+        pending.append(sample(client.metrics(), "tpushare_gangs_pending"))
         status, body = client.last_bind
         if i < len(pods) - 1:
             check(bound is None and status == 500
@@ -2256,7 +2502,24 @@ def gang_binds(api: FakeApiServer, client: ExtenderClient, group: str,
                   f"the last bind of {group}: {status} {body}")
     placed = [api.get_pod("default", p.name).node_name for p in pods]
     check(placed == [node] * len(pods), f"{group} bound to {placed}")
-    return {"handler_ms": handler_ms, "wire_ms": wire_ms}
+    check(pending == [1.0] * (len(pods) - 1) + [0.0],
+          f"tpushare_gangs_pending after each bind: {pending}")
+    check(tevents.flush(), "events did not flush")
+    committed = {e["involvedObject"]["name"]: e["message"]
+                 for _, e in api.events
+                 if e["reason"] == tevents.REASON_GANG_COMMITTED}
+    ids = {}
+    for pod in pods:
+        tid = api.get_pod("default", pod.name).annotations.get(
+            const.ANN_TRACE_ID)
+        newest = client.decision("default", pod.name)["traceId"]
+        event = committed.get(pod.name, "")
+        check(tid and tid == newest and event.endswith(f"[trace {tid}]"),
+              f"{pod.name}: trace-id {tid}, /debug/trace {newest}, "
+              f"Event {event!r}")
+        ids[pod.name] = tid
+    return {"handler_ms": handler_ms, "wire_ms": wire_ms,
+            "gangs_pending": pending, "trace_ids": ids}
 
 
 def gang_grants(api: FakeApiServer, inv: discovery.HostInventory,
@@ -2397,11 +2660,16 @@ def gang_reaper(api: FakeApiServer, stack, client: ExtenderClient,
     ledger and inspect return to 0 GiB. Then a gang of the same shape with
     ``pod-group-reap: "false"`` loses a member and keeps its survivors;
     they are deleted after, back to 0 GiB."""
+    before = client.metrics()
     t0 = time.perf_counter()
     api.delete_pod("default", names[2])
     survivors = [n for n in names if n != names[2]]
     check(_gone(api, survivors), f"the reaper left {survivors}")
     reap_s = time.perf_counter() - t0
+    reaped_count = rise(client.metrics(), before,
+                        "tpushare_gangs_reaped_total")
+    check(reaped_count == 1, f"tpushare_gangs_reaped_total rose by "
+                             f"{reaped_count} at the reap")
     used = _node_used_gib(stack, client, GANG_NODE)
     check(used == (0, 0), f"after the reap the node holds {used} GiB")
     keep = [f"k-{i}" for i in range(len(names))]
@@ -2425,7 +2693,10 @@ def gang_reaper(api: FakeApiServer, stack, client: ExtenderClient,
                     if e["reason"] == tevents.REASON_GANG_REAPED)
     check(events_ok and reaped == sorted(survivors),
           f"GangReaped Events on {reaped}")
+    opted = rise(client.metrics(), before, "tpushare_gangs_reaped_total")
+    check(opted == 1, f"the opted-out gang counted a reap ({opted})")
     return {"reaped": survivors, "reap_seconds": reap_s,
+            "reaped_counted": reaped_count,
             "kept_opted_out": kept, "used_gib_after": used_after[0]}
 
 
@@ -2602,6 +2873,8 @@ def gang_phase(inv: discovery.HostInventory, usage_dir: str,
     return {"member_gib": gib, "card_gib": card_gib,
             "bind_handler_ms": binds["handler_ms"],
             "bind_wire_ms": binds["wire_ms"],
+            "gangs_pending": binds["gangs_pending"],
+            "trace_ids": binds["trace_ids"],
             "grant_ms": grant_ms, "envs": [a.envs for a in allocs],
             "train": trained, "reaper": reaper, "ttl": ttl,
             "fleet_seconds": fleet_s, "churn": churn,
@@ -2614,7 +2887,9 @@ def gc_posture_churn(fleet: int = EXTENDER_FLEET,
     """Phase 2f's GC turn: the same seeded churn on a fresh fleet under
     the reference extender's GC posture, as ``bench.py --scale`` takes it:
     ``tune_gc()`` at start, ``gc.collect(); tune_gc(freeze=True)`` after
-    the warm start (fleet annotated, informer synced). The previous
+    the warm start (fleet annotated, informer synced), decision traces on
+    and ``/metrics`` read once at the end (``bench.py`` reads its registry
+    once; no scrape a second). The previous
     thresholds come back and the heap is unfrozen afterwards, so later
     phases run as before."""
     before = gc.get_threshold()
@@ -2630,7 +2905,8 @@ def gc_posture_churn(fleet: int = EXTENDER_FLEET,
         gc.collect()
         gc_runtime.tune_gc(freeze=True)
         frozen = gc.get_freeze_count()
-        churn = extender_churn(api, stack, client, names, target=target)
+        churn = extender_churn(api, stack, client, names, target=target,
+                               scrape_every=None)
     finally:
         if client is not None:
             client.close()
@@ -2756,7 +3032,8 @@ def tenancy_ha(api: FakeApiServer, client: ExtenderClient,
                electors: list) -> dict:
     """Phase 2h (a): exactly one of the two electors holds the Lease, its
     replica's ``/healthz`` reads "ok leader" and the other's "ok
-    follower", the follower answers bind with 503, both answer filter
+    follower", and its ``/metrics`` ``tpushare_leader`` 1.0 and the
+    other's 0.0; the follower answers bind with 503, both answer filter
     alike."""
     holders = [e.identity for e in electors if e.is_leader()]
     lease = api.get_lease("kube-system", electors[0].name)
@@ -2764,6 +3041,8 @@ def tenancy_ha(api: FakeApiServer, client: ExtenderClient,
           f"Lease holders {holders}, the Lease says {lease['spec']}")
     health = [client.healthz(), other.healthz()]
     check(health == ["ok leader", "ok follower"], f"/healthz {health}")
+    gauge = [sample(c.metrics(), "tpushare_leader") for c in (client, other)]
+    check(gauge == [1.0, 0.0], f"tpushare_leader {gauge}")
     probe = api.create_pod(tenancy_pod("ha-probe", TENANCY_STEADY, 8,
                                        TENANCY_FILL_PRIORITY))
     status, body, _ = other.post("/bind", {
@@ -2780,25 +3059,24 @@ def tenancy_ha(api: FakeApiServer, client: ExtenderClient,
           and filters[0][1]["NodeNames"],
           f"filter on both replicas: {filters}")
     api.delete_pod(probe.namespace, probe.name)
-    return {"leader": holders[0], "healthz": health,
+    return {"leader": holders[0], "healthz": health, "leader_gauge": gauge,
             "follower_bind_status": status}
 
 
 def tenancy_failover(api: FakeApiServer, stacks: list, clients: list,
                      electors: list, names: list[str]) -> dict:
-    """Phase 2h (c): stop the leader's elector and server; the follower
-    takes the Lease and answers its first 200 on bind (a pod of 8 GiB on
-    a node of the fleet); no card goes over its GiB, on the new leader's
-    ledger and in the apiserver."""
+    """Phase 2h (c): stop the leader's elector; the follower takes the
+    Lease and answers its first 200 on bind (a pod of 8 GiB on a node of
+    the fleet); ``tpushare_leader`` swaps (0.0 on the old leader's
+    server, 1.0 on the new's), then the old leader's server stops; no
+    card goes over its GiB, on the new leader's ledger and in the
+    apiserver."""
     probe = api.create_pod(tenancy_pod("failover-probe", TENANCY_STEADY, 8,
                                        TENANCY_FILL_PRIORITY))
     bind = {"PodName": probe.name, "PodNamespace": probe.namespace,
             "PodUID": probe.uid, "Node": names[1]}
     t0 = time.perf_counter()
     electors[0].stop()
-    clients[0].close()
-    extender_main.shutdown_stack(*stacks[0])
-    stacks[0] = clients[0] = None
     statuses = []
 
     def bound():
@@ -2810,10 +3088,16 @@ def tenancy_failover(api: FakeApiServer, stacks: list, clients: list,
     check(electors[1].is_leader(), "the follower bound without the Lease")
     check(set(statuses[:-1]) <= {503}, f"binds before the hand-off: "
                                        f"{sorted(set(statuses))}")
+    gauge = [sample(c.metrics(), "tpushare_leader") for c in clients]
+    check(gauge == [0.0, 1.0], f"tpushare_leader after the failover {gauge}")
+    clients[0].close()
+    extender_main.shutdown_stack(*stacks[0])
+    stacks[0] = clients[0] = None
     check(stacks[1][0].controller.wait_idle(timeout=60),
           "the new leader's controller did not settle")
     checks = ledger_checks(api, stacks[1][0], clients[1], names)
     return {"failover_s": seconds, "binds_refused_first": len(statuses) - 1,
+            "leader_gauge_after": gauge,
             "lease_s": TENANCY_LEASE_S, "renew_s": TENANCY_RENEW_S,
             "ledger": checks}
 
@@ -2821,9 +3105,11 @@ def tenancy_failover(api: FakeApiServer, stacks: list, clients: list,
 def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
                   names: list[str], spec: dict) -> dict:
     """Phase 2h (e): cap the preemptor's tenant at its usage; its next
-    pod is refused by filter with the quota reason on every node and a
-    Warning Event follows; raise the cap and it binds; ``/debug/quota``
-    equals the ledger's usage."""
+    pod is refused by filter with the quota reason on every node, counted
+    once in ``tpushare_quota_denied_total{tenant}``, and a Warning Event
+    follows; raise the cap and it binds; ``/debug/quota`` equals the
+    ledger's usage, and every ``tpushare_quota_*`` gauge equals
+    ``/debug/quota``."""
     quota = stack.controller.quota
     used = quota.usage(TENANCY_BURST)[0]
     meta = quota_configmap({})["metadata"]
@@ -2838,8 +3124,12 @@ def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
     apply(used)
     pod = api.create_pod(tenancy_pod("burst-next", TENANCY_BURST,
                                      TENANCY_GIB, TENANCY_PREEMPT_PRIORITY))
+    before = client.metrics()
     status, doc, denied_ms = client.post("/filter", {"Pod": pod.raw,
                                                      "NodeNames": names})
+    denied = rise(client.metrics(), before, "tpushare_quota_denied_total",
+                  tenant=TENANCY_BURST)
+    check(denied == 1, f"tpushare_quota_denied_total rose by {denied}")
     reasons = set(doc["FailedNodes"].values())
     check(status == 200 and not doc["NodeNames"] and len(reasons) == 1
           and next(iter(reasons)).startswith(
@@ -2867,7 +3157,21 @@ def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
                                   n + 1)
     got = {t["tenant"]: (t["usedHBM"], t["pods"]) for t in snap if t["pods"]}
     check(got == usage, f"/debug/quota {got}, the ledger {usage}")
+    gauges = client.metrics()
+    keys = {"usedHBM": "used_hbm_gib", "usedChips": "used_chips",
+            "borrowedHBM": "borrowed_hbm_gib",
+            "borrowedChips": "borrowed_chips",
+            "guaranteeHBM": "guarantee_hbm_gib",
+            "limitHBM": "limit_hbm_gib",
+            "guaranteeChips": "guarantee_chips", "limitChips": "limit_chips"}
+    differ = [(t["tenant"], k, t[k]) for t in snap for k in keys
+              if k in t and (("tpushare_quota_" + keys[k], (
+                  ("tenant", t["tenant"]),)) not in gauges
+                  or sample(gauges, "tpushare_quota_" + keys[k],
+                            tenant=t["tenant"]) != t[k])]
+    check(not differ, f"tpushare_quota_* against /debug/quota: {differ}")
     return {"capped_at_gib": used, "reason": next(iter(reasons)),
+            "denied_counted": denied,
             "filter_handler_ms": denied_ms, "raised_to_gib": used +
             TENANCY_GIB, "bound_to": node, "bind_handler_ms": handler_ms,
             "snapshot": snap}
@@ -3004,6 +3308,7 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
                 "Pod": pre.raw, "NodeNames": [TENANCY_NODE]})
             check(status == 200 and not doc["NodeNames"],
                   f"the preemptor fits without a preemption: {doc}")
+            before = client.metrics()
             free_before = card_free_bytes()
             t0_unix = time.time()
             t0 = time.perf_counter()
@@ -3011,6 +3316,10 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
                 "Pod": pre.raw,
                 "NodeNameToMetaVictims": {TENANCY_NODE: {"Pods": []}}})
             t_preempt = time.perf_counter()
+            victims_counted = rise(client.metrics(), before,
+                                   "tpushare_preempt_victims_total")
+            check(victims_counted == 1, f"tpushare_preempt_victims_total "
+                                        f"rose by {victims_counted}")
             want = {"NodeNameToMetaVictims": {TENANCY_NODE: {
                 "Pods": [{"UID": victim.uid}], "NumPDBViolations": 0}}}
             check(status == 200 and plan == want,
@@ -3034,6 +3343,16 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
             t_bind = time.perf_counter()
             check(node == TENANCY_NODE, f"the preemptor went to {node}: "
                                         f"{client.last_bind}")
+            # The decision that bound the preemptor began at /preempt.
+            decided = client.decision(TENANCY_BURST, pre.name)
+            noted = [s.get("attrs", {}).get("victimsPerNode")
+                     for s in decided["spans"] if s["phase"] == "preempt"]
+            check(decided["outcome"] == "bound"
+                  and decided["traceId"] == api.get_pod(
+                      TENANCY_BURST, pre.name).annotations.get(
+                      const.ANN_TRACE_ID)
+                  and noted == [{TENANCY_NODE: 1}],
+                  f"the preemptor's decision: {decided}")
             alloc, pre_allocate_ms = grants.allocate("preemptor",
                                                      TENANCY_GIB)
             t_alloc = time.perf_counter()
@@ -3080,7 +3399,10 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
                         "to_first_request_done": first_s - (t_alloc - t0)},
             "bind_handler_ms": bind_handler_ms,
             "allocate_ms": pre_allocate_ms,
-            "pdb_eviction_refused": refused},
+            "pdb_eviction_refused": refused,
+            "victims_counted": victims_counted,
+            "decision_victims_per_node": noted[0],
+            "decision_spans": [s["phase"] for s in decided["spans"]]},
         "preemptor": served_pre, "ledger": checks, "quota": quota,
         "admission": admission, **benches,
         "seconds": time.perf_counter() - t_phase,

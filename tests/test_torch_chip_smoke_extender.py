@@ -7,7 +7,10 @@ position 0 is host card 3. The held tenant is recorded instead of
 started; everything else runs as on the card: the port's extender over
 HTTP places the tenant, the port's daemon commits that pod over gRPC to
 a ``FakeKubelet``, and the seeded churn binds its pods with the ledger
-checks. The churn's traffic is ``bench.py``'s, draw for draw.
+checks. The churn's traffic is ``bench.py``'s, draw for draw. The
+phase's decision-trace and ``/metrics`` gates pass on the port's stack
+and fail on one broken for each: a grant whose ``trace-id`` is not its
+decision's, a bind or a filter the metrics count short by one.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 
 import bench
 import chip_smoke
+from tpushare_torch import trace as ttrace
 from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.utils import const
 
 
@@ -103,6 +108,25 @@ def test_extender_phase_places_commits_and_churns(held, tmp_path):
     assert 0 < churn["wire_p50_ms"] <= churn["wire_p99_ms"]
     assert churn["handler_p50_ms"] <= churn["wire_p50_ms"]
     assert 0 < churn["gib_utilisation_pct"] <= 100
+    # The tenant's decision, and the churn's scrapes and counts.
+    traced = got["tenant_trace"]
+    assert traced["trace_id"] == pod.annotations[const.ANN_TRACE_ID]
+    assert traced["outcome"] == "bound"
+    assert traced["spans"][-2:] == [("bind", 0), ("allocate", 1)]
+    assert traced["allocate_attrs"] == {
+        "node": chip_smoke.EXTENDER_NODE, "chips": [0], "hbmGiB": 7}
+    assert traced["allocate_api_calls"] >= 2
+    assert traced["traceparent"] == ttrace.format_traceparent(
+        traced["trace_id"])
+    assert (traced["hbm_used_gib"], traced["binds_counted"]) == (7, 1)
+    assert churn["sent"]["/bind"] == churn["bound"]
+    assert churn["sent"]["/filter"] >= churn["sent"]["/prioritize"] >= \
+        churn["sent"]["/bind"]
+    assert churn["metrics_gib_used"] == churn["used_gib"]
+    assert churn["flight_decisions"] == 256
+    assert churn["scrapes"] >= 1
+    assert 0 < churn["scrape_p50_ms"] <= churn["scrape_max_ms"]
+    assert churn["scrape_bytes"] > 0 and churn["scrape_series"] > 16 * 2
 
 
 def test_ledger_checks_catch_a_ledger_that_lies(held, tmp_path,
@@ -121,6 +145,77 @@ def test_ledger_checks_catch_a_ledger_that_lies(held, tmp_path,
     with pytest.raises(RuntimeError):
         chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
                                   target=60)
+
+
+def test_a_grant_with_another_decision_s_id_fails_the_run(
+        held, tmp_path, monkeypatch):
+    """The tenant's ``trace-id`` annotation must be its decision's."""
+    from tpushare_torch.cache import nodeinfo
+
+    real = nodeinfo.podutils.updated_pod_annotation_spec
+
+    def other_id(*args, **kwargs):
+        kwargs["trace_id"] = "0123456789ab"
+        return real(*args, **kwargs)
+    monkeypatch.setattr(nodeinfo.podutils, "updated_pod_annotation_spec",
+                        other_id)
+    with pytest.raises(RuntimeError, match="trace-id 0123456789ab"):
+        chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
+                                  target=60)
+
+
+def _short_by_one(monkeypatch, family, method: str, skip: int) -> None:
+    """``family``'s ``method`` drops its ``skip``-th call."""
+    real = getattr(family, method)
+    calls = [0]
+
+    def dropping(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] != skip:
+            return real(*args, **kwargs)
+    monkeypatch.setattr(family, method, dropping)
+
+
+def test_a_bind_the_metrics_miss_fails_the_run(held, tmp_path,
+                                              monkeypatch):
+    _short_by_one(monkeypatch, tmetrics.BIND_LATENCY, "observe", 1)
+    with pytest.raises(RuntimeError, match="0.0 binds of 1 sent"):
+        chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
+                                  target=60)
+
+
+def test_a_filter_the_metrics_miss_fails_the_churn(held, tmp_path,
+                                                  monkeypatch):
+    _short_by_one(monkeypatch, tmetrics.FILTER_REQUESTS, "inc", 7)
+    with pytest.raises(RuntimeError, match="/metrics counted"):
+        chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
+                                  target=60)
+
+
+def test_parse_metrics_reads_the_exposition():
+    text = tmetrics.REGISTRY.render().decode()
+    got = chip_smoke.parse_metrics(
+        text + 'x_total{node="a\\"b",le="+Inf"} 2.0\nx 1e+07\n')
+    assert got[("x_total", (("le", "+Inf"), ("node", 'a\\"b')))] == 2.0
+    assert chip_smoke.sample(got, "x") == 1e7
+    assert chip_smoke.sample(got, "tpushare_leader") in (0.0, 1.0)
+    assert chip_smoke.sample(got, "tpushare_quota_denied_total",
+                             tenant="nobody") == 0.0
+
+
+def test_wire_timed_api_counts_requests_on_the_open_span():
+    api = chip_smoke.WireTimedApi()
+    api.create_node({"metadata": {"name": "n"}})
+    with ttrace.phase("bind", "default", "p", "u") as dec:
+        with ttrace.span("allocate"):
+            api.get_node("n")
+            api.list_pods()
+        api.list_nodes()
+    ttrace.complete(dec, "bound")
+    spans = ttrace.get_trace("default", "p")["spans"]
+    assert [s["apiCalls"] for s in spans] == [1, 2]
+    api.get_node("n")  # outside a decision: nothing to note
+    ttrace.reset()
 
 
 def test_no_card_means_no_result(monkeypatch, capsys):

@@ -9,7 +9,10 @@ all four over gRPC to a ``FakeKubelet`` with the gang's env, the
 controller reaps the survivors of an evicted member and spares an
 opted-out gang, the TTL rollback empties the ledger, and the churned
 gangs are bound all or none. The training on the card (``gang_train``)
-needs an NVIDIA card and is marked so; here it skips.
+needs an NVIDIA card and is marked so; here it skips. The phase's gates
+on ``tpushare_gangs_pending``, ``tpushare_gangs_reaped_total`` and each
+member's trace id pass on the port's stack and fail on one broken for
+each.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 import chip_smoke
 from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.runtime import launch
 from tpushare_torch.utils import const
 
@@ -56,11 +60,51 @@ def test_gang_phase_host_parts(healthy, tmp_path):
     assert got["train"] is None and got["launches"] == {}
     assert got["reaper"]["reaped"] == ["w-0", "w-1", "w-3"]
     assert got["reaper"]["used_gib_after"] == 0
+    assert got["reaper"]["reaped_counted"] == 1
+    assert got["gangs_pending"] == [1.0, 1.0, 1.0, 0.0]
+    ids = got["trace_ids"]
+    assert sorted(ids) == [f"w-{i}" for i in range(4)]
+    assert len(set(ids.values())) == 4 and all(len(t) == 12
+                                               for t in ids.values())
     assert got["ttl"] == {**got["ttl"], "reserved_gib": 57,
                           "used_gib_after": 0}
     churn = got["churn"]
     assert (churn["nodes"], churn["gangs"], churn["committed"]) == (16, 4, 4)
     assert 0 < churn["commit_p50_ms"] <= churn["commit_p99_ms"]
+
+
+@pytest.fixture
+def small_gang(healthy, tmp_path):
+    return lambda: chip_smoke.gang_phase(_host(), str(tmp_path), None,
+                                         fleet=4, gangs=1)
+
+
+def test_a_pending_gauge_that_stays_at_zero_fails(small_gang, monkeypatch):
+    monkeypatch.setattr(tmetrics.GANGS_PENDING, "set",
+                        lambda value: None)
+    with pytest.raises(RuntimeError, match="tpushare_gangs_pending"):
+        small_gang()
+
+
+def test_commit_events_with_the_completer_s_id_fail(small_gang,
+                                                    monkeypatch):
+    """A commit's Events must carry each member's own id: emitted with
+    the thread's (the completing member's), three of four disagree."""
+    from tpushare_torch.k8s import events
+
+    real = events.record
+
+    def thread_id(*args, trace_id=None, **kwargs):
+        return real(*args, **kwargs)
+    monkeypatch.setattr(events, "record", thread_id)
+    with pytest.raises(RuntimeError, match="w-0: trace-id"):
+        small_gang()
+
+
+def test_a_reap_the_metrics_miss_fails(small_gang, monkeypatch):
+    monkeypatch.setattr(tmetrics.GANGS_REAPED, "inc", lambda n=1: None)
+    with pytest.raises(RuntimeError, match="reaped_total rose by 0"):
+        small_gang()
 
 
 def test_a_half_bound_gang_fails_the_check():

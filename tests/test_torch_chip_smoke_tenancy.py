@@ -12,7 +12,11 @@ preempt verb naming the serving tenant alone, the PDB refusing the other
 pod's eviction, the preemptor bound and granted in the victim's place,
 the quota cap and its Warning Event, the admission webhook, and
 ``bench.py``'s preempt twins. A replay on the card needs an NVIDIA card
-and is marked so; here it skips.
+and is marked so; here it skips. The phase's gates on ``tpushare_leader``
+(1.0 on the leader, 0.0 on the follower, swapped after the failover),
+``tpushare_preempt_victims_total``, the preemptor's decision,
+``tpushare_quota_denied_total`` and the quota gauges pass on the port's
+stack and fail on one broken for each.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 import chip_smoke
 from tpushare_torch.deviceplugin import discovery, plugin
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.utils import const
 
 
@@ -91,6 +96,8 @@ def test_tenancy_phase_on_the_host(stubbed, tmp_path):
     # (a)
     assert got["ha"]["healthz"] == ["ok leader", "ok follower"]
     assert got["ha"]["follower_bind_status"] == 503
+    assert got["ha"]["leader_gauge"] == [1.0, 0.0]
+    assert got["failover"]["leader_gauge_after"] == [0.0, 1.0]
     # (b) The victim was granted on host card 3 and served; the card full.
     victim_alloc, pre_alloc = stubbed
     assert victim_alloc.envs[const.ENV_NVIDIA_VISIBLE_DEVICES] == "3"
@@ -107,6 +114,11 @@ def test_tenancy_phase_on_the_host(stubbed, tmp_path):
         chip_smoke.TENANCY_NODE: {"Pods": [{"UID": "uid-victim"}],
                                   "NumPDBViolations": 0}}}
     assert pre["pdb_eviction_refused"] == 429
+    assert pre["victims_counted"] == 1
+    assert pre["decision_victims_per_node"] == {chip_smoke.TENANCY_NODE: 1}
+    assert pre["decision_spans"][0] == "preempt"
+    assert {"filter", "prioritize", "bind", "allocate"} <= set(
+        pre["decision_spans"])
     assert pre["card_freed_bytes"] == 16 << 30
     assert 0 < pre["handler_ms"] <= pre["wire_ms"]
     assert set(pre["split_s"]) == {"preempt", "eviction", "process_exit",
@@ -118,6 +130,7 @@ def test_tenancy_phase_on_the_host(stubbed, tmp_path):
     # (e) The cap at the usage, its reason, then the raised cap.
     quota = got["quota"]
     assert quota["capped_at_gib"] == 16 and quota["raised_to_gib"] == 32
+    assert quota["denied_counted"] == 1
     assert quota["reason"].startswith(
         f"quota: tenant {chip_smoke.TENANCY_BURST} over HBM limit")
     assert quota["bound_to"] != chip_smoke.TENANCY_NODE
@@ -144,6 +157,9 @@ def test_gc_posture_churn_restores_the_interpreter():
     assert got["used_gib"] == got["granted_gib"] > 0
     assert got["thresholds"] == [1000, 50, 50]
     assert got["frozen_objects"] > 0
+    # bench.py's twin reads /metrics once, at the end: no scrape a second.
+    assert "scrapes" not in got and got["flight_decisions"] == 256
+    assert got["sent"]["/bind"] == got["bound"]
     assert gc.get_threshold() == before
     assert gc.get_freeze_count() == 0
 
@@ -165,6 +181,53 @@ def test_a_victim_plan_naming_the_pdb_pod_fails_the_run(stubbed, tmp_path,
     with pytest.raises(RuntimeError, match="serving tenant alone"):
         chip_smoke.tenancy_phase(_host(), str(tmp_path), fleet=4,
                                  bench_nodes=1, gang_hosts=1)
+
+
+def _tenancy(tmp_path):
+    return chip_smoke.tenancy_phase(_host(), str(tmp_path), fleet=4,
+                                    bench_nodes=1, gang_hosts=1)
+
+
+def test_a_leader_gauge_that_does_not_flip_fails(stubbed, tmp_path,
+                                                 monkeypatch):
+    real = tmetrics.IS_LEADER.set
+    monkeypatch.setattr(tmetrics.IS_LEADER, "set", lambda v: real(1))
+    with pytest.raises(RuntimeError, match=r"tpushare_leader \[1.0, 1.0\]"):
+        _tenancy(tmp_path)
+
+
+def test_a_preemption_the_metrics_miss_fails(stubbed, tmp_path,
+                                             monkeypatch):
+    monkeypatch.setattr(tmetrics.PREEMPT_VICTIMS, "inc", lambda n=1: None)
+    with pytest.raises(RuntimeError, match="victims_total rose by 0"):
+        _tenancy(tmp_path)
+
+
+def test_a_preempt_span_without_its_victims_fails(stubbed, tmp_path,
+                                                  monkeypatch):
+    from tpushare_torch import trace
+
+    real = trace.note
+
+    def forgetful(key, value):
+        if key != "victimsPerNode":
+            real(key, value)
+    monkeypatch.setattr(trace, "note", forgetful)
+    with pytest.raises(RuntimeError, match="the preemptor's decision"):
+        _tenancy(tmp_path)
+
+
+def test_quota_gauges_off_the_snapshot_fail(stubbed, tmp_path,
+                                            monkeypatch):
+    real = tmetrics.observe_quota
+
+    def stale(quota):
+        real(quota)
+        tmetrics.QUOTA_USED_HBM.labels(
+            tenant=chip_smoke.TENANCY_BURST).inc()
+    monkeypatch.setattr(tmetrics, "observe_quota", stale)
+    with pytest.raises(RuntimeError, match="tpushare_quota_"):
+        _tenancy(tmp_path)
 
 
 @pytest.mark.cuda

@@ -9,10 +9,14 @@ that passed, then bind to the first of the best scores. For every pod
 the two must give the same filter response (``NodeNames`` and
 ``FailedNodes``, byte for byte), the same prioritize scores (byte for
 byte), the same bind status, and leave the same node, cards and
-annotations in the apiserver (the assume time and the JAX stack's
-decision-trace ids aside). At the end the
-inspect documents are equal, after deletes too, and a cache rebuilt from
-each apiserver equals the live ledger of both.
+annotations in the apiserver (the assume time aside; the decision
+trace's ids, random on each side, by presence). After each attempt the
+pod's ``/debug/trace`` document is the same on both, clocks and ids
+aside (``normal_trace``), and on each side the bound pod's ``trace-id``
+annotation, the bind reply's ``traceparent`` and ``/debug/trace`` name
+one decision. At the end the inspect documents are equal, after deletes
+too, a cache rebuilt from each apiserver equals the live ledger of both,
+and ``/debug/flight`` lists the same decisions in the same order.
 
 The traffic: one seeded churn of ``bench.py``'s ``SIZE_MIX`` (16, 24
 and 44 GiB slices and whole 4-card pods, TTLs of 2-5 rounds) over 16 H100
@@ -23,7 +27,8 @@ guarantees that bias the scores), with ``/debug/quota`` equal after every
 round; and the single-pod stories of ``tests/test_e2e.py``. Both stacks
 wire the gang planner and the quota ledger; a gang's ``ttlRemaining`` in
 inspect is a clock, held within a second across the two. The JAX stack
-wires observability as well, which changes no answer.
+also wires the timeline, the SLO journeys and the profiler, which change
+no answer and no decision document.
 ``tests/test_torch_gang_e2e.py`` holds the gang stories,
 ``tests/test_torch_quota.py`` the quota stories.
 """
@@ -46,12 +51,13 @@ from tpushare.cache.cache import SchedulerCache as JCache
 from tpushare.cmd import main as jmain
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.fake import FakeApiServer as JFake
+from tpushare import trace as jtrace
 from tpushare.routes import wire as jwire
-from tpushare.utils import const as JC
 from tpushare_torch.api.extender import (ExtenderArgs as TArgs,
                                          ExtenderFilterResult as TFilterResult,
                                          HostPriority as THostPriority)
 from tpushare_torch.cache.cache import SchedulerCache as TCache
+from tpushare_torch import trace as ttrace
 from tpushare_torch.cmd import main as tmain
 from tpushare_torch.k8s.fake import FakeApiServer as TFake
 from tpushare_torch.routes import server as tserver
@@ -72,13 +78,17 @@ H100 = dict(chips=8, hbm_per_chip=79, topology="", tpu_type="h100-80gb")
 
 
 class Side:
-    """One package's extender over HTTP on its own fake apiserver."""
+    """One package's extender over HTTP on its own fake apiserver.
+    ``trace`` is the package's decision recorder."""
 
-    def __init__(self, fake, main):
+    def __init__(self, fake, main, trace):
         self.api = fake()
         self.main = main
+        self.trace = trace
         self.stack, self.server = main.serve_stack(self.api)
         self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+        #: The last POST's response headers.
+        self.headers: dict = {}
 
     def post(self, path: str, doc: dict) -> tuple[int, bytes]:
         req = urllib.request.Request(
@@ -86,9 +96,35 @@ class Side:
             headers={"Content-Type": "application/json"})
         try:
             with urllib.request.urlopen(req, timeout=60) as resp:
+                self.headers = dict(resp.headers)
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            self.headers = dict(e.headers)
+            return e.code, e.read()
+
+    def get(self, path: str) -> tuple[int, bytes]:
+        """GET a path of the server's root (not the verbs' prefix)."""
+        try:
+            with urllib.request.urlopen(f"{self.base}{path}",
+                                        timeout=60) as resp:
                 return resp.status, resp.read()
         except urllib.error.HTTPError as e:
             return e.code, e.read()
+
+    def decision(self, namespace: str, name: str,
+                 trace_id: str = "") -> dict | None:
+        """``/debug/trace/<ns>/<pod>[?id=]``, or None on a 404."""
+        query = f"?id={trace_id}" if trace_id else ""
+        status, body = self.get(f"/debug/trace/{namespace}/{name}{query}")
+        assert status in (200, 404), (status, body)
+        return json.loads(body) if status == 200 else None
+
+    def flight(self) -> list[dict]:
+        status, body = self.get("/debug/flight")
+        assert status == 200, body
+        doc = json.loads(body)
+        assert doc["recordingDrops"] == 0
+        return doc["decisions"]
 
     def inspect(self, node: str | None = None) -> dict:
         path = f"{self.base}{PREFIX}/inspect" + (f"/{node}" if node else "")
@@ -102,10 +138,38 @@ class Side:
         self.main.shutdown_stack(self.stack, self.server)
 
 
-#: Annotations one side writes and the other may not or not alike: the
-#: assume time (a clock), and the JAX stack's decision-trace keys (the
-#: port's decision traces come with their own slice).
-UNCOMPARED = (const.ANN_ASSUME_TIME, JC.ANN_TRACE_ID, JC.ANN_TRACE_PARENT)
+#: Annotations whose values the two sides cannot share: the assume time
+#: (a clock) is left out.
+UNCOMPARED = (const.ANN_ASSUME_TIME,)
+#: The decision trace's ids, random on each side: compared by presence,
+#: and held on each side to that side's own ``/debug/trace``.
+RANDOM_IDS = (const.ANN_TRACE_ID, const.ANN_TRACE_PARENT)
+
+
+def normal_trace(doc: dict | None) -> dict | None:
+    """A ``/debug/trace`` document less what differs between two runs of
+    the same traffic: the ids, the start time and every clock
+    (``seconds`` and each ``*Seconds``). ``worstLockSite`` is lock-wait attribution, which the port's
+    plain locks do not feed yet."""
+    if doc is None:
+        return None
+    out = {k: v for k, v in doc.items()
+           if k not in ("traceId", "parentId", "startedAt")
+           and not k.lower().endswith("seconds")}
+    out["spans"] = []
+    for span in doc["spans"]:
+        sp = {k: v for k, v in span.items()
+              if not k.lower().endswith("seconds")}
+        if "attrs" in sp:
+            sp["attrs"] = {k: v for k, v in sp["attrs"].items()
+                           if k != "worstLockSite"}
+        out["spans"].append(sp)
+    return out
+
+
+def flight_order(side: "Side") -> list[tuple[str, str, str]]:
+    return [(d["namespace"], d["name"], d["outcome"])
+            for d in side.flight()]
 
 
 def same_ttl(docs: list[dict]) -> None:
@@ -122,7 +186,8 @@ def same_ttl(docs: list[dict]) -> None:
 
 
 def granted(pod) -> tuple:
-    ann = {k: v for k, v in pod.annotations.items() if k not in UNCOMPARED}
+    ann = {k: "<id>" if k in RANDOM_IDS else v
+           for k, v in pod.annotations.items() if k not in UNCOMPARED}
     return pod.node_name, ann
 
 
@@ -130,8 +195,12 @@ class Pair:
     """The JAX side and the port's, driven alike and compared."""
 
     def __init__(self):
-        self.jax = Side(JFake, jmain)
-        self.port = Side(TFake, tmain)
+        # Each package's recorder is a process singleton: start both
+        # empty, so the flight rings hold this pair's decisions alone.
+        jtrace.reset()
+        ttrace.reset()
+        self.jax = Side(JFake, jmain, jtrace)
+        self.port = Side(TFake, tmain, ttrace)
         self.sides = (self.jax, self.port)
         self.uids = 0
 
@@ -165,6 +234,7 @@ class Pair:
         result = json.loads(body)
         passing = result["NodeNames"] or []
         if not passing:
+            self.same_decision(namespace, name)
             return False, result["FailedNodes"]
         outs = [side.post("/prioritize", {"Pod": pod.raw,
                                           "NodeNames": passing})
@@ -181,7 +251,32 @@ class Pair:
         after = [granted(side.api.get_pod(namespace, name))
                  for side in self.sides]
         assert after[1] == after[0], name
+        docs = self.same_decision(namespace, name)
+        for side, doc in zip(self.sides, docs):
+            # The bind's decision is the pod's newest, and its reply names
+            # it; a lone pod's grant carries its id.
+            assert side.headers["traceparent"] == \
+                side.trace.format_traceparent(doc["traceId"])
+            pod = side.api.get_pod(namespace, name)
+            if (outs[0][0] == 200
+                    and const.ANN_POD_GROUP not in pod.annotations):
+                assert pod.annotations[const.ANN_TRACE_ID] == \
+                    doc["traceId"], name
         return outs[0][0] == 200, best
+
+    def same_decision(self, namespace: str, name: str) -> list:
+        """The pod's newest decision on each side: equal but for clocks
+        and ids. Returns the two documents."""
+        docs = [side.decision(namespace, name) for side in self.sides]
+        assert normal_trace(docs[1]) == normal_trace(docs[0]), (name, docs)
+        return docs
+
+    def same_flight(self) -> list:
+        """``/debug/flight`` lists the same decisions in the same order
+        on both sides."""
+        orders = [flight_order(side) for side in self.sides]
+        assert orders[1] == orders[0]
+        return orders[0]
 
     def set_phase(self, name: str, phase: str,
                   namespace: str = "default") -> None:
@@ -289,6 +384,10 @@ def test_seeded_churn_on_h100_nodes(pair):
     # cards), pruned against each informer's view: equal.
     demand = [side.stack.predicate.demand.snapshot() for side in pair.sides]
     assert demand[1] == demand[0] and demand[0][0] > 0
+    # The last 256 decisions, in order, with their outcomes.
+    flight = pair.same_flight()
+    assert len(flight) == jtrace.DEFAULT_CAPACITY
+    assert {o for _, _, o in flight} >= {"bound", "unschedulable"}
     # Deletes: bound and pending pods alike.
     for rec in live[::2]:
         pair.delete_pod(rec["name"])
@@ -493,7 +592,8 @@ def test_restart_rebuilds_from_annotations():
     second.port = Side.__new__(Side)
     for side, old, main in ((second.jax, first.jax, jmain),
                             (second.port, first.port, tmain)):
-        side.api, side.main = old.api, main
+        side.api, side.main, side.trace = old.api, main, old.trace
+        side.headers = {}
         side.stack, side.server = main.serve_stack(old.api)
         side.base = f"http://127.0.0.1:{side.server.server_address[1]}"
     second.sides, second.uids = (second.jax, second.port), first.uids
@@ -600,7 +700,8 @@ def test_wire_encodings_are_byte_equal(seed):
 def test_concurrent_requests_coalesce_to_the_same_answers(pair):
     """Filter and prioritize requests sent at once from many threads go
     through the micro-batch gate and get the answers they get one at a
-    time, on the port as on the reference."""
+    time, on the port as on the reference, and each request's decision
+    trace lands on its own pod."""
     import concurrent.futures
 
     nodes = [f"h100-{i:02d}" for i in range(8)]
@@ -621,3 +722,17 @@ def test_concurrent_requests_coalesce_to_the_same_answers(pair):
         together = list(pool.map(lambda vb: pair.port.post(*vb),
                                  bodies * 3))
     assert together == alone[1] * 3
+    # The trace phase opens per item on the thread that drains the batch:
+    # each pod's open decision holds its own four filters and four
+    # prioritizes (one alone, three together), each noting what the
+    # reference's one of each notes for that pod. (The three bound pods'
+    # newest finished decision is their bind's.)
+    for d in docs[3:]:
+        name = d["metadata"]["name"]
+        want = pair.jax.decision("default", name)
+        got = pair.port.decision("default", name)
+        assert got["outcome"] == "open", name
+        for verb in ("filter", "prioritize"):
+            [ref] = [s["attrs"] for s in want["spans"] if s["phase"] == verb]
+            attrs = [s["attrs"] for s in got["spans"] if s["phase"] == verb]
+            assert attrs == [ref] * 4, (name, verb)

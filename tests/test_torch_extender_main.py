@@ -29,7 +29,7 @@ def no_cluster(monkeypatch):
     monkeypatch.setattr(M, "setup_signals", lambda stop: stop.set())
     monkeypatch.setattr(M, "configure_logging", lambda: None)
     for key in ("PORT", "WORKERS", "TLS_CERT_FILE", "TLS_KEY_FILE",
-                "TPUSHARE_SCORING"):
+                "TPUSHARE_SCORING", "DEBUG_ROUTES", "TPUSHARE_LOG_JSON"):
         monkeypatch.delenv(key, raising=False)
     return api
 
@@ -53,13 +53,17 @@ def test_main_reads_its_environment(no_cluster, monkeypatch, env, port,
 
     class Server:
         def __init__(self, addr, predicate, binder, inspect, prioritize,
-                     preempt, admission, leader, quota):
+                     preempt, admission, leader, quota, gang_planner,
+                     workqueue, debug_routes):
             seen.update(addr=addr, policy=prioritize.policy,
                         scoring=predicate.cache._default_scoring)
             # Every verb is wired, over the controller's one quota ledger;
-            # no election without LEADER_ELECT.
+            # no election without LEADER_ELECT; /metrics reads the gang
+            # planner and the workqueue; the debug routes are on.
             assert preempt.quota is quota is predicate.quota
             assert admission is not None and leader is None
+            assert gang_planner is binder.gang_planner
+            assert workqueue is not None and debug_routes is True
             self.closed = threading.Event()
 
         def serve_forever(self):

@@ -10,10 +10,13 @@ below quorum answers 500 with "pending quorum" on both), and after each
 step every pod's node and annotations and the Events written. The
 inspect documents are equal with ``gangs`` in them, each group's
 ``ttlRemaining`` (a countdown on each side's clock) within a second.
-Left out: the assume time, the JAX stack's ``trace-id`` /
-``trace-parent`` annotations and its Events' ``[trace ...]`` suffix, and
-its planner's trace notes and topology gauges (decision traces, metrics
-and the timeline come with the port's observability slice).
+Each attempt's decision trace is equal on both (``Pair.same_decision``:
+spans, the planner's notes, outcome), and so are the
+``tpushare_bind_errors_total`` counts. The decision trace's ids are
+random on each side: compared by presence, and on each side every
+Event's ``[trace ...]`` suffix names a decision of its pod, a commit's
+its own member's annotation. Left out: the assume time, and the JAX
+planner's timeline marks (the timeline comes with its own slice).
 
 The stories are the reference's, each a case of one test:
 ``tests/test_e2e.py:144`` (commit at quorum); ``test_gang_lifecycle.py``
@@ -37,14 +40,25 @@ import pytest
 from tests.test_torch_extender_e2e import H100, Pair, granted, same_ttl
 from tpushare.api.objects import Node as JNode
 from tpushare.k8s import events as jevents
+from tpushare.routes import metrics as jmetrics
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.topology import fleet as jfleet
 from tpushare_torch.api.objects import Node as TNode
 from tpushare_torch.k8s import events as tevents
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.topology import fleet as tfleet
 from tpushare_torch.utils import const
 
 V5P = dict(chips=4, hbm_per_chip=95, topology="2x2x1", tpu_type="v5p")
+
+
+SUFFIX = re.compile(r" \[trace ([^\]]*)\]$")
+
+
+def _bind_errors() -> tuple[float, float]:
+    """Each package's ``tpushare_bind_errors_total`` (process-wide)."""
+    return (jmetrics.REGISTRY.get_sample_value(
+        "tpushare_bind_errors_total"), tmetrics.BIND_ERRORS.get())
 
 
 def gang(name: str, minimum: int, **extra) -> dict:
@@ -59,6 +73,8 @@ class GangPair(Pair):
     def __init__(self):
         super().__init__()
         self.bodies = []
+        self.errors0 = _bind_errors()
+        self.events_seen = [0, 0]
         post = self.port.post
 
         def recording(path, doc):
@@ -76,14 +92,34 @@ class GangPair(Pair):
         assert out[1] == out[0]
         return out[0]
 
+    def bind_errors(self) -> float:
+        """Failed binds since the pair began, equal on both sides."""
+        now = _bind_errors()
+        got = [b - a for a, b in zip(self.errors0, now)]
+        assert got[1] == got[0], got
+        return got[0]
+
     def events(self) -> list:
+        """The Events, equal on both sides with each ``[trace ...]``
+        suffix marked; on each side a new Event's suffix names a decision
+        of its pod, and a commit's is its member's annotation."""
         assert jevents.flush() and tevents.flush()
         out = []
-        for side in self.sides:
-            out.append(sorted(
-                (e["involvedObject"]["name"], e["reason"],
-                 re.sub(r" \[trace [^\]]*\]$", "", e["message"]), e["type"])
-                for _, e in side.api.events))
+        for i, side in enumerate(self.sides):
+            rows = []
+            for n, (ns, e) in enumerate(list(side.api.events)):
+                name = e["involvedObject"]["name"]
+                m = SUFFIX.search(e["message"])
+                if m and n >= self.events_seen[i]:
+                    assert side.decision(ns, name, m.group(1)), e
+                    if e["reason"] == tevents.REASON_GANG_COMMITTED:
+                        assert side.api.get_pod(ns, name).annotations[
+                            const.ANN_TRACE_ID] == m.group(1), e
+                rows.append((name, e["reason"],
+                             SUFFIX.sub(" [trace]", e["message"]),
+                             e["type"]))
+            self.events_seen[i] = len(side.api.events)
+            out.append(sorted(rows))
         assert out[1] == out[0]
         return out[0]
 
@@ -142,7 +178,7 @@ def story_commit_at_quorum(pair):
     assert pair.node_of("worker-0") == ""
     [g] = pair.gangs()
     assert (g["name"], g["reserved"], g["committed"]) == ("train", 1, False)
-    assert pair.port.server.bind_errors == 0
+    assert pair.bind_errors() == 0
     pair.create_pod(make_pod("worker-1", chips=4, annotations=ann))
     ok, _, _ = pair.step("worker-1")
     assert ok
@@ -187,7 +223,7 @@ def story_infeasible_gang_never_reserves(pair):
     ok, _, [body] = pair.step("w0")
     assert not ok and "infeasible" in body[1]["Error"]
     assert not _pending(body)
-    assert pair.port.server.bind_errors == 1
+    assert pair.bind_errors() == 1
     assert pair.gangs() == []
     assert const.ANN_CHIP_IDX not in pair.port.api.get_pod(
         "default", "w0").annotations

@@ -4,10 +4,15 @@ Each story runs twice, once on each package's planner, cache and fake
 apiserver, fed the same documents; it returns a record (errors raised,
 free cards, pods' nodes and grant annotations, the planner's stats, the
 Events written), and the two records must be equal, besides the story's
-own assertions. Tolerance: exact. Left out of the comparison: the assume
-time (a clock) and the JAX stack's ``trace-id`` / ``trace-parent``
-annotations and the ``[trace ...]`` suffix its Events carry (decision
-traces come with the port's observability slice). The stories are the
+own assertions. Tolerance: exact. Each ``bind_member`` runs inside a
+decision's ``bind`` phase of the side's own recorder, finalized as the
+server finalizes it (``TracedPlanner``). Left out of the comparison: the
+assume time (a clock); the decision trace's ids, random on each side,
+are compared by presence, and on each side every ``trace-id``
+annotation and ``[trace ...]`` Event suffix must name a decision of that
+pod in the side's recorder, a commit's Event its own member's. Each
+record ends with the decisions of the flight ring, clocks and ids aside.
+The stories are the
 reference's: TTL rollback with its freed cards and stripped annotations
 (``tests/test_e2e.py:177``), a reserve retried during a rollback and a
 duplicate reserve in flight (``tests/test_gang_lifecycle.py:601``,
@@ -24,6 +29,8 @@ import time
 
 import pytest
 
+from tests.test_torch_extender_e2e import normal_trace
+from tpushare import trace as jtrace
 from tpushare.cache.cache import SchedulerCache as JCache
 from tpushare.cache.nodeinfo import AllocationError as JAllocationError
 from tpushare.gang import planner as jplanner
@@ -31,6 +38,7 @@ from tpushare.k8s import events as jevents
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.errors import ApiError as JApiError
 from tpushare.k8s.fake import FakeApiServer as JFake
+from tpushare_torch import trace as ttrace
 from tpushare_torch.cache.cache import SchedulerCache as TCache
 from tpushare_torch.cache.nodeinfo import AllocationError as TAllocationError
 from tpushare_torch.gang import planner as tplanner
@@ -40,21 +48,57 @@ from tpushare_torch.k8s.fake import FakeApiServer as TFake
 from tpushare_torch.utils import const
 
 ANN = {const.ANN_POD_GROUP: "train", const.ANN_POD_GROUP_MIN: "2"}
-UNCOMPARED = (const.ANN_ASSUME_TIME, "tpushare.io/trace-id",
-              "tpushare.io/trace-parent")
+UNCOMPARED = (const.ANN_ASSUME_TIME,)
+RANDOM_IDS = (const.ANN_TRACE_ID, const.ANN_TRACE_PARENT)
+SUFFIX = re.compile(r" \[trace ([^\]]*)\]$")
+
+
+class TracedPlanner:
+    """A planner whose ``bind_member`` runs in a ``bind`` phase of the
+    side's recorder and finalizes the decision as the server does:
+    ``bound``, ``gang-pending`` or ``failed``."""
+
+    def __init__(self, planner, trace, pending):
+        self._planner, self._trace, self._pending = planner, trace, pending
+
+    def __getattr__(self, name):
+        return getattr(self._planner, name)
+
+    def bind_member(self, pod, node_name):
+        dec = None
+        try:
+            with self._trace.phase("bind", pod.namespace, pod.name,
+                                   pod.uid) as dec:
+                self._planner.bind_member(pod, node_name)
+        except self._pending as e:
+            self._trace.complete(dec, "gang-pending", node=node_name,
+                                 error=str(e))
+            raise
+        except Exception as e:
+            self._trace.complete(dec, "failed", node=node_name,
+                                 error=str(e))
+            raise
+        self._trace.complete(dec, "bound", node=node_name)
 
 
 class Side:
     """One package's planner over its own cache and fake apiserver."""
 
     def __init__(self, fake, cache_cls, planner_mod, events_mod,
-                 alloc_error, api_error):
+                 alloc_error, api_error, trace):
         self.api = fake()
         self.cache_cls = cache_cls
         self.mod = planner_mod
         self.events = events_mod
         self.AllocationError = alloc_error
         self.ApiError = api_error
+        self.trace = trace
+        trace.reset()
+
+    def resolves(self, name: str, trace_id: str) -> bool:
+        """``trace_id`` names a decision of pod ``name`` on this side."""
+        return self.trace.get_trace("default", name,
+                                    trace_id=trace_id) is not None
 
     def cluster(self, hosts=2):
         for i in range(hosts):
@@ -65,21 +109,41 @@ class Side:
         return self.cache
 
     def planner(self, client=None, **kw):
-        return self.mod.GangPlanner(self.cache, client or self.api, **kw)
+        return TracedPlanner(
+            self.mod.GangPlanner(self.cache, client or self.api, **kw),
+            self.trace, self.mod.GangPending)
 
     def free(self, node):
         return len(self.cache.get_node_info(node).get_free_chips())
 
     def pod_view(self, name):
         pod = self.api.get_pod("default", name)
-        return pod.node_name, {k: v for k, v in pod.annotations.items()
+        tid = pod.annotations.get(const.ANN_TRACE_ID)
+        assert tid is None or self.resolves(name, tid), (name, tid)
+        return pod.node_name, {k: "<id>" if k in RANDOM_IDS else v
+                               for k, v in pod.annotations.items()
                                if k not in UNCOMPARED}
 
     def event_view(self):
+        """The Events, each suffix held to this side's recorder (a
+        commit's to its member's own annotation) and then marked."""
         assert self.events.flush()
-        return sorted((e["involvedObject"]["name"], e["reason"],
-                       re.sub(r" \[trace [^\]]*\]$", "", e["message"]),
-                       e["type"]) for _, e in self.api.events)
+        out = []
+        for _, e in self.api.events:
+            name = e["involvedObject"]["name"]
+            m = SUFFIX.search(e["message"])
+            if m:
+                assert self.resolves(name, m.group(1)), (name, e)
+                if e["reason"] == self.events.REASON_GANG_COMMITTED:
+                    assert self.api.get_pod("default", name).annotations[
+                        const.ANN_TRACE_ID] == m.group(1), e
+            out.append((name, e["reason"],
+                        SUFFIX.sub(" [trace]", e["message"]), e["type"]))
+        return sorted(out)
+
+    def decisions(self):
+        """The flight ring, oldest first, clocks and ids aside."""
+        return [normal_trace(d) for d in reversed(self.trace.flight())]
 
     def outcome(self, fn):
         """What ``fn()`` did: "ok", or the error's kind and message."""
@@ -96,9 +160,9 @@ class Side:
 
 def sides():
     return (Side(JFake, JCache, jplanner, jevents, JAllocationError,
-                 JApiError),
+                 JApiError, jtrace),
             Side(TFake, TCache, tplanner, tevents, TAllocationError,
-                 TApiError))
+                 TApiError, ttrace))
 
 
 class FlakyBindClient:
@@ -342,7 +406,9 @@ STORIES = [story_ttl_rollback_frees_and_strips,
                                                 for s in STORIES])
 def test_planner_story_matches_the_reference(story):
     jax_side, port_side = sides()
-    assert story(port_side) == story(jax_side)
+    got = story(port_side), port_side.decisions()
+    want = story(jax_side), jax_side.decisions()
+    assert got == want
 
 
 def test_quorum_marker_and_reasons_are_the_reference_s():

@@ -5,15 +5,15 @@ The reaper cases of ``tests/test_controller.py`` (``TestGangReaper``,
 own fake apiservers with the same documents: three members of a
 committed gang (whole v5p hosts, ``pod-group-min`` 3) run on three
 hosts, one dies, and the record (which pods are left, each host's free
-cards, the ``TPUShareGangReaped`` Events) must be equal on both sides,
-besides each case's own assertions. Tolerance: exact; the JAX Events'
-``[trace ...]`` suffix is left out (decision traces come with the port's
-observability slice).
+cards, the ``TPUShareGangReaped`` Events, and how far each package's
+``tpushare_gangs_reaped_total`` rose) must be equal on both sides,
+besides each case's own assertions. Tolerance: exact. The Events are
+compared whole: the reaper runs on the controller's thread, which holds
+no decision, so neither side's carries a ``[trace ...]`` suffix.
 """
 
 from __future__ import annotations
 
-import re
 import time
 
 import pytest
@@ -23,23 +23,32 @@ from tpushare.k8s import events as jevents
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.errors import NotFoundError as JNotFound
 from tpushare.k8s.fake import FakeApiServer as JFake
+from tpushare.routes import metrics as jmetrics
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.controller.controller import Controller as TController
 from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.errors import NotFoundError as TNotFound
 from tpushare_torch.k8s.fake import FakeApiServer as TFake
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.utils import const
 from tpushare_torch.utils import pod as podutils
 
 HOSTS = ("host-0", "host-1", "host-2")
 
 
+def _jax_reaped() -> float:
+    return jmetrics.REGISTRY.get_sample_value("tpushare_gangs_reaped_total")
+
+
 class Side:
-    def __init__(self, fake, controller, events, not_found):
+    def __init__(self, fake, controller, events, not_found, reaped):
         self.api = fake()
         self.controller_cls = controller
         self.events = events
         self.NotFound = not_found
+        #: The package's reap count, and its value before the case.
+        self.reaped = reaped
+        self.reaped0 = reaped()
         for n in HOSTS:
             self.api.create_node(make_node(n, chips=4, hbm_per_chip=95,
                                            topology="2x2x1", tpu_type="v5p"))
@@ -85,8 +94,9 @@ class Side:
                 {h: len(self.c.cache.get_node_info(h).get_free_chips())
                  for h in HOSTS},
                 sorted((e["involvedObject"]["name"], e["reason"],
-                        re.sub(r" \[trace [^\]]*\]$", "", e["message"]),
-                        e["type"]) for _, e in self.api.events))
+                        e["message"], e["type"])
+                       for _, e in self.api.events),
+                self.reaped() - self.reaped0)
 
 
 def case_evicted_member_reaps_survivors(side):
@@ -98,6 +108,7 @@ def case_evicted_member_reaps_survivors(side):
     rec = side.record(["m0", "m1", "m2"])
     assert rec[1] == {h: 4 for h in HOSTS}  # their cards are free again
     assert [e[1] for e in rec[2]] == [const_reaped()] * 2
+    assert rec[3] == 1  # one gang reaped
     return rec
 
 
@@ -175,8 +186,9 @@ CASES = [case_evicted_member_reaps_survivors,
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__[5:] for c in CASES])
 def test_reaper_case_matches_the_reference(case):
     records = []
-    for side in (Side(JFake, JController, jevents, JNotFound),
-                 Side(TFake, TController, tevents, TNotFound)):
+    for side in (Side(JFake, JController, jevents, JNotFound, _jax_reaped),
+                 Side(TFake, TController, tevents, TNotFound,
+                      tmetrics.GANGS_REAPED.get)):
         try:
             records.append(case(side))
         finally:

@@ -141,7 +141,8 @@ def test_not_ported_names_the_reference_main_s_variables():
     for name in M.NOT_PORTED:
         assert name not in tdoc, name
     for name in ("LEADER_ELECT", "LEASE_NAMESPACE", "TPUSHARE_GC_TUNE",
-                 "TPUSHARE_QUOTA_NAMESPACE"):
+                 "TPUSHARE_QUOTA_NAMESPACE", "TPUSHARE_LOG_JSON",
+                 "DEBUG_ROUTES"):
         assert name in tdoc and name not in M.NOT_PORTED
 
 

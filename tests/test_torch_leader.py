@@ -6,11 +6,11 @@ leader.py``, the Lease calls of the fake and the client, bind gating in
   modules (``tests/torch_reference_stories.py``): the Lease store's
   optimistic concurrency, one candidate acquiring and renewing, exactly
   one leader of two, failover after the leader stops, a Lease with no
-  renewTime taken, a wedged leader demoting itself. Its HA bind-gating
-  cases build the server with the reference's metrics arguments and one
-  reads ``/metrics``, which the port has not yet, and its gang hand-off
-  is unsteady in the reference's own runs; all three have twins here
-  over ``serve_stack(leader=...)`` that poll against deadlines and use
+  renewTime taken, a wedged leader demoting itself; and its HA
+  bind-gating cases (only the leader binds, ``tpushare_leader`` 1.0 on
+  the leader's ``/metrics`` and 0.0 on the follower's; failover; a gang
+  half reserved by the old leader completed by the new one). Twins of
+  these over ``serve_stack(leader=...)`` poll against deadlines and use
   sub-second leases.
 * The Lease store of both fakes on the same operations: the same
   documents, resourceVersions and errors.
@@ -51,7 +51,7 @@ from tpushare_torch.utils import const
 from tpushare_torch.utils import pod as podutils
 
 globals().update(R.pick(R.load("test_leader"),
-                       ["TestLeaseStore", "TestElector"]))
+                       ["TestLeaseStore", "TestElector", "TestHABindGating"]))
 
 PREFIX = "/tpushare-scheduler"
 LEASE = "tpushare-schd-extender"

@@ -13,10 +13,13 @@ extender reads them) against the JAX package's.
 * The reference's stories of ``tests/test_quota.py`` over the port's
   modules (``tests/torch_reference_stories.py``): config parsing, the
   ledger, the gang charge rolled back at its TTL and a quota-doomed gang
-  refused, the ConfigMap namespace pinning, and the ConfigMap over the
-  real client's wire. The cases of unported parts are left out (the
-  demand tracker's per-tenant view, which ``/metrics`` reads; the
-  reference's tools).
+  refused, the ConfigMap namespace pinning, the ConfigMap over the real
+  client's wire, the demand tracker's per-tenant view, and the tenancy
+  story end to end over the port's ``serve_stack``: borrow, reclaim by
+  ``/preempt``, the denial at the limit in the Event stream, in
+  ``tpushare_quota_denied_total`` and the per-tenant gauges of
+  ``/metrics`` and in the flight recorder, and the usage rebuilt after a
+  restart. The reference's tools are left out.
 * Its end-to-end stories over both ``serve_stack``s
   (``tests/test_torch_extender_e2e.py``'s ``Pair``) byte for byte:
   a borrower fills the fleet, an under-guarantee tenant's pod is refused
@@ -24,8 +27,8 @@ extender reads them) against the JAX package's.
   pod binds after the eviction, a pod over its limit is refused with the
   quota reason and a Warning Event, ``/debug/quota`` agrees, and a stack
   rebuilt from the apiserver holds the same usage; the fair-share bias of
-  prioritize; a rewritten ConfigMap enforced. The JAX side's ``/metrics``
-  and decision traces are left out.
+  prioritize; a rewritten ConfigMap enforced; each attempt's decision
+  trace equal on both (``Pair.same_decision``).
 """
 
 from __future__ import annotations
@@ -51,17 +54,26 @@ from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.quota import QuotaManager as TManager
 from tpushare_torch.quota import parse_configmap as tparse
+from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.utils import const
 
+_STORIES = R.load("test_quota")
+#: The reference's fixture: a two-node fleet under a quota ConfigMap and
+#: its ``serve_stack`` (the port's, here).
+tenant_cluster = _STORIES.tenant_cluster
 globals().update(R.pick(
-    R.load("test_quota", drop=("from tpushare import trace",)),
-    ["TestQuotaConfig", "TestLedger", "TestGangQuotaRollback",
-     "TestConfigMapNamespacePinning", "TestConfigMapWire"]))
+    _STORIES,
+    ["TestQuotaConfig", "TestLedger", "TestTenancyEndToEnd",
+     "TestGangQuotaRollback", "TestConfigMapNamespacePinning",
+     "TestConfigMapWire", "TestDemandByTenant"]))
 
 
 @pytest.fixture
 def api():
-    """The reference's stories run over the port's fake apiserver."""
+    """The reference's stories run over the port's fake apiserver, each
+    from a fresh metrics registry: a story reads its own counts (the
+    reference's process holds one registry a test run, too)."""
+    tmetrics.reset()
     return FakeApiServer()
 
 

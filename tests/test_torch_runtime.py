@@ -187,6 +187,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "utils", "node.py"),
                  ("tpushare_torch", "topology", "fleet.py"),
                  ("tpushare_torch", "gang", "planner.py"),
+                 ("tpushare_torch", "trace", "__init__.py"),
+                 ("tpushare_torch", "trace", "recorder.py"),
+                 ("tpushare_torch", "trace", "jsonlog.py"),
+                 ("tpushare_torch", "routes", "metrics.py"),
+                 ("tpushare_torch", "routes", "exposition.py"),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):

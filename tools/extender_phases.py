@@ -1,11 +1,15 @@
-"""Phases 2f and 2h of ``chip_smoke.py`` alone, on one NVIDIA card.
+"""Phases 2f, 2g and 2h of ``chip_smoke.py`` alone, on one NVIDIA card.
 
 Builds the kernels from the checkout, then runs ``chip_smoke.
-extender_phase`` (the tenant placed through the extender and served, the
-1,024-node churn with the interpreter's GC thresholds and again under
-the reference extender's GC posture) and ``chip_smoke.tenancy_phase``
-(two replicas under leader election, failover, a serving tenant
-preempted and replaced, quota, admission, the preempt benchmarks).
+extender_phase`` (the tenant placed through the extender and served, its
+decision trace and metrics, the 1,024-node churn with ``/metrics``
+scraped every second, with the interpreter's GC thresholds and again
+under the reference extender's GC posture), ``chip_smoke.gang_phase``
+without the gang's training (the binds, grants, reaper, TTL rollback and
+the 256-gang churn, with the gauges and each member's trace id) and
+``chip_smoke.tenancy_phase`` (two replicas under leader election,
+failover, a serving tenant preempted and replaced, quota, admission, the
+preempt benchmarks).
 Prints each phase as ``chip_smoke.py`` does and writes every field as
 JSON to ``--out``::
 
@@ -40,6 +44,7 @@ def main() -> int:
     out = {"card": card}
     with tempfile.TemporaryDirectory(prefix="extender_phases-") as tmp:
         for name, fn in (("2f extender", CS.extender_phase),
+                         ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
                          ("2h tenancy", CS.tenancy_phase)):
             t = time.perf_counter()
             out[name] = fn(inv, tmp)

@@ -18,6 +18,7 @@ import threading
 import time
 from typing import Any, NamedTuple
 
+from tpushare_torch import trace
 from tpushare_torch.api.objects import Node, Pod, binding_doc
 from tpushare_torch.cache.chipinfo import ChipInfo
 from tpushare_torch.k8s.errors import ConflictError
@@ -478,46 +479,62 @@ class NodeInfo:
         The provisional charge keeps the two locked windows safe: a
         concurrent allocate cannot pick the held cards while the writes
         are in flight. Returns the annotated pod as accepted.
+
+        All of it runs in the decision's ``allocate`` span, which notes
+        the cards and the GiB and counts the apiserver round trips; the
+        grant carries the decision's trace id and causal parent.
         """
-        with self._lock:
-            chip_ids = self.pick_chips(pod)  # raises AllocationError
-            if podutils.get_chips_from_pod_resource(pod) > 0:
-                hbm_pod = sum(self.chips[c].total_hbm for c in chip_ids)
-            else:
-                hbm_pod = podutils.get_hbm_from_pod_resource(pod)
-            hbm_chip = self.chips[chip_ids[0]].total_hbm
-            provisional = podutils.updated_pod_annotation_spec(
-                pod, chip_ids, hbm_pod, hbm_chip,
-                assume_time_ns=time.time_ns())
-            for cid in chip_ids:
-                self.chips[cid].add_pod(provisional)
-        try:
-            try:
-                new_pod = client.update_pod(provisional)
-            except ConflictError:
-                fresh = client.get_pod(pod.namespace, pod.name)
-                new_pod = client.update_pod(
-                    podutils.updated_pod_annotation_spec(
-                        fresh, chip_ids, hbm_pod, hbm_chip,
-                        assume_time_ns=time.time_ns()))
-            if bind:
-                client.bind_pod(binding_doc(new_pod, self.name))
-        except BaseException:
+        with trace.span("allocate", node=self.name):
+            trace_id = trace.current_trace_id() or None
+            trace_parent = trace.current_parent_id() or None
             with self._lock:
+                chip_ids = self.pick_chips(pod)  # raises AllocationError
+                if podutils.get_chips_from_pod_resource(pod) > 0:
+                    hbm_pod = sum(self.chips[c].total_hbm
+                                  for c in chip_ids)
+                else:
+                    hbm_pod = podutils.get_hbm_from_pod_resource(pod)
+                hbm_chip = self.chips[chip_ids[0]].total_hbm
+                provisional = podutils.updated_pod_annotation_spec(
+                    pod, chip_ids, hbm_pod, hbm_chip,
+                    assume_time_ns=time.time_ns(), trace_id=trace_id,
+                    trace_parent=trace_parent)
                 for cid in chip_ids:
-                    self.chips[cid].remove_pod(provisional)
-            raise
-        # The apiserver set spec.nodeName through the binding.
-        new_pod.spec["nodeName"] = self.name
-        with self._lock:
-            # Same uid: re-adding replaces the provisional pricing, unless
-            # a deletion seen during the unlocked writes already freed it
-            # (that DELETE is consumed; nothing would free a re-add).
-            if any(provisional.uid in self.chips[c].pods for c in chip_ids):
-                for cid in chip_ids:
-                    self.chips[cid].add_pod(new_pod)
-        # Rebuild the summary here, so the next filter reads it for free.
-        self.summary()
-        log.info("allocated pod %s/%s -> node %s chips %s (%d GiB)",
-                 pod.namespace, pod.name, self.name, chip_ids, hbm_pod)
-        return new_pod
+                    self.chips[cid].add_pod(provisional)
+            try:
+                # Inside the try: the charge is live, and even a note
+                # that fails must roll it back.
+                trace.note("chips", list(chip_ids))
+                trace.note("hbmGiB", hbm_pod)
+                try:
+                    new_pod = client.update_pod(provisional)
+                except ConflictError:
+                    fresh = client.get_pod(pod.namespace, pod.name)
+                    new_pod = client.update_pod(
+                        podutils.updated_pod_annotation_spec(
+                            fresh, chip_ids, hbm_pod, hbm_chip,
+                            assume_time_ns=time.time_ns(),
+                            trace_id=trace_id, trace_parent=trace_parent))
+                if bind:
+                    client.bind_pod(binding_doc(new_pod, self.name))
+            except BaseException:
+                with self._lock:
+                    for cid in chip_ids:
+                        self.chips[cid].remove_pod(provisional)
+                raise
+            # The apiserver set spec.nodeName through the binding.
+            new_pod.spec["nodeName"] = self.name
+            with self._lock:
+                # Same uid: re-adding replaces the provisional pricing,
+                # unless a deletion seen during the unlocked writes already
+                # freed it (that DELETE is consumed; nothing would free a
+                # re-add).
+                if any(provisional.uid in self.chips[c].pods
+                       for c in chip_ids):
+                    for cid in chip_ids:
+                        self.chips[cid].add_pod(new_pod)
+            # Rebuild the summary here, so the next filter reads it free.
+            self.summary()
+            log.info("allocated pod %s/%s -> node %s chips %s (%d GiB)",
+                     pod.namespace, pod.name, self.name, chip_ids, hbm_pod)
+            return new_pod

@@ -15,6 +15,11 @@ Environment:
 * ``LOG_LEVEL``: debug, info (default), warning, error.
 * ``LOG_DIR``: when set, log records also go to one file a level
   (``debug.log`` ... ``critical.log``, each holding its level alone).
+* ``TPUSHARE_LOG_JSON``: ``1`` (or ``true``, ``yes``) writes the console
+  as one JSON object a line, each tagged with the decision trace id
+  active on the emitting thread (``trace/jsonlog.py``).
+* ``DEBUG_ROUTES``: ``0`` (or ``false``, ``no``) answers every
+  ``/debug/*`` route with 404; on by default.
 * ``TLS_CERT_FILE`` / ``TLS_KEY_FILE``: serve HTTPS; exactly one of them
   set exits 2.
 * ``TPUSHARE_SCORING``: ``binpack`` (default, tightest fit) or ``spread``
@@ -38,9 +43,9 @@ Environment:
   applies it; ``serve_stack`` does not.
 
 Variables of the reference's main that the port does not yet read
-(``NOT_PORTED``: structured logs, the debug routes and profiler, the SLO
-ConfigMap, defragmentation and autoscaling) are logged as a warning, one
-line each, when set.
+(``NOT_PORTED``: the profiler, the SLO ConfigMap, the timeline and
+black-box journal, defragmentation and autoscaling) are logged as a
+warning, one line each, when set.
 """
 
 from __future__ import annotations
@@ -69,8 +74,6 @@ log = logging.getLogger(__name__)
 #: The reference main's variables that the port does not read yet, and
 #: what of the reference each one sets.
 NOT_PORTED = {
-    "TPUSHARE_LOG_JSON": "structured JSON console logs",
-    "DEBUG_ROUTES": "the /debug/pprof suite",
     "TPUSHARE_PROFILE": "the continuous profiler",
     "TPUSHARE_PROFILE_HZ": "the continuous profiler's rate",
     "TPUSHARE_SLO_NAMESPACE": "the tpushare-slos ConfigMap",
@@ -176,13 +179,18 @@ def build_stack(client, is_leader=None) -> Stack:
                  preempt, admission)
 
 
-def make_server(stack: Stack, address, leader=None) -> ExtenderHTTPServer:
-    """The HTTP server over every verb of ``stack``."""
+def make_server(stack: Stack, address, leader=None,
+                debug_routes: bool = True) -> ExtenderHTTPServer:
+    """The HTTP server over every verb of ``stack``, with the gang
+    planner, the workqueue and the quota ledger its ``/metrics`` reads."""
     return ExtenderHTTPServer(address, stack.predicate, stack.binder,
                               stack.inspect, prioritize=stack.prioritize,
                               preempt=stack.preempt,
                               admission=stack.admission, leader=leader,
-                              quota=stack.controller.quota)
+                              quota=stack.controller.quota,
+                              gang_planner=stack.binder.gang_planner,
+                              workqueue=stack.controller.queue,
+                              debug_routes=debug_routes)
 
 
 def serve_stack(client, address=("127.0.0.1", 0), workers: int = 2,
@@ -210,9 +218,11 @@ def shutdown_stack(stack, server) -> None:
 
 def configure_logging(level_name: str | None = None,
                       log_dir: str | None = None) -> None:
-    """Console logging at ``LOG_LEVEL``; with ``log_dir`` (``LOG_DIR``)
-    also one file a level, each holding exactly that level (gpushare's
-    multi-file layout). Calling it again replaces the files it added."""
+    """Console logging at ``LOG_LEVEL``, as JSON lines tagged with the
+    decision trace id under ``TPUSHARE_LOG_JSON``; with ``log_dir``
+    (``LOG_DIR``) also one file a level, each holding exactly that level
+    (gpushare's multi-file layout). Calling it again replaces the files
+    it added."""
     level = (level_name or os.environ.get("LOG_LEVEL", "info")).upper()
     root_level = getattr(logging, level, logging.INFO)
     root = logging.getLogger()
@@ -226,6 +236,13 @@ def configure_logging(level_name: str | None = None,
         # are.
         for handler in root.handlers:
             handler._tpushare_console = True
+    if os.environ.get("TPUSHARE_LOG_JSON", "").lower() in ("1", "true",
+                                                           "yes"):
+        # Only our console handler: a host's keep their format.
+        from tpushare_torch.trace.jsonlog import TraceJsonFormatter
+        for handler in root.handlers:
+            if getattr(handler, "_tpushare_console", False):
+                handler.setFormatter(TraceJsonFormatter())
     log_dir = log_dir if log_dir is not None else os.environ.get(
         "LOG_DIR", "")
     for handler in list(root.handlers):
@@ -305,7 +322,10 @@ def main() -> None:
     stop = threading.Event()
     setup_signals(stop)
     stack.controller.start(workers=workers)
-    server = make_server(stack, ("0.0.0.0", port), leader=leader)
+    debug_routes = os.environ.get("DEBUG_ROUTES", "1").lower() not in (
+        "0", "false", "no")
+    server = make_server(stack, ("0.0.0.0", port), leader=leader,
+                         debug_routes=debug_routes)
     if cert and key:
         enable_tls(server, cert, key)
         log.info("TLS enabled (%s)", cert)

@@ -247,6 +247,8 @@ class Controller:
             "gang %s/%s below quorum after %s died (%d survivors < min "
             "%d); reaping survivors to free their chips",
             dead.namespace, group, dead.name, len(survivors), minimum)
+        from tpushare_torch.routes import metrics
+        metrics.safe_inc(metrics.GANGS_REAPED)
         for p in survivors:
             try:
                 self.client.delete_pod(p.namespace, p.name)

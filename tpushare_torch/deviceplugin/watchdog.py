@@ -11,7 +11,8 @@ reference's rule, used GiB above granted GiB, and publishes three ways:
 
 - **Prometheus**: ``tpushare_hbm_used_gib{namespace,pod,node}`` and
   ``tpushare_grant_overrun{namespace,pod,node}`` (0/1), rendered in the
-  text exposition format by :meth:`GrantWatchdog.render` (no client
+  text exposition format by :meth:`GrantWatchdog.render` through the
+  port's one renderer, :mod:`tpushare_torch.routes.exposition` (no client
   library: the watchdog imports the standard library alone);
 - **apiserver**: the ``tpushare.io/hbm-used`` and
   ``tpushare.io/grant-overrun`` pod annotations, cleared when the
@@ -30,7 +31,6 @@ from __future__ import annotations
 
 import json
 import logging
-import math
 import os
 import threading
 import time
@@ -38,6 +38,7 @@ import time
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.k8s import commit, events, eviction
 from tpushare_torch.k8s.errors import ApiError, ConflictError
+from tpushare_torch.routes.exposition import GaugeFamily
 from tpushare_torch.utils import const, pod as podutils
 
 log = logging.getLogger(__name__)
@@ -53,54 +54,6 @@ GIB = 1 << 30
 STALE_AFTER_S = 120.0
 
 LABELS = ("namespace", "pod", "node")
-
-
-def _go_float(value: float) -> str:
-    """A sample value as the Prometheus text format writes it (Go's
-    formatting: exponents from 1e7 up)."""
-    d = float(value)
-    if math.isinf(d):
-        return "+Inf" if d > 0 else "-Inf"
-    if math.isnan(d):
-        return "NaN"
-    s = repr(d)
-    dot = s.find(".")
-    if d > 0 and dot > 6:
-        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
-        return f"{mantissa}e+0{dot - 1}"
-    return s
-
-
-def _escape(text: str, quote: bool) -> str:
-    text = text.replace("\\", r"\\").replace("\n", r"\n")
-    return text.replace('"', r'\"') if quote else text
-
-
-class GaugeFamily:
-    """One gauge metric family: a value per label set, in the order the
-    label sets were first set; labels render sorted by name."""
-
-    def __init__(self, name: str, doc: str):
-        self.name, self.doc = name, doc
-        self.samples: dict[tuple[str, ...], float] = {}
-
-    def set(self, labels: tuple[str, ...], value: float) -> None:
-        self.samples[labels] = float(value)
-
-    def remove(self, labels: tuple[str, ...]) -> None:
-        self.samples.pop(labels, None)
-
-    def get(self, labels: tuple[str, ...]) -> float | None:
-        return self.samples.get(labels)
-
-    def render(self) -> str:
-        lines = [f"# HELP {self.name} {_escape(self.doc, False)}",
-                 f"# TYPE {self.name} gauge"]
-        for labels, value in self.samples.items():
-            pairs = ",".join(f'{k}="{_escape(v, True)}"'
-                             for k, v in sorted(zip(LABELS, labels)))
-            lines.append(f"{self.name}{{{pairs}}} {_go_float(value)}")
-        return "\n".join(lines) + "\n"
 
 
 class GrantWatchdog:
@@ -125,10 +78,11 @@ class GrantWatchdog:
         self.used = GaugeFamily(
             "tpushare_hbm_used_gib",
             "Tenant-reported device memory in use (GiB), from the caching "
-            "allocator's heartbeat")
+            "allocator's heartbeat", LABELS)
         self.overrun = GaugeFamily(
             "tpushare_grant_overrun",
-            "1 while the tenant's reported usage exceeds its granted GiB")
+            "1 while the tenant's reported usage exceeds its granted GiB",
+            LABELS)
         #: uid -> consecutive overrun sweeps (the eviction counter, and
         #: the edge that fires the events).
         self._over_streak: dict[str, int] = {}

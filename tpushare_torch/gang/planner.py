@@ -23,9 +23,12 @@ rollback on timeout):
 A lock a group guards the reserve and commit path, and a table lock only
 the group table; no apiserver round trip runs under either, so one
 gang's writes never stall another gang's bind. Every annotation, Event,
-binding and error string is the reference's. The reference's decision
-trace notes, timeline marks and topology gauges come with the
-observability slice. With a quota ledger, a gang whose outstanding
+binding and error string is the reference's, and so are the decision
+trace's ``gang`` span and its notes (``quorum``, ``topologyElected``,
+``topologySteered``, ``topology-fallback``, ``ringContiguity``), the
+``tpushare_topology_fallbacks_total`` count and the
+``tpushare_gang_ring_contiguity`` gauge. The reference's timeline marks
+come with the timeline. With a quota ledger, a gang whose outstanding
 members must take its tenant past the hard limit is refused at its
 quorum pre-check, before it reserves; the group's charge needs nothing
 more, since each reservation goes through the cache (which charges) and
@@ -39,6 +42,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
 
+from tpushare_torch import trace
 from tpushare_torch.api.objects import Pod, binding_doc
 from tpushare_torch.cache.nodeinfo import AllocationError
 from tpushare_torch.k8s import commit, events
@@ -296,16 +300,26 @@ class GangPlanner:
 
     def _elect_placement(self, pod: Pod, group: _Group):
         """The placer's (memoized) election for ``pod``'s group, stashed
-        on the group; None without a placer or a block."""
+        on the group; None without a placer or a block. A failed election
+        is noted and counted once an election, so a fleet that lost its
+        topology labels does not look like one that never had them."""
         if self.placer is None:
             return None
         placement = self.placer.elect((pod.namespace, group.name), pod)
         with group.lock:
             group.placement = placement
-        if placement is None and podutils.get_slice_shape(pod) is not None:
-            log.info("gang %s/%s: no contiguous host block for slice "
-                     "shape %r; placing unconstrained", pod.namespace,
-                     group.name, pod.annotations.get(const.ANN_SLICE_SHAPE))
+        if placement is not None:
+            trace.note("topologyElected",
+                       {"slice": placement.slice_id,
+                        "hosts": list(placement.hosts),
+                        "contiguity": placement.stats["contiguity"]})
+        elif podutils.get_slice_shape(pod) is not None:
+            trace.note("topology-fallback",
+                       "no contiguous host block for slice shape "
+                       f"{pod.annotations.get(const.ANN_SLICE_SHAPE)!r}; "
+                       "placing unconstrained")
+            from tpushare_torch.routes import metrics
+            metrics.safe_inc(metrics.TOPOLOGY_FALLBACKS)
         return placement
 
     def _steer(self, group: _Group, pod: Pod, node_name: str) -> str:
@@ -313,13 +327,18 @@ class GangPlanner:
         its ring slot when the name carries a worker ordinal (``w-3`` to
         ``placement.hosts[3]``), else onto the first unclaimed host in
         ring order. Falls back to the scheduler's choice when no host of
-        the block takes the member: a topology miss costs placement
-        quality, never the gang."""
+        the block takes the member (noted; counted when a block existed,
+        since a failed election was counted by ``_elect_placement``): a
+        topology miss costs placement quality, never the gang."""
         if podutils.get_slice_shape(pod) is None:
             return node_name
         with group.lock:
             placement = group.placement
             if placement is None:
+                # Counted once, at the election; noted for this member.
+                trace.note("topology-fallback",
+                           "no elected block for this group; placing "
+                           f"on {node_name}")
                 return node_name
             already = group.claimed.get(pod.uid)
             if already is not None:
@@ -342,9 +361,14 @@ class GangPlanner:
                 if host in set(group.claimed.values()):
                     continue  # a sibling claimed it meanwhile
                 group.claimed[pod.uid] = host
+            trace.note("topologySteered",
+                       {"from": node_name, "to": host})
             return host
-        log.info("gang %s: elected block unavailable for %s; placing on %s",
-                 group.name, pod.key(), node_name)
+        trace.note("topology-fallback",
+                   f"elected block unavailable for {pod.key()}; "
+                   f"placing on {node_name}")
+        from tpushare_torch.routes import metrics
+        metrics.safe_inc(metrics.TOPOLOGY_FALLBACKS)
         return node_name
 
     def elected_hosts(self, pod: Pod) -> frozenset[str]:
@@ -368,6 +392,37 @@ class GangPlanner:
         return placement.host_set() if placement is not None \
             else frozenset()
 
+    def _note_ring_contiguity(self, key: tuple[str, str],
+                              group: _Group,
+                              members: list[tuple[Pod, str]]) -> None:
+        """Publish the committed gang's ring contiguity (members in worker
+        order, the order steering placed them in) as the
+        ``tpushare_gang_ring_contiguity`` gauge and a trace note. The
+        scrape rebuilds the gauge from the live ledger, so a departed
+        gang drops its series. Observational: a failure is logged, never
+        raised into the bind."""
+        try:
+            from tpushare_torch.routes import metrics
+
+            ordered = sorted(members,
+                             key=lambda m: fleet.worker_sort_key(m[0].name))
+            nodes = []
+            for _pod, node_name in ordered:
+                info = (self.cache.peek_node_info(node_name)
+                        or self.cache.get_node_info(node_name))
+                if info is None:
+                    return
+                nodes.append(info.node)
+            stats = fleet.gang_ring_stats(nodes)
+            if stats is None:
+                return
+            metrics.GANG_RING_CONTIGUITY.labels(
+                gang=f"{key[0]}/{group.name}").set(stats["contiguity"])
+            trace.note("ringContiguity", stats["contiguity"])
+        except Exception:  # noqa: BLE001 - telemetry must not fail a bind
+            log.debug("ring-contiguity note failed for gang %s/%s",
+                      key[0], group.name, exc_info=True)
+
     # -- bind ------------------------------------------------------------- #
 
     def bind_member(self, pod: Pod, node_name: str) -> None:
@@ -380,17 +435,23 @@ class GangPlanner:
             return  # already placed: a retry
 
         key, group = self._get_group(pod)
-        self._reserve_member(key, group, pod, node_name)
-        newly_committed = self._note_quorum(key, group)
+        with trace.span("gang", group=group.name):
+            self._reserve_member(key, group, pod, node_name)
+            newly_committed = self._note_quorum(key, group)
 
-        if newly_committed and self.placer is not None:
-            # A committed gang's election is never read again.
-            self.placer.forget(key)
+        if newly_committed:
+            self._note_ring_contiguity(key, group, newly_committed)
+            if self.placer is not None:
+                # A committed gang's election is never read again.
+                self.placer.forget(key)
         for member_pod, member_node in newly_committed:
             events.record(
                 self.client, member_pod, events.REASON_GANG_COMMITTED,
                 f"gang {group.name} reached quorum; "
-                f"committing to node {member_node}")
+                f"committing to node {member_node}",
+                # Each member's Event carries its own decision's id (its
+                # annotation's), not the completing member's.
+                trace_id=member_pod.annotations.get(const.ANN_TRACE_ID, ""))
         # Raises only if this member's own binding failed.
         self._commit(key, group, current_uid=pod.uid)
 
@@ -399,6 +460,8 @@ class GangPlanner:
         """Make sure ``pod`` holds a reservation in ``group``, allocating
         (or adopting) its grant with the group lock released."""
         with group.lock:
+            trace.note("quorum",
+                       f"{len(group.reservations)}/{group.minimum}")
             if group.rolled_back:
                 # Expiry is rolling this group back; a reservation made
                 # into it would be destroyed.
@@ -645,7 +708,10 @@ class GangPlanner:
                     self.client, pod, events.REASON_GANG_EXPIRED,
                     f"gang {group.name} expired at "
                     f"{len(victims)}/{group.minimum} members; "
-                    "reservation rolled back", event_type="Warning")
+                    "reservation rolled back", event_type="Warning",
+                    # The housekeeping thread holds no decision: the
+                    # member's own annotation correlates.
+                    trace_id=pod.annotations.get(const.ANN_TRACE_ID, ""))
             with self._table_lock:
                 if self._groups.get(key) is group:
                     del self._groups[key]

@@ -21,10 +21,12 @@ import queue
 import ssl
 import tempfile
 import threading
+import time
 import urllib.error
 import urllib.request
 from urllib.parse import quote
 
+from tpushare_torch import trace
 from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
                                         PodDisruptionBudget)
 from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
@@ -151,6 +153,9 @@ class ApiClient:
             req.add_header("Content-Type", "application/json")
         if self.config.token:
             req.add_header("Authorization", f"Bearer {self.config.token}")
+        # Each round trip, failed ones too, is charged to the caller's
+        # open decision span; outside a decision the note is a no-op.
+        t0 = time.perf_counter()
         try:
             with urllib.request.urlopen(req, timeout=timeout,
                                         context=self._ssl) as resp:
@@ -165,6 +170,9 @@ class ApiClient:
             raise ApiError(e.code, reason=e.reason, body=text) from None
         except urllib.error.URLError as e:
             raise ApiError(0, reason=str(e.reason)) from None
+        finally:
+            trace.note_api_call(time.perf_counter() - t0,
+                                method=method, path=path)
 
     # -- nodes --------------------------------------------------------- #
 

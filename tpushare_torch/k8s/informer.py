@@ -188,6 +188,10 @@ class InformerHub:
 
     def _handle_relist(self, kind: str, store: Store, objs: list,
                        scope: str = "") -> None:
+        # Imported here: the device plugin's informer needs no metrics
+        # at import time.
+        from tpushare_torch.routes import metrics
+        metrics.safe_inc(metrics.INFORMER_RELISTS)
         fresh = {Store.key_of(o): o for o in objs}
         stale = [o for o in store.list() if Store.key_of(o) not in fresh
                  and (not scope or o.name == scope)]

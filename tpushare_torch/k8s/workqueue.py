@@ -24,6 +24,9 @@ class RateLimitedQueue:
         self._failures: dict[str, int] = {}
         self._delayed: list[tuple[float, str]] = []  # (ready_at, key) heap
         self._shutdown = False
+        #: Rate-limited requeues over the queue's lifetime (the
+        #: ``tpushare_workqueue_retries_total`` gauge).
+        self._retries = 0
 
     # ------------------------------------------------------------------ #
 
@@ -48,6 +51,7 @@ class RateLimitedQueue:
         with self._cond:
             fails = self._failures.get(key, 0)
             self._failures[key] = fails + 1
+            self._retries += 1
         self.add_after(key, min(self._base * (2 ** fails), self._max))
 
     def forget(self, key: str) -> None:
@@ -89,6 +93,17 @@ class RateLimitedQueue:
             return len(self._queue) + len(self._delayed)
 
     # ------------------------------------------------------------------ #
+
+    def stats(self) -> dict:
+        """One consistent snapshot for the /metrics scrape: ready keys,
+        keys in backoff, keys a worker holds, lifetime requeues."""
+        with self._cond:
+            return {
+                "depth": len(self._queue),
+                "delayed": len(self._delayed),
+                "in_flight": len(self._processing),
+                "retries": self._retries,
+            }
 
     def _promote_delayed_locked(self) -> None:
         now = time.monotonic()

@@ -14,7 +14,12 @@ the batch completes.
   window (0.5 ms), and the window runs only when two requests are
   already concurrent.
 * Each request's gate wait is reported back (``queue;dur=`` in
-  ``Server-Timing``), so batching never hides latency it added.
+  ``Server-Timing``, and the decision span's ``queueSeconds``), so
+  batching never hides latency it added.
+* Each drain's size goes to ``tpushare_http_batch_size``, and
+  :meth:`VerbBatcher.stats` feeds ``/debug/http``. The request's
+  ``traceparent`` rides on its item, so the decision the executor opens
+  keeps its causal parent.
 
 A handler that raises fails its whole batch loudly: every waiter
 re-raises.
@@ -26,6 +31,8 @@ import threading
 import time
 from typing import Any, Callable
 
+from tpushare_torch.routes import metrics
+
 #: Default fill window: long enough for a concurrent burst to coalesce,
 #: short enough to be invisible next to a 1-2 ms handler clock.
 DEFAULT_WINDOW_S = 0.0005
@@ -33,15 +40,18 @@ DEFAULT_MAX_BATCH = 16
 
 
 class WorkItem:
-    __slots__ = ("args", "t0", "done", "result", "error", "queue_s")
+    __slots__ = ("args", "t0", "done", "result", "error", "queue_s",
+                 "parent")
 
-    def __init__(self, args: Any) -> None:
+    def __init__(self, args: Any, parent: str = "") -> None:
         self.args = args
         self.t0 = time.perf_counter()
         self.done = False
         self.result: Any = None
         self.error: BaseException | None = None
         self.queue_s = 0.0
+        #: The causal parent trace id of the request's ``traceparent``.
+        self.parent = parent
 
 
 class VerbBatcher:
@@ -63,15 +73,20 @@ class VerbBatcher:
         self._cond = threading.Condition()
         self._pending: list[WorkItem] = []
         self._draining = False
+        # GIL-bumped stats for /debug/http: drains, requests that shared
+        # a batch, and the largest batch seen.
+        self.drains = 0
+        self.batched = 0
+        self.max_batch_seen = 0
 
     # -- public API -------------------------------------------------------- #
 
-    def submit(self, args: Any) -> tuple[Any, float]:
+    def submit(self, args: Any, parent: str = "") -> tuple[Any, float]:
         """Run ``args`` through the gate; returns ``(result,
         queue_wait_seconds)``. Raises whatever the executor raised."""
         if not self.enabled:
-            return self.run_batch([WorkItem(args)])[0], 0.0
-        item = WorkItem(args)
+            return self.run_batch([WorkItem(args, parent)])[0], 0.0
+        item = WorkItem(args, parent)
         with self._cond:
             if not self._draining and not self._pending:
                 # Depth 1: nothing queued, nothing in flight — the
@@ -88,10 +103,19 @@ class VerbBatcher:
                 direct = False
         if direct:
             try:
+                self._observe(1)
                 return self.run_batch([item])[0], 0.0
             finally:
                 self._release()
         return self._wait(item)
+
+    def stats(self) -> dict[str, int | float]:
+        return {"drains": self.drains, "batchedRequests": self.batched,
+                "maxBatch": self.max_batch_seen,
+                "pending": len(self._pending),
+                "windowMs": self.window_s * 1e3,
+                "maxBatchLimit": self.max_batch,
+                "enabled": self.enabled}
 
     # -- internals --------------------------------------------------------- #
 
@@ -163,6 +187,7 @@ class VerbBatcher:
         t_start = time.perf_counter()
         for it in batch:
             it.queue_s = max(t_start - it.t0, 0.0)
+        self._observe(len(batch))
         try:
             results = self.run_batch(batch)
             if len(results) != len(batch):  # executor contract breach
@@ -181,3 +206,11 @@ class VerbBatcher:
                 it.result = res
                 it.done = True
             self._cond.notify_all()
+
+    def _observe(self, size: int) -> None:
+        self.drains += 1
+        if size > 1:
+            self.batched += size
+        if size > self.max_batch_seen:
+            self.max_batch_seen = size
+        metrics.safe_observe(metrics.HTTP_BATCH_SIZE, size)

@@ -1,0 +1,626 @@
+"""Prometheus metrics for the extender.
+
+The port's copy of ``tpushare/routes/metrics.py``: the same family names,
+HELP texts, types, labels and buckets, rendered by the port's own
+standard-library exposition (:mod:`tpushare_torch.routes.exposition`,
+line for line what ``prometheus_client`` writes). Only the families whose
+sources the port has are declared, so none renders a zero that means
+nothing: the timeline's, the profiler's and per-verb cost ledger's, the
+pod-journey SLOs', defragmentation's, the autoscaler's and the serving
+router's come with the modules that feed them.
+
+:func:`scrape` refreshes every gauge from its source under
+``_SCRAPE_LOCK`` and renders; a scrape that raises counts
+``tpushare_scrape_errors_total`` and raises on into the handler's 500.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time as _time_mod
+
+from tpushare_torch.routes.exposition import (Counter, Gauge, Histogram,
+                                              Registry)
+
+REGISTRY = Registry()
+
+# Scrapes run on HTTP pool-worker threads; the clear() and repopulate of
+# observe_cache must not interleave with another scrape's render, or that
+# scrape would see missing node series. Taken before any ledger lock (the
+# verbs never take it), so a scrape cannot deadlock a verb.
+_SCRAPE_LOCK = threading.RLock()
+
+_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+    0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+)
+
+FILTER_LATENCY = Histogram(
+    "tpushare_filter_latency_seconds",
+    "Latency of extender filter requests",
+    registry=REGISTRY, buckets=_BUCKETS,
+)
+PRIORITIZE_LATENCY = Histogram(
+    "tpushare_prioritize_latency_seconds",
+    "Latency of extender prioritize requests",
+    registry=REGISTRY, buckets=_BUCKETS,
+)
+PREEMPT_LATENCY = Histogram(
+    "tpushare_preempt_latency_seconds",
+    "Latency of extender preempt requests",
+    registry=REGISTRY, buckets=_BUCKETS,
+)
+BIND_LATENCY = Histogram(
+    "tpushare_bind_latency_seconds",
+    "Latency of extender bind requests",
+    registry=REGISTRY, buckets=_BUCKETS,
+)
+BIND_ERRORS = Counter(
+    "tpushare_bind_errors_total",
+    "Bind requests that returned an error",
+    registry=REGISTRY,
+)
+ADMISSION_REJECTED = Counter(
+    "tpushare_admission_rejected_total",
+    "Pod CREATEs rejected by the validating admission webhook",
+    registry=REGISTRY,
+)
+FILTER_REQUESTS = Counter(
+    "tpushare_filter_requests_total",
+    "Filter requests served",
+    registry=REGISTRY,
+)
+HBM_TOTAL = Gauge(
+    "tpushare_node_hbm_total_gib", "Total shareable HBM per node",
+    ["node"], registry=REGISTRY,
+)
+HBM_USED = Gauge(
+    "tpushare_node_hbm_used_gib", "Committed HBM per node",
+    ["node"], registry=REGISTRY,
+)
+PREEMPT_VICTIMS = Counter(
+    "tpushare_preempt_victims_total",
+    "Worst-case victim count per preemption plan (the max over the "
+    "plan's candidate nodes — the scheduler evicts ONE node's set, so "
+    "summing across candidates would over-count by the fleet factor). "
+    "A rising rate means priority traffic is displacing work.",
+    registry=REGISTRY,
+)
+
+
+def safe_inc(counter, n: float = 1) -> None:
+    """An increment that can never break the calling code path: metrics
+    are observability, not control flow."""
+    try:
+        counter.inc(n)
+    except Exception:  # noqa: BLE001 - this is the drop guard itself
+        pass
+
+
+def safe_observe(histogram, value: float) -> None:
+    """The histogram twin of :func:`safe_inc`."""
+    try:
+        histogram.observe(value)
+    except Exception:  # noqa: BLE001 - this is the drop guard itself
+        pass
+
+
+GANGS_REAPED = Counter(
+    "tpushare_gangs_reaped_total",
+    "Gangs whose below-quorum survivors were reclaimed by the "
+    "controller reaper (each one is a job restart; a steady rate means "
+    "something keeps evicting gang members)",
+    registry=REGISTRY,
+)
+GANG_RING_CONTIGUITY = Gauge(
+    "tpushare_gang_ring_contiguity",
+    "Ring contiguity of the gang's COMMITTED placement (members in "
+    "worker order over their slice's host grid): 1.0 = every ring hop "
+    "is one ICI link; lower means multi-hop ICI or DCN crossings on "
+    "the job's collective path. Set at gang commit; a low value on a "
+    "slice-shape gang means the placer fell back — see "
+    "tpushare_topology_fallbacks_total and docs/topology.md",
+    ["gang"], registry=REGISTRY,
+)
+TOPOLOGY_FALLBACKS = Counter(
+    "tpushare_topology_fallbacks_total",
+    "Slice-shape gang placements that fell back to topology-blind "
+    "placement: no contiguous host block existed at election, or the "
+    "elected block could no longer host a member at reserve time. "
+    "Each fallback is a gang that will run its collectives over "
+    "multi-hop ICI or DCN — sustained growth means the fleet is too "
+    "fragmented for its gang shapes (defrag repairs rings; "
+    "docs/topology.md runbook)",
+    registry=REGISTRY,
+)
+GANGS_PENDING = Gauge(
+    "tpushare_gangs_pending",
+    "Gangs holding reservations below quorum (stuck gangs -> alert)",
+    registry=REGISTRY,
+)
+UNSCHED_PODS = Gauge(
+    "tpushare_unschedulable_pods",
+    "TPU pods currently failing the filter on every offered node — "
+    "demand the fleet cannot place. Sustained nonzero: add TPU nodes "
+    "(the stock cluster-autoscaler cannot see extender resources).",
+    registry=REGISTRY,
+)
+UNSCHED_HBM = Gauge(
+    "tpushare_unschedulable_demand_hbm_gib",
+    "Aggregate HBM (GiB) requested by currently-unplaceable TPU pods",
+    registry=REGISTRY,
+)
+UNSCHED_CHIPS = Gauge(
+    "tpushare_unschedulable_demand_chips",
+    "Aggregate whole chips requested by currently-unplaceable TPU pods",
+    registry=REGISTRY,
+)
+IS_LEADER = Gauge(
+    "tpushare_leader",
+    "1 when this replica binds (lease holder, or election off); 0 when "
+    "a standby follower. Flapping -> alert",
+    registry=REGISTRY,
+)
+HBM_REPORTED = Gauge(
+    "tpushare_node_hbm_reported_gib",
+    "HBM tenants REPORT using per node (sum of the watchdog-written "
+    "tpushare.io/hbm-used annotations; only pods opted into the usage "
+    "heartbeat contribute). Compare against tpushare_node_hbm_used_gib "
+    "(the ledger's committed grants): reported > committed means an "
+    "overrun somewhere on the node.",
+    ["node"], registry=REGISTRY,
+)
+OVERRUN_PODS = Gauge(
+    "tpushare_overrun_pods",
+    "Pods currently flagged over their grant per node (fleet-level "
+    "aggregate of the device plugins' per-pod tpushare_grant_overrun)",
+    ["node"], registry=REGISTRY,
+)
+EVENTS_DROPPED = Counter(
+    "tpushare_events_dropped_total",
+    "k8s Events dropped: emission queue full, or the POST to the "
+    "apiserver failed. Nonzero means kubectl-describe is missing part "
+    "of the placement story (check events RBAC / apiserver load)",
+    registry=REGISTRY,
+)
+EVENTS_QUEUE_DEPTH = Gauge(
+    "tpushare_events_queue_depth",
+    "k8s Events accepted but not yet POSTed (the async emitter's "
+    "backlog; sustained growth precedes drops)",
+    registry=REGISTRY,
+)
+WORKQUEUE_DEPTH = Gauge(
+    "tpushare_workqueue_depth",
+    "Sync-controller workqueue backlog: keys ready or in backoff delay "
+    "(in-flight keys excluded). Sustained growth means the ledger is "
+    "falling behind the apiserver",
+    registry=REGISTRY,
+)
+WORKQUEUE_RETRIES = Gauge(
+    "tpushare_workqueue_retries_total",
+    "Cumulative rate-limited requeues of sync keys (failed sync_pod "
+    "attempts re-entering with backoff). Set from the queue's "
+    "monotonic counter at scrape time",
+    registry=REGISTRY,
+)
+INFORMER_RELISTS = Counter(
+    "tpushare_informer_relists_total",
+    "Watch-stream reconnect resyncs (one per kind per reconnect): the "
+    "informer diffed a fresh LIST against its store to recover events "
+    "lost in the gap. A steady rate means the watch keeps dropping",
+    registry=REGISTRY,
+)
+QUOTA_DENIED = Counter(
+    "tpushare_quota_denied_total",
+    "Pods denied at filter because their tenant would exceed its hard "
+    "quota limit. NOT unplaceable demand: capacity exists, the tenant "
+    "is over policy — the autoscaler must not scale for these",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_GUARANTEE_HBM = Gauge(
+    "tpushare_quota_guarantee_hbm_gib",
+    "Guaranteed HBM share per tenant (from the tpushare-quotas "
+    "ConfigMap); usage beyond it is borrowing, reclaimed first",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_LIMIT_HBM = Gauge(
+    "tpushare_quota_limit_hbm_gib",
+    "Hard HBM ceiling per tenant; filter denies pods past it",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_USED_HBM = Gauge(
+    "tpushare_quota_used_hbm_gib",
+    "HBM currently charged to the tenant's ledger (granted slices of "
+    "assumed, non-terminated pods)",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_BORROWED_HBM = Gauge(
+    "tpushare_quota_borrowed_hbm_gib",
+    "HBM the tenant holds beyond its guarantee — idle capacity on "
+    "loan, evicted first when an under-guarantee tenant cannot fit",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_GUARANTEE_CHIPS = Gauge(
+    "tpushare_quota_guarantee_chips",
+    "Guaranteed whole-chip share per tenant",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_LIMIT_CHIPS = Gauge(
+    "tpushare_quota_limit_chips",
+    "Hard whole-chip ceiling per tenant",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_USED_CHIPS = Gauge(
+    "tpushare_quota_used_chips",
+    "Whole chips currently charged to the tenant's ledger",
+    ["tenant"], registry=REGISTRY,
+)
+QUOTA_BORROWED_CHIPS = Gauge(
+    "tpushare_quota_borrowed_chips",
+    "Whole chips the tenant holds beyond its guarantee",
+    ["tenant"], registry=REGISTRY,
+)
+UNSCHED_PODS_TENANT = Gauge(
+    "tpushare_unschedulable_pods_by_tenant",
+    "Per-tenant breakdown of tpushare_unschedulable_pods: WHOSE demand "
+    "is unplaceable (quota-denied pods excluded — they are policy, "
+    "not missing capacity)",
+    ["tenant"], registry=REGISTRY,
+)
+UNSCHED_HBM_TENANT = Gauge(
+    "tpushare_unschedulable_demand_hbm_gib_by_tenant",
+    "Per-tenant breakdown of the unplaceable HBM demand",
+    ["tenant"], registry=REGISTRY,
+)
+UNSCHED_CHIPS_TENANT = Gauge(
+    "tpushare_unschedulable_demand_chips_by_tenant",
+    "Per-tenant breakdown of the unplaceable whole-chip demand",
+    ["tenant"], registry=REGISTRY,
+)
+
+TELEMETRY_ERRORS = Counter(
+    "tpushare_telemetry_errors_total",
+    "Errors swallowed on telemetry paths (metrics scrape parse, trace "
+    "recording) — the code path survived, the observation was lost",
+    registry=REGISTRY,
+)
+
+# -- Telemetry self-observability ------------------------------------------ #
+
+SCRAPE_DURATION = Histogram(
+    "tpushare_scrape_duration_seconds",
+    "Wall time of a full /metrics scrape (gauge refresh + render). "
+    "Growth means the scrape lock is taxing the verbs that share it",
+    registry=REGISTRY, buckets=_BUCKETS,
+)
+SCRAPE_ERRORS = Counter(
+    "tpushare_scrape_errors_total",
+    "Scrapes that raised instead of rendering — Prometheus saw a gap "
+    "where a sample should be",
+    registry=REGISTRY,
+)
+TRACE_ABANDONED = Counter(
+    "tpushare_trace_abandoned_total",
+    "Open flight-recorder decisions evicted by table pressure before "
+    "any outcome (retired as 'abandoned'). Sustained growth means pods "
+    "start attempts that never finish — the recorder is losing the "
+    "ends of stories",
+    registry=REGISTRY,
+)
+
+# -- HTTP wire path --------------------------------------------------------- #
+# The webhook server's own plumbing: the bounded worker pool, the accept
+# queue, keep-alive reuse and the micro-batch gate. The monotonic sources
+# are GIL-bumped ints on the server object; the gauges are set at scrape
+# time.
+
+HTTP_POOL_WORKERS = Gauge(
+    "tpushare_http_pool_workers",
+    "Size of the HTTP worker pool (TPUSHARE_HTTP_WORKERS). Each "
+    "worker owns one connection at a time for its keep-alive "
+    "lifetime, so this is also the concurrent-connection bound",
+    registry=REGISTRY,
+)
+HTTP_ACCEPT_QUEUE_DEPTH = Gauge(
+    "tpushare_http_accept_queue_depth",
+    "Accepted connections waiting for a pool worker at scrape time. "
+    "Persistently nonzero means the pool is saturated — the accept "
+    "loop is back-pressuring; raise TPUSHARE_HTTP_WORKERS or find the "
+    "slow verb (docs/perf.md runbook)",
+    registry=REGISTRY,
+)
+HTTP_CONNECTIONS = Gauge(
+    "tpushare_http_connections_total",
+    "TCP connections accepted since process start (monotonic; set at "
+    "scrape time from the server's counter)",
+    registry=REGISTRY,
+)
+HTTP_REQUESTS = Gauge(
+    "tpushare_http_requests_total",
+    "HTTP requests served since process start (monotonic; set at "
+    "scrape time). requests/connections is the keep-alive reuse "
+    "factor a healthy scheduler transport keeps high",
+    registry=REGISTRY,
+)
+HTTP_KEEPALIVE_REUSES = Gauge(
+    "tpushare_http_keepalive_reuses_total",
+    "Requests served on an already-used keep-alive connection "
+    "(monotonic; set at scrape time). Near zero under steady load "
+    "means the caller reconnects per webhook call — it is paying a "
+    "TCP (and TLS) handshake per placement",
+    registry=REGISTRY,
+)
+HTTP_BATCH_SIZE = Histogram(
+    "tpushare_http_batch_size",
+    "Requests per micro-batch drain of the read verbs, INCLUDING the "
+    "depth-1 direct path (routes/batch.py). Mass above 1 is the "
+    "snapshot/probe sharing actually happening under concurrent "
+    "clients; all-1s just means the callers never overlap",
+    registry=REGISTRY, buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32),
+)
+
+
+# -- Process self-metrics --------------------------------------------------- #
+
+PROCESS_RSS = Gauge(
+    "tpushare_process_rss_bytes",
+    "Resident set size of the extender process (/proc/self/statm; "
+    "peak-RSS via resource.getrusage where /proc is absent). Sustained "
+    "growth across scrapes is a leak — check the flight ring, journey "
+    "tables, and /debug/pprof/heap",
+    registry=REGISTRY,
+)
+PROCESS_FDS = Gauge(
+    "tpushare_process_open_fds",
+    "Open file descriptors (/proc/self/fd). Growth means leaked "
+    "sockets — watch streams or webhook keep-alives not being closed",
+    registry=REGISTRY,
+)
+PROCESS_THREADS = Gauge(
+    "tpushare_process_threads",
+    "Live Python threads (threading.active_count): HTTP handlers, "
+    "sync workers, informer watches, housekeeping, the profiler. "
+    "Unbounded growth means a thread leak in one of them",
+    registry=REGISTRY,
+)
+GC_TRACKED = Gauge(
+    "tpushare_gc_tracked_objects",
+    "Objects currently tracked per GC generation (gc.get_count). "
+    "Gen-2 growth is the heap the stop-the-world collections walk — "
+    "the pause source docs/perf.md budgets",
+    ["generation"], registry=REGISTRY,
+)
+GC_COLLECTIONS = Gauge(
+    "tpushare_gc_collections_total",
+    "Cumulative GC collections per generation (gc.get_stats; "
+    "monotonic, set at scrape time). A rising gen-2 rate on the "
+    "webhook path shows up as latency p99 spikes",
+    ["generation"], registry=REGISTRY,
+)
+
+
+def reset() -> None:
+    """Every family back to its state at birth (tests)."""
+    REGISTRY.reset()
+
+
+def render() -> bytes:
+    with _SCRAPE_LOCK:
+        return REGISTRY.render()
+
+
+def observe_cache(cache) -> None:
+    """Refresh the per-node gauges from the ledger, rebuilt from scratch
+    each scrape so a deleted node's series disappears instead of
+    freezing at its last value."""
+    from tpushare_torch.utils import const
+
+    with _SCRAPE_LOCK:
+        HBM_TOTAL.clear()
+        HBM_USED.clear()
+        HBM_REPORTED.clear()
+        OVERRUN_PODS.clear()
+        for info in cache.get_node_infos():
+            HBM_TOTAL.labels(node=info.name).set(info.total_hbm)
+            used = sum(c.get_used_hbm() for c in info.chips.values())
+            HBM_USED.labels(node=info.name).set(used)
+            # The watchdog's reports through the apiserver: a pod on
+            # several cards appears on each, so count it once.
+            reported = 0.0
+            overrunning = 0
+            saw_report = False  # wired up and using zero still emits
+            seen: set[str] = set()
+            for chip in info.chips.values():
+                for p in chip.snapshot_pods():
+                    if p.uid in seen:
+                        continue
+                    seen.add(p.uid)
+                    raw = p.annotations.get(const.ANN_HBM_USED)
+                    if raw is not None:
+                        try:
+                            reported += float(raw)
+                            saw_report = True
+                        except ValueError:
+                            # A corrupt report: skipped, and counted.
+                            safe_inc(TELEMETRY_ERRORS)
+                    if p.annotations.get(const.ANN_OVERRUN) == \
+                            const.ASSIGNED_TRUE:
+                        overrunning += 1
+            if saw_report or overrunning:
+                HBM_REPORTED.labels(node=info.name).set(
+                    round(reported, 2))
+                OVERRUN_PODS.labels(node=info.name).set(overrunning)
+
+
+def observe_topology(cache) -> None:
+    """Rebuild the per-gang ring-contiguity gauge from the live ledger
+    (slice-shape gangs with assigned, running members, in worker order),
+    so a finished gang's series disappears; the gang planner's set at
+    commit gives the value at once."""
+    from tpushare_torch.topology import fleet
+    from tpushare_torch.utils import const
+    from tpushare_torch.utils import pod as podutils
+
+    with _SCRAPE_LOCK:
+        GANG_RING_CONTIGUITY.clear()
+        gangs: dict = {}
+        for info in cache.get_node_infos():
+            seen: set = set()
+            for chip in info.chips.values():
+                for p in chip.snapshot_pods():
+                    if p.uid in seen or podutils.is_complete_pod(p):
+                        continue
+                    seen.add(p.uid)
+                    group = p.annotations.get(const.ANN_POD_GROUP)
+                    if not group or podutils.get_slice_shape(p) is None:
+                        continue
+                    key = f"{p.namespace}/{group}"
+                    gangs.setdefault(key, {})[p.name] = info.node
+        for key, members in gangs.items():
+            ordered = sorted(members, key=fleet.worker_sort_key)
+            stats = fleet.gang_ring_stats(
+                [members[name] for name in ordered])
+            if stats is not None:
+                GANG_RING_CONTIGUITY.labels(gang=key).set(
+                    stats["contiguity"])
+
+
+def observe_quota(quota) -> None:
+    """Refresh the per-tenant quota gauges from the tenant ledger, rebuilt
+    each scrape so a tenant whose last pod exited, or whose ConfigMap
+    entry went, drops its series."""
+    with _SCRAPE_LOCK:
+        for gauge in (QUOTA_GUARANTEE_HBM, QUOTA_LIMIT_HBM,
+                      QUOTA_USED_HBM, QUOTA_BORROWED_HBM,
+                      QUOTA_GUARANTEE_CHIPS, QUOTA_LIMIT_CHIPS,
+                      QUOTA_USED_CHIPS, QUOTA_BORROWED_CHIPS):
+            gauge.clear()
+        for entry in quota.snapshot():
+            tenant = entry["tenant"]
+            QUOTA_USED_HBM.labels(tenant=tenant).set(entry["usedHBM"])
+            QUOTA_USED_CHIPS.labels(tenant=tenant).set(entry["usedChips"])
+            QUOTA_BORROWED_HBM.labels(tenant=tenant).set(
+                entry["borrowedHBM"])
+            QUOTA_BORROWED_CHIPS.labels(tenant=tenant).set(
+                entry["borrowedChips"])
+            for key, gauge in (("guaranteeHBM", QUOTA_GUARANTEE_HBM),
+                               ("limitHBM", QUOTA_LIMIT_HBM),
+                               ("guaranteeChips", QUOTA_GUARANTEE_CHIPS),
+                               ("limitChips", QUOTA_LIMIT_CHIPS)):
+                if key in entry:
+                    gauge.labels(tenant=tenant).set(entry[key])
+
+
+def _rss_bytes() -> int | None:
+    """The resident set from /proc; the peak through ``resource`` where
+    /proc is absent; None when neither exists."""
+    import sys as _sys
+    try:
+        with open("/proc/self/statm", encoding="ascii") as f:
+            pages = int(f.read().split()[1])
+        return pages * (os.sysconf("SC_PAGE_SIZE") or 4096)
+    except (OSError, ValueError, IndexError):
+        try:
+            import resource
+            peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            # ru_maxrss is in bytes on macOS, in KiB on Linux.
+            return peak if _sys.platform == "darwin" else peak * 1024
+        except Exception:  # noqa: BLE001 - a lost sample, counted
+            safe_inc(TELEMETRY_ERRORS)
+            return None
+
+
+#: Whether /proc/self/fd exists: None until probed, then remembered, so
+#: a platform without it is counted once, not every scrape.
+_PROC_FDS_AVAILABLE: bool | None = None
+
+
+def observe_process() -> None:
+    """Refresh the process's own gauges (/proc, resource, gc,
+    threading)."""
+    import gc as _gc
+    global _PROC_FDS_AVAILABLE
+
+    with _SCRAPE_LOCK:
+        rss = _rss_bytes()
+        if rss is not None:
+            PROCESS_RSS.set(rss)
+        if _PROC_FDS_AVAILABLE is not False:
+            try:
+                PROCESS_FDS.set(len(os.listdir("/proc/self/fd")))
+                _PROC_FDS_AVAILABLE = True
+            except OSError:
+                if _PROC_FDS_AVAILABLE is None:
+                    safe_inc(TELEMETRY_ERRORS)
+                _PROC_FDS_AVAILABLE = False
+        PROCESS_THREADS.set(threading.active_count())
+        for gen, tracked in enumerate(_gc.get_count()):
+            GC_TRACKED.labels(generation=str(gen)).set(tracked)
+        for gen, stats in enumerate(_gc.get_stats()):
+            GC_COLLECTIONS.labels(generation=str(gen)).set(
+                stats.get("collections", 0))
+
+
+def observe_http(http_server) -> None:
+    """Refresh the tpushare_http_* gauges from the server's counters and
+    its live accept-queue depth."""
+    with _SCRAPE_LOCK:
+        stats = http_server.http_stats()
+        HTTP_POOL_WORKERS.set(stats["workers"])
+        HTTP_ACCEPT_QUEUE_DEPTH.set(stats["acceptQueueDepth"])
+        HTTP_CONNECTIONS.set(stats["connectionsTotal"])
+        HTTP_REQUESTS.set(stats["requestsTotal"])
+        HTTP_KEEPALIVE_REUSES.set(stats["keepaliveReusesTotal"])
+
+
+def scrape(cache, gang_planner=None, leader=None, demand=None,
+           workqueue=None, quota=None, http_server=None) -> bytes:
+    """The /metrics handler's atomic refresh and render, timed, and
+    counted when it raises (a scrape that raises is a sample Prometheus
+    never saw)."""
+    from tpushare_torch.k8s import events as k8s_events
+
+    t0 = _time_mod.perf_counter()
+    try:
+        with _SCRAPE_LOCK:
+            observe_cache(cache)
+            observe_topology(cache)
+            observe_process()
+            if http_server is not None:
+                observe_http(http_server)
+            if quota is not None:
+                observe_quota(quota)
+            if demand is not None:
+                pods, hbm, chips = demand.snapshot()
+                UNSCHED_PODS.set(pods)
+                UNSCHED_HBM.set(hbm)
+                UNSCHED_CHIPS.set(chips)
+                for gauge in (UNSCHED_PODS_TENANT, UNSCHED_HBM_TENANT,
+                              UNSCHED_CHIPS_TENANT):
+                    gauge.clear()
+                for tenant, (t_pods, t_hbm, t_chips) in \
+                        demand.by_tenant().items():
+                    UNSCHED_PODS_TENANT.labels(tenant=tenant).set(t_pods)
+                    UNSCHED_HBM_TENANT.labels(tenant=tenant).set(t_hbm)
+                    UNSCHED_CHIPS_TENANT.labels(tenant=tenant).set(t_chips)
+            if gang_planner is not None:
+                # stats() is the cheap view: no member lists, no TTLs.
+                GANGS_PENDING.set(sum(
+                    1 for g in gang_planner.stats().values()
+                    if not g["committed"]))
+            EVENTS_QUEUE_DEPTH.set(k8s_events.queue_depth())
+            if workqueue is not None:
+                st = workqueue.stats()
+                WORKQUEUE_DEPTH.set(st["depth"] + st["delayed"])
+                WORKQUEUE_RETRIES.set(st["retries"])
+            # No election (one replica): this replica binds.
+            IS_LEADER.set(1 if (leader is None or leader.is_leader())
+                          else 0)
+            return render()
+    except Exception:
+        # Raised on into the handler's HTTP 500; counted here.
+        safe_inc(SCRAPE_ERRORS)
+        raise
+    finally:
+        safe_observe(SCRAPE_DURATION, _time_mod.perf_counter() - t0)

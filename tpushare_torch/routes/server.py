@@ -12,9 +12,29 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
   (``ExtenderPreemptionArgs`` in either era's keys)
 * ``POST {prefix}/validate`` — the admission webhook (AdmissionReview)
 * ``GET  {prefix}/inspect[/<node>]`` — the utilization document
+* ``GET  /metrics`` — Prometheus (text format 0.0.4, ``routes/metrics.py``)
+* ``GET  /debug/flight[?n=]`` — the flight recorder: the last completed
+  placement decisions, newest first, and the recording drops
+* ``GET  /debug/trace/<ns>/<pod>[?id=]`` — one pod's latest decision (or
+  the attempt ``id`` names); ``GET /debug/trace?id=`` — a decision's
+  causal chain
 * ``GET  /debug/quota`` — the tenant quota ledger's snapshot
+* ``GET  /debug/http`` — the wire path: pool, accept queue, keep-alive
+  reuse, the micro-batch gates and the wire memos
 * ``GET  /version``, ``/healthz`` (``ok leader`` / ``ok follower`` under
   leader election)
+
+``debug_routes=False`` (``DEBUG_ROUTES=0``) answers every ``/debug/*``
+route with 404 "debug routes disabled".
+
+Each scheduling verb runs inside a :mod:`tpushare_torch.trace` phase
+under its latency histogram, so a TPU pod's filter, prioritize, preempt
+and bind are one decision, finalized as ``bound``, ``failed``,
+``gang-pending`` or ``unschedulable``. The read verbs open their phase on
+the thread that drains the micro-batch, per item, because the handler's
+thread may be parked in the gate while a batch leader does its work. A
+caller's ``traceparent`` header becomes the decision's causal parent,
+and the reply carries the decision's own ``traceparent``.
 
 Under leader election a follower answers bind with 503 "not the leader"
 (``Retry-After: 1``), so the scheduler retries and the Service lands the
@@ -27,8 +47,9 @@ body is refused with 400 and the handler returns. A bounded pool of
 workers serves the accepted connections (``TPUSHARE_HTTP_WORKERS``, 8),
 each for its keep-alive lifetime; a full hand-off queue blocks the
 accept loop. The read verbs pass the micro-batch gate (routes/batch.py)
-and the repeat-shape fast paths of routes/wire.py. ``/metrics`` and the
-other ``/debug/*`` routes come with the observability slice.
+and the repeat-shape fast paths of routes/wire.py. The reference's
+``/debug/pprof`` suite, profiler, SLO, timeline, defragmentation,
+autoscaler and router routes come with those modules.
 """
 
 from __future__ import annotations
@@ -43,10 +64,12 @@ import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import tpushare_torch
+from tpushare_torch import trace
 from tpushare_torch.api.extender import (ExtenderBindingArgs,
                                          ExtenderPreemptionArgs)
-from tpushare_torch.routes import wire
+from tpushare_torch.routes import metrics, wire
 from tpushare_torch.routes.batch import VerbBatcher, WorkItem
+from tpushare_torch.utils import pod as podutils
 
 log = logging.getLogger(__name__)
 
@@ -72,6 +95,14 @@ def _server_timing(handler_ms: float, queue_ms: float = 0.0) -> dict:
             f"handler;dur={handler_ms:.3f}, queue;dur={queue_ms:.3f}"}
 
 
+def _traced_pod(pod) -> bool:
+    """Only TPU pods get decision traces: the filter passes every other
+    pod through untouched, and recording those would fill the flight
+    recorder with non-decisions."""
+    return (podutils.is_tpu_sharing_pod(pod)
+            or podutils.is_tpu_chip_pod(pod))
+
+
 class ExtenderHTTPServer(HTTPServer):
     allow_reuse_address = True
     #: Kernel accept backlog behind the bounded hand-off queue.
@@ -79,7 +110,9 @@ class ExtenderHTTPServer(HTTPServer):
 
     def __init__(self, addr, predicate, binder, inspect,
                  prefix: str = DEFAULT_PREFIX, prioritize=None,
-                 preempt=None, admission=None, leader=None, quota=None):
+                 preempt=None, admission=None, leader=None, quota=None,
+                 gang_planner=None, workqueue=None,
+                 debug_routes: bool = True):
         self.predicate = predicate
         self.binder = binder
         self.inspect = inspect
@@ -89,13 +122,18 @@ class ExtenderHTTPServer(HTTPServer):
         #: The leader elector (``is_leader() -> bool``) under leader
         #: election: only the leader binds.
         self.leader = leader
-        #: The tenant quota ledger, for ``GET /debug/quota``.
+        #: The tenant quota ledger, for ``GET /debug/quota`` and the
+        #: per-tenant gauges.
         self.quota = quota
+        #: The gang planner, for the gangs-pending gauge (wired
+        #: explicitly: dropping it must fail loudly, not freeze it).
+        self.gang_planner = gang_planner
+        #: The sync controller's workqueue, for its depth and retries.
+        self.workqueue = workqueue
+        #: ``/debug/*`` shares the port with the webhook; operators can
+        #: switch the routes off (``DEBUG_ROUTES=0``).
+        self.debug_routes = debug_routes
         self.prefix = prefix
-        #: Binds that failed; a gang member held below quorum is an
-        #: expected hold and not counted.
-        self.bind_errors = 0
-        self._bind_errors_lock = threading.Lock()
         env = os.environ.get
         self.http_workers = max(1, int(env("TPUSHARE_HTTP_WORKERS",
                                            str(DEFAULT_HTTP_WORKERS))))
@@ -113,6 +151,11 @@ class ExtenderHTTPServer(HTTPServer):
                                            max_batch=batch_n,
                                            window_s=window_s,
                                            enabled=enabled)
+        # Wire stats, GIL-bumped ints for /debug/http and the
+        # tpushare_http_* gauges.
+        self.connections_total = 0
+        self.requests_total = 0
+        self.keepalive_reuses_total = 0
         self._conn_queue: queue.Queue = queue.Queue(
             maxsize=ACCEPT_QUEUE_DEPTH)
         self._closing = False
@@ -131,6 +174,7 @@ class ExtenderHTTPServer(HTTPServer):
         """Hand the accepted connection to a pool worker; a full queue
         blocks the accept loop (back-pressure the kernel backlog takes)
         instead of spawning a thread a connection."""
+        self.connections_total += 1
         self._conn_queue.put((request, client_address))
 
     def _http_worker(self) -> None:
@@ -172,9 +216,31 @@ class ExtenderHTTPServer(HTTPServer):
             except queue.Full:
                 break
 
+    def _note_request(self, reused: bool) -> None:
+        self.requests_total += 1
+        if reused:
+            self.keepalive_reuses_total += 1
+
+    def http_stats(self) -> dict:
+        """The wire path, for ``/debug/http`` and the tpushare_http_*
+        gauges."""
+        return {
+            "workers": self.http_workers,
+            "acceptQueueDepth": self._conn_queue.qsize(),
+            "acceptQueueCapacity": ACCEPT_QUEUE_DEPTH,
+            "socketTimeoutS": self.socket_timeout_s,
+            "connectionsTotal": self.connections_total,
+            "requestsTotal": self.requests_total,
+            "keepaliveReusesTotal": self.keepalive_reuses_total,
+            "filterGate": self.filter_gate.stats(),
+            "prioritizeGate": self.prioritize_gate.stats(),
+            "wireMemos": wire.memo_stats(),
+        }
+
     # -- batched verb execution ------------------------------------------- #
-    # The gates run these on whichever thread drains the batch. A request
-    # that raises is returned as its own result and re-raised on its own
+    # The gates run these on whichever thread drains the batch, and the
+    # trace phase opens here, per item, on that thread. A request that
+    # raises is returned as its own result and re-raised on its own
     # handler thread, so it fails alone.
 
     def _filter_batch(self, items: list[WorkItem]):
@@ -182,28 +248,60 @@ class ExtenderHTTPServer(HTTPServer):
         out = []
         for it in items:
             try:
-                t0 = time.perf_counter()
-                result = self.predicate.handle(it.args, table=table,
-                                               nominated=nominated)
-                handler_ms = (time.perf_counter() - t0) * 1e3
-                out.append((wire.encode_filter_result(result), handler_ms))
+                out.append(self._run_filter(it.args, it.queue_s, table,
+                                            nominated, parent=it.parent))
             except Exception as e:  # noqa: BLE001 - re-raised per item
                 out.append(e)
         return out
+
+    def _run_filter(self, args, queue_s, table, nominated, parent=""):
+        t0 = time.perf_counter()
+        with metrics.FILTER_LATENCY.time(), \
+                trace.phase("filter", args.pod.namespace, args.pod.name,
+                            args.pod.uid,
+                            enabled=_traced_pod(args.pod)) as dec:
+            if parent:
+                trace.set_parent(parent)
+            if queue_s:
+                trace.note_queue_wait(queue_s)
+            result = self.predicate.handle(args, table=table,
+                                           nominated=nominated)
+        handler_ms = (time.perf_counter() - t0) * 1e3
+        if dec is not None:
+            passed = (result.node_names if result.node_names is not None
+                      else [n.name for n in (result.nodes or [])])
+            if not passed:
+                # Refused on every offered node: this attempt is over.
+                trace.complete(dec, "unschedulable",
+                               error="rejected on every candidate node")
+        return (wire.encode_filter_result(result), handler_ms,
+                dec.trace_id if dec is not None else "")
 
     def _prioritize_batch(self, items: list[WorkItem]):
         table = self.prioritize.snapshot()
         out = []
         for it in items:
             try:
-                t0 = time.perf_counter()
-                entries = self.prioritize.handle(it.args, table=table)
-                handler_ms = (time.perf_counter() - t0) * 1e3
-                out.append((wire.encode_host_priorities(entries),
-                            handler_ms))
+                out.append(self._run_prioritize(it.args, it.queue_s, table,
+                                                parent=it.parent))
             except Exception as e:  # noqa: BLE001 - re-raised per item
                 out.append(e)
         return out
+
+    def _run_prioritize(self, args, queue_s, table, parent=""):
+        t0 = time.perf_counter()
+        with metrics.PRIORITIZE_LATENCY.time(), \
+                trace.phase("prioritize", args.pod.namespace, args.pod.name,
+                            args.pod.uid,
+                            enabled=_traced_pod(args.pod)) as dec:
+            if parent:
+                trace.set_parent(parent)
+            if queue_s:
+                trace.note_queue_wait(queue_s)
+            entries = self.prioritize.handle(args, table=table)
+        handler_ms = (time.perf_counter() - t0) * 1e3
+        return (wire.encode_host_priorities(entries), handler_ms,
+                dec.trace_id if dec is not None else "")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -219,6 +317,8 @@ class _Handler(BaseHTTPRequestHandler):
         # idle keep-alive connection's hold on its worker.
         self.timeout = self.server.socket_timeout_s
         super().setup()
+        #: Requests served on this connection (keep-alive reuse).
+        self._served = 0
 
     def version_string(self) -> str:
         return "tpushare"
@@ -242,9 +342,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _send_text(self, text: bytes, status: int = 200) -> None:
+    def _send_text(self, text: bytes, status: int = 200,
+                   ctype: str = "text/plain; charset=utf-8") -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(text)))
         self.end_headers()
         self.wfile.write(text)
@@ -314,19 +415,81 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json({"Error": f"malformed request body: {e}"}, 400)
             return None
 
+    def _parent_trace(self) -> str:
+        """The caller's causal root from its W3C ``traceparent`` header,
+        or ``""`` (an absent or malformed header is no error)."""
+        return trace.parse_traceparent(
+            self.headers.get("traceparent", "") or "")
+
+    def _query(self) -> dict[str, str]:
+        if "?" not in self.path:
+            return {}
+        from urllib.parse import parse_qsl
+        return dict(parse_qsl(self.path.split("?", 1)[1]))
+
     def _gated(self, gate: VerbBatcher, args) -> None:
-        res, queue_s = gate.submit(args)
+        res, queue_s = gate.submit(args, parent=self._parent_trace())
         if isinstance(res, Exception):
             raise res  # this item's own failure: 500 below
-        body, handler_ms = res
-        self._send_bytes(body, extra_headers=_server_timing(
-            handler_ms, queue_s * 1e3))
+        body, handler_ms, trace_id = res
+        headers = _server_timing(handler_ms, queue_s * 1e3)
+        if trace_id:
+            headers["traceparent"] = trace.format_traceparent(trace_id)
+        self._send_bytes(body, extra_headers=headers)
+
+    def _debug_get(self, path: str) -> bool:
+        """Serve a ``/debug/*`` route; False when ``path`` is none."""
+        if path == "/debug/flight":
+            try:
+                limit = int(self._query().get("n", "0") or 0)
+            except ValueError:
+                self._send_json({"Error": "n must be an integer"}, 400)
+                return True
+            self._send_json({
+                "decisions": trace.flight(limit or None),
+                "recordingDrops": trace.recorder().drops.value,
+            })
+        elif path == "/debug/quota":
+            if self.server.quota is None:
+                self._send_json({"Error": "quota not configured"}, 404)
+            else:
+                self._send_json({"tenants": self.server.quota.snapshot()})
+        elif path == "/debug/http":
+            self._send_json(self.server.http_stats())
+        elif path == "/debug/trace":
+            # A decision's causal chain: target, ancestors, descendants.
+            chain_id = self._query().get("id", "")
+            chain = trace.causal_chain(chain_id) if chain_id else None
+            if chain is None:
+                self._send_json(
+                    {"Error": f"no causal chain for {chain_id!r} "
+                              "(want /debug/trace?id=<trace-id>)"}, 404)
+            else:
+                self._send_json(chain)
+        elif path.startswith("/debug/trace/"):
+            rest = path[len("/debug/trace/"):]
+            ns, sep, pod_name = rest.partition("/")
+            trace_id = self._query().get("id", "")
+            doc = (trace.get_trace(ns, pod_name, trace_id=trace_id)
+                   if sep and pod_name and "/" not in pod_name else None)
+            if doc is None:
+                self._send_json(
+                    {"Error": f"no trace for {rest!r} (want "
+                              "/debug/trace/<namespace>/<pod>"
+                              "[?id=<trace-id>])"}, 404)
+            else:
+                self._send_json(doc)
+        else:
+            return False
+        return True
 
     # -- verbs -------------------------------------------------------------
 
     def do_GET(self):  # noqa: N802 (stdlib casing)
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
         prefix = self.server.prefix
+        self.server._note_request(self._served > 0)
+        self._served += 1
         try:
             if path == "/version":
                 self._send_json({"version": tpushare_torch.__version__})
@@ -336,12 +499,21 @@ class _Handler(BaseHTTPRequestHandler):
                     role = (" leader" if self.server.leader.is_leader()
                             else " follower")
                 self._send_text(f"ok{role}".encode())
-            elif path == "/debug/quota":
-                if self.server.quota is None:
-                    self._send_json({"Error": "quota not configured"}, 404)
-                else:
-                    self._send_json(
-                        {"tenants": self.server.quota.snapshot()})
+            elif path == "/metrics":
+                server = self.server
+                self._send_text(
+                    metrics.scrape(server.inspect.cache,
+                                   gang_planner=server.gang_planner,
+                                   leader=server.leader,
+                                   demand=server.predicate.demand,
+                                   workqueue=server.workqueue,
+                                   quota=server.quota,
+                                   http_server=server),
+                    ctype="text/plain; version=0.0.4")
+            elif path.startswith("/debug/") and not self.server.debug_routes:
+                self._send_json({"Error": "debug routes disabled"}, 404)
+            elif path.startswith("/debug/") and self._debug_get(path):
+                pass
             elif (path == f"{prefix}/inspect"
                   or path.startswith(f"{prefix}/inspect/")):
                 rest = path[len(f"{prefix}/inspect"):]
@@ -356,10 +528,13 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):  # noqa: N802
         path = self.path.split("?", 1)[0].rstrip("/")
         prefix = self.server.prefix
+        self.server._note_request(self._served > 0)
+        self._served += 1
         try:
             if path == f"{prefix}/filter":
                 args = self._read_args()
                 if args is not None:
+                    metrics.FILTER_REQUESTS.inc()
                     self._gated(self.server.filter_gate, args)
             elif path == f"{prefix}/prioritize":
                 args = self._read_args()
@@ -379,7 +554,12 @@ class _Handler(BaseHTTPRequestHandler):
                     return
                 pre_args = ExtenderPreemptionArgs.from_json(doc)
                 t0 = time.perf_counter()
-                result = self.server.preempt.handle(pre_args)
+                with metrics.PREEMPT_LATENCY.time(), \
+                        trace.phase("preempt", pre_args.pod.namespace,
+                                    pre_args.pod.name, pre_args.pod.uid,
+                                    enabled=_traced_pod(pre_args.pod)):
+                    trace.set_parent(self._parent_trace())
+                    result = self.server.preempt.handle(pre_args)
                 handler_ms = (time.perf_counter() - t0) * 1e3
                 self._send_json(result.to_json(),
                                 extra_headers=_server_timing(handler_ms))
@@ -394,6 +574,8 @@ class _Handler(BaseHTTPRequestHandler):
                 t0 = time.perf_counter()
                 result = self.server.admission.handle(doc)
                 handler_ms = (time.perf_counter() - t0) * 1e3
+                if not result["response"]["allowed"]:
+                    metrics.ADMISSION_REJECTED.inc()
                 self._send_json(result,
                                 extra_headers=_server_timing(handler_ms))
             elif path == f"{prefix}/bind":
@@ -412,16 +594,35 @@ class _Handler(BaseHTTPRequestHandler):
                                     extra_headers={"Retry-After": "1"})
                     return
                 t0 = time.perf_counter()
-                result = self.server.binder.handle(args)
+                with metrics.BIND_LATENCY.time(), \
+                        trace.phase("bind", args.pod_namespace,
+                                    args.pod_name, args.pod_uid) as dec:
+                    # The caller's traceparent makes this decision a
+                    # child of the scheduler's causal root.
+                    trace.set_parent(self._parent_trace())
+                    result = self.server.binder.handle(args)
                 handler_ms = (time.perf_counter() - t0) * 1e3
                 if result.error and not result.pending:
-                    with self.server._bind_errors_lock:
-                        self.server.bind_errors += 1
+                    # A member held below quorum is an expected hold.
+                    metrics.BIND_ERRORS.inc()
+                # Bind ends the decision: bound, held below quorum (the
+                # scheduler retries with a fresh attempt), or failed.
+                if result.error and result.pending:
+                    trace.complete(dec, "gang-pending", node=args.node,
+                                   error=result.error)
+                elif result.error:
+                    trace.complete(dec, "failed", node=args.node,
+                                   error=result.error)
+                else:
+                    trace.complete(dec, "bound", node=args.node)
+                headers = _server_timing(handler_ms)
+                headers["traceparent"] = trace.format_traceparent(
+                    dec.trace_id)
                 # gpushare answers 500 when bind fails, so the scheduler
                 # retries; so does a member held below quorum.
                 self._send_json(result.to_json(),
                                 500 if result.error else 200,
-                                extra_headers=_server_timing(handler_ms))
+                                extra_headers=headers)
             else:
                 self._send_json({"Error": f"no route for {path}"}, 404)
         except Exception as e:  # pragma: no cover - defensive

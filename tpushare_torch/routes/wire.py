@@ -42,6 +42,12 @@ _name_frag: dict[str, bytes] = {}
 _host_frag: dict[str, bytes] = {}
 
 
+def memo_stats() -> dict[str, int]:
+    """The memos' fill, for ``/debug/http``."""
+    return {"podMemo": len(_pod_memo), "nameFragments": len(_name_frag),
+            "hostFragments": len(_host_frag)}
+
+
 # ------------------------------------------------------------------------- #
 # Parse fast path
 # ------------------------------------------------------------------------- #

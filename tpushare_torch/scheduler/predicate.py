@@ -6,17 +6,22 @@ nodes with the HBM-share admission check bound over the cache. A pure
 read path, no apiserver round trip. It takes both wire forms
 (``NodeNames`` when the scheduler is ``nodeCacheCapable``, full
 ``Nodes`` otherwise). A tenant over its quota's hard limit is refused
-on every node before any node is priced, with a quota reason and a
-Warning Event at most once a tenant every ``QUOTA_EVENT_INTERVAL_S``.
+on every node before any node is priced, with a quota reason, a count
+in ``tpushare_quota_denied_total`` and a Warning Event at most once a
+tenant every ``QUOTA_EVENT_INTERVAL_S``. Each decision's filter span
+notes the per-node reasons and the nodes that passed, capped at
+``TRACE_NOTE_CAP`` entries.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
 from typing import Callable
 
+from tpushare_torch import trace
 from tpushare_torch.api.extender import ExtenderArgs, ExtenderFilterResult
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.cache.cache import SchedulerCache
@@ -32,6 +37,13 @@ log = logging.getLogger(__name__)
 #: denied pod every cycle, and an Event each time would flood the events
 #: pipeline for a tenant parked over its limit.
 QUOTA_EVENT_INTERVAL_S = 30.0
+
+#: Per-decision trace notes (rejection reasons, passed and score lists)
+#: are capped at this many entries: the flight ring holds 256 decisions,
+#: and an uncapped 1k-node rejection map an attempt would pin megabytes
+#: for a story a sample tells. A ``*Truncated`` note carries the rest's
+#: count.
+TRACE_NOTE_CAP = 128
 
 
 class DemandTracker:
@@ -123,6 +135,38 @@ class DemandTracker:
             chips = sum(e[1] for e in self._entries.values())
         return pods, hbm, chips
 
+    def shapes(self) -> list[tuple[int, int]]:
+        """The distinct (GiB, chips) shapes failing the filter everywhere.
+        A pure read; call after :meth:`snapshot` when freshness matters."""
+        with self._lock:
+            return sorted({(hbm, chips) for hbm, chips, _, _, _
+                           in self._entries.values()})
+
+    def oldest_age_by_shape(self) -> dict[tuple[int, int], float]:
+        """(GiB, chips) -> seconds the oldest pod of that shape has been
+        unplaceable. A pure read; call after :meth:`snapshot`."""
+        now = time.monotonic()
+        out: dict[tuple[int, int], float] = {}
+        with self._lock:
+            for hbm, chips, _, seen, _ in self._entries.values():
+                age = now - seen
+                key = (hbm, chips)
+                if age > out.get(key, -1.0):
+                    out[key] = age
+        return out
+
+    def by_tenant(self) -> dict[str, tuple[int, int, int]]:
+        """tenant -> (pods, GiB, chips) of the current entries: whose
+        demand the fleet cannot place. A pure read; call after
+        :meth:`snapshot` (which prunes), so the two views a scrape renders
+        agree."""
+        out: dict[str, tuple[int, int, int]] = {}
+        with self._lock:
+            for hbm, chips, _, _, tenant in self._entries.values():
+                pods_n, hbm_n, chips_n = out.get(tenant, (0, 0, 0))
+                out[tenant] = (pods_n + 1, hbm_n + hbm, chips_n + chips)
+        return out
+
 
 def _admit(s: NodeSummary, req_chips: int, req_hbm: int,
            name: str) -> tuple[NodeSummary, bool, str]:
@@ -163,10 +207,20 @@ class Predicate:
 
     def _deny_quota(self, args: ExtenderArgs, pod: Pod,
                     reason: str) -> ExtenderFilterResult:
-        """Refuse every candidate with the quota reason. Not recorded as
+        """Refuse every candidate with the quota reason: counted a tenant,
+        traced and surfaced as a rate-limited Event. Not recorded as
         unplaceable demand: capacity exists, the tenant is over policy."""
         tenant = podutils.get_tenant(pod)
         failed = {name: reason for name in args.candidate_names()}
+        # The trace of a capacity refusal, plus the tenant-level reason.
+        trace.note("rejections",
+                   dict(itertools.islice(failed.items(), TRACE_NOTE_CAP)))
+        if len(failed) > TRACE_NOTE_CAP:
+            trace.note("rejectionsTruncated", len(failed) - TRACE_NOTE_CAP)
+        trace.note("passed", [])
+        trace.note("quotaDenied", {"tenant": tenant, "reason": reason})
+        from tpushare_torch.routes import metrics
+        metrics.safe_inc(metrics.QUOTA_DENIED.labels(tenant=tenant))
         self.demand.clear(pod.uid)
         if self.client is not None:
             now = time.monotonic()
@@ -243,7 +297,8 @@ class Predicate:
         if self.quota is not None:
             # The tenant's hard limit first: no node is worth pricing for
             # a pod its tenant may not place anywhere.
-            ok, reason = self.quota.admit(pod)
+            with trace.span("quota"):
+                ok, reason = self.quota.admit(pod)
             if not ok:
                 return self._deny_quota(args, pod, reason)
 
@@ -304,6 +359,19 @@ class Predicate:
             self.demand.record_unplaceable(pod)
         else:
             self.demand.clear(pod.uid)
+        # The per-node reasons: what the latency histogram cannot say.
+        if len(failed) > TRACE_NOTE_CAP:
+            sample = dict(itertools.islice(failed.items(),
+                                           TRACE_NOTE_CAP))
+            trace.note("rejections", sample)
+            trace.note("rejectionsTruncated", len(failed) - TRACE_NOTE_CAP)
+        else:
+            trace.note("rejections", dict(failed))
+        trace.note("passed", list(itertools.islice(passed_names,
+                                                   TRACE_NOTE_CAP)))
+        if len(passed_names) > TRACE_NOTE_CAP:
+            trace.note("passedTruncated",
+                       len(passed_names) - TRACE_NOTE_CAP)
         log.debug(
             "filter pod %s: %d passed, %d failed",
             pod.key(), len(passed_names), len(failed),

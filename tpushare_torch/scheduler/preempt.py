@@ -1,9 +1,8 @@
 """Preempt handler: minimal-cost victim selection on the chip ledger.
 
-The port's copy of ``tpushare/scheduler/preempt.py``. It writes no
-decision-trace notes (``quotaDenied``, ``victimsPerNode``) and counts no
-``tpushare_preempt_victims`` metric: both come with the port's
-observability slice. Its answers are the reference's, byte for byte.
+The port's copy of ``tpushare/scheduler/preempt.py``: its answers, its
+decision-trace notes (``quotaDenied``, ``victimsPerNode``) and its
+``tpushare_preempt_victims_total`` count are the reference's.
 
 The k8s scheduler-extender protocol has a fourth verb gpushare never
 implemented — ``preemptVerb`` (its vendored wire types stop at bind,
@@ -67,6 +66,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Iterable
 
+from tpushare_torch import trace
 from tpushare_torch.api.extender import (ExtenderPreemptionArgs,
                                          ExtenderPreemptionResult)
 from tpushare_torch.api.objects import Pod
@@ -553,6 +553,7 @@ class Preempt:
             # policy). Empty map = no node can be helped by eviction.
             ok, reason = self.quota.admit(pod)
             if not ok:
+                trace.note("quotaDenied", reason)
                 log.debug("preempt pod %s refused: %s", pod.key(), reason)
                 return result
 
@@ -593,6 +594,15 @@ class Preempt:
             result.pdb_violations[name] = (
                 victims.num_pdb_violations if recount is None
                 else recount)
+        if result.node_victims:
+            # The worst case over the candidates: the scheduler evicts
+            # one node's set.
+            from tpushare_torch.routes import metrics
+            metrics.safe_inc(
+                metrics.PREEMPT_VICTIMS,
+                max(len(v) for v in result.node_victims.values()))
+        trace.note("victimsPerNode",
+                   {n: len(v) for n, v in result.node_victims.items()})
         log.debug("preempt pod %s: %s", pod.key(),
                   {n: len(v) for n, v in result.node_victims.items()})
         return result

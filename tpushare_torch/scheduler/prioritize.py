@@ -22,7 +22,9 @@ weight):
 A lone pod takes the fast path over the admission summaries. With a
 quota ledger, every feasible node's score moves by the tenant's standing:
 +1 while it asks within its guarantee, -1 once it borrows beyond it
-(the elected block of a slice-shape gang excepted).
+(the elected block of a slice-shape gang excepted). Each decision's
+prioritize span notes the scores (capped at the filter's
+``TRACE_NOTE_CAP``), the policy and any fair-share adjustment.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import logging
 import statistics
 from typing import Any
 
+from tpushare_torch import trace
 from tpushare_torch.api.extender import ExtenderArgs, HostPriority
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.cache.cache import SchedulerCache
@@ -316,6 +319,14 @@ class Prioritize:
                                               MAX_SCORE))
                        if e.score > 0 else e
                        for e in out]
+                trace.note("quotaFairShare", adjust)
+        # Capped like the filter's rejections.
+        from tpushare_torch.scheduler.predicate import TRACE_NOTE_CAP
+        trace.note("scores", {e.host: e.score
+                              for e in out[:TRACE_NOTE_CAP]})
+        if len(out) > TRACE_NOTE_CAP:
+            trace.note("scoresTruncated", len(out) - TRACE_NOTE_CAP)
+        trace.note("policy", policy)
         if log.isEnabledFor(logging.DEBUG):
             log.debug("prioritize pod %s: %s", pod.key(),
                       {e.host: e.score for e in out})

@@ -27,9 +27,10 @@ ANN_ASSIGNED = "tpushare.io/assigned"
 ANN_ASSUME_TIME = "tpushare.io/assume-time"
 ASSIGNED_FALSE = "false"
 ASSIGNED_TRUE = "true"
-#: The reference extender's decision-trace keys on a bound pod. The port
-#: writes neither until decision traces are ported, but strips both with
-#: the grant, as the reference does.
+#: The decision trace's key on a bound pod, and the causal parent of that
+#: decision (the scheduler's ``traceparent``): the extender writes both
+#: with the grant and a rollback strips both with it. Observational only:
+#: the ledger's rebuild never reads them.
 ANN_TRACE_ID = "tpushare.io/trace-id"
 ANN_TRACE_PARENT = "tpushare.io/trace-parent"
 

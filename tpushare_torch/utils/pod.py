@@ -169,11 +169,15 @@ def pod_used_hbm(pod: Pod) -> int:
 
 def updated_pod_annotation_spec(pod: Pod, chip_ids: list[int], hbm_pod: int,
                                 hbm_chip: int,
-                                assume_time_ns: int | None = None) -> Pod:
+                                assume_time_ns: int | None = None,
+                                trace_id: str | None = None,
+                                trace_parent: str | None = None) -> Pod:
     """A deep copy of ``pod`` with the bind-time grant written: the card
     indices, the GiB granted and the card's, ``assigned`` "false" and the
     nanosecond assume time, which orders the device plugin's matching.
-    The ledger is rebuilt from these annotations after a restart."""
+    The ledger is rebuilt from these annotations after a restart.
+    ``trace_id`` adds the decision trace's key and ``trace_parent`` the
+    causal parent of that decision (both observational only)."""
     new_pod = pod.deepcopy()
     ann = new_pod.metadata.setdefault("annotations", {})
     if ann is None:  # metadata.annotations may be an explicit null
@@ -184,4 +188,8 @@ def updated_pod_annotation_spec(pod: Pod, chip_ids: list[int], hbm_pod: int,
     ann[const.ANN_HBM_CHIP] = str(hbm_chip)
     ann[const.ANN_ASSIGNED] = const.ASSIGNED_FALSE
     ann[const.ANN_ASSUME_TIME] = str(now_ns)
+    if trace_id:
+        ann[const.ANN_TRACE_ID] = trace_id
+    if trace_parent:
+        ann[const.ANN_TRACE_PARENT] = trace_parent
     return new_pod
