@@ -79,6 +79,7 @@ import math
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,6 +93,7 @@ from torch.profiler import ProfilerActivity, profile
 import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
+from tpushare_torch import obs as tobs
 from tpushare_torch import trace as ttrace
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cmd import main as extender_main
@@ -301,6 +303,25 @@ EXTENDER_TTL_ROUNDS = (2, 5)
 EXTENDER_BOUND = 4096
 EXTENDER_SEED = 11
 EXTENDER_MAX_ROUNDS = 60
+#: Phase 2f's NotReady leg: ``fleet_nodes_ready`` must drop by one within
+#: this many ticks of the timeline's sampler.
+NOTREADY_TICKS = 3
+#: The retrospective layer's families of ``/metrics``.
+TIMELINE_FAMILIES = (
+    "tpushare_build_info", "tpushare_uptime_seconds",
+    "tpushare_anomaly_fired_total", "tpushare_timeline_dropped_total",
+    "tpushare_timeline_series", "tpushare_witness_events_matched_total",
+    "tpushare_witness_events_late_total",
+    "tpushare_witness_events_missing_total",
+    "tpushare_witness_events_spurious_total")
+#: The timeline overhead gates (``bench.py``'s ``_timeline_overhead_probe``
+#: and ``_blackbox_overhead_probe``, run by ``tools/extender_phases.py
+#: --overhead``, not by this script's main): batches of mutation-free
+#: filter + prioritize sequences in each arm, the least batch p99 of each
+#: arm, and the on arm may add at most max(5% of the off arm's p99,
+#: 0.2 ms).
+OVERHEAD_BATCHES, OVERHEAD_PER_BATCH = 5, 500
+OVERHEAD_LIMIT, OVERHEAD_FLOOR_MS = 0.05, 0.2
 #: Phase 2g: gangs. The card's node; the gang of GANG_MEMBERS members
 #: (``w-0`` ...) that the extender places there, each asking for a
 #: GANG_MEMBERS-th of the card's GiB, trains GANG_STEPS flagship steps as
@@ -2008,6 +2029,8 @@ def parse_metrics(text: str) -> dict:
     for line in text.splitlines():
         if not line or line.startswith("#"):
             continue
+        # A bucket's OpenMetrics exemplar (``# {trace_id=...} v ts``).
+        line = line.split(" # ", 1)[0]
         head, _, value = line.rpartition(" ")
         name, _, labels = head.partition("{")
         pairs = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
@@ -2355,102 +2378,459 @@ def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
             **(scraper.fields() if scraper is not None else {}), **ledger}
 
 
+def exemplars(text: str, verb: str) -> list[tuple[str, str]]:
+    """(``le``, trace id) of each ``tpushare_<verb>_latency_seconds``
+    bucket line of a ``/metrics`` body that carries an OpenMetrics
+    exemplar."""
+    return re.findall(rf'^tpushare_{verb}_latency_seconds_bucket'
+                      rf'\{{le="([^"]+)"\}} \S+ # \{{trace_id="([^"]+)"\}}',
+                      text, flags=re.M)
+
+
+def timeline(client: ExtenderClient, query: str = "") -> dict:
+    """``/debug/timeline``, with ``query`` (``window=...&series=...``)."""
+    return client.get("/debug/timeline" + (f"?{query}" if query else ""),
+                      prefixed=False)
+
+
+def markers_of(doc: dict, kind: str) -> list[dict]:
+    return [m for m in doc["markers"] if m["kind"] == kind]
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """``os.environ`` with ``values`` (None unsets), put back after."""
+    prior = {k: os.environ.get(k) for k in values}
+    try:
+        for key, val in values.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        yield
+    finally:
+        for key, val in prior.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+def extender_restart(api: FakeApiServer, stack, server,
+                     client: ExtenderClient, names: list[str],
+                     traced: dict, position: int, journal: str) -> tuple:
+    """Phase 2f (e'): the extender restarts over the fleet it has. The
+    first stack stops (``shutdown_stack``, then ``obs.stop``, which
+    drains, fsyncs and closes the journal), and ``trace.reset`` and
+    ``obs.reset`` stand in for the process boundary; a second
+    ``serve_stack`` over the same apiserver and journal directory must
+    then resolve the tenant's decision (``/debug/trace?id=``) restored
+    from the journal, ``bound`` on the card's node with the spans it had;
+    end its timeline in a ``restart`` marker whose ``replayed`` counts the
+    journal's records, after the first stack's markers; report its
+    journal armed and replayed with no drop; and rebuild the live ledger
+    (``ledger_checks``, the tenant's GiB on its card in inspect). Returns
+    (the new stack, server and client, the leg's fields); ``restart_s``
+    runs from the second ``serve_stack`` to its first 200 on
+    ``/debug/timeline``."""
+    client.close()
+    extender_main.shutdown_stack(stack, server)
+    tobs.stop()
+    frames = len(tobs.replay(journal))
+    ttrace.reset()
+    tobs.reset()
+    t0 = time.perf_counter()
+    stack, server = extender_main.serve_stack(api)
+    client = ExtenderClient(server)
+    doc = timeline(client)
+    restart_s = time.perf_counter() - t0
+    tid = traced["trace_id"]
+    chain = client.get(f"/debug/trace?id={tid}", prefixed=False)
+    target = chain["target"]
+    spans = [(s["phase"], s["depth"]) for s in target["spans"]]
+    check(target["traceId"] == tid and target.get("restored") is True
+          and target["outcome"] == "bound"
+          and target["node"] == EXTENDER_NODE
+          and spans == [tuple(s) for s in traced["spans"]],
+          f"the restarted extender's decision {tid}: {target}")
+    last = doc["markers"][-1]
+    check(last["kind"] == "restart"
+          and last["attrs"] == {"replayed": str(frames)},
+          f"the restart marker: {last}, the journal held {frames} frames")
+    before = [m for m in doc["markers"] if m["cursor"] < last["cursor"]]
+    check(any(m["kind"] == "restart" and m["attrs"]["replayed"] == "0"
+              for m in before),
+          f"the first stack's markers are not before the restart: "
+          f"{doc['markers']}")
+    box = client.get("/debug/blackbox", prefixed=False)
+    journal_doc = box["journal"] or {}
+    check(box["armed"] and box["replayed"]
+          and len(journal_doc.get("segments", [])) >= 1
+          and journal_doc.get("drops") == 0,
+          f"/debug/blackbox after the restart: {box}")
+    check(stack.controller.wait_idle(timeout=120),
+          "the restarted extender's controller did not settle")
+    ledger = ledger_checks(api, stack, client, [EXTENDER_NODE, *names])
+    [card] = [c for n in client.get(f"/inspect/{EXTENDER_NODE}")["nodes"]
+              for c in n["chips"] if c["id"] == position]
+    check(card["usedHBM"] == EXTENDER_TENANT_GIB,
+          f"inspect after the restart, the tenant's card: {card}")
+    return stack, server, client, {
+        "restart_s": restart_s, "replayed": frames,
+        "restored_trace": tid, "restored_spans": spans,
+        "markers_before": [m["kind"] for m in before],
+        "segments": len(journal_doc["segments"]),
+        "frames_written": journal_doc.get("framesWritten"),
+        "ledger_used_gib": ledger["used_gib"]}
+
+
+def extender_timeline_checks(api: FakeApiServer, client: ExtenderClient,
+                             fleet_nodes: int) -> dict:
+    """Phase 2f after the churn: the timeline holds the fleet's size and
+    the filter and bind p99 series, ``fleet_nodes`` last reading
+    ``fleet_nodes``; every exemplar on the bind family names the trace
+    id of a pod the apiserver has bound; the scrape declares the
+    retrospective layer's families. Returns the timeline's drops and the
+    anomaly firings by rule (recorded, not gated)."""
+    wanted = ("fleet_nodes", "fleet_nodes_ready", "verb_p99_ms:filter",
+              "verb_p99_ms:bind")
+    query = "series=" + ",".join(wanted)
+    # A churn shorter than a sampler tick (the CPU tests') waits for one.
+    _until(lambda: all(s in timeline(client, query)["series"]
+                       for s in wanted),
+           2 * timeline(client)["intervalSeconds"] + 1.0,
+           f"the timeline's {wanted}", every=0.05)
+    doc = timeline(client, query)
+    check(doc["series"]["fleet_nodes"]["last"] == fleet_nodes,
+          f"fleet_nodes reads {doc['series']['fleet_nodes']['last']}")
+    text = client.text("/metrics").decode()
+    bound = {p.annotations.get(const.ANN_TRACE_ID) for p in api.list_pods()
+             if p.node_name}
+    binds = exemplars(text, "bind")
+    strays = [tid for _, tid in binds if tid not in bound]
+    check(binds and not strays, f"bind exemplars {binds}: {strays} name "
+                                f"no pod bound in the apiserver")
+    absent = [fam for fam in TIMELINE_FAMILIES
+              if f"# TYPE {fam} " not in text]
+    check(not absent, f"/metrics lacks {absent}")
+    return {"timeline_drops": doc["drops"],
+            "anomalies_fired": doc["anomalies"]["fired"],
+            "bind_exemplars": len(binds),
+            "series_last": {s: doc["series"][s]["last"] for s in wanted}}
+
+
+def notready_leg(api: FakeApiServer, client: ExtenderClient,
+                 node: str, fleet_nodes: int) -> dict:
+    """Phase 2f (f'): a fleet node's ``Ready`` condition turns ``False``
+    in the apiserver: one ``node-notready`` marker naming it, one
+    ``TPUShareNodeNotReady`` Warning Event whose ``[timeline <cursor>]``
+    is that marker's, and ``fleet_nodes_ready`` one below
+    ``fleet_nodes`` within ``NOTREADY_TICKS`` sampler ticks."""
+    t0 = time.perf_counter()
+    doc = api.get_node(node)
+    doc.raw.setdefault("status", {})["conditions"] = [
+        {"type": "Ready", "status": "False", "reason": "KubeletNotReady"}]
+    api.update_node(doc)
+    _until(lambda: markers_of(timeline(client), "node-notready"), 30,
+           "the node-notready marker", every=0.05)
+    marked = markers_of(timeline(client), "node-notready")
+    check(len(marked) == 1 and marked[0]["attrs"] == {"node": node},
+          f"node-notready markers: {marked}")
+    check(tevents.flush(), "events did not flush")
+    warned = [e for _, e in api.events
+              if e["reason"] == tevents.REASON_NODE_NOTREADY]
+    check(len(warned) == 1 and warned[0]["type"] == "Warning"
+          and warned[0]["message"].endswith(
+              f"[timeline {marked[0]['cursor']}]"),
+          f"NotReady Events: {warned}")
+    budget = NOTREADY_TICKS * timeline(client)["intervalSeconds"]
+    _until(lambda: timeline(client, "series=fleet_nodes_ready")["series"]
+           .get("fleet_nodes_ready", {}).get("last") == fleet_nodes - 1,
+           max(t0 + budget - time.perf_counter(), 0.0),
+           f"fleet_nodes_ready one below the fleet, {NOTREADY_TICKS} "
+           f"sampler ticks after the update", every=0.05)
+    ready_s = time.perf_counter() - t0
+    return {"node": node, "cursor": marked[0]["cursor"],
+            "event": warned[0]["message"], "ready_drop_s": ready_s,
+            "seconds": time.perf_counter() - t0}
+
+
 def extender_phase(inv: discovery.HostInventory, usage_dir: str,
                    fleet: int = EXTENDER_FLEET,
                    target: int = EXTENDER_BOUND) -> dict:
     """Phase 2f: (a) the port's ``serve_stack`` over the port's
-    ``FakeApiServer``, HTTP on 127.0.0.1; (b) the port's plugin annotates
-    the card's node from phase 0's inventory and ``fleet`` H100 nodes
-    beside it; (c) a ``EXTENDER_TENANT_GIB`` GiB pod placed on the card's
-    node as kube-scheduler places it, filter (offered the card's node
-    alone, as a ``nodeSelector`` would), prioritize, bind; (d) the
-    port's daemon, over gRPC to a ``FakeKubelet``, matches and commits
-    that very pod and answers with ``build_allocation``'s response for
-    the card the extender chose; (e) the tenant serves the flagship in
-    that response's env, ``n_layers`` forward launches a prefill, its
-    heartbeat fresh and within its grant (``held_tenant_phase``); (f)
-    ``extender_churn`` binds ``target`` pods on the fleet, with the
-    interpreter's GC thresholds; (g) ``gc_posture_churn`` runs it again on
+    ``FakeApiServer``, HTTP on 127.0.0.1, its black-box journal armed in
+    a directory of the phase's own and its ``obs`` reset; (b) the port's
+    plugin annotates the card's node from phase 0's inventory and
+    ``fleet`` H100 nodes beside it; (c) a ``EXTENDER_TENANT_GIB`` GiB pod
+    placed on the card's node as kube-scheduler places it, filter
+    (offered the card's node alone, as a ``nodeSelector`` would),
+    prioritize, bind, the bind bucket of ``/metrics`` carrying its trace
+    id as an exemplar; (d) the port's daemon, over gRPC to a
+    ``FakeKubelet``, matches and commits that very pod and answers with
+    ``build_allocation``'s response for the card the extender chose; (e)
+    the tenant serves the flagship in that response's env, ``n_layers``
+    forward launches a prefill, its heartbeat fresh and within its grant
+    (``held_tenant_phase``); (e') the extender restarts and replays the
+    tenant's decision from the journal (``extender_restart``), which is
+    then disarmed; (f) ``extender_churn`` binds ``target`` pods on the
+    fleet on the second stack, with the interpreter's GC thresholds and
+    the timeline on, as ``bench.py --scale`` runs its churn; then
+    ``extender_timeline_checks``; (f') a fleet node goes NotReady
+    (``notready_leg``); (g) ``gc_posture_churn`` runs the churn again on
     a fresh fleet under the reference extender's GC posture. The tenant's
     decision trace and the metrics of its bind are checked on the way
     (``bound_trace_checks``; the fake is a ``WireTimedApi``, so the
     allocate span counts its apiserver requests)."""
     api = WireTimedApi()
+    journal = tempfile.mkdtemp(prefix="chip_smoke-journal-")
+    tobs.reset()
+    try:
+        with _env(TPUSHARE_BLACKBOX_DIR=journal):
+            stack, server = extender_main.serve_stack(api)
+            client = ExtenderClient(server)
+            try:
+                first = extender_first_stack(api, stack, client, inv,
+                                             usage_dir, fleet)
+                names = first["names"]
+                stack, server, client, restart = extender_restart(
+                    api, stack, server, client, names, first["traced"],
+                    first["position"], journal)
+            except BaseException:
+                client.close()
+                extender_main.shutdown_stack(stack, server)
+                raise
+        try:
+            # (f) The churn on the second stack: timeline on, journal off.
+            tobs.stop_blackbox()
+            churn = extender_churn(api, stack, client, names, target=target)
+            watched = extender_timeline_checks(api, client, len(names) + 1)
+            t0 = time.perf_counter()
+            notready = notready_leg(api, client, names[0], len(names) + 1)
+            notready["leg_s"] = time.perf_counter() - t0
+        finally:
+            client.close()
+            extender_main.shutdown_stack(stack, server)
+    finally:
+        tobs.stop_blackbox()
+        shutil.rmtree(journal, ignore_errors=True)
+    # (g) The same churn under the reference extender's GC posture.
+    posture = gc_posture_churn(fleet, target)
+    return {"tenant_node": first["node"], "tenant_card": first["card"],
+            "tenant_position": first["position"],
+            "tenant_trace": first["traced"],
+            "tenant_handler_ms": first["handler_ms"],
+            "tenant_wire_ms": first["wire_ms"],
+            "tenant_bind_exemplar": first["exemplar"],
+            "committed": first["committed"], "envs": first["envs"],
+            "fleet_seconds": first["fleet_s"], "restart": restart,
+            "churn": churn, "timeline": watched, "notready": notready,
+            "churn_gc_posture": posture, **first["served"]}
+
+
+def extender_first_stack(api: FakeApiServer, stack,
+                         client: ExtenderClient,
+                         inv: discovery.HostInventory, usage_dir: str,
+                         fleet: int) -> dict:
+    """Phase 2f (b) to (e) on the first stack (see ``extender_phase``)."""
+    before = client.metrics()
+    # (b) The card's node, then the fleet.
+    api.create_node(advertised_node(EXTENDER_NODE, inv))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ext-") as pdir:
+        plug = plugin.TPUSharePlugin(EXTENDER_NODE, api, inv,
+                                     state_dir=pdir, usage_dir=usage_dir)
+        plug.annotate_node()
+        t0 = time.perf_counter()
+        names = extender_fleet(api, fleet)
+        fleet_s = time.perf_counter() - t0
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        # (c) The tenant, placed through the three verbs.
+        tenant = api.create_pod(make_pod(
+            "extender-tenant", hbm=EXTENDER_TENANT_GIB,
+            uid="uid-extender-tenant"))
+        node, handler_ms, wire_ms = client.schedule(tenant,
+                                                    [EXTENDER_NODE])
+        check(node == EXTENDER_NODE, f"the tenant was bound to {node}")
+        placed = api.get_pod("default", tenant.name)
+        position = podutils.get_chip_ids_from_annotation(placed)
+        check(placed.node_name == EXTENDER_NODE and len(position) == 1
+              and placed.annotations[const.ANN_HBM_POD]
+              == str(EXTENDER_TENANT_GIB)
+              and not podutils.is_assigned(placed),
+              f"the bound tenant: {placed.raw}")
+        traced = bound_trace_checks(api, client, "default", tenant.name,
+                                    EXTENDER_NODE, position,
+                                    EXTENDER_TENANT_GIB)
+        text = client.text("/metrics").decode()
+        after = parse_metrics(text)
+        gauged = sample(after, "tpushare_node_hbm_used_gib",
+                        node=EXTENDER_NODE)
+        binds = rise(after, before, "tpushare_bind_latency_seconds_count")
+        check(gauged == EXTENDER_TENANT_GIB
+              and binds == client.sent["/bind"],
+              f"/metrics: {gauged} GiB used on the card's node, "
+              f"{binds} binds of {client.sent['/bind']} sent")
+        # The only bind so far: its bucket names its trace id.
+        exemplar = exemplars(text, "bind")
+        check(len(exemplar) == 1 and exemplar[0][1] == traced["trace_id"],
+              f"bind exemplars {exemplar}, the tenant's trace id "
+              f"{traced['trace_id']}")
+        traced.update(hbm_used_gib=gauged, binds_counted=binds)
+        chip = inv.chips[position[0]]
+        # (d) The daemon's Allocate over gRPC.
+        grants = NodeGrants(EXTENDER_NODE, api, inv, pdir, usage_dir)
+        try:
+            wire, _ = grants.allocate(tenant.name, EXTENDER_TENANT_GIB)
+        finally:
+            grants.close()
+    ids = grants.held[tenant.name]
+    check(ids == [plugin.HBM_DEV_FMT.format(chip=chip.index, gib=g)
+                  for g in range(EXTENDER_TENANT_GIB)],
+          f"GetPreferredAllocation gave {ids}")
+    check(podutils.is_assigned(api.get_pod("default", tenant.name)),
+          "the daemon did not commit the pod the extender bound")
+    want = plugin.build_allocation(inv, [chip.index], EXTENDER_TENANT_GIB,
+                                   pod_uid=tenant.uid, usage_dir=usage_dir)
+    check(wire == want, f"Allocate over gRPC gave {wire}, want {want}")
+    # (e) The tenant on the card.
+    served = held_tenant_phase(wire, chip.hbm_gib, api, tenant.name,
+                               usage_dir, node=EXTENDER_NODE)
+    return {"names": names, "node": node, "card": chip.index,
+            "position": position[0], "traced": traced,
+            "handler_ms": handler_ms, "wire_ms": wire_ms,
+            "exemplar": exemplar[0], "committed": tenant.name,
+            "envs": wire.envs, "fleet_s": fleet_s, "served": served}
+
+
+def _probe_batch(client: ExtenderClient, names: list[str], rng, pod,
+                 per_batch: int) -> float:
+    """One batch of ``bench.py``'s mutation-free filter → prioritize
+    sequence on ``scale_candidates``; its p99 on the handlers' clock."""
+    lat = []
+    for _ in range(per_batch):
+        status, res, h_f = client.post("/filter", {
+            "Pod": pod.raw, "NodeNames": scale_candidates(rng, names)})
+        check(status == 200, f"probe filter: {status} {res}")
+        h_p = 0.0
+        if res["NodeNames"]:
+            status, _, h_p = client.post("/prioritize", {
+                "Pod": pod.raw, "NodeNames": res["NodeNames"]})
+            check(status == 200, f"probe prioritize: {status}")
+        lat.append(h_f + h_p)
+    return _percentiles(lat)[1]
+
+
+def _probe_verdict(p99s: dict) -> dict:
+    """``bench.py``'s estimator: the least batch p99 of each arm; the on
+    arm may add max(OVERHEAD_LIMIT of the off arm, OVERHEAD_FLOOR_MS)."""
+    off, on = min(p99s[False]), min(p99s[True])
+    delta_ms = max(on - off, 0.0)
+    limit_ms = max(OVERHEAD_LIMIT * off, OVERHEAD_FLOOR_MS)
+    return {"p99_off_ms": off, "p99_on_ms": on, "delta_ms": delta_ms,
+            "limit_ms": limit_ms, "pass": delta_ms <= limit_ms,
+            "batch_p99s_off_ms": p99s[False],
+            "batch_p99s_on_ms": p99s[True]}
+
+
+def timeline_overhead_probe(api: FakeApiServer, client: ExtenderClient,
+                            names: list[str], rng,
+                            batches: int = OVERHEAD_BATCHES,
+                            per_batch: int = OVERHEAD_PER_BATCH) -> dict:
+    """``bench.py``'s ``_timeline_overhead_probe`` on the port: batches in
+    turns with the timeline off (``TPUSHARE_TIMELINE=off``, sampler
+    stopped) and on (sampler, ``note_verb`` and the exemplars)."""
+    pod = api.create_pod(make_pod("timeline-probe", hbm=24))
+    p99s: dict = {True: [], False: []}
+    try:
+        for _ in range(batches):
+            for armed in (False, True):
+                with _env(TPUSHARE_TIMELINE=None if armed else "off"):
+                    tobs.start() if armed else tobs.stop()
+                    p99s[armed].append(_probe_batch(client, names, rng, pod,
+                                                    per_batch))
+    finally:
+        tobs.start()
+    return _probe_verdict(p99s)
+
+
+def blackbox_overhead_probe(api: FakeApiServer, client: ExtenderClient,
+                            names: list[str], rng,
+                            batches: int = OVERHEAD_BATCHES,
+                            per_batch: int = OVERHEAD_PER_BATCH) -> dict:
+    """``bench.py``'s ``_blackbox_overhead_probe`` on the port: the
+    timeline on in both arms; the journal (in a temporary directory) and
+    the push exporter (to a sink on localhost) armed in turns."""
+    import http.server
+
+    class Sink(http.server.BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_POST(self):  # noqa: N802 (stdlib casing)
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+    sink = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    threading.Thread(target=sink.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{sink.server_address[1]}/telemetry"
+    pod = api.create_pod(make_pod("blackbox-probe", hbm=24))
+    p99s: dict = {True: [], False: []}
+    sent = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-probe-") as tmp:
+            for _ in range(batches):
+                for armed in (False, True):
+                    with _env(TPUSHARE_BLACKBOX_DIR=tmp if armed else None,
+                              TPUSHARE_EXPORT_URL=url if armed else None):
+                        if armed:
+                            tobs.start()
+                        p99s[armed].append(_probe_batch(
+                            client, names, rng, pod, per_batch))
+                        if armed:
+                            exporter = tobs.exporter()
+                            tobs.stop_blackbox()
+                            sent += exporter.sent_records
+    finally:
+        tobs.stop_blackbox()
+        sink.shutdown()
+        sink.server_close()
+    return {**_probe_verdict(p99s), "exported_records": sent}
+
+
+def overhead_phase(fleet: int = EXTENDER_FLEET, seed: int = EXTENDER_SEED,
+                   batches: int = OVERHEAD_BATCHES,
+                   per_batch: int = OVERHEAD_PER_BATCH) -> dict:
+    """Both overhead gates on phase 2f's fleet (the card's node left
+    out): a ``serve_stack`` over ``fleet`` H100 nodes, then
+    ``timeline_overhead_probe`` and ``blackbox_overhead_probe``. Not run
+    by ``main`` (about 40 s it does not have): ``tools/
+    extender_phases.py --overhead`` runs it. A failing gate is recorded,
+    not raised."""
+    rng = random.Random(seed)
+    api = FakeApiServer()
+    tobs.reset()
     stack, server = extender_main.serve_stack(api)
     client = ExtenderClient(server)
-    before = client.metrics()
     try:
-        # (b) The card's node, then the fleet.
-        api.create_node(advertised_node(EXTENDER_NODE, inv))
-        with tempfile.TemporaryDirectory(prefix="chip_smoke-ext-") as pdir:
-            plug = plugin.TPUSharePlugin(EXTENDER_NODE, api, inv,
-                                         state_dir=pdir, usage_dir=usage_dir)
-            plug.annotate_node()
-            t0 = time.perf_counter()
-            names = extender_fleet(api, fleet)
-            fleet_s = time.perf_counter() - t0
-            check(stack.controller.wait_idle(timeout=120),
-                  "the extender's controller did not settle")
-            # (c) The tenant, placed through the three verbs.
-            tenant = api.create_pod(make_pod(
-                "extender-tenant", hbm=EXTENDER_TENANT_GIB,
-                uid="uid-extender-tenant"))
-            node, handler_ms, wire_ms = client.schedule(tenant,
-                                                        [EXTENDER_NODE])
-            check(node == EXTENDER_NODE, f"the tenant was bound to {node}")
-            placed = api.get_pod("default", tenant.name)
-            position = podutils.get_chip_ids_from_annotation(placed)
-            check(placed.node_name == EXTENDER_NODE and len(position) == 1
-                  and placed.annotations[const.ANN_HBM_POD]
-                  == str(EXTENDER_TENANT_GIB)
-                  and not podutils.is_assigned(placed),
-                  f"the bound tenant: {placed.raw}")
-            traced = bound_trace_checks(api, client, "default", tenant.name,
-                                        EXTENDER_NODE, position,
-                                        EXTENDER_TENANT_GIB)
-            after = client.metrics()
-            gauged = sample(after, "tpushare_node_hbm_used_gib",
-                            node=EXTENDER_NODE)
-            binds = rise(after, before, "tpushare_bind_latency_seconds_count")
-            check(gauged == EXTENDER_TENANT_GIB
-                  and binds == client.sent["/bind"],
-                  f"/metrics: {gauged} GiB used on the card's node, "
-                  f"{binds} binds of {client.sent['/bind']} sent")
-            traced.update(hbm_used_gib=gauged, binds_counted=binds)
-            chip = inv.chips[position[0]]
-            # (d) The daemon's Allocate over gRPC.
-            grants = NodeGrants(EXTENDER_NODE, api, inv, pdir, usage_dir)
-            try:
-                wire, _ = grants.allocate(tenant.name, EXTENDER_TENANT_GIB)
-            finally:
-                grants.close()
-        ids = grants.held[tenant.name]
-        check(ids == [plugin.HBM_DEV_FMT.format(chip=chip.index, gib=g)
-                      for g in range(EXTENDER_TENANT_GIB)],
-              f"GetPreferredAllocation gave {ids}")
-        check(podutils.is_assigned(api.get_pod("default", tenant.name)),
-              "the daemon did not commit the pod the extender bound")
-        want = plugin.build_allocation(inv, [chip.index],
-                                       EXTENDER_TENANT_GIB,
-                                       pod_uid=tenant.uid,
-                                       usage_dir=usage_dir)
-        check(wire == want, f"Allocate over gRPC gave {wire}, want {want}")
-        # (e) The tenant on the card.
-        served = held_tenant_phase(wire, chip.hbm_gib, api, tenant.name,
-                                   usage_dir, node=EXTENDER_NODE)
-        # (f) The churn.
-        churn = extender_churn(api, stack, client, names, target=target)
+        names = extender_fleet(api, fleet)
+        check(stack.controller.wait_idle(timeout=120),
+              "the extender's controller did not settle")
+        t0 = time.perf_counter()
+        timeline_gate = timeline_overhead_probe(api, client, names, rng,
+                                                batches, per_batch)
+        t1 = time.perf_counter()
+        blackbox_gate = blackbox_overhead_probe(api, client, names, rng,
+                                                batches, per_batch)
+        t2 = time.perf_counter()
     finally:
         client.close()
         extender_main.shutdown_stack(stack, server)
-    # (g) The same churn under the reference extender's GC posture.
-    posture = gc_posture_churn(fleet, target)
-    return {"tenant_node": node, "tenant_card": chip.index,
-            "tenant_position": position[0], "tenant_trace": traced,
-            "tenant_handler_ms": handler_ms, "tenant_wire_ms": wire_ms,
-            "committed": tenant.name, "envs": wire.envs,
-            "fleet_seconds": fleet_s, "churn": churn,
-            "churn_gc_posture": posture, **served}
+    return {"nodes": fleet, "timeline": {**timeline_gate,
+                                         "seconds": t1 - t0},
+            "blackbox": {**blackbox_gate, "seconds": t2 - t1}}
 
 
 def gang_pod(name: str, gib: int, group: str, minimum: int,
@@ -2823,6 +3203,29 @@ def gang_churn(api: FakeApiServer, stack, client: ExtenderClient,
             "commit_max_ms": max(latency)}
 
 
+def gang_marker_checks(client: ExtenderClient, gangs: int) -> dict:
+    """Phase 2g's timeline: exactly one ``gang-commit`` marker for each
+    gang committed (the smoke gang, the reaper's opted-out gang and each
+    of the churn's ``gangs``), each of ``GANG_MEMBERS`` members, and one
+    ``gang-rollback`` marker, the TTL leg's gang of one member short."""
+    doc = timeline(client)
+    commits = markers_of(doc, "gang-commit")
+    got = collections.Counter(m["attrs"]["gang"] for m in commits)
+    want = collections.Counter([GANG_GROUP, "keep", *(
+        f"churn-g{g:03d}" for g in range(gangs))])
+    check(got == want and {m["attrs"]["members"] for m in commits}
+          == {str(GANG_MEMBERS)},
+          f"gang-commit markers: {len(commits)}, "
+          f"{sorted((got - want) | (want - got))} off")
+    rolled = [(m["attrs"]["gang"], m["attrs"]["members"])
+              for m in markers_of(doc, "gang-rollback")]
+    check(rolled == [("ttl", str(GANG_MEMBERS - 1))],
+          f"gang-rollback markers: {rolled}")
+    return {"gang_commit": len(commits), "gang_rollback": rolled,
+            "smoke": [m for m in commits
+                      if m["attrs"]["gang"] == GANG_GROUP][0]}
+
+
 def gang_phase(inv: discovery.HostInventory, usage_dir: str,
                ref: dict | None, fleet: int = EXTENDER_FLEET,
                gangs: int = GANG_CHURN_GANGS) -> dict:
@@ -2837,13 +3240,15 @@ def gang_phase(inv: discovery.HostInventory, usage_dir: str,
     grants (``gang_train``; ``ref`` None leaves it out, as the CPU tests
     do); (e) the reaper (``gang_reaper``); (f) the TTL rollback
     (``gang_ttl``); (g) ``gangs`` gangs churn through ``fleet`` H100
-    nodes (``gang_churn``). Returns the phase's fields; ``launches`` is
+    nodes (``gang_churn``); (h) the timeline's gang markers
+    (``gang_marker_checks``). Returns the phase's fields; ``launches`` is
     the gang's kernel launches, summed over its ranks and steps."""
     t_phase = time.perf_counter()
     card_gib = inv.chips[0].hbm_gib
     gib = card_gib // GANG_MEMBERS
     names = [f"w-{i}" for i in range(GANG_MEMBERS)]
     api = FakeApiServer()
+    tobs.reset()
     stack, server = extender_main.serve_stack(api)
     client = ExtenderClient(server)
     try:
@@ -2867,10 +3272,11 @@ def gang_phase(inv: discovery.HostInventory, usage_dir: str,
         check(stack.controller.wait_idle(timeout=120),
               "the extender's controller did not settle")
         churn = gang_churn(api, stack, client, fleet_names, gangs)
+        marked = gang_marker_checks(client, gangs)
     finally:
         client.close()
         extender_main.shutdown_stack(stack, server)
-    return {"member_gib": gib, "card_gib": card_gib,
+    return {"member_gib": gib, "card_gib": card_gib, "markers": marked,
             "bind_handler_ms": binds["handler_ms"],
             "bind_wire_ms": binds["wire_ms"],
             "gangs_pending": binds["gangs_pending"],
@@ -3115,12 +3521,22 @@ def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
     meta = quota_configmap({})["metadata"]
     cm = api.get_configmap(meta["namespace"], meta["name"])
 
+    def configs() -> int:
+        return len(markers_of(timeline(client), "config"))
+    # Each replica's start applied the ConfigMap once.
+    seeded = configs()
+    check(seeded == 2, f"{seeded} config markers from the two starts")
+
     def apply(limit: int) -> None:
         cm.raw["data"] = {**quota_configmap(spec)["data"],
                           TENANCY_BURST: json.dumps({"limitHBM": limit})}
+        before = configs()
         api.update_configmap(cm)
         _until(lambda: quota.config_for(TENANCY_BURST).limit_hbm == limit,
                30, "the quota ConfigMap applied")
+        # One write, one config marker (from the one replica left).
+        _until(lambda: configs() == before + 1, 5,
+               "the write's config marker")
     apply(used)
     pod = api.create_pod(tenancy_pod("burst-next", TENANCY_BURST,
                                      TENANCY_GIB, TENANCY_PREEMPT_PRIORITY))
@@ -3170,7 +3586,10 @@ def tenancy_quota(api: FakeApiServer, stack, client: ExtenderClient,
                   or sample(gauges, "tpushare_quota_" + keys[k],
                             tenant=t["tenant"]) != t[k])]
     check(not differ, f"tpushare_quota_* against /debug/quota: {differ}")
-    return {"capped_at_gib": used, "reason": next(iter(reasons)),
+    check(configs() == seeded + 2, f"{configs()} config markers after two "
+                                   f"writes on {seeded}")
+    return {"config_markers": configs(), "capped_at_gib": used,
+            "reason": next(iter(reasons)),
             "denied_counted": denied,
             "filter_handler_ms": denied_ms, "raised_to_gib": used +
             TENANCY_GIB, "bound_to": node, "bind_handler_ms": handler_ms,
@@ -3232,6 +3651,9 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
             TENANCY_GUARDED: {"guaranteeHBM": TENANCY_GIB}}
     api = FakeApiServer()
     api.create_configmap(quota_configmap(spec))
+    # Both replicas live in this process and share one timeline, as the
+    # reference's in-process stacks do: its markers are both replicas'.
+    tobs.reset()
     electors = [LeaderElector(api, f"chip-smoke-replica-{i}",
                               lease_duration=TENANCY_LEASE_S,
                               renew_period=TENANCY_RENEW_S)
@@ -3300,6 +3722,15 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
             failover = tenancy_failover(api, stacks, clients, electors,
                                         names)
             stack, client = stacks[1][0], clients[1]
+            # The hand-off on the timeline: each acquisition, in order.
+            # A stopped elector stamps nothing as it steps down (it sets
+            # its flag and stops renewing, as the reference's does).
+            leaders = [(m["detail"], m["attrs"]["identity"])
+                       for m in markers_of(timeline(client), "leader")]
+            check(leaders == [("acquired leadership", e.identity)
+                              for e in electors],
+                  f"leader markers: {leaders}")
+            failover["leader_markers"] = leaders
             # (d) The preemption.
             pre = api.create_pod(tenancy_pod(
                 "preemptor", TENANCY_BURST, TENANCY_GIB,
@@ -5529,11 +5960,12 @@ def _replays(name: str, fn, calls: int = 1) -> tuple:
     return result[0], traced
 
 
-def _turns_ms(eager, compiled, rounds: int = 2, reset=None) -> dict:
+def _turns_ms(eager, compiled, rounds: int = 1, reset=None) -> dict:
     """Host ms of ``eager()`` (under ``graphs.disabled()``) and of
     ``compiled()`` (a replay), synchronized, in turns: eager, compiled,
-    compiled, eager, ``rounds`` times; ``reset()``, when given, runs
-    before each call, untimed."""
+    compiled, eager, ``rounds`` times (one by default: two timed calls of
+    each, in both orders); ``reset()``, when given, runs before each
+    call, untimed."""
     times = {"eager_ms": [], "compiled_ms": []}
 
     def one(kind):

@@ -20,6 +20,7 @@ import pytest
 
 from tests import torch_reference_stories as R
 from tests.test_torch_extender_e2e import H100, Pair
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.utils import const

@@ -10,7 +10,9 @@ a ``FakeKubelet``, and the seeded churn binds its pods with the ledger
 checks. The churn's traffic is ``bench.py``'s, draw for draw. The
 phase's decision-trace and ``/metrics`` gates pass on the port's stack
 and fail on one broken for each: a grant whose ``trace-id`` is not its
-decision's, a bind or a filter the metrics count short by one.
+decision's, a bind or a filter the metrics count short by one. The
+restart replays the tenant's decision from the journal, and fails on a
+controller that never replays it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 import bench
 import chip_smoke
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare_torch import trace as ttrace
 from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.routes import metrics as tmetrics
@@ -127,6 +130,32 @@ def test_extender_phase_places_commits_and_churns(held, tmp_path):
     assert churn["scrapes"] >= 1
     assert 0 < churn["scrape_p50_ms"] <= churn["scrape_max_ms"]
     assert churn["scrape_bytes"] > 0 and churn["scrape_series"] > 16 * 2
+    # The exemplar, the restart, the timeline and the NotReady leg.
+    assert got["tenant_bind_exemplar"][1] == traced["trace_id"]
+    restart = got["restart"]
+    assert restart["restored_trace"] == traced["trace_id"]
+    assert restart["restored_spans"] == traced["spans"]
+    assert restart["replayed"] > 0 and restart["restart_s"] > 0
+    assert restart["markers_before"] == ["restart"]
+    assert restart["segments"] >= 1
+    assert restart["ledger_used_gib"] == 7
+    watched = got["timeline"]
+    assert watched["series_last"]["fleet_nodes"] == 17
+    assert watched["bind_exemplars"] >= 1
+    notready = got["notready"]
+    assert notready["node"] == "h100-0000"
+    assert notready["event"].endswith(f"[timeline {notready['cursor']}]")
+    assert notready["ready_drop_s"] <= chip_smoke.NOTREADY_TICKS * 2.0
+
+
+def test_a_restart_that_replays_nothing_fails(held, tmp_path,
+                                              monkeypatch):
+    from tpushare_torch import obs as tobs
+
+    monkeypatch.setattr(tobs, "replay_startup", lambda: 0)
+    with pytest.raises(RuntimeError, match=r"/debug/trace\?id=\w+: 404"):
+        chip_smoke.extender_phase(_host(), str(tmp_path), fleet=16,
+                                  target=200)
 
 
 def test_ledger_checks_catch_a_ledger_that_lies(held, tmp_path,
@@ -225,3 +254,28 @@ def test_no_card_means_no_result(monkeypatch, capsys):
                         lambda q: (_ for _ in ()).throw(OSError("none")))
     assert chip_smoke.main(str("/nonexistent")) == 2
     assert "ok" not in capsys.readouterr().out
+
+
+def test_overhead_gates_run_on_the_host(monkeypatch):
+    """The timeline's and the journal's overhead gates (run on the card
+    by ``tools/extender_phases.py --overhead``) at a small size: each arm
+    timed in every batch, the verdict's arithmetic, and the environment
+    put back."""
+    import os
+
+    for key in ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",
+                "TPUSHARE_EXPORT_URL"):
+        monkeypatch.delenv(key, raising=False)
+    got = chip_smoke.overhead_phase(fleet=8, batches=2, per_batch=10)
+    assert got["nodes"] == 8
+    for gate in (got["timeline"], got["blackbox"]):
+        assert len(gate["batch_p99s_off_ms"]) == \
+            len(gate["batch_p99s_on_ms"]) == 2
+        assert gate["p99_off_ms"] == min(gate["batch_p99s_off_ms"])
+        assert gate["delta_ms"] == max(gate["p99_on_ms"]
+                                       - gate["p99_off_ms"], 0.0)
+        assert gate["limit_ms"] >= chip_smoke.OVERHEAD_FLOOR_MS
+        assert gate["pass"] == (gate["delta_ms"] <= gate["limit_ms"])
+    for key in ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",
+                "TPUSHARE_EXPORT_URL"):
+        assert key not in os.environ

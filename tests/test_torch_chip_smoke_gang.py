@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.runtime import launch
@@ -71,6 +72,27 @@ def test_gang_phase_host_parts(healthy, tmp_path):
     churn = got["churn"]
     assert (churn["nodes"], churn["gangs"], churn["committed"]) == (16, 4, 4)
     assert 0 < churn["commit_p50_ms"] <= churn["commit_p99_ms"]
+    # smoke, keep and the churn's four; the TTL leg's rollback.
+    assert got["markers"]["gang_commit"] == 6
+    assert got["markers"]["gang_rollback"] == [("ttl", "3")]
+    smoke = got["markers"]["smoke"]
+    assert smoke["attrs"]["members"] == "4"
+    assert smoke["attrs"]["trace_id"] in ids.values()
+
+
+def test_a_lost_gang_commit_marker_fails(small_gang, monkeypatch):
+    from tpushare_torch import obs as tobs
+
+    real, dropped = tobs.mark, []
+
+    def mark(kind, *args, **kw):
+        if kind == "gang-commit" and not dropped:
+            dropped.append(kind)
+            return None
+        return real(kind, *args, **kw)
+    monkeypatch.setattr(tobs, "mark", mark)
+    with pytest.raises(RuntimeError, match="gang-commit markers"):
+        small_gang()
 
 
 @pytest.fixture

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.routes import metrics as tmetrics
 from tpushare_torch.utils import const
@@ -98,6 +99,9 @@ def test_tenancy_phase_on_the_host(stubbed, tmp_path):
     assert got["ha"]["follower_bind_status"] == 503
     assert got["ha"]["leader_gauge"] == [1.0, 0.0]
     assert got["failover"]["leader_gauge_after"] == [0.0, 1.0]
+    assert got["failover"]["leader_markers"] == [
+        ("acquired leadership", f"chip-smoke-replica-{i}") for i in (0, 1)]
+    assert got["quota"]["config_markers"] == 4
     # (b) The victim was granted on host card 3 and served; the card full.
     victim_alloc, pre_alloc = stubbed
     assert victim_alloc.envs[const.ENV_NVIDIA_VISIBLE_DEVICES] == "3"

@@ -18,6 +18,7 @@ import sys
 
 from tests.test_torch_deviceplugin_daemon import Bridge
 from tests.torch_extender_daemon_side import scenario
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare_torch.utils import const
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -44,6 +44,7 @@ import urllib.request
 import numpy as np
 import pytest
 
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.extender import (ExtenderArgs as JArgs,
                                    ExtenderFilterResult as JFilterResult,
                                    HostPriority as JHostPriority)

@@ -12,6 +12,7 @@ import threading
 
 import pytest
 
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare_torch.cmd import main as M
 from tpushare_torch.k8s.fake import FakeApiServer
 
@@ -26,7 +27,8 @@ def no_cluster(monkeypatch):
     monkeypatch.setattr(M.ClusterConfig, "auto",
                         classmethod(lambda cls: None))
     monkeypatch.setattr(M, "ApiClient", lambda cfg: api)
-    monkeypatch.setattr(M, "setup_signals", lambda stop: stop.set())
+    monkeypatch.setattr(M, "setup_signals",
+                        lambda stop, flush=None: stop.set())
     monkeypatch.setattr(M, "configure_logging", lambda: None)
     for key in ("PORT", "WORKERS", "TLS_CERT_FILE", "TLS_KEY_FILE",
                 "TPUSHARE_SCORING", "DEBUG_ROUTES", "TPUSHARE_LOG_JSON"):

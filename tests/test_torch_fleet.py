@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.cache.cache import SchedulerCache as JCache
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.fake import FakeApiServer as JFake

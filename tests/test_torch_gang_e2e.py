@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_extender_e2e import H100, Pair, granted, same_ttl
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.objects import Node as JNode
 from tpushare.k8s import events as jevents
 from tpushare.routes import metrics as jmetrics

@@ -30,6 +30,7 @@ import time
 import pytest
 
 from tests.test_torch_extender_e2e import normal_trace
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare import trace as jtrace
 from tpushare.cache.cache import SchedulerCache as JCache
 from tpushare.cache.nodeinfo import AllocationError as JAllocationError

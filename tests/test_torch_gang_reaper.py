@@ -18,6 +18,7 @@ import time
 
 import pytest
 
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.controller.controller import Controller as JController
 from tpushare.k8s import events as jevents
 from tpushare.k8s.builders import make_node, make_pod

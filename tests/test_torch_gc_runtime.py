@@ -15,6 +15,7 @@ import logging
 
 import pytest
 
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.utils import k8stime as jtime
 from tpushare.utils import runtime as jrt
 from tpushare_torch.cmd import main as M
@@ -96,7 +97,8 @@ def no_cluster(monkeypatch):
     monkeypatch.setattr(M.ClusterConfig, "auto",
                         classmethod(lambda cls: None))
     monkeypatch.setattr(M, "ApiClient", lambda cfg: api)
-    monkeypatch.setattr(M, "setup_signals", lambda stop: stop.set())
+    monkeypatch.setattr(M, "setup_signals",
+                        lambda stop, flush=None: stop.set())
     monkeypatch.setattr(M, "configure_logging", lambda: None)
     for key in ("TLS_CERT_FILE", "TLS_KEY_FILE", "LEADER_ELECT",
                 "TPUSHARE_GC_TUNE", "TPUSHARE_GC_GEN0", *M.NOT_PORTED):
@@ -142,8 +144,107 @@ def test_not_ported_names_the_reference_main_s_variables():
         assert name not in tdoc, name
     for name in ("LEADER_ELECT", "LEASE_NAMESPACE", "TPUSHARE_GC_TUNE",
                  "TPUSHARE_QUOTA_NAMESPACE", "TPUSHARE_LOG_JSON",
-                 "DEBUG_ROUTES"):
+                 "DEBUG_ROUTES", *TIMELINE_VARIABLES):
         assert name in tdoc and name not in M.NOT_PORTED
+
+
+#: The retrospective layer's variables, which the port's main reads.
+TIMELINE_VARIABLES = ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",
+                      "TPUSHARE_BLACKBOX_SEGMENT_BYTES",
+                      "TPUSHARE_BLACKBOX_SEGMENTS", "TPUSHARE_EXPORT_URL")
+
+
+class _Sink:
+    """A localhost HTTP sink for the push exporter: keeps each body."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        bodies = self.bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 (stdlib casing)
+                n = int(self.headers.get("Content-Length", 0))
+                bodies.append(self.rfile.read(n))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+@pytest.mark.parametrize("name", TIMELINE_VARIABLES)
+def test_main_reads_the_timeline_variables(no_cluster, monkeypatch, caplog,
+                                           tmp_path, name):
+    """Each variable is read, not warned of: the journal is armed in its
+    directory (a segment holding the ``restart`` marker that the
+    controller's start stamps, bounded by the two size variables), the
+    exporter posts the same marker to its URL beside the journal, and
+    ``TPUSHARE_TIMELINE=off`` stamps no marker at all."""
+    import json
+    import os
+
+    from tpushare_torch import obs
+
+    monkeypatch.setenv("TPUSHARE_GC_TUNE", "off")
+    journal = str(tmp_path / "journal")
+    sink = None
+    env = {"TPUSHARE_TIMELINE": {"TPUSHARE_TIMELINE": "off",
+                                 "TPUSHARE_BLACKBOX_DIR": journal},
+           "TPUSHARE_BLACKBOX_DIR": {"TPUSHARE_BLACKBOX_DIR": journal},
+           "TPUSHARE_BLACKBOX_SEGMENT_BYTES": {
+               "TPUSHARE_BLACKBOX_DIR": journal,
+               "TPUSHARE_BLACKBOX_SEGMENT_BYTES": "4096"},
+           "TPUSHARE_BLACKBOX_SEGMENTS": {
+               "TPUSHARE_BLACKBOX_DIR": journal,
+               "TPUSHARE_BLACKBOX_SEGMENTS": "2"}}.get(name, {})
+    if name == "TPUSHARE_EXPORT_URL":
+        sink = _Sink()
+        env = {name: sink.url, "TPUSHARE_BLACKBOX_DIR": journal}
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    seen = {}
+    real = obs._arm_blackbox
+
+    def arm():
+        real()
+        if obs.blackbox() is not None:
+            seen["bounds"] = (obs.blackbox().segment_bytes,
+                              obs.blackbox().max_segments)
+    monkeypatch.setattr(obs, "_arm_blackbox", arm)
+    try:
+        with caplog.at_level(logging.WARNING, logger=M.log.name):
+            M.main()
+    finally:
+        if sink is not None:
+            sink.close()
+        obs.reset()
+    assert not [r for r in caplog.records if r.name == M.log.name
+                and r.levelno >= logging.WARNING]
+    if name == "TPUSHARE_EXPORT_URL":
+        posted = [json.loads(line) for body in sink.bodies
+                  for line in body.splitlines()]
+        assert [d["kind"] for d in posted if d["t"] == "marker"] == \
+            ["restart"]
+        return
+    kinds = [d["kind"] for d in obs.replay(journal)
+             if d["t"] == "marker"]
+    assert kinds == ([] if name == "TPUSHARE_TIMELINE" else ["restart"])
+    assert os.listdir(journal)
+    assert seen["bounds"] == {
+        "TPUSHARE_BLACKBOX_SEGMENT_BYTES": (4096, 8),
+        "TPUSHARE_BLACKBOX_SEGMENTS": (1 << 20, 2)}.get(name, (1 << 20, 8))
 
 
 @pytest.mark.parametrize("env,applied", [

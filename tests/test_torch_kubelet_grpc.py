@@ -389,7 +389,8 @@ def test_main_reads_the_reference_s_environment(monkeypatch, env, want):
     inv = TORCH.inventory()
     monkeypatch.setattr(main_mod.discovery, "discover_host",
                         lambda node_labels=None: inv)
-    monkeypatch.setattr(main_mod, "setup_signals", lambda stop: None)
+    monkeypatch.setattr(main_mod, "setup_signals",
+                        lambda stop, flush=None: None)
     got = {}
 
     def run(node, client, inventory, stop, **kw):

@@ -37,6 +37,7 @@ import urllib.request
 import pytest
 
 from tests import torch_reference_stories as R
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.errors import ConflictError as JConflict
 from tpushare.k8s.errors import NotFoundError as JNotFound
@@ -351,7 +352,8 @@ def no_cluster(monkeypatch):
     monkeypatch.setattr(M.ClusterConfig, "auto",
                         classmethod(lambda cls: None))
     monkeypatch.setattr(M, "ApiClient", lambda cfg: api)
-    monkeypatch.setattr(M, "setup_signals", lambda stop: stop.set())
+    monkeypatch.setattr(M, "setup_signals",
+                        lambda stop, flush=None: stop.set())
     monkeypatch.setattr(M, "configure_logging", lambda: None)
     for key in ("PORT", "TLS_CERT_FILE", "TLS_KEY_FILE", "LEADER_ELECT",
                 "LEASE_NAMESPACE", "HOSTNAME", "TPUSHARE_GC_TUNE"):

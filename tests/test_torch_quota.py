@@ -43,6 +43,7 @@ import pytest
 
 from tests import torch_reference_stories as R
 from tests.test_torch_extender_e2e import Pair
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.objects import ConfigMap as JConfigMap, Pod as JPod
 from tpushare.k8s import events as jevents
 from tpushare.k8s.builders import make_node, make_pod

@@ -134,6 +134,7 @@ def _port_files():
     yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
     yield os.path.join(REPO, "tools", "nccl_gang.py")
     yield os.path.join(REPO, "tools", "ring_model_fit.py")
+    yield os.path.join(REPO, "tools", "extender_phases.py")
     yield os.path.join(REPO, "tests", "torch_parallel_rank.py")
     yield os.path.join(REPO, "tests", "torch_pipeline_rank.py")
     yield os.path.join(REPO, "tests", "torch_checkpoint_rank.py")
@@ -192,6 +193,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "trace", "jsonlog.py"),
                  ("tpushare_torch", "routes", "metrics.py"),
                  ("tpushare_torch", "routes", "exposition.py"),
+                 *(("tpushare_torch", "obs", f"{name}.py") for name in (
+                     "__init__", "timeline", "sources", "anomaly",
+                     "exemplars", "blackbox", "export", "witness")),
+                 ("tools", "extender_phases.py"),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):

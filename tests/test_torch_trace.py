@@ -39,6 +39,7 @@ import pytest
 
 from tests import torch_reference_stories as R
 from tests.test_torch_extender_e2e import H100, Pair, normal_trace
+from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare import trace as jtrace
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.trace.jsonlog import TraceJsonFormatter as JFormatter
@@ -265,7 +266,7 @@ def test_main_reads_debug_routes(no_cluster, monkeypatch, value, on):
     seen = {}
     ready, release = threading.Event(), threading.Event()
 
-    def signals(stop):
+    def signals(stop, flush=None):
         def wait():
             ready.wait(30)
             release.wait(30)
@@ -318,7 +319,8 @@ def test_main_installs_the_json_formatter(no_cluster, monkeypatch):
     inside a decision carries the decision's id."""
     monkeypatch.setattr(M, "configure_logging", _REAL_CONFIGURE_LOGGING)
     monkeypatch.setenv("TPUSHARE_LOG_JSON", "1")
-    monkeypatch.setattr(M, "setup_signals", lambda stop: stop.set())
+    monkeypatch.setattr(M, "setup_signals",
+                        lambda stop, flush=None: stop.set())
     root = logging.getLogger()
     saved = list(root.handlers)
     for h in saved:

@@ -9,11 +9,16 @@ without the gang's training (the binds, grants, reaper, TTL rollback and
 the 256-gang churn, with the gauges and each member's trace id) and
 ``chip_smoke.tenancy_phase`` (two replicas under leader election,
 failover, a serving tenant preempted and replaced, quota, admission, the
-preempt benchmarks).
-Prints each phase as ``chip_smoke.py`` does and writes every field as
-JSON to ``--out``::
+preempt benchmarks), each with the fleet timeline's checks (2f also
+restarts the extender over its fleet and replays the tenant's decision
+from the black-box journal, and flips a node NotReady). ``--overhead``
+then runs ``chip_smoke.overhead_phase``: the timeline's and the journal's
+overhead gates, ``bench.py``'s twins, on 2f's 1,024-node fleet;
+``--no-phases`` runs it alone. Prints each phase as ``chip_smoke.py``
+does and writes every field as JSON to ``--out``::
 
     python3 tools/extender_phases.py --out extender_phases.json
+    python3 tools/extender_phases.py --overhead --no-phases --out o.json
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ from tpushare_torch.deviceplugin import discovery  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="the JSON record's path")
+    ap.add_argument("--overhead", action="store_true",
+                    help="run the timeline and journal overhead gates")
+    ap.add_argument("--no-phases", action="store_true",
+                    help="skip phases 2f, 2g and 2h")
     args = ap.parse_args()
     t0 = time.perf_counter()
     card = CS.nvidia_smi("name,power.limit")
@@ -43,9 +52,13 @@ def main() -> int:
     inv = discovery.discover_host()
     out = {"card": card}
     with tempfile.TemporaryDirectory(prefix="extender_phases-") as tmp:
-        for name, fn in (("2f extender", CS.extender_phase),
-                         ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
-                         ("2h tenancy", CS.tenancy_phase)):
+        phases = [] if args.no_phases else [
+            ("2f extender", CS.extender_phase),
+            ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
+            ("2h tenancy", CS.tenancy_phase)]
+        if args.overhead:
+            phases.append(("2f overhead", lambda i, u: CS.overhead_phase()))
+        for name, fn in phases:
             t = time.perf_counter()
             out[name] = fn(inv, tmp)
             out[name]["phase_s"] = time.perf_counter() - t

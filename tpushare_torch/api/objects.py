@@ -161,6 +161,16 @@ class Node(K8sObject):
         return self.raw.get("status") or {}
 
     @property
+    def ready(self) -> bool:
+        """The ``Ready`` node condition. A node with no conditions at all
+        (fixtures, fresh fakes) counts as ready: kubelet's absence shows as
+        an ``Unknown`` or ``False`` condition, not as missing status."""
+        for cond in self.status.get("conditions") or []:
+            if cond.get("type") == "Ready":
+                return cond.get("status") == "True"
+        return True
+
+    @property
     def capacity(self) -> dict:
         return self.status.get("capacity") or {}
 

@@ -41,11 +41,25 @@ Environment:
   on by default (``off``, ``0``, ``false``, ``no`` keep the interpreter's
   thresholds); ``TPUSHARE_GC_GEN0`` sets the gen-0 threshold. ``main``
   applies it; ``serve_stack`` does not.
+* ``TPUSHARE_TIMELINE``: ``on`` (default) arms the retrospective
+  timeline (bounded series history, fleet-event markers and anomaly
+  watchers, served at ``/debug/timeline``); ``off`` disables sampling,
+  markers and exemplar annotation, and every emission site degrades to
+  a no-op.
+* ``TPUSHARE_BLACKBOX_DIR``: when set, arms the black-box flight journal
+  (``obs/blackbox.py``): markers, per-tick series samples and completed
+  decisions append to CRC-framed, size-capped segments in this directory
+  (``TPUSHARE_BLACKBOX_SEGMENT_BYTES``, 1 MiB, and
+  ``TPUSHARE_BLACKBOX_SEGMENTS``, 8, bound it); SIGTERM and exit fsync
+  the tail, and the next start replays it onto ``/debug/timeline`` and
+  ``/debug/trace`` behind a ``restart`` marker. Unset: no journal.
+* ``TPUSHARE_EXPORT_URL``: when set, the same records stream as
+  JSON-lines POSTs to this HTTP sink (bounded queue, exponential
+  backoff, an ``export-stall`` marker on a sustained failure).
 
 Variables of the reference's main that the port does not yet read
-(``NOT_PORTED``: the profiler, the SLO ConfigMap, the timeline and
-black-box journal, defragmentation and autoscaling) are logged as a
-warning, one line each, when set.
+(``NOT_PORTED``: the profiler, the SLO ConfigMap, defragmentation and
+autoscaling) are logged as a warning, one line each, when set.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ import sys
 import threading
 from typing import NamedTuple
 
+from tpushare_torch import obs
 from tpushare_torch.controller.controller import Controller
 from tpushare_torch.gang.planner import GangPlanner
 from tpushare_torch.k8s.client import ApiClient, ClusterConfig
@@ -77,11 +92,6 @@ NOT_PORTED = {
     "TPUSHARE_PROFILE": "the continuous profiler",
     "TPUSHARE_PROFILE_HZ": "the continuous profiler's rate",
     "TPUSHARE_SLO_NAMESPACE": "the tpushare-slos ConfigMap",
-    "TPUSHARE_TIMELINE": "the retrospective timeline",
-    "TPUSHARE_BLACKBOX_DIR": "the black-box flight journal",
-    "TPUSHARE_BLACKBOX_SEGMENT_BYTES": "the black-box flight journal",
-    "TPUSHARE_BLACKBOX_SEGMENTS": "the black-box flight journal",
-    "TPUSHARE_EXPORT_URL": "the push exporter",
     "TPUSHARE_DEFRAG_MODE": "the defragmentation rebalancer",
     "TPUSHARE_DEFRAG_MAX_MOVES": "the defragmentation rebalancer",
     "TPUSHARE_DEFRAG_MOVES_PER_HOUR": "the defragmentation rebalancer",
@@ -108,13 +118,22 @@ def warn_not_ported() -> list[str]:
     return names
 
 
-def setup_signals(stop_event: threading.Event) -> None:
+def setup_signals(stop_event: threading.Event, flush=None) -> None:
     """The first SIGINT or SIGTERM asks for shutdown; a second exits at
-    once."""
+    once. ``flush`` (``() -> bool``, e.g. ``obs.flush_blackbox``) runs on
+    the first signal, after the stop event is set and before the main
+    thread tears the servers down: the journal's SIGTERM durability
+    point. A flush that fails is swallowed, so it can delay shutdown by
+    at most its own timeout and never wedge it."""
     def handler(signum, frame):
         if stop_event.is_set():
             os._exit(1)
         stop_event.set()
+        if flush is not None:
+            try:
+                flush()
+            except Exception:  # noqa: BLE001 - flushing must not wedge exit
+                pass
 
     signal.signal(signal.SIGINT, handler)
     signal.signal(signal.SIGTERM, handler)
@@ -140,7 +159,10 @@ def build_stack(client, is_leader=None) -> Stack:
     filter, bind, scoring, the gang pre-check and preemption agree on a
     tenant's standing. ``is_leader`` (``() -> bool``) gates the planner's
     binding retries and the controller's gang reaper. Starts the
-    planner's housekeeping thread; :func:`shutdown_stack` stops it."""
+    planner's housekeeping thread, which :func:`shutdown_stack` stops,
+    and wires the timeline's sources (published ledgers only, never a
+    fleet rescan) and arms its sampler and, where the environment asks,
+    the black-box journal (``obs.stop`` disarms them)."""
     scoring = os.environ.get("TPUSHARE_SCORING", "binpack")
     controller = Controller(client, is_leader=is_leader,
                             default_scoring=scoring)
@@ -175,6 +197,9 @@ def build_stack(client, is_leader=None) -> Stack:
                       quota=controller.quota)
     admission = Admission(controller.cache,
                           node_lister=controller.hub.nodes.list)
+    obs.wire(client=client, demand=predicate.demand,
+             workqueue=controller.queue, nodes=controller.hub.nodes.list)
+    obs.start()
     return Stack(controller, predicate, prioritize, binder, inspect,
                  preempt, admission)
 
@@ -320,7 +345,11 @@ def main() -> None:
     stack = build_stack(
         client, is_leader=leader.is_leader if leader is not None else None)
     stop = threading.Event()
-    setup_signals(stop)
+    setup_signals(stop, flush=obs.flush_blackbox)
+    # A clean interpreter exit flushes too; a SIGKILL keeps what the
+    # journal's writer already handed the page cache.
+    import atexit
+    atexit.register(obs.flush_blackbox)
     stack.controller.start(workers=workers)
     debug_routes = os.environ.get("DEBUG_ROUTES", "1").lower() not in (
         "0", "false", "no")
@@ -338,6 +367,10 @@ def main() -> None:
         leader.stop()
     stack.binder.gang_planner.stop()
     stack.controller.stop()
+    # Last: drain, fsync and close the journal and the exporter (the
+    # signal handler flushed what was queued at SIGTERM; this takes what
+    # the teardown above emitted).
+    obs.stop()
 
 
 if __name__ == "__main__":

@@ -10,8 +10,12 @@ survivors when the group falls below its minimum (``_maybe_reap_gang``).
 Worker threads loop until shutdown, as many as asked. The controller
 owns the tenant quota ledger: the cache charges it, and the
 ``tpushare-quotas`` ConfigMap configures it, trusted only from
-``TPUSHARE_QUOTA_NAMESPACE`` (``kube-system`` by default). The SLO
-ConfigMap, defragmentation and autoscaling come with their own slices.
+``TPUSHARE_QUOTA_NAMESPACE`` (``kube-system`` by default). A node's
+Ready → NotReady edge stamps a ``node-notready`` timeline marker and a
+Warning Event; a quota ConfigMap applied stamps a ``config`` marker; the
+start replays the black-box journal (:func:`tpushare_torch.obs.
+replay_startup`). The SLO ConfigMap, defragmentation and autoscaling
+come with their own slices.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import os
 import threading
 import time
 
+from tpushare_torch import obs
 from tpushare_torch.api.objects import ConfigMap, Pod
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.k8s import events
@@ -110,6 +115,8 @@ class Controller:
         """Applied inline: ``set_config`` is idempotent and needs no
         apiserver round trip."""
         self.quota.set_config(quota_config.parse_configmap(cm))
+        obs.mark("config", f"quota ConfigMap {cm.namespace}/{cm.name} "
+                 "applied", configmap="quota")
 
     @staticmethod
     def _is_relevant_pod(pod: Pod) -> bool:
@@ -158,8 +165,23 @@ class Controller:
         self.queue.add(pod.key())
 
     def _on_node_update(self, old, new) -> None:
-        """The node document changed: bring its cached ledger in line."""
+        """The node document changed: bring its cached ledger in line, and
+        surface a Ready → NotReady transition as a host-failure marker and
+        a Warning Event. Only the edge fires: a node that stays NotReady
+        across status heartbeats must not flood the timeline; recovery
+        shows as the ``fleet_nodes_ready`` series climbing back."""
         self.cache.refresh_node(new)
+        if old is not None and old.ready and not new.ready:
+            cursor = obs.mark("node-notready", f"node {new.name} NotReady",
+                              node=new.name)
+            pod = Pod({"metadata": {"name": "tpushare-scheduler-extender",
+                                    "namespace": "kube-system", "uid": ""}})
+            events.record(
+                self.client, pod, events.REASON_NODE_NOTREADY,
+                f"node {new.name} transitioned to NotReady; its chips "
+                f"stay in the ledger until the Node object is deleted "
+                f"[timeline {cursor}]",
+                event_type="Warning", trace_id="")
 
     def _on_node_delete(self, node) -> None:
         """The Node object is gone: drop its ledger (inline: removal is
@@ -292,6 +314,11 @@ class Controller:
         self.hub.start()
         if not self.hub.wait_for_sync():
             raise RuntimeError("informer cache never synced")
+        # Crash forensics: replay the previous process's black-box journal
+        # (markers and samples onto the timeline, decisions into the
+        # flight recorder's restored buffer) behind a ``restart`` marker.
+        # A no-op unless TPUSHARE_BLACKBOX_DIR is set; once a process.
+        obs.replay_startup()
         # The initial LIST fills the stores without calling handlers:
         # seed the quota table from it, so the first filter enforces it.
         for cm in self.hub.configmaps.list():

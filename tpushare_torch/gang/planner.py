@@ -27,12 +27,13 @@ binding and error string is the reference's, and so are the decision
 trace's ``gang`` span and its notes (``quorum``, ``topologyElected``,
 ``topologySteered``, ``topology-fallback``, ``ringContiguity``), the
 ``tpushare_topology_fallbacks_total`` count and the
-``tpushare_gang_ring_contiguity`` gauge. The reference's timeline marks
-come with the timeline. With a quota ledger, a gang whose outstanding
-members must take its tenant past the hard limit is refused at its
-quorum pre-check, before it reserves; the group's charge needs nothing
-more, since each reservation goes through the cache (which charges) and
-the rollback through ``remove_pod`` (which uncharges).
+``tpushare_gang_ring_contiguity`` gauge, and the timeline's
+``gang-commit`` and ``gang-rollback`` markers. With a quota ledger, a
+gang whose outstanding members must take its tenant past the hard limit
+is refused at its quorum pre-check, before it reserves; the group's
+charge needs nothing more, since each reservation goes through the cache
+(which charges) and the rollback through ``remove_pod`` (which
+uncharges).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, wait
 
-from tpushare_torch import trace
+from tpushare_torch import obs, trace
 from tpushare_torch.api.objects import Pod, binding_doc
 from tpushare_torch.cache.nodeinfo import AllocationError
 from tpushare_torch.k8s import commit, events
@@ -444,6 +445,10 @@ class GangPlanner:
             if self.placer is not None:
                 # A committed gang's election is never read again.
                 self.placer.forget(key)
+            obs.mark("gang-commit",
+                     f"gang {group.name} reached quorum "
+                     f"({len(newly_committed)} member(s) committing)",
+                     gang=group.name, members=len(newly_committed))
         for member_pod, member_node in newly_committed:
             events.record(
                 self.client, member_pod, events.REASON_GANG_COMMITTED,
@@ -701,6 +706,10 @@ class GangPlanner:
             log.warning("gang %s/%s: expired at %d/%d members; rolling "
                         "back", key[0], group.name, len(victims),
                         group.minimum)
+            obs.mark("gang-rollback",
+                     f"gang {group.name} expired at {len(victims)}/"
+                     f"{group.minimum} members; rolling back",
+                     gang=group.name, members=len(victims))
             for pod, _node in victims:
                 self.cache.remove_pod(pod)
                 self._strip_annotations(pod)

@@ -136,3 +136,5 @@ REASON_GANG_EXPIRED = "TPUShareGangExpired"
 REASON_GANG_REAPED = "TPUShareGangReaped"
 REASON_GANG_COMMITTED = "TPUShareGangCommitted"
 REASON_QUOTA_DENIED = "TPUShareQuotaDenied"
+REASON_ANOMALY = "TPUShareAnomaly"
+REASON_NODE_NOTREADY = "TPUShareNodeNotReady"

@@ -1,8 +1,8 @@
 """Lease-based leader election: safe multi-replica extender deployment.
 
 The port's copy of ``tpushare/k8s/leader.py``, with a plain
-``threading.RLock``; the timeline mark of a leadership change waits for
-the port's observability slice (the log line stays).
+``threading.RLock``. Every change of leadership is logged and stamped as
+a ``leader`` marker on the fleet timeline (:mod:`tpushare_torch.obs`).
 
 gpushare runs exactly one replica because two extenders cannot safely
 bind concurrently: each replica's ledger is an eventually-
@@ -39,6 +39,7 @@ import threading
 import time
 from datetime import datetime, timedelta, timezone
 
+from tpushare_torch import obs
 from tpushare_torch.k8s.errors import ApiError, ConflictError
 from tpushare_torch.utils.k8stime import parse_rfc3339
 
@@ -192,6 +193,14 @@ class LeaderElector:
         if changed or why:
             log.info("leader election [%s]: %s (%s)", self.identity,
                      "LEADER" if leader else "follower", why or "observed")
+        if changed:
+            # Fire-and-forget: a leadership flip is the timeline's anchor
+            # for "what happened then", and election never depends on
+            # history-keeping (obs.mark swallows its own failures).
+            obs.mark("leader",
+                     "acquired leadership" if leader
+                     else f"lost leadership ({why or 'observed'})",
+                     identity=self.identity)
 
     def _run(self) -> None:
         first = True

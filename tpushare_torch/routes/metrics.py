@@ -5,9 +5,11 @@ HELP texts, types, labels and buckets, rendered by the port's own
 standard-library exposition (:mod:`tpushare_torch.routes.exposition`,
 line for line what ``prometheus_client`` writes). Only the families whose
 sources the port has are declared, so none renders a zero that means
-nothing: the timeline's, the profiler's and per-verb cost ledger's, the
-pod-journey SLOs', defragmentation's, the autoscaler's and the serving
-router's come with the modules that feed them.
+nothing: the profiler's and per-verb cost ledger's, the pod-journey
+SLOs', defragmentation's, the autoscaler's and the serving router's come
+with the modules that feed them. The retrospective layer's families
+(build, uptime, anomaly firings, the timeline's drops and series, the
+fleet-day witness's verdicts) read :mod:`tpushare_torch.obs`.
 
 :func:`scrape` refreshes every gauge from its source under
 ``_SCRAPE_LOCK`` and renders; a scrape that raises counts
@@ -35,6 +37,11 @@ _BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
 )
+
+#: Public alias: the exemplar store (tpushare_torch.obs.exemplars) files
+#: its trace ids under these bounds, so its ``# {trace_id=...}``
+#: annotations land on the ``le`` lines the exposition renders.
+LATENCY_BUCKETS = _BUCKETS
 
 FILTER_LATENCY = Histogram(
     "tpushare_filter_latency_seconds",
@@ -398,6 +405,75 @@ GC_COLLECTIONS = Gauge(
     "webhook path shows up as latency p99 spikes",
     ["generation"], registry=REGISTRY,
 )
+BUILD_INFO = Gauge(
+    "tpushare_build_info",
+    "Always 1; the labels carry the extender version and Python "
+    "runtime so dashboards and the timeline can bracket restarts and "
+    "correlate behavior changes with rollouts",
+    ["version", "python"], registry=REGISTRY,
+)
+UPTIME = Gauge(
+    "tpushare_uptime_seconds",
+    "Seconds since this process imported the metrics layer. A reset "
+    "to ~0 on an otherwise-continuous scrape series IS the restart "
+    "marker retrospective queries bracket on",
+    registry=REGISTRY,
+)
+ANOMALIES_FIRED = Gauge(
+    "tpushare_anomaly_fired_total",
+    "Anomaly-rule firings (threshold / rate-of-change / z-score "
+    "watchers over the timeline rings; monotonic, set at scrape from "
+    "the engine's counters). Each firing stamped a timeline marker "
+    "and, rate-limited, a TPUShareAnomaly Event carrying the cursor",
+    ["rule"], registry=REGISTRY,
+)
+TIMELINE_DROPPED = Gauge(
+    "tpushare_timeline_dropped_total",
+    "Timeline points/markers lost to the memory caps plus exceptions "
+    "swallowed on the fire-and-forget record path (monotonic, set at "
+    "scrape). Nonzero eviction is normal once rings wrap; a RISING "
+    "swallowed count means the retrospective layer itself is broken",
+    registry=REGISTRY,
+)
+TIMELINE_SERIES = Gauge(
+    "tpushare_timeline_series",
+    "Series currently held in the timeline rings (capped; at the cap "
+    "the coldest series is evicted per new one)",
+    registry=REGISTRY,
+)
+WITNESS_MATCHED = Gauge(
+    "tpushare_witness_events_matched_total",
+    "Fleet-day witness verdicts: injected events whose declared "
+    "marker/Event/metric legs all surfaced inside the conformance "
+    "window (monotonic, set at scrape from the witness counters)",
+    registry=REGISTRY,
+)
+WITNESS_LATE = Gauge(
+    "tpushare_witness_events_late_total",
+    "Fleet-day witness verdicts: injected events whose legs all "
+    "surfaced but whose marker landed past the conformance window "
+    "(monotonic, set at scrape)",
+    registry=REGISTRY,
+)
+WITNESS_MISSING = Gauge(
+    "tpushare_witness_events_missing_total",
+    "Fleet-day witness verdicts: injected events with at least one "
+    "declared leg that never surfaced — the page that would not have "
+    "fired (monotonic, set at scrape)",
+    registry=REGISTRY,
+)
+WITNESS_SPURIOUS = Gauge(
+    "tpushare_witness_events_spurious_total",
+    "Fleet-day witness verdicts: observed markers of witnessed kinds "
+    "no expectation's window explains — the page that fired for "
+    "nothing (monotonic, set at scrape)",
+    registry=REGISTRY,
+)
+
+
+#: Process birth for tpushare_uptime_seconds: this module is imported
+#: within milliseconds of every entry point's start.
+_PROCESS_START = _time_mod.time()
 
 
 def reset() -> None:
@@ -407,7 +483,39 @@ def reset() -> None:
 
 def render() -> bytes:
     with _SCRAPE_LOCK:
-        return REGISTRY.render()
+        text = REGISTRY.render()
+    # The exemplars go on outside the scrape lock (they read only the obs
+    # layer's own lock-free cells); annotate_metrics returns the text
+    # unchanged on any failure.
+    from tpushare_torch import obs
+    return obs.annotate_metrics(text)
+
+
+def observe_timeline() -> None:
+    """Refresh the retrospective layer's own series: build and uptime
+    (restart bracketing), anomaly firings, the timeline's drops and
+    series, and the fleet-day witness's verdict totals."""
+    import platform
+
+    from tpushare_torch import __version__, obs
+
+    with _SCRAPE_LOCK:
+        BUILD_INFO.labels(version=__version__,
+                          python=platform.python_version()).set(1)
+        UPTIME.set(_time_mod.time() - _PROCESS_START)
+        timeline = obs.timeline()
+        TIMELINE_SERIES.set(timeline.series_count())
+        TIMELINE_DROPPED.set(timeline.drops.value
+                             + timeline.mark_drops.value
+                             + obs.exemplars().drops.value)
+        ANOMALIES_FIRED.clear()
+        for rule, count in obs.anomalies().fired_counts().items():
+            ANOMALIES_FIRED.labels(rule=rule).set(count)
+        counts = obs.witness().counts()
+        WITNESS_MATCHED.set(counts["matched"])
+        WITNESS_LATE.set(counts["late"])
+        WITNESS_MISSING.set(counts["missing"])
+        WITNESS_SPURIOUS.set(counts["spurious"])
 
 
 def observe_cache(cache) -> None:
@@ -587,6 +695,7 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
             observe_cache(cache)
             observe_topology(cache)
             observe_process()
+            observe_timeline()
             if http_server is not None:
                 observe_http(http_server)
             if quota is not None:

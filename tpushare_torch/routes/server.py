@@ -19,6 +19,13 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
   the attempt ``id`` names); ``GET /debug/trace?id=`` — a decision's
   causal chain
 * ``GET  /debug/quota`` — the tenant quota ledger's snapshot
+* ``GET  /debug/timeline[?window=&series=&markers=]`` — the fleet
+  timeline: tiered series, markers, exemplars, anomaly state (404 under
+  ``TPUSHARE_TIMELINE=off``, 400 on a window that is not a number)
+* ``GET  /debug/blackbox`` — the flight journal's and the exporter's
+  health (404 unless ``TPUSHARE_BLACKBOX_DIR`` or ``TPUSHARE_EXPORT_URL``
+  armed one)
+* ``GET  /debug/fleetday`` — the fleet-day witness's schedule and verdict
 * ``GET  /debug/http`` — the wire path: pool, accept queue, keep-alive
   reuse, the micro-batch gates and the wire memos
 * ``GET  /version``, ``/healthz`` (``ok leader`` / ``ok follower`` under
@@ -34,7 +41,10 @@ and bind are one decision, finalized as ``bound``, ``failed``,
 the thread that drains the micro-batch, per item, because the handler's
 thread may be parked in the gate while a batch leader does its work. A
 caller's ``traceparent`` header becomes the decision's causal parent,
-and the reply carries the decision's own ``traceparent``.
+and the reply carries the decision's own ``traceparent``. Each verb's
+latency also feeds :mod:`tpushare_torch.obs` (``note_verb``): the
+timeline's p99 series and the exemplar that ``/metrics`` prints on the
+bucket it landed in.
 
 Under leader election a follower answers bind with 503 "not the leader"
 (``Retry-After: 1``), so the scheduler retries and the Service lands the
@@ -48,7 +58,7 @@ workers serves the accepted connections (``TPUSHARE_HTTP_WORKERS``, 8),
 each for its keep-alive lifetime; a full hand-off queue blocks the
 accept loop. The read verbs pass the micro-batch gate (routes/batch.py)
 and the repeat-shape fast paths of routes/wire.py. The reference's
-``/debug/pprof`` suite, profiler, SLO, timeline, defragmentation,
+``/debug/pprof`` suite, profiler, SLO, journey, defragmentation,
 autoscaler and router routes come with those modules.
 """
 
@@ -64,7 +74,7 @@ import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import tpushare_torch
-from tpushare_torch import trace
+from tpushare_torch import obs, trace
 from tpushare_torch.api.extender import (ExtenderBindingArgs,
                                          ExtenderPreemptionArgs)
 from tpushare_torch.routes import metrics, wire
@@ -274,6 +284,11 @@ class ExtenderHTTPServer(HTTPServer):
                 # Refused on every offered node: this attempt is over.
                 trace.complete(dec, "unschedulable",
                                error="rejected on every candidate node")
+        # Timeline and exemplar (fire-and-forget, lock-free): the p99
+        # series stays fresh without a scrape, and the bucket this
+        # latency lands in remembers the trace id.
+        obs.note_verb("filter", handler_ms / 1e3,
+                      dec.trace_id if dec is not None else "")
         return (wire.encode_filter_result(result), handler_ms,
                 dec.trace_id if dec is not None else "")
 
@@ -300,6 +315,8 @@ class ExtenderHTTPServer(HTTPServer):
                 trace.note_queue_wait(queue_s)
             entries = self.prioritize.handle(args, table=table)
         handler_ms = (time.perf_counter() - t0) * 1e3
+        obs.note_verb("prioritize", handler_ms / 1e3,
+                      dec.trace_id if dec is not None else "")
         return (wire.encode_host_priorities(entries), handler_ms,
                 dec.trace_id if dec is not None else "")
 
@@ -456,6 +473,21 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json({"tenants": self.server.quota.snapshot()})
         elif path == "/debug/http":
             self._send_json(self.server.http_stats())
+        elif path == "/debug/blackbox":
+            doc = obs.blackbox_snapshot()
+            if doc["journal"] is None and doc["export"] is None:
+                self._send_json(
+                    {"Error": "black-box journal is not armed "
+                              "(set TPUSHARE_BLACKBOX_DIR and/or "
+                              "TPUSHARE_EXPORT_URL)"}, 404)
+            else:
+                self._send_json(doc)
+        elif path == "/debug/fleetday":
+            # The fleet-day witness: its schedule, observation counts and
+            # the last evaluate() report (null until a replay ran).
+            self._send_json(obs.witness().snapshot())
+        elif path == "/debug/timeline":
+            self._debug_timeline()
         elif path == "/debug/trace":
             # A decision's causal chain: target, ancestors, descendants.
             chain_id = self._query().get("id", "")
@@ -482,6 +514,27 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             return False
         return True
+
+    def _debug_timeline(self) -> None:
+        if not obs.enabled():
+            self._send_json({"Error": "timeline recorder is disabled "
+                                      "(TPUSHARE_TIMELINE=off)"}, 404)
+            return
+        query = self._query()
+        window: float | None = None
+        raw_window = query.get("window", "")
+        if raw_window:
+            try:
+                window = min(max(float(raw_window), 1.0), 3600.0)
+            except ValueError:
+                self._send_json({"Error": "window must be numeric"}, 400)
+                return
+        series = None
+        if query.get("series"):
+            series = [s for s in query["series"].split(",") if s]
+        markers = query.get("markers", "1") not in ("0", "false")
+        self._send_json(obs.snapshot(window_s=window, series=series,
+                                     markers=markers))
 
     # -- verbs -------------------------------------------------------------
 
@@ -557,10 +610,13 @@ class _Handler(BaseHTTPRequestHandler):
                 with metrics.PREEMPT_LATENCY.time(), \
                         trace.phase("preempt", pre_args.pod.namespace,
                                     pre_args.pod.name, pre_args.pod.uid,
-                                    enabled=_traced_pod(pre_args.pod)):
+                                    enabled=_traced_pod(pre_args.pod)) \
+                        as dec:
                     trace.set_parent(self._parent_trace())
                     result = self.server.preempt.handle(pre_args)
                 handler_ms = (time.perf_counter() - t0) * 1e3
+                obs.note_verb("preempt", handler_ms / 1e3,
+                              dec.trace_id if dec is not None else "")
                 self._send_json(result.to_json(),
                                 extra_headers=_server_timing(handler_ms))
             elif path == f"{prefix}/validate":
@@ -615,6 +671,8 @@ class _Handler(BaseHTTPRequestHandler):
                                    error=result.error)
                 else:
                     trace.complete(dec, "bound", node=args.node)
+                obs.note_verb("bind", handler_ms / 1e3,
+                              dec.trace_id if dec is not None else "")
                 headers = _server_timing(handler_ms)
                 headers["traceparent"] = trace.format_traceparent(
                     dec.trace_id)
