@@ -20,7 +20,9 @@ sweeps its heartbeat) and the scheduler extender (phase 2f: the port's
 prioritize and bind over HTTP, the daemon commits that very pod over
 gRPC and the tenant serves in its env; then a seeded churn binds 4,096
 pods on a fleet of 1,024 H100 nodes, with p50 and p99 of the three
-verbs) and gangs (phase 2g: a gang of four placed on the card's node by
+verbs, twice, with the continuous profiler armed, its cost ledger held
+to ``/metrics`` and its pprof suite checked, and disarmed after) and
+gangs (phase 2g: a gang of four placed on the card's node by
 the extender, all or nothing through bind, and granted by the daemon
 over gRPC trains flagship steps on the card in gloo ranks started from
 only their Allocate responses; the controller reaps a gang that lost a
@@ -74,12 +76,14 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import http.client
 import json
 import math
 import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -94,6 +98,7 @@ import bench_workload_torch as BW
 import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch import obs as tobs
+from tpushare_torch import profiling as tprofiling
 from tpushare_torch import trace as ttrace
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cmd import main as extender_main
@@ -118,6 +123,8 @@ from tpushare_torch.workload import parallel as par
 from tpushare_torch.workload import pipeline as PP
 from tpushare_torch.workload import serving as S
 from tpushare_torch.workload import train as T
+from tpushare_torch.routes import pprof as tpprof
+from tpushare_torch.utils import locks as tlocks
 from tpushare_torch.utils import runtime as gc_runtime
 
 #: Kernel vs plain version on the card, rows that see a key:
@@ -267,7 +274,7 @@ SMOKE_POD_UID = "chip-smoke"
 #: allocation's), its request (phase 5's ``generate``) and its deadline.
 TENANT_FLAG = "--allocated-tenant"
 TENANT_KEEP_ENV = ("PATH", "HOME", "PYTHONPATH", "TMPDIR", "LD_LIBRARY_PATH",
-                   "CUDA_HOME", "CUDA_PATH")
+                   "CUDA_HOME", "CUDA_PATH", "PYTHONPYCACHEPREFIX")
 TENANT_BATCH, TENANT_PROMPT, TENANT_NEW = 8, 128, 64
 TENANT_DEADLINE_S = 180
 #: Phase 2e: the flag that runs this script as the daemon's tenant (phase
@@ -322,6 +329,21 @@ TIMELINE_FAMILIES = (
 #: 0.2 ms).
 OVERHEAD_BATCHES, OVERHEAD_PER_BATCH = 5, 500
 OVERHEAD_LIMIT, OVERHEAD_FLOOR_MS = 0.05, 0.2
+#: The profiler's attribution check (``bench.py``'s
+#: ``SCALE_GATE_ATTRIBUTION`` over ``SCALE_ATTRIBUTION_TOP`` frames a
+#: verb): the share of the scheduling verbs' profiled time that their
+#: listed frames explain. Phase 2f records it beside this bound.
+PROFILE_ATTRIBUTION, PROFILE_ATTRIBUTION_TOP = 0.90, 100
+#: The verbs of the churn, and the ledger's splits that 2f reports and
+#: holds ``/metrics``' ``tpushare_verb_*`` families to.
+PROFILE_VERBS = ("filter", "prioritize", "bind")
+LEDGER_FAMILIES = {
+    "decisions": "tpushare_verb_decisions_total",
+    "wallSeconds": "tpushare_verb_wall_seconds_total",
+    "cpuSeconds": "tpushare_verb_cpu_seconds_total",
+    "lockWaitSeconds": "tpushare_verb_lock_wait_seconds_total",
+    "apiSeconds": "tpushare_verb_apiserver_seconds_total",
+    "queueWaitSeconds": "tpushare_verb_queue_wait_seconds_total"}
 #: Phase 2g: gangs. The card's node; the gang of GANG_MEMBERS members
 #: (``w-0`` ...) that the extender places there, each asking for a
 #: GANG_MEMBERS-th of the card's GiB, trains GANG_STEPS flagship steps as
@@ -439,6 +461,9 @@ BENCH_DENSITY = (406, 12992, 1334, 3.29)
 #: When this process started its phases: each phase line carries the
 #: seconds since (``elapsed_s``), so a run's time can be split by phase.
 _STARTED = time.perf_counter()
+#: Held by an in-process leg of phases 5d-5h, which run in two lanes at
+#: once, from resetting this process's launch counters to reading them.
+_COUNTED = threading.Lock()
 
 
 def phase(name: str, **fields) -> None:
@@ -449,6 +474,32 @@ def phase(name: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def concurrently(*calls):
+    """Run each call (of no arguments) in a thread of its own and return
+    their results in order. Waits for every call to end, then raises the
+    first failure: a gang of a lane that did not fail runs to its end or
+    its deadline, so no process is left behind."""
+    results, errors = [None] * len(calls), [None] * len(calls)
+
+    def run(i: int, call) -> None:
+        try:
+            results[i] = call()
+        except BaseException as exc:        # re-raised below, in order
+            errors[i] = exc
+
+    threads = [threading.Thread(target=run, args=(i, call),
+                                name=f"chip_smoke-lane-{i}")
+               for i, call in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for exc in errors:
+        if exc is not None:
+            raise exc
+    return results
 
 
 def nvidia_smi(query: str) -> str:
@@ -491,6 +542,14 @@ def main(usage_dir: str) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    # Every process this script starts (a gang's ranks, a tenant) imports
+    # torch. Where the interpreter is told to write no bytecode, each one
+    # compiles torch's sources anew, seconds of CPU a process
+    # (tools/process_start_probe.py); a cache under the checkout's build/
+    # lets every process but the first skip that.
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
     # 1. Device.
     card = nvidia_smi("name,power.limit")
@@ -841,27 +900,47 @@ def main(usage_dir: str) -> int:
     phase("5b training", **train)
     replayed["training"] = train["replayed"]
 
-    # 5d. Sharded training: gangs of ranks on this card through the entry
-    # point's rank body, held to the single-process kernel step.
+    # 5d-5h. The gang phases, in two lanes at once, each lane's gangs
+    # granted from half the card: a gang spends most of its time starting
+    # its ranks (tools/process_start_probe.py), not on the card.
     ref, step_ref = step_ref, None
-    sharded = sharded_phase(cfg, inv.chips[0].hbm_gib, ref=ref)
-    phase("5d sharded training", card=card, **sharded)
+    card_gib = inv.chips[0].hbm_gib
+    lane_gib = card_gib // 2
+    torch.cuda.empty_cache()
 
-    # 5e. Pipeline and expert parallelism: the 1F1B pipe (and GPipe) with
-    # the kernels in every stage, the 4D pipe with ring-flash in the
-    # stages, and the ring-MoE, held to the same single-process step.
-    piped = pipe_phase(cfg, inv.chips[0].hbm_gib, ref)
-    phase("5e pipeline and expert parallelism", card=card, **piped)
+    def lane_a() -> tuple[dict, dict]:
+        # 5d. Sharded training: gangs of ranks on this card through the
+        # entry point's rank body, held to the single-process kernel step.
+        sharded = sharded_phase(cfg, card_gib, ref=ref, pool_gib=lane_gib)
+        phase("5d sharded training", card=card, **sharded)
+        # 5f. Checkpoint, resume and tp serving: a gang saves
+        # asynchronously, fresh gangs on the same and on another mesh
+        # resume from it, one process restores it unsharded and serves, a
+        # tp gang serves it.
+        return sharded, checkpoint_phase(cfg, card_gib, pool_gib=lane_gib)
+
+    def lane_b() -> tuple[dict, dict, dict]:
+        # 5e. Pipeline and expert parallelism: the 1F1B pipe (and GPipe)
+        # with the kernels in every stage, the 4D pipe with ring-flash in
+        # the stages, and the ring-MoE, held to the same single-process
+        # step.
+        piped = pipe_phase(cfg, card_gib, ref, pool_gib=lane_gib)
+        phase("5e pipeline and expert parallelism", card=card, **piped)
+        # 5f's pipe legs: a pipe gang's checkpoint in the reference's
+        # stacked layout, resumed on another tp, whole in this process,
+        # and refused onto another stage count.
+        pipe_ckpt = pipe_checkpoint_phase(cfg, card_gib, fraction,
+                                          pool_gib=lane_gib)
+        # 5h. The reference dry run as a user starts it, tiny width (head
+        # dim 16; training bf16, the other parts fp32), every part, a gang
+        # on the card held to the same gang on the host.
+        dry = dryrun_phase(card_gib, pool_gib=lane_gib)
+        phase("5h tiny dry run", card=card, **dry)
+        return piped, pipe_ckpt, dry
+
+    (sharded, lifecycle), (piped, pipe_ckpt, dry) = concurrently(lane_a,
+                                                                 lane_b)
     del ref
-
-    # 5f. Checkpoint, resume and tp serving: a gang saves asynchronously,
-    # fresh gangs on the same and on another mesh resume from it, one
-    # process restores it unsharded and serves, a tp gang serves it.
-    lifecycle = checkpoint_phase(cfg, inv.chips[0].hbm_gib)
-    # Its pipe legs: a pipe gang's checkpoint in the reference's stacked
-    # layout, resumed on another tp, whole in this process, and refused
-    # onto another stage count.
-    pipe_ckpt = pipe_checkpoint_phase(cfg, inv.chips[0].hbm_gib, fraction)
     lifecycle["launches"].update(pipe_ckpt.pop("launches"))
     phase("5f checkpoint, resume and tp serving", card=card, **lifecycle,
           pipe=pipe_ckpt)
@@ -896,11 +975,6 @@ def main(usage_dir: str) -> int:
     train32 = fp32_train_phase(tokens)
     phase("5g fp32 flagship training", card=card, **train32)
 
-    # 5h. The reference dry run as a user starts it, tiny width (head_dim
-    # 16; training bf16, the other parts fp32), every part, a gang on the
-    # card held to the same gang on the host.
-    dry = dryrun_phase(inv.chips[0].hbm_gib)
-    phase("5h tiny dry run", card=card, **dry)
     timings, bwd_timings = {}, {}
     d16_timed = {(name, dn): x for (name, dn), x in d16_inputs.items()
                  if name in D16_TIMED and dn == "bfloat16"}
@@ -1943,8 +2017,6 @@ class ExtenderClient:
     ``sent`` the POSTs sent, by path."""
 
     def __init__(self, server):
-        import http.client
-
         self.address = server.server_address[:2]
         self.conn = http.client.HTTPConnection(*self.address, timeout=60)
         self.prefix = "/tpushare-scheduler"
@@ -1953,12 +2025,27 @@ class ExtenderClient:
         self.last_traceparent: str | None = None
         self.sent: collections.Counter = collections.Counter()
 
+    def _send(self, method: str, path: str, **kw
+              ) -> http.client.HTTPResponse:
+        """One request on the kept connection, and its response. The
+        server closes a connection idle past its socket timeout
+        (``TPUSHARE_HTTP_TIMEOUT_S``, 30 s), unread: a request that finds
+        it closed goes again on a new one, as kube-scheduler's transport
+        sends it again."""
+        try:
+            self.conn.request(method, path, **kw)
+            return self.conn.getresponse()
+        except (http.client.RemoteDisconnected, ConnectionResetError,
+                BrokenPipeError):
+            self.conn.close()
+            self.conn.request(method, path, **kw)
+            return self.conn.getresponse()
+
     def post(self, path: str, doc: dict) -> tuple[int, object, float]:
         self.sent[path] += 1
-        self.conn.request("POST", self.prefix + path,
+        resp = self._send("POST", self.prefix + path,
                           body=json.dumps(doc).encode(),
                           headers={"Content-Type": "application/json"})
-        resp = self.conn.getresponse()
         body = json.loads(resp.read())
         self.last_traceparent = resp.getheader("traceparent")
         timing = {name.strip(): float(dur) for name, _, dur in (
@@ -1968,16 +2055,14 @@ class ExtenderClient:
         return resp.status, body, sum(timing.values())
 
     def get(self, path: str, prefixed: bool = True) -> dict:
-        self.conn.request("GET", (self.prefix if prefixed else "") + path)
-        resp = self.conn.getresponse()
+        resp = self._send("GET", (self.prefix if prefixed else "") + path)
         check(resp.status == 200, f"GET {path}: {resp.status}")
         return json.loads(resp.read())
 
     def text(self, path: str) -> bytes:
         """GET a path of the server's root; its body, which must be a
         200."""
-        self.conn.request("GET", path)
-        resp = self.conn.getresponse()
+        resp = self._send("GET", path)
         body = resp.read()
         check(resp.status == 200, f"GET {path}: {resp.status} {body[:200]}")
         return body
@@ -1991,8 +2076,7 @@ class ExtenderClient:
         return self.get(f"/debug/trace/{namespace}/{name}", prefixed=False)
 
     def healthz(self) -> str:
-        self.conn.request("GET", "/healthz")
-        resp = self.conn.getresponse()
+        resp = self._send("GET", "/healthz")
         check(resp.status == 200, f"GET /healthz: {resp.status}")
         return resp.read().decode()
 
@@ -2056,8 +2140,6 @@ class Scraper:
     parsed. Keeps each scrape's ms, and the body's bytes and series."""
 
     def __init__(self, address, every: float = 1.0):
-        import http.client
-
         self.conn = http.client.HTTPConnection(*address, timeout=60)
         self.every = every
         self.ms: list[float] = []
@@ -2555,6 +2637,200 @@ def notready_leg(api: FakeApiServer, client: ExtenderClient,
             "seconds": time.perf_counter() - t0}
 
 
+def arm_profiler() -> object:
+    """Arm the port's continuous profiler over phase 2f's churns, as
+    ``bench.py --scale`` arms it and the deployed ``main`` does by
+    default (``profiling.reset(); profiling.start()``), the contention
+    registry emptied with it. Returns the ``SIGPROF`` handler it
+    replaced, for ``disarm_profiler``."""
+    handler = signal.getsignal(signal.SIGPROF)
+    tlocks.reset_contention()
+    tprofiling.reset()
+    check(tprofiling.start(), "the continuous profiler was armed already")
+    return handler
+
+
+def disarm_profiler(handler: object) -> dict:
+    """``profiling.stop()``; then no ``ITIMER_PROF`` may be left firing
+    into the phases that follow in this process (gRPC, gloo, NCCL,
+    CUDA), and ``SIGPROF``'s handler must be ``handler`` again."""
+    tprofiling.stop()
+    timer = signal.getitimer(signal.ITIMER_PROF)
+    check(timer == (0.0, 0.0), f"ITIMER_PROF still set: {timer}")
+    check(signal.getsignal(signal.SIGPROF) == handler,
+          f"SIGPROF's handler is {signal.getsignal(signal.SIGPROF)}, "
+          f"not {handler} as before the churns")
+    return {"itimer_prof": list(timer), "sigprof_restored": True}
+
+
+def _fetch(address, path: str) -> tuple[int, str, bytes]:
+    """GET ``path`` over a connection of its own: status, Content-Type,
+    body."""
+    conn = http.client.HTTPConnection(*address, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type") or "", resp.read()
+    finally:
+        conn.close()
+
+
+def attribution_share(verbs: dict) -> float:
+    """``bench.py``'s attribution arithmetic over ``/debug/hotspots``'
+    verbs: the scheduling verbs' coverage, weighted by each verb's
+    profiled seconds (the decision probe) or estimated seconds (the
+    sampler)."""
+    sched = {v: d for v, d in verbs.items()
+             if v in ("filter", "prioritize", "bind", "preempt")}
+    weight = lambda d: float(d.get("profiledSeconds")
+                             or d.get("estSeconds") or 0)
+    total = sum(weight(d) for d in sched.values())
+    return (sum(weight(d) * d["coverage"] for d in sched.values()) / total
+            if total else 0.0)
+
+
+def ledger_metrics_checks(client: ExtenderClient) -> dict:
+    """After a churn, the extender idle: the cost ledger's decisions for
+    each verb equal ``tpushare_verb_decisions_total{verb}`` on a scrape,
+    and every ``tpushare_verb_*`` split of the ledger's snapshot is the
+    scrape's sample, verb for verb. Returns the snapshot."""
+    scraped = client.metrics()
+    ledger = tprofiling.ledger().snapshot()
+    for verb in PROFILE_VERBS:
+        check(ledger.get(verb, {}).get("decisions", 0) > 0,
+              f"the cost ledger counted no {verb}: {ledger}")
+    for key, family in LEDGER_FAMILIES.items():
+        got = {dict(labels)["verb"]: v for (n, labels), v in scraped.items()
+               if n == family}
+        want = {verb: float(row[key]) for verb, row in ledger.items()}
+        check(got == want, f"{family} scraped {got}, the ledger {want}")
+    return ledger
+
+
+def mutex_profile_checks(client: ExtenderClient) -> dict:
+    """``/debug/pprof/mutex`` renders exactly ``locks.
+    contention_snapshot()``: read between two equal snapshots (a
+    background thread may contend in between; then it is read again).
+    Returns the sites with their count and seconds."""
+    for _ in range(5):
+        snap = tlocks.contention_snapshot()
+        body = client.text("/debug/pprof/mutex").decode()
+        want = tlocks.render_mutex_profile()
+        if tlocks.contention_snapshot() == snap:
+            break
+    else:
+        check(False, "the contention registry never held still")
+    check(body == want, f"/debug/pprof/mutex: {body[:400]!r}, the "
+                        f"registry renders {want[:400]!r}")
+    return {site: {"count": c, "seconds": w}
+            for site, (c, w) in sorted(snap.items(), key=lambda kv: -kv[1][1])}
+
+
+def pprof_checks(client: ExtenderClient, server) -> dict:
+    """The pprof suite of the churned stack, the profiler armed:
+    ``/debug/pprof/profile?seconds=1`` gives collapsed stacks naming the
+    port's HTTP workers (``_http_worker``, ``server.py``) while a second,
+    overlapping profile answers 409; ``/debug/pprof/trace?seconds=1``
+    parses as JSON; ``/debug/pprof/heap?stop=1`` answers 200 and leaves
+    ``tracemalloc`` stopped; ``/debug/threads`` names every HTTP worker
+    of ``server``."""
+    import tracemalloc
+
+    first: dict = {}
+    t = threading.Thread(target=lambda: first.update(got=_fetch(
+        client.address, "/debug/pprof/profile?seconds=1&hz=100")),
+        name="chip-smoke-profile", daemon=True)
+    t.start()
+    _until(lambda: tpprof._profile_lock._owner is not None or not
+           t.is_alive(), 10, "the first CPU profile to start")
+    busy, _, busy_body = _fetch(client.address,
+                                "/debug/pprof/profile?seconds=1")
+    t.join(60)
+    status, ctype, profile = first["got"]
+    text = profile.decode()
+    stacks = [ln for ln in text.splitlines()[1:] if ln]
+    check(status == 200 and ctype.startswith("text/plain")
+          and text.startswith("# collapsed-stack profile:")
+          and any("_http_worker (server.py:" in ln for ln in stacks),
+          f"/debug/pprof/profile: {status} {ctype} {text[:400]!r}")
+    check(busy == 409, f"an overlapping profile answered {busy} "
+                       f"{busy_body[:200]!r}")
+    status, ctype, body = _fetch(client.address,
+                                 "/debug/pprof/trace?seconds=1")
+    events = json.loads(body)["traceEvents"]
+    check(status == 200 and ctype == "application/json" and events,
+          f"/debug/pprof/trace: {status} {ctype} {len(events)} events")
+    status, _, heap = _fetch(client.address, "/debug/pprof/heap?stop=1")
+    check(status == 200 and not tracemalloc.is_tracing(),
+          f"/debug/pprof/heap?stop=1: {status}, tracing "
+          f"{tracemalloc.is_tracing()}")
+    dump = client.text("/debug/threads").decode()
+    workers = [t.name for t in server._http_threads]
+    check(workers and all(f"--- {w} (" in dump for w in workers),
+          f"/debug/threads names {dump.count('--- ')} threads, not the "
+          f"workers {workers}")
+    return {"profile_stacks": len(stacks), "profile_bytes": len(profile),
+            "overlap_status": busy, "trace_events": len(events),
+            "heap_stop": heap.decode().strip(), "threads_named":
+            len(workers)}
+
+
+def profiler_legs(client: ExtenderClient, server) -> dict:
+    """Phase 2f's profiling legs on the churned stack, the profiler
+    armed since before the churn: the profiler's status (driver, passes,
+    ``overhead_ratio``, drops), the ledger's ``verbCosts`` for filter,
+    prioritize and bind, held to ``/metrics`` (``ledger_metrics_checks``),
+    ``/debug/hotspots`` (an entry for each verb, the top five frames of
+    every bucket, ``other`` and ``idle`` included; the attribution share
+    at ``top=100`` beside 0.90, recorded, not gated),
+    ``/debug/profile/continuous``' lines and bytes, the mutex profile
+    (``mutex_profile_checks``) and the pprof suite (``pprof_checks``)."""
+    t0 = time.perf_counter()
+    ledger = ledger_metrics_checks(client)
+    hot = client.get(f"/debug/hotspots?top={PROFILE_ATTRIBUTION_TOP}"
+                     "&window=3600", prefixed=False)
+    for verb in PROFILE_VERBS:
+        check(verb in hot["verbs"], f"/debug/hotspots has no {verb}: "
+                                    f"{sorted(hot['verbs'])}")
+    check(hot["verbCosts"] == ledger,
+          f"/debug/hotspots' verbCosts {hot['verbCosts']}, the ledger "
+          f"{ledger}")
+    share = attribution_share(hot["verbs"])
+    continuous = client.text("/debug/profile/continuous?window=3600")
+    check(continuous.startswith(b"# continuous-profile:"),
+          f"/debug/profile/continuous: {continuous[:200]!r}")
+    mutex = mutex_profile_checks(client)
+    pprof = pprof_checks(client, server)
+    status = tprofiling.profiler().status()
+    return {"driver": status["driver"],
+            "sampling_passes": status["samplingPasses"],
+            "overhead_ratio": status["overheadRatio"],
+            "drops": status["drops"],
+            "decision_drops": tprofiling.decisions().drops,
+            "recording_drops": ttrace.recorder().drops.value,
+            "verb_costs": {v: ledger[v] for v in PROFILE_VERBS},
+            "engines": {v: hot["verbs"][v].get("engine")
+                        for v in PROFILE_VERBS},
+            "top_frames": {v: [[f["frame"], f["share"]]
+                               for f in d["frames"][:5]]
+                           for v, d in sorted(hot["verbs"].items())},
+            "attribution": share,
+            "attribution_pass": share >= PROFILE_ATTRIBUTION,
+            "continuous_lines": continuous.count(b"\n") + 1,
+            "continuous_bytes": len(continuous),
+            "mutex_sites": mutex, **pprof,
+            "legs_s": time.perf_counter() - t0}
+
+
+def tenant_lock_wait(client: ExtenderClient, name: str) -> list:
+    """The tenant's decision's spans: phase, ``lockWaitSeconds`` and any
+    ``worstLockSite``."""
+    doc = client.decision("default", name)
+    return [{"phase": s["phase"], "lockWaitSeconds": s["lockWaitSeconds"],
+             "worstLockSite": s.get("attrs", {}).get("worstLockSite")}
+            for s in doc["spans"]]
+
+
 def extender_phase(inv: discovery.HostInventory, usage_dir: str,
                    fleet: int = EXTENDER_FLEET,
                    target: int = EXTENDER_BOUND) -> dict:
@@ -2574,11 +2850,14 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
     (``held_tenant_phase``); (e') the extender restarts and replays the
     tenant's decision from the journal (``extender_restart``), which is
     then disarmed; (f) ``extender_churn`` binds ``target`` pods on the
-    fleet on the second stack, with the interpreter's GC thresholds and
-    the timeline on, as ``bench.py --scale`` runs its churn; then
+    fleet on the second stack, with the interpreter's GC thresholds, the
+    timeline on and the continuous profiler armed (``arm_profiler``), as
+    ``bench.py --scale`` runs its churn; then ``profiler_legs`` and
     ``extender_timeline_checks``; (f') a fleet node goes NotReady
     (``notready_leg``); (g) ``gc_posture_churn`` runs the churn again on
-    a fresh fleet under the reference extender's GC posture. The tenant's
+    a fresh fleet under the reference extender's GC posture, the
+    profiler still armed, which ``disarm_profiler`` then stops. The
+    tenant's decision's lock waits are reported. The tenant's
     decision trace and the metrics of its bind are checked on the way
     (``bound_trace_checks``; the fake is a ``WireTimedApi``, so the
     allocate span counts its apiserver requests)."""
@@ -2600,22 +2879,37 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
                 client.close()
                 extender_main.shutdown_stack(stack, server)
                 raise
+        # (f) The churn on the second stack: timeline on, journal off,
+        # the continuous profiler armed over it and over (g).
+        handler = arm_profiler()
         try:
-            # (f) The churn on the second stack: timeline on, journal off.
-            tobs.stop_blackbox()
-            churn = extender_churn(api, stack, client, names, target=target)
-            watched = extender_timeline_checks(api, client, len(names) + 1)
-            t0 = time.perf_counter()
-            notready = notready_leg(api, client, names[0], len(names) + 1)
-            notready["leg_s"] = time.perf_counter() - t0
+            try:
+                tobs.stop_blackbox()
+                churn = extender_churn(api, stack, client, names,
+                                       target=target)
+                profiled = profiler_legs(client, server)
+                watched = extender_timeline_checks(api, client,
+                                                   len(names) + 1)
+                t0 = time.perf_counter()
+                notready = notready_leg(api, client, names[0],
+                                        len(names) + 1)
+                notready["leg_s"] = time.perf_counter() - t0
+            finally:
+                client.close()
+                extender_main.shutdown_stack(stack, server)
+            # (g) The same churn under the reference extender's GC
+            # posture.
+            posture = gc_posture_churn(fleet, target)
+            profiled["after_gc_posture"] = tprofiling.profiler().status()
+            profiled["verb_costs_both_churns"] = {
+                v: row for v, row in tprofiling.ledger().snapshot().items()
+                if v in PROFILE_VERBS}
         finally:
-            client.close()
-            extender_main.shutdown_stack(stack, server)
+            disarmed = disarm_profiler(handler)
     finally:
         tobs.stop_blackbox()
         shutil.rmtree(journal, ignore_errors=True)
-    # (g) The same churn under the reference extender's GC posture.
-    posture = gc_posture_churn(fleet, target)
+    profiled.update(disarmed)
     return {"tenant_node": first["node"], "tenant_card": first["card"],
             "tenant_position": first["position"],
             "tenant_trace": first["traced"],
@@ -2624,8 +2918,10 @@ def extender_phase(inv: discovery.HostInventory, usage_dir: str,
             "tenant_bind_exemplar": first["exemplar"],
             "committed": first["committed"], "envs": first["envs"],
             "fleet_seconds": first["fleet_s"], "restart": restart,
-            "churn": churn, "timeline": watched, "notready": notready,
-            "churn_gc_posture": posture, **first["served"]}
+            "tenant_lock_wait": first["lock_wait"],
+            "churn": churn, "profiler": profiled, "timeline": watched,
+            "notready": notready, "churn_gc_posture": posture,
+            **first["served"]}
 
 
 def extender_first_stack(api: FakeApiServer, stack,
@@ -2677,6 +2973,7 @@ def extender_first_stack(api: FakeApiServer, stack,
               f"bind exemplars {exemplar}, the tenant's trace id "
               f"{traced['trace_id']}")
         traced.update(hbm_used_gib=gauged, binds_counted=binds)
+        lock_wait = tenant_lock_wait(client, tenant.name)
         chip = inv.chips[position[0]]
         # (d) The daemon's Allocate over gRPC.
         grants = NodeGrants(EXTENDER_NODE, api, inv, pdir, usage_dir)
@@ -2700,7 +2997,8 @@ def extender_first_stack(api: FakeApiServer, stack,
             "position": position[0], "traced": traced,
             "handler_ms": handler_ms, "wire_ms": wire_ms,
             "exemplar": exemplar[0], "committed": tenant.name,
-            "envs": wire.envs, "fleet_s": fleet_s, "served": served}
+            "envs": wire.envs, "fleet_s": fleet_s, "served": served,
+            "lock_wait": lock_wait}
 
 
 def _probe_batch(client: ExtenderClient, names: list[str], rng, pod,
@@ -2800,12 +3098,37 @@ def blackbox_overhead_probe(api: FakeApiServer, client: ExtenderClient,
     return {**_probe_verdict(p99s), "exported_records": sent}
 
 
+def profiler_overhead_probe(api: FakeApiServer, client: ExtenderClient,
+                            names: list[str], rng,
+                            batches: int = OVERHEAD_BATCHES,
+                            per_batch: int = OVERHEAD_PER_BATCH) -> dict:
+    """``bench.py``'s ``_overhead_probe`` on the port: batches in turns
+    with the continuous profiler stopped and armed (``profiling.stop()``
+    / ``profiling.start()``: the sampler and the duty-cycled decision
+    probe). It is left stopped afterwards, and ``ITIMER_PROF`` with it."""
+    pod = api.create_pod(make_pod("profiler-probe", hbm=24))
+    p99s: dict = {True: [], False: []}
+    try:
+        for _ in range(batches):
+            for armed in (False, True):
+                tprofiling.start() if armed else tprofiling.stop()
+                p99s[armed].append(_probe_batch(client, names, rng, pod,
+                                                per_batch))
+        driver = tprofiling.profiler().driver()
+        passes = tprofiling.profiler().status()["samplingPasses"]
+    finally:
+        tprofiling.stop()
+    return {**_probe_verdict(p99s), "driver": driver,
+            "sampling_passes": passes}
+
+
 def overhead_phase(fleet: int = EXTENDER_FLEET, seed: int = EXTENDER_SEED,
                    batches: int = OVERHEAD_BATCHES,
                    per_batch: int = OVERHEAD_PER_BATCH) -> dict:
-    """Both overhead gates on phase 2f's fleet (the card's node left
+    """The three overhead gates on phase 2f's fleet (the card's node left
     out): a ``serve_stack`` over ``fleet`` H100 nodes, then
-    ``timeline_overhead_probe`` and ``blackbox_overhead_probe``. Not run
+    ``timeline_overhead_probe``, ``blackbox_overhead_probe`` and
+    ``profiler_overhead_probe``. Not run
     by ``main`` (about 40 s it does not have): ``tools/
     extender_phases.py --overhead`` runs it. A failing gate is recorded,
     not raised."""
@@ -2825,12 +3148,18 @@ def overhead_phase(fleet: int = EXTENDER_FLEET, seed: int = EXTENDER_SEED,
         blackbox_gate = blackbox_overhead_probe(api, client, names, rng,
                                                 batches, per_batch)
         t2 = time.perf_counter()
+        tprofiling.reset()
+        profiler_gate = profiler_overhead_probe(api, client, names, rng,
+                                                batches, per_batch)
+        t3 = time.perf_counter()
     finally:
+        tprofiling.reset()
         client.close()
         extender_main.shutdown_stack(stack, server)
     return {"nodes": fleet, "timeline": {**timeline_gate,
                                          "seconds": t1 - t0},
-            "blackbox": {**blackbox_gate, "seconds": t2 - t1}}
+            "blackbox": {**blackbox_gate, "seconds": t2 - t1},
+            "profiler": {**profiler_gate, "seconds": t3 - t2}}
 
 
 def gang_pod(name: str, gib: int, group: str, minimum: int,
@@ -4504,7 +4833,8 @@ def single_process_step(cfg: M.ModelConfig) -> dict:
 
 
 def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
-                  backend: str = "gloo", ref: dict | None = None) -> dict:
+                  backend: str = "gloo", ref: dict | None = None, *,
+                  pool_gib: int | None = None) -> dict:
     """Phase 5d: sharded training of the flagship on this card.
 
     First the single-process kernel step (:func:`single_process_step`,
@@ -4513,7 +4843,8 @@ def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
     train`` (the rank body ``entry.dryrun_multichip``) with the gang env a
     pod gets, drawing the same weights and batch.
     With ``backend`` gloo every rank runs on card 0 under a grant of
-    floor(``card_gib`` / ranks); with nccl (``tools/nccl_gang.py``) rank
+    floor(``pool_gib`` / ranks) (the whole card's ``card_gib`` by
+    default); with nccl (``tools/nccl_gang.py``) rank
     i owns card i whole, with no grant.
     Fails unless, for every mesh and strategy, the first step's loss is
     within ``TRAIN_LOSS_TOL`` relative and every gathered gradient within
@@ -4538,7 +4869,8 @@ def sharded_phase(cfg: M.ModelConfig, card_gib: int, gangs=GANGS,
         for world, mesh, attentions in gangs:
             sp = int(mesh.split(",")[2])
             save = os.path.join(tmp, f"grads-{mesh}.pt")
-            grant = card_gib // world if backend == "gloo" else None
+            grant = ((pool_gib or card_gib) // world if backend == "gloo"
+                     else None)
             t0 = time.perf_counter()
             records = launch.launch(
                 ["-m", "tpushare_torch.entry", "--mesh", mesh,
@@ -4632,11 +4964,12 @@ def moe_reference(mesh_shape: str) -> dict:
 
 
 def pipe_phase(cfg: M.ModelConfig, card_gib: int, ref: dict,
-               gangs=PIPE_GANGS) -> dict:
+               gangs=PIPE_GANGS, *, pool_gib: int | None = None) -> dict:
     """Phase 5e: pipeline and expert parallelism of the flagship on this
     card. Each of ``gangs`` through ``runtime.launch``: ranks of ``python
     -m tpushare_torch.entry --parts ...`` at flagship width, over gloo,
-    under grants of floor(``card_gib`` / ranks), drawing the dry run's
+    under grants of floor(``pool_gib`` / ranks) (``card_gib`` by
+    default), drawing the dry run's
     weights and batch, ``PIPE_CALLS`` calls of each part.
 
     Fails unless, for each pipe, the first call's loss is within
@@ -4659,7 +4992,7 @@ def pipe_phase(cfg: M.ModelConfig, card_gib: int, ref: dict,
     with tempfile.TemporaryDirectory(prefix="chip_smoke-pipe-") as tmp:
         for name, world, mesh, parts in gangs:
             save = os.path.join(tmp, f"{name}.pt")
-            grant = card_gib // world
+            grant = (pool_gib or card_gib) // world
             t0 = time.perf_counter()
             records = launch.launch(
                 ["-m", "tpushare_torch.entry", "--mesh", mesh, "--parts",
@@ -4759,12 +5092,14 @@ def _same_weights(got: dict, want: dict) -> bool:
                                          for n in want)
 
 
-def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
+def checkpoint_phase(cfg: M.ModelConfig, card_gib: int, *,
+                     pool_gib: int | None = None) -> dict:
     """Phase 5f: the train → checkpoint → restore → serve lifecycle of the
     flagship (bf16, phase 5b's 8 x 2048 global batch, the dry run's
     weights), gangs of ``CKPT_RANKS`` ranks of ``python -m
-    tpushare_torch.entry`` over gloo under grants of floor(``card_gib`` /
-    ranks), the checkpoint in a temporary directory:
+    tpushare_torch.entry`` over gloo under grants of floor(``pool_gib`` /
+    ranks) (``card_gib`` by default), the checkpoint in a temporary
+    directory:
 
     (a) a (2, 2, 1) gang takes ``CKPT_STEPS`` steps with an async save
         after step ``CKPT_AT`` (``--ckpt-every``), so the next step runs
@@ -4789,7 +5124,7 @@ def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
     forwards a prefill in (d) and (e). Returns the phase's fields;
     ``launches`` sums the counts by leg. Host clocks throughout."""
     n = cfg.n_layers
-    grant = card_gib // CKPT_RANKS
+    grant = (pool_gib or card_gib) // CKPT_RANKS
     fields, launches = {"grant_gib": grant}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as tmp:
         ckdir = os.path.join(tmp, "ckpt")
@@ -4875,61 +5210,62 @@ def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
         fields["c"] = c
 
         # (d) Restore unsharded in this process and serve.
-        torch.cuda.empty_cache()
-        dev = torch.device("cuda")
-        ckptr = CK.Checkpointer(CK.CheckpointConfig(ckdir))
-        params = M.init_params(_dev_gen(9), cfg)
-        opt = T.make_optimizer()(params.parameters())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, step = ckptr.restore(params, opt)
-        torch.cuda.synchronize()
-        restore_ms = 1e3 * (time.perf_counter() - t0)
-        ckptr.close()
-        check(step == CKPT_AT, f"5f(d) restored step {step}")
-        check(_same_weights({k: p.detach().cpu() for k, p in
-                             params.named_parameters()}, saved_w),
-              "5f(d) restored weights differ from the saved ones")
-        del opt
-        _, shape, n_new, max_len = E.serve_setup("flagship", None)
-        prompts = E.serve_prompts(cfg, shape, dev)
-        d_launches = launches.setdefault("checkpoint_d_serve",
-                                         collections.Counter())
-        _zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = S.generate(params, prompts, cfg, n_new, max_len,
-                         attn_fn=FA.flash_attention)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        counts = _counts()
-        check(counts == {"flash_fwd": n, "flash_bwd_dq": 0,
-                         "flash_bwd_dkv": 0},
-              f"5f(d) generate launched {counts}")
-        d_launches.update(counts)
-        check(tuple(out.shape) == (shape[0], max_len)
-              and torch.equal(out[:, :shape[1]], prompts)
-              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-              f"5f(d) stream {tuple(out.shape)} lost its prompt or left "
-              f"the vocab")
-        FA.FLASH_FWD_LAUNCHES = 0
-        logits, _ = S.prefill(params, prompts, S.init_cache(
-            cfg, shape[0], max_len), attn_fn=FA.flash_attention)
-        check(FA.FLASH_FWD_LAUNCHES == n,
-              f"5f(d) prefill launched {FA.FLASH_FWD_LAUNCHES}")
-        d_launches.update(_counts())
-        with torch.inference_mode():
-            ref = M.forward(params, prompts, cfg)[:, -1]
-        d_err = _norm_err(logits, ref)
-        check(d_err <= LOGIT_TOL, f"5f(d) prefill logits off forward by "
-                                  f"{d_err}")
-        fields["d"] = {"restored_step": step, "restore_ms": restore_ms,
-                       "restore_stats": ckptr.last_restore_stats,
-                       "generate_s": gen_s,
-                       "new_tok_per_s": shape[0] * n_new / gen_s,
-                       "prefill_vs_forward_err": d_err,
-                       "launches_per_prefill": n}
-        del params
+        with _COUNTED:
+            torch.cuda.empty_cache()
+            dev = torch.device("cuda")
+            ckptr = CK.Checkpointer(CK.CheckpointConfig(ckdir))
+            params = M.init_params(_dev_gen(9), cfg)
+            opt = T.make_optimizer()(params.parameters())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, step = ckptr.restore(params, opt)
+            torch.cuda.synchronize()
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            ckptr.close()
+            check(step == CKPT_AT, f"5f(d) restored step {step}")
+            check(_same_weights({k: p.detach().cpu() for k, p in
+                                 params.named_parameters()}, saved_w),
+                  "5f(d) restored weights differ from the saved ones")
+            del opt
+            _, shape, n_new, max_len = E.serve_setup("flagship", None)
+            prompts = E.serve_prompts(cfg, shape, dev)
+            d_launches = launches.setdefault("checkpoint_d_serve",
+                                             collections.Counter())
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = S.generate(params, prompts, cfg, n_new, max_len,
+                             attn_fn=FA.flash_attention)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            counts = _counts()
+            check(counts == {"flash_fwd": n, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0},
+                  f"5f(d) generate launched {counts}")
+            d_launches.update(counts)
+            check(tuple(out.shape) == (shape[0], max_len)
+                  and torch.equal(out[:, :shape[1]], prompts)
+                  and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  f"5f(d) stream {tuple(out.shape)} lost its prompt or left "
+                  f"the vocab")
+            FA.FLASH_FWD_LAUNCHES = 0
+            logits, _ = S.prefill(params, prompts, S.init_cache(
+                cfg, shape[0], max_len), attn_fn=FA.flash_attention)
+            check(FA.FLASH_FWD_LAUNCHES == n,
+                  f"5f(d) prefill launched {FA.FLASH_FWD_LAUNCHES}")
+            d_launches.update(_counts())
+            with torch.inference_mode():
+                ref = M.forward(params, prompts, cfg)[:, -1]
+            d_err = _norm_err(logits, ref)
+            check(d_err <= LOGIT_TOL, f"5f(d) prefill logits off forward by "
+                                      f"{d_err}")
+            fields["d"] = {"restored_step": step, "restore_ms": restore_ms,
+                           "restore_stats": ckptr.last_restore_stats,
+                           "generate_s": gen_s,
+                           "new_tok_per_s": shape[0] * n_new / gen_s,
+                           "prefill_vs_forward_err": d_err,
+                           "launches_per_prefill": n}
+            del params
 
         # (e) The tp decode, from the same checkpoint.
         records, got_e, secs = gang("e", "2,2,1", "serve", "--resume")
@@ -4966,12 +5302,14 @@ def checkpoint_phase(cfg: M.ModelConfig, card_gib: int) -> dict:
 
 
 def pipe_checkpoint_phase(cfg: M.ModelConfig, card_gib: int,
-                          fraction: float) -> dict:
+                          fraction: float, *,
+                          pool_gib: int | None = None) -> dict:
     """Phase 5f's pipe legs: checkpoints of a 1F1B flagship pipe gang
     (bf16, phase 5b's 8 x 2048 global batch, the dry run's weights, M =
     4) in the reference's stacked layout, gangs of ``python -m
-    tpushare_torch.entry`` over gloo under grants of floor(``card_gib`` /
-    ranks), the checkpoint in a temporary directory:
+    tpushare_torch.entry`` over gloo under grants of floor(``pool_gib`` /
+    ranks) (``card_gib`` by default), the checkpoint in a temporary
+    directory:
 
     (f) a (2, 1, 1, 2) gang (the ``dp_pp`` part of a (2, 1, 2) training
         mesh) takes ``CKPT_STEPS`` AdamW steps with an async save after
@@ -4996,12 +5334,13 @@ def pipe_checkpoint_phase(cfg: M.ModelConfig, card_gib: int,
     that (f)'s part runs after k·M forwards. Returns the legs' fields and
     ``launches`` by leg. Host clocks throughout."""
     fields, launches = {}, {}
+    pool = pool_gib or card_gib
     with tempfile.TemporaryDirectory(prefix="chip_smoke-pipe-ckpt-") as tmp:
         ckdir = os.path.join(tmp, "ckpt")
 
         def leg(name, world, mesh, part, *extra):
             save = os.path.join(tmp, f"{name}.pt")
-            grant = card_gib // world
+            grant = pool // world
             t0 = time.perf_counter()
             records = launch.launch(
                 ["-m", "tpushare_torch.entry", "--mesh", mesh, "--parts",
@@ -5085,51 +5424,53 @@ def pipe_checkpoint_phase(cfg: M.ModelConfig, card_gib: int,
         fields["g"] = g
 
         # (h) The whole stacked tree in this process, and the next step.
-        torch.cuda.empty_cache()
-        torch.cuda.set_per_process_memory_fraction(1.0)
-        params = M.init_params(_dev_gen(9), cfg)
-        stage = PP.flagship_stage([{k: p.detach() for k, p in
-                                    blk.named_parameters()}
-                                   for blk in params.blocks])
-        edge = PP.flagship_edge(params.embed.detach(),
-                                params.final_norm.detach())
-        del params
-        opt = T.make_optimizer()([*stage.parameters(), *edge.parameters()])
-        ckptr = CK.Checkpointer(CK.CheckpointConfig(pipe_dir),
-                                pipe_axis="pp")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, step = ckptr.restore((stage, edge), opt)
-        torch.cuda.synchronize()
-        restore_ms = 1e3 * (time.perf_counter() - t0)
-        ckptr.close()
-        check(step == CKPT_AT, f"5f(h) restored step {step}")
-        whole = convert.pipeline_state(opt, stage, edge,
-                                       n_stages=f["mesh_shape"]["pp"])
-        check(_same_weights(whole, saved),
-              "5f(h) the restored stacked tree differs from the saved one")
-        tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
-                               generator=E.dryrun_generator(1)).cuda()
-        _zero_counts()
-        loss = PP.flagship_pipeline_reference(cfg, stage, edge, tokens,
-                                              torch.roll(tokens, -1, 1))
-        loss.backward()
-        opt.step()
-        h_loss = loss.item()
-        check(_counts() == dict.fromkeys(_counts(), 0),
-              f"5f(h) the plain reference launched {_counts()}")
-        h_err = abs(h_loss - f["losses"][CKPT_AT]) / abs(f["losses"][CKPT_AT])
-        check(math.isfinite(h_loss) and h_err <= TRAIN_LOSS_TOL,
-              f"5f(h) loss {h_loss} vs (f)'s {f['losses'][CKPT_AT]}")
-        fields["h"] = {"restored_step": step, "restore_ms": restore_ms,
-                       "restore_stats": ckptr.last_restore_stats,
-                       "restored_bit_identical": True, "next_loss": h_loss,
-                       "vs_f_loss_rel_err": h_err,
-                       "n_stages": f["mesh_shape"]["pp"]}
+        with _COUNTED:
+            torch.cuda.empty_cache()
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            params = M.init_params(_dev_gen(9), cfg)
+            stage = PP.flagship_stage([{k: p.detach() for k, p in
+                                        blk.named_parameters()}
+                                       for blk in params.blocks])
+            edge = PP.flagship_edge(params.embed.detach(),
+                                    params.final_norm.detach())
+            del params
+            opt = T.make_optimizer()([*stage.parameters(), *edge.parameters()])
+            ckptr = CK.Checkpointer(CK.CheckpointConfig(pipe_dir),
+                                    pipe_axis="pp")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, step = ckptr.restore((stage, edge), opt)
+            torch.cuda.synchronize()
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            ckptr.close()
+            check(step == CKPT_AT, f"5f(h) restored step {step}")
+            whole = convert.pipeline_state(opt, stage, edge,
+                                           n_stages=f["mesh_shape"]["pp"])
+            check(_same_weights(whole, saved),
+                  "5f(h) the restored stacked tree differs from the saved one")
+            tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH,
+                                   generator=E.dryrun_generator(1)).cuda()
+            _zero_counts()
+            loss = PP.flagship_pipeline_reference(cfg, stage, edge, tokens,
+                                                  torch.roll(tokens, -1, 1))
+            loss.backward()
+            opt.step()
+            h_loss = loss.item()
+            check(_counts() == dict.fromkeys(_counts(), 0),
+                  f"5f(h) the plain reference launched {_counts()}")
+            f_loss = f["losses"][CKPT_AT]
+            h_err = abs(h_loss - f_loss) / abs(f_loss)
+            check(math.isfinite(h_loss) and h_err <= TRAIN_LOSS_TOL,
+                  f"5f(h) loss {h_loss} vs (f)'s {f_loss}")
+            fields["h"] = {"restored_step": step, "restore_ms": restore_ms,
+                           "restore_stats": ckptr.last_restore_stats,
+                           "restored_bit_identical": True, "next_loss": h_loss,
+                           "vs_f_loss_rel_err": h_err,
+                           "n_stages": f["mesh_shape"]["pp"]}
 
-        del stage, edge, opt, loss
-        torch.cuda.empty_cache()
-        torch.cuda.set_per_process_memory_fraction(fraction)
+            del stage, edge, opt, loss
+            torch.cuda.empty_cache()
+            torch.cuda.set_per_process_memory_fraction(fraction)
 
         # (i) A 4-stage gang is refused before dcp.load.
         want = (f"ValueError: the checkpoint holds a pipe of "
@@ -5140,7 +5481,7 @@ def pipe_checkpoint_phase(cfg: M.ModelConfig, card_gib: int,
                 ["-m", "tpushare_torch.entry", "--mesh", "1,1,4", "--parts",
                  "pipe", "--width", "flagship", "--device", "cuda",
                  "--backend", "gloo", "--ckpt-dir", ckdir, "--resume"], 4,
-                deadline_s=GANG_DEADLINE_S, grant_gib=card_gib // 4,
+                deadline_s=GANG_DEADLINE_S, grant_gib=pool // 4,
                 card_gib=card_gib)
             refused = None
         except launch.GangError as exc:
@@ -5292,13 +5633,14 @@ def _dryrun_checks(part: str, got: dict, want: dict,
     return errs
 
 
-def dryrun_phase(card_gib: int) -> dict:
+def dryrun_phase(card_gib: int, *, pool_gib: int | None = None) -> dict:
     """Phase 5h: ``python -m tpushare_torch.entry`` as a user runs it, its
     default tiny width (4 heads of 16) and every part (dp x tp x sp
     training with ``DRYRUN_ATTENTION`` in bf16, the ring-MoE, the four
     pipes and the tp decode in fp32), one gang of ``DRYRUN_RANKS`` gloo
-    ranks on the card under grants of floor(``card_gib`` / ranks), then
-    the same gang with ``--device cpu``. Fails if a part raises, unless
+    ranks on the card under grants of floor(``pool_gib`` / ranks)
+    (``card_gib`` by default) and, at the same time, the same gang with
+    ``--device cpu``. Fails if a part raises, unless
     every part ran in its dtype and every rank launched the kernels as
     designed in every part (training: ring 2·L·sp / L·sp / L·sp with
     remat, Ulysses 2·L / L / L; a pipe 2·k·M·s / k·M·s / k·M·s; the decode
@@ -5308,11 +5650,12 @@ def dryrun_phase(card_gib: int) -> dict:
     bounds, the rest at 5g's). Returns the phase's fields; ``launches``
     sums every rank's counts by path."""
     torch.cuda.empty_cache()
-    runs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as tmp:
-        for device in ("cuda", "cpu"):
+
+        def run(device: str) -> dict:
             save = os.path.join(tmp, f"{device}.pt")
-            grant = card_gib // DRYRUN_RANKS if device == "cuda" else None
+            grant = ((pool_gib or card_gib) // DRYRUN_RANKS
+                     if device == "cuda" else None)
             t0 = time.perf_counter()
             records = launch.launch(
                 ["-m", "tpushare_torch.entry", "--attention",
@@ -5320,9 +5663,10 @@ def dryrun_phase(card_gib: int) -> dict:
                  "--save-grads", save], DRYRUN_RANKS,
                 deadline_s=GANG_DEADLINE_S, grant_gib=grant,
                 card_gib=card_gib if grant is not None else None)
-            runs[device] = {"records": records, "saved": torch.load(save),
-                            "seconds": time.perf_counter() - t0}
-    card, host = runs["cuda"], runs["cpu"]
+            return {"records": records, "saved": torch.load(save),
+                    "seconds": time.perf_counter() - t0}
+
+        card, host = concurrently(lambda: run("cuda"), lambda: run("cpu"))
     records = card["records"]
     rec0 = records[0]
     check(all(r["device"].startswith("cuda") for r in records),
@@ -5400,7 +5744,8 @@ def dryrun_phase(card_gib: int) -> dict:
               if p != "moe"), f"an attention part launched no kernel: "
                               f"{launches}")
     return {"ranks": DRYRUN_RANKS, "mesh_shape": rec0["mesh_shape"],
-            "batch": rec0["batch"], "grant_gib": card_gib // DRYRUN_RANKS,
+            "batch": rec0["batch"],
+            "grant_gib": (pool_gib or card_gib) // DRYRUN_RANKS,
             "card_seconds": card["seconds"], "cpu_seconds": host["seconds"],
             "parts": fields,
             "launches": {p: dict(c) for p, c in launches.items()},
@@ -7213,20 +7558,27 @@ def compiled_mesh_phase(cfg: M.ModelConfig, cards: int, ref=None,
                         env=None) -> dict:
     """Phase 9b on this host: (a) :data:`ONE_CARD_CASES` in a one-rank
     NCCL gang (its collectives are no-ops at size 1: the train step
-    reduces nothing, ring attention over one shard shifts nothing); (b)
-    :data:`GLOO_CASES` in a two-rank gloo gang on the card, eager by the
-    backend rule; (c) with four cards or more,
+    reduces nothing, ring attention over one shard shifts nothing) and,
+    at the same time, (b) :data:`GLOO_CASES` in a two-rank gloo gang on
+    the card, eager by the backend rule; then (c) with four cards or more,
     :func:`four_card_gangs`. Returns the phase's fields; ``launches``
     sums each path's launches over its ranks, ``replayed`` and
     ``traced_launches`` those inside replays (derived, and traced)."""
     fields = {"cards": cards, "gangs": []}
     launches, replayed, traced = {}, {}, {}
-    t0 = time.perf_counter()
-    one = compiled_gang(ONE_CARD_CASES, 1, "nccl", env=env)
+
+    def timed(cases, world: int, backend: str) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        records = compiled_gang(cases, world, backend, env=env)
+        return records, time.perf_counter() - t0
+
+    (one, one_s), (two, two_s) = concurrently(
+        lambda: timed(ONE_CARD_CASES, 1, "nccl"),
+        lambda: timed(GLOO_CASES, 2, "gloo"))
     fields["a_one_rank_nccl"] = {
         "collectives": "none issued: every group of a (1,1,1) mesh holds "
                        "one rank",
-        "seconds": time.perf_counter() - t0,
+        "seconds": one_s,
         **{c["name"]: {**_gang_fields([one[0]["cases"][c["name"]]]),
                        "traced": _traced_equal_recorded(
                            c["name"], [one[0]["cases"][c["name"]]]),
@@ -7239,8 +7591,6 @@ def compiled_mesh_phase(cfg: M.ModelConfig, cards: int, ref=None,
         check(rec["captured_here"] and rec["stats"][
             {"train": "train_step", "generate": "generate"}[c["kind"]]][
             "replays"] > 0, f"9b (a) {c['name']}: nothing replayed")
-    t0 = time.perf_counter()
-    two = compiled_gang(GLOO_CASES, 2, "gloo", env=env)
     for c in GLOO_CASES:
         recs = [r["cases"][c["name"]] for r in two]
         check(not recs[0]["captured_here"]
@@ -7248,7 +7598,7 @@ def compiled_mesh_phase(cfg: M.ModelConfig, cards: int, ref=None,
               and not any(r["capturable"] for r in recs),
               f"9b (b): a gloo gang captured or made AdamW capturable: "
               f"{recs[0]['stats']}")
-        fields["b_two_rank_gloo"] = {"seconds": time.perf_counter() - t0,
+        fields["b_two_rank_gloo"] = {"seconds": two_s,
                                      c["name"]: _gang_fields(recs)}
     fields["gangs"].append("b: 2 ranks, gloo, (1,1,2) ring, eager")
     groups = [(one, ONE_CARD_CASES), (two, GLOO_CASES)]

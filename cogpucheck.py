@@ -10,7 +10,9 @@ the grant's fraction). The card's GiB comes from the port's NVIDIA
 discovery, for the card ``CUDA_VISIBLE_DEVICES`` names. Each tenant is a
 subprocess that prints one JSON line; a tenant that holds memory prints
 ``READY`` once it holds it and keeps it until the parent closes its
-stdin, so every hand-off waits on a signal, not on a sleep.
+stdin, so every hand-off waits on a signal, not on a sleep. A tenant
+touches the card only once the parent writes ``GO`` to its stdin, so the
+parent starts it early and it imports while the phases before its own run.
 
 Phases (all of them in ``--smoke``, which only shortens the tenants'
 budgets):
@@ -41,7 +43,8 @@ budgets):
    ``nvidia-smi``'s per-process memory.
 
 Usage: ``python cogpucheck.py [--smoke] [--out COTENANCY_gpu.json]``
-(a tenant runs as ``python cogpucheck.py --tenant NAME``). Exits 2 with
+(a tenant runs as ``python cogpucheck.py --tenant NAME`` and starts at a
+``GO`` line on its stdin). Exits 2 with
 no report on a host without a CUDA device, 1 when a gate fails.
 """
 
@@ -74,6 +77,8 @@ from tpushare_torch.workload import train as T
 REPO = os.path.dirname(os.path.abspath(__file__))
 GIB = 1 << 30
 READY = "READY"
+#: What a tenant waits for on its stdin before it touches the card.
+GO = "GO"
 #: cochipcheck's grants were 7 GiB of a 16 GiB chip: 7/16 of the card.
 SHARE = (7, 16)
 TRAIN_BATCH = (8, 512)
@@ -377,6 +382,9 @@ def _pump(stream, lines: queue.Queue) -> None:
 def _spawn(tenant: str, grant_gib: float, *args, card: Card,
            spawned: list,
            alloc: plugin.ContainerAllocation | None = None) -> _Tenant:
+    """Start a tenant: it imports, then waits for :func:`_go` before it
+    configures CUDA, so started early its imports overlap the phases
+    before its own."""
     cmd = [sys.executable, os.path.abspath(__file__), "--tenant", tenant,
            "--tenant-args", ",".join(str(a) for a in args)]
     env = _tenant_env(grant_gib, card, alloc)
@@ -387,6 +395,13 @@ def _spawn(tenant: str, grant_gib: float, *args, card: Card,
     threading.Thread(target=_pump, args=(proc.stdout, t.lines),
                      daemon=True).start()
     spawned.append(t)
+    return t
+
+
+def _go(t: _Tenant) -> _Tenant:
+    """Let a tenant start its work."""
+    t.proc.stdin.write(GO + "\n")
+    t.proc.stdin.flush()
     return t
 
 
@@ -583,7 +598,8 @@ def run_suite(smoke: bool) -> dict:
                                 "apply_memory_fraction -> "
                                 "set_per_process_memory_fraction"}
     try:
-        _phases(report, spawn, found, share, smoke)
+        with tempfile.TemporaryDirectory(prefix="cogpucheck-usage-") as usage:
+            _phases(report, spawn, found, share, smoke, usage)
     finally:
         for t in spawned:
             if t.proc.poll() is None:
@@ -594,19 +610,41 @@ def run_suite(smoke: bool) -> dict:
     return report
 
 
-def _phases(report: dict, spawn, found: Card, share: int,
-            smoke: bool) -> None:
+def _phases(report: dict, spawn, found: Card, share: int, smoke: bool,
+            usage: str) -> None:
     card = found.chip.hbm_gib
     busy_s = 15 if smoke else 45
     iters = 100 if smoke else 400
+    # Every tenant starts ahead of its phase and touches the card only at
+    # _go: phase 1's at once, the later phases' once phase 1's two hold the
+    # card.
+    waiting = {key: spawn(tenant, grant, *args)
+             for key, tenant, grant, args in (
+                 ("train", "train", share, (busy_s,)),
+                 ("decode", "decode", share, (busy_s,)),
+                 ("overcommit", "overcommit", 4, (card + 16,)))}
 
     # 1. Train and decode under 7/16 grants; the overcommitter joins once
     # both are ready and must die while both keep running.
     t0 = time.time()
-    p_train = spawn("train", share, busy_s)
-    p_decode = spawn("decode", share, busy_s)
+    p_train = _go(waiting["train"])
+    p_decode = _go(waiting["decode"])
     ready = {t.name: _wait_ready(t, 600) for t in (p_train, p_decode)}
-    r_over = _collect(spawn("overcommit", 4, card + 16), 300)
+    waiting.update({key: spawn(tenant, grant, *args)
+                  for key, tenant, grant, args in (
+                      ("overrun", "overrun", 4, (10, 1)),
+                      ("isolation_a", "ballast", card,
+                       (round(0.6 * card, 2), 2)),
+                      ("isolation_b", "ballast", card,
+                       (round(0.6 * card, 2), 2)),
+                      ("fit", "estimator", card, (1.0,)),
+                      ("burst", "estimator", card, (2.5,)),
+                      ("full_a", "ballast", share,
+                       (round(0.85 * share, 2), iters)),
+                      ("full_b", "ballast", share,
+                       (round(0.85 * share, 2), iters)))})
+    watch = watchdog_start(spawn, found, usage)
+    r_over = _collect(_go(waiting["overcommit"]), 300)
     running = p_train.proc.poll() is None and p_decode.proc.poll() is None
     _release(p_train, p_decode)
     r_train, r_decode = _collect(p_train, 600), _collect(p_decode, 600)
@@ -623,7 +661,7 @@ def _phases(report: dict, spawn, found: Card, share: int,
 
     # 2. Does the allocator cap stop 10 GiB under a 4 GiB grant?
     t0 = time.time()
-    r_run = _collect(spawn("overrun", 4, 10, 1), 300)
+    r_run = _collect(_go(waiting["overrun"]), 300)
     report["fraction_cap"] = {"probe": r_run,
                               "runtime_enforced": _refused_oom(r_run),
                               "wall_s": round(time.time() - t0, 1)}
@@ -631,7 +669,7 @@ def _phases(report: dict, spawn, found: Card, share: int,
     # 3. Two whole-card tenants each hold 0.6 of the card at once.
     t0 = time.time()
     gib = round(0.6 * card, 2)
-    pair = [spawn("ballast", card, gib, 2) for _ in range(2)]
+    pair = [_go(waiting["isolation_a"]), _go(waiting["isolation_b"])]
     held = [_wait_ready(t, 600) for t in pair]
     _release(*pair)
     r1, r2 = (_collect(t, 300) for t in pair)
@@ -645,8 +683,8 @@ def _phases(report: dict, spawn, found: Card, share: int,
 
     # 4. The estimator's whole-card prediction, and 2.5x of it.
     t0 = time.time()
-    r_fit = _collect(spawn("estimator", card, 1.0), 600)
-    r_burst = _collect(spawn("estimator", card, 2.5), 600)
+    r_fit = _collect(_go(waiting["fit"]), 600)
+    r_burst = _collect(_go(waiting["burst"]), 600)
     report["estimator"] = {
         "at_prediction": r_fit, "at_2p5x": r_burst,
         "prediction_fits": (r_fit.get("outcome") == "ran"
@@ -658,7 +696,7 @@ def _phases(report: dict, spawn, found: Card, share: int,
     # 5. Two 7/16 tenants each hold 85% of the grant and multiply at once.
     t0 = time.time()
     gib = round(0.85 * share, 2)
-    pair = [spawn("ballast", share, gib, iters) for _ in range(2)]
+    pair = [_go(waiting["full_a"]), _go(waiting["full_b"])]
     for t in pair:
         _wait_ready(t, 600)
     _release(*pair)
@@ -673,43 +711,50 @@ def _phases(report: dict, spawn, found: Card, share: int,
 
     # 6. The grant watchdog over an uncooperative hog and an innocent
     # ballast, each started in its pod's Allocate env.
-    report["heartbeats"] = watchdog_phase(spawn, found)
+    report["heartbeats"] = watchdog_phase(found, usage, watch)
 
 
-def watchdog_phase(spawn, found: Card) -> dict:
-    """Phase 6: the hog and the innocent of ``WATCHDOG_PODS`` started in
-    the envs of the port's plugin's Allocate (``watchdog_allocations``),
-    swept by the port's ``GrantWatchdog`` until both heartbeats are
-    fresh; returns the report's ``heartbeats`` section."""
+def watchdog_start(spawn, found: Card, usage: str) -> dict:
+    """Phase 6's tenants, started ahead of it: the hog and the innocent of
+    ``WATCHDOG_PODS`` in the envs of the port's plugin's Allocate
+    (``watchdog_allocations``), heartbeating under ``usage``."""
+    api, allocs = watchdog_allocations(found, usage)
+    return {"api": api, "allocs": allocs,
+            "hog": spawn("overrun", 4, 10, 0, alloc=allocs["hog"]),
+            "innocent": spawn("ballast", 7, 6, 2, alloc=allocs["innocent"])}
+
+
+def watchdog_phase(found: Card, usage: str, watch: dict) -> dict:
+    """Phase 6: the tenants of :func:`watchdog_start`, let go, swept by
+    the port's ``GrantWatchdog`` until both heartbeats are fresh;
+    returns the report's ``heartbeats`` section."""
     t0 = time.time()
-    with tempfile.TemporaryDirectory(prefix="cogpucheck-usage-") as usage:
-        api, allocs = watchdog_allocations(found, usage)
-        hog = spawn("overrun", 4, 10, 0, alloc=allocs["hog"])
-        inn = spawn("ballast", 7, 6, 2, alloc=allocs["innocent"])
-        ready = [_wait_ready(t, 600) for t in (hog, inn)]
-        wd = watchdog.GrantWatchdog(NODE, api, usage_dir=usage)
-        deadline = time.time() + SWEEP_DEADLINE_S
+    api, allocs = watch["api"], watch["allocs"]
+    hog, inn = _go(watch["hog"]), _go(watch["innocent"])
+    ready = [_wait_ready(t, 600) for t in (hog, inn)]
+    wd = watchdog.GrantWatchdog(NODE, api, usage_dir=usage)
+    deadline = time.time() + SWEEP_DEADLINE_S
+    sweep = wd.sweep()
+    while (any(t["used_gib"] is None for t in sweep["tenants"])
+           and time.time() < deadline):
+        time.sleep(1.0)
         sweep = wd.sweep()
-        while (any(t["used_gib"] is None for t in sweep["tenants"])
-               and time.time() < deadline):
-            time.sleep(1.0)
-            sweep = wd.sweep()
-        events.flush(timeout=10)
-        seen = [(e["involvedObject"]["name"], e["reason"], e["message"])
-                for _, e in api.events]
-        beats = {}
-        for name, _ in WATCHDOG_PODS:
-            try:
-                with open(wd.usage_path(f"uid-{name}"),
-                          encoding="utf-8") as f:
-                    beats[f"uid-{name}"] = json.load(f)
-            except (OSError, ValueError):
-                beats[f"uid-{name}"] = None
-        apps = _compute_apps()
-        annotations = {name: api.get_pod("default", name).annotations
-                       for name, _ in WATCHDOG_PODS}
-        _release(hog, inn)
-        r_hog, r_inn = _collect(hog, 300), _collect(inn, 300)
+    events.flush(timeout=10)
+    seen = [(e["involvedObject"]["name"], e["reason"], e["message"])
+            for _, e in api.events]
+    beats = {}
+    for name, _ in WATCHDOG_PODS:
+        try:
+            with open(wd.usage_path(f"uid-{name}"),
+                      encoding="utf-8") as f:
+                beats[f"uid-{name}"] = json.load(f)
+        except (OSError, ValueError):
+            beats[f"uid-{name}"] = None
+    apps = _compute_apps()
+    annotations = {name: api.get_pod("default", name).annotations
+                   for name, _ in WATCHDOG_PODS}
+    _release(hog, inn)
+    r_hog, r_inn = _collect(hog, 300), _collect(inn, 300)
     gaps = {}
     for uid, beat in beats.items():
         used = (apps or {}).get(beat["pid"]) if beat else None
@@ -754,6 +799,10 @@ def gates(report: dict) -> dict[str, bool]:
 
 
 def _run_tenant(name: str, targs: list[str]) -> int:
+    """Run tenant ``name`` once a ``GO`` line comes on its stdin; exit 0
+    with no result at end of input instead."""
+    if sys.stdin.readline().strip() != GO:
+        return 0
     release = threading.Event()
 
     def watch_stdin():

@@ -18,6 +18,8 @@ controller that never replays it.
 from __future__ import annotations
 
 import random
+import signal
+import time
 
 import pytest
 import torch
@@ -25,6 +27,7 @@ import torch
 import bench
 import chip_smoke
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
+from tpushare_torch import profiling as tprofiling
 from tpushare_torch import trace as ttrace
 from tpushare_torch.deviceplugin import discovery, plugin
 from tpushare_torch.routes import metrics as tmetrics
@@ -53,6 +56,27 @@ def test_the_churn_s_traffic_is_bench_s():
         a, b = random.Random(n), random.Random(n)
         assert chip_smoke.scale_candidates(a, names[:n]) == \
             bench._scale_candidates(b, names[:n])
+
+
+def test_client_sends_again_on_a_connection_the_server_closed_idle(
+        monkeypatch):
+    """The port's server closes a keep-alive connection idle past
+    ``TPUSHARE_HTTP_TIMEOUT_S`` (a gang's training leaves 2g's idle that
+    long); the client's next request goes again on a new connection."""
+    monkeypatch.setenv("TPUSHARE_HTTP_TIMEOUT_S", "0.2")
+    stack, server = chip_smoke.extender_main.serve_stack(
+        chip_smoke.FakeApiServer())
+    client = chip_smoke.ExtenderClient(server)
+    try:
+        assert client.healthz()
+        first = client.conn.sock
+        time.sleep(1.5)            # past the timeout and the 1 s idle tick
+        assert client.healthz()
+        assert client.conn.sock is not first
+        assert client.text("/metrics")
+    finally:
+        client.close()
+        chip_smoke.extender_main.shutdown_stack(stack, server)
 
 
 def test_advertised_node_counts_the_daemon_s_devices():
@@ -146,6 +170,32 @@ def test_extender_phase_places_commits_and_churns(held, tmp_path):
     assert notready["node"] == "h100-0000"
     assert notready["event"].endswith(f"[timeline {notready['cursor']}]")
     assert notready["ready_drop_s"] <= chip_smoke.NOTREADY_TICKS * 2.0
+    # The profiler armed over both churns (the signal driver: the churn
+    # runs on the main thread), its legs, and disarmed after.
+    prof = got["profiler"]
+    assert prof["driver"] == "signal" and prof["sampling_passes"] > 0
+    assert 0 <= prof["overhead_ratio"] < 1
+    for verb in ("filter", "prioritize", "bind"):
+        assert prof["verb_costs"][verb]["decisions"] > 0
+        assert prof["engines"][verb] == "decision-probe"
+        assert 0 < len(prof["top_frames"][verb]) <= 5
+        assert (prof["verb_costs_both_churns"][verb]["decisions"]
+                > prof["verb_costs"][verb]["decisions"])
+    assert prof["verb_costs"]["bind"]["decisions"] == churn["bound"]
+    assert 0 < prof["attribution"] <= 1
+    assert prof["attribution_pass"] == (prof["attribution"] >= 0.90)
+    assert prof["continuous_lines"] > 1 and prof["continuous_bytes"] > 0
+    assert prof["overlap_status"] == 409
+    assert prof["profile_stacks"] > 0 and prof["trace_events"] > 0
+    assert prof["threads_named"] > 0
+    assert prof["heap_stop"].startswith("# tracemalloc stopped")
+    assert (prof["itimer_prof"], prof["sigprof_restored"]) == ([0.0, 0.0],
+                                                               True)
+    assert prof["after_gc_posture"]["running"] is True
+    assert not tprofiling.running()
+    assert signal.getitimer(signal.ITIMER_PROF) == (0.0, 0.0)
+    assert [s["phase"] for s in got["tenant_lock_wait"]] == [
+        "filter", "quota", "prioritize", "bind", "allocate"]
 
 
 def test_a_restart_that_replays_nothing_fails(held, tmp_path,
@@ -257,10 +307,10 @@ def test_no_card_means_no_result(monkeypatch, capsys):
 
 
 def test_overhead_gates_run_on_the_host(monkeypatch):
-    """The timeline's and the journal's overhead gates (run on the card
-    by ``tools/extender_phases.py --overhead``) at a small size: each arm
-    timed in every batch, the verdict's arithmetic, and the environment
-    put back."""
+    """The timeline's, the journal's and the profiler's overhead gates
+    (run on the card by ``tools/extender_phases.py --overhead``) at a
+    small size: each arm timed in every batch, the verdict's arithmetic,
+    and the environment put back, the profiler disarmed."""
     import os
 
     for key in ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",
@@ -268,7 +318,9 @@ def test_overhead_gates_run_on_the_host(monkeypatch):
         monkeypatch.delenv(key, raising=False)
     got = chip_smoke.overhead_phase(fleet=8, batches=2, per_batch=10)
     assert got["nodes"] == 8
-    for gate in (got["timeline"], got["blackbox"]):
+    assert got["profiler"]["driver"] == "signal"
+    assert got["profiler"]["sampling_passes"] >= 0
+    for gate in (got["timeline"], got["blackbox"], got["profiler"]):
         assert len(gate["batch_p99s_off_ms"]) == \
             len(gate["batch_p99s_on_ms"]) == 2
         assert gate["p99_off_ms"] == min(gate["batch_p99s_off_ms"])
@@ -279,3 +331,5 @@ def test_overhead_gates_run_on_the_host(monkeypatch):
     for key in ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",
                 "TPUSHARE_EXPORT_URL"):
         assert key not in os.environ
+    assert not tprofiling.running()
+    assert signal.getitimer(signal.ITIMER_PROF) == (0.0, 0.0)

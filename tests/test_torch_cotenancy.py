@@ -245,6 +245,38 @@ def test_wait_ready_and_collect(tmp_path):
                                           "exit_code": 0}
 
 
+def test_go_releases_a_stand_in_tenant(tmp_path):
+    """_go writes the GO line a tenant waits for (a stand-in tenant
+    script that echoes what it read)."""
+    script = tmp_path / "tenant.py"
+    script.write_text(
+        "import json, sys\n"
+        "line = sys.stdin.readline().strip()\n"
+        "print(json.dumps({'tenant': 'x', 'outcome': line}))\n")
+    err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
+    proc = subprocess.Popen([sys.executable, str(script)],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    t = cogpucheck._Tenant("x", proc, queue.Queue(), err)
+    threading.Thread(target=cogpucheck._pump, args=(proc.stdout, t.lines),
+                     daemon=True).start()
+    assert cogpucheck._go(t) is t
+    assert cogpucheck._collect(t, 60) == {"tenant": "x",
+                                          "outcome": cogpucheck.GO,
+                                          "exit_code": 0}
+
+
+def test_a_tenant_never_told_to_go_exits_with_no_result():
+    """A tenant whose stdin ends before GO runs nothing: exit 0, no JSON
+    line, nothing on the card."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "cogpucheck.py"), "--tenant",
+         "overcommit", "--tenant-args", "1"],
+        input="", capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == ""
+
+
 def test_smoke_without_a_card_exits_nonzero_with_no_report(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

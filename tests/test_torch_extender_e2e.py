@@ -150,8 +150,10 @@ RANDOM_IDS = (const.ANN_TRACE_ID, const.ANN_TRACE_PARENT)
 def normal_trace(doc: dict | None) -> dict | None:
     """A ``/debug/trace`` document less what differs between two runs of
     the same traffic: the ids, the start time and every clock
-    (``seconds`` and each ``*Seconds``). ``worstLockSite`` is lock-wait attribution, which the port's
-    plain locks do not feed yet."""
+    (``seconds`` and each ``*Seconds``). ``worstLockSite`` is lock-wait
+    attribution: which lock a span waited on, if any, depends on how the
+    two sides' threads interleave, so it is left out (and a span's
+    ``attrs`` with it when nothing else is left)."""
     if doc is None:
         return None
     out = {k: v for k, v in doc.items()
@@ -164,6 +166,8 @@ def normal_trace(doc: dict | None) -> dict | None:
         if "attrs" in sp:
             sp["attrs"] = {k: v for k, v in sp["attrs"].items()
                            if k != "worstLockSite"}
+            if not sp["attrs"]:
+                del sp["attrs"]
         out["spans"].append(sp)
     return out
 

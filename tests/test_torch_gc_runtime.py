@@ -144,7 +144,8 @@ def test_not_ported_names_the_reference_main_s_variables():
         assert name not in tdoc, name
     for name in ("LEADER_ELECT", "LEASE_NAMESPACE", "TPUSHARE_GC_TUNE",
                  "TPUSHARE_QUOTA_NAMESPACE", "TPUSHARE_LOG_JSON",
-                 "DEBUG_ROUTES", *TIMELINE_VARIABLES):
+                 "DEBUG_ROUTES", "TPUSHARE_PROFILE", "TPUSHARE_PROFILE_HZ",
+                 *TIMELINE_VARIABLES):
         assert name in tdoc and name not in M.NOT_PORTED
 
 

@@ -18,9 +18,10 @@
   the same HELP, TYPE and label sets; every gauge's value and every
   counter's and histogram ``_count``'s rise equal. Clocks are not
   compared: ``_created``, the histograms' ``_sum`` and buckets, the
-  process's own gauges (resident set, descriptors, threads, GC, uptime)
-  and the timeline's (series, drops, anomaly firings), whose label sets
-  still are. The OpenMetrics exemplars on the verbs' buckets: the same
+  process's own gauges (resident set, descriptors, threads, GC, uptime),
+  the timeline's (series, drops, anomaly firings) and the per-verb cost
+  ledger's seconds, whose label sets still are; the ledger's decision
+  counts per verb are (both ledgers start empty with the pair). The OpenMetrics exemplars on the verbs' buckets: the same
   families carry them on both sides, each names a decision of its own
   side, and its latency lies in its bucket.
 * The demand tracker's views that ``/metrics`` reads (``snapshot``,
@@ -47,8 +48,10 @@ from tests.test_torch_extender_e2e import (H100, Pair,
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.objects import Pod as JPod
 from tpushare.k8s.builders import make_node, make_pod
+from tpushare import profiling as jprofiling
 from tpushare.routes import metrics as jmetrics
 from tpushare.scheduler.predicate import DemandTracker as JTracker
+from tpushare_torch import profiling as tprofiling
 from tpushare_torch.deviceplugin import watchdog
 from tpushare_torch.routes import exposition as X
 from tpushare_torch.api.objects import Pod as TPod
@@ -59,15 +62,6 @@ from tpushare_torch.utils import const
 #: The reference's families whose sources the port has not yet, by the
 #: ROADMAP §A item that brings each.
 UNPORTED = {
-    "A1c": ("tpushare_verb_decisions_total",
-            "tpushare_verb_wall_seconds_total",
-            "tpushare_verb_cpu_seconds_total",
-            "tpushare_verb_lock_wait_seconds_total",
-            "tpushare_verb_apiserver_seconds_total",
-            "tpushare_verb_queue_wait_seconds_total",
-            "tpushare_verb_self_cpu_seconds_total",
-            "tpushare_profiler_sampling_passes_total",
-            "tpushare_profiler_overhead_ratio"),
     "A2": ("tpushare_cluster_stranded_hbm_gib", "tpushare_node_frag_score",
            "tpushare_defrag_moves_total",
            "tpushare_defrag_plans_aborted_total"),
@@ -94,13 +88,21 @@ UNPORTED_NAMES = {n for names in UNPORTED.values() for n in names}
 #: ROADMAP §A item that brings it: the reference's stack may fire them.
 UNPORTED_RULES = {"stranded-hbm-high": "A2"}
 
-#: Samples of the process itself, and of each package's timeline, whose
-#: sampler ticks on its own clock: label sets compared, values not.
+#: Samples of the process itself, of each package's timeline, whose
+#: sampler ticks on its own clock, and of each ledger's clocks: label sets
+#: compared, values not.
 PROCESS = ("tpushare_process_rss_bytes", "tpushare_process_open_fds",
            "tpushare_process_threads", "tpushare_gc_tracked_objects",
            "tpushare_gc_collections_total", "tpushare_uptime_seconds",
            "tpushare_timeline_series", "tpushare_timeline_dropped_total",
-           "tpushare_anomaly_fired_total")
+           "tpushare_anomaly_fired_total",
+           # the per-verb cost ledger's clocks (its decision counts,
+           # tpushare_verb_decisions_total, are compared by value)
+           "tpushare_verb_wall_seconds_total",
+           "tpushare_verb_cpu_seconds_total",
+           "tpushare_verb_lock_wait_seconds_total",
+           "tpushare_verb_apiserver_seconds_total",
+           "tpushare_verb_queue_wait_seconds_total")
 
 _SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)'
                      r'( # \{.*)?$')
@@ -365,9 +367,15 @@ def _value(fams: dict, name: str, **labels) -> float:
 
 @pytest.fixture
 def pair():
+    # Each package's cost ledger is a process singleton fed by every
+    # decision since its import: start both empty, so the verb counts
+    # are this pair's alone.
+    jprofiling.reset()
+    tprofiling.reset()
     p = Pair()
     yield p
     p.close()
+    jprofiling.reset()
 
 
 def test_metrics_after_the_h100_churn(pair):

@@ -196,6 +196,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  *(("tpushare_torch", "obs", f"{name}.py") for name in (
                      "__init__", "timeline", "sources", "anomaly",
                      "exemplars", "blackbox", "export", "witness")),
+                 ("tpushare_torch", "utils", "locks.py"),
+                 ("tpushare_torch", "routes", "pprof.py"),
+                 *(("tpushare_torch", "profiling", f"{name}.py") for name in (
+                     "__init__", "ledger", "decisions", "sampler")),
                  ("tools", "extender_phases.py"),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
@@ -206,6 +210,96 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "orbax", "tpushare",
                                "bench_workload"), (path, mod)
+
+
+#: The port's raw ``threading`` locks, each its own with no twin in the
+#: reference: the exposition's stand-in for ``prometheus_client``'s locks,
+#: the native discovery shim's load and the kernel library's load. Every
+#: other lock of the port is a ``TracingRLock`` (``utils/locks.py`` keeps
+#: its own two internals, as the reference's does).
+RAW_LOCKS = {
+    ("tpushare_torch/routes/exposition.py", "_lock"): 2,
+    ("tpushare_torch/deviceplugin/discovery.py", "_native_lock"): 1,
+    ("tpushare_torch/workload/flash_attention.py", "_lib_lock"): 1,
+}
+
+
+def _package_files(root: str):
+    for dirpath, _, names in os.walk(os.path.join(REPO, root)):
+        for name in sorted(names):
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+
+
+def _raw_locks(path: str) -> list[str]:
+    """The targets of ``threading.Lock()`` / ``threading.RLock()`` calls
+    in ``path``."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.Assign, ast.AnnAssign)):
+            continue
+        value = node.value
+        if (isinstance(value, ast.Call)
+                and isinstance(value.func, ast.Attribute)
+                and value.func.attr in ("Lock", "RLock")
+                and isinstance(value.func.value, ast.Name)
+                and value.func.value.id == "threading"):
+            target = node.targets[0] if isinstance(node, ast.Assign) \
+                else node.target
+            out.append(ast.unparse(target).split(".")[-1])
+    return out
+
+
+def test_no_raw_lock_but_the_port_s_own():
+    found: dict = {}
+    for path in _package_files("tpushare_torch"):
+        rel = os.path.relpath(path, REPO)
+        if rel == os.path.join("tpushare_torch", "utils", "locks.py"):
+            # its two internals, declared as the reference declares them,
+            # and the RLock inside TracingRLock
+            assert sorted(_raw_locks(path)) == [
+                "_lock", "_race_lock", "_registry_lock"]
+            continue
+        for name in _raw_locks(path):
+            found[(rel, name)] = found.get((rel, name), 0) + 1
+    assert found == RAW_LOCKS
+
+
+def _lock_sites(path: str) -> list[tuple[str, str]]:
+    """Each ``TracingRLock(...)``, ``guarded_dict(...)`` and
+    ``guarded_set(...)`` call in ``path``: (callee, its site or name
+    argument as written)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("TracingRLock", "guarded_dict",
+                                       "guarded_set")):
+            arg = node.args[0 if node.func.attr == "TracingRLock" else 1]
+            out.append((node.func.attr, ast.unparse(arg)))
+    return sorted(out)
+
+
+def test_every_traced_lock_takes_the_reference_s_site():
+    """Module by module, the port's ``TracingRLock`` sites and guarded
+    containers' names are its reference twin's, as written (an f-string
+    site such as ``node/{self.name}`` included). Modules of the
+    reference the port has not yet (the router, SLOs, defragmentation,
+    autoscaling) are not compared."""
+    compared = 0
+    for path in _package_files("tpushare_torch"):
+        rel = os.path.relpath(path, os.path.join(REPO, "tpushare_torch"))
+        twin = os.path.join(REPO, "tpushare", rel)
+        sites = _lock_sites(path)
+        if not os.path.exists(twin):
+            assert not sites, rel
+            continue
+        assert sites == _lock_sites(twin), rel
+        compared += len(sites)
+    assert compared >= 50
 
 
 GANG = {const.ENV_POD_GROUP: "train", const.ENV_POD_GROUP_SIZE: "4"}

@@ -12,9 +12,9 @@ extender records them) against the JAX package's.
   no card, the 404s and ``debug_routes=False``, a gang commit's Events
   each carrying its own member's id, the round trip over the real
   apiserver dialect (``tests/miniapiserver.py``: the allocate span
-  counts the PUT and the binding) and the JSON log formatter.
-  ``TestLockWaitAttribution`` is left out: the port's locks are plain
-  ``threading.RLock``s until ROADMAP A1c brings ``utils/locks.py``.
+  counts the PUT and the binding), the JSON log formatter, and
+  ``TestLockWaitAttribution``: a contended ``TracingRLock`` charges its
+  wait to the open span, and the recorder never attributes its own lock.
 * Both recorders fed the same seeded streams of phases, spans, notes,
   parents and completions (across pods, uid changes and table
   pressure): the same flight documents, clocks and ids aside, the same
@@ -41,6 +41,7 @@ from tests import torch_reference_stories as R
 from tests.test_torch_extender_e2e import H100, Pair, normal_trace
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare import trace as jtrace
+from tpushare.utils import locks as jlocks
 from tpushare.k8s.builders import make_node, make_pod
 from tpushare.trace.jsonlog import TraceJsonFormatter as JFormatter
 from tpushare_torch import trace as ttrace
@@ -48,6 +49,7 @@ from tpushare_torch.cmd import main as M
 from tpushare_torch.k8s.fake import FakeApiServer
 from tpushare_torch.trace.jsonlog import TraceJsonFormatter as TFormatter
 from tpushare_torch.utils import const
+from tpushare_torch.utils import locks as tlocks
 
 # The packages' ``recorder()`` function shadows the submodule's name.
 jrecorder = importlib.import_module("tpushare.trace.recorder")
@@ -58,14 +60,13 @@ trecorder = importlib.import_module("tpushare_torch.trace.recorder")
 # ``tests/test_e2e.py``'s ``Cluster``, over the port.
 R.load("test_handlers")
 R.load("test_e2e")
-_STORIES = R.load("test_trace",
-                  drop=("from tpushare.utils import const, locks",))
-_STORIES.const = const
+_STORIES = R.load("test_trace")
 fresh_recorder = _STORIES.fresh_recorder
 http_stack = _STORIES.http_stack
 globals().update(R.pick(_STORIES, [
-    "TestRecorder", "TestEndToEndTrace", "TestGangEventCorrelation",
-    "TestMiniApiServerRoundTrip", "TestJsonLogging"]))
+    "TestRecorder", "TestLockWaitAttribution", "TestEndToEndTrace",
+    "TestGangEventCorrelation", "TestMiniApiServerRoundTrip",
+    "TestJsonLogging"]))
 
 
 @pytest.fixture
@@ -82,11 +83,19 @@ INNER = ("allocate", "gang", "quota")
 
 def _drive(trace, seed: int, pods: int, steps: int) -> dict:
     """A seeded stream of recorder operations; returns what the recorder
-    then answers, clocks and ids aside."""
+    then answers, clocks and ids aside. The process-wide recorder's open
+    table is cut to 6 for the stream and given its bound back after."""
+    rec = trace.recorder()
+    max_open, rec._max_open = rec._max_open, 6
+    try:
+        return _stream(trace, seed, pods, steps)
+    finally:
+        rec._max_open = max_open
+
+
+def _stream(trace, seed: int, pods: int, steps: int) -> dict:
     rng = np.random.default_rng(seed)
     trace.reset()
-    rec = trace.recorder()
-    rec._max_open = 6  # table pressure within a short stream
     ids: list[str] = []
     uids = {f"p{i}": f"u{i}-0" for i in range(pods)}
     for step in range(steps):
@@ -154,17 +163,36 @@ def test_recorder_constants_are_the_reference_s():
 
 
 def test_recorder_lock_is_a_plain_rlock():
-    """The port's recorder takes a ``threading.RLock``: no contention
-    hook, so every span's lock wait stays 0 until A1c."""
-    rec = trecorder.FlightRecorder()
-    assert type(rec._lock) is type(threading.RLock())
-    with ttrace.phase("bind", "default", "p", "u") as dec:
-        ttrace.recorder().note_lock_wait("site", 0.5)
-    ttrace.complete(dec, "bound")
-    span = ttrace.get_trace("default", "p")["spans"][0]
-    assert span["lockWaitSeconds"] == 0.5
-    assert span["attrs"]["worstLockSite"] == ("site", 0.5)
-    ttrace.reset()
+    """The port's recorder takes the reference's ``TracingRLock``
+    ("trace/recorder"), and both packages register the contention hook:
+    the same contention reported on each lands alike in the open span,
+    the worst site as ``worstLockSite``, and a ``trace/`` site is never
+    charged."""
+    assert isinstance(trecorder.FlightRecorder()._lock, tlocks.TracingRLock)
+    assert (trecorder.FlightRecorder()._lock.site
+            == jrecorder.FlightRecorder()._lock.site == "trace/recorder")
+    spans = []
+    for trace, locks in ((jtrace, jlocks), (ttrace, tlocks)):
+        trace.reset()
+        assert trace._on_contention in locks._contention_hooks
+        with trace.phase("bind", "default", "p", "u") as dec:
+            locks.record_contention("cache/table", 0.25)
+            locks.record_contention("trace/recorder", 1.0)
+            locks.record_contention("node/h100-00", 0.5)
+            with trace.span("allocate"):
+                locks.record_contention("chip/3", 0.125)
+        trace.complete(dec, "bound")
+        spans.append(trace.get_trace("default", "p")["spans"])
+        locks.reset_contention()
+        trace.reset()
+    assert spans[1] == [{**sp, "seconds": spans[1][i]["seconds"],
+                         "cpuSeconds": spans[1][i]["cpuSeconds"],
+                         "startOffsetSeconds":
+                             spans[1][i]["startOffsetSeconds"]}
+                        for i, sp in enumerate(spans[0])]
+    assert spans[1][0]["lockWaitSeconds"] == 0.75
+    assert spans[1][0]["attrs"]["worstLockSite"] == ("node/h100-00", 0.5)
+    assert spans[1][1]["lockWaitSeconds"] == 0.125
 
 
 def test_restored_documents_resolve_alike():
@@ -294,12 +322,18 @@ def test_main_reads_debug_routes(no_cluster, monkeypatch, value, on):
         assert server.debug_routes is on
         base = f"http://127.0.0.1:{server.server_address[1]}"
         for path in ("/debug/flight", "/debug/http", "/debug/quota",
-                     "/debug/trace/default/p"):
+                     "/debug/trace/default/p", "/debug/pprof",
+                     "/debug/pprof/mutex", "/debug/threads",
+                     "/debug/hotspots", "/debug/profile/continuous"):
             try:
                 with urllib.request.urlopen(f"{base}{path}") as resp:
-                    status, doc = resp.status, json.loads(resp.read())
+                    status, body = resp.status, resp.read()
             except urllib.error.HTTPError as e:
-                status, doc = e.code, json.loads(e.read())
+                status, body = e.code, e.read()
+            try:
+                doc = json.loads(body)
+            except ValueError:
+                doc = {"text": body.decode()}
             if on:
                 assert doc.get("Error") != "debug routes disabled", path
             else:

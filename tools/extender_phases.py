@@ -11,9 +11,10 @@ the 256-gang churn, with the gauges and each member's trace id) and
 failover, a serving tenant preempted and replaced, quota, admission, the
 preempt benchmarks), each with the fleet timeline's checks (2f also
 restarts the extender over its fleet and replays the tenant's decision
-from the black-box journal, and flips a node NotReady). ``--overhead``
-then runs ``chip_smoke.overhead_phase``: the timeline's and the journal's
-overhead gates, ``bench.py``'s twins, on 2f's 1,024-node fleet;
+from the black-box journal, and flips a node NotReady; its churns run
+with the continuous profiler armed). ``--overhead`` then runs
+``chip_smoke.overhead_phase``: the timeline's, the journal's and the
+profiler's overhead gates, ``bench.py``'s twins, on 2f's 1,024-node fleet;
 ``--no-phases`` runs it alone. Prints each phase as ``chip_smoke.py``
 does and writes every field as JSON to ``--out``::
 
@@ -41,7 +42,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="the JSON record's path")
     ap.add_argument("--overhead", action="store_true",
-                    help="run the timeline and journal overhead gates")
+                    help="run the timeline, journal and profiler "
+                         "overhead gates")
     ap.add_argument("--no-phases", action="store_true",
                     help="skip phases 2f, 2g and 2h")
     args = ap.parse_args()

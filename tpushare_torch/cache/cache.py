@@ -13,7 +13,6 @@ ledger, the rebuild included, so tenant usage survives a restart too.
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Callable
 
 from tpushare_torch.api.objects import Node, Pod
@@ -22,6 +21,7 @@ from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import const
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -43,14 +43,17 @@ class SchedulerCache:
         self._default_scoring = default_scoring
         #: The tenant ledger mirroring this cache's known pods, or None.
         self.quota = quota
-        self._lock = threading.RLock()
-        self._nodes: dict[str, NodeInfo] = {}
+        self._lock = locks.TracingRLock("cache/table")
+        self._nodes: dict[str, NodeInfo] = locks.guarded_dict(
+            self._lock, "SchedulerCache._nodes")
         #: uid -> annotated pod
-        self._known_pods: dict[str, Pod] = {}
+        self._known_pods: dict[str, Pod] = locks.guarded_dict(
+            self._lock, "SchedulerCache._known_pods")
         #: name -> deletion epoch; bumped on every eviction so a lookup
         #: that fetched the node doc before the delete cannot re-insert
         #: a zombie ledger afterwards.
-        self._node_epochs: dict[str, int] = {}
+        self._node_epochs: dict[str, int] = locks.guarded_dict(
+            self._lock, "SchedulerCache._node_epochs")
         #: uid -> PENDING pod with ``status.nominatedNodeName`` set (the
         #: scheduler preempted for it; its victims' capacity is earmarked
         #: until it binds). The predicate and the preempt planner subtract
@@ -58,7 +61,8 @@ class SchedulerCache:
         #: the eviction→bind window — without it, gang members' per-member
         #: preemptions re-consume each other's freed capacity and the
         #: gang never commits.
-        self._nominated: dict[str, Pod] = {}
+        self._nominated: dict[str, Pod] = locks.guarded_dict(
+            self._lock, "SchedulerCache._nominated")
 
     # ------------------------------------------------------------------ #
     # Known-pod set (reference cache.go:76-87)

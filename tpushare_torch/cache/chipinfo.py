@@ -8,11 +8,11 @@ capacity as used whatever the pod's aggregate grant.
 
 from __future__ import annotations
 
-import threading
 from typing import Callable
 
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 
 class ChipInfo:
@@ -26,13 +26,16 @@ class ChipInfo:
         #: lock held; the owning NodeInfo drops its cached summary there.
         #: Every change runs under the node's lock too.
         self._on_change = on_change
-        self._lock = threading.RLock()
-        self.pods: dict[str, Pod] = {}  # uid -> Pod
-        self._contrib: dict[str, int] = {}  # uid -> GiB counted
+        self._lock = locks.TracingRLock(f"chip/{idx}")
+        self.pods: dict[str, Pod] = locks.guarded_dict(
+            self._lock, f"ChipInfo({idx}).pods")  # uid -> Pod
+        self._contrib: dict[str, int] = locks.guarded_dict(
+            self._lock, f"ChipInfo({idx})._contrib")  # uid -> GiB counted
         self._used = 0
         #: uids priced as active (not complete) when added: a set, not a
         #: counter, so it cannot drift if a stored pod is mutated.
-        self._active: set[str] = set()
+        self._active: set[str] = locks.guarded_set(
+            self._lock, f"ChipInfo({idx})._active")
 
     def _contribution(self, pod: Pod) -> int:
         """What ``pod`` pins on this card: nothing once complete (a pod

@@ -14,7 +14,6 @@ back if a write failed.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Any, NamedTuple
 
@@ -25,6 +24,7 @@ from tpushare_torch.k8s.errors import ConflictError
 from tpushare_torch.topology.topology import Topology
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -132,7 +132,7 @@ class NodeInfo:
         #: Fleet scoring default for the chip picker; None -> the env
         #: fallback inside podutils.effective_scoring (standalone use).
         self.default_scoring = default_scoring
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock(f"node/{self.name}")
         #: Cached admission summary. Copy-on-write: rebuilt under the
         #: node lock, published by one atomic attribute write, cleared
         #: (set to None) by the chips' on_change hook — which only ever
@@ -171,9 +171,10 @@ class NodeInfo:
                                 tuple[NodeSummary,
                                       list[int] | None]] = {}
         caps = nodeutils.get_chip_capacities(node)
-        self.chips: dict[int, ChipInfo] = {
-            i: ChipInfo(i, cap, on_change=self._invalidate_summary)
-            for i, cap in enumerate(caps)}
+        self.chips: dict[int, ChipInfo] = locks.guarded_dict(
+            self._lock, f"NodeInfo({self.name}).chips",
+            {i: ChipInfo(i, cap, on_change=self._invalidate_summary)
+             for i, cap in enumerate(caps)})
         self.chip_count = len(caps)
         self.total_hbm = sum(caps)
         topo_spec = nodeutils.get_topology(node)

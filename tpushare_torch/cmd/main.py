@@ -41,6 +41,13 @@ Environment:
   on by default (``off``, ``0``, ``false``, ``no`` keep the interpreter's
   thresholds); ``TPUSHARE_GC_GEN0`` sets the gen-0 threshold. ``main``
   applies it; ``serve_stack`` does not.
+* ``TPUSHARE_PROFILE``: ``on`` (default) arms the continuous profiler
+  (``profiling/``: verb-attributed stacks at ``/debug/profile/continuous``
+  and ``/debug/hotspots``, the duty-cycled decision probe, the
+  ``tpushare_profiler_*`` series); ``off`` (or ``0``, ``false``, ``no``)
+  leaves it disarmed. ``TPUSHARE_PROFILE_HZ`` sets its rate, clamped to
+  1-1000 (25 by default). The per-verb cost ledger (``tpushare_verb_*``)
+  counts either way. ``main`` arms it; ``serve_stack`` does not.
 * ``TPUSHARE_TIMELINE``: ``on`` (default) arms the retrospective
   timeline (bounded series history, fleet-event markers and anomaly
   watchers, served at ``/debug/timeline``); ``off`` disables sampling,
@@ -58,12 +65,12 @@ Environment:
   backoff, an ``export-stall`` marker on a sustained failure).
 
 Variables of the reference's main that the port does not yet read
-(``NOT_PORTED``: the profiler, the SLO ConfigMap, defragmentation and
-autoscaling) are logged as a warning, one line each, when set.
+(``NOT_PORTED``: the SLO ConfigMap, defragmentation and autoscaling) are logged as a warning, one line each, when set.
 """
 
 from __future__ import annotations
 
+import atexit
 import logging
 import os
 import signal
@@ -89,8 +96,6 @@ log = logging.getLogger(__name__)
 #: The reference main's variables that the port does not read yet, and
 #: what of the reference each one sets.
 NOT_PORTED = {
-    "TPUSHARE_PROFILE": "the continuous profiler",
-    "TPUSHARE_PROFILE_HZ": "the continuous profiler's rate",
     "TPUSHARE_SLO_NAMESPACE": "the tpushare-slos ConfigMap",
     "TPUSHARE_DEFRAG_MODE": "the defragmentation rebalancer",
     "TPUSHARE_DEFRAG_MAX_MOVES": "the defragmentation rebalancer",
@@ -329,6 +334,14 @@ def main() -> None:
     # nodes.
     from tpushare_torch.utils.runtime import tune_gc_from_env
     tune_gc_from_env()
+    # The continuous profiler and the per-verb cost ledger
+    # (TPUSHARE_PROFILE, on by default: running before the incident).
+    from tpushare_torch import profiling
+    profiling.arm_from_env()
+    # Disarmed at every exit (sys.exit included): the interpreter puts
+    # SIGPROF's default action back as it finalizes, and a fire of the
+    # armed ITIMER_PROF after that would kill the process.
+    atexit.register(profiling.stop)
     warn_not_ported()
     port = int(os.environ.get("PORT", "39999"))
     workers = int(os.environ.get("WORKERS", "4"))
@@ -348,7 +361,6 @@ def main() -> None:
     setup_signals(stop, flush=obs.flush_blackbox)
     # A clean interpreter exit flushes too; a SIGKILL keeps what the
     # journal's writer already handed the page cache.
-    import atexit
     atexit.register(obs.flush_blackbox)
     stack.controller.start(workers=workers)
     debug_routes = os.environ.get("DEBUG_ROUTES", "1").lower() not in (

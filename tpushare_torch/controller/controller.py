@@ -36,6 +36,7 @@ from tpushare_torch.quota import config as quota_config
 from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import const
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -59,13 +60,15 @@ class Controller:
         self.cache = SchedulerCache(self._get_node, self._list_pods,
                                     default_scoring=default_scoring,
                                     quota=self.quota)
-        self._removed_lock = threading.RLock()
+        self._removed_lock = locks.TracingRLock("controller/removed")
         #: ns/name -> last seen Pod, for deletes (gpushare's
         #: removePodCache)
-        self._removed: dict[str, Pod] = {}
+        self._removed: dict[str, Pod] = locks.guarded_dict(
+            self._removed_lock, "Controller._removed")
         #: uids the gang reaper deleted itself: their deletes must not reap
         #: again (the owner may be recreating the group by then).
-        self._reaped_uids: set[str] = set()
+        self._reaped_uids: set[str] = locks.guarded_set(
+            self._removed_lock, "Controller._reaped_uids")
         #: ``() -> bool``: gates the deletes this controller issues (the
         #: gang reaper); the ledger's upkeep runs on every replica.
         self._is_leader = is_leader or (lambda: True)

@@ -53,7 +53,6 @@ import dataclasses
 import json
 import logging
 import os
-import threading
 import time
 
 from tpushare_torch.api.objects import Pod
@@ -61,6 +60,7 @@ from tpushare_torch.deviceplugin.discovery import HostInventory
 from tpushare_torch.k8s import commit
 from tpushare_torch.k8s.errors import ConflictError
 from tpushare_torch.utils import const, pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -201,8 +201,9 @@ class TPUSharePlugin:
     The reference's class of the same name, with NVIDIA's allocation
     (:func:`build_allocation`, whose devices are found under
     ``devfs_root``). It has no ``headroom``: no memory-fraction env is
-    emitted, the tenant computes its cap from the grant. A plain
-    ``threading.RLock`` serializes the RPCs."""
+    emitted, the tenant computes its cap from the grant. A
+    :class:`~tpushare_torch.utils.locks.TracingRLock` serializes the
+    RPCs."""
 
     def __init__(self, node_name: str, client, inventory: HostInventory,
                  state_dir: str | None = None,
@@ -228,7 +229,7 @@ class TPUSharePlugin:
         #: Serializes match -> record -> commit: the gRPC servicer runs
         #: on a thread pool, and two Allocates must not both match one
         #: pending container.
-        self._alloc_lock = threading.RLock()
+        self._alloc_lock = locks.TracingRLock("plugin/alloc")
         self._load_state()
 
     # -- advertisement -------------------------------------------------- #

@@ -52,6 +52,7 @@ from tpushare_torch.topology import fleet
 from tpushare_torch.utils import const
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -83,7 +84,7 @@ class _Group:
         #: a re-reservation of a victim fails the liveness check instead
         #: of charging uids the stale rollback then frees.
         self.rolled_back = False
-        self.lock = threading.RLock()
+        self.lock = locks.TracingRLock("gang/group")
         #: uid -> (annotated pod, node name)
         self.reservations: dict[str, tuple[Pod, str]] = {}
         #: uids whose reservation is being allocated now (lock released
@@ -121,13 +122,13 @@ class GangPlanner:
         self.ttl = ttl
         self._interval = housekeeping_interval
         self._groups: dict[tuple[str, str], _Group] = {}
-        self._table_lock = threading.RLock()
+        self._table_lock = locks.TracingRLock("gang/table")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         #: The binding-POST pool, made at first use and kept (a pool a
         #: commit would put its start-up inside every commit).
         self._pool: ThreadPoolExecutor | None = None
-        self._pool_lock = threading.RLock()
+        self._pool_lock = locks.TracingRLock("gang/pool")
 
     def _executor(self) -> ThreadPoolExecutor | None:
         """The POST pool, or None once :meth:`stop` ran: a commit racing

@@ -20,6 +20,7 @@ import time
 
 from tpushare_torch import trace
 from tpushare_torch.api.objects import Pod
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -28,7 +29,7 @@ COMPONENT = "tpushare-scheduler-extender"
 _seq = itertools.count(1)
 _queue: "queue.Queue[tuple[object, str, dict]]" = queue.Queue(maxsize=1024)
 _worker: threading.Thread | None = None
-_worker_lock = threading.Lock()
+_worker_lock = locks.TracingRLock("events/worker")
 #: A saturated queue drops many events: one warning a window, the rest
 #: debug (the counter carries the rate).
 _drop_warn_interval_s = 30.0

@@ -10,12 +10,12 @@ an unlimited budget: its streak of overrun sweeps is the rate limit.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Callable
 
 from tpushare_torch.k8s.errors import ApiError, NotFoundError
+from tpushare_torch.utils import locks
 
 #: Terminal statuses of :func:`evict_with_retry`; DENIED_PREFIX is
 #: followed by the budget's reason.
@@ -41,9 +41,10 @@ class EvictionBudget:
         self.node_cooldown_s = node_cooldown_s
         self.per_hour = per_hour
         self._now = now
-        self._lock = threading.Lock()
+        self._lock = locks.TracingRLock("k8s/eviction-budget")
         self._in_flight = 0
-        self._node_last: dict[str, float] = {}
+        self._node_last: dict[str, float] = locks.guarded_dict(
+            self._lock, "EvictionBudget._node_last")
         self._recent: deque[float] = deque()
 
     def acquire(self, node: str = "") -> str:

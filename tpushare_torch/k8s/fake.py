@@ -17,11 +17,11 @@ from __future__ import annotations
 import datetime
 import itertools
 import queue
-import threading
 
 from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
                                         PodDisruptionBudget)
 from tpushare_torch.k8s.errors import ApiError, ConflictError, NotFoundError
+from tpushare_torch.utils import locks
 
 
 def _dcopy(obj):
@@ -73,7 +73,7 @@ class FakeApiServer:
     ConfigMaps, Leases and Events, with watch fan-out."""
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("fake/apiserver")
         self._pods: dict[str, dict] = {}    # "ns/name" -> raw pod
         self._nodes: dict[str, dict] = {}   # name -> raw node
         self._pdbs: dict[str, dict] = {}    # "ns/name" -> raw pdb

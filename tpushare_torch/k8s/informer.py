@@ -16,6 +16,7 @@ import threading
 
 from tpushare_torch.api.objects import (ConfigMap, Node, Pod,
                                         PodDisruptionBudget)
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -27,8 +28,8 @@ _WRAPPERS = {"Pod": Pod, "Node": Node,
 class Store:
     """Thread-safe keyed object store (the lister)."""
 
-    def __init__(self):
-        self._lock = threading.RLock()
+    def __init__(self, site: str = "informer/store"):
+        self._lock = locks.TracingRLock(site)
         self._items: dict[str, object] = {}
 
     @staticmethod
@@ -79,10 +80,10 @@ class InformerHub:
 
     def __init__(self, client):
         self.client = client
-        self.pods = Store()
-        self.nodes = Store()
-        self.pdbs = Store()
-        self.configmaps = Store()
+        self.pods = Store("informer/pods")
+        self.nodes = Store("informer/nodes")
+        self.pdbs = Store("informer/pdbs")
+        self.configmaps = Store("informer/configmaps")
         self._handlers: dict[str, list] = {"Pod": [], "Node": [],
                                            "PodDisruptionBudget": [],
                                            "ConfigMap": []}

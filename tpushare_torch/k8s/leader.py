@@ -1,7 +1,6 @@
 """Lease-based leader election: safe multi-replica extender deployment.
 
-The port's copy of ``tpushare/k8s/leader.py``, with a plain
-``threading.RLock``. Every change of leadership is logged and stamped as
+The port's copy of ``tpushare/k8s/leader.py``. Every change of leadership is logged and stamped as
 a ``leader`` marker on the fleet timeline (:mod:`tpushare_torch.obs`).
 
 gpushare runs exactly one replica because two extenders cannot safely
@@ -42,6 +41,7 @@ from datetime import datetime, timedelta, timezone
 from tpushare_torch import obs
 from tpushare_torch.k8s.errors import ApiError, ConflictError
 from tpushare_torch.utils.k8stime import parse_rfc3339
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -74,7 +74,7 @@ class LeaderElector:
         self.renew_period = renew_period
         self._leader = False
         self._last_renew = 0.0  # monotonic time of last confirmed renewal
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("leader/state")
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 

@@ -33,13 +33,13 @@ anomalous series from flooding the apiserver.
 from __future__ import annotations
 
 import math
-import threading
 import time
 from typing import Any, Callable
 
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.obs.timeline import TimelineRecorder
 from tpushare_torch.trace.recorder import DropCounter
+from tpushare_torch.utils import locks
 
 #: Seconds between Events per rule. The marker + counter fire every
 #: evaluation; the Event is rate-limited like TPUShareSLOBurn.
@@ -116,16 +116,18 @@ class AnomalyEngine:
     def __init__(self, timeline: TimelineRecorder,
                  rules: tuple[Rule, ...] = DEFAULT_RULES,
                  now_fn: Callable[[], float] = time.time) -> None:
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("obs/anomaly")
         self._timeline = timeline
         self._now = now_fn
         with self._lock:
             self._rules: tuple[Rule, ...] = rules
         self._client: object | None = None
         #: rule name -> monotonic fired count (the scrape gauge).
-        self._fired: dict[str, int] = {}
+        self._fired: dict[str, int] = locks.guarded_dict(
+            self._lock, "AnomalyEngine._fired")
         #: rule name -> last Event emission stamp.
-        self._event_at: dict[str, float] = {}
+        self._event_at: dict[str, float] = locks.guarded_dict(
+            self._lock, "AnomalyEngine._event_at")
         self.drops = DropCounter()
 
     def set_now(self, now_fn: Callable[[], float]) -> None:

@@ -45,6 +45,7 @@ from collections import deque
 from typing import IO, Any, Callable
 
 from tpushare_torch.trace.recorder import DropCounter
+from tpushare_torch.utils import locks
 
 #: Frame header: little-endian payload length + CRC32 of the payload.
 _FRAME = struct.Struct("<II")
@@ -156,7 +157,7 @@ class BlackboxJournal:
             max_segments if max_segments is not None
             else int(os.environ.get("TPUSHARE_BLACKBOX_SEGMENTS",
                                     str(DEFAULT_MAX_SEGMENTS)))))
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("obs/blackbox")
         self._queue: deque[dict[str, Any]] = deque()
         self._wake = threading.Event()
         self._stop = threading.Event()

@@ -31,6 +31,7 @@ from collections import deque
 from typing import Any, Callable
 
 from tpushare_torch.trace.recorder import DropCounter
+from tpushare_torch.utils import locks
 
 #: Bounded intake between emission sites and the exporter thread.
 QUEUE_DEPTH = 2048
@@ -96,7 +97,7 @@ class Exporter:
         self.backoff_base = backoff_base
         self.backoff_cap = backoff_cap
         self.stall_after = stall_after
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("obs/export")
         self._queue: deque[dict[str, Any]] = deque()
         self._pending: list[dict[str, Any]] = []
         self._thread: threading.Thread | None = None

@@ -1,7 +1,6 @@
 """TimelineRecorder: bounded per-series history with annotation markers.
 
-The port's copy of ``tpushare/obs/timeline.py``; its locks are plain
-``threading.RLock``s and its tables plain dicts.
+The port's copy of ``tpushare/obs/timeline.py``.
 
 Everything else in the observability stack is point-in-time — gauges
 are computed at scrape, the profiler keeps 60s windows, the flight ring
@@ -44,6 +43,7 @@ from collections import deque
 from typing import Any, Callable
 
 from tpushare_torch.trace.recorder import DropCounter
+from tpushare_torch.utils import locks
 
 #: Sampler cadence (seconds). ~150 tier0 points cover 5 minutes.
 SAMPLE_INTERVAL_S = 2.0
@@ -150,14 +150,15 @@ class TimelineRecorder:
     """Tiered ring buffers + markers + the background sampler."""
 
     def __init__(self, now_fn: Callable[[], float] = time.time) -> None:
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("obs/timeline")
         self._now = now_fn
-        self._series: dict[str, _Series] = {}
+        self._series: dict[str, _Series] = locks.guarded_dict(
+            self._lock, "TimelineRecorder._series")
         self._markers: deque[Marker] = deque(maxlen=MAX_MARKERS)
         self._cursor = 0
         #: name -> callable returning {series: value}; sampled per tick.
         self._sources: dict[str, Callable[[], dict[str, float]]] = \
-            {}
+            locks.guarded_dict(self._lock, "TimelineRecorder._sources")
         #: verb -> bounded (ts, seconds) buffer. Hot-path appends are
         #: GIL-atomic deque writes; the sampler reads without draining
         #: (old entries age out by maxlen). Deliberately NOT guarded —

@@ -42,13 +42,13 @@ typo'd marker kind must fail the gate's author, not silently pass.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Callable
 
 from tpushare_torch.obs.timeline import MARKER_KINDS
 from tpushare_torch.trace.recorder import DropCounter
+from tpushare_torch.utils import locks
 
 #: Bounded observation rings. A compressed day emits tens of markers
 #: and a few hundred Events; 4096 is an order of magnitude of slack,
@@ -91,19 +91,21 @@ class FleetDayWitness:
     """Schedule of expectations + observation rings + the verdict join."""
 
     def __init__(self, now_fn: Callable[[], float] = time.time) -> None:
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("obs/witness")
         self._now = now_fn
         self._armed = False
-        self._expectations: dict[str, Expectation] = {}
+        self._expectations: dict[str, Expectation] = locks.guarded_dict(
+            self._lock, "FleetDayWitness._expectations")
         #: (kind, ts, detail, attrs) in arrival order; appended under
         #: the lock (the marker path already left the gated handlers).
         self._markers: deque[tuple[str, float, str, dict[str, str]]] = \
             deque(maxlen=MAX_OBSERVED)
         #: Event metadata.name -> (reason, message, first-poll stamp).
         self._events: dict[str, tuple[str, str, float]] = \
-            {}
+            locks.guarded_dict(self._lock, "FleetDayWitness._events")
         #: Monotonic verdict totals (the scrape gauges).
-        self._counts: dict[str, int] = {}
+        self._counts: dict[str, int] = locks.guarded_dict(
+            self._lock, "FleetDayWitness._counts")
         self._last_report: dict[str, Any] | None = None
         #: Swallowed exceptions on the observation intake.
         self.drops = DropCounter()

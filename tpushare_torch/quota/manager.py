@@ -1,7 +1,6 @@
 """Per-tenant usage ledger + arbitration queries.
 
-The port's copy of ``tpushare/quota/manager.py``, with a plain
-``threading.RLock`` where the reference has its tracing lock.
+The port's copy of ``tpushare/quota/manager.py``.
 
 The manager is a pure in-memory view: every charge comes from the
 scheduler cache's pod add/remove path, which itself is rebuilt from pod
@@ -26,11 +25,11 @@ tenant is owed. That is the reclaim tier preemption drains first.
 from __future__ import annotations
 
 import logging
-import threading
 
 from tpushare_torch.api.objects import Pod
 from tpushare_torch.quota import config as quota_config
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -43,11 +42,13 @@ class QuotaManager:
 
     def __init__(self,
                  config: quota_config.QuotaConfig | None = None) -> None:
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("quota/ledger")
         #: uid -> (tenant, hbm GiB, chips) currently charged
-        self._pods: dict[str, tuple[str, int, int]] = {}
+        self._pods: dict[str, tuple[str, int, int]] = locks.guarded_dict(
+            self._lock, "QuotaManager._pods")
         #: tenant -> (hbm GiB, chips, pod count)
-        self._usage: dict[str, tuple[int, int, int]] = {}
+        self._usage: dict[str, tuple[int, int, int]] = locks.guarded_dict(
+            self._lock, "QuotaManager._usage")
         with self._lock:
             self._config = config or quota_config.EMPTY
 

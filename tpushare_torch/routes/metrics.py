@@ -5,11 +5,13 @@ HELP texts, types, labels and buckets, rendered by the port's own
 standard-library exposition (:mod:`tpushare_torch.routes.exposition`,
 line for line what ``prometheus_client`` writes). Only the families whose
 sources the port has are declared, so none renders a zero that means
-nothing: the profiler's and per-verb cost ledger's, the pod-journey
-SLOs', defragmentation's, the autoscaler's and the serving router's come
-with the modules that feed them. The retrospective layer's families
-(build, uptime, anomaly firings, the timeline's drops and series, the
-fleet-day witness's verdicts) read :mod:`tpushare_torch.obs`.
+nothing: the pod-journey SLOs', defragmentation's, the autoscaler's and
+the serving router's come with the modules that feed them. The per-verb
+cost ledger's and the continuous profiler's (``tpushare_verb_*``,
+``tpushare_profiler_*``) read :mod:`tpushare_torch.profiling`. The
+retrospective layer's families (build, uptime, anomaly firings, the
+timeline's drops and series, the fleet-day witness's verdicts) read
+:mod:`tpushare_torch.obs`.
 
 :func:`scrape` refreshes every gauge from its source under
 ``_SCRAPE_LOCK`` and renders; a scrape that raises counts
@@ -24,6 +26,7 @@ import time as _time_mod
 
 from tpushare_torch.routes.exposition import (Counter, Gauge, Histogram,
                                               Registry)
+from tpushare_torch.utils import locks
 
 REGISTRY = Registry()
 
@@ -31,7 +34,7 @@ REGISTRY = Registry()
 # observe_cache must not interleave with another scrape's render, or that
 # scrape would see missing node series. Taken before any ledger lock (the
 # verbs never take it), so a scrape cannot deadlock a verb.
-_SCRAPE_LOCK = threading.RLock()
+_SCRAPE_LOCK = locks.TracingRLock("metrics/scrape")
 
 _BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
@@ -313,6 +316,84 @@ TRACE_ABANDONED = Counter(
     "any outcome (retired as 'abandoned'). Sustained growth means pods "
     "start attempts that never finish — the recorder is losing the "
     "ends of stories",
+    registry=REGISTRY,
+)
+
+# -- Per-verb cost ledger and continuous profiler ----------------------------- #
+# Monotonic sources live in tpushare_torch/profiling (the ledger's counters,
+# the sampler's cumulative frame counts); these gauges are set from them at
+# scrape time, so a bounded label set, rebuilt each scrape, replaces
+# unbounded counter children.
+
+VERB_DECISIONS = Gauge(
+    "tpushare_verb_decisions_total",
+    "Verb phases closed since process start, per verb (filter, "
+    "prioritize, preempt, bind, defrag:*). Monotonic; set at scrape "
+    "time from the profiling cost ledger",
+    ["verb"], registry=REGISTRY,
+)
+VERB_WALL = Gauge(
+    "tpushare_verb_wall_seconds_total",
+    "Cumulative wall time inside each verb's decision spans. The "
+    "denominator of the per-verb cost story: compare the cpu/lock/api "
+    "splits below against it",
+    ["verb"], registry=REGISTRY,
+)
+VERB_CPU = Gauge(
+    "tpushare_verb_cpu_seconds_total",
+    "Cumulative thread-CPU time per verb (time.thread_time_ns deltas "
+    "on the decision spans): the verb's own compute. wall - cpu - "
+    "lock - api is the GIL/scheduler residue",
+    ["verb"], registry=REGISTRY,
+)
+VERB_LOCK_WAIT = Gauge(
+    "tpushare_verb_lock_wait_seconds_total",
+    "Cumulative time each verb spent parked on contended "
+    "TracingRLocks (the mutex-profile hook, folded per decision span)",
+    ["verb"], registry=REGISTRY,
+)
+VERB_API = Gauge(
+    "tpushare_verb_apiserver_seconds_total",
+    "Cumulative apiserver round-trip time charged to each verb's "
+    "decision spans (instrumented in tpushare/k8s/client.py)",
+    ["verb"], registry=REGISTRY,
+)
+VERB_QUEUE_WAIT = Gauge(
+    "tpushare_verb_queue_wait_seconds_total",
+    "Cumulative wait in the HTTP layer's micro-batch gate BEFORE each "
+    "verb span opened (routes/batch.py; also per-request as the "
+    "queue;dur= Server-Timing component). Kept separate from the wall "
+    "split — the verb's own clock never contains it. A rising share "
+    "means batching is trading latency for throughput; check "
+    "tpushare_http_batch_size and the window knobs (docs/perf.md)",
+    ["verb"], registry=REGISTRY,
+)
+VERB_SELF_CPU = Gauge(
+    "tpushare_verb_self_cpu_seconds_total",
+    "Per-frame self-CPU attribution per (verb, frame_bucket): the "
+    "duty-cycled decision probe's exact frame-share distribution "
+    "scaled by the cost ledger's exact per-verb CPU totals (an "
+    "in-process sampler cannot see sub-GIL-slice verbs, so verbs get "
+    "the deterministic engine); background categories (idle/other) "
+    "come from the continuous sampler's counters scaled by its "
+    "interval. Bounded label set: top frames per verb plus an 'other' "
+    "residue, rebuilt each scrape from monotonic sources. Flamegraph-"
+    "grade detail: GET /debug/hotspots and /debug/profile/continuous "
+    "(docs/perf.md)",
+    ["verb", "frame_bucket"], registry=REGISTRY,
+)
+PROFILER_PASSES = Gauge(
+    "tpushare_profiler_sampling_passes_total",
+    "Continuous-profiler sampling passes since process start "
+    "(monotonic; set at scrape time). Flat while TPUSHARE_PROFILE=off",
+    registry=REGISTRY,
+)
+PROFILER_OVERHEAD = Gauge(
+    "tpushare_profiler_overhead_ratio",
+    "Fraction of the continuous profiler's scheduled time spent "
+    "walking stacks — its self-reported cost. The bench --scale "
+    "overhead gate additionally holds the profiler's p99 latency "
+    "impact to <= 5% (docs/perf.md)",
     registry=REGISTRY,
 )
 
@@ -620,6 +701,53 @@ def observe_quota(quota) -> None:
                     gauge.labels(tenant=tenant).set(entry[key])
 
 
+def observe_profiling() -> None:
+    """Refresh the per-verb cost gauges and the profiler's self-series
+    from tpushare_torch.profiling's monotonic sources. Rebuilt each scrape so
+    the frame_bucket label set stays the CURRENT top frames (a frame
+    that left the top-N folds into 'other' instead of freezing)."""
+    # Lazy import: profiling imports trace, which the server imports
+    # alongside this module.
+    from tpushare_torch import profiling
+
+    with _SCRAPE_LOCK:
+        for gauge in (VERB_DECISIONS, VERB_WALL, VERB_CPU,
+                      VERB_LOCK_WAIT, VERB_API, VERB_QUEUE_WAIT,
+                      VERB_SELF_CPU):
+            gauge.clear()
+        ledger_rows = profiling.ledger().snapshot()
+        for verb, row in ledger_rows.items():
+            VERB_DECISIONS.labels(verb=verb).set(row["decisions"])
+            VERB_WALL.labels(verb=verb).set(row["wallSeconds"])
+            VERB_CPU.labels(verb=verb).set(row["cpuSeconds"])
+            VERB_LOCK_WAIT.labels(verb=verb).set(row["lockWaitSeconds"])
+            VERB_API.labels(verb=verb).set(row["apiSeconds"])
+            VERB_QUEUE_WAIT.labels(verb=verb).set(
+                row.get("queueWaitSeconds", 0.0))
+        # Verb frame buckets: the decision probe's exact frame-share
+        # distribution scaled by the ledger's exact CPU totals (the
+        # sampler cannot see sub-GIL-slice verbs — see
+        # tpushare_torch/profiling/decisions.py).
+        for verb, shares in profiling.verb_frame_distribution().items():
+            cpu_total = ledger_rows.get(verb, {}).get("cpuSeconds", 0.0)
+            for frame, share in shares.items():
+                VERB_SELF_CPU.labels(verb=verb, frame_bucket=frame).set(
+                    round(cpu_total * share, 4))
+        # Background categories (idle/other and any long-running verb
+        # the sampler did catch) come from the sampler's cumulative
+        # counters, scaled by its sampling interval.
+        prof = profiling.profiler()
+        for verb, frames in prof.cumulative_frames().items():
+            if verb in ledger_rows:
+                continue  # verb buckets above are authoritative
+            for frame, seconds in frames.items():
+                VERB_SELF_CPU.labels(verb=verb, frame_bucket=frame).set(
+                    round(seconds, 3))
+        status = prof.status()
+        PROFILER_PASSES.set(status["samplingPasses"])
+        PROFILER_OVERHEAD.set(status["overheadRatio"])
+
+
 def _rss_bytes() -> int | None:
     """The resident set from /proc; the peak through ``resource`` where
     /proc is absent; None when neither exists."""
@@ -694,6 +822,7 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
         with _SCRAPE_LOCK:
             observe_cache(cache)
             observe_topology(cache)
+            observe_profiling()
             observe_process()
             observe_timeline()
             if http_server is not None:

@@ -28,6 +28,18 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
 * ``GET  /debug/fleetday`` — the fleet-day witness's schedule and verdict
 * ``GET  /debug/http`` — the wire path: pool, accept queue, keep-alive
   reuse, the micro-batch gates and the wire memos
+* ``GET  /debug/pprof`` — the profiling suite (``routes/pprof.py``):
+  ``/profile`` (sampled CPU, collapsed stacks), ``/block`` (threads
+  parked in lock waits), ``/trace`` (Chrome trace JSON), ``/mutex`` (the
+  contended-lock registry), ``/heap[?stop=1]`` (tracemalloc),
+  ``/goroutine`` (= ``/debug/threads``, all threads' stacks); a second
+  time-boxed sampler while one runs answers 409, a non-numeric or NaN
+  ``seconds`` / ``hz`` 400
+* ``GET  /debug/profile/continuous[?window=]`` — the continuous
+  profiler's rolling window, verb-rooted collapsed stacks;
+  ``GET /debug/hotspots[?top=&window=]`` — top self-time frames per verb
+  and the per-verb cost ledger (both 404 while the profiler is not
+  running)
 * ``GET  /version``, ``/healthz`` (``ok leader`` / ``ok follower`` under
   leader election)
 
@@ -58,14 +70,15 @@ workers serves the accepted connections (``TPUSHARE_HTTP_WORKERS``, 8),
 each for its keep-alive lifetime; a full hand-off queue blocks the
 accept loop. The read verbs pass the micro-batch gate (routes/batch.py)
 and the repeat-shape fast paths of routes/wire.py. The reference's
-``/debug/pprof`` suite, profiler, SLO, journey, defragmentation,
-autoscaler and router routes come with those modules.
+SLO, journey, defragmentation, autoscaler and router routes come with
+those modules.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import queue
 import sys
@@ -74,11 +87,12 @@ import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import tpushare_torch
-from tpushare_torch import obs, trace
+from tpushare_torch import obs, profiling, trace
 from tpushare_torch.api.extender import (ExtenderBindingArgs,
                                          ExtenderPreemptionArgs)
-from tpushare_torch.routes import metrics, wire
+from tpushare_torch.routes import metrics, pprof, wire
 from tpushare_torch.routes.batch import VerbBatcher, WorkItem
+from tpushare_torch.utils import locks
 from tpushare_torch.utils import pod as podutils
 
 log = logging.getLogger(__name__)
@@ -454,6 +468,92 @@ class _Handler(BaseHTTPRequestHandler):
             headers["traceparent"] = trace.format_traceparent(trace_id)
         self._send_bytes(body, extra_headers=headers)
 
+    def _serve_sampler(self, sampler, *, default_seconds: str,
+                       default_hz: str,
+                       ctype: str = "text/plain; charset=utf-8") -> None:
+        """Shared seconds/hz parse, clamp and dispatch for the time-boxed
+        profilers (profile, block, trace): one home for the bounds and
+        the 400/409 contract. NaN is refused explicitly: it slips
+        through min/max clamping and would make an empty profile."""
+        q = self._query()
+        try:
+            seconds = float(q.get("seconds", default_seconds))
+            hz = int(q.get("hz", default_hz))
+            if not math.isfinite(seconds):
+                raise ValueError(seconds)
+        except ValueError:
+            self._send_json({"Error": "seconds/hz must be numeric"}, 400)
+            return
+        seconds = min(max(seconds, 0.1), 60.0)
+        hz = min(max(hz, 1), 1000)
+        try:
+            self._send_text(sampler(seconds, hz).encode(), ctype=ctype)
+        except pprof.ProfileBusyError as e:
+            self._send_json({"Error": str(e)}, 409)
+
+    def _parse_window(self) -> tuple[bool, float | None]:
+        """``?window=`` seconds for the continuous-profile surfaces:
+        (True, seconds or None), None meaning the profiler's whole
+        window; (False, None) after the 400 for a malformed value."""
+        raw = self._query().get("window", "")
+        if not raw:
+            return True, None
+        try:
+            window = float(raw)
+        except ValueError:
+            self._send_json({"Error": "window must be numeric"}, 400)
+            return False, None
+        return True, min(max(window, 1.0), 3600.0)
+
+    def _debug_profile(self, path: str) -> bool:
+        """Serve a profiling route (``/debug/pprof*``,
+        ``/debug/threads``, ``/debug/profile/continuous``,
+        ``/debug/hotspots``); False when ``path`` is none."""
+        if path in ("/debug/profile/continuous", "/debug/hotspots"):
+            if not profiling.running():
+                self._send_json(
+                    {"Error": "continuous profiler is not running "
+                              "(TPUSHARE_PROFILE=off, or the "
+                              "process never armed it)"}, 404)
+                return True
+            if path == "/debug/profile/continuous":
+                ok, window = self._parse_window()
+                if ok:
+                    self._send_text(profiling.profiler()
+                                    .collapsed(window_s=window).encode())
+                return True
+            try:
+                top = int(self._query().get("top", "5"))
+            except ValueError:
+                self._send_json({"Error": "top must be an integer"}, 400)
+                return True
+            ok, window = self._parse_window()
+            if ok:
+                self._send_json(profiling.hotspots_report(
+                    top=min(max(top, 1), 50), window_s=window))
+        elif path in ("/debug/threads", "/debug/pprof/goroutine"):
+            self._send_text(pprof.thread_dump().encode())
+        elif path == "/debug/pprof":
+            self._send_text(pprof.index().encode())
+        elif path == "/debug/pprof/profile":
+            self._serve_sampler(pprof.sample_profile,
+                                default_seconds="5", default_hz="100")
+        elif path == "/debug/pprof/block":
+            self._serve_sampler(pprof.sample_block_profile,
+                                default_seconds="5", default_hz="100")
+        elif path == "/debug/pprof/trace":
+            self._serve_sampler(pprof.sample_trace,
+                                default_seconds="2", default_hz="200",
+                                ctype="application/json")
+        elif path == "/debug/pprof/mutex":
+            self._send_text(locks.render_mutex_profile().encode())
+        elif path == "/debug/pprof/heap":
+            stop = self._query().get("stop") in ("1", "true")
+            self._send_text(pprof.heap_snapshot(stop=stop).encode())
+        else:
+            return False
+        return True
+
     def _debug_get(self, path: str) -> bool:
         """Serve a ``/debug/*`` route; False when ``path`` is none."""
         if path == "/debug/flight":
@@ -486,6 +586,8 @@ class _Handler(BaseHTTPRequestHandler):
             # The fleet-day witness: its schedule, observation counts and
             # the last evaluate() report (null until a replay ran).
             self._send_json(obs.witness().snapshot())
+        elif self._debug_profile(path):
+            pass
         elif path == "/debug/timeline":
             self._debug_timeline()
         elif path == "/debug/trace":

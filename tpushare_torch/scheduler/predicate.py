@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import itertools
 import logging
-import threading
 import time
 from typing import Callable
 
@@ -30,6 +29,7 @@ from tpushare_torch.k8s import events
 from tpushare_torch.quota.manager import QuotaManager
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
 
@@ -74,7 +74,7 @@ class DemandTracker:
         self.ttl = ttl
         #: Optional lister-style fetch ``(ns, name) -> Pod | None``.
         self.pod_lookup = pod_lookup
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("predicate/unschedulable")
         #: uid -> (hbm GiB, chips, (ns, name), last-seen monotonic,
         #: tenant) — the tenant rides along so the autoscaler signal can
         #: say WHOSE demand is unplaceable (`by_tenant`).
@@ -201,7 +201,7 @@ class Predicate:
         self.demand = demand or DemandTracker()
         self.quota = quota
         self.client = client
-        self._quota_event_lock = threading.RLock()
+        self._quota_event_lock = locks.TracingRLock("predicate/quota-events")
         #: tenant -> monotonic stamp of its last denial Event.
         self._quota_event_at: dict[str, float] = {}
 

@@ -23,7 +23,6 @@ exact :class:`NodeSummary` objects it read.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from itertools import permutations
 from typing import Any, Sequence
@@ -33,6 +32,7 @@ from tpushare_torch.cache.nodeinfo import MEMO_CAP, NodeInfo, NodeSummary
 from tpushare_torch.topology.topology import Topology, parse_topology
 from tpushare_torch.utils import node as nodeutils
 from tpushare_torch.utils import pod as podutils
+from tpushare_torch.utils import locks
 
 #: Grid-hop equivalents charged to a ring hop that leaves the slice (or
 #: whose end has no grid position): a crossing of the datacenter network
@@ -243,14 +243,15 @@ class SlicePlacer:
 
     def __init__(self, cache: Any) -> None:
         self.cache = cache
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("topology/placer")
         #: (namespace, gang) -> (request key, summary reads, fleet size,
         #: elected placement); under ``_lock``.
         self._memo: dict[tuple[str, str], tuple[
             tuple[Any, ...],
             tuple[tuple[NodeInfo, NodeSummary], ...],
             int,
-            Placement | None]] = {}
+            Placement | None]] = locks.guarded_dict(
+                self._lock, "SlicePlacer._memo")
 
     @staticmethod
     def _fits(s: NodeSummary, req_chips: int, req_hbm: int) -> bool:

@@ -4,10 +4,11 @@ The port's copy of ``tpushare/trace/__init__.py``. One process-wide
 :class:`~tpushare_torch.trace.recorder.FlightRecorder`, a module
 singleton like :mod:`tpushare_torch.k8s.events`' queue, so every layer
 (routes, scheduler verbs, gang planner, ledger, k8s client) reaches the
-same ring without constructor plumbing. The reference also registers a
-lock-contention hook here; the port's locks are plain
-``threading.RLock``s, so nothing calls :meth:`FlightRecorder.
-note_lock_wait` yet and every span's ``lockWaitSeconds`` is 0.
+same ring without constructor plumbing. Importing it registers the
+lock-contention hook of :mod:`tpushare_torch.utils.locks`: a contended
+``TracingRLock`` acquire charges its wait to the innermost open span of
+the waiting thread (``lockWaitSeconds``, and ``worstLockSite`` among the
+span's attrs).
 
 * routes wrap each verb: ``with trace.phase("filter", ns, name, uid):``
 * library code nests: ``with trace.span("allocate"): ...``
@@ -29,6 +30,7 @@ from tpushare_torch.trace.recorder import (DEFAULT_CAPACITY, Decision,
                                            remove_complete_hook,
                                            remove_phase_hook,
                                            set_phase_probe)
+from tpushare_torch.utils import locks
 
 __all__ = [
     "DEFAULT_CAPACITY", "Decision", "DropCounter", "FlightRecorder",
@@ -115,3 +117,19 @@ def flight(limit: int | None = None) -> list[dict]:
 def get_trace(namespace: str, name: str,
               trace_id: str = "") -> dict | None:
     return _recorder.get_trace(namespace, name, trace_id=trace_id)
+
+
+def _on_contention(site: str, waited_s: float) -> None:
+    """Lock-wait attribution sink. The recorder's own lock is excluded:
+    attributing the recorder to itself would count bookkeeping as
+    scheduler contention (and the reentrant acquire under the hook
+    could recurse)."""
+    if site.startswith("trace/"):
+        return
+    try:
+        _recorder.note_lock_wait(site, waited_s)
+    except Exception:  # noqa: BLE001 - attribution must not break acquires
+        _recorder.drops.inc()
+
+
+locks.add_contention_hook(_on_contention)

@@ -6,9 +6,8 @@ say why one pod landed where it did. Each placement attempt is recorded
 as a **decision**: a trace id and the **spans** of its phases (filter,
 prioritize, preempt, bind, gang, allocate, quota), each with its wall
 time, thread CPU time, apiserver round trips (fed by
-:class:`tpushare_torch.k8s.client.ApiClient`) and lock wait. The port's
-locks are plain ``threading.RLock``s with no contention hook, so lock
-wait stays 0 until a caller feeds :meth:`FlightRecorder.note_lock_wait`.
+:class:`tpushare_torch.k8s.client.ApiClient`) and lock wait (fed by the
+``TracingRLock`` contention hook in :mod:`tpushare_torch.utils.locks`).
 
 Completed decisions land in a bounded ring, the flight recorder: always
 on, fixed memory, the last N decisions already captured when something
@@ -40,6 +39,8 @@ import uuid
 from collections import deque
 from contextlib import contextmanager
 from typing import Any, Iterator
+
+from tpushare_torch.utils import locks
 
 
 #: Decisions kept in the flight-recorder ring.
@@ -316,7 +317,7 @@ class FlightRecorder:
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY,
                  max_open: int = DEFAULT_MAX_OPEN) -> None:
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("trace/recorder")
         self._capacity = capacity
         self._max_open = max_open
         self._ring: deque[Decision] = deque(maxlen=capacity)

@@ -28,9 +28,10 @@ from __future__ import annotations
 
 import hashlib
 import os
-import threading
 from dataclasses import dataclass
 from typing import Sequence
+
+from tpushare_torch.utils import locks
 
 #: Tokens per KV-cache page (``TPUSHARE_KV_PAGE``, default 64): one
 #: chunked-prefill piece of 64 tokens fills exactly one page.
@@ -106,7 +107,7 @@ class PagePool:
                 f"page_tokens must be > 0, got {page_tokens}")
         self.total_pages = total_pages
         self.page_tokens = page_tokens
-        self._lock = threading.RLock()
+        self._lock = locks.TracingRLock("workload/page-pool")
         #: LIFO free list: a just-released page is the warmest.
         self._free: list[int] = list(range(total_pages - 1, -1, -1))
         self._refs: dict[int, int] = {}
