@@ -28,7 +28,11 @@ over gRPC trains flagship steps on the card in gloo ranks started from
 only their Allocate responses; the controller reaps a gang that lost a
 member, a gang that never reaches quorum is rolled back at its TTL, and
 256 gangs of four whole nodes churn through the 1,024-node fleet, none
-ever bound in part), then drives the flagship LM's forward, serving
+ever bound in part), tenancy and HA (phase 2h) and defragmentation with
+the pod-journey SLOs (phase 2i: a pod that fragmentation leaves pending
+binds on the card's node after the defrag executor moves a pod off it,
+once a burning SLO has aborted its first plan, and serves on the card),
+then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -99,9 +103,11 @@ import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch import obs as tobs
 from tpushare_torch import profiling as tprofiling
+from tpushare_torch import slo as tslo
 from tpushare_torch import trace as ttrace
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.cmd import main as extender_main
+from tpushare_torch.defrag import frag as tfrag
 from tpushare_torch.deviceplugin import discovery, kubelet, plugin, watchdog
 from tpushare_torch.gang.planner import QUORUM_HOLD_MARKER
 from tpushare_torch.k8s import events as tevents
@@ -285,6 +291,9 @@ TENANT_DEADLINE_S = 180
 #: then over gRPC 7 GiB again, which the earlier of the last two pods
 #: must win. DAEMON_SWEEPS sweeps, a second apart, at most.
 HELD_TENANT_FLAG = "--held-tenant"
+#: The held tenant started ahead of its grant: it imports, then waits for
+#: a ``GO`` line on its stdin before it touches the card (phase 2i).
+GATED_TENANT_FLAG = "--gated-tenant"
 DAEMON_BEAT_S = 1.0
 DAEMON_NODE = "chip-smoke-node"
 DAEMON_PODS = (("early", 7), ("small", 4), ("wire-early", 7),
@@ -384,6 +393,40 @@ TENANCY_OVERSIZE_GIB = 96
 PREEMPT_BENCH_NODES = 8
 PREEMPT_GANG_HOSTS = 4
 PREEMPT_REPEATS = 5
+#: Phase 2f: the reference's gates on the churn's journeys and on its
+#: end-of-churn fragmentation (``bench.py``'s ``GATE_POD_E2E_P99_S``,
+#: ``GATE_STRANDED_RATIO``), recorded beside the churn's numbers.
+GATE_POD_E2E_P99_S = 30.0
+GATE_STRANDED_RATIO = 0.15
+#: Phase 2i: defragmentation and pod-journey SLOs. The card's node and
+#: DEFRAG_FLEET H100 nodes beside it; the card left with DEFRAG_SPLINTER_GIB
+#: free (a splinter under TENANCY_GIB), holding the pod the plan moves
+#: (DEFRAG_MOVABLE_GIB, the largest movable pod there), DEFRAG_FILLERS
+#: fillers of DEFRAG_FILLER_GIB and a pod with a checkpoint in flight; each
+#: fleet card left with DEFRAG_MOVABLE_GIB + 1 free (room for the moved
+#: pod, none for a TENANCY_GIB pod). The SLO ConfigMap's namespace; its
+#: objective that the fill's journeys burn (each bound later than 1 ms
+#: after its creation), and the one that lifts the burn; the executor's
+#: posture and budget (no loop tick within the phase).
+DEFRAG_NODE = "chip-smoke-defrag-node"
+DEFRAG_FLEET = 3
+DEFRAG_SPLINTER_GIB = 10
+DEFRAG_MOVABLE_GIB = 8
+DEFRAG_FILLER_GIB = 7
+DEFRAG_FILLERS = 5
+DEFRAG_SLO_NAMESPACE = "chip-smoke-slos"
+DEFRAG_BURNING_SLO = {"chip-smoke-bind-1ms": {
+    "signal": "pod_e2e", "objective": 0.5, "thresholdSeconds": 0.001,
+    "fastBurn": 1.0}}
+DEFRAG_LIFTED_SLO = {"chip-smoke-bind-600s": {
+    "signal": "pod_e2e", "objective": 0.99, "thresholdSeconds": 600}}
+DEFRAG_ENV = {"TPUSHARE_DEFRAG_MODE": "active",
+              "TPUSHARE_DEFRAG_INTERVAL_S": "3600",
+              "TPUSHARE_DEFRAG_MAX_MOVES": "4",
+              "TPUSHARE_DEFRAG_MOVES_PER_HOUR": "20",
+              "TPUSHARE_DEFRAG_NODE_COOLDOWN_S": "300",
+              "TPUSHARE_DEFRAG_MAX_CONCURRENT": "2",
+              "TPUSHARE_SLO_NAMESPACE": DEFRAG_SLO_NAMESPACE}
 #: Phase 5c: bench_workload.py's serving traffic (bench_decode_continuous,
 #: bench_decode_paged; the prompt mix is the twin's ``BW.PROMPT_MIX``):
 #: the cache length, the chunk and page size and the decode steps between
@@ -630,8 +673,18 @@ def main(usage_dir: str) -> int:
     # the leader fails over and a priority pod preempts it, then the
     # preemptor serves in its place; quota and admission on the new
     # leader; bench.py's preempt twins and the preempt verb at 1,024 nodes.
+    # 2i's tenant starts now, gated before CUDA: its imports overlap 2h.
+    gated = defrag_tenant(inv, usage_dir)
     tenancy = tenancy_phase(inv, usage_dir)
     phase("2h tenancy", card=card, **tenancy)
+
+    # 2i. Defragmentation and pod-journey SLOs: the card's node filled to a
+    # splinter leaves a pod pending; a burning SLO aborts the defrag
+    # executor's first plan, the next moves a pod off the card (never the
+    # one with a checkpoint in flight), and the pending pod binds there,
+    # is granted and serves on the card, its journey closed bound.
+    defrag = defrag_phase(inv, usage_dir, tenant=gated)
+    phase("2i defrag and SLO", card=card, **defrag)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -1020,6 +1073,7 @@ def main(usage_dir: str) -> int:
                "extender_tenant": extender["launches"],
                "gang_tenant": gang["launches"]["flash_fwd"],
                **tenancy["launches"],
+               **defrag["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -1686,7 +1740,7 @@ def allocated_tenant_phase(alloc: plugin.ContainerAllocation,
             "env_keys": sorted(env)}
 
 
-def allocated_tenant(hold: bool = False) -> int:
+def allocated_tenant(hold: bool = False, gated: bool = False) -> int:
     """The tenant of phase 2d, run in the allocation's env: configure
     from the grant before CUDA starts, cap the allocator, build the
     flagship from a seed, serve ``generate`` 8 x (128 + 64) twice through
@@ -1694,7 +1748,16 @@ def allocated_tenant(hold: bool = False) -> int:
     heartbeat to the allocation's usage file, and print one JSON line.
     Held (phase 2e), it then heartbeats every ``DAEMON_BEAT_S`` seconds
     (``torchenv.start_usage_reporter``), prints ``READY`` and keeps the
-    card until its stdin closes."""
+    card until its stdin closes. Gated (phase 2i), it first waits for a
+    ``GO`` line on its stdin, exits 3 on anything else, and its JSON line
+    also holds when it reached the gate and left it and its first
+    request's token stream."""
+    gated_unix = go_unix = None
+    if gated:
+        gated_unix = time.time()
+        if sys.stdin.readline().strip() != cogpucheck.GO:
+            return 3
+        go_unix = time.time()
     grant = torchenv.configure()
     check(grant is not None, "the tenant has no grant in its env")
     cap = torchenv.apply_memory_fraction(grant)
@@ -1738,7 +1801,9 @@ def allocated_tenant(hold: bool = False) -> int:
         "first_request_s": seconds[0], "request_s": seconds[1],
         "first_request_done_unix": done_unix[0],
         "tok_per_s": TENANT_BATCH * TENANT_NEW / seconds[1],
-        "pid": os.getpid(), "heartbeat": beat}), flush=True)
+        "pid": os.getpid(), "heartbeat": beat,
+        **({"gated_unix": gated_unix, "go_unix": go_unix,
+            "stream": outs[0].tolist()} if gated else {})}), flush=True)
     if hold:
         print(cogpucheck.READY, flush=True)
         sys.stdin.read()
@@ -1902,25 +1967,36 @@ class ServingTenant:
     an allocation's env: :meth:`start` waits for its ``READY`` and returns
     the JSON it printed; :meth:`stop` closes its stdin, as kubelet kills
     the container, and returns its exit code. ``TENANT_DEADLINE_S`` bounds
-    the wait for ``READY``."""
+    the wait for ``READY``. ``gated`` starts ``--gated-tenant`` instead:
+    :meth:`launch` starts the process ahead of its grant, so its imports
+    overlap other work, and :meth:`start` sends it ``GO``."""
 
-    def __init__(self, alloc: plugin.ContainerAllocation):
+    def __init__(self, alloc: plugin.ContainerAllocation,
+                 gated: bool = False):
         self.alloc = alloc
+        self.gated = gated
         self.proc = None
         self.err = None
         self.ready_s = None
         self.started_unix = None
 
-    def start(self) -> dict:
+    def launch(self) -> None:
         repo = os.path.dirname(os.path.abspath(__file__))
         self.err = tempfile.TemporaryFile(mode="w+", encoding="utf-8")
-        t0 = time.perf_counter()
         self.started_unix = time.time()
         self.proc = subprocess.Popen(
             ["python3", os.path.join(repo, "chip_smoke.py"),
-             HELD_TENANT_FLAG], env=tenant_env(self.alloc), cwd=repo,
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err,
-            text=True)
+             GATED_TENANT_FLAG if self.gated else HELD_TENANT_FLAG],
+            env=tenant_env(self.alloc), cwd=repo, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True)
+
+    def start(self) -> dict:
+        t0 = time.perf_counter()
+        if self.proc is None:
+            self.launch()
+        if self.gated:
+            self.proc.stdin.write(cogpucheck.GO + "\n")
+            self.proc.stdin.flush()
         deadline = threading.Timer(TENANT_DEADLINE_S, self.proc.kill)
         deadline.start()
         try:
@@ -2337,6 +2413,54 @@ def ledger_checks(api: FakeApiServer, stack, client: ExtenderClient,
     return {"used_gib": used, "total_gib": total, "granted_gib": granted}
 
 
+def pod_e2e_p99_s(after: dict, before: dict) -> float | None:
+    """p99 of ``tpushare_pod_e2e_scheduling_seconds`` over the journeys
+    closed between two scrapes, as ``bench.py``'s ``_pod_e2e_p99_s``
+    reads it: the buckets' counts summed across tenants and outcomes, and
+    the first bucket bound holding 99% of them; None when none closed."""
+    family = "tpushare_pod_e2e_scheduling_seconds"
+    buckets: dict[float, float] = {}
+    total = 0.0
+    for (name, labels), value in after.items():
+        grown = value - before.get((name, labels), 0.0)
+        if name == family + "_bucket":
+            le = float(dict(labels)["le"])
+            buckets[le] = buckets.get(le, 0.0) + grown
+        elif name == family + "_count":
+            total += grown
+    if total <= 0:
+        return None
+    want = 0.99 * total
+    for le in sorted(buckets):
+        if buckets[le] >= want:
+            return le
+    return float("inf")
+
+
+def churn_gates(after: dict, before: dict, stack) -> dict:
+    """Phase 2f's journey and fragmentation numbers, as ``bench.py
+    --scale`` reads them after its churn: the churn's ``pod_e2e_p99_s``,
+    and ``stranded_hbm_ratio``, the frag index of the ledger against the
+    filter verb's ``DemandTracker`` shapes over the fleet's GiB; each
+    beside the reference's gate and whether it passes (recorded, not
+    enforced)."""
+    p99 = pod_e2e_p99_s(after, before)
+    infos = stack.controller.cache.sharing_node_infos()
+    report = tfrag.cluster_report(infos, stack.predicate.demand.shapes())
+    total = sum(i.total_hbm for i in infos)
+    ratio = report["strandedHBM"] / total if total else 0.0
+    return {"pod_e2e_p99_s": p99, "stranded_hbm_ratio": ratio,
+            "stranded_hbm_gib": report["strandedHBM"],
+            "journey_gates": {
+                "pod_e2e_p99_s": {"value": p99,
+                                  "limit": GATE_POD_E2E_P99_S,
+                                  "pass": p99 is None
+                                  or p99 <= GATE_POD_E2E_P99_S},
+                "stranded_hbm_ratio": {"value": ratio,
+                                       "limit": GATE_STRANDED_RATIO,
+                                       "pass": ratio <= GATE_STRANDED_RATIO}}}
+
+
 def _percentiles(xs: list[float]) -> tuple[float, float]:
     """p50 and p99, nearest rank."""
     ordered = sorted(xs)
@@ -2364,8 +2488,8 @@ def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
     ledger's used GiB, and ``/debug/flight`` must hold 256 decisions with
     no recording drop. Returns p50 and p99 of filter + prioritize + bind
     on the handlers' clock and on the wire's, the pods bound, the mean
-    GiB utilisation from round 2 on, the final ``ledger_checks`` and the
-    scrapes' ms, bytes and series."""
+    GiB utilisation from round 2 on, the final ``ledger_checks``, the
+    scrapes' ms, bytes and series, and ``churn_gates``."""
     rng = random.Random(seed)
     before, sent0 = client.metrics(), dict(client.sent)
     scraper = Scraper(client.address, scrape_every) if scrape_every else None
@@ -2449,6 +2573,7 @@ def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
           and flight["recordingDrops"] == 0,
           f"/debug/flight holds {len(flight['decisions'])} decisions, "
           f"{flight['recordingDrops']} drops")
+    gates = churn_gates(after, before, stack)
     return {"nodes": len(names), "bound": bound, "rounds": rounds,
             "backlog": len(backlog), "seconds": seconds,
             "handler_p50_ms": h50, "handler_p99_ms": h99,
@@ -2457,7 +2582,8 @@ def extender_churn(api: FakeApiServer, stack, client: ExtenderClient,
                                     else 0.0),
             "sent": sent, "metrics_gib_used": gauged,
             "flight_decisions": len(flight["decisions"]),
-            **(scraper.fields() if scraper is not None else {}), **ledger}
+            **(scraper.fields() if scraper is not None else {}), **ledger,
+            **gates}
 
 
 def exemplars(text: str, verb: str) -> list[tuple[str, str]]:
@@ -4168,6 +4294,395 @@ def tenancy_phase(inv: discovery.HostInventory, usage_dir: str,
         "seconds": time.perf_counter() - t_phase,
         "launches": {"tenancy_victim": served_victim["launches"],
                      "tenancy_preemptor": served_pre["launches"]}}
+
+
+def slo_configmap(namespace: str, entries: dict) -> dict:
+    return {"apiVersion": "v1", "kind": "ConfigMap",
+            "metadata": {"name": const.SLO_CONFIGMAP,
+                         "namespace": namespace},
+            "data": {name: json.dumps(spec)
+                     for name, spec in entries.items()}}
+
+
+def _slo_rows(client: ExtenderClient) -> dict:
+    return {row["slo"]: row for row in
+            client.get("/debug/slo", prefixed=False)["slos"]}
+
+
+def defrag_fill(card_gib: int, fleet_card_gib: int) -> dict:
+    """Phase 2i's sizing: the card's pods (the movable one, the fillers,
+    the one with a checkpoint in flight) as (name, GiB), each fleet
+    card's one pod's GiB, and what is left free on each."""
+    ckpt = (card_gib - DEFRAG_SPLINTER_GIB - DEFRAG_MOVABLE_GIB
+            - DEFRAG_FILLERS * DEFRAG_FILLER_GIB)
+    check(ckpt > 0, f"a card of {card_gib} GiB holds no checkpointing pod")
+    card = ([("defrag-movable", DEFRAG_MOVABLE_GIB)]
+            + [(f"defrag-filler-{i}", DEFRAG_FILLER_GIB)
+               for i in range(DEFRAG_FILLERS)]
+            + [("defrag-ckpt", ckpt)])
+    fleet = fleet_card_gib - DEFRAG_MOVABLE_GIB - 1
+    check(fleet_card_gib - fleet < TENANCY_GIB,
+          f"a fleet card of {fleet_card_gib} GiB takes a "
+          f"{TENANCY_GIB} GiB pod")
+    return {"card": card, "card_free_gib": DEFRAG_SPLINTER_GIB,
+            "fleet_pod_gib": fleet, "fleet_free_gib": fleet_card_gib - fleet}
+
+
+def plain_stream_checks(stream: list, device: str = "cuda",
+                        cfg: M.ModelConfig | None = None) -> dict:
+    """The gated tenant's first request against this process's: the same
+    seeded flagship and prompt (``allocated_tenant``'s), ``generate``
+    through ``best_attn_fn`` here must give the same tokens, bit for bit;
+    and under the plain model (``model.forward``, plain attention) fed
+    that stream, each new token must be the plain argmax or within
+    ``LOGIT_TOL`` (of the largest logit) of it, since bf16 attention
+    moves near-ties."""
+    cfg = cfg or M.ModelConfig()
+    params = M.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg, device=device)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (TENANT_BATCH, TENANT_PROMPT),
+        generator=torch.Generator(device=device).manual_seed(1),
+        device=device)
+    got = torch.tensor(stream, device=device)
+    check(tuple(got.shape) == (TENANT_BATCH, TENANT_PROMPT + TENANT_NEW)
+          and torch.equal(got[:, :TENANT_PROMPT], prompt),
+          f"the tenant's stream {tuple(got.shape)} is not its prompt's")
+    with torch.inference_mode():
+        again = S.generate(params, prompt, cfg, n_new=TENANT_NEW,
+                           max_len=TENANT_PROMPT + TENANT_NEW,
+                           attn_fn=FA.best_attn_fn(device))
+        logits = M.forward(params, got[:, :-1], cfg)[:, TENANT_PROMPT - 1:]
+    equal = bool(torch.equal(again, got))
+    check(equal, "the tenant's stream is not the one this process "
+                 "computes from the same weights and prompt")
+    chosen = logits.gather(-1, got[:, TENANT_PROMPT:, None])[..., 0]
+    gap = ((logits.max(-1).values - chosen)
+           / logits.abs().amax(-1)).max().item()
+    agree = (logits.argmax(-1) == got[:, TENANT_PROMPT:]).float().mean()
+    check(gap <= LOGIT_TOL, f"a token of the stream is {gap} under the "
+                            f"plain model's greedy choice")
+    del params, again, logits
+    return {"tokens_equal": equal, "plain_argmax_agree": agree.item(),
+            "plain_max_gap": gap, "new_tokens": TENANT_BATCH * TENANT_NEW}
+
+
+DEFRAG_PENDING = "defrag-pending"
+
+
+def defrag_tenant(inv: discovery.HostInventory,
+                  usage_dir: str) -> ServingTenant:
+    """Phase 2i's tenant, started now, gated: in the allocation the
+    port's daemon will give the pending pod on the first card, so its
+    imports overlap whatever runs before ``GO``."""
+    tenant = ServingTenant(plugin.build_allocation(
+        inv, [inv.chips[0].index], TENANCY_GIB,
+        pod_uid=f"uid-{DEFRAG_PENDING}", usage_dir=usage_dir), gated=True)
+    tenant.launch()
+    return tenant
+
+
+def defrag_phase(inv: discovery.HostInventory, usage_dir: str,
+                 fleet: int = DEFRAG_FLEET,
+                 tenant: ServingTenant | None = None) -> dict:
+    """Phase 2i: defragmentation and pod-journey SLOs on the card. One
+    port extender (``serve_stack``, ``DEFRAG_ENV``: the executor active,
+    its loop a hour away, the SLO ConfigMap trusted from
+    ``DEFRAG_SLO_NAMESPACE``) over a fake apiserver, with the card's node
+    as the port's daemon advertises it and ``fleet`` fake H100 nodes. The
+    tenant that will serve is ``tenant`` (``defrag_tenant``, started
+    before; else started now), gated, in the allocation its pod will get.
+    (a) The SLO ConfigMap with an objective each bind
+    burns; the card filled with ledger-only pods (``defrag_fill``:
+    granted over gRPC, nothing started) to a splinter under
+    ``TENANCY_GIB``, one of them then annotated with a checkpoint in
+    flight; each fleet card filled to leave room for the movable pod and
+    not for ``TENANCY_GIB``; a ``TENANCY_GIB`` pod that filter refuses on
+    every node; ``/metrics``' stranded GiB equal to the frag index over
+    the port's ledger, ``/debug/defrag`` naming the card's node. (b) An
+    active tick aborts on the burning objective: counted, nothing
+    evicted, its Event and marker, ``/debug/slo`` burning; the ConfigMap
+    rewritten lifts it. (c) The next tick moves the movable pod off the
+    card through the fake's eviction API and the budget (never the
+    checkpointing pod), counted, its Event and marker; the owner's
+    successor placed on the planned node; the pending pod bound on the
+    card's node, granted, served by the tenant (``plain_stream_checks``),
+    its journey bound after its refused attempts, counted; the stranded
+    gauge down to the frag index after the move. Returns the phase's
+    fields; ``launches`` is the tenant's forward count."""
+    t_phase = time.perf_counter()
+    card_gib = inv.chips[0].hbm_gib
+    fleet_inv = discovery.fake_inventory(chips=EXTENDER_FLEET_CARDS)
+    sizing = defrag_fill(card_gib, fleet_inv.chips[0].hbm_gib)
+    tenant = tenant or defrag_tenant(inv, usage_dir)
+    predicted = tenant.alloc
+    tobs.reset()
+    tslo.reset()
+    api = FakeApiServer()
+    stack = server = client = grants = None
+    try:
+        with _env(**DEFRAG_ENV):
+            stack, server = extender_main.serve_stack(api)
+        client = ExtenderClient(server)
+        ex = stack.controller.defrag
+        check((ex.mode, ex.interval_s, ex.planner.max_moves,
+               ex.budget.per_hour, ex.budget.node_cooldown_s,
+               ex.budget.max_concurrent) == ("active", 3600.0, 4, 20, 300.0,
+                                             2),
+              f"the executor did not read DEFRAG_ENV: {ex.status()}")
+        # (a) The objectives, then the fill.
+        api.create_configmap(slo_configmap(DEFRAG_SLO_NAMESPACE,
+                                           DEFRAG_BURNING_SLO))
+        api.create_configmap(slo_configmap("kube-system",
+                                           DEFRAG_LIFTED_SLO))
+        _until(lambda: set(tslo.engine().config().slos)
+               == set(DEFRAG_BURNING_SLO), 30, "the SLO ConfigMap applied")
+        api.create_node(advertised_node(DEFRAG_NODE, inv))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-dfg-") as pdir:
+            plugin.TPUSharePlugin(DEFRAG_NODE, api, inv, state_dir=pdir,
+                                  usage_dir=usage_dir).annotate_node()
+            names = [DEFRAG_NODE]
+            for i in range(fleet):
+                names.append(f"h100-defrag-{i}")
+                api.create_node(advertised_node(names[-1], fleet_inv))
+                plugin.TPUSharePlugin(names[-1], api, fleet_inv,
+                                      usage_dir="").annotate_node()
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            grants = NodeGrants(DEFRAG_NODE, api, inv, pdir, usage_dir)
+            for name, gib in sizing["card"]:
+                pod = api.create_pod(make_pod(name, hbm=gib,
+                                              uid=f"uid-{name}"))
+                node, _, _ = client.schedule(pod, [DEFRAG_NODE])
+                check(node == DEFRAG_NODE, f"{name} went to {node}")
+                alloc, _ = grants.allocate(name, gib)
+                _granted(api, inv, name, "default", gib, usage_dir, alloc)
+            ckpt = api.get_pod("default", "defrag-ckpt")
+            ckpt.metadata.setdefault("annotations", {})[
+                const.ANN_CKPT_IN_FLIGHT] = "true"
+            api.update_pod(ckpt)
+            fills = 0
+            for node in names[1:]:
+                for _ in range(EXTENDER_FLEET_CARDS):
+                    pod = api.create_pod(make_pod(
+                        f"defrag-fleet-{fills}", hbm=sizing["fleet_pod_gib"],
+                        uid=f"uid-defrag-fleet-{fills}"))
+                    fills += 1
+                    got, _, _ = client.schedule(pod, [node])
+                    check(got == node, f"{pod.name} went to {got}")
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            movable = {p: ex.planner.movable(
+                stack.controller.cache.get_pod(f"uid-{p}"))
+                for p in ("defrag-ckpt", "defrag-movable")}
+            check(movable == {"defrag-ckpt": (False, "checkpoint in flight"),
+                              "defrag-movable": (True, "")},
+                  f"movable: {movable}")
+            pending = api.create_pod(make_pod(DEFRAG_PENDING,
+                                              hbm=TENANCY_GIB,
+                                              uid=f"uid-{DEFRAG_PENDING}"))
+            node, _, _ = client.schedule(pending, names)
+            check(node is None, f"the pending pod fit on {node}")
+            metrics = client.metrics()
+            shapes = stack.predicate.demand.shapes()
+            report = tfrag.cluster_report(
+                stack.controller.cache.sharing_node_infos(), shapes)
+            stranded = sample(metrics, "tpushare_cluster_stranded_hbm_gib")
+            check(shapes == [(TENANCY_GIB, 0)] and stranded > 0
+                  and stranded == report["strandedHBM"],
+                  f"stranded {stranded} GiB, the frag index "
+                  f"{report['strandedHBM']} over {shapes}")
+            status = client.get("/debug/defrag", prefixed=False)
+            [card_row] = [n for n in status["frag"]["nodes"]
+                          if n["node"] == DEFRAG_NODE]
+            check(card_row["freeHBM"] == card_row["strandedHBM"]
+                  == sizing["card_free_gib"] and card_row["score"] == 1.0
+                  and sample(metrics, "tpushare_node_frag_score",
+                             node=DEFRAG_NODE) == 1.0,
+                  f"the card's node in /debug/defrag: {card_row}")
+            # (b) The burning objective aborts the tick.
+            burning = _slo_rows(client)
+            check(burning["chip-smoke-bind-1ms"]["burning"]
+                  and "chip-smoke-bind-600s" not in burning,
+                  f"/debug/slo: {burning}")
+            before = client.metrics()
+            pods_before = sorted(p.uid for p in api.list_pods())
+            aborted = ex.tick()
+            after = client.metrics()
+            check(aborted is not None and aborted["status"] == "aborted"
+                  and aborted["abortReason"] == "slo-burn"
+                  and {m["status"] for m in aborted["moves"]} == {"aborted"},
+                  f"the burning tick: {aborted}")
+            abort_counts = {
+                "slo_burn": rise(after, before,
+                                 "tpushare_defrag_plans_aborted_total",
+                                 reason="slo-burn"),
+                "evicted": rise(after, before, "tpushare_defrag_moves_total",
+                                outcome="evicted")}
+            check(abort_counts == {"slo_burn": 1.0, "evicted": 0.0}
+                  and sorted(p.uid for p in api.list_pods()) == pods_before,
+                  f"the abort: {abort_counts}")
+            check(tevents.flush(), "the Events did not flush")
+            reasons = [e["reason"] for _, e in api.events]
+            check(tevents.REASON_DEFRAG_ABORTED in reasons
+                  and tevents.REASON_SLO_BURN in reasons,
+                  f"Events after the abort: {reasons}")
+            doc = timeline(client)
+            abort_markers = markers_of(doc, "defrag-abort")
+            check(len(abort_markers) == 1
+                  and abort_markers[0]["attrs"]["reason"] == "slo-burn"
+                  and markers_of(doc, "slo-burn"),
+                  f"markers: {[m['kind'] for m in doc['markers']]}")
+            cm = api.get_configmap(DEFRAG_SLO_NAMESPACE, const.SLO_CONFIGMAP)
+            cm.raw["data"] = slo_configmap(DEFRAG_SLO_NAMESPACE,
+                                           DEFRAG_LIFTED_SLO)["data"]
+            api.update_configmap(cm)
+            lift_s = _until(lambda: not any(
+                r["burning"] for r in tslo.engine().evaluate())
+                and set(tslo.engine().config().slos)
+                == set(DEFRAG_LIFTED_SLO), 30, "the burn lifted")
+            check(not any(r["burning"] for r in _slo_rows(client).values()),
+                  "/debug/slo still burns")
+            # (c) The move, the successor, the pending pod on the card.
+            before = client.metrics()
+            t0_unix, t0 = time.time(), time.perf_counter()
+            plan = ex.tick()
+            t_tick = time.perf_counter()
+            after = client.metrics()
+            check(plan is not None and plan["status"] == "executed"
+                  and plan["unblocks"] == [f"default/{pending.name}"]
+                  and plan["moves"]
+                  and all(m["status"] == "evicted" for m in plan["moves"])
+                  and any(m["from"] == DEFRAG_NODE for m in plan["moves"])
+                  and not any(m["pod"] == "default/defrag-ckpt"
+                              for m in plan["moves"]),
+                  f"the plan: {plan}")
+            moved = {m["pod"].split("/", 1)[1]: m for m in plan["moves"]}
+            evicted = rise(after, before, "tpushare_defrag_moves_total",
+                           outcome="evicted")
+            budget = client.get("/debug/defrag", prefixed=False)["budget"]
+            check(evicted == len(moved) and budget["usedLastHour"]
+                  == len(moved) and budget["perHour"] == 20
+                  and not set(moved) & {p.name for p in api.list_pods()},
+                  f"evicted {evicted}, the budget {budget}")
+            check(tevents.flush(), "the Events did not flush")
+            moves_evented = [e["involvedObject"]["name"]
+                             for _, e in api.events
+                             if e["reason"] == tevents.REASON_DEFRAG_MOVE]
+            plan_markers = [m for m in markers_of(timeline(client),
+                                                  "defrag-plan")
+                            if m["attrs"]["plan"] == plan["id"]]
+            check(sorted(moves_evented) == sorted(moved)
+                  and len(plan_markers) == 1,
+                  f"move Events {moves_evented}, markers {plan_markers}")
+            t_plan = plan_markers[0]["ts"] - t0_unix
+            for name, move in moved.items():
+                if name in grants.held:
+                    grants.release(name)
+                gib = dict(sizing["card"]).get(name, sizing["fleet_pod_gib"])
+                fresh = api.create_pod(make_pod(name, hbm=gib,
+                                                uid=f"uid-{name}-2"))
+                node, _, _ = client.schedule(fresh, [move["to"]])
+                check(node == move["to"] and node != DEFRAG_NODE,
+                      f"{name}'s successor went to {node}, planned "
+                      f"{move['to']}")
+            t_rebind = time.perf_counter()
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            before = client.metrics()
+            node, bind_handler_ms, _ = client.schedule(
+                api.get_pod("default", pending.name), names)
+            t_bind = time.perf_counter()
+            check(node == DEFRAG_NODE, f"the pending pod went to {node}: "
+                                       f"{client.last_bind}")
+            alloc, allocate_ms = grants.allocate(pending.name, TENANCY_GIB)
+            t_alloc = time.perf_counter()
+            _granted(api, inv, pending.name, "default", TENANCY_GIB,
+                     usage_dir, alloc)
+            check(alloc == predicted, "the grant is not the env the "
+                                      "tenant was started in")
+            got = tenant.start()
+            served = _serving(tenant, got, alloc, card_gib, api,
+                              DEFRAG_NODE, pending.name, "default",
+                              usage_dir)
+            check(stack.controller.wait_idle(timeout=60),
+                  "the extender's controller did not settle")
+            after = client.metrics()
+            journey = client.get(f"/debug/journey/default/{pending.name}",
+                                 prefixed=False)
+            refused = [client.get(f"/debug/trace?id={a['traceId']}",
+                                  prefixed=False)["target"]["outcome"]
+                       for a in journey["attempts"][:-1]]
+            e2e_counted = rise(
+                after, before, "tpushare_pod_e2e_scheduling_seconds_count",
+                tenant="default", outcome="bound")
+            check(journey["outcome"] == "bound"
+                  and journey["attemptsTotal"] >= 2
+                  and refused and set(refused) == {"unschedulable"}
+                  and journey["attempts"][-1]["outcome"] == "bound"
+                  and e2e_counted == 1,
+                  f"the pending pod's journey {journey}, refused "
+                  f"{refused}, counted {e2e_counted}")
+            shapes = stack.predicate.demand.shapes()
+            report = tfrag.cluster_report(
+                stack.controller.cache.sharing_node_infos(), shapes)
+            stranded_after = sample(after,
+                                    "tpushare_cluster_stranded_hbm_gib")
+            check(stranded_after == report["strandedHBM"] < stranded,
+                  f"stranded {stranded_after} GiB after the move, the "
+                  f"frag index {report['strandedHBM']}, before {stranded}")
+            free_before = card_free_bytes()
+            code = tenant.stop()
+            freed = card_free_bytes() - free_before
+            check(code == 0, f"the tenant exited {code}")
+            stream = plain_stream_checks(got["stream"])
+            checks = ledger_checks(api, stack, client, names)
+    finally:
+        tenant.stop()
+        if grants is not None:
+            grants.close()
+        if client is not None:
+            client.close()
+        if stack is not None:
+            extender_main.shutdown_stack(stack, server)
+    first_start = got["first_request_done_unix"] - got["first_request_s"]
+    to_first = got["first_request_done_unix"] - t0_unix
+    return {
+        "card_gib": card_gib, "fleet_nodes": fleet, "sizing": sizing,
+        "movable": {p: list(v) for p, v in movable.items()},
+        "stranded_gib_before": stranded, "stranded_gib_after":
+        stranded_after, "frag_nodes": len(status["frag"]["nodes"]),
+        "card_node_frag": card_row, "abort": {
+            "plan_status": aborted["status"],
+            "reason": aborted["abortReason"],
+            "cancelled": len(aborted["moves"]), **abort_counts,
+            "lift_s": lift_s},
+        "plan": {"moves": [{k: m[k] for k in ("pod", "from", "to",
+                                              "status")}
+                           for m in plan["moves"]],
+                 "unblocks": plan["unblocks"], "evicted": evicted,
+                 "budget": budget},
+        "pending_bind_handler_ms": bind_handler_ms,
+        "allocate_ms": allocate_ms,
+        "journey": {k: journey[k] for k in (
+            "outcome", "attemptsTotal", "e2eSeconds", "queueWaitSeconds",
+            "inVerbSeconds")} | {"refused": refused},
+        "tenant": served, "stream": stream, "card_freed_bytes": freed,
+        "tenant_import_s": got["gated_unix"] - tenant.started_unix,
+        "to_first_request_done_s": to_first,
+        "split_s": {"plan": t_plan,
+                    "eviction": (t_tick - t0) - t_plan,
+                    "recreate_and_rebind": t_rebind - t_tick,
+                    "pending_bind": t_bind - t_rebind,
+                    "grant": t_alloc - t_bind,
+                    # Past the grant until the tenant left its gate: the
+                    # rest of its imports, where they outlast the phase.
+                    "import_left": got["go_unix"] - (t0_unix + t_alloc - t0),
+                    "process_start": first_start - got["go_unix"],
+                    "first_request": got["first_request_s"]},
+        "ledger": checks, "seconds": time.perf_counter() - t_phase,
+        "launches": {"defrag_tenant": served["launches"]}}
+
 
 
 def _saturated(api: FakeApiServer, client: ExtenderClient,
@@ -7671,6 +8186,8 @@ if __name__ == "__main__":
         sys.exit(allocated_tenant())
     if sys.argv[1:] == [HELD_TENANT_FLAG]:
         sys.exit(allocated_tenant(hold=True))
+    if sys.argv[1:] == [GATED_TENANT_FLAG]:
+        sys.exit(allocated_tenant(hold=True, gated=True))
     if sys.argv[1:2] == [COMPILED_GANG_FLAG]:
         sys.exit(compiled_gang_rank(json.loads(sys.argv[2])))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:

@@ -21,9 +21,9 @@ package's.
   ``python -m tpushare_torch.cmd.main`` and ``tests/miniapiserver.py``: a
   real bind, a real SIGKILL, and a second process that serves the first
   one's markers behind a ``restart`` marker and resolves its bind
-  decision, tagged ``restored``. Its second case, a defragmentation move
-  resolving the restored bind, waits for the port's defragmentation
-  (ROADMAP A2).
+  decision, tagged ``restored``. Its second case: a journaled bind
+  decision, restored after a simulated crash, is the causal parent of the
+  port's defrag planner's move of that pod.
 """
 
 from __future__ import annotations
@@ -213,3 +213,5 @@ def _spawn(port: int, kubeconfig: str, journal_dir: str):
 _CRASH._spawn = _spawn
 test_sigkill_restart_replays_precrash_story = \
     _CRASH.test_sigkill_restart_replays_precrash_story
+test_defrag_move_resolves_restored_bind_across_restart = \
+    _CRASH.test_defrag_move_resolves_restored_bind_across_restart

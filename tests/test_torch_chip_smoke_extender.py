@@ -7,7 +7,8 @@ position 0 is host card 3. The held tenant is recorded instead of
 started; everything else runs as on the card: the port's extender over
 HTTP places the tenant, the port's daemon commits that pod over gRPC to
 a ``FakeKubelet``, and the seeded churn binds its pods with the ledger
-checks. The churn's traffic is ``bench.py``'s, draw for draw. The
+checks and ``bench.py``'s journey p99 and stranded ratio beside its
+gates. The churn's traffic is ``bench.py``'s, draw for draw. The
 phase's decision-trace and ``/metrics`` gates pass on the port's stack
 and fail on one broken for each: a grant whose ``trace-id`` is not its
 decision's, a bind or a filter the metrics count short by one. The
@@ -154,6 +155,22 @@ def test_extender_phase_places_commits_and_churns(held, tmp_path):
     assert churn["scrapes"] >= 1
     assert 0 < churn["scrape_p50_ms"] <= churn["scrape_max_ms"]
     assert churn["scrape_bytes"] > 0 and churn["scrape_series"] > 16 * 2
+    # The churn's journeys and its end-of-churn fragmentation, beside
+    # bench.py's gates.
+    p99 = churn["pod_e2e_p99_s"]
+    assert p99 in (*tmetrics._E2E_BUCKETS, float("inf"))
+    assert 0 <= churn["stranded_hbm_ratio"] < 1
+    # Over the fleet's GiB and the card's node's (two cards).
+    assert churn["stranded_hbm_ratio"] == churn["stranded_hbm_gib"] / (
+        16 * 8 * 79 + 2 * 79)
+    gates = churn["journey_gates"]
+    assert gates["pod_e2e_p99_s"] == {
+        "value": p99, "limit": bench.GATE_POD_E2E_P99_S,
+        "pass": p99 <= bench.GATE_POD_E2E_P99_S}
+    assert gates["stranded_hbm_ratio"] == {
+        "value": churn["stranded_hbm_ratio"],
+        "limit": bench.GATE_STRANDED_RATIO,
+        "pass": churn["stranded_hbm_ratio"] <= bench.GATE_STRANDED_RATIO}
     # The exemplar, the restart, the timeline and the NotReady leg.
     assert got["tenant_bind_exemplar"][1] == traced["trace_id"]
     restart = got["restart"]

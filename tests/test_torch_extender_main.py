@@ -56,16 +56,18 @@ def test_main_reads_its_environment(no_cluster, monkeypatch, env, port,
     class Server:
         def __init__(self, addr, predicate, binder, inspect, prioritize,
                      preempt, admission, leader, quota, gang_planner,
-                     workqueue, debug_routes):
+                     workqueue, defrag, debug_routes):
             seen.update(addr=addr, policy=prioritize.policy,
                         scoring=predicate.cache._default_scoring)
             # Every verb is wired, over the controller's one quota ledger;
             # no election without LEADER_ELECT; /metrics reads the gang
-            # planner and the workqueue; the debug routes are on.
+            # planner, the workqueue and the defrag executor, whose frag
+            # index reads the filter's demand; the debug routes are on.
             assert preempt.quota is quota is predicate.quota
             assert admission is not None and leader is None
             assert gang_planner is binder.gang_planner
             assert workqueue is not None and debug_routes is True
+            assert defrag.demand is predicate.demand
             self.closed = threading.Event()
 
         def serve_forever(self):

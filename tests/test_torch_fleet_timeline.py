@@ -11,9 +11,10 @@ against the JAX package's, over both ``serve_stack``s
   rolled back at its TTL, a NotReady flip) stamps the same marker kinds,
   details and attributes, in the same order. Timestamps, cursors'
   offsets and the decision ids (compared by presence) are left out.
-* Both ``/debug/timeline`` documents carry the same series names (less
-  ``cluster_stranded_hbm_gib``, which defragmentation feeds), and
-  ``/debug/blackbox`` and ``/debug/fleetday`` answer alike.
+* Both ``/debug/timeline`` documents carry the same series names
+  (``cluster_stranded_hbm_gib``, which the defrag executor feeds,
+  included), and ``/debug/blackbox`` and ``/debug/fleetday`` answer
+  alike.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import json
 import time
 
 from tests.test_quota import quota_cm_doc
-from tests.test_torch_extender_e2e import H100, Pair
+from tests.test_torch_extender_e2e import H100, TIMED_RULES, Pair
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare import obs as jobs
 from tpushare.k8s import events as jevents
@@ -33,15 +34,11 @@ from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.leader import LeaderElector as TElector
 from tpushare_torch.utils import const
 
-#: Marker kinds of the reference's subsystems the port has not yet
-#: (defragmentation A2, the autoscaler A3, the SLOs A4, the router A5),
-#: and the anomaly rule and the series that only defragmentation
-#: feeds.
-UNPORTED_KINDS = {"defrag-plan", "defrag-abort", "autoscale-up",
-                  "autoscale-down", "autoscale-abort", "slo-burn",
+#: Marker kinds of the reference's subsystems the port has not yet (the
+#: autoscaler A3, the router A5).
+UNPORTED_KINDS = {"autoscale-up", "autoscale-down", "autoscale-abort",
                   "router-scaleout"}
-UNPORTED_RULES = {"stranded-hbm-high"}
-UNPORTED_SERIES = {"cluster_stranded_hbm_gib"}
+UNPORTED_SERIES: set = set()
 
 #: Each side's obs module, events queue and elector, in ``Pair.sides``
 #: order.
@@ -83,7 +80,7 @@ def _normal(markers: list[dict]) -> list[tuple]:
     out = []
     for m in markers:
         if m["kind"] in UNPORTED_KINDS or \
-                m["attrs"].get("rule") in UNPORTED_RULES:
+                m["attrs"].get("rule") in TIMED_RULES:
             continue
         attrs = dict(m["attrs"])
         if "trace_id" in attrs:

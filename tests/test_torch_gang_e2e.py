@@ -37,7 +37,8 @@ import time
 import numpy as np
 import pytest
 
-from tests.test_torch_extender_e2e import H100, Pair, granted, same_ttl
+from tests.test_torch_extender_e2e import (H100, Pair, granted, same_ttl,
+                                           timed_anomaly)
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.objects import Node as JNode
 from tpushare.k8s import events as jevents
@@ -102,13 +103,16 @@ class GangPair(Pair):
 
     def events(self) -> list:
         """The Events, equal on both sides with each ``[trace ...]``
-        suffix marked; on each side a new Event's suffix names a decision
-        of its pod, and a commit's is its member's annotation."""
+        suffix marked (the timed anomaly rule's aside,
+        ``timed_anomaly``); on each side a new Event's suffix names a
+        decision of its pod, and a commit's is its member's annotation."""
         assert jevents.flush() and tevents.flush()
         out = []
         for i, side in enumerate(self.sides):
             rows = []
             for n, (ns, e) in enumerate(list(side.api.events)):
+                if timed_anomaly(e):
+                    continue
                 name = e["involvedObject"]["name"]
                 m = SUFFIX.search(e["message"])
                 if m and n >= self.events_seen[i]:

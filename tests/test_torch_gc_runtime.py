@@ -145,9 +145,19 @@ def test_not_ported_names_the_reference_main_s_variables():
     for name in ("LEADER_ELECT", "LEASE_NAMESPACE", "TPUSHARE_GC_TUNE",
                  "TPUSHARE_QUOTA_NAMESPACE", "TPUSHARE_LOG_JSON",
                  "DEBUG_ROUTES", "TPUSHARE_PROFILE", "TPUSHARE_PROFILE_HZ",
-                 *TIMELINE_VARIABLES):
+                 *TIMELINE_VARIABLES, *SLO_DEFRAG_VARIABLES):
         assert name in tdoc and name not in M.NOT_PORTED
 
+
+#: The pod-journey SLOs' and the defrag executor's variables, which the
+#: port's main reads (``tests/test_torch_defrag.py`` holds their effect to
+#: the reference's).
+SLO_DEFRAG_VARIABLES = ("TPUSHARE_SLO_NAMESPACE", "TPUSHARE_DEFRAG_MODE",
+                        "TPUSHARE_DEFRAG_MAX_MOVES",
+                        "TPUSHARE_DEFRAG_MOVES_PER_HOUR",
+                        "TPUSHARE_DEFRAG_NODE_COOLDOWN_S",
+                        "TPUSHARE_DEFRAG_MAX_CONCURRENT",
+                        "TPUSHARE_DEFRAG_INTERVAL_S")
 
 #: The retrospective layer's variables, which the port's main reads.
 TIMELINE_VARIABLES = ("TPUSHARE_TIMELINE", "TPUSHARE_BLACKBOX_DIR",

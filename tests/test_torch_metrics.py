@@ -23,7 +23,11 @@
   ledger's seconds, whose label sets still are; the ledger's decision
   counts per verb are (both ledgers start empty with the pair). The OpenMetrics exemplars on the verbs' buckets: the same
   families carry them on both sides, each names a decision of its own
-  side, and its latency lies in its bucket.
+  side, and its latency lies in its bucket. The pod-journey and
+  fragmentation families (the journeys' histograms, the SLO gauges, the
+  stranded GiB and each node's score, the defrag counters) are held as
+  the others are, but the filter-latency objective's gauges, whose
+  events are each side's clock, by label set.
 * The demand tracker's views that ``/metrics`` reads (``snapshot``,
   ``by_tenant``, ``shapes``, ``oldest_age_by_shape``) on seeded streams
   of unplaceable pods and clears, against the reference's.
@@ -42,7 +46,7 @@ import numpy as np
 import prometheus_client as prom
 import pytest
 
-from tests.test_torch_extender_e2e import (H100, Pair,
+from tests.test_torch_extender_e2e import (H100, TIMED_RULES, Pair,
                                            test_seeded_churn_on_h100_nodes,
                                            test_seeded_churn_under_a_quota_configmap)
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
@@ -62,16 +66,10 @@ from tpushare_torch.utils import const
 #: The reference's families whose sources the port has not yet, by the
 #: ROADMAP §A item that brings each.
 UNPORTED = {
-    "A2": ("tpushare_cluster_stranded_hbm_gib", "tpushare_node_frag_score",
-           "tpushare_defrag_moves_total",
-           "tpushare_defrag_plans_aborted_total"),
     "A3": ("tpushare_cluster_capacity_hbm_gib", "tpushare_cluster_nodes",
            "tpushare_unschedulable_demand_oldest_age_seconds",
            "tpushare_autoscale_actions_total",
            "tpushare_autoscale_aborts_total"),
-    "A4": ("tpushare_pod_e2e_scheduling_seconds",
-           "tpushare_pod_scheduling_attempts",
-           "tpushare_slo_error_budget_remaining", "tpushare_slo_burn_rate"),
     "A5": ("tpushare_router_requests_total", "tpushare_router_shed_total",
            "tpushare_router_queue_depth", "tpushare_router_slots_in_use",
            "tpushare_router_fleet_slots",
@@ -84,9 +82,11 @@ UNPORTED = {
            "tpushare_router_prefix_hit_rate"),
 }
 UNPORTED_NAMES = {n for names in UNPORTED.values() for n in names}
-#: Anomaly rules over series whose source the port has not yet, by the
-#: ROADMAP §A item that brings it: the reference's stack may fire them.
-UNPORTED_RULES = {"stranded-hbm-high": "A2"}
+
+#: The SLO gauges of an objective over the filter verb's latency: its
+#: good and bad events are each side's clock, so their label sets are
+#: compared, not their values (the pod-journey objectives' values are).
+CLOCKED_SLOS = ("filter-p99-5ms",)
 
 #: Samples of the process itself, of each package's timeline, whose
 #: sampler ticks on its own clock, and of each ledger's clocks: label sets
@@ -336,12 +336,15 @@ def compare(before: list[dict], after: list[dict]) -> dict:
             assert set(t["samples"]) <= set(j["samples"]), name
             continue
         if name in PROCESS:
-            want = {k for k in j["samples"]
-                    if dict(k[1]).get("rule") not in UNPORTED_RULES}
-            assert set(t["samples"]) == want, name
+            want, got = ({k for k in side["samples"]
+                          if dict(k[1]).get("rule") not in TIMED_RULES}
+                         for side in (j, t))
+            assert got == want, name
             continue
         for key in set(j["samples"]) | set(t["samples"]):
             kind = _kind(key[0], j)
+            if dict(key[1]).get("slo") in CLOCKED_SLOS:
+                kind = "clock"
             if kind == "clock":
                 assert key in t["samples"] and key in j["samples"], key
                 continue

@@ -42,7 +42,7 @@ import numpy as np
 import pytest
 
 from tests import torch_reference_stories as R
-from tests.test_torch_extender_e2e import Pair
+from tests.test_torch_extender_e2e import Pair, timed_anomaly
 from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 from tpushare.api.objects import ConfigMap as JConfigMap, Pod as JPod
 from tpushare.k8s import events as jevents
@@ -251,7 +251,7 @@ class TenantPair(Pair):
             out.append(sorted(
                 (e["involvedObject"]["name"], e["reason"],
                  re.sub(r" \[trace [^\]]*\]$", "", e["message"]), e["type"])
-                for _, e in side.api.events))
+                for _, e in side.api.events if not timed_anomaly(e)))
         assert out[1] == out[0]
         return out[0]
 

@@ -200,6 +200,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  ("tpushare_torch", "routes", "pprof.py"),
                  *(("tpushare_torch", "profiling", f"{name}.py") for name in (
                      "__init__", "ledger", "decisions", "sampler")),
+                 *(("tpushare_torch", "slo", f"{name}.py") for name in (
+                     "__init__", "config", "journey", "engine")),
+                 *(("tpushare_torch", "defrag", f"{name}.py") for name in (
+                     "__init__", "frag", "planner", "executor")),
                  ("tools", "extender_phases.py"),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
@@ -287,8 +291,8 @@ def test_every_traced_lock_takes_the_reference_s_site():
     """Module by module, the port's ``TracingRLock`` sites and guarded
     containers' names are its reference twin's, as written (an f-string
     site such as ``node/{self.name}`` included). Modules of the
-    reference the port has not yet (the router, SLOs, defragmentation,
-    autoscaling) are not compared."""
+    reference the port has not yet (the router, autoscaling) are not
+    compared."""
     compared = 0
     for path in _package_files("tpushare_torch"):
         rel = os.path.relpath(path, os.path.join(REPO, "tpushare_torch"))

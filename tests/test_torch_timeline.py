@@ -8,9 +8,10 @@ against the JAX package's.
   fire-and-forget contract at the leader's and the controller's quota
   ConfigMap sites, ``/debug/timeline`` over the port's stack with its
   query filters and the ``TPUSHARE_TIMELINE=off`` kill switch, and the
-  timeline's families in the scrape. Left out until the port has their
-  subsystems: ``TestFireAndForget.test_slo_config_site`` and
-  ``TestAcceptanceRetrospective`` (the pod-journey SLOs, ROADMAP A4) and
+  timeline's families in the scrape, the SLO config site, and the
+  acceptance story: a burning pod-journey SLO's Event names a timeline
+  cursor that resolves to its ``slo-burn`` marker and on to a decision.
+  Left out until the port has its subsystem:
   ``TestFireAndForget.test_router_scaleout_site`` (the serving router,
   A5).
 * Both ``TimelineRecorder``s fed the same seeded streams of samples,
@@ -31,7 +32,6 @@ from __future__ import annotations
 import importlib
 import json
 import re
-import types
 
 import numpy as np
 import prometheus_client as prom
@@ -45,8 +45,6 @@ from tpushare.k8s.builders import make_node, make_pod
 from tpushare.k8s.fake import FakeApiServer as JFake
 from tpushare.obs import anomaly as janomaly
 from tpushare.routes import metrics as jmetrics
-from tpushare_torch import obs as tobs
-from tpushare_torch import trace as ttrace
 from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.fake import FakeApiServer as TFake
 from tpushare_torch.obs import anomaly as tanomaly
@@ -63,22 +61,15 @@ texemplars = importlib.import_module("tpushare_torch.obs.exemplars")
 # -- the reference's stories over the port ------------------------------------ #
 
 R.load("test_quota")  # the stories' ``cluster`` fixture builds its Cluster
-_STORIES = R.load("test_timeline", drop=(
-    "from tpushare import obs, slo, trace",
-    "from tpushare.slo import config as slo_config"))
-_STORIES.obs = tobs
-_STORIES.trace = ttrace
-#: The pod-journey SLOs come with ROADMAP A4; the stories' fixture resets
-#: them, and nothing else of theirs is left in the cases run here.
-_STORIES.slo = types.SimpleNamespace(reset=lambda: None)
+R.load("test_slo")  # the burn story's aged pod
+_STORIES = R.load("test_timeline")
 fresh_retrospective = _STORIES.fresh_retrospective
 cluster = _STORIES.cluster
 globals().update(R.pick(
     _STORIES,
     ["TestTierRollover", "TestBounds", "TestFireAndForget",
-     "TestDebugTimelineOverStack"],
-    leave_out=("TestFireAndForget.test_slo_config_site",
-               "TestFireAndForget.test_router_scaleout_site")))
+     "TestDebugTimelineOverStack", "TestAcceptanceRetrospective"],
+    leave_out=("TestFireAndForget.test_router_scaleout_site",)))
 
 
 @pytest.fixture
@@ -259,11 +250,26 @@ _EXEMPLAR = re.compile(
     r' # \{trace_id="([0-9a-f]+)"\} ([0-9.]+) ([0-9.]+)$')
 
 
+#: The exemplar's latency is printed to 6 decimals (``{seconds:.6f}``).
+PRINTED_DECIMALS = 6
+
+
+def _in_bucket(printed: float, le: str) -> bool:
+    """Whether an exemplar's latency, as printed, lies in the bucket
+    ``le`` names. The true latency lies in (lower, upper]; printed to 6
+    decimals it may round onto ``lower`` (0.0010000004 prints 0.001000),
+    so at the printed precision the bucket is [lower, upper]."""
+    bounds = [0.0] + [float(b) for b in tmetrics.LATENCY_BUCKETS]
+    upper = float("inf") if le == "+Inf" else float(le)
+    lower = max(b for b in bounds if b < upper)
+    return (round(lower, PRINTED_DECIMALS) <= printed
+            <= round(upper, PRINTED_DECIMALS))
+
+
 def _exemplars(side) -> dict:
     status, body = side.get("/metrics")
     assert status == 200
     out: dict = {}
-    bounds = [0.0] + [float(b) for b in tmetrics.LATENCY_BUCKETS]
     for line in body.decode().splitlines():
         if "# {" not in line:
             continue
@@ -272,15 +278,41 @@ def _exemplars(side) -> dict:
         verb, le, tid, seconds = m.group(1), m.group(2), m.group(3), \
             float(m.group(4))
         # Its latency lies in its bucket.
-        upper = float("inf") if le == "+Inf" else float(le)
-        lower = max(b for b in bounds if b < upper)
-        assert lower < seconds <= upper or (lower == 0.0 and seconds == 0)
+        assert _in_bucket(seconds, le), line
         # It names a decision of its own side.
         status, chain = side.get(f"/debug/trace?id={tid}")
         assert status == 200, (verb, tid)
         assert json.loads(chain)["target"]["traceId"] == tid
         out.setdefault(verb, []).append(le)
     return out
+
+
+def _exemplar_line(seconds: float) -> tuple[str, float]:
+    """A filter bucket line annotated by the port's exemplar store with
+    one observation of ``seconds``: its ``le`` and its printed latency."""
+    store = texemplars.ExemplarStore()
+    store.record("filter", seconds, "ab" * 16)
+    text = store.annotate(tmetrics.FILTER_LATENCY.render().encode())
+    (line,) = [ln for ln in text.decode().splitlines() if "# {" in ln]
+    m = _EXEMPLAR.match(line)
+    assert m, line
+    return m.group(2), float(m.group(4))
+
+
+@pytest.mark.parametrize("seconds", [0.0010000004, 0.0012, 0.0025,
+                                     0.00000001])
+def test_an_exemplar_printed_onto_its_bucket_s_lower_bound_lies_in_it(
+        seconds):
+    le, printed = _exemplar_line(seconds)
+    assert _in_bucket(printed, le)
+    if seconds == 0.0010000004:
+        # The strict comparison this check replaced refuses it.
+        bounds = [0.0] + [float(b) for b in tmetrics.LATENCY_BUCKETS]
+        upper = float(le)
+        lower = max(b for b in bounds if b < upper)
+        assert (le, printed) == ("0.0025", 0.001)
+        assert not (lower < printed <= upper
+                    or (lower == 0.0 and printed == 0))
 
 
 def test_metrics_exemplars_name_decisions_on_both_stacks():

@@ -1,7 +1,7 @@
-"""The port's retrospective layer, flight recorder and profiler are
-process singletons, as the JAX package's are; ``tests/conftest.py`` resets
-the JAX package's timeline after every test, and this module's autouse
-fixture resets the port's. A test file that builds a port stack (whose
+"""The port's retrospective layer, flight recorder, profiler and pod-journey
+SLOs are process singletons, as the JAX package's are; ``tests/conftest.py``
+resets the JAX package's timeline and SLOs after every test, and this
+module's autouse fixture resets the port's. A test file that builds a port stack (whose
 ``build_stack`` arms the timeline's sampler thread), drives a port
 controller, elector or gang planner (which stamp markers), or arms the
 port's continuous profiler (``profiling.start``, or ``main``, which arms
@@ -9,8 +9,8 @@ it by default) imports it::
 
     from tests.torch_obs_reset import fresh_port_obs  # noqa: F401
 
-so no sampler thread, marker, decision, ``SIGPROF`` timer or lock
-contention leaks into the next test of the same worker, which may be a
+so no sampler thread, marker, decision, journey, SLO window, ``SIGPROF``
+timer or lock contention leaks into the next test of the same worker, which may be a
 JAX test.
 """
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import pytest
 
-from tpushare_torch import obs, profiling, trace
+from tpushare_torch import obs, profiling, slo, trace
 from tpushare_torch.utils import locks
 
 
@@ -37,4 +37,5 @@ def fresh_port_obs():
     yield
     reset_port_profiling()
     obs.reset()
+    slo.reset()
     trace.reset()

@@ -1,4 +1,5 @@
-"""Phases 2f, 2g and 2h of ``chip_smoke.py`` alone, on one NVIDIA card.
+"""Phases 2f, 2g, 2h and 2i of ``chip_smoke.py`` alone, on one NVIDIA
+card.
 
 Builds the kernels from the checkout, then runs ``chip_smoke.
 extender_phase`` (the tenant placed through the extender and served, its
@@ -9,17 +10,21 @@ without the gang's training (the binds, grants, reaper, TTL rollback and
 the 256-gang churn, with the gauges and each member's trace id) and
 ``chip_smoke.tenancy_phase`` (two replicas under leader election,
 failover, a serving tenant preempted and replaced, quota, admission, the
-preempt benchmarks), each with the fleet timeline's checks (2f also
+preempt benchmarks) and ``chip_smoke.defrag_phase`` (a pending pod
+placed on the card's node by the defrag executor's move once a burning
+SLO lifts, and served there), each with the fleet timeline's checks (2f also
 restarts the extender over its fleet and replays the tenant's decision
 from the black-box journal, and flips a node NotReady; its churns run
 with the continuous profiler armed). ``--overhead`` then runs
 ``chip_smoke.overhead_phase``: the timeline's, the journal's and the
 profiler's overhead gates, ``bench.py``'s twins, on 2f's 1,024-node fleet;
-``--no-phases`` runs it alone. Prints each phase as ``chip_smoke.py``
-does and writes every field as JSON to ``--out``::
+``--no-phases`` runs it alone, and ``--only 2i`` (a comma-separated list
+of phase numbers) runs those phases alone. Prints each phase as
+``chip_smoke.py`` does and writes every field as JSON to ``--out``::
 
     python3 tools/extender_phases.py --out extender_phases.json
     python3 tools/extender_phases.py --overhead --no-phases --out o.json
+    python3 tools/extender_phases.py --only 2i --out defrag.json
 """
 
 from __future__ import annotations
@@ -45,7 +50,9 @@ def main() -> int:
                     help="run the timeline, journal and profiler "
                          "overhead gates")
     ap.add_argument("--no-phases", action="store_true",
-                    help="skip phases 2f, 2g and 2h")
+                    help="skip phases 2f, 2g, 2h and 2i")
+    ap.add_argument("--only", default="",
+                    help="run only these phases (e.g. 2i or 2f,2i)")
     args = ap.parse_args()
     t0 = time.perf_counter()
     card = CS.nvidia_smi("name,power.limit")
@@ -57,7 +64,11 @@ def main() -> int:
         phases = [] if args.no_phases else [
             ("2f extender", CS.extender_phase),
             ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
-            ("2h tenancy", CS.tenancy_phase)]
+            ("2h tenancy", CS.tenancy_phase),
+            ("2i defrag and SLO", CS.defrag_phase)]
+        if args.only:
+            keep = args.only.split(",")
+            phases = [(n, fn) for n, fn in phases if n.split()[0] in keep]
         if args.overhead:
             phases.append(("2f overhead", lambda i, u: CS.overhead_phase()))
         for name, fn in phases:

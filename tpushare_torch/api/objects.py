@@ -83,6 +83,13 @@ class K8sObject:
     def deletion_timestamp(self) -> str | None:
         return self.metadata.get("deletionTimestamp")
 
+    @property
+    def creation_timestamp(self) -> str:
+        """RFC-3339 ``metadata.creationTimestamp`` ("" when absent): where
+        a pod's journey clock starts, the user's creation rather than this
+        replica's first sight."""
+        return self.metadata.get("creationTimestamp") or ""
+
     def deepcopy(self: _K) -> _K:
         return type(self)(copy.deepcopy(self.raw))
 

@@ -246,6 +246,14 @@ class SchedulerCache:
         # Outside the table lock, as in get_node_info's twin branch.
         info.apply_node_document(node)
 
+    def sharing_node_infos(self) -> list[NodeInfo]:
+        """Ledgers of the nodes that advertise shareable memory: the
+        defrag planner's what-if universe (another node can neither
+        strand capacity nor take a moved pod)."""
+        with self._lock:
+            infos = list(self._nodes.values())
+        return [i for i in infos if nodeutils.is_tpu_sharing_node(i.node)]
+
     def remove_node(self, name: str) -> bool:
         """Drop a deleted node's ledger (no reference counterpart — the
         reference's cache only ever grew, SURVEY.md §2 defect family).

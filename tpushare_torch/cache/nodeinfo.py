@@ -223,6 +223,22 @@ class NodeInfo:
                 if chip is not None:
                     chip.remove_pod(pod)
 
+    def whatif_clone(self) -> "NodeInfo":
+        """A detached copy of this ledger for what-if planning: a fresh
+        NodeInfo over the same node document, holding the live residents.
+        The defrag planner mutates clones freely while the real ledger
+        keeps serving the verbs."""
+        clone = NodeInfo(self.node, self.default_scoring)
+        seen: set[str] = set()
+        with self._lock:
+            for chip in self.chips.values():
+                for pod in chip.snapshot_pods():
+                    if pod.uid in seen or podutils.is_complete_pod(pod):
+                        continue
+                    seen.add(pod.uid)
+                    clone.add_or_update_pod(pod)
+        return clone
+
     # ------------------------------------------------------------------ #
     # Views
     # ------------------------------------------------------------------ #

@@ -37,6 +37,19 @@ Environment:
   ``LEASE_NAMESPACE`` holds the Lease, ``kube-system`` by default.
 * ``TPUSHARE_QUOTA_NAMESPACE``: the one namespace the ``tpushare-quotas``
   ConfigMap is trusted from, ``kube-system`` by default.
+* ``TPUSHARE_SLO_NAMESPACE``: the one namespace the ``tpushare-slos``
+  ConfigMap (pod-journey objectives: error budgets and burn-rate alerts,
+  ``slo/``) is trusted from, ``kube-system`` by default; with no such
+  ConfigMap the built-in objectives hold.
+* ``TPUSHARE_DEFRAG_MODE``: ``off``, ``dry-run`` (default) or ``active``,
+  the defragmentation rebalancer's posture (``defrag/``). Dry-run plans
+  and publishes moves and evicts nothing; active evicts under the budget
+  of ``TPUSHARE_DEFRAG_MAX_MOVES`` (moves a plan, 8),
+  ``TPUSHARE_DEFRAG_MOVES_PER_HOUR`` (20),
+  ``TPUSHARE_DEFRAG_NODE_COOLDOWN_S`` (300),
+  ``TPUSHARE_DEFRAG_MAX_CONCURRENT`` (2), every
+  ``TPUSHARE_DEFRAG_INTERVAL_S`` (60), on the leader only, and aborts a
+  plan while an SLO burns.
 * ``TPUSHARE_GC_TUNE``: the fleet-scale GC posture (``utils/runtime.py``),
   on by default (``off``, ``0``, ``false``, ``no`` keep the interpreter's
   thresholds); ``TPUSHARE_GC_GEN0`` sets the gen-0 threshold. ``main``
@@ -65,7 +78,8 @@ Environment:
   backoff, an ``export-stall`` marker on a sustained failure).
 
 Variables of the reference's main that the port does not yet read
-(``NOT_PORTED``: the SLO ConfigMap, defragmentation and autoscaling) are logged as a warning, one line each, when set.
+(``NOT_PORTED``: autoscaling) are logged as a warning, one line each, when
+set.
 """
 
 from __future__ import annotations
@@ -96,13 +110,6 @@ log = logging.getLogger(__name__)
 #: The reference main's variables that the port does not read yet, and
 #: what of the reference each one sets.
 NOT_PORTED = {
-    "TPUSHARE_SLO_NAMESPACE": "the tpushare-slos ConfigMap",
-    "TPUSHARE_DEFRAG_MODE": "the defragmentation rebalancer",
-    "TPUSHARE_DEFRAG_MAX_MOVES": "the defragmentation rebalancer",
-    "TPUSHARE_DEFRAG_MOVES_PER_HOUR": "the defragmentation rebalancer",
-    "TPUSHARE_DEFRAG_NODE_COOLDOWN_S": "the defragmentation rebalancer",
-    "TPUSHARE_DEFRAG_MAX_CONCURRENT": "the defragmentation rebalancer",
-    "TPUSHARE_DEFRAG_INTERVAL_S": "the defragmentation rebalancer",
     "TPUSHARE_AUTOSCALE": "the fleet autoscaler",
     "TPUSHARE_AUTOSCALE_MIN_NODES": "the fleet autoscaler",
     "TPUSHARE_AUTOSCALE_MAX_NODES": "the fleet autoscaler",
@@ -189,6 +196,9 @@ def build_stack(client, is_leader=None) -> Stack:
     predicate = Predicate(controller.cache, demand=DemandTracker(
         pod_lookup=controller.hub.get_pod),
         quota=controller.quota, client=client)
+    # The frag index measures stranding against the shapes failing the
+    # filter now: the predicate owns that tracker.
+    controller.defrag.set_demand(predicate.demand)
     prioritize = Prioritize(controller.cache, gang_planner=gang,
                             policy=scoring, quota=controller.quota)
     binder = Bind(controller.cache, client, gang_planner=gang,
@@ -203,7 +213,8 @@ def build_stack(client, is_leader=None) -> Stack:
     admission = Admission(controller.cache,
                           node_lister=controller.hub.nodes.list)
     obs.wire(client=client, demand=predicate.demand,
-             workqueue=controller.queue, nodes=controller.hub.nodes.list)
+             defrag=controller.defrag, workqueue=controller.queue,
+             nodes=controller.hub.nodes.list)
     obs.start()
     return Stack(controller, predicate, prioritize, binder, inspect,
                  preempt, admission)
@@ -212,7 +223,8 @@ def build_stack(client, is_leader=None) -> Stack:
 def make_server(stack: Stack, address, leader=None,
                 debug_routes: bool = True) -> ExtenderHTTPServer:
     """The HTTP server over every verb of ``stack``, with the gang
-    planner, the workqueue and the quota ledger its ``/metrics`` reads."""
+    planner, the workqueue, the quota ledger and the defrag executor its
+    ``/metrics`` and ``/debug/defrag`` read."""
     return ExtenderHTTPServer(address, stack.predicate, stack.binder,
                               stack.inspect, prioritize=stack.prioritize,
                               preempt=stack.preempt,
@@ -220,6 +232,7 @@ def make_server(stack: Stack, address, leader=None,
                               quota=stack.controller.quota,
                               gang_planner=stack.binder.gang_planner,
                               workqueue=stack.controller.queue,
+                              defrag=stack.controller.defrag,
                               debug_routes=debug_routes)
 
 

@@ -14,8 +14,13 @@ owns the tenant quota ledger: the cache charges it, and the
 Ready → NotReady edge stamps a ``node-notready`` timeline marker and a
 Warning Event; a quota ConfigMap applied stamps a ``config`` marker; the
 start replays the black-box journal (:func:`tpushare_torch.obs.
-replay_startup`). The SLO ConfigMap, defragmentation and autoscaling
-come with their own slices.
+replay_startup`). Pod journeys (:mod:`tpushare_torch.slo`) open when the
+informer first sees an unassigned pod, close when it binds or is deleted,
+and are rebuilt from annotations at the start; the ``tpushare-slos``
+ConfigMap, trusted only from ``TPUSHARE_SLO_NAMESPACE``, sets the
+objectives. The controller owns the defrag executor
+(:mod:`tpushare_torch.defrag`), started and stopped with it. Autoscaling
+comes with its own slice.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import os
 import threading
 import time
 
-from tpushare_torch import obs
+from tpushare_torch import obs, slo
 from tpushare_torch.api.objects import ConfigMap, Pod
 from tpushare_torch.cache.cache import SchedulerCache
 from tpushare_torch.k8s import events
@@ -34,6 +39,7 @@ from tpushare_torch.k8s.informer import InformerHub
 from tpushare_torch.k8s.workqueue import RateLimitedQueue
 from tpushare_torch.quota import config as quota_config
 from tpushare_torch.quota.manager import QuotaManager
+from tpushare_torch.slo import config as slo_config
 from tpushare_torch.utils import const
 from tpushare_torch.utils import pod as podutils
 from tpushare_torch.utils import locks
@@ -69,9 +75,18 @@ class Controller:
         #: again (the owner may be recreating the group by then).
         self._reaped_uids: set[str] = locks.guarded_set(
             self._removed_lock, "Controller._reaped_uids")
-        #: ``() -> bool``: gates the deletes this controller issues (the
-        #: gang reaper); the ledger's upkeep runs on every replica.
+        #: ``() -> bool``: gates the apiserver writes this controller
+        #: issues (the gang reaper, the defrag executor); the ledger's
+        #: upkeep runs on every replica.
         self._is_leader = is_leader or (lambda: True)
+        #: Defragmentation: the stranded-HBM index and the budgeted,
+        #: SLO-guarded rebalancer. Dry-run by default;
+        #: TPUSHARE_DEFRAG_MODE=active arms eviction. build_stack wires
+        #: the filter verb's DemandTracker in after construction.
+        from tpushare_torch.defrag.executor import DefragExecutor
+        self.defrag = DefragExecutor(
+            self.cache, client, quota=self.quota,
+            pod_lister=self.hub.pods.list, is_leader=self._is_leader)
         self._workers: list[threading.Thread] = []
         self._stop = threading.Event()
 
@@ -93,6 +108,20 @@ class Controller:
             on_delete=lambda cm: self.quota.set_config(quota_config.EMPTY),
             filter_fn=self._is_quota_configmap,
         )
+        #: The one namespace the SLO ConfigMap is trusted from (the quota
+        #: table's trust model).
+        self._slo_namespace = os.environ.get("TPUSHARE_SLO_NAMESPACE",
+                                             "kube-system")
+        self.hub.add_configmap_handler(
+            on_add=self._on_slo_configmap,
+            on_update=lambda old, new: self._on_slo_configmap(new),
+            # Deleted: the built-in objectives, not "no SLOs".
+            on_delete=lambda cm: slo.engine().set_config(
+                slo_config.DEFAULTS),
+            filter_fn=self._is_slo_configmap,
+        )
+        # Arms the burn alert's Event (the gauges and log work without).
+        slo.engine().set_client(client)
 
     # -- listers wired into the cache ----------------------------------- #
 
@@ -121,6 +150,13 @@ class Controller:
         obs.mark("config", f"quota ConfigMap {cm.namespace}/{cm.name} "
                  "applied", configmap="quota")
 
+    def _is_slo_configmap(self, cm: ConfigMap) -> bool:
+        return (cm.name == const.SLO_CONFIGMAP
+                and cm.namespace == self._slo_namespace)
+
+    def _on_slo_configmap(self, cm: ConfigMap) -> None:
+        slo.engine().set_config(slo_config.parse_configmap(cm))
+
     @staticmethod
     def _is_relevant_pod(pod: Pod) -> bool:
         """Informer-side filter (gpushare filters on IsGPUsharingPod)."""
@@ -130,7 +166,21 @@ class Controller:
 
     # -- event handlers --------------------------------------------------- #
 
+    @staticmethod
+    def _journey_candidate(pod: Pod) -> bool:
+        """An unassigned, live pod that asks for memory or cards: its
+        journey's clock is the extender's to keep."""
+        return ((podutils.is_tpu_sharing_pod(pod)
+                 or podutils.is_tpu_chip_pod(pod))
+                and not podutils.is_assumed(pod)
+                and not pod.node_name
+                and not podutils.is_complete_pod(pod))
+
     def _on_pod_add(self, pod: Pod) -> None:
+        if self._journey_candidate(pod):
+            # The informer or the first filter opens the journey, whichever
+            # sees the pod first; both clock it from its creation time.
+            slo.tracker().open_journey(pod)
         self.queue.add(pod.key())
 
     @staticmethod
@@ -152,6 +202,13 @@ class Controller:
             self.queue.add(new.key())
         elif known and self._usage_changed(old, new):
             self.queue.add(new.key())
+        elif known and (old is None or old.annotations.get(
+                const.ANN_CKPT_IN_FLIGHT) != new.annotations.get(
+                const.ANN_CKPT_IN_FLIGHT)):
+            # A checkpoint-in-flight flip gates eviction (defrag moves):
+            # the ledger's copy must learn it, or movable() reads a stale
+            # verdict for the whole save.
+            self.queue.add(new.key())
         elif not known and podutils.is_assumed(new) and new.node_name:
             self.queue.add(new.key())
         elif new.nominated_node_name != (
@@ -163,6 +220,9 @@ class Controller:
             self.queue.add(new.key())
 
     def _on_pod_delete(self, pod: Pod) -> None:
+        # A pod deleted while its journey is open never bound: the
+        # journey's "deleted" outcome (a no-op once it closed bound).
+        slo.tracker().pod_deleted(pod)
         with self._removed_lock:
             self._removed[pod.key()] = pod
         self.queue.add(pod.key())
@@ -219,6 +279,10 @@ class Controller:
             log.info("sync: pod %s complete, freed its HBM", key)
         elif podutils.is_assumed(pod) and pod.node_name:
             self.cache.add_or_update_pod(pod)
+            # Close the journey (a gang member bound by the planner's
+            # commit thread, or a bind taken by an HA peer, arrives here,
+            # not through this replica's bind route).
+            slo.tracker().pod_bound(pod)
         elif not podutils.is_assumed(pod):
             # Pending: track (or drop) its preemption nomination.
             self.cache.note_nominated(pod)
@@ -327,16 +391,31 @@ class Controller:
         for cm in self.hub.configmaps.list():
             if self._is_quota_configmap(cm):
                 self._on_quota_configmap(cm)
+            elif self._is_slo_configmap(cm):
+                self._on_slo_configmap(cm)
         self.cache.build()
+        # Journeys across a restart: a bound pod's is rebuilt from its
+        # annotations (assume-time against creationTimestamp), a pending
+        # pod's opens again on its creation clock.
+        for pod in self.hub.pods.list():
+            if podutils.is_assumed(pod) and pod.node_name \
+                    and not podutils.is_complete_pod(pod):
+                slo.tracker().reconstruct(pod)
+            elif self._journey_candidate(pod):
+                slo.tracker().open_journey(pod)
         for i in range(workers):
             t = threading.Thread(target=self._worker,
                                  name=f"tpushare-sync-{i}", daemon=True)
             t.start()
             self._workers.append(t)
+        # The defrag loop (a no-op under TPUSHARE_DEFRAG_MODE=off); its
+        # first tick is a full interval away.
+        self.defrag.start()
         log.info("controller started with %d sync workers", workers)
 
     def stop(self) -> None:
         self._stop.set()
+        self.defrag.stop()
         self.queue.shut_down()
         self.hub.stop()
         for t in self._workers:

@@ -36,11 +36,11 @@ log = logging.getLogger(__name__)
 
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
-#: The ConfigMaps the extender reads, each over a LIST/WATCH of its own
-#: name (a fieldSelector cannot OR names; a watch of every ConfigMap
-#: would keep each namespace's documents in the store). The reference
-#: also watches ``tpushare-slos``, whose engine the port has not yet.
-_WATCHED_CONFIGMAPS = (const.QUOTA_CONFIGMAP,)
+#: The ConfigMaps the extender reads (the quota table and the SLO
+#: objectives), each over a LIST/WATCH of its own name (a fieldSelector
+#: cannot OR names; a watch of every ConfigMap would keep each
+#: namespace's documents in the store).
+_WATCHED_CONFIGMAPS = (const.QUOTA_CONFIGMAP, const.SLO_CONFIGMAP)
 
 
 def _configmap_path(name: str) -> str:

@@ -137,5 +137,8 @@ REASON_GANG_EXPIRED = "TPUShareGangExpired"
 REASON_GANG_REAPED = "TPUShareGangReaped"
 REASON_GANG_COMMITTED = "TPUShareGangCommitted"
 REASON_QUOTA_DENIED = "TPUShareQuotaDenied"
+REASON_SLO_BURN = "TPUShareSLOBurn"
+REASON_DEFRAG_MOVE = "TPUShareDefragMove"
+REASON_DEFRAG_ABORTED = "TPUShareDefragAborted"
 REASON_ANOMALY = "TPUShareAnomaly"
 REASON_NODE_NOTREADY = "TPUShareNodeNotReady"

@@ -1,11 +1,13 @@
 """Budgeted, retrying eviction through ``pods/eviction``: the port's
 copy of ``EvictionBudget`` and ``evict_with_retry`` of
-``tpushare/k8s/eviction.py``.
+``tpushare/k8s/eviction.py``, through which the grant watchdog and the
+defrag executor evict.
 
 The apiserver answers 429 while a matching PodDisruptionBudget has no
 disruption left; the caller retries with backoff rather than hammering
 the apiserver or giving up. The grant watchdog's node-local policy runs
-an unlimited budget: its streak of overrun sweeps is the rate limit.
+an unlimited budget: its streak of overrun sweeps is the rate limit. The
+defrag executor's is capped (concurrent, per node, per hour).
 """
 
 from __future__ import annotations
@@ -75,6 +77,24 @@ class EvictionBudget:
                 self._recent.append(self._now())
                 if node:
                     self._node_last[node] = self._now()
+
+    def snapshot(self) -> dict:
+        """The budget as ``GET /debug/defrag`` shows it (0 = unlimited)."""
+        now = self._now()
+        with self._lock:
+            while self._recent and now - self._recent[0] > _HOUR_S:
+                self._recent.popleft()
+            return {
+                "maxConcurrent": self.max_concurrent,
+                "inFlight": self._in_flight,
+                "perHour": self.per_hour,
+                "usedLastHour": len(self._recent),
+                "nodeCooldownSeconds": self.node_cooldown_s,
+                "nodesCoolingDown": sorted(
+                    n for n, t in self._node_last.items()
+                    if self.node_cooldown_s > 0
+                    and now - t < self.node_cooldown_s),
+            }
 
 
 def evict_with_retry(client: Any, namespace: str, name: str, *,

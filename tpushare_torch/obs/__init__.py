@@ -23,7 +23,7 @@ plumbing.
   ``replay_startup()`` (the controller's start) replays it
 
 ``wire`` keeps the reference's ``defrag=`` and ``router=`` parameters;
-the port's stacks pass neither until it has those subsystems. See
+the port's stacks pass ``defrag=`` and not yet ``router=``. See
 docs/observability.md for the tier math, marker taxonomy and runbook.
 """
 

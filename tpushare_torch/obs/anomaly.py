@@ -1,8 +1,8 @@
 """Anomaly watchers: declarative rules over the timeline rings.
 
 The port's copy of ``tpushare/obs/anomaly.py``. ``stranded-hbm-high``
-stays declared; its series ``cluster_stranded_hbm_gib`` has no source
-until the port has defragmentation, so it cannot fire before then.
+reads ``cluster_stranded_hbm_gib``, which the defrag executor's frag
+index feeds (``sources.stranded_source``).
 
 A :class:`Rule` names a series and a detector:
 

@@ -1,8 +1,8 @@
 """Sample sources for the timeline sampler.
 
-The port's copy of ``tpushare/obs/sources.py``. ``stranded_source`` and
-``router_source`` are here, but nothing wires them until the port has
-defragmentation and the serving router.
+The port's copy of ``tpushare/obs/sources.py``. ``build_stack`` wires
+``stranded_source`` to the defrag executor; ``router_source`` is here,
+but nothing wires it until the port has the serving router.
 
 Each source is a zero-argument callable returning ``{series: value}``,
 run on the sampler thread every tick. Two kinds:

@@ -1,8 +1,8 @@
 """FleetDayWitness: conformance engine for the fleet-day gate.
 
 The port's copy of ``tpushare/obs/witness.py``. The fleet-day replay that
-drives it (``tools/simulate.py``) needs defragmentation, the autoscaler
-and the serving router, which the port does not have yet.
+drives it (``tools/simulate.py``) needs the autoscaler and the serving
+router, which the port does not have yet.
 
 Every other obs module *produces* telemetry; this one puts the
 telemetry itself under test. The fleet-day scenario injects a known

@@ -5,8 +5,12 @@ HELP texts, types, labels and buckets, rendered by the port's own
 standard-library exposition (:mod:`tpushare_torch.routes.exposition`,
 line for line what ``prometheus_client`` writes). Only the families whose
 sources the port has are declared, so none renders a zero that means
-nothing: the pod-journey SLOs', defragmentation's, the autoscaler's and
-the serving router's come with the modules that feed them. The per-verb
+nothing: the autoscaler's and the serving router's come with the modules
+that feed them. The pod-journey SLOs' (``tpushare_pod_e2e_*``,
+``tpushare_pod_scheduling_attempts``, ``tpushare_slo_*``) read
+:mod:`tpushare_torch.slo`; fragmentation's and defrag's
+(``tpushare_cluster_stranded_hbm_gib``, ``tpushare_node_frag_score``,
+``tpushare_defrag_*``) read the defrag executor. The per-verb
 cost ledger's and the continuous profiler's (``tpushare_verb_*``,
 ``tpushare_profiler_*``) read :mod:`tpushare_torch.profiling`. The
 retrospective layer's families (build, uptime, anomaly firings, the
@@ -289,11 +293,88 @@ UNSCHED_CHIPS_TENANT = Gauge(
     ["tenant"], registry=REGISTRY,
 )
 
+# -- Fragmentation and defrag (tpushare_torch/defrag/) ---------------------- #
+
+CLUSTER_STRANDED_HBM = Gauge(
+    "tpushare_cluster_stranded_hbm_gib",
+    "Free HBM no currently-pending demand shape can use: splinters "
+    "smaller than every pending slice request, free chips on nodes too "
+    "fragmented for the pending whole-chip requests. Sustained nonzero "
+    "while pods sit unschedulable means the fleet needs DEFRAG, not "
+    "more nodes (compare tpushare_unschedulable_demand_hbm_gib)",
+    registry=REGISTRY,
+)
+NODE_FRAG_SCORE = Gauge(
+    "tpushare_node_frag_score",
+    "Per-node fragmentation score: the fraction of the node's free HBM "
+    "that is stranded against the pending demand shapes (0 = every "
+    "free byte is usable, 1 = all of it is splinters nobody can take)",
+    ["node"], registry=REGISTRY,
+)
+DEFRAG_MOVES = Counter(
+    "tpushare_defrag_moves_total",
+    "Defrag rebalance moves by outcome: evicted (active mode), dry-run "
+    "(proposed only), deferred (PDB block / node cooldown), aborted "
+    "(SLO burn or budget exhaustion cancelled the rest of the plan), "
+    "failed, gone",
+    ["outcome"], registry=REGISTRY,
+)
+DEFRAG_PLANS_ABORTED = Counter(
+    "tpushare_defrag_plans_aborted_total",
+    "Defrag plans aborted mid-flight, by reason: slo-burn (the SLO "
+    "engine reported a burning objective — defrag must never worsen "
+    "the journeys it serves) or budget (the hourly eviction budget ran "
+    "out). See the docs/defrag.md runbook",
+    ["reason"], registry=REGISTRY,
+)
+
 TELEMETRY_ERRORS = Counter(
     "tpushare_telemetry_errors_total",
     "Errors swallowed on telemetry paths (metrics scrape parse, trace "
     "recording) — the code path survived, the observation was lost",
     registry=REGISTRY,
+)
+
+# -- Pod-journey SLOs (tpushare_torch/slo/) --------------------------------- #
+
+#: Journey latencies run from sub-second (an idle fleet binds in one
+#: attempt) to many minutes (quota pressure, missing capacity) — the
+#: buckets must resolve both the 30s default objective's boundary and
+#: the long tail that burns its budget.
+_E2E_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                120.0, 300.0, 600.0, 1800.0)
+
+POD_E2E = Histogram(
+    "tpushare_pod_e2e_scheduling_seconds",
+    "End-to-end scheduling latency per pod JOURNEY: pod creation to "
+    "bound (outcome=bound), or to deletion/abandonment while still "
+    "unbound. THE user-facing latency — per-verb histograms stay flat "
+    "while a pod is denied 40 times; this one degrades. Rebuilt from "
+    "the tpushare.io/assume-time annotation after a restart",
+    ["tenant", "outcome"], registry=REGISTRY, buckets=_E2E_BUCKETS,
+)
+POD_ATTEMPTS = Histogram(
+    "tpushare_pod_scheduling_attempts",
+    "Placement attempts (flight-recorder decisions) per closed pod "
+    "journey. A rising tail means pods are retrying their way to a "
+    "bind instead of landing first try",
+    ["tenant", "outcome"], registry=REGISTRY,
+    buckets=(1, 2, 3, 5, 8, 13, 21, 40, 80),
+)
+SLO_BUDGET_REMAINING = Gauge(
+    "tpushare_slo_error_budget_remaining",
+    "Fraction of the SLO's error budget left over the 1h window (1.0 = "
+    "untouched, 0.0 = exhausted). Objectives come from the "
+    "tpushare-slos ConfigMap (built-in defaults when absent)",
+    ["slo"], registry=REGISTRY,
+)
+SLO_BURN_RATE = Gauge(
+    "tpushare_slo_burn_rate",
+    "Error-budget burn-rate multiple per rolling window (1.0 = burning "
+    "exactly at the objective's allowance). Both windows >= the SLO's "
+    "fastBurn threshold fires a rate-limited TPUShareSLOBurn Event — "
+    "see the docs/slo.md runbook",
+    ["slo", "window"], registry=REGISTRY,
 )
 
 # -- Telemetry self-observability ------------------------------------------ #
@@ -701,6 +782,43 @@ def observe_quota(quota) -> None:
                     gauge.labels(tenant=tenant).set(entry[key])
 
 
+def observe_slo() -> None:
+    """Refresh the SLO budget and burn gauges from the engine's rolling
+    windows (this evaluation is also what fires the rate-limited
+    TPUShareSLOBurn alert). Rebuilt each scrape, so a renamed or removed
+    objective drops its series instead of freezing."""
+    # Imported here: the slo package imports this module lazily on its
+    # journey-close path.
+    from tpushare_torch import slo as slo_mod
+
+    with _SCRAPE_LOCK:
+        SLO_BUDGET_REMAINING.clear()
+        SLO_BURN_RATE.clear()
+        for row in slo_mod.engine().evaluate():
+            SLO_BUDGET_REMAINING.labels(slo=row["slo"]).set(
+                row["errorBudgetRemaining"])
+            for window, view in row["windows"].items():
+                SLO_BURN_RATE.labels(slo=row["slo"], window=window).set(
+                    view["burnRate"])
+
+
+def observe_frag(defrag) -> None:
+    """Refresh the fragmentation gauges from the defrag executor's index
+    (frag.py over the live ledger and the pending demand shapes). Rebuilt
+    each scrape, so a deleted node's score drops its series. A broken
+    read is counted and keeps both gauges' last values together."""
+    with _SCRAPE_LOCK:
+        try:
+            report = defrag.frag_snapshot()
+        except Exception:
+            safe_inc(TELEMETRY_ERRORS)
+            return
+        NODE_FRAG_SCORE.clear()
+        CLUSTER_STRANDED_HBM.set(report["strandedHBM"])
+        for node in report["nodes"]:
+            NODE_FRAG_SCORE.labels(node=node["node"]).set(node["score"])
+
+
 def observe_profiling() -> None:
     """Refresh the per-verb cost gauges and the profiler's self-series
     from tpushare_torch.profiling's monotonic sources. Rebuilt each scrape so
@@ -811,7 +929,8 @@ def observe_http(http_server) -> None:
 
 
 def scrape(cache, gang_planner=None, leader=None, demand=None,
-           workqueue=None, quota=None, http_server=None) -> bytes:
+           workqueue=None, quota=None, defrag=None,
+           http_server=None) -> bytes:
     """The /metrics handler's atomic refresh and render, timed, and
     counted when it raises (a scrape that raises is a sample Prometheus
     never saw)."""
@@ -822,6 +941,7 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
         with _SCRAPE_LOCK:
             observe_cache(cache)
             observe_topology(cache)
+            observe_slo()
             observe_profiling()
             observe_process()
             observe_timeline()
@@ -842,6 +962,10 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
                     UNSCHED_PODS_TENANT.labels(tenant=tenant).set(t_pods)
                     UNSCHED_HBM_TENANT.labels(tenant=tenant).set(t_hbm)
                     UNSCHED_CHIPS_TENANT.labels(tenant=tenant).set(t_chips)
+            if defrag is not None:
+                # After the demand block: the frag index reads the
+                # tracker's shapes, which snapshot() just pruned.
+                observe_frag(defrag)
             if gang_planner is not None:
                 # stats() is the cheap view: no member lists, no TTLs.
                 GANGS_PENDING.set(sum(

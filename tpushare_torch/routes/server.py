@@ -19,6 +19,13 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
   the attempt ``id`` names); ``GET /debug/trace?id=`` — a decision's
   causal chain
 * ``GET  /debug/quota`` — the tenant quota ledger's snapshot
+* ``GET  /debug/defrag`` — the fragmentation index (stranded HBM, each
+  node's score, the pending shapes), the defrag executor's posture and
+  budget, and its last plan
+* ``GET  /debug/slo`` — the SLO objectives (error budget left, burn rate
+  a window), the journeys' aggregates and the recording drops
+* ``GET  /debug/journey/<ns>/<pod>`` — the pod's journey: creation to
+  bound, its attempts' trace ids, queue wait against time in the verbs
 * ``GET  /debug/timeline[?window=&series=&markers=]`` — the fleet
   timeline: tiered series, markers, exemplars, anomaly state (404 under
   ``TPUSHARE_TIMELINE=off``, 400 on a window that is not a number)
@@ -56,7 +63,9 @@ caller's ``traceparent`` header becomes the decision's causal parent,
 and the reply carries the decision's own ``traceparent``. Each verb's
 latency also feeds :mod:`tpushare_torch.obs` (``note_verb``): the
 timeline's p99 series and the exemplar that ``/metrics`` prints on the
-bucket it landed in.
+bucket it landed in. Filter and bind link their decision to the pod's
+journey (:mod:`tpushare_torch.slo`; a bind never opens one), and each
+traced filter is one observation of the filter-latency objective.
 
 Under leader election a follower answers bind with 503 "not the leader"
 (``Retry-After: 1``), so the scheduler retries and the Service lands the
@@ -87,7 +96,7 @@ import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import tpushare_torch
-from tpushare_torch import obs, profiling, trace
+from tpushare_torch import obs, profiling, slo, trace
 from tpushare_torch.api.extender import (ExtenderBindingArgs,
                                          ExtenderPreemptionArgs)
 from tpushare_torch.routes import metrics, pprof, wire
@@ -135,7 +144,7 @@ class ExtenderHTTPServer(HTTPServer):
     def __init__(self, addr, predicate, binder, inspect,
                  prefix: str = DEFAULT_PREFIX, prioritize=None,
                  preempt=None, admission=None, leader=None, quota=None,
-                 gang_planner=None, workqueue=None,
+                 gang_planner=None, workqueue=None, defrag=None,
                  debug_routes: bool = True):
         self.predicate = predicate
         self.binder = binder
@@ -154,6 +163,9 @@ class ExtenderHTTPServer(HTTPServer):
         self.gang_planner = gang_planner
         #: The sync controller's workqueue, for its depth and retries.
         self.workqueue = workqueue
+        #: The defrag executor, for the fragmentation gauges and
+        #: ``GET /debug/defrag`` (wired explicitly, as the gang planner).
+        self.defrag = defrag
         #: ``/debug/*`` shares the port with the webhook; operators can
         #: switch the routes off (``DEBUG_ROUTES=0``).
         self.debug_routes = debug_routes
@@ -292,12 +304,18 @@ class ExtenderHTTPServer(HTTPServer):
                                            nominated=nominated)
         handler_ms = (time.perf_counter() - t0) * 1e3
         if dec is not None:
+            # One observation of the filter-latency objective ...
+            slo.observe_filter(time.perf_counter() - t0)
             passed = (result.node_names if result.node_names is not None
                       else [n.name for n in (result.nodes or [])])
             if not passed:
                 # Refused on every offered node: this attempt is over.
                 trace.complete(dec, "unschedulable",
                                error="rejected on every candidate node")
+            # ... and this attempt linked to the pod's journey (opening
+            # it when the informer has not yet).
+            slo.note_decision(args.pod.namespace, args.pod.name,
+                              args.pod.uid, dec, pod=args.pod)
         # Timeline and exemplar (fire-and-forget, lock-free): the p99
         # series stays fresh without a scrape, and the bucket this
         # latency lands in remembers the trace id.
@@ -571,6 +589,27 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json({"Error": "quota not configured"}, 404)
             else:
                 self._send_json({"tenants": self.server.quota.snapshot()})
+        elif path == "/debug/defrag":
+            if self.server.defrag is None:
+                self._send_json({"Error": "defrag not configured"}, 404)
+            else:
+                self._send_json(self.server.defrag.status())
+        elif path == "/debug/slo":
+            self._send_json(slo.snapshot())
+        elif path.startswith("/debug/journey/"):
+            rest = path[len("/debug/journey/"):]
+            ns, sep, pod_name = rest.partition("/")
+            doc = (slo.get_journey(ns, pod_name)
+                   if sep and pod_name and "/" not in pod_name else None)
+            if doc is None:
+                self._send_json(
+                    {"Error": f"no journey for {rest!r} (want "
+                              "/debug/journey/<namespace>/<pod>; "
+                              "the tracker keeps the last "
+                              f"~{slo.journey.DEFAULT_CAPACITY} "
+                              "closed journeys)"}, 404)
+            else:
+                self._send_json(doc)
         elif path == "/debug/http":
             self._send_json(self.server.http_stats())
         elif path == "/debug/blackbox":
@@ -663,6 +702,7 @@ class _Handler(BaseHTTPRequestHandler):
                                    demand=server.predicate.demand,
                                    workqueue=server.workqueue,
                                    quota=server.quota,
+                                   defrag=server.defrag,
                                    http_server=server),
                     ctype="text/plain; version=0.0.4")
             elif path.startswith("/debug/") and not self.server.debug_routes:
@@ -773,6 +813,11 @@ class _Handler(BaseHTTPRequestHandler):
                                    error=result.error)
                 else:
                     trace.complete(dec, "bound", node=args.node)
+                # The attempt joins the pod's journey, and a bound one
+                # closes it; a bind opens none (after a restart the
+                # controller rebuilds the journey from annotations).
+                slo.note_decision(args.pod_namespace, args.pod_name,
+                                  args.pod_uid, dec, open_new=False)
                 obs.note_verb("bind", handler_ms / 1e3,
                               dec.trace_id if dec is not None else "")
                 headers = _server_timing(handler_ms)

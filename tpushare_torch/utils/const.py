@@ -76,6 +76,14 @@ LABEL_TENANT = "tpushare.io/tenant"
 QUOTA_CONFIGMAP = "tpushare-quotas"
 QUOTA_DEFAULT_KEY = "*"
 
+#: The ConfigMap of pod-journey SLO objectives, trusted only from the
+#: namespace ``TPUSHARE_SLO_NAMESPACE`` names (kube-system by default), as
+#: the quota table is. Each data key is an objective's name, each value a
+#: JSON object of ``signal`` (``pod_e2e`` or ``filter_latency``),
+#: ``objective``, ``thresholdSeconds`` and an optional ``fastBurn``; with
+#: no ConfigMap the defaults of ``slo/config.py`` hold.
+SLO_CONFIGMAP = "tpushare-slos"
+
 #: A gang member's pod group and its minimum size.
 ANN_POD_GROUP = "tpushare.io/pod-group"
 ANN_POD_GROUP_MIN = "tpushare.io/pod-group-min"
@@ -118,6 +126,12 @@ ENV_COORDINATOR = "TPUSHARE_COORDINATOR"
 #: subdirectory (``<dir>/<pod uid>/usage.json``), mounted into that pod
 #: alone.
 USAGE_DIR_DEFAULT = "/var/run/tpushare/usage"
+
+#: "true" while the pod's workload has a checkpoint save in flight (it
+#: sets and clears it around the save). The defrag planner never moves
+#: such a pod: an eviction then would lose the save and the progress
+#: since the one before.
+ANN_CKPT_IN_FLIGHT = "tpushare.io/checkpoint-in-flight"
 
 #: The NVIDIA container runtime exposes the cards this names (host
 #: indices) and numbers them from 0 inside the container.
