@@ -31,8 +31,13 @@ member, a gang that never reaches quorum is rolled back at its TTL, and
 ever bound in part), tenancy and HA (phase 2h) and defragmentation with
 the pod-journey SLOs (phase 2i: a pod that fragmentation leaves pending
 binds on the card's node after the defrag executor moves a pod off it,
-once a burning SLO has aborted its first plan, and serves on the card),
-then drives the flagship LM's forward, serving
+once a burning SLO has aborted its first plan, and serves on the card)
+and fleet autoscaling with the serving router (phase 2j, in
+``chip_smoke_autoscale.py``: a router's scale-out puts a decode pod on
+the card's node, where it serves, after the autoscaler holds with
+capacity-exists; a second scale-out holds with defrag-first, then
+scales the fleet up by a node the pod binds on, which the trough
+drains and deletes), then drives the flagship LM's forward, serving
 (whole, chunked, interleaved and paged admission, the slot and paged
 servers), training and sharded training paths through the entry points a
 user calls, at full flagship width, under an injected HBM grant. Sharded
@@ -99,6 +104,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import bench_workload_torch as BW
+import chip_smoke_autoscale as CA
 import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch import obs as tobs
@@ -677,6 +683,8 @@ def main(usage_dir: str) -> int:
     gated = defrag_tenant(inv, usage_dir)
     tenancy = tenancy_phase(inv, usage_dir)
     phase("2h tenancy", card=card, **tenancy)
+    # 2j's tenant starts now, gated: its imports overlap 2i.
+    gated_2j = autoscale_tenant(inv, usage_dir)
 
     # 2i. Defragmentation and pod-journey SLOs: the card's node filled to a
     # splinter leaves a pod pending; a burning SLO aborts the defrag
@@ -685,6 +693,15 @@ def main(usage_dir: str) -> int:
     # is granted and serves on the card, its journey closed bound.
     defrag = defrag_phase(inv, usage_dir, tenant=gated)
     phase("2i defrag and SLO", card=card, **defrag)
+
+    # 2j. Autoscaling and the serving router: a surge's scale-out places
+    # a decode pod on the card's node (after a capacity-exists hold),
+    # granted and served on the card; a second surge holds defrag-first,
+    # then buys a node the next decode pod binds on; the trough drains
+    # and deletes it. The host twins run beside it.
+    autoscale = autoscale_phase(inv, usage_dir, tenant=gated_2j)
+    phase("2j host twins", card=card, **autoscale.pop("twin_documents"))
+    phase("2j autoscale and router", card=card, **autoscale)
 
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
@@ -1047,6 +1064,10 @@ def main(usage_dir: str) -> int:
     # at the reference's shapes, their launches counted from 0 per section.
     bench = bench_phase(card)
     phase("8 bench twin", card=card, **bench)
+    # 8b. The router's replay at the admission overhead phase 8 measured.
+    phase("8b router replay at the card's overhead",
+          **CA.router_overhead_replay(
+              card, bench["document"]["continuous_admission_overhead_pct"]))
     replayed.update({f"bench_{section}": counts
                      for section, counts in bench["replayed"].items()})
 
@@ -1074,6 +1095,7 @@ def main(usage_dir: str) -> int:
                "gang_tenant": gang["launches"]["flash_fwd"],
                **tenancy["launches"],
                **defrag["launches"],
+               **autoscale["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -4365,6 +4387,20 @@ def plain_stream_checks(stream: list, device: str = "cuda",
     del params, again, logits
     return {"tokens_equal": equal, "plain_argmax_agree": agree.item(),
             "plain_max_gap": gap, "new_tokens": TENANT_BATCH * TENANT_NEW}
+
+
+def autoscale_tenant(inv: discovery.HostInventory,
+                     usage_dir: str) -> ServingTenant:
+    """Phase 2j's tenant (``chip_smoke_autoscale.autoscale_tenant``)."""
+    return CA.autoscale_tenant(sys.modules[__name__], inv, usage_dir)
+
+
+def autoscale_phase(inv: discovery.HostInventory, usage_dir: str,
+                    fleet: int = CA.AUTOSCALE_FLEET,
+                    tenant: ServingTenant | None = None) -> dict:
+    """Phase 2j (``chip_smoke_autoscale.autoscale_phase``)."""
+    return CA.autoscale_phase(sys.modules[__name__], inv, usage_dir,
+                              fleet=fleet, tenant=tenant)
 
 
 DEFRAG_PENDING = "defrag-pending"

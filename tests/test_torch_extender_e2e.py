@@ -28,8 +28,9 @@ round; and the single-pod stories of ``tests/test_e2e.py``. Both stacks
 wire the gang planner, the quota ledger, the timeline, the pod journeys
 and the defrag executor (dry-run, its first tick a minute away); a
 gang's ``ttlRemaining`` in inspect is a clock, held within a second
-across the two. The JAX stack also wires the autoscaler, which changes
-no answer and no decision document.
+across the two. Both stacks also wire the autoscaler (dry-run, its
+first tick a minute away), which changes no answer and no decision
+document.
 ``tests/test_torch_gang_e2e.py`` holds the gang stories,
 ``tests/test_torch_quota.py`` the quota stories.
 """
@@ -83,13 +84,17 @@ H100 = dict(chips=8, hbm_per_chip=79, topology="", tpu_type="h100-80gb")
 
 class Side:
     """One package's extender over HTTP on its own fake apiserver.
-    ``trace`` is the package's decision recorder."""
+    ``trace`` is the package's decision recorder; ``router`` (the
+    package's serving ``Router``), when given, is served by the stack."""
 
-    def __init__(self, fake, main, trace):
+    def __init__(self, fake, main, trace, router=None):
         self.api = fake()
         self.main = main
         self.trace = trace
-        self.stack, self.server = main.serve_stack(self.api)
+        self.router = router
+        self.stack, self.server = (
+            main.serve_stack(self.api) if router is None
+            else main.serve_stack(self.api, router=router))
         self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
         #: The last POST's response headers.
         self.headers: dict = {}
@@ -142,13 +147,19 @@ class Side:
         self.main.shutdown_stack(self.stack, self.server)
 
 
-#: The anomaly rule over the stranded GiB fires on a sampler tick that
-#: finds the fleet stranding more than 64 GiB. Both stacks feed it (the
-#: defrag executor's frag index), and each side's sampler ticks on its
-#: own clock, so whether a tick lands while the traffic strands that much
-#: differs between the two: its firings (markers, Events, counts) are not
-#: compared.
-TIMED_RULES = ("stranded-hbm-high",)
+#: Anomaly rules whose firings (markers, Events, counts) are not compared,
+#: because each side's firing is a clock of its own:
+#: * ``stranded-hbm-high`` fires on a sampler tick that finds the fleet
+#:   stranding more than 64 GiB. Both stacks feed it (the defrag
+#:   executor's frag index), and each side's sampler ticks on its own
+#:   clock, so whether a tick lands while the traffic strands that much
+#:   differs between the two.
+#: * ``filter-p99-spike`` and ``bind-p99-spike`` are z-scores over a verb's
+#:   p99 latency: each reads its own side's verb p99 on its own sampler,
+#:   so under load either can fire on one side only. Both engines are
+#:   held alike on seeded series by ``tests/test_torch_timeline.py``'s
+#:   ``test_anomaly_engines_fire_alike``.
+TIMED_RULES = ("stranded-hbm-high", "filter-p99-spike", "bind-p99-spike")
 
 
 def timed_anomaly(event: dict) -> bool:
@@ -216,9 +227,11 @@ def granted(pod) -> tuple:
 
 
 class Pair:
-    """The JAX side and the port's, driven alike and compared."""
+    """The JAX side and the port's, driven alike and compared; ``routers``
+    (the JAX package's ``Router``, the port's) are served by the
+    stacks."""
 
-    def __init__(self):
+    def __init__(self, routers=(None, None)):
         # Each package's recorder and SLO tracker are process singletons:
         # start both empty, so the flight rings hold this pair's decisions
         # alone and the journeys and SLO windows its pods alone.
@@ -226,8 +239,8 @@ class Pair:
         ttrace.reset()
         jslo.reset()
         tslo.reset()
-        self.jax = Side(JFake, jmain, jtrace)
-        self.port = Side(TFake, tmain, ttrace)
+        self.jax = Side(JFake, jmain, jtrace, routers[0])
+        self.port = Side(TFake, tmain, ttrace, routers[1])
         self.sides = (self.jax, self.port)
         self.uids = 0
 

@@ -34,10 +34,9 @@ from tpushare_torch.k8s import events as tevents
 from tpushare_torch.k8s.leader import LeaderElector as TElector
 from tpushare_torch.utils import const
 
-#: Marker kinds of the reference's subsystems the port has not yet (the
-#: autoscaler A3, the router A5).
-UNPORTED_KINDS = {"autoscale-up", "autoscale-down", "autoscale-abort",
-                  "router-scaleout"}
+#: Marker kinds of the reference's subsystems the port has not yet: none
+#: since the autoscaler and the router (ROADMAP A3) came.
+UNPORTED_KINDS: set = set()
 UNPORTED_SERIES: set = set()
 
 #: Each side's obs module, events queue and elector, in ``Pair.sides``

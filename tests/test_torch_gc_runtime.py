@@ -1,8 +1,8 @@
 """The extender's GC posture and timestamps (``tpushare_torch/utils/
 runtime.py``, ``utils/k8stime.py``) against the JAX package's, and the
 environment the port's ``main`` reads beyond what it did before: the GC
-posture applied by ``main`` and not by ``serve_stack``, and one warning
-for each of the reference main's variables the port does not read yet.
+posture applied by ``main`` and not by ``serve_stack``, and no warning,
+since the port's main reads every variable of the reference main's.
 
 Every test restores the interpreter's thresholds and unfreezes what it
 froze.
@@ -101,24 +101,11 @@ def no_cluster(monkeypatch):
                         lambda stop, flush=None: stop.set())
     monkeypatch.setattr(M, "configure_logging", lambda: None)
     for key in ("TLS_CERT_FILE", "TLS_KEY_FILE", "LEADER_ELECT",
-                "TPUSHARE_GC_TUNE", "TPUSHARE_GC_GEN0", *M.NOT_PORTED):
+                "TPUSHARE_GC_TUNE", "TPUSHARE_GC_GEN0", *M.NOT_PORTED,
+                *AUTOSCALE_VARIABLES):
         monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("PORT", "0")
     return api
-
-
-@pytest.mark.parametrize("name", sorted(M.NOT_PORTED))
-def test_main_warns_of_each_variable_it_does_not_read(no_cluster,
-                                                      monkeypatch, caplog,
-                                                      name):
-    monkeypatch.setenv(name, "1")
-    monkeypatch.setenv("TPUSHARE_GC_TUNE", "off")
-    with caplog.at_level(logging.WARNING, logger=M.log.name):
-        M.main()
-    lines = [r.getMessage() for r in caplog.records
-             if r.name == M.log.name and r.levelno == logging.WARNING]
-    assert lines == [f"{name} is set but not read: {M.NOT_PORTED[name]} "
-                     "is not yet ported"]
 
 
 def test_main_warns_of_nothing_when_none_is_set(no_cluster, monkeypatch,
@@ -131,8 +118,9 @@ def test_main_warns_of_nothing_when_none_is_set(no_cluster, monkeypatch,
 
 
 def test_not_ported_names_the_reference_main_s_variables():
-    """Each variable the port warns of is one the reference's main
-    documents, and none is one the port reads."""
+    """Each variable the port leaves unread is one the reference's main
+    documents (none is left since the autoscaler's were ported), and
+    none is one the port reads."""
     import inspect
 
     from tpushare.cmd import main as jmain
@@ -145,8 +133,21 @@ def test_not_ported_names_the_reference_main_s_variables():
     for name in ("LEADER_ELECT", "LEASE_NAMESPACE", "TPUSHARE_GC_TUNE",
                  "TPUSHARE_QUOTA_NAMESPACE", "TPUSHARE_LOG_JSON",
                  "DEBUG_ROUTES", "TPUSHARE_PROFILE", "TPUSHARE_PROFILE_HZ",
-                 *TIMELINE_VARIABLES, *SLO_DEFRAG_VARIABLES):
+                 *TIMELINE_VARIABLES, *SLO_DEFRAG_VARIABLES,
+                 *AUTOSCALE_VARIABLES):
         assert name in tdoc and name not in M.NOT_PORTED
+    assert M.NOT_PORTED == {}
+
+
+#: The autoscale executor's variables, which the port's main reads
+#: (``tests/test_torch_autoscale.py`` holds their effect to the
+#: reference's).
+AUTOSCALE_VARIABLES = ("TPUSHARE_AUTOSCALE", "TPUSHARE_AUTOSCALE_INTERVAL_S",
+                       "TPUSHARE_AUTOSCALE_MIN_NODES",
+                       "TPUSHARE_AUTOSCALE_MAX_NODES",
+                       "TPUSHARE_AUTOSCALE_UP_DELAY_S",
+                       "TPUSHARE_AUTOSCALE_DOWN_DELAY_S",
+                       "TPUSHARE_AUTOSCALE_COOLDOWN_S")
 
 
 #: The pod-journey SLOs' and the defrag executor's variables, which the

@@ -10,7 +10,8 @@
 * The families the port declares against the reference's: the same
   names, HELP, TYPE, labels and buckets, in the reference's order; the
   reference's families the port leaves out are exactly ``UNPORTED``, each
-  with the ROADMAP item that brings its source.
+  with the ROADMAP item that brings its source (none is left out since
+  the autoscaler and the router came).
 * ``/metrics`` of both ``serve_stack``s (``tests/test_torch_extender_e2e``
   's ``Pair``) before and after the seeded churns over 16 H100 nodes
   (with a gang) and under a quota ConfigMap, a preemption and an
@@ -19,15 +20,24 @@
   counter's and histogram ``_count``'s rise equal. Clocks are not
   compared: ``_created``, the histograms' ``_sum`` and buckets, the
   process's own gauges (resident set, descriptors, threads, GC, uptime),
-  the timeline's (series, drops, anomaly firings) and the per-verb cost
-  ledger's seconds, whose label sets still are; the ledger's decision
-  counts per verb are (both ledgers start empty with the pair). The OpenMetrics exemplars on the verbs' buckets: the same
+  the timeline's (series, drops, anomaly firings), the per-verb cost
+  ledger's seconds and each demand shape's oldest wait
+  (``tpushare_unschedulable_demand_oldest_age_seconds``, read on each
+  side's clock), whose label sets still are; the ledger's decision
+  counts per verb are (both ledgers start empty with the pair). The
+  autoscaler's fleet-size gauges and counters are held as the others are.
+  The OpenMetrics exemplars on the verbs' buckets: the same
   families carry them on both sides, each names a decision of its own
   side, and its latency lies in its bucket. The pod-journey and
   fragmentation families (the journeys' histograms, the SLO gauges, the
   stranded GiB and each node's score, the defrag counters) are held as
   the others are, but the filter-latency objective's gauges, whose
   events are each side's clock, by label set.
+* ``/metrics`` of two ``serve_stack``s that each hold a router (the
+  port's and the reference's ``Router`` on one virtual clock, fed the same
+  seeded stream of three tenants, one of them past its standing): every
+  ``tpushare_router_*`` series equal, value for value, besides the rest
+  held as above.
 * The demand tracker's views that ``/metrics`` reads (``snapshot``,
   ``by_tenant``, ``shapes``, ``oldest_age_by_shape``) on seeded streams
   of unplaceable pods and clears, against the reference's.
@@ -64,23 +74,9 @@ from tpushare_torch.scheduler.predicate import DemandTracker as TTracker
 from tpushare_torch.utils import const
 
 #: The reference's families whose sources the port has not yet, by the
-#: ROADMAP §A item that brings each.
-UNPORTED = {
-    "A3": ("tpushare_cluster_capacity_hbm_gib", "tpushare_cluster_nodes",
-           "tpushare_unschedulable_demand_oldest_age_seconds",
-           "tpushare_autoscale_actions_total",
-           "tpushare_autoscale_aborts_total"),
-    "A5": ("tpushare_router_requests_total", "tpushare_router_shed_total",
-           "tpushare_router_queue_depth", "tpushare_router_slots_in_use",
-           "tpushare_router_fleet_slots",
-           "tpushare_router_fleet_tokens_per_s",
-           "tpushare_router_ttft_seconds",
-           "tpushare_router_scaleout_signals_total",
-           "tpushare_router_replicas", "tpushare_router_pages_total",
-           "tpushare_router_pages_free", "tpushare_router_prefix_hits_total",
-           "tpushare_router_prefix_misses_total",
-           "tpushare_router_prefix_hit_rate"),
-}
+#: ROADMAP §A item that brings each: none since A3 (the autoscaler's and
+#: the router's, A5 merged into A3) was ported.
+UNPORTED: dict[str, tuple[str, ...]] = {}
 UNPORTED_NAMES = {n for names in UNPORTED.values() for n in names}
 
 #: The SLO gauges of an objective over the filter verb's latency: its
@@ -96,6 +92,8 @@ PROCESS = ("tpushare_process_rss_bytes", "tpushare_process_open_fds",
            "tpushare_gc_collections_total", "tpushare_uptime_seconds",
            "tpushare_timeline_series", "tpushare_timeline_dropped_total",
            "tpushare_anomaly_fired_total",
+           # each demand shape's oldest wait, on each side's clock
+           "tpushare_unschedulable_demand_oldest_age_seconds",
            # the per-verb cost ledger's clocks (its decision counts,
            # tpushare_verb_decisions_total, are compared by value)
            "tpushare_verb_wall_seconds_total",
@@ -457,3 +455,53 @@ def test_a_scrape_that_raises_is_a_counted_500(pair, monkeypatch):
     assert statuses[0] == (500, {"Error": "ledger unreadable"})
     for side in pair.sides:
         assert side.get("/metrics")[0] == 200
+
+
+def test_metrics_of_two_routers_on_one_stream():
+    """Both ``serve_stack``s, each holding a router on one virtual clock,
+    fed the same seeded stream: every ``tpushare_router_*`` series and the
+    rest of ``/metrics`` held as ``compare`` holds them."""
+    from tests.test_torch_router import (TENANTS, Clock, make_replicas,
+                                         router_pair)
+    from tpushare.router import DecodeReplica as JReplica
+    from tpushare_torch.router import DecodeReplica as TReplica
+
+    jprofiling.reset()
+    tprofiling.reset()
+    clock = Clock()
+    pair = router_pair(clock)
+    try:
+        for side, cls in ((pair.jax, JReplica), (pair.port, TReplica)):
+            for rep in make_replicas(np.random.default_rng(7), cls):
+                side.router.add_replica(rep)
+        before = [_scrape(side) for side in pair.sides]
+        rngs = [np.random.default_rng(3) for _ in pair.sides]
+        for step in range(80):
+            clock.now = round(clock.now + 0.05, 6)
+            for side, rng in zip(pair.sides, rngs):
+                for name, rate, _ in TENANTS:
+                    for _ in range(int(rng.poisson(rate * 0.05))):
+                        kw = ({"prefix_key": "sys", "prefix_len": 256}
+                              if rng.random() < 0.3 else {})
+                        side.router.submit(
+                            name, int(rng.choice([20, 100, 300, 700])),
+                            int(rng.integers(4, 200)), **kw)
+                side.router.tick()
+        after = [_scrape(side) for side in pair.sides]
+        port = compare(before, after)
+        router = {n for n in port if n.startswith("tpushare_router_")}
+        assert len({n for n in router if not n.endswith("_created")}) == 14
+        for name in ("tpushare_router_fleet_slots",
+                     "tpushare_router_pages_total",
+                     "tpushare_router_replicas"):
+            assert _value(port, name) > 0, name
+        shed = port["tpushare_router_shed_total"]["samples"]
+        assert {dict(k[1])["tenant"] for k in shed} == {
+            name for name, _, _ in TENANTS}
+        assert _value(port, "tpushare_router_requests_total",
+                      tenant="burst") > 0
+        assert _value(port, "tpushare_router_ttft_seconds",
+                      quantile="p99") > 0
+    finally:
+        pair.close()
+        jprofiling.reset()

@@ -290,9 +290,9 @@ def _lock_sites(path: str) -> list[tuple[str, str]]:
 def test_every_traced_lock_takes_the_reference_s_site():
     """Module by module, the port's ``TracingRLock`` sites and guarded
     containers' names are its reference twin's, as written (an f-string
-    site such as ``node/{self.name}`` included). Modules of the
-    reference the port has not yet (the router, autoscaling) are not
-    compared."""
+    site such as ``node/{self.name}`` included): the router's
+    ``router/state`` and the autoscaler's ``autoscale/executor`` among
+    them. A module of the port with no twin takes no lock site."""
     compared = 0
     for path in _package_files("tpushare_torch"):
         rel = os.path.relpath(path, os.path.join(REPO, "tpushare_torch"))

@@ -10,10 +10,9 @@ against the JAX package's.
   query filters and the ``TPUSHARE_TIMELINE=off`` kill switch, and the
   timeline's families in the scrape, the SLO config site, and the
   acceptance story: a burning pod-journey SLO's Event names a timeline
-  cursor that resolves to its ``slo-burn`` marker and on to a decision.
-  Left out until the port has its subsystem:
-  ``TestFireAndForget.test_router_scaleout_site`` (the serving router,
-  A5).
+  cursor that resolves to its ``slo-burn`` marker and on to a decision,
+  and the serving router's scale-out site (``TestFireAndForget.
+  test_router_scaleout_site``, over the port's ``Router``).
 * Both ``TimelineRecorder``s fed the same seeded streams of samples,
   markers, verb latencies and ticks on injected clocks: equal snapshots,
   drops and last values.
@@ -62,14 +61,14 @@ texemplars = importlib.import_module("tpushare_torch.obs.exemplars")
 
 R.load("test_quota")  # the stories' ``cluster`` fixture builds its Cluster
 R.load("test_slo")  # the burn story's aged pod
+R.load("test_router")  # the scale-out site's router
 _STORIES = R.load("test_timeline")
 fresh_retrospective = _STORIES.fresh_retrospective
 cluster = _STORIES.cluster
 globals().update(R.pick(
     _STORIES,
     ["TestTierRollover", "TestBounds", "TestFireAndForget",
-     "TestDebugTimelineOverStack", "TestAcceptanceRetrospective"],
-    leave_out=("TestFireAndForget.test_router_scaleout_site",)))
+     "TestDebugTimelineOverStack", "TestAcceptanceRetrospective"]))
 
 
 @pytest.fixture

@@ -6,8 +6,8 @@ tee from ``obs.mark`` and ``/debug/fleetday``) against the JAX package's.
   (marker, Event, metric), late, missing and spurious verdicts, the
   schedule's loud failures, arming, the counts across evaluations and
   the injected clock. ``TestFleetDayReplay`` (a compressed fleet day
-  through ``tools/simulate.py``) waits for defragmentation, the
-  autoscaler and the serving router (ROADMAP A2, A3, A5).
+  through ``tools/simulate.py``) waits for the replay's twin over the
+  port (ROADMAP A3b).
 * Both witnesses fed the same seeded schedules, markers, Event listings
   and series on injected clocks: the same reports, counts and snapshots.
 """

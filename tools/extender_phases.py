@@ -1,5 +1,5 @@
-"""Phases 2f, 2g, 2h and 2i of ``chip_smoke.py`` alone, on one NVIDIA
-card.
+"""Phases 2f, 2g, 2h, 2i and 2j of ``chip_smoke.py`` alone, on one
+NVIDIA card.
 
 Builds the kernels from the checkout, then runs ``chip_smoke.
 extender_phase`` (the tenant placed through the extender and served, its
@@ -12,19 +12,24 @@ the 256-gang churn, with the gauges and each member's trace id) and
 failover, a serving tenant preempted and replaced, quota, admission, the
 preempt benchmarks) and ``chip_smoke.defrag_phase`` (a pending pod
 placed on the card's node by the defrag executor's move once a burning
-SLO lifts, and served there), each with the fleet timeline's checks (2f also
-restarts the extender over its fleet and replays the tenant's decision
-from the black-box journal, and flips a node NotReady; its churns run
-with the continuous profiler armed). ``--overhead`` then runs
+SLO lifts, and served there) and ``chip_smoke.autoscale_phase`` (a
+router's scale-out places a decode pod on the card's node, served there,
+then the autoscaler holds defrag-first, scales up a node and drains and
+deletes it in the trough, with the host twins of ``bench_router.py`` and
+``bench.py --autoscale`` beside it), each with the fleet timeline's
+checks (2f also restarts the extender over its fleet and replays the
+tenant's decision from the black-box journal, and flips a node NotReady;
+its churns run with the continuous profiler armed). ``--overhead`` then runs
 ``chip_smoke.overhead_phase``: the timeline's, the journal's and the
 profiler's overhead gates, ``bench.py``'s twins, on 2f's 1,024-node fleet;
-``--no-phases`` runs it alone, and ``--only 2i`` (a comma-separated list
+``--no-phases`` runs it alone, and ``--only 2j`` (a comma-separated list
 of phase numbers) runs those phases alone. Prints each phase as
 ``chip_smoke.py`` does and writes every field as JSON to ``--out``::
 
     python3 tools/extender_phases.py --out extender_phases.json
     python3 tools/extender_phases.py --overhead --no-phases --out o.json
     python3 tools/extender_phases.py --only 2i --out defrag.json
+    python3 tools/extender_phases.py --only 2j --out autoscale.json
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def main() -> int:
                     help="run the timeline, journal and profiler "
                          "overhead gates")
     ap.add_argument("--no-phases", action="store_true",
-                    help="skip phases 2f, 2g, 2h and 2i")
+                    help="skip phases 2f, 2g, 2h, 2i and 2j")
     ap.add_argument("--only", default="",
                     help="run only these phases (e.g. 2i or 2f,2i)")
     args = ap.parse_args()
@@ -65,7 +70,8 @@ def main() -> int:
             ("2f extender", CS.extender_phase),
             ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
             ("2h tenancy", CS.tenancy_phase),
-            ("2i defrag and SLO", CS.defrag_phase)]
+            ("2i defrag and SLO", CS.defrag_phase),
+            ("2j autoscale and router", CS.autoscale_phase)]
         if args.only:
             keep = args.only.split(",")
             phases = [(n, fn) for n, fn in phases if n.split()[0] in keep]

@@ -50,6 +50,19 @@ Environment:
   ``TPUSHARE_DEFRAG_MAX_CONCURRENT`` (2), every
   ``TPUSHARE_DEFRAG_INTERVAL_S`` (60), on the leader only, and aborts a
   plan while an SLO burns.
+* ``TPUSHARE_AUTOSCALE``: ``off``, ``dry-run`` (default) or ``active``,
+  the fleet autoscaler's posture (``autoscale/``). Dry-run decides and
+  publishes without touching the fleet; active creates a node for aged
+  demand that no node and no defrag plan can place (a clone of the
+  roomiest fitting node, or the hole of a TPU slice grid), and in a
+  trough cordons, drains and deletes the most strandable node. Bounded by
+  ``TPUSHARE_AUTOSCALE_MIN_NODES`` (1) and ``TPUSHARE_AUTOSCALE_MAX_NODES``
+  (64); paced by ``TPUSHARE_AUTOSCALE_UP_DELAY_S`` (30),
+  ``TPUSHARE_AUTOSCALE_DOWN_DELAY_S`` (300),
+  ``TPUSHARE_AUTOSCALE_COOLDOWN_S`` (120) and
+  ``TPUSHARE_AUTOSCALE_INTERVAL_S`` (60), on the leader only; a drain
+  spends the defrag executor's eviction budget and aborts (uncordoning)
+  while an SLO burns.
 * ``TPUSHARE_GC_TUNE``: the fleet-scale GC posture (``utils/runtime.py``),
   on by default (``off``, ``0``, ``false``, ``no`` keep the interpreter's
   thresholds); ``TPUSHARE_GC_GEN0`` sets the gen-0 threshold. ``main``
@@ -77,9 +90,8 @@ Environment:
   JSON-lines POSTs to this HTTP sink (bounded queue, exponential
   backoff, an ``export-stall`` marker on a sustained failure).
 
-Variables of the reference's main that the port does not yet read
-(``NOT_PORTED``: autoscaling) are logged as a warning, one line each, when
-set.
+The port's main reads every variable of the reference's (``NOT_PORTED`` is
+empty).
 """
 
 from __future__ import annotations
@@ -107,27 +119,9 @@ from tpushare_torch.scheduler.prioritize import Prioritize
 
 log = logging.getLogger(__name__)
 
-#: The reference main's variables that the port does not read yet, and
-#: what of the reference each one sets.
-NOT_PORTED = {
-    "TPUSHARE_AUTOSCALE": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_MIN_NODES": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_MAX_NODES": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_UP_DELAY_S": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_DOWN_DELAY_S": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_COOLDOWN_S": "the fleet autoscaler",
-    "TPUSHARE_AUTOSCALE_INTERVAL_S": "the fleet autoscaler",
-}
-
-
-def warn_not_ported() -> list[str]:
-    """Log one warning for each variable of ``NOT_PORTED`` that is set;
-    returns their names."""
-    names = [name for name in NOT_PORTED if os.environ.get(name)]
-    for name in names:
-        log.warning("%s is set but not read: %s is not yet ported",
-                    name, NOT_PORTED[name])
-    return names
+#: The reference main's variables that the port does not read, and what
+#: of the reference each one sets: none, since the autoscaler's came.
+NOT_PORTED: dict[str, str] = {}
 
 
 def setup_signals(stop_event: threading.Event, flush=None) -> None:
@@ -199,6 +193,9 @@ def build_stack(client, is_leader=None) -> Stack:
     # The frag index measures stranding against the shapes failing the
     # filter now: the predicate owns that tracker.
     controller.defrag.set_demand(predicate.demand)
+    # The autoscaler reads the same tracker as demand: shapes and their
+    # ages drive scale-up's hysteresis.
+    controller.autoscale.set_demand(predicate.demand)
     prioritize = Prioritize(controller.cache, gang_planner=gang,
                             policy=scoring, quota=controller.quota)
     binder = Bind(controller.cache, client, gang_planner=gang,
@@ -221,10 +218,12 @@ def build_stack(client, is_leader=None) -> Stack:
 
 
 def make_server(stack: Stack, address, leader=None,
-                debug_routes: bool = True) -> ExtenderHTTPServer:
+                debug_routes: bool = True,
+                router=None) -> ExtenderHTTPServer:
     """The HTTP server over every verb of ``stack``, with the gang
-    planner, the workqueue, the quota ledger and the defrag executor its
-    ``/metrics`` and ``/debug/defrag`` read."""
+    planner, the workqueue, the quota ledger, the defrag and autoscale
+    executors and ``router`` (when there is one) its ``/metrics``,
+    ``/debug/defrag``, ``/debug/autoscale`` and ``/debug/router`` read."""
     return ExtenderHTTPServer(address, stack.predicate, stack.binder,
                               stack.inspect, prioritize=stack.prioritize,
                               preempt=stack.preempt,
@@ -233,20 +232,28 @@ def make_server(stack: Stack, address, leader=None,
                               gang_planner=stack.binder.gang_planner,
                               workqueue=stack.controller.queue,
                               defrag=stack.controller.defrag,
+                              autoscale=stack.controller.autoscale,
+                              router=router,
                               debug_routes=debug_routes)
 
 
 def serve_stack(client, address=("127.0.0.1", 0), workers: int = 2,
-                leader=None):
+                leader=None, router=None):
     """Boot a wired stack and its HTTP server over ``client``; returns
     ``(stack, server)``. The harness of tests and of ``chip_smoke.py``.
     ``leader`` (a started :class:`tpushare_torch.k8s.leader.
     LeaderElector`) gates bind, the planner's retries and the reaper on
-    its Lease, as ``main`` does under ``LEADER_ELECT``."""
+    its Lease, as ``main`` does under ``LEADER_ELECT``. ``router`` (a
+    :class:`tpushare_torch.router.Router`) also serves ``GET
+    /debug/router`` and the ``tpushare_router_*`` gauges, joins the
+    timeline, and its scale-out want becomes the autoscaler's demand."""
     stack = build_stack(
         client, is_leader=leader.is_leader if leader is not None else None)
+    if router is not None:
+        obs.wire(router=router)
+        stack.controller.autoscale.set_router(router)
     stack.controller.start(workers=workers)
-    server = make_server(stack, address, leader=leader)
+    server = make_server(stack, address, leader=leader, router=router)
     serve_forever(server)
     return stack, server
 
@@ -355,7 +362,6 @@ def main() -> None:
     # SIGPROF's default action back as it finalizes, and a fire of the
     # armed ITIMER_PROF after that would kill the process.
     atexit.register(profiling.stop)
-    warn_not_ported()
     port = int(os.environ.get("PORT", "39999"))
     workers = int(os.environ.get("WORKERS", "4"))
     cert, key = os.environ.get("TLS_CERT_FILE"), os.environ.get(

@@ -19,8 +19,9 @@ informer first sees an unassigned pod, close when it binds or is deleted,
 and are rebuilt from annotations at the start; the ``tpushare-slos``
 ConfigMap, trusted only from ``TPUSHARE_SLO_NAMESPACE``, sets the
 objectives. The controller owns the defrag executor
-(:mod:`tpushare_torch.defrag`), started and stopped with it. Autoscaling
-comes with its own slice.
+(:mod:`tpushare_torch.defrag`) and the autoscale executor
+(:mod:`tpushare_torch.autoscale`, which spends the defrag executor's
+eviction budget), started and stopped with it.
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ class Controller:
         self._reaped_uids: set[str] = locks.guarded_set(
             self._removed_lock, "Controller._reaped_uids")
         #: ``() -> bool``: gates the apiserver writes this controller
-        #: issues (the gang reaper, the defrag executor); the ledger's
-        #: upkeep runs on every replica.
+        #: issues (the gang reaper, the defrag and autoscale executors);
+        #: the ledger's upkeep runs on every replica.
         self._is_leader = is_leader or (lambda: True)
         #: Defragmentation: the stranded-HBM index and the budgeted,
         #: SLO-guarded rebalancer. Dry-run by default;
@@ -87,6 +88,17 @@ class Controller:
         self.defrag = DefragExecutor(
             self.cache, client, quota=self.quota,
             pod_lister=self.hub.pods.list, is_leader=self._is_leader)
+        #: Fleet autoscaling: demand-driven scale-up, drain-aware
+        #: scale-down. Dry-run by default; TPUSHARE_AUTOSCALE=active arms
+        #: node create and delete. It spends the defrag executor's
+        #: eviction budget: drains and rebalance moves disrupt the same
+        #: pods, so they share one hourly allowance. build_stack wires the
+        #: DemandTracker (and serve_stack the router) after construction.
+        from tpushare_torch.autoscale.executor import AutoscaleExecutor
+        self.autoscale = AutoscaleExecutor(
+            self.cache, client, quota=self.quota,
+            pod_lister=self.hub.pods.list, is_leader=self._is_leader,
+            budget=self.defrag.budget)
         self._workers: list[threading.Thread] = []
         self._stop = threading.Event()
 
@@ -408,14 +420,16 @@ class Controller:
                                  name=f"tpushare-sync-{i}", daemon=True)
             t.start()
             self._workers.append(t)
-        # The defrag loop (a no-op under TPUSHARE_DEFRAG_MODE=off); its
-        # first tick is a full interval away.
+        # The defrag and autoscale loops (no-ops when their mode is off);
+        # each first tick is a full interval away.
         self.defrag.start()
+        self.autoscale.start()
         log.info("controller started with %d sync workers", workers)
 
     def stop(self) -> None:
         self._stop.set()
         self.defrag.stop()
+        self.autoscale.stop()
         self.queue.shut_down()
         self.hub.stop()
         for t in self._workers:

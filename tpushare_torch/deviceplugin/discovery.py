@@ -180,6 +180,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpushare_torch"
 #: package's ``TPUDISC_LIB``).
 ENV_NATIVE_LIB = "NVDISC_LIB"
 _MAX_CARDS = 64
+# vet: ignore[raw-lock] - the daemon builds and loads its shim once; no extender lock profile runs in that process
 _native_lock = threading.Lock()
 _native_libs: dict[str, ctypes.CDLL] = {}
 

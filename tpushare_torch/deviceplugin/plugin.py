@@ -277,11 +277,13 @@ class TPUSharePlugin:
         behind. The lock spans the batch's apiserver calls: it serializes
         kubelet's RPCs on one node, which kubelet issues one at a time."""
         with self._alloc_lock:
+            # vet: ignore[blocking-under-lock] - node-local kubelet RPC serialization; see the docstring
             return self._allocate_batch(requests, chips=False)
 
     def allocate_chips_batch(
             self, requests: list[list[str]]) -> list[ContainerAllocation]:
         with self._alloc_lock:
+            # vet: ignore[blocking-under-lock] - node-local kubelet RPC serialization; see allocate_hbm_batch
             return self._allocate_batch(requests, chips=True)
 
     def _allocate_batch(self, requests: list[list[str]],
@@ -410,9 +412,11 @@ class TPUSharePlugin:
         with self._alloc_lock:
             base = self._partial_chips if chips else self._partial
             overlay = {uid: list(v) for uid, v in base.items()}
+            # vet: ignore[blocking-under-lock] - node-local kubelet RPC serialization; see allocate_hbm_batch
             pods = self._list_node_pods()
             for available, size in requests:
                 avail = set(available)
+                # vet: ignore[blocking-under-lock] - node-local kubelet RPC serialization; see allocate_hbm_batch
                 pod = self._match_pending_pod(size, chips=chips,
                                               partial=overlay, pods=pods)
                 if pod is None:

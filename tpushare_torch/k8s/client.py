@@ -189,6 +189,12 @@ class ApiClient:
         doc = self._request("GET", "/api/v1/nodes")
         return [Node(item) for item in doc.get("items", [])]
 
+    def delete_node(self, name: str) -> None:
+        """Deregister a drained node: the autoscaler's scale-down
+        actuator. The caller cordons and empties it first; this verb does
+        not check."""
+        self._request("DELETE", f"/api/v1/nodes/{name}")
+
     def update_node(self, node: Node) -> Node:
         """PUT the node object itself: annotations do not persist through
         the /status subresource."""

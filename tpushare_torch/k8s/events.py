@@ -20,6 +20,7 @@ import time
 
 from tpushare_torch import trace
 from tpushare_torch.api.objects import Pod
+from tpushare_torch.routes import metrics
 from tpushare_torch.utils import locks
 
 log = logging.getLogger(__name__)
@@ -36,11 +37,6 @@ _drop_warn_interval_s = 30.0
 _last_drop_warn = 0.0
 
 
-def _dropped() -> None:
-    from tpushare_torch.routes import metrics
-    metrics.safe_inc(metrics.EVENTS_DROPPED)
-
-
 def queue_depth() -> int:
     """Events accepted and not yet posted (the
     ``tpushare_events_queue_depth`` gauge)."""
@@ -54,7 +50,7 @@ def _drain() -> None:
             client.create_event(namespace, event)
         except Exception as exc:  # noqa: BLE001 - telemetry never throws
             # A failed POST is a dropped event.
-            _dropped()
+            metrics.safe_inc(metrics.EVENTS_DROPPED)
             log.debug("event emission failed for %s/%s: %s", namespace,
                       event["metadata"]["name"], exc)
         finally:
@@ -117,7 +113,7 @@ def record(client, pod: Pod, reason: str, message: str,
         _queue.put_nowait((client, pod.namespace, event))
     except queue.Full:
         global _last_drop_warn
-        _dropped()
+        metrics.safe_inc(metrics.EVENTS_DROPPED)
         now_s = time.monotonic()
         if now_s - _last_drop_warn >= _drop_warn_interval_s:
             _last_drop_warn = now_s
@@ -140,5 +136,6 @@ REASON_QUOTA_DENIED = "TPUShareQuotaDenied"
 REASON_SLO_BURN = "TPUShareSLOBurn"
 REASON_DEFRAG_MOVE = "TPUShareDefragMove"
 REASON_DEFRAG_ABORTED = "TPUShareDefragAborted"
+REASON_AUTOSCALE_ABORTED = "TPUShareAutoscaleAborted"
 REASON_ANOMALY = "TPUShareAnomaly"
 REASON_NODE_NOTREADY = "TPUShareNodeNotReady"

@@ -22,9 +22,9 @@ plumbing.
 * crash forensics: ``TPUSHARE_BLACKBOX_DIR`` arms the journal;
   ``replay_startup()`` (the controller's start) replays it
 
-``wire`` keeps the reference's ``defrag=`` and ``router=`` parameters;
-the port's stacks pass ``defrag=`` and not yet ``router=``. See
-docs/observability.md for the tier math, marker taxonomy and runbook.
+``build_stack`` passes ``defrag=``, and ``serve_stack`` passes
+``router=`` when it holds a serving router. See docs/observability.md for
+the tier math, marker taxonomy and runbook.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Sample sources for the timeline sampler.
 
 The port's copy of ``tpushare/obs/sources.py``. ``build_stack`` wires
-``stranded_source`` to the defrag executor; ``router_source`` is here,
-but nothing wires it until the port has the serving router.
+``stranded_source`` to the defrag executor, and ``serve_stack`` wires
+``router_source`` to the serving router it holds.
 
 Each source is a zero-argument callable returning ``{series: value}``,
 run on the sampler thread every tick. Two kinds:

@@ -97,6 +97,7 @@ class Registry:
 
     def __init__(self) -> None:
         self._families: list[_Family] = []
+        # vet: ignore[raw-lock] - the exposition's own leaf lock, as prometheus_client's; a traced lock would profile the scrape that renders the profile
         self._lock = threading.Lock()
 
     def register(self, family: "_Family") -> None:
@@ -140,6 +141,7 @@ class _Family:
         self.name = name
         self.doc = doc
         self.labelnames = tuple(labelnames)
+        # vet: ignore[raw-lock] - a family's leaf lock, as prometheus_client's; a traced lock would profile the scrape that renders the profile
         self._lock = threading.Lock()
         self._children: dict[tuple[str, ...], _Child] = {}
         if not self.labelnames:

@@ -3,10 +3,13 @@
 The port's copy of ``tpushare/routes/metrics.py``: the same family names,
 HELP texts, types, labels and buckets, rendered by the port's own
 standard-library exposition (:mod:`tpushare_torch.routes.exposition`,
-line for line what ``prometheus_client`` writes). Only the families whose
-sources the port has are declared, so none renders a zero that means
-nothing: the autoscaler's and the serving router's come with the modules
-that feed them. The pod-journey SLOs' (``tpushare_pod_e2e_*``,
+line for line what ``prometheus_client`` writes). Every family of the
+reference is declared. The autoscaler's
+(``tpushare_cluster_capacity_hbm_gib``, ``tpushare_cluster_nodes``,
+``tpushare_autoscale_*``) read the autoscale executor, the demand age
+(``tpushare_unschedulable_demand_oldest_age_seconds``) the filter's demand
+tracker, and the serving router's (``tpushare_router_*``) the router's
+snapshot. The pod-journey SLOs' (``tpushare_pod_e2e_*``,
 ``tpushare_pod_scheduling_attempts``, ``tpushare_slo_*``) read
 :mod:`tpushare_torch.slo`; fragmentation's and defrag's
 (``tpushare_cluster_stranded_hbm_gib``, ``tpushare_node_frag_score``,
@@ -108,6 +111,7 @@ def safe_inc(counter, n: float = 1) -> None:
     are observability, not control flow."""
     try:
         counter.inc(n)
+    # vet: ignore[swallowed-telemetry-error] - this IS the drop guard; it cannot count itself
     except Exception:  # noqa: BLE001 - this is the drop guard itself
         pass
 
@@ -116,6 +120,7 @@ def safe_observe(histogram, value: float) -> None:
     """The histogram twin of :func:`safe_inc`."""
     try:
         histogram.observe(value)
+    # vet: ignore[swallowed-telemetry-error] - this IS the drop guard; it cannot count itself
     except Exception:  # noqa: BLE001 - this is the drop guard itself
         pass
 
@@ -326,6 +331,148 @@ DEFRAG_PLANS_ABORTED = Counter(
     "the journeys it serves) or budget (the hourly eviction budget ran "
     "out). See the docs/defrag.md runbook",
     ["reason"], registry=REGISTRY,
+)
+
+# -- Fleet autoscaling (tpushare_torch/autoscale/) ------------------------ #
+
+CLUSTER_CAPACITY_HBM = Gauge(
+    "tpushare_cluster_capacity_hbm_gib",
+    "Total shareable HBM (GiB) the sharing fleet advertises — the "
+    "denominator fleet-sizing decisions divide demand by. Moves only "
+    "when nodes join or leave (the autoscaler's own actuations "
+    "included)",
+    registry=REGISTRY,
+)
+CLUSTER_NODES = Gauge(
+    "tpushare_cluster_nodes",
+    "Sharing nodes by state: ready (schedulable) or cordoned "
+    "(spec.unschedulable — an operator cordon or an autoscale drain "
+    "in flight). ready shrinking while cordoned grows is a drain; "
+    "both shrinking is a completed scale-down",
+    ["state"], registry=REGISTRY,
+)
+DEMAND_OLDEST_AGE = Gauge(
+    "tpushare_unschedulable_demand_oldest_age_seconds",
+    "Per request shape (label '<hbm>GiBx<chips>c'), how long the "
+    "OLDEST currently-unplaceable pod of that shape has waited — the "
+    "autoscaler's hysteresis input. A shape aging past "
+    "TPUSHARE_AUTOSCALE_UP_DELAY_S is about to buy a node",
+    ["shape"], registry=REGISTRY,
+)
+AUTOSCALE_ACTIONS = Counter(
+    "tpushare_autoscale_actions_total",
+    "Autoscaler actions by kind: up (node provisioned), down (node "
+    "cordoned for drain), evicted (drain eviction), deleted (drained "
+    "node removed), hold (demand present but provisioning refused — "
+    "cooldown, ceiling, capacity-exists, or defrag-first), dry-run, "
+    "aborted, failed",
+    ["action"], registry=REGISTRY,
+)
+AUTOSCALE_ABORTED = Counter(
+    "tpushare_autoscale_aborts_total",
+    "Autoscale drains aborted mid-flight, by reason (slo-burn: the "
+    "node was uncordoned and returned to service). See the "
+    "docs/autoscale.md runbook",
+    ["reason"], registry=REGISTRY,
+)
+
+# -- Serving front door (tpushare_torch/router/) -------------------------- #
+# All router series are SET at scrape time from the Router ledger's
+# monotonic counters and rolling windows (the workqueue-retries
+# pattern): the router itself stays import-light and lock-cheap.
+
+ROUTER_REQUESTS = Gauge(
+    "tpushare_router_requests_total",
+    "Requests the serving router has accepted per tenant (assigned, "
+    "queued, or shed — the open-loop arrival count). Monotonic; set "
+    "at scrape time from the router ledger",
+    ["tenant"], registry=REGISTRY,
+)
+ROUTER_SHED = Gauge(
+    "tpushare_router_shed_total",
+    "Requests shed per tenant (429 semantics): over quota standing "
+    "while the fleet is saturated, fleet queue full, or no replicas. "
+    "An under-guarantee tenant shedding means the fleet needs "
+    "scale-out, not policy",
+    ["tenant"], registry=REGISTRY,
+)
+ROUTER_QUEUE_DEPTH = Gauge(
+    "tpushare_router_queue_depth",
+    "Requests queued (admitted to no slot yet) per tenant. Sustained "
+    "growth raises tpushare_router_scaleout_signals_total",
+    ["tenant"], registry=REGISTRY,
+)
+ROUTER_SLOTS_IN_USE = Gauge(
+    "tpushare_router_slots_in_use",
+    "Decode slots currently serving each tenant across the fleet",
+    ["tenant"], registry=REGISTRY,
+)
+ROUTER_FLEET_SLOTS = Gauge(
+    "tpushare_router_fleet_slots",
+    "Total decode slots across registered replicas (each replica's "
+    "count is its HBM grant over the per-sequence KV-cache cost — "
+    "serving.max_batch_for_grant)",
+    registry=REGISTRY,
+)
+ROUTER_TOKENS_PER_S = Gauge(
+    "tpushare_router_fleet_tokens_per_s",
+    "Fleet decode throughput over the router's trailing window",
+    registry=REGISTRY,
+)
+ROUTER_TTFT = Gauge(
+    "tpushare_router_ttft_seconds",
+    "Time-to-first-token percentiles over the router's rolling window "
+    "(arrival to first emitted token, queue wait included)",
+    ["quantile"], registry=REGISTRY,
+)
+ROUTER_SCALEOUT_SIGNALS = Gauge(
+    "tpushare_router_scaleout_signals_total",
+    "Scale-out signals the router has raised (queues sustained past "
+    "the threshold): each one asks the scheduler for another decode "
+    "pod of the fleet's modal shape. Monotonic; set at scrape time",
+    registry=REGISTRY,
+)
+ROUTER_REPLICAS = Gauge(
+    "tpushare_router_replicas",
+    "Decode replicas currently registered with the router",
+    registry=REGISTRY,
+)
+ROUTER_PAGES_TOTAL = Gauge(
+    "tpushare_router_pages_total",
+    "Fleet KV-cache pages across registered replicas (paged replicas "
+    "report their pool — serving.pages_for_grant over the HBM grant; "
+    "rows-mode replicas convert slots at max_len/page so mixed fleets "
+    "sum in one unit)",
+    registry=REGISTRY,
+)
+ROUTER_PAGES_FREE = Gauge(
+    "tpushare_router_pages_free",
+    "Unallocated KV-cache pages across the fleet — the routing "
+    "signal (admission reserves pages_for(prompt + max_new) minus "
+    "any live shared prefix). Exhaustion with queue depth is the "
+    "paged scale-out story",
+    registry=REGISTRY,
+)
+ROUTER_PREFIX_HITS = Gauge(
+    "tpushare_router_prefix_hits_total",
+    "Admissions that reused a live same-tenant prompt-prefix "
+    "(charged only their private tail pages). Monotonic; set at "
+    "scrape time from the router ledger",
+    registry=REGISTRY,
+)
+ROUTER_PREFIX_MISSES = Gauge(
+    "tpushare_router_prefix_misses_total",
+    "Admissions that declared a shareable prefix but found no live "
+    "copy on their replica (registered it for followers). Monotonic; "
+    "set at scrape time",
+    registry=REGISTRY,
+)
+ROUTER_PREFIX_HIT_RATE = Gauge(
+    "tpushare_router_prefix_hit_rate",
+    "prefix hits / (hits + misses) over the router's lifetime — the "
+    "share of prefix-declaring admissions that paid only their "
+    "private tail",
+    registry=REGISTRY,
 )
 
 TELEMETRY_ERRORS = Counter(
@@ -819,6 +966,53 @@ def observe_frag(defrag) -> None:
             NODE_FRAG_SCORE.labels(node=node["node"]).set(node["score"])
 
 
+def observe_autoscale(autoscale) -> None:
+    """Refresh the fleet-size gauges from the autoscale executor's
+    fleet snapshot (live ledger math — node counts by state, total
+    shareable capacity). Failure keeps the last good values together,
+    counted, like observe_frag."""
+    with _SCRAPE_LOCK:
+        try:
+            fleet = autoscale.fleet_snapshot()
+        except Exception:
+            safe_inc(TELEMETRY_ERRORS)
+            return
+        CLUSTER_CAPACITY_HBM.set(fleet["capacityHbmGiB"])
+        CLUSTER_NODES.labels(state="ready").set(fleet["ready"])
+        CLUSTER_NODES.labels(state="cordoned").set(fleet["cordoned"])
+
+
+def observe_router(router) -> None:
+    """Refresh the serving-router gauges from the router ledger's
+    snapshot. Rebuilt from scratch each scrape (the per-node-gauge
+    pattern) so a tenant whose last request drained drops its label
+    series instead of freezing."""
+    with _SCRAPE_LOCK:
+        snap = router.snapshot()
+        for gauge in (ROUTER_REQUESTS, ROUTER_SHED, ROUTER_QUEUE_DEPTH,
+                      ROUTER_SLOTS_IN_USE, ROUTER_TTFT):
+            gauge.clear()
+        for tenant, row in snap["tenants"].items():
+            ROUTER_REQUESTS.labels(tenant=tenant).set(row["requests"])
+            ROUTER_SHED.labels(tenant=tenant).set(row["shed"])
+            ROUTER_QUEUE_DEPTH.labels(tenant=tenant).set(row["queued"])
+            ROUTER_SLOTS_IN_USE.labels(tenant=tenant).set(
+                row["inflight"])
+        ROUTER_FLEET_SLOTS.set(snap["fleetSlots"])
+        ROUTER_TOKENS_PER_S.set(snap["fleetTokensPerS"])
+        for q in ("p50", "p99"):
+            if snap["ttft"][q] is not None:
+                ROUTER_TTFT.labels(quantile=q).set(snap["ttft"][q])
+        ROUTER_SCALEOUT_SIGNALS.set(snap["scaleOut"]["signals"])
+        ROUTER_REPLICAS.set(len(snap["replicas"]))
+        ROUTER_PAGES_TOTAL.set(snap["fleetPages"])
+        ROUTER_PAGES_FREE.set(snap["fleetPagesFree"])
+        ROUTER_PREFIX_HITS.set(snap["prefix"]["hits"])
+        ROUTER_PREFIX_MISSES.set(snap["prefix"]["misses"])
+        if snap["prefix"]["hitRate"] is not None:
+            ROUTER_PREFIX_HIT_RATE.set(snap["prefix"]["hitRate"])
+
+
 def observe_profiling() -> None:
     """Refresh the per-verb cost gauges and the profiler's self-series
     from tpushare_torch.profiling's monotonic sources. Rebuilt each scrape so
@@ -929,8 +1123,8 @@ def observe_http(http_server) -> None:
 
 
 def scrape(cache, gang_planner=None, leader=None, demand=None,
-           workqueue=None, quota=None, defrag=None,
-           http_server=None) -> bytes:
+           workqueue=None, quota=None, defrag=None, router=None,
+           autoscale=None, http_server=None) -> bytes:
     """The /metrics handler's atomic refresh and render, timed, and
     counted when it raises (a scrape that raises is a sample Prometheus
     never saw)."""
@@ -949,11 +1143,21 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
                 observe_http(http_server)
             if quota is not None:
                 observe_quota(quota)
+            if router is not None:
+                observe_router(router)
             if demand is not None:
                 pods, hbm, chips = demand.snapshot()
                 UNSCHED_PODS.set(pods)
                 UNSCHED_HBM.set(hbm)
                 UNSCHED_CHIPS.set(chips)
+                # Each shape's oldest wait (the autoscaler's hysteresis
+                # input), after snapshot()'s prune, cleared first so a
+                # shape whose last pod placed drops its series.
+                DEMAND_OLDEST_AGE.clear()
+                for (d_hbm, d_chips), age in \
+                        demand.oldest_age_by_shape().items():
+                    DEMAND_OLDEST_AGE.labels(
+                        shape=f"{d_hbm}GiBx{d_chips}c").set(age)
                 for gauge in (UNSCHED_PODS_TENANT, UNSCHED_HBM_TENANT,
                               UNSCHED_CHIPS_TENANT):
                     gauge.clear()
@@ -966,6 +1170,8 @@ def scrape(cache, gang_planner=None, leader=None, demand=None,
                 # After the demand block: the frag index reads the
                 # tracker's shapes, which snapshot() just pruned.
                 observe_frag(defrag)
+            if autoscale is not None:
+                observe_autoscale(autoscale)
             if gang_planner is not None:
                 # stats() is the cheap view: no member lists, no TTLs.
                 GANGS_PENDING.set(sum(

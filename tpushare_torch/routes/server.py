@@ -22,6 +22,12 @@ The port's copy of ``tpushare/routes/server.py`` (gpushare's
 * ``GET  /debug/defrag`` — the fragmentation index (stranded HBM, each
   node's score, the pending shapes), the defrag executor's posture and
   budget, and its last plan
+* ``GET  /debug/autoscale`` — the fleet autoscaler: posture, hysteresis
+  bounds, the fleet's capacity and cordon counts, the drain in flight and
+  the last scale decision with its hold reason
+* ``GET  /debug/router`` — the serving front door: each tenant's queue
+  depth, shed count and TTFT percentiles, the replicas' slot and page
+  occupancy, the scale-out signal
 * ``GET  /debug/slo`` — the SLO objectives (error budget left, burn rate
   a window), the journeys' aggregates and the recording drops
 * ``GET  /debug/journey/<ns>/<pod>`` — the pod's journey: creation to
@@ -78,9 +84,7 @@ body is refused with 400 and the handler returns. A bounded pool of
 workers serves the accepted connections (``TPUSHARE_HTTP_WORKERS``, 8),
 each for its keep-alive lifetime; a full hand-off queue blocks the
 accept loop. The read verbs pass the micro-batch gate (routes/batch.py)
-and the repeat-shape fast paths of routes/wire.py. The reference's
-SLO, journey, defragmentation, autoscaler and router routes come with
-those modules.
+and the repeat-shape fast paths of routes/wire.py.
 """
 
 from __future__ import annotations
@@ -145,6 +149,7 @@ class ExtenderHTTPServer(HTTPServer):
                  prefix: str = DEFAULT_PREFIX, prioritize=None,
                  preempt=None, admission=None, leader=None, quota=None,
                  gang_planner=None, workqueue=None, defrag=None,
+                 autoscale=None, router=None,
                  debug_routes: bool = True):
         self.predicate = predicate
         self.binder = binder
@@ -166,6 +171,12 @@ class ExtenderHTTPServer(HTTPServer):
         #: The defrag executor, for the fragmentation gauges and
         #: ``GET /debug/defrag`` (wired explicitly, as the gang planner).
         self.defrag = defrag
+        #: The autoscale executor, for the fleet-size gauges and
+        #: ``GET /debug/autoscale`` (wired explicitly: dropping it 404s).
+        self.autoscale = autoscale
+        #: The serving router, for the ``tpushare_router_*`` gauges and
+        #: ``GET /debug/router`` (wired explicitly: dropping it 404s).
+        self.router = router
         #: ``/debug/*`` shares the port with the webhook; operators can
         #: switch the routes off (``DEBUG_ROUTES=0``).
         self.debug_routes = debug_routes
@@ -594,6 +605,16 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send_json({"Error": "defrag not configured"}, 404)
             else:
                 self._send_json(self.server.defrag.status())
+        elif path == "/debug/autoscale":
+            if self.server.autoscale is None:
+                self._send_json({"Error": "autoscale not configured"}, 404)
+            else:
+                self._send_json(self.server.autoscale.status())
+        elif path == "/debug/router":
+            if self.server.router is None:
+                self._send_json({"Error": "router not configured"}, 404)
+            else:
+                self._send_json(self.server.router.snapshot())
         elif path == "/debug/slo":
             self._send_json(slo.snapshot())
         elif path.startswith("/debug/journey/"):
@@ -703,6 +724,8 @@ class _Handler(BaseHTTPRequestHandler):
                                    workqueue=server.workqueue,
                                    quota=server.quota,
                                    defrag=server.defrag,
+                                   autoscale=server.autoscale,
+                                   router=server.router,
                                    http_server=server),
                     ctype="text/plain; version=0.0.4")
             elif path.startswith("/debug/") and not self.server.debug_routes:

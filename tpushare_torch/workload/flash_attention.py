@@ -69,6 +69,7 @@ _ENTRIES = {
                   "tpushare_flash_bwd_dkv": (8, 12, 1)},
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
+# vet: ignore[raw-lock] - a tenant's one build and load of the kernels' libraries, off every extender path
 _lib_lock = threading.Lock()
 
 

@@ -235,16 +235,18 @@ class PagePool:
 
     def _drop_ref(self, pid: int) -> int:
         """Decref one page; free it (and evict its index entry) at zero.
-        Called with the lock held. Returns 1 when freed."""
-        self._refs[pid] -= 1
-        if self._refs[pid] > 0:
-            return 0  # still shared by another stream
-        del self._refs[pid]
-        key = self._page_key.pop(pid, None)
-        if key is not None:
-            self._index.pop(key, None)
-        self._free.append(pid)
-        return 1
+        Callers already hold the (reentrant) lock; taking it again keeps
+        the guarded mutations lexically inside it. Returns 1 when freed."""
+        with self._lock:
+            self._refs[pid] -= 1
+            if self._refs[pid] > 0:
+                return 0  # still shared by another stream
+            del self._refs[pid]
+            key = self._page_key.pop(pid, None)
+            if key is not None:
+                self._index.pop(key, None)
+            self._free.append(pid)
+            return 1
 
     # -- telemetry ---------------------------------------------------------
 
