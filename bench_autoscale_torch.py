@@ -102,6 +102,20 @@ class ExtenderClient:
         resp = self._roundtrip(path, json.dumps(doc).encode())
         return resp.status, json.loads(resp.read())
 
+    def post_timed(self, path, doc):
+        """POST ``doc``; (status, body, the verb handler's own ms from the
+        ``Server-Timing`` header, None when absent or unparseable)."""
+        resp = self._roundtrip(path, json.dumps(doc).encode())
+        handler = None
+        for part in (resp.getheader("Server-Timing") or "").split(","):
+            name, sep, dur = part.strip().partition(";dur=")
+            if sep and name == "handler":
+                try:
+                    handler = float(dur)
+                except ValueError:
+                    pass
+        return resp.status, json.loads(resp.read()), handler
+
     def close(self):
         self.conn.close()
 

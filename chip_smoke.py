@@ -37,10 +37,16 @@ and fleet autoscaling with the serving router (phase 2j, in
 the card's node, where it serves, after the autoscaler holds with
 capacity-exists; a second scale-out holds with defrag-first, then
 scales the fleet up by a node the pod binds on, which the trough
-drains and deletes), then drives the flagship LM's forward, serving
-(whole, chunked, interleaved and paged admission, the slot and paged
-servers), training and sharded training paths through the entry points a
-user calls, at full flagship width, under an injected HBM grant. Sharded
+drains and deletes) and the fleet day (phase 2k, in
+``chip_smoke_fleetday.py``: the card's decode and prefill rates measured
+through the serving entry points, the reference's witnessed fleet day
+replayed through ``tools/simulate_torch.py`` and held to
+``BENCH_FLEETDAY.json``, the same day at the card's rates, and
+``bench_fleetday_torch.py``'s smoke), then drives the flagship LM's
+forward, serving (whole, chunked, interleaved and paged admission, the
+slot and paged servers), training and sharded training paths through the
+entry points a user calls, at full flagship width, under an injected HBM
+grant. Sharded
 training (phase 5d), the pipelines and ring-MoE (phase 5e), and the
 checkpoint lifecycle (phase 5f: an async save, resume on the same and on
 another mesh, an unsharded restore that serves, tensor-parallel
@@ -84,6 +90,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import http.client
 import json
@@ -105,6 +112,10 @@ from torch.profiler import ProfilerActivity, profile
 
 import bench_workload_torch as BW
 import chip_smoke_autoscale as CA
+import chip_smoke_fleetday as CF
+# bench.py's _scale_candidates: the nodes kube-scheduler offers an
+# extender at a fleet's size (about 430 of 1,024, all of 16).
+from bench_fleetday_torch import scale_candidates
 import cogpucheck
 from tpushare_torch import entry as E
 from tpushare_torch import obs as tobs
@@ -173,6 +184,9 @@ TRAIN_GRAD_TOL = 4e-2
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+#: Seconds after which a run that has not ended dumps every thread's stack
+#: (a run may take at most 1,200 s; a whole run takes 700-830 s).
+STALL_DUMP_S = 1100
 
 #: Phase 2b: kernels each library must hold (the head dims 16, 64 and 128
 #: of each dtype; dk/dv's other instances are checked as found).
@@ -703,6 +717,14 @@ def main(usage_dir: str) -> int:
     phase("2j host twins", card=card, **autoscale.pop("twin_documents"))
     phase("2j autoscale and router", card=card, **autoscale)
 
+    # 2k. The fleet day: the card's decode and prefill rates through the
+    # serving entry points, the reference's witnessed day replayed over the
+    # port's extender (held to BENCH_FLEETDAY.json), the same day at the
+    # card's rates, and the fleet-day bench twin's smoke.
+    fleetday = fleetday_phase()
+    phase("2k bench twin", card=card, **fleetday.pop("bench_twin"))
+    phase("2k fleet day", card=card, **fleetday)
+
     # 3. Kernel against its plain version, on the card: within the
     # tolerance on rows that see a key, out 0 and lse NEG_INF on the rest,
     # as the plain version gives them.
@@ -1096,6 +1118,7 @@ def main(usage_dir: str) -> int:
                **tenancy["launches"],
                **defrag["launches"],
                **autoscale["launches"],
+               **fleetday["launches"],
                "training": train["launches"]["flash_fwd"],
                **served["launches"],
                **{path: counts["flash_fwd"]
@@ -2394,16 +2417,6 @@ def draw_shape(rng) -> tuple[str, int]:
         if roll <= 0:
             return kind, size
     return EXTENDER_SIZE_MIX[-1][0], EXTENDER_SIZE_MIX[-1][1]
-
-
-def scale_candidates(rng, names: list[str]) -> list[str]:
-    """``bench.py``'s ``_scale_candidates``: the nodes kube-scheduler
-    offers an extender at this fleet size (its adaptive
-    percentageOfNodesToScore, max(50 - n/125, 5)% with a 100-node
-    floor); about 430 of 1,024, all of 16."""
-    n = len(names)
-    k = int(max(n * max(50.0 - n / 125.0, 5.0) / 100.0, min(100, n)))
-    return list(names) if k >= n else rng.sample(names, k)
 
 
 def ledger_checks(api: FakeApiServer, stack, client: ExtenderClient,
@@ -4393,6 +4406,11 @@ def autoscale_tenant(inv: discovery.HostInventory,
                      usage_dir: str) -> ServingTenant:
     """Phase 2j's tenant (``chip_smoke_autoscale.autoscale_tenant``)."""
     return CA.autoscale_tenant(sys.modules[__name__], inv, usage_dir)
+
+
+def fleetday_phase() -> dict:
+    """Phase 2k (``chip_smoke_fleetday.fleetday_phase``)."""
+    return CF.fleetday_phase(sys.modules[__name__])
 
 
 def autoscale_phase(inv: discovery.HostInventory, usage_dir: str,
@@ -8226,6 +8244,11 @@ if __name__ == "__main__":
         sys.exit(allocated_tenant(hold=True, gated=True))
     if sys.argv[1:2] == [COMPILED_GANG_FLAG]:
         sys.exit(compiled_gang_rank(json.loads(sys.argv[2])))
+    # A run that stalls prints every thread's stack to stderr before the
+    # 1,200 s a run may take, so the phase and the wait it is stuck in
+    # show (the run goes on, and fails at its limit).
+    faulthandler.dump_traceback_later(STALL_DUMP_S)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         code = main(tmp)
+    faulthandler.cancel_dump_traceback_later()
     sys.exit(code)

@@ -21,6 +21,13 @@ reference's own run, in ``--smoke`` form, each in a process of its own
   tracker prunes a pod the informer has not listed yet), and then fails
   its own assert: its run is taken again, up to three times. The twin
   waits for its informer there.
+* ``bench_fleetday_torch.py`` against ``bench.py --fleet-day``, both
+  ``--smoke --gate``: the same ``day`` (the committed day at 12 hours
+  through the port's stack), every gate passing on both; the witness's
+  overhead probe is a wall-clock reading, compared by its ``pass`` only,
+  and under load it can fail on either side (``--gate`` then exits 1), so
+  each side's run is taken again up to three times, as the reference's
+  autoscale run is above.
 """
 
 from __future__ import annotations
@@ -69,3 +76,14 @@ def test_bench_autoscale_twin_prints_the_reference_s_document():
     assert got == want
     assert all(g["pass"] for g in got["gates"].values()), got["gates"]
     assert got["contiguity"]["election"]["kind"] == "slice-completion"
+
+
+def test_bench_fleetday_twin_replays_the_reference_s_day():
+    want = _line("bench.py", "--fleet-day", "--smoke", "--gate", tries=3)
+    got = _line("bench_fleetday_torch.py", "--smoke", "--gate", tries=3)
+    for doc in (want, got):
+        assert doc.pop("witness_overhead")["pass"]
+        assert doc["gates"].pop("witness_overhead")["pass"]
+        assert all(g["pass"] for g in doc["gates"].values()), doc["gates"]
+    assert got == want
+    assert got["day"]["witness"]["counts"]["matched"] == 6

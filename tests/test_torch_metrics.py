@@ -26,6 +26,12 @@
   side's clock), whose label sets still are; the ledger's decision
   counts per verb are (both ledgers start empty with the pair). The
   autoscaler's fleet-size gauges and counters are held as the others are.
+  Both registries are process-wide and the file shares its process with
+  whatever test files ran before it: each test starts both from the
+  state an earlier test cannot have left, before it builds its stacks
+  (``_fresh_registries``: the port's registry reset, the reference's
+  gauges and labelled histograms cleared; the reference's labelled
+  counters keep their children, whose rises are compared).
   The OpenMetrics exemplars on the verbs' buckets: the same
   families carry them on both sides, each names a decision of its own
   side, and its latency lies in its bucket. The pod-journey and
@@ -315,6 +321,19 @@ def _kind(sample: str, fam: dict) -> str:
     return fam["type"]
 
 
+def _fresh_registries() -> None:
+    """Both registries as no earlier test left them: the port's reset,
+    every gauge and labelled histogram of the reference's cleared (or
+    set to 0, unlabelled). Counters are compared by their rises."""
+    tmetrics.reset()
+    for metric in list(jmetrics.REGISTRY._collector_to_names):
+        if getattr(metric, "_labelnames", ()):
+            if metric._type in ("gauge", "histogram"):
+                metric.clear()
+        elif metric._type == "gauge":
+            metric.set(0)
+
+
 def compare(before: list[dict], after: list[dict]) -> dict:
     """Both sides' scrapes, held alike (see the module's docstring);
     returns the port's families that were compared."""
@@ -373,6 +392,7 @@ def pair():
     # are this pair's alone.
     jprofiling.reset()
     tprofiling.reset()
+    _fresh_registries()
     p = Pair()
     yield p
     p.close()
@@ -468,6 +488,7 @@ def test_metrics_of_two_routers_on_one_stream():
 
     jprofiling.reset()
     tprofiling.reset()
+    _fresh_registries()
     clock = Clock()
     pair = router_pair(clock)
     try:

@@ -128,8 +128,15 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_smoke_autoscale.py")
+    yield os.path.join(REPO, "chip_smoke_fleetday.py")
     yield os.path.join(REPO, "cogpucheck.py")
     yield os.path.join(REPO, "bench_workload_torch.py")
+    yield os.path.join(REPO, "bench_router_torch.py")
+    yield os.path.join(REPO, "bench_autoscale_torch.py")
+    yield os.path.join(REPO, "bench_fleetday_torch.py")
+    yield os.path.join(REPO, "tools", "simulate_torch.py")
+    yield os.path.join(REPO, "tools", "demo_cluster_torch.py")
     yield os.path.join(REPO, "tools", "estimator_peak.py")
     yield os.path.join(REPO, "tools", "gloo_cuda_probe.py")
     yield os.path.join(REPO, "tools", "nccl_gang.py")
@@ -143,6 +150,8 @@ def _port_files():
 
 
 def _imports(path):
+    """Every module ``path`` imports; ``from tools import simulate``
+    yields ``tools.simulate``."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
@@ -150,6 +159,8 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+            if node.module == "tools":
+                yield from (f"tools.{a.name}" for a in node.names)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -205,6 +216,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  *(("tpushare_torch", "defrag", f"{name}.py") for name in (
                      "__init__", "frag", "planner", "executor")),
                  ("tools", "extender_phases.py"),
+                 ("tools", "simulate_torch.py"),
+                 ("tools", "demo_cluster_torch.py"),
+                 ("tpushare_torch", "topology", "ici.py"),
+                 ("chip_smoke_autoscale.py",), ("chip_smoke_fleetday.py",),
+                 ("bench_router_torch.py",), ("bench_autoscale_torch.py",),
+                 ("bench_fleetday_torch.py",),
                  ("chip_smoke.py",),
                  ("tools", "ring_model_fit.py"),
                  ("cogpucheck.py",), ("bench_workload_torch.py",)):
@@ -213,7 +230,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "orbax", "tpushare",
-                               "bench_workload"), (path, mod)
+                               "bench_workload", "bench", "bench_router",
+                               "simulate", "demo_cluster"), (path, mod)
+            assert mod not in ("tools.simulate", "tools.demo_cluster"), (
+                path, mod)
 
 
 #: The port's raw ``threading`` locks, each its own with no twin in the

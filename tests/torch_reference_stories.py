@@ -2,9 +2,12 @@
 
 ``load(name)`` reads ``tests/<name>.py`` (a frozen test of the JAX
 package's control plane, which imports no JAX), points each of its
-imports of ``tpushare`` at ``tpushare_torch`` and each of its imports of
-another reference test at that test's port copy, and executes the result
-as a module of its own. A ``tests/test_torch_*.py`` file picks the test
+imports of ``tpushare`` at ``tpushare_torch``, each of its imports of
+another reference test at that test's port copy and each of its imports
+of the capacity planner (``import simulate`` with ``tools/`` on the path,
+or ``from tools import simulate as sim``) at its twin,
+``tools/simulate_torch.py``, and executes the result as a module of its
+own. A ``tests/test_torch_*.py`` file picks the test
 classes it runs from that module, drops the cases that read something the
 port does not have yet (``/metrics``, decision traces) by name, and
 supplies an ``api`` fixture over the port's fake apiserver. The stories
@@ -22,6 +25,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 _IMPORT = re.compile(r"^(\s*)(from|import) tpushare(\.| )", re.M)
 _TEST_IMPORT = re.compile(r"^(\s*)from tests\.(test_\w+) import", re.M)
+_SIM_IMPORT = re.compile(r"^(\s*)import simulate$", re.M)
+_SIM_FROM = re.compile(r"^(\s*)from tools import simulate as (\w+)$", re.M)
 
 
 def source(name: str, drop: tuple[str, ...] = ()) -> str:
@@ -35,6 +40,8 @@ def source(name: str, drop: tuple[str, ...] = ()) -> str:
         text = text.replace(f"\n{line}\n", "\n")
     text = _IMPORT.sub(lambda m: f"{m.group(1)}{m.group(2)} tpushare_torch"
                        f"{m.group(3)}", text)
+    text = _SIM_IMPORT.sub(r"\1import simulate_torch as simulate", text)
+    text = _SIM_FROM.sub(r"\1from tools import simulate_torch as \2", text)
     return _TEST_IMPORT.sub(
         lambda m: f"{m.group(1)}from tests.torch_reference_stories."
                   f"{m.group(2)} import", text)

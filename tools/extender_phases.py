@@ -1,4 +1,4 @@
-"""Phases 2f, 2g, 2h, 2i and 2j of ``chip_smoke.py`` alone, on one
+"""Phases 2f, 2g, 2h, 2i, 2j and 2k of ``chip_smoke.py`` alone, on one
 NVIDIA card.
 
 Builds the kernels from the checkout, then runs ``chip_smoke.
@@ -16,8 +16,11 @@ SLO lifts, and served there) and ``chip_smoke.autoscale_phase`` (a
 router's scale-out places a decode pod on the card's node, served there,
 then the autoscaler holds defrag-first, scales up a node and drains and
 deletes it in the trough, with the host twins of ``bench_router.py`` and
-``bench.py --autoscale`` beside it), each with the fleet timeline's
-checks (2f also restarts the extender over its fleet and replays the
+``bench.py --autoscale`` beside it) and ``chip_smoke.fleetday_phase``
+(the card's decode and prefill rates, the reference's witnessed fleet day
+over the port's extender held to ``BENCH_FLEETDAY.json``, the same day at
+the card's rates, the fleet-day bench twin's smoke), each with the fleet
+timeline's checks (2f also restarts the extender over its fleet and replays the
 tenant's decision from the black-box journal, and flips a node NotReady;
 its churns run with the continuous profiler armed). ``--overhead`` then runs
 ``chip_smoke.overhead_phase``: the timeline's, the journal's and the
@@ -30,6 +33,7 @@ of phase numbers) runs those phases alone. Prints each phase as
     python3 tools/extender_phases.py --overhead --no-phases --out o.json
     python3 tools/extender_phases.py --only 2i --out defrag.json
     python3 tools/extender_phases.py --only 2j --out autoscale.json
+    python3 tools/extender_phases.py --only 2k --out fleetday.json
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def main() -> int:
                     help="run the timeline, journal and profiler "
                          "overhead gates")
     ap.add_argument("--no-phases", action="store_true",
-                    help="skip phases 2f, 2g, 2h, 2i and 2j")
+                    help="skip phases 2f, 2g, 2h, 2i, 2j and 2k")
     ap.add_argument("--only", default="",
                     help="run only these phases (e.g. 2i or 2f,2i)")
     args = ap.parse_args()
@@ -71,7 +75,8 @@ def main() -> int:
             ("2g gang", lambda i, u: CS.gang_phase(i, u, None)),
             ("2h tenancy", CS.tenancy_phase),
             ("2i defrag and SLO", CS.defrag_phase),
-            ("2j autoscale and router", CS.autoscale_phase)]
+            ("2j autoscale and router", CS.autoscale_phase),
+            ("2k fleet day", lambda i, u: CS.fleetday_phase())]
         if args.only:
             keep = args.only.split(",")
             phases = [(n, fn) for n, fn in phases if n.split()[0] in keep]
